@@ -1,0 +1,124 @@
+"""The port's flash-attention forward against the JAX package's.
+
+Inputs are made with numpy from a seed and go through the JAX
+``flash_attention`` (its Pallas kernel in interpret mode on the CPU, as
+tests/test_ops.py runs it), JAX ``reference_attention``, and the port's
+plain forward and ``flash_attention`` on CPU tensors. Tolerances: f32
+within 1e-5 absolute (the same arithmetic, summed in another order);
+bf16 inputs within 2e-2 absolute (one bf16 rounding of the output, whose
+unit in the last place near 1 is 7.8e-3, plus the reference's bf16
+probabilities).
+
+The CUDA kernel is held against the plain version on the card in
+tests/test_torch_gpu.py.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+# both packages' ops/__init__ re-export the function under the module's
+# name, so the modules are fetched by their full names
+jfa = importlib.import_module("kubeflow_tpu.ops.flash_attention")
+tfa = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
+
+F32_ATOL = 1e-5
+BF16_ATOL = 2e-2
+
+
+def _qkv(b=2, s=64, h=2, d=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal((b, s, h, d)).astype(np.float32)
+                 for _ in range(3))
+
+
+def _jax(*xs, dtype=jnp.float32):
+    return tuple(jnp.asarray(x, dtype) for x in xs)
+
+
+def _torch(*xs, dtype=torch.float32):
+    return tuple(torch.from_numpy(x).to(dtype) for x in xs)
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_f32_matches_jax_kernel_and_reference(causal):
+    q, k, v = _qkv()
+    j_out = jfa.flash_attention(*_jax(q, k, v), causal=causal,
+                                block_q=32, block_k=32)
+    j_ref = jfa.reference_attention(*_jax(q, k, v), causal=causal)
+    plain, _ = tfa.flash_attention_fwd_plain(*_torch(q, k, v),
+                                             causal=causal)
+    launches = tfa.flash_attention.launches
+    wrapped = tfa.flash_attention(*_torch(q, k, v), causal=causal)
+    ported_ref = tfa.reference_attention(*_torch(q, k, v), causal=causal)
+    for name, got in (("plain", plain), ("wrapper", wrapped),
+                      ("reference", ported_ref)):
+        np.testing.assert_allclose(_np(got), _np(j_out), atol=F32_ATOL,
+                                   rtol=0, err_msg=name)
+        np.testing.assert_allclose(_np(got), _np(j_ref), atol=F32_ATOL,
+                                   rtol=0, err_msg=name)
+    # a CPU tensor takes the plain version, never the kernel
+    assert tfa.flash_attention.launches == launches
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_uneven_length_with_lse(causal):
+    """S = 40 has no 128-aligned block; the JAX kernel tiles it whole in
+    interpret mode, the port takes every length."""
+    q, k, v = _qkv(b=1, s=40, h=3, d=16, seed=1)
+    j_o, j_lse = jfa.flash_attention(*_jax(q, k, v), causal=causal,
+                                     with_lse=True)
+    t_o, t_lse = tfa.flash_attention(*_torch(q, k, v), causal=causal,
+                                     with_lse=True)
+    assert tuple(t_o.shape) == (1, 40, 3, 16)
+    assert tuple(t_lse.shape) == tuple(j_lse.shape) == (1, 3, 40)
+    assert t_lse.dtype == torch.float32
+    np.testing.assert_allclose(_np(t_o), _np(j_o), atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(_np(t_lse), _np(j_lse), atol=F32_ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_inputs(causal):
+    q, k, v = _qkv(b=2, s=48, h=2, d=32, seed=2)
+    j_out = jfa.flash_attention(*_jax(q, k, v, dtype=jnp.bfloat16),
+                                causal=causal, block_q=16, block_k=16)
+    j_ref = jfa.reference_attention(*_jax(q, k, v, dtype=jnp.bfloat16),
+                                    causal=causal)
+    t_out = tfa.flash_attention(*_torch(q, k, v, dtype=torch.bfloat16),
+                                causal=causal)
+    assert t_out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(t_out), _np(j_out), atol=BF16_ATOL,
+                               rtol=0)
+    np.testing.assert_allclose(_np(t_out), _np(j_ref), atol=BF16_ATOL,
+                               rtol=0)
+
+
+def test_explicit_scale_matches_jax():
+    q, k, v = _qkv(seed=3)
+    j_o, j_lse = jfa.flash_attention(*_jax(q, k, v), scale=0.3,
+                                     with_lse=True)
+    t_o, t_lse = tfa.flash_attention(*_torch(q, k, v), scale=0.3,
+                                     with_lse=True)
+    np.testing.assert_allclose(_np(t_o), _np(j_o), atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(_np(t_lse), _np(j_lse), atol=F32_ATOL,
+                               rtol=0)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    """The kernel's wrapper launches on CUDA tensors or raises: a CPU
+    tensor handed to it is an error, not a quiet plain-version run."""
+    q, k, v = _torch(*_qkv(b=1, s=8, h=1, d=8))
+    launches = tfa.flash_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd_cuda(q, k, v)
+    assert tfa.flash_attention.launches == launches
