@@ -7,11 +7,15 @@ port imports ``torch`` and ``numpy`` and nothing of JAX or of
 hand-written Hopper kernel (``csrc/``, built by ``ops/_build.py``) with a
 plain PyTorch version beside it for CPU tensors.
 
-Ported so far (the serving slice):
+Ported so far (serving and training the Transformer LM):
 
+- ``api``      — the job-spec vocabularies the training path validates.
 - ``obs``      — metrics registry, JSONL spans, the serving request ledger.
-- ``ops``      — flash-attention forward (CUDA kernel).
-- ``models``   — the Transformer LM and the flax → torch weight converter.
+- ``ops``      — flash attention forward and backward, fused Adam (CUDA
+  kernels).
+- ``models``   — the Transformer LM with its loss, and the flax → torch
+  weight and Adam-state converters.
+- ``runtime``  — recipe, train step, metrics, bootstrap and the worker.
 - ``serving``  — servable, micro-batcher, REST model server and client.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

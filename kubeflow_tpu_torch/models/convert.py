@@ -1,9 +1,11 @@
-"""flax params tree → this package's state dict.
+"""flax params tree → this package's state dict, and JAX Adam state → the
+port's optimizer state.
 
 The port keeps every parameter in the shape flax gives it and names it by
 its flax path joined with dots (models/transformer.py), so converting is
 flattening the tree: ``{"layer0": {"attn": {"qkv": {"kernel": a}}}}``
-becomes ``{"layer0.attn.qkv.kernel": tensor(a)}``.
+becomes ``{"layer0.attn.qkv.kernel": tensor(a)}``. Adam's moments are
+params-shaped trees and convert the same way.
 """
 
 from __future__ import annotations
@@ -35,3 +37,21 @@ def transformer_params_from_jax(params: Mapping) -> dict:
         params = params["params"]
     return {name: torch.from_numpy(np.array(a, dtype=np.float32))
             for name, a in flatten_params(params).items()}
+
+
+def adam_state_from_jax(state) -> dict:
+    """A JAX Adam state — ``FusedAdamState`` or optax ``ScaleByAdamState``,
+    anything with ``count``, ``mu`` and ``nu`` (numpy arrays, params-shaped
+    trees) — as the port's: ``{"count": int, "mu": {name: f32 tensor},
+    "nu": {name: f32 tensor}}`` under the dotted param names. A
+    :class:`~kubeflow_tpu_torch.ops.fused_adam.FusedAdam` takes it as
+    ``opt.count = s["count"]`` and ``opt.state[p] = {"mu": ..., "nu":
+    ...}`` for the param ``p`` of each name."""
+    def moments(tree) -> dict:
+        if set(tree) == {"params"}:
+            tree = tree["params"]
+        return {name: torch.from_numpy(np.array(a, dtype=np.float32))
+                for name, a in flatten_params(tree).items()}
+
+    return {"count": int(np.asarray(state.count)),
+            "mu": moments(state.mu), "nu": moments(state.nu)}

@@ -16,17 +16,25 @@ MLP uses the tanh-approximated gelu, and the head runs in f32, so the
 logits are f32. The two attention paths scale differently, as in the
 JAX package: ``einsum`` divides q by sqrt(D) in the activation dtype and
 masks with that dtype's lowest value; ``flash`` scales inside the kernel
-in f32 (ops/flash_attention.py).
+in f32 (ops/flash_attention.py), and trains through its backward kernels.
+
+The training surface mirrors the JAX module's: ``next_token_loss``,
+``make_loss_fn`` / ``make_eval_fn`` (functions of a params dict, run
+through ``torch.func.functional_call`` on a parameterless copy of the
+model on the ``meta`` device), ``init_fn``, ``synthetic_batch`` (from a
+``torch.Generator``) and ``workload_spec`` for runtime/worker.py.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 
 from ..ops.flash_attention import flash_attention
 
@@ -203,3 +211,85 @@ class TransformerLM(nn.Module):
                                   generator=generator)
             p.copy_(t)
         return self
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> tuple:
+    """Next-token loss with full-length input and shift-left targets
+    (``roll(-1)``); the final position has no target and is masked out,
+    so the loss is the mean over B·(S−1) positions. Returns (loss,
+    {"perplexity": exp(loss)})."""
+    b, s, v = logits.shape
+    targets = torch.roll(tokens, -1, dims=1).long()
+    nll = F.cross_entropy(logits.reshape(b * s, v), targets.reshape(b * s),
+                          reduction="none").view(b, s)
+    loss = nll[:, :-1].sum() / (b * (s - 1))
+    return loss, {"perplexity": torch.exp(loss)}
+
+
+def make_loss_fn(model: TransformerLM) -> Callable:
+    """``loss_fn(params, variables, batch, rng) -> (loss, aux)`` over a
+    params dict keyed like the model's state dict."""
+
+    def loss_fn(params, variables, batch, rng):
+        tokens = batch["tokens"]
+        logits = functional_call(model, params, (tokens,))
+        return next_token_loss(logits, tokens)
+
+    return loss_fn
+
+
+def make_eval_fn(model: TransformerLM) -> Callable:
+    """Held-out eval: next-token loss / perplexity / token accuracy."""
+
+    def eval_fn(params, variables, batch):
+        tokens = batch["tokens"]
+        logits = functional_call(model, params, (tokens,))
+        loss, _ = next_token_loss(logits, tokens)
+        preds = logits[:, :-1].argmax(-1)
+        return {"eval_loss": loss,
+                "eval_perplexity": torch.exp(loss),
+                "eval_token_accuracy":
+                    (preds == tokens[:, 1:].long()).float().mean()}
+
+    return eval_fn
+
+
+def init_fn(model: TransformerLM) -> Callable:
+    """``init(rng) -> (params, variables)``: random weights from the
+    ``torch.Generator`` (``TransformerLM.init_weights``) as a dict of f32
+    CPU tensors; the LM has no mutable variables."""
+
+    def _init(rng: torch.Generator):
+        real = TransformerLM(model.cfg).init_weights(rng)
+        return dict(real.state_dict()), {}
+
+    return _init
+
+
+def synthetic_batch(rng: torch.Generator, batch_size: int, seq_len: int,
+                    vocab_size: int) -> dict:
+    """Uniform random tokens [batch_size, seq_len] int32 on the CPU."""
+    return {"tokens": torch.randint(0, vocab_size, (batch_size, seq_len),
+                                    generator=rng, dtype=torch.int32)}
+
+
+def workload_spec(cfg: Optional[TransformerConfig] = None,
+                  seq_len: Optional[int] = None):
+    """WorkloadSpec factory for runtime.worker. The sharding annotations
+    (``rules``, ``param_logical_axes``) stay None until sharding is
+    ported (ROADMAP Queue 1 item 3)."""
+    from ..runtime.worker import WorkloadSpec
+    cfg = cfg or TransformerConfig.tiny()
+    seq_len = seq_len or cfg.max_seq_len
+    # the module without storage: the loss and eval functions take their
+    # parameters from a params dict (functional_call)
+    with torch.device("meta"):
+        model = TransformerLM(cfg)
+    return WorkloadSpec(
+        name="transformer",
+        init_fn=init_fn(model),
+        loss_fn=make_loss_fn(model),
+        batch_fn=lambda rng, bs: synthetic_batch(rng, bs, seq_len,
+                                                 cfg.vocab_size),
+        eval_fn=make_eval_fn(model),
+    )

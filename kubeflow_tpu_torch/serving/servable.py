@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..obs.registry import Registry
+from ..runtime.bootstrap import resolve_device
 
 log = logging.getLogger(__name__)
 
@@ -45,17 +46,6 @@ def register_model(name: str):
         _MODEL_BUILDERS[name] = fn
         return fn
     return deco
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; a CUDA device with no card
-    present raises instead of running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(device)!r} requested but no CUDA device is "
-            f"available; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def next_bucket(n: int, max_batch: int) -> int:

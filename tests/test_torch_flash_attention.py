@@ -1,20 +1,22 @@
-"""The port's flash-attention forward against the JAX package's.
+"""The port's flash attention, forward and backward, against the JAX package's.
 
 Inputs are made with numpy from a seed and go through the JAX
-``flash_attention`` (its Pallas kernel in interpret mode on the CPU, as
-tests/test_ops.py runs it), JAX ``reference_attention``, and the port's
-plain forward and ``flash_attention`` on CPU tensors. Tolerances: f32
+``flash_attention`` (its Pallas kernels in interpret mode on the CPU, as
+tests/test_ops.py runs them), JAX ``reference_attention``, and the port's
+plain versions and ``flash_attention`` on CPU tensors. Tolerances: f32
 within 1e-5 absolute (the same arithmetic, summed in another order);
 bf16 inputs within 2e-2 absolute (one bf16 rounding of the output, whose
 unit in the last place near 1 is 7.8e-3, plus the reference's bf16
-probabilities).
+probabilities). Gradients: atol 1e-4, rtol 1e-3, the JAX package's own
+bar for its backward kernels (tests/test_kernels.py).
 
-The CUDA kernel is held against the plain version on the card in
+The CUDA kernels are held against the plain versions on the card in
 tests/test_torch_gpu.py.
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -122,3 +124,75 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_fwd_cuda(q, k, v)
     assert tfa.flash_attention.launches == launches
+
+
+def _loss(o):
+    return o * (o.cos() if isinstance(o, torch.Tensor) else jnp.cos(o))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [64, 65])
+def test_grad_matches_jax_kernel(causal, s):
+    """Autograd through the port's backward (the plain versions of K2a
+    and K2b on the CPU) against jax.grad through the JAX Pallas backward
+    kernels, on loss sum(o * cos o)."""
+    q, k, v = _qkv(b=2, s=s, h=2, d=16, seed=4)
+    j_grads = jax.grad(
+        lambda *a: jnp.sum(_loss(jfa.flash_attention(*a, causal=causal))),
+        argnums=(0, 1, 2))(*_jax(q, k, v))
+    tq, tk, tv = (x.requires_grad_(True) for x in _torch(q, k, v))
+    launches = (tfa.flash_attention_bwd_dq.launches,
+                tfa.flash_attention_bwd_dkv.launches)
+    _loss(tfa.flash_attention(tq, tk, tv, causal=causal)).sum().backward()
+    for name, got, ref in zip("qkv", (tq.grad, tk.grad, tv.grad), j_grads):
+        np.testing.assert_allclose(_np(got), _np(ref), atol=1e-4, rtol=1e-3,
+                                   err_msg=f"d{name} s={s}")
+    assert (tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == launches
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_plain_matches_autograd_of_reference(causal):
+    q, k, v = _torch(*_qkv(b=1, s=40, h=3, d=16, seed=5))
+    do = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, 40, 3, 16)).astype(np.float32))
+    o, lse = tfa.flash_attention_fwd_plain(q, k, v, causal=causal)
+    dq, dk, dv = tfa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                               causal=causal)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    ref = tfa.reference_attention(*leaves, causal=causal)
+    r_dq, r_dk, r_dv = torch.autograd.grad(ref, leaves, do)
+    for got, want in ((dq, r_dq), (dk, r_dk), (dv, r_dv)):
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-4,
+                                   rtol=1e-3)
+
+
+def test_backward_reads_strided_qkv_slices():
+    """The model hands q, k, v as slices of one fused qkv tensor: the
+    gradient lands in the fused tensor's slots, equal to the gradient
+    through contiguous copies."""
+    rng = np.random.default_rng(7)
+    qkv = torch.from_numpy(
+        rng.standard_normal((2, 33, 3, 2, 16)).astype(np.float32))
+    fused = qkv.clone().requires_grad_(True)
+    _loss(tfa.flash_attention(fused[:, :, 0], fused[:, :, 1],
+                              fused[:, :, 2])).sum().backward()
+    parts = [qkv[:, :, i].contiguous().requires_grad_(True)
+             for i in range(3)]
+    _loss(tfa.flash_attention(*parts)).sum().backward()
+    want = torch.stack([p.grad for p in parts], dim=2)
+    np.testing.assert_allclose(fused.grad.numpy(), want.numpy(), atol=1e-6,
+                               rtol=0)
+
+
+def test_bwd_cuda_wrappers_refuse_cpu_tensors():
+    q, k, v = _torch(*_qkv(b=1, s=8, h=1, d=8))
+    lse = torch.zeros(1, 1, 8)
+    launches = (tfa.flash_attention_bwd_dq.launches,
+                tfa.flash_attention_bwd_dkv.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd_dq_cuda(q, k, v, q, lse, lse)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd_dkv_cuda(q, k, v, q, lse, lse)
+    assert (tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == launches

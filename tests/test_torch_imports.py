@@ -1,7 +1,8 @@
 """The port stands alone and runs where its caller asks, or raises.
 
 - Every module of ``kubeflow_tpu_torch`` imports in a process where
-  ``jax``, ``flax`` and ``kubeflow_tpu`` cannot be imported.
+  ``jax``, ``flax`` and ``kubeflow_tpu`` cannot be imported, and the
+  package and ``chip_smoke.py`` pass the repository's lint checks.
 - Entry points default to ``cuda`` and raise where no card is present.
 - The CUDA path has no fallback: without ``nvcc`` the kernel build
   raises.
@@ -35,6 +36,8 @@ def test_every_module_imports_without_jax():
     modules = _modules()
     assert "kubeflow_tpu_torch.ops.flash_attention" in modules
     assert "kubeflow_tpu_torch.serving.http_server" in modules
+    assert "kubeflow_tpu_torch.runtime.worker" in modules
+    assert "kubeflow_tpu_torch.ops.fused_adam" in modules
     code = "\n".join([
         "import importlib, sys",
         "for name in ('jax', 'flax', 'optax', 'kubeflow_tpu'):",
@@ -95,7 +98,8 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         _build.load_library("flash_attention_fwd")
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["flash_attention_fwd"]
+    assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd",
+                                "fused_adam"]
 
 
 def test_build_key_follows_the_source(monkeypatch, tmp_path):
@@ -111,3 +115,11 @@ def test_build_key_follows_the_source(monkeypatch, tmp_path):
     assert os.path.dirname(first) == _build.BUILD_DIR
     with pytest.raises(_build.KernelBuildError, match="no CUDA source"):
         _build.library_path("missing")
+
+
+def test_port_and_chip_smoke_pass_lint():
+    """tests/test_lint.py scans kubeflow_tpu and tests only."""
+    from kubeflow_tpu.utils.lint import check_file, check_tree
+    findings = check_tree(REPO, ("kubeflow_tpu_torch",)) + \
+        check_file(os.path.join(REPO, "chip_smoke.py"))
+    assert not findings, "\n" + "\n".join(str(f) for f in findings)
