@@ -42,7 +42,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
              K3 101 times. Losses finite and falling; then two 3-step runs
              at batch 2 from the same seed, flash + fused_adam against
              einsum + stock, must agree within the stated tolerance.
+6. resnet  - ResNet-50 at full width (224 px, 1000 classes, batch 64,
+             random weights from a seed) trained through train() with the
+             worker's default recipe (momentum, lr 0.1, 6 steps, sync_every
+             2): the exact-BN default path (with its eval pass), then
+             fused: True. Every K4/K5 count starts at 0 just before each run
+             and is read just after: the default path launches none, each
+             fused step K4 7 + 7 and K5 6 + 6 (forward + backward), the
+             routing equals the JAX package's fused_block_routing(50, 224),
+             losses are finite, and at init the fused loss lies within 0.5
+             of the default path's on the same weights and batch.
 
+Phase 2 also holds K4 and K5 (the fused ghost-BN bottleneck, batch-tiled
+and spatial, csrc/fused_block_train.cu) against their plain versions at
+the five stride-1 geometries of ResNet-50 at 224 px, batch 64, bf16, with
+the JAX package's tiles: out and the 8 statistics, dx and every weight
+gradient against torch.autograd.grad of the plain version, and K5's
+seam rows of dx in norm against the backward's own formula in plain
+PyTorch (backward_plain, which rounds where the kernel rounds); timed
+beside the bound, the plain version and a cuDNN + batch-BN
+yardstick (not the same function: library_ms is null, the yardstick's
+time is yardstick_ms).
 """
 
 from __future__ import annotations
@@ -96,6 +116,62 @@ K3_ATOL = 1e-6
 # averages 4094 x 2 per-token errors, so it agrees closely; the gradient
 # norm sums the squares of every element's rounding difference.
 LOSS_RTOL, GNORM_RTOL = 1e-2, 5e-2
+
+# ResNet-50 at its full width: 224 px, 1000 classes, batch 64
+IMAGE, CLASSES, RESNET_BATCH = 224, 1000, 64
+# the JAX package's (route, tile_bt, tile_h) for each stride-1 geometry at
+# 224 px and batch 64 (kubeflow_tpu/models/resnet.py _fused_route over
+# stride1_geometries(50, 224)): the ghost batch, so part of the function
+EXPECTED_TILES = {
+    "56x56_64_64_256": ("spatial", 1, 14),
+    "56x56_256_64_256": ("spatial", 1, 14),
+    "28x28_512_128_512": ("spatial", 1, 14),
+    "14x14_1024_256_1024": ("batch", 1, None),
+    "7x7_2048_512_2048": ("batch", 2, None),
+}
+# and kubeflow_tpu's fused_block_routing(50, 224), verbatim
+EXPECTED_ROUTING = {
+    **{f"stage1_block{j}": "fused-spatial(th=14)" for j in (1, 2, 3)},
+    "stage2_block1": "xla-strided",
+    **{f"stage2_block{j}": "fused-spatial(th=14)" for j in (2, 3, 4)},
+    "stage3_block1": "xla-strided",
+    **{f"stage3_block{j}": "fused-batch" for j in (2, 3, 4, 5, 6)},
+    "stage4_block1": "xla-strided",
+    **{f"stage4_block{j}": "fused-batch" for j in (2, 3)},
+}
+# K4/K5 against their plain versions on the same bf16 inputs.
+# - out: both compute the same f32 arithmetic and round h1, h2 and out to
+#   bf16; sums taken in another order can move an f32 value across a
+#   bf16 rounding boundary, so an element may land one or two bf16 steps
+#   apart: |d| <= 2^-6 (|ref| + 1).
+# - statistics: f32 means over 98-896 samples of f32 products summed in
+#   another order: within 1e-3 of the largest value (+ 1e-5).
+# - dx and weight gradients: the plain version's autograd rounds the
+#   gradients of its bf16 tensors (dh1, dh2) to bf16 and keeps da in f32;
+#   the kernel, as the TPU kernel, keeps dh in f32 and rounds da to bf16
+#   before its products: each placement moves values by up to 2^-8 of
+#   themselves, so the gradients agree to about 2^-7 in norm. And the
+#   kernel recomputes the interior, so where a pre-activation lies within
+#   f32 noise of 0 the two sides take the other branch of a relu: that
+#   element's gradient changes by the full upstream value (measured on
+#   the H100: about 5 elements in 10^5, each up to 47% of the largest
+#   dx where the residual passes gz straight to dx). So the bar is in
+#   norm, ||d|| <= 2^-5 ||ref||, and elementwise for all but 10^-3 of
+#   the elements, |d| <= 2^-5 max|ref|.
+# - out, likewise: the elementwise bar above for all but 10^-4 of the
+#   elements (a relu flip in h1 or h2 moves a few outputs further).
+# - K5's seam rows of dx (the rows either side of a strip boundary, 2 in
+#   14, where the halo terms of BN1's backward land), against the
+#   backward kernels' own formula in plain PyTorch
+#   (fused_block_train_spatial.backward_plain, which rounds where the
+#   kernel rounds): ||d|| <= 2^-6 ||ref|| over those rows. A fault in the
+#   halo terms moves a few % of 2 rows in 14, under the whole-dx bar. On
+#   the H100 the kernel reads 3.0e-3 to 5.5e-3 there (the relu flips
+#   above dominate), and a build that applies BN1's correction to the
+#   halo rows too reads 3.2e-2 to 4.6e-2 while passing every other bar.
+K45_OUT_TOL, K45_STAT_TOL, K45_GRAD_FRAC = 2.0 ** -6, 1e-3, 2.0 ** -5
+K45_OUT_OUTLIERS, K45_GRAD_OUTLIERS = 1e-4, 1e-3
+K45_SEAM_TOL = 2.0 ** -6
 
 
 def fail(msg: str) -> None:
@@ -420,6 +496,195 @@ def phase_k3(fo, recipe, lm_shapes) -> dict:
             "library_ms": library_ms, "bound": bound, "elements": n}
 
 
+def _block_weights(gen, cin, cmid, cout, proj):
+    """Random block weights as tests/test_ops.py makes them (N(0, 0.1),
+    BN scales near 1), on the card: the model's zero init of BatchNorm_2
+    would make the block relu(residual) and hide conv1 to conv3."""
+    dev = torch.device(DEVICE)
+
+    def arr(*s):
+        return 0.1 * torch.randn(s, generator=gen, device=dev)
+
+    w = (arr(cin, cmid), arr(cmid) + 1, arr(cmid), arr(3, 3, cmid, cmid),
+         arr(cmid) + 1, arr(cmid), arr(cmid, cout), arr(cout) + 1, arr(cout))
+    if proj:
+        w += (arr(cin, cout), arr(cout) + 1, arr(cout))
+    return w
+
+
+def _block_flops(m, cin, cmid, cout, proj) -> int:
+    """2 x samples x (the block's four products): one forward."""
+    return 2 * m * (cin * cmid + 9 * cmid * cmid + cmid * cout
+                    + (cin * cout if proj else 0))
+
+
+def _yardstick_block(x, w, eps=1e-5):
+    """The same block through cuDNN convs and exact batch BN
+    (F.batch_norm over the whole batch): not the same function, a
+    yardstick of what one library call a layer costs."""
+    F = torch.nn.functional
+    xc = x.permute(0, 3, 1, 2)                   # channels_last NCHW view
+
+    def conv_bn(h, k, g, b, pad=0, relu=True):
+        y = F.conv2d(h, k.to(h.dtype).permute(3, 2, 0, 1), padding=pad)
+        y = F.batch_norm(y, None, None, g, b, training=True, eps=eps)
+        return F.relu(y) if relu else y
+
+    y = conv_bn(xc, w[0][None, None], w[1], w[2])
+    y = conv_bn(y, w[3], w[4], w[5], pad=1)
+    y = conv_bn(y, w[6][None, None], w[7], w[8], relu=False)
+    r = conv_bn(xc, w[9][None, None], w[10], w[11], relu=False) \
+        if len(w) == 12 else xc
+    return F.relu(y + r).permute(0, 2, 3, 1)
+
+
+def _grad_agree(got, ref) -> tuple[bool, float, float, float]:
+    """(ok, max|d|, ||d|| / ||ref||, share of elements beyond 2^-5
+    max|ref|) against the K4/K5 gradient bars above."""
+    d = (got.float() - ref.float()).abs()
+    r = ref.float()
+    norm = (d.norm() / r.norm().clamp_min(1e-30)).item()
+    share = (d > K45_GRAD_FRAC * r.abs().max()).float().mean().item()
+    ok = norm <= K45_GRAD_FRAC and share <= K45_GRAD_OUTLIERS and \
+        bool(torch.isfinite(got.float()).all())
+    return ok, d.max().item(), norm, share
+
+
+def phase_k45(fbt, fbts, R) -> dict:
+    """K4 and K5 at the five stride-1 geometries of ResNet-50 at 224 px,
+    batch 64, bf16, each with the JAX package's (tile_bt, tile_h): forward
+    (out and the 8 statistics) against the plain version, backward (dx and
+    every weight gradient) against torch.autograd.grad of the plain
+    version, K5's seam rows of dx also against the backward's own formula
+    (backward_plain); times beside the bound, the plain version and the
+    cuDNN + batch-BN yardstick."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    results = []
+    for geo in R.stride1_geometries(50, IMAGE):
+        key, h = geo["key"], geo["h"]
+        cin, cmid, cout, proj = geo["cin"], geo["cmid"], geo["cout"], \
+            geo["proj"]
+        kind, th = R._fused_route(h, h, cin, cmid, cout)
+        bt = fbt.default_tile_bt(RESNET_BATCH, h, h, cin, cmid, cout) \
+            if kind == "batch" else 1
+        if (kind, bt, th) != EXPECTED_TILES[key]:
+            fail(f"{key}: route {(kind, bt, th)}, the JAX package's is "
+                 f"{EXPECTED_TILES[key]}")
+        spatial = kind == "spatial"
+        mod = fbts if spatial else fbt
+        name = "fused_block_train_spatial" if spatial else \
+            "fused_block_train"
+        fwd_k = getattr(mod, f"{name}_fwd")
+        bwd_k = getattr(mod, f"{name}_bwd")
+        tiles = (bt, th) if spatial else (bt,)
+
+        def ref_fwd(x, w):
+            if spatial:
+                return fbts.reference_bottleneck_train_spatial(
+                    x, w, tile_bt=bt, tile_h=th)
+            return fbt.reference_bottleneck_train(x, w, tile_bt=bt)
+
+        def ref_bwd(x, g, w):
+            return fbt.autograd_backward(
+                fbts.reference_bottleneck_train_spatial if spatial else
+                fbt.reference_bottleneck_train, x, g, w,
+                **({"tile_bt": bt, "tile_h": th} if spatial else
+                   {"tile_bt": bt}))
+
+        w = _block_weights(gen, cin, cmid, cout, proj)
+        x = torch.randn((RESNET_BATCH, h, h, cin), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        g = torch.randn((RESNET_BATCH, h, h, cout), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        out, stats = fwd_k(x, w, *tiles)
+        dx, grads = bwd_k(x, g, w, *tiles)
+        torch.cuda.synchronize()
+        p_out, p_stats = ref_fwd(x, w)
+        p_dx, p_grads = ref_bwd(x, g, w)
+        d_out = (out.float() - p_out.float()).abs()
+        out_share = (d_out > K45_OUT_TOL * (p_out.float().abs() + 1)) \
+            .float().mean().item()
+        ok_out = out_share <= K45_OUT_OUTLIERS and \
+            torch.isfinite(out.float()).all().item()
+        stat_err = 0.0
+        ok_stats = True
+        for a, b in zip(stats, p_stats):
+            e = (a - b).abs().max().item()
+            stat_err = max(stat_err, e)
+            ok_stats &= e <= K45_STAT_TOL * b.abs().max().item() + 1e-5
+        dx_ok, dx_err, dx_norm, dx_share = _grad_agree(dx, p_dx)
+        grad_errs = [_grad_agree(a, b) for a, b in zip(grads, p_grads)]
+        seam_err, seam_note = 0.0, ""
+        if spatial:
+            f_dx, _ = fbts.backward_plain(x, g, w, tile_bt=bt, tile_h=th)
+            seams = [r for s in range(1, h // th) for r in
+                     (s * th - 1, s * th)]
+            seam_err = _grad_agree(dx[:, seams], f_dx[:, seams])[2]
+            seam_note = (f"; seam rows of dx against backward_plain "
+                         f"||d||/||ref|| {seam_err:.2e} (<= 2^-6)")
+            del f_dx
+        ok = ok_out and ok_stats and dx_ok and seam_err <= K45_SEAM_TOL \
+            and all(e[0] for e in grad_errs)
+        log(f"[k45] {name} {key} (tile_bt {bt}, tile_h {th or h}, proj "
+            f"{proj}): out max|d| {d_out.max().item():.3e}, share beyond "
+            f"2^-6 (|ref| + 1) {out_share:.2e} (<= {K45_OUT_OUTLIERS}); "
+            f"stats max|d| {stat_err:.3e} (<= 1e-3 max|ref| + 1e-5); dx "
+            f"max|d| {dx_err:.3e} of max|ref| "
+            f"{p_dx.float().abs().max().item():.3e}, ||d||/||ref|| "
+            f"{dx_norm:.2e}, share beyond 2^-5 max|ref| {dx_share:.2e}; "
+            f"weight grads ||d||/||ref|| " + ", ".join(
+                f"{e[2]:.2e}" for e in grad_errs) + ", shares " + ", ".join(
+                f"{e[3]:.1e}" for e in grad_errs)
+            + f" (norm <= 2^-5, share <= {K45_GRAD_OUTLIERS}){seam_note} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"{name} disagrees with its plain version at {key}")
+        del out, stats, dx, grads, p_out, p_stats, p_dx, p_grads
+
+        t = {"key": key, "name": name, "count": geo["count"],
+             "tile_bt": bt, "tile_h": th or h, "proj": proj,
+             "out_err": d_out.max().item(), "dx_err": dx_err}
+        t["fwd_ms"] = cuda_time_ms(lambda: fwd_k(x, w, *tiles), iters=5,
+                                   warmup=1)
+        t["bwd_ms"] = cuda_time_ms(lambda: bwd_k(x, g, w, *tiles), iters=5,
+                                   warmup=1)
+        t["fwd_plain_ms"] = cuda_time_ms(lambda: ref_fwd(x, w), iters=2,
+                                         warmup=1)
+        t["bwd_plain_ms"] = cuda_time_ms(lambda: ref_bwd(x, g, w), iters=2,
+                                         warmup=1)
+        xs = x.detach().requires_grad_(True)
+        ws = [wi.detach().requires_grad_(True) for wi in w]
+        t["fwd_yardstick_ms"] = cuda_time_ms(
+            lambda: _yardstick_block(x, w), iters=5, warmup=1)
+        y_out = _yardstick_block(xs, ws)
+        t["bwd_yardstick_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
+            y_out, [xs, *ws], g, retain_graph=True), iters=5, warmup=1)
+        m = RESNET_BATCH * h * h
+        flops = _block_flops(m, cin, cmid, cout, proj)
+        wbytes = 2 * (cin * cmid + 9 * cmid * cmid + cmid * cout
+                      + (cin * cout if proj else 0))
+        # forward: x and the weights read once, out written once; backward
+        # (the forward recomputed, then the dgrad and wgrad products): x,
+        # g and the weights read once, dx and the f32 weight grads written
+        t["fwd_bound"] = bound_ms(flops, 2 * m * (cin + cout) + wbytes,
+                                  PEAK_BF16_FLOPS)
+        t["bwd_bound"] = bound_ms(3 * flops, 2 * m * (2 * cin + cout)
+                                  + 3 * wbytes, PEAK_BF16_FLOPS)
+        log(f"[k45] {name} {key} x {geo['count']} a step: forward kernel "
+            f"{t['fwd_ms']:.4f} ms (bound {t['fwd_bound'][0]:.4f} ms "
+            f"{t['fwd_bound'][1]}, plain {t['fwd_plain_ms']:.4f} ms, "
+            f"yardstick cuDNN + batch BN {t['fwd_yardstick_ms']:.4f} ms); "
+            f"backward kernel {t['bwd_ms']:.4f} ms (bound "
+            f"{t['bwd_bound'][0]:.4f} ms {t['bwd_bound'][1]}, plain "
+            f"{t['bwd_plain_ms']:.4f} ms, yardstick "
+            f"{t['bwd_yardstick_ms']:.4f} ms)")
+        results.append(t)
+        del x, g, w, xs, ws, y_out
+        torch.cuda.empty_cache()
+    return {"geoms": results}
+
+
 # -- phase 3 ----------------------------------------------------------------
 
 
@@ -696,6 +961,132 @@ def phase_train(counters, T, worker, recipe, trainstep, k_ms) -> dict:
             "compare": worst}
 
 
+# -- phase 6 ----------------------------------------------------------------
+
+
+def _train_resnet(worker, path, fused, **kw):
+    return worker.train(
+        workload="resnet50", workload_kwargs={
+            "image_size": IMAGE, "num_classes": CLASSES, "fused": fused},
+        global_batch=RESNET_BATCH, steps=TRAIN_STEPS, sync_every=TRAIN_SYNC,
+        seed=0, metrics_path=path, handle_sigterm=False, device=DEVICE, **kw)
+
+
+def phase_resnet(counters, R, worker, trainstep, recipe, k45) -> dict:
+    """ResNet-50 at full width through train(): the exact-BN default path,
+    then --fused-blocks; launch counts per fused step, the routing against
+    the JAX package's, finite losses, and the fused loss at init within
+    0.5 of the default path's on the same weights and batch."""
+    import tempfile
+    routing = R.fused_block_routing(50, IMAGE)
+    if routing != EXPECTED_ROUTING:
+        fail(f"routing {routing} != the JAX package's {EXPECTED_ROUTING}")
+    per_step = {"fused_block_train_fwd": 0, "fused_block_train_bwd": 0,
+                "fused_block_train_spatial_fwd": 0,
+                "fused_block_train_spatial_bwd": 0}
+    for route in routing.values():
+        if route.startswith("fused-"):
+            name = "fused_block_train" + (
+                "_spatial" if route.startswith("fused-spatial") else "")
+            per_step[f"{name}_fwd"] += 1
+            per_step[f"{name}_bwd"] += 1
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for arm, fused in (("default", False), ("fused", True)):
+            path = os.path.join(tmp, f"{arm}.jsonl")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in counters.values():
+                fn.launches = 0       # the main path's counts start ...
+            t0 = time.perf_counter()
+            result = _train_resnet(
+                worker, path, fused,
+                **({} if fused else {"eval_every": TRAIN_STEPS,
+                                     "eval_batches": 2}))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {n: fn.launches for n, fn in counters.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            windows = _windows(path)
+            losses = [w["loss"] for w in windows]
+            step_s = result.mean_step_time_s
+            runs[arm] = {"launches": launches, "losses": losses,
+                         "step_ms": step_s * 1e3,
+                         "images_per_s": RESNET_BATCH / step_s,
+                         "peak_gib": peak, "wall_s": wall,
+                         "eval": {k: result.final_metrics.get(k) for k in
+                                  ("eval_loss", "top1", "top5")}}
+            log(f"[resnet] {arm}: {TRAIN_STEPS} steps of ResNet-50 at "
+                f"{IMAGE} px, {CLASSES} classes, batch {RESNET_BATCH} "
+                f"(momentum, lr 0.1) through train() in {wall:.1f}s; window "
+                f"losses {losses}; step {step_s * 1e3:.1f} ms, "
+                f"{RESNET_BATCH / step_s:.1f} images/s (host clock over the "
+                f"windows after the first); peak device memory {peak:.2f} "
+                f"GiB; launches {launches}")
+            if len(windows) != TRAIN_STEPS // TRAIN_SYNC or \
+                    not np.isfinite(losses).all():
+                fail(f"resnet {arm}: windows {windows}")
+    if runs["default"]["launches"] != {n: 0 for n in per_step} or \
+            runs["default"]["eval"]["top1"] is None:
+        fail(f"the default path launched {runs['default']['launches']} or "
+             f"ran no eval ({runs['default']['eval']})")
+    expected = {n: k * TRAIN_STEPS for n, k in per_step.items()}
+    if runs["fused"]["launches"] != expected:
+        fail(f"fused launches {runs['fused']['launches']}, expected "
+             f"{expected}: a stride-1 block did not run K4 or K5")
+    log(f"[resnet] routing equals the JAX package's fused_block_routing(50, "
+        f"{IMAGE}); per fused step K4 {per_step['fused_block_train_fwd']} + "
+        f"{per_step['fused_block_train_bwd']}, K5 "
+        f"{per_step['fused_block_train_spatial_fwd']} + "
+        f"{per_step['fused_block_train_spatial_bwd']} launches; default-path "
+        f"eval {runs['default']['eval']}")
+
+    # the fused loss at init against the default path's, and the fused
+    # step's device time split between K4/K5 and the rest
+    gen = torch.Generator().manual_seed(5)
+    specs = {arm: R.workload_spec(IMAGE, CLASSES, fused=fused)
+             for arm, fused in (("default", False), ("fused", True))}
+    builder = trainstep.TrainStepBuilder(
+        loss_fn=specs["fused"].loss_fn, device=DEVICE,
+        optimizer=lambda p: recipe.make_optimizer(p, "momentum", 0.1)[0])
+    state = builder.init(specs["fused"].init_fn, gen)
+    batch = builder.place_batch(specs["fused"].batch_fn(gen, RESNET_BATCH))
+    with torch.no_grad():
+        init_loss = {arm: float(s.loss_fn(state.params, state.variables,
+                                          batch, None)[0])
+                     for arm, s in specs.items()}
+    gap = abs(init_loss["fused"] - init_loss["default"])
+    log(f"[resnet] loss at init, same weights and batch: fused "
+        f"{init_loss['fused']:.5f}, default {init_loss['default']:.5f}, "
+        f"|d| {gap:.5f} (<= 0.5)")
+    if not gap <= 0.5:
+        fail("fused loss at init is not within 0.5 of the default path's")
+
+    def fwd_bwd(arm):
+        def run():
+            for p in state.params.values():
+                p.grad = None
+            loss, _ = specs[arm].loss_fn(state.params, state.variables,
+                                         batch, None)
+            loss.backward()
+        return run
+
+    dev_ms = {arm: cuda_time_ms(fwd_bwd(arm), iters=3, warmup=1)
+              for arm in specs}
+    kernel_ms = sum(g["count"] * (g["fwd_ms"] + g["bwd_ms"])
+                    for g in k45["geoms"])
+    log(f"[resnet] device time of forward+backward at batch {RESNET_BATCH} "
+        f"(CUDA events): fused {dev_ms['fused']:.3f} ms, of which K4/K5 "
+        f"{kernel_ms:.3f} ms ({kernel_ms / dev_ms['fused']:.1%}; 13 blocks x "
+        f"(forward + backward) at their phase-2 times) and the rest "
+        f"{dev_ms['fused'] - kernel_ms:.3f} ms; default (cuDNN, exact BN) "
+        f"{dev_ms['default']:.3f} ms")
+    del state, builder, batch
+    torch.cuda.empty_cache()
+    return {"runs": runs, "per_step": per_step, "init_loss": init_loss,
+            "dev_ms": dev_ms, "kernel_ms": kernel_ms}
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     if not torch.cuda.is_available():
@@ -717,6 +1108,10 @@ def main() -> int:
     build = importlib.import_module("kubeflow_tpu_torch.ops._build")
     fa = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
     fo = importlib.import_module("kubeflow_tpu_torch.ops.fused_adam")
+    fbt = importlib.import_module("kubeflow_tpu_torch.ops.fused_block_train")
+    fbts = importlib.import_module(
+        "kubeflow_tpu_torch.ops.fused_block_train_spatial")
+    from kubeflow_tpu_torch.models import resnet as R
     from kubeflow_tpu_torch.models import transformer as T
     from kubeflow_tpu_torch.runtime import recipe, trainstep, worker
     from kubeflow_tpu_torch.serving import client
@@ -738,6 +1133,7 @@ def main() -> int:
             lm_shapes = {n: p.shape for n, p in T.TransformerLM(
                 T.TransformerConfig()).state_dict().items()}
         k3 = phase_k3(fo, recipe, lm_shapes)
+        k45 = phase_k45(fbt, fbts, R)
 
         repo = ModelRepository()
         t0 = time.perf_counter()
@@ -778,6 +1174,15 @@ def main() -> int:
             "fused_adam": k3["ms"] / len(lm_shapes)}
         train = phase_train(counters, T, worker, recipe, trainstep,
                             per_launch_ms)
+        k45_counters = {
+            "fused_block_train_fwd": fbt.fused_block_train_fwd,
+            "fused_block_train_bwd": fbt.fused_block_train_bwd,
+            "fused_block_train_spatial_fwd":
+                fbts.fused_block_train_spatial_fwd,
+            "fused_block_train_spatial_bwd":
+                fbts.fused_block_train_spatial_bwd}
+        resnet = phase_resnet(k45_counters, R, worker, trainstep, recipe,
+                              k45)
     except Exception:  # noqa: BLE001 - any phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -847,6 +1252,43 @@ def main() -> int:
         "shape": f"{len(lm_shapes)} LM parameter tensors, "
                  f"{k3['elements']} f32 elements, one optimizer step",
     }]}
+    for name, replaces in (
+            ("fused_block_train", "kubeflow_tpu/ops/fused_block_train.py"),
+            ("fused_block_train_spatial",
+             "kubeflow_tpu/ops/fused_block_train_spatial.py")):
+        geoms = [g for g in k45["geoms"] if g["name"] == name]
+        count = sum(g["count"] for g in geoms)
+
+        def per_launch(field, geoms=geoms, count=count):
+            # averaged over one training step's launches of this kernel
+            return sum(g["count"] * g[field] for g in geoms) / count
+
+        for way, line in (("fwd", 207 if "spatial" not in name else 189),
+                          ("bwd", 277 if "spatial" not in name else 278)):
+            weighted = [(g["count"] * g[f"{way}_bound"][0],
+                         g[f"{way}_bound"][1]) for g in geoms]
+            record["kernels"].append({
+                "name": f"{name}_{way}",
+                "route": "cuda",
+                "source": "kubeflow_tpu_torch/csrc/fused_block_train.cu",
+                "replaces": f"{replaces}:{line}",
+                "launches": resnet["runs"]["fused"]["launches"][
+                    f"{name}_{way}"],
+                "max_abs_err": max(g["out_err" if way == "fwd" else "dx_err"]
+                                   for g in geoms),
+                "ms": per_launch(f"{way}_ms"),
+                "plain_ms": per_launch(f"{way}_plain_ms"),
+                "bound_ms": sum(w for w, _ in weighted) / count,
+                "bound_by": max(weighted)[1],
+                # no PyTorch call computes a ghost-BN block
+                "library_ms": None,
+                "yardstick_ms": per_launch(f"{way}_yardstick_ms"),
+                "yardstick": "cuDNN convs + exact batch BN, not the same "
+                             "function",
+                "shape": "ResNet-50 224 px batch 64 bf16, per launch "
+                         "averaged over a step's " + ", ".join(
+                             f"{g['count']} x {g['key']}" for g in geoms),
+            })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(dev["card"])
     print(json.dumps(record))

@@ -1,5 +1,6 @@
-"""flax params tree → this package's state dict, and JAX Adam state → the
-port's optimizer state.
+"""flax params tree → this package's state dict (the LM's, and ResNet's
+params with its ``batch_stats``), and JAX Adam state → the port's
+optimizer state.
 
 The port keeps every parameter in the shape flax gives it and names it by
 its flax path joined with dots (models/transformer.py), so converting is
@@ -37,6 +38,22 @@ def transformer_params_from_jax(params: Mapping) -> dict:
         params = params["params"]
     return {name: torch.from_numpy(np.array(a, dtype=np.float32))
             for name, a in flatten_params(params).items()}
+
+
+def resnet_variables_from_jax(params: Mapping, batch_stats: Mapping
+                              ) -> tuple[dict, dict]:
+    """The flax ``ResNet`` params and ``batch_stats`` trees (numpy arrays,
+    with or without their outer collection key) as the port's ``(params,
+    batch_stats)``: f32 tensors under the dotted flax paths
+    (``stage1_block1.Conv_0.kernel`` HWIO, ``….BatchNorm_0.mean``), the
+    shapes flax gives them."""
+    def flat(tree, key):
+        if set(tree) == {key}:
+            tree = tree[key]
+        return {name: torch.from_numpy(np.array(a, dtype=np.float32))
+                for name, a in flatten_params(tree).items()}
+
+    return flat(params, "params"), flat(batch_stats, "batch_stats")
 
 
 def adam_state_from_jax(state) -> dict:

@@ -9,6 +9,11 @@
 - :mod:`fused_adam` — the fused Adam update (K3, csrc/fused_adam.cu), the
   counterpart of the Pallas ``_adam_kernel``, and the ``FusedAdam``
   optimizer around it.
+- :mod:`fused_block_train` and :mod:`fused_block_train_spatial` — the
+  fused ghost-BN ResNet bottleneck for training, batch-tiled (K4) and
+  (batch x row-strip)-tiled with a 1-row halo (K5), forward and backward,
+  one CUDA implementation (csrc/fused_block_train.cu), the counterparts of
+  the Pallas kernels of the same modules.
 - :mod:`_build` — builds ``csrc/*.cu`` with nvcc and loads them with
   ctypes.
 """

@@ -70,15 +70,22 @@ class TrainStepBuilder:
     def init(self, init_fn: Callable, rng) -> TrainState:
         """``init_fn(rng) -> (params, variables)``; params (tensors or
         numpy arrays, by name) become f32 leaf tensors on the device, and
-        the optimizer is built over them."""
+        the optimizer is built over them. Variables (a collection name →
+        {name: array}, such as ResNet's ``batch_stats``) become f32
+        tensors on the device, without gradients."""
         params, variables = init_fn(rng)
-        params = {name: torch.as_tensor(np.asarray(p) if not isinstance(
-                      p, torch.Tensor) else p).to(self.device, torch.float32)
-                  .detach().requires_grad_(True)
+        params = {name: self._place(p).requires_grad_(True)
                   for name, p in params.items()}
+        variables = {col: {name: self._place(v) for name, v in vs.items()}
+                     for col, vs in variables.items()}
         return TrainState(step=0, params=params,
                           opt_state=self.optimizer(params),
-                          variables=dict(variables))
+                          variables=variables)
+
+    def _place(self, a) -> torch.Tensor:
+        t = a if isinstance(a, torch.Tensor) else \
+            torch.as_tensor(np.asarray(a))
+        return t.to(self.device, torch.float32).detach()
 
     def build(self) -> Callable[[TrainState, dict], tuple]:
         loss_fn = self.loss_fn

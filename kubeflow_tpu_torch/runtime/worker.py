@@ -14,7 +14,9 @@ the default), the synthetic pool of 4 placed batches and the
 ``cuda`` unless asked for the CPU (``device="cpu"``, ``--device cpu``);
 with no card it raises.
 
-Ported workloads: ``transformer``. The others, and the flags of features
+Ported workloads: ``transformer`` and ``resnet18`` … ``resnet152``
+(``--fused-blocks`` trains a bottleneck ResNet through the ghost-BN
+kernels). ``transformer-pipelined``, and the flags of features
 not ported yet (checkpoints, AOT warm start, real data, held-out eval
 data, the numeric sentinel, multi-slice, the profiler, the worker's
 metrics port, TensorBoard), raise "not yet ported" when set — on the CLI,
@@ -38,14 +40,13 @@ import torch
 from ..api.trainingjob import (ATTENTION_KERNELS, OPTIMIZER_KERNELS,
                                SERVING_KERNELS, WEIGHT_UPDATE_MODES,
                                validate_weight_update)
+from ..models import RESNET_DEPTHS
 from . import recipe
 from .bootstrap import WorkerContext, initialize
 from .metrics import METRICS_PATH_ENV, AsyncWindowFetch, MetricsLogger
 from .trainstep import TrainStepBuilder
 
 log = logging.getLogger(__name__)
-
-RESNET_DEPTHS = (18, 34, 50, 101, 152)
 
 # worker exit status after SIGTERM (EX_TEMPFAIL): restart-eligible, and
 # distinguishable from a crash
@@ -65,6 +66,11 @@ class WorkloadSpec:
     eval_fn: Optional[Callable] = None     # (params, vars, batch) -> metrics
 
 
+def _resnet_spec(**kw) -> WorkloadSpec:
+    from ..models import resnet as R
+    return R.workload_spec(**kw)
+
+
 def _transformer_spec(**kw) -> WorkloadSpec:
     from ..models import transformer as T
     return T.workload_spec(**kw)
@@ -76,8 +82,8 @@ def _not_ported(name: str, item: str, **kw) -> WorkloadSpec:
 
 
 WORKLOADS: dict[str, Callable[..., WorkloadSpec]] = {
-    **{f"resnet{d}": partial(_not_ported, f"resnet{d}", "item 1")
-       for d in RESNET_DEPTHS},
+    # the tf_cnn_benchmarks --model family
+    **{f"resnet{d}": partial(_resnet_spec, depth=d) for d in RESNET_DEPTHS},
     "transformer": _transformer_spec,
     "transformer-pipelined": partial(_not_ported, "transformer-pipelined",
                                      "item 11"),
@@ -86,6 +92,8 @@ WORKLOADS: dict[str, Callable[..., WorkloadSpec]] = {
 # workloads whose spec factory takes a TransformerConfig (cfg=) — the
 # kernels.attention tier rewrites cfg.attention for these
 _TRANSFORMER_WORKLOADS = {"transformer", "transformer-pipelined"}
+# workloads that take image_size / num_classes / label_smoothing
+_IMAGE_WORKLOADS = {f"resnet{d}" for d in RESNET_DEPTHS}
 
 # train() arguments of features not ported yet: (its env var, ROADMAP item)
 _UNPORTED = {
@@ -221,6 +229,8 @@ def train(
     _refuse_unported(locals())
     ctx = ctx or initialize(device=device)
     workload_kwargs = dict(workload_kwargs or {})
+    if label_smoothing and workload in _IMAGE_WORKLOADS:
+        workload_kwargs.setdefault("label_smoothing", label_smoothing)
     # the input-pipeline knobs drive the real-data feed, which raises
     # above; with the synthetic pool they only need to be valid
     for knob in (input_workers, device_prefetch):
@@ -470,7 +480,7 @@ def main(argv=None) -> int:
     if args.workload == "transformer-pipelined":
         workload_kwargs["num_microbatches"] = args.num_microbatches
     if args.fused_blocks:
-        if not args.workload.startswith("resnet") or \
+        if args.workload not in _IMAGE_WORKLOADS or \
                 int(args.workload.removeprefix("resnet")) < 50:
             p.error("--fused-blocks applies to bottleneck resnets "
                     "(depth >= 50) only")

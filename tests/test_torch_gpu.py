@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch/CUDA port: each CUDA kernel against its
-plain PyTorch version on the card, the LM served through K1, and one
-train step through K1, K2 and K3.
+plain PyTorch version on the card, the LM served through K1, one train
+step through K1, K2 and K3, and one fused ResNet-50 step through K4 and
+K5.
 
 Every test here carries the ``gpu`` marker and skips where no card is
 present (decided in the ``cuda_device`` fixture, never at import). The
@@ -16,7 +17,9 @@ apart); lse within 1e-4 (f32 log of f32 sums). Backward (K2): bf16
 within 2^-7 |ref| + 2^-8 max|ref| (one bf16 step, plus half a step at
 the largest value for f32 sums of up to S terms taken in another order
 before the rounding), f32 within 1e-4 max(1, max|ref|). Fused Adam (K3):
-within 1e-6 (both round every operation on its own, in one order).
+within 1e-6 (both round every operation on its own, in one order). The
+fused ghost-BN block (K4, K5): chip_smoke.py's bars, stated beside
+``_grad_ok`` below.
 """
 
 import importlib
@@ -242,3 +245,117 @@ def test_one_train_step_launches_every_kernel(cuda_device):
     assert got == [2, 2, 2, len(state.params)] and len(state.params) == 21
     assert np.isfinite(metrics["loss"].item())
     assert np.isfinite(metrics["grad_norm"].item())
+
+
+tfbt = importlib.import_module("kubeflow_tpu_torch.ops.fused_block_train")
+tfbts = importlib.import_module(
+    "kubeflow_tpu_torch.ops.fused_block_train_spatial")
+
+
+def _block(cuda_device, n, h, cin, cmid, cout, proj, seed=11):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def arr(*s):
+        return (0.1 * torch.randn(s, generator=g)).to(cuda_device)
+
+    w = (arr(cin, cmid), arr(cmid) + 1, arr(cmid), arr(3, 3, cmid, cmid),
+         arr(cmid) + 1, arr(cmid), arr(cmid, cout), arr(cout) + 1, arr(cout))
+    if proj:
+        w += (arr(cin, cout), arr(cout) + 1, arr(cout))
+    x = torch.randn((n, h, h, cin), generator=g).to(cuda_device,
+                                                    torch.bfloat16)
+    dy = torch.randn((n, h, h, cout), generator=g).to(cuda_device,
+                                                      torch.bfloat16)
+    return x, dy, w
+
+
+def _grad_ok(got, ref) -> bool:
+    """chip_smoke.py's K4/K5 gradient bar: within 2^-5 in norm, and
+    elementwise within 2^-5 of the largest value for all but 10^-3 of the
+    elements (the plain version rounds dh to bf16 where the kernel rounds
+    da; a relu whose input is within f32 noise of 0 may take the other
+    branch)."""
+    d = (got.float() - ref.float()).abs()
+    r = ref.float()
+    return (d.norm() <= 2.0 ** -5 * r.norm()).item() and \
+        (d > 2.0 ** -5 * r.abs().max()).float().mean().item() <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,cin,cmid,cout,proj,tile_bt,tile_h", [
+    (4, 8, 32, 8, 32, False, 2, None),       # K4, small
+    (4, 8, 16, 8, 32, True, 2, None),
+    (2, 8, 32, 8, 32, False, 1, 4),          # K5, two strips
+    (2, 8, 16, 8, 32, True, 2, 2),           # K5, four strips, proj
+    (64, 14, 1024, 256, 1024, False, 1, None),   # K4, ResNet-50 stage 3
+    (64, 56, 64, 64, 256, True, 1, 14),      # K5, ResNet-50 stage 1 head
+])
+def test_fused_block_kernels_match_plain(cuda_device, n, h, cin, cmid,
+                                         cout, proj, tile_bt, tile_h):
+    """K4/K5 forward (out, 8 statistics) and backward (dx and every weight
+    gradient) against the plain version and its autograd gradients, on
+    the same bf16 inputs; one counted call a direction."""
+    x, dy, w = _block(cuda_device, n, h, cin, cmid, cout, proj)
+    if tile_h is None:
+        mod, name, tiles = tfbt, "fused_block_train", (tile_bt,)
+        ref = tfbt.reference_bottleneck_train
+        kw = {"tile_bt": tile_bt}
+    else:
+        mod, name, tiles = tfbts, "fused_block_train_spatial", \
+            (tile_bt, tile_h)
+        ref = tfbts.reference_bottleneck_train_spatial
+        kw = {"tile_bt": tile_bt, "tile_h": tile_h}
+    fwd, bwd = getattr(mod, f"{name}_fwd"), getattr(mod, f"{name}_bwd")
+    before = (fwd.launches, bwd.launches)
+    out, stats = fwd(x, w, *tiles)
+    dx, grads = bwd(x, dy, w, *tiles)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    p_out, p_stats = ref(x, w, **kw)
+    p_dx, p_grads = tfbt.autograd_backward(ref, x, dy, w, **kw)
+    d = (out.float() - p_out.float()).abs()
+    assert (d > 2.0 ** -6 * (p_out.float().abs() + 1)).float().mean() <= 1e-4
+    for a, b in zip(stats, p_stats):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item() \
+            + 1e-5
+    assert dx.dtype == torch.bfloat16 and dx.shape == x.shape
+    assert _grad_ok(dx, p_dx)
+    if tile_h is not None:
+        # chip_smoke.py's seam-row bar: the rows either side of a strip
+        # boundary, where the halo terms land, against the backward's own
+        # formula, within 2^-6 in norm
+        f_dx, _ = tfbts.backward_plain(x, dy, w, **kw)
+        seams = [r for s in range(1, h // tile_h)
+                 for r in (s * tile_h - 1, s * tile_h)]
+        d = dx[:, seams].float() - f_dx[:, seams].float()
+        assert d.norm() <= 2.0 ** -6 * f_dx[:, seams].float().norm()
+    assert len(grads) == (12 if proj else 9)
+    for a, b in zip(grads, p_grads):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        assert _grad_ok(a, b)
+
+
+@pytest.mark.gpu
+def test_fused_resnet_step_launches_k4_and_k5(cuda_device):
+    """One fused ResNet-50 step at 224 px, batch 8: every stride-1 block
+    runs K4 or K5 once a direction (7 + 7 and 6 + 6 launches)."""
+    from kubeflow_tpu_torch.models import resnet as R
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
+    spec = R.workload_spec(224, 1000, fused=True)
+    builder = TrainStepBuilder(
+        loss_fn=spec.loss_fn, device=cuda_device,
+        optimizer=lambda p: make_optimizer(p, "momentum", 0.1)[0])
+    state = builder.init(spec.init_fn, torch.Generator().manual_seed(0))
+    batch = builder.place_batch(spec.batch_fn(
+        torch.Generator().manual_seed(1), 8))
+    counts = (tfbt.fused_block_train_fwd, tfbt.fused_block_train_bwd,
+              tfbts.fused_block_train_spatial_fwd,
+              tfbts.fused_block_train_spatial_bwd)
+    before = [c.launches for c in counts]
+    state, metrics = builder.build()(state, batch)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == [7, 7, 6, 6]
+    assert np.isfinite(metrics["loss"].item())
+    assert all(v.device.type == "cuda" and not v.requires_grad
+               for v in state.variables["batch_stats"].values())

@@ -38,6 +38,9 @@ def test_every_module_imports_without_jax():
     assert "kubeflow_tpu_torch.serving.http_server" in modules
     assert "kubeflow_tpu_torch.runtime.worker" in modules
     assert "kubeflow_tpu_torch.ops.fused_adam" in modules
+    assert "kubeflow_tpu_torch.ops.fused_block_train" in modules
+    assert "kubeflow_tpu_torch.ops.fused_block_train_spatial" in modules
+    assert "kubeflow_tpu_torch.models.resnet" in modules
     code = "\n".join([
         "import importlib, sys",
         "for name in ('jax', 'flax', 'optax', 'kubeflow_tpu'):",
@@ -99,7 +102,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build_all()
     assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd",
-                                "fused_adam"]
+                                "fused_adam", "fused_block_train"]
 
 
 def test_build_key_follows_the_source(monkeypatch, tmp_path):

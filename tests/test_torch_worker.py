@@ -99,7 +99,7 @@ def test_kernel_attention_on_other_workloads_raises():
         worker.train(workload="resnet50", kernel_attention="flash",
                      device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        worker.train(workload="resnet50", device="cpu")
+        worker.train(workload="transformer-pipelined", device="cpu")
 
 
 def test_main_runs_on_cpu(tmp_path):
