@@ -52,6 +52,22 @@ Phases, each of which fails the run (nonzero exit, no result line):
              routing equals the JAX package's fused_block_routing(50, 224),
              losses are finite, and at init the fused loss lies within 0.5
              of the default path's on the same weights and batch.
+7. resnet-serve - ResNet-50 inference at full width (224 px, 1000
+             classes, bf16, seeded variables whose BatchNorms all act:
+             scales 1 + N(0, 0.1), shifts and running means N(0, 0.1),
+             variances U(0.5, 1.5)) loaded through ModelRepository on the
+             card, max_batch 64, every bucket warmed: 6 concurrent
+             requests of 1-8 rows through the server's MicroBatcher, two
+             REST :predict requests of 1-2 rows, and run_batch_predict over
+             an .npy of 130 images at batch size 64 (two full batches and
+             a padded tail), each against a direct predict. The served path
+             runs ResNet.apply (cuDNN convs) and launches no K6. Then
+             fused_eval_apply on the same variables and 64 images: the K6
+             count starts at 0 just before and is read just after, 13
+             launches a forward; logits within 5e-2 of the largest served
+             logit and classes agreeing on >= 98% of rows, each other row's
+             top-2 margin below the measured max|d logit|. Images/s and
+             peak memory of both forwards (CUDA events).
 
 Phase 2 also holds K4 and K5 (the fused ghost-BN bottleneck, batch-tiled
 and spatial, csrc/fused_block_train.cu) against their plain versions at
@@ -62,7 +78,12 @@ seam rows of dx in norm against the backward's own formula in plain
 PyTorch (backward_plain, which rounds where the kernel rounds); timed
 beside the bound, the plain version and a cuDNN + batch-BN
 yardstick (not the same function: library_ms is null, the yardstick's
-time is yardstick_ms).
+time is yardstick_ms). And K6 (the fused inference bottleneck,
+csrc/fused_block.cu, phase_k6) against its plain version at the same five
+geometries with seeded folded-BN weights, timed beside its bound, the
+plain version and the same block through cuDNN convs and folded affines
+(_xla_block_eval's ops at stride 1: the same function up to where the
+products round, so a true library_ms).
 """
 
 from __future__ import annotations
@@ -172,6 +193,27 @@ EXPECTED_ROUTING = {
 K45_OUT_TOL, K45_STAT_TOL, K45_GRAD_FRAC = 2.0 ** -6, 1e-3, 2.0 ** -5
 K45_OUT_OUTLIERS, K45_GRAD_OUTLIERS = 1e-4, 1e-3
 K45_SEAM_TOL = 2.0 ** -6
+# K6 against its plain version on the same bf16 inputs: both round h1, h2,
+# h3, the projection and the residual sum to bf16 at the same points, from
+# f32 sums taken in another order, so an element may land one or two bf16
+# steps apart, and a little further where a rounding flip in h3 or the
+# projection meets a residual that cancels it: phase_k45's forward bar,
+# |d| <= 2^-6 (|ref| + 1) for all but 10^-4 of the elements.
+K6_TOL, K6_OUTLIERS = 2.0 ** -6, 1e-4
+# ... and that bar cannot see a rounding point: a build that skips h3's
+# rounding to bf16 moves elements by half a step of h3 and passes it. But
+# the kernel and its plain version round at the same points, so they
+# differ at all only where an f32 sum taken in another order crosses a
+# bf16 rounding boundary. Measured on the H100, the kernel differs from
+# its plain version in 0.03% (56x56x64) to 1.7% (7x7x2048) of the
+# elements, more where the sums are longer; the build that leaves h3
+# unrounded in 12.5%. Bar: <= 4%.
+K6_DIFFER = 0.04
+# ResNet-50 inference: the served path (ResNet.apply) against
+# fused_eval_apply on the same weights and images; they round at other
+# places (folded affines, the pool in f32) through 50 bf16 layers
+SERVE_BATCH, PREDICT_ROWS = 64, 130
+FUSED_LOGIT_TOL, FUSED_AGREE = 5e-2, 0.98
 
 
 def fail(msg: str) -> None:
@@ -685,6 +727,102 @@ def phase_k45(fbt, fbts, R) -> dict:
     return {"geoms": results}
 
 
+def nontrivial_variables(model, seed: int) -> dict:
+    """Seeded ResNet variables on the CPU whose every BatchNorm acts: the
+    model's own kernel init, then BN scales 1 + N(0, 0.1), BN shifts,
+    running means and the head bias N(0, 0.1), running variances U(0.5,
+    1.5). At init the last BN of every block has scale 0, which would hide
+    conv3 and w3 from any check."""
+    gen = torch.Generator().manual_seed(seed)
+    params, variables = model.init(gen)
+    stats = variables["batch_stats"]
+    for name, p in params.items():
+        if name.endswith(".scale"):
+            params[name] = 1 + 0.1 * torch.randn(p.shape, generator=gen)
+        elif name.endswith(".bias"):
+            params[name] = 0.1 * torch.randn(p.shape, generator=gen)
+    for name, v in stats.items():
+        stats[name] = 0.1 * torch.randn(v.shape, generator=gen) \
+            if name.endswith(".mean") else \
+            0.5 + torch.rand(v.shape, generator=gen)
+    return {"params": params, "batch_stats": stats}
+
+
+def _on_device(tree: dict) -> dict:
+    return {k: v.to(DEVICE) for k, v in tree.items()}
+
+
+def phase_k6(fb, R) -> dict:
+    """K6 at the five stride-1 geometries of ResNet-50 at 224 px, batch 64,
+    bf16, on the folded weights of the first block of each geometry in the
+    seeded model: against its plain version, timed beside the bound, the
+    plain version and the same block through cuDNN (_xla_block_eval at
+    stride 1)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    v = nontrivial_variables(R.resnet50(num_classes=CLASSES), seed=7)
+    walk = list(R._block_walk(50, IMAGE))
+    results = []
+    for geo in R.stride1_geometries(50, IMAGE):
+        key, h = geo["key"], geo["h"]
+        cin, cmid, cout, proj = geo["cin"], geo["cmid"], geo["cout"], \
+            geo["proj"]
+        block = next(b["name"] for b in walk if b["strides"] == 1 and
+                     R.geometry_key(b["h"], b["h"], b["cin"], b["cmid"],
+                                    b["cout"]) == key)
+        bp = _on_device(R._block_params(v["params"], block))
+        bs = _on_device(R._block_params(v["batch_stats"], block))
+        w = fb.fold_block(bp, bs)
+        x = torch.randn((RESNET_BATCH, h, h, cin), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        out = fb.fused_bottleneck_eval(x, w)
+        torch.cuda.synchronize()
+        ref = fb.fused_bottleneck_eval_plain(x, w)
+        lib = R._xla_block_eval(x, bp, bs, 1)
+        d = (out.float() - ref.float()).abs()
+        share = (d > K6_TOL * (ref.float().abs() + 1)).float().mean().item()
+        differ = (d > 0).float().mean().item()
+        lib_err = (lib.float() - ref.float()).abs().max().item()
+        ok = share <= K6_OUTLIERS and differ <= K6_DIFFER and \
+            torch.isfinite(out.float()).all().item()
+        log(f"[k6] fused_block_eval {key} ({block}, proj {proj}): out "
+            f"max|d| {d.max().item():.3e} of max|ref| "
+            f"{ref.float().abs().max().item():.3e}, share beyond 2^-6 (|ref|"
+            f" + 1) {share:.2e} (<= {K6_OUTLIERS}), share that differs "
+            f"{differ:.2e} (<= {K6_DIFFER}); the cuDNN block against the "
+            f"plain version max|d| {lib_err:.3e} "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"fused_block_eval disagrees with its plain version at "
+                 f"{key}")
+        t = {"key": key, "block": block, "count": geo["count"],
+             "proj": proj, "err": d.max().item(), "share": share,
+             "differ": differ}
+        t["ms"] = cuda_time_ms(lambda: fb.fused_bottleneck_eval(x, w),
+                               iters=10, warmup=2)
+        t["plain_ms"] = cuda_time_ms(
+            lambda: fb.fused_bottleneck_eval_plain(x, w), iters=3, warmup=1)
+        t["library_ms"] = cuda_time_ms(
+            lambda: R._xla_block_eval(x, bp, bs, 1), iters=10, warmup=2)
+        m = RESNET_BATCH * h * h
+        wbytes = 2 * (cin * cmid + 9 * cmid * cmid + cmid * cout
+                      + (cin * cout if proj else 0)) \
+            + 4 * 2 * (2 * cmid + cout + (cout if proj else 0))
+        # x and the weights read once, out written once
+        t["bound"] = bound_ms(_block_flops(m, cin, cmid, cout, proj),
+                              2 * m * (cin + cout) + wbytes,
+                              PEAK_BF16_FLOPS)
+        log(f"[k6] fused_block_eval {key} x {geo['count']} a forward: kernel "
+            f"{t['ms']:.4f} ms (bound {t['bound'][0]:.4f} ms "
+            f"{t['bound'][1]}, {t['bound'][0] / t['ms']:.1%}; plain "
+            f"{t['plain_ms']:.4f} ms; cuDNN convs + folded affines "
+            f"{t['library_ms']:.4f} ms)")
+        results.append(t)
+        del x, out, ref, lib
+        torch.cuda.empty_cache()
+    return {"geoms": results}
+
+
 # -- phase 3 ----------------------------------------------------------------
 
 
@@ -1087,6 +1225,204 @@ def phase_resnet(counters, R, worker, trainstep, recipe, k45) -> dict:
             "dev_ms": dev_ms, "kernel_ms": kernel_ms}
 
 
+# -- phase 7 ----------------------------------------------------------------
+
+
+def _margin_rule(got: np.ndarray, ref: np.ndarray) -> tuple:
+    """(max|d logit|, rows whose classes differ, of those the rows whose
+    top-2 margin in ``ref`` is not below max|d|): a class may differ only
+    where the reference's top two lie closer than the two paths differ."""
+    err = float(np.abs(got - ref).max())
+    top2 = np.sort(ref, axis=-1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    differ = np.nonzero(got.argmax(-1) != ref.argmax(-1))[0]
+    return err, differ, [int(i) for i in differ if margin[i] >= err]
+
+
+def phase_resnet_serve(fb, R, ModelRepository, ModelServer, client,
+                       run_batch_predict, k6) -> dict:
+    """ResNet-50 inference at full width: served through the MicroBatcher,
+    REST and the batch-predict job, then fused_eval_apply (13 K6 launches)
+    on the same variables, held to the served logits."""
+    import tempfile
+    repo = ModelRepository()
+    t0 = time.perf_counter()
+    serv = repo.load("resnet50", "resnet50", image_size=IMAGE,
+                     num_classes=CLASSES, device=DEVICE)
+    serv.max_batch = SERVE_BATCH
+    variables = nontrivial_variables(R.resnet50(num_classes=CLASSES), seed=8)
+    serv.swap(variables, 2)
+    variables = serv.params                     # on the card
+    buckets = serv.warmup()
+    log(f"[resnet-serve] loaded resnet50 ({IMAGE} px, {CLASSES} classes) on the "
+        f"card, swapped in the seeded variables, warmed buckets {buckets} "
+        f"in {time.perf_counter() - t0:.1f}s")
+    server = ModelServer(repo, host="127.0.0.1", port=0,
+                         max_batch=SERVE_BATCH, batching="continuous",
+                         sample_every=0)
+    server.start()
+    rng = np.random.default_rng(9)
+    try:
+        batcher = server.batcher("resnet50")
+        rows = [1, 3, 8, 2, 5, 4]
+        requests = [rng.standard_normal((n, IMAGE, IMAGE, 3)).astype(
+            np.float32) for n in rows]
+        results, host_s, errors = {}, {}, []
+
+        def send(i):
+            t = time.perf_counter()
+            try:
+                results[i] = batcher.predict(requests[i], timeout=300.0)
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(f"request {i}: {type(e).__name__}: {e}")
+            host_s[i] = time.perf_counter() - t
+
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in range(len(rows))]
+        forwards0 = serv.metadata()["stats"]["request_count"]
+        fb.fused_bottleneck_eval.launches = 0   # the served path's count
+        t1 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        served_k6 = fb.fused_bottleneck_eval.launches
+        forwards = serv.metadata()["stats"]["request_count"] - forwards0
+        if errors or any(t.is_alive() for t in threads):
+            fail(f"resnet serving requests failed: {errors}")
+        worst = 0.0
+        for i, x in enumerate(requests):
+            got, ref = results[i], serv.predict(x)
+            lg = got["logits"]
+            if lg.shape != (rows[i], CLASSES) or not np.isfinite(lg).all():
+                fail(f"request {i}: logits {lg.shape} or non-finite")
+            err, differ, bad = _margin_rule(lg, ref["logits"])
+            worst = max(worst, err)
+            if bad or not np.array_equal(got["classes"], lg.argmax(-1)):
+                fail(f"request {i}: classes differ from a direct predict in "
+                     f"rows {list(differ)} beyond the margin rule")
+        log(f"[resnet-serve] {len(rows)} concurrent requests ({sum(rows)} "
+            f"rows) in {forwards} forwards, wall {wall:.3f}s; against a "
+            f"direct predict max|d logit| {worst:.3e}; K6 launches on the "
+            f"served path {served_k6} (it runs ResNet.apply)")
+        for i in range(len(rows)):
+            log(f"[resnet-serve] request {i}: {rows[i]} rows, host "
+                f"{host_s[i] * 1e3:.1f} ms (ends in synchronize)")
+        if served_k6 != 0:
+            fail(f"the served path launched K6 {served_k6} times")
+
+        addr = f"127.0.0.1:{server.port}"
+        rest_s = []
+        for n in (1, 2):
+            x = rng.standard_normal((n, IMAGE, IMAGE, 3)).astype(np.float32)
+            t = time.perf_counter()
+            resp = client.predict(addr, "resnet50", x, timeout_s=300.0,
+                                  retries=0)
+            rest_s.append(time.perf_counter() - t)
+            direct = serv.predict(x)
+            got = np.asarray(resp["predictions"]["classes"])
+            lg = np.asarray(resp["predictions"]["logits"], np.float32)
+            if not np.array_equal(got, direct["classes"]) or \
+                    np.abs(lg - direct["logits"]).max() > 1e-6:
+                fail(f"REST resnet50 ({n} rows) differs from a direct "
+                     f"predict")
+        log(f"[resnet-serve] 2 REST :predict (1 and 2 rows of {IMAGE}^2 "
+            f"f32 as JSON) equal to a direct predict; host "
+            f"{', '.join(f'{t:.3f}s' for t in rest_s)}")
+    finally:
+        server.stop()
+
+    images = rng.standard_normal((PREDICT_ROWS, IMAGE, IMAGE, 3)).astype(
+        np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "images.npy"), images)
+        out = os.path.join(tmp, "preds.jsonl")
+        t = time.perf_counter()
+        summary = run_batch_predict(serv, [os.path.join(tmp, "*.npy")], out,
+                                    batch_size=SERVE_BATCH)
+        job_s = time.perf_counter() - t
+        with open(out) as f:
+            lines = [json.loads(line) for line in f]
+    records = [r for r in lines if "prediction" in r]
+    if len(records) != PREDICT_ROWS or summary["instances"] != PREDICT_ROWS:
+        fail(f"batch predict wrote {len(records)} records, summary "
+             f"{summary}")
+    direct = serv.predict(images)
+    job_logits = np.array([r["prediction"]["logits"] for r in records],
+                          np.float32)
+    err, differ, bad = _margin_rule(job_logits, direct["logits"])
+    if bad or [r["index"] for r in records] != list(range(PREDICT_ROWS)):
+        fail(f"batch predict classes differ from the served path's in rows "
+             f"{list(differ)} beyond the margin rule")
+    log(f"[resnet-serve] run_batch_predict: {PREDICT_ROWS} images at batch "
+        f"size {SERVE_BATCH} (tail padded) -> {len(records)} records + "
+        f"summary in {job_s:.2f}s; classes equal to the served path's in "
+        f"{PREDICT_ROWS - len(differ)}/{PREDICT_ROWS} rows, max|d logit| "
+        f"{err:.3e}")
+
+    x = torch.from_numpy(images[:SERVE_BATCH]).to(DEVICE)
+    served = direct["logits"][:SERVE_BATCH]
+    with torch.inference_mode():
+        fb.fused_bottleneck_eval.launches = 0    # the K6 path's count ...
+        fused = R.fused_eval_apply(variables, x)
+        torch.cuda.synchronize()
+        launches = fb.fused_bottleneck_eval.launches   # ... read here
+        fused = fused.float().cpu().numpy()
+    per_forward = sum(g["count"] for g in k6["geoms"])
+    if launches != per_forward or per_forward != 13:
+        fail(f"fused_eval_apply launched K6 {launches} times, expected 13")
+    if fused.shape != served.shape or not np.isfinite(fused).all():
+        fail(f"fused logits {fused.shape} or non-finite")
+    err, differ, bad = _margin_rule(fused, served)
+    scale = float(np.abs(served).max())
+    agree = 1 - len(differ) / SERVE_BATCH
+    log(f"[resnet-serve] fused_eval_apply on the same variables and "
+        f"{SERVE_BATCH} images: K6 launches {launches}; against the served "
+        f"logits max|d| {err:.3e} of max|logit| {scale:.3e} (<= "
+        f"{FUSED_LOGIT_TOL}), classes agree on {agree:.1%} (>= "
+        f"{FUSED_AGREE:.0%}); rows that differ {list(differ)}, beyond the "
+        f"margin rule {bad}")
+    if err > FUSED_LOGIT_TOL * scale or agree < FUSED_AGREE or bad:
+        fail("fused_eval_apply disagrees with the served path")
+
+    forwards = {}
+    for arm, fn in (("served", lambda: serv.predict_fn(variables, x)),
+                    ("fused", lambda: R.fused_eval_apply(variables, x))):
+        with torch.inference_mode():
+            ms = cuda_time_ms(fn, iters=5, warmup=1)
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        forwards[arm] = {"ms": ms, "images_per_s": SERVE_BATCH / ms * 1e3,
+                         "peak_gib": peak}
+    k6_ms = sum(g["count"] * g["ms"] for g in k6["geoms"])
+    log(f"[resnet-serve] forward at batch {SERVE_BATCH} (CUDA events): "
+        f"served (ResNet.apply, cuDNN) {forwards['served']['ms']:.3f} ms, "
+        f"{forwards['served']['images_per_s']:.1f} images/s, peak "
+        f"{forwards['served']['peak_gib']:.3f} GiB above the weights; fused "
+        f"{forwards['fused']['ms']:.3f} ms, "
+        f"{forwards['fused']['images_per_s']:.1f} images/s, peak "
+        f"{forwards['fused']['peak_gib']:.3f} GiB, of which K6 {k6_ms:.3f} ms "
+        f"({k6_ms / forwards['fused']['ms']:.1%}; 13 launches at phase-2 "
+        f"times)")
+    return {"launches": launches, "served_k6": served_k6, "wall_s": wall,
+            "host_ms": [host_s[i] * 1e3 for i in range(len(rows))],
+            "rest_s": rest_s, "job_s": job_s, "forwards": forwards,
+            "k6_ms": k6_ms, "fused_err": err, "agree": agree}
+
+
+def _launch_mean(geoms: list, field: str) -> float:
+    """A per-geometry time averaged over the launches of one training step
+    or one forward (each geometry weighted by its launch count)."""
+    return sum(g["count"] * g[field] for g in geoms) / \
+        sum(g["count"] for g in geoms)
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     if not torch.cuda.is_available():
@@ -1111,10 +1447,12 @@ def main() -> int:
     fbt = importlib.import_module("kubeflow_tpu_torch.ops.fused_block_train")
     fbts = importlib.import_module(
         "kubeflow_tpu_torch.ops.fused_block_train_spatial")
+    fb = importlib.import_module("kubeflow_tpu_torch.ops.fused_block")
     from kubeflow_tpu_torch.models import resnet as R
     from kubeflow_tpu_torch.models import transformer as T
     from kubeflow_tpu_torch.runtime import recipe, trainstep, worker
     from kubeflow_tpu_torch.serving import client
+    from kubeflow_tpu_torch.serving.batch_predict import run_batch_predict
     from kubeflow_tpu_torch.serving.http_server import ModelServer
     from kubeflow_tpu_torch.serving.servable import ModelRepository
 
@@ -1134,6 +1472,7 @@ def main() -> int:
                 T.TransformerConfig()).state_dict().items()}
         k3 = phase_k3(fo, recipe, lm_shapes)
         k45 = phase_k45(fbt, fbts, R)
+        k6 = phase_k6(fb, R)
 
         repo = ModelRepository()
         t0 = time.perf_counter()
@@ -1183,6 +1522,8 @@ def main() -> int:
                 fbts.fused_block_train_spatial_bwd}
         resnet = phase_resnet(k45_counters, R, worker, trainstep, recipe,
                               k45)
+        serve = phase_resnet_serve(fb, R, ModelRepository, ModelServer,
+                                   client, run_batch_predict, k6)
     except Exception:  # noqa: BLE001 - any phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1258,11 +1599,6 @@ def main() -> int:
              "kubeflow_tpu/ops/fused_block_train_spatial.py")):
         geoms = [g for g in k45["geoms"] if g["name"] == name]
         count = sum(g["count"] for g in geoms)
-
-        def per_launch(field, geoms=geoms, count=count):
-            # averaged over one training step's launches of this kernel
-            return sum(g["count"] * g[field] for g in geoms) / count
-
         for way, line in (("fwd", 207 if "spatial" not in name else 189),
                           ("bwd", 277 if "spatial" not in name else 278)):
             weighted = [(g["count"] * g[f"{way}_bound"][0],
@@ -1276,19 +1612,41 @@ def main() -> int:
                     f"{name}_{way}"],
                 "max_abs_err": max(g["out_err" if way == "fwd" else "dx_err"]
                                    for g in geoms),
-                "ms": per_launch(f"{way}_ms"),
-                "plain_ms": per_launch(f"{way}_plain_ms"),
+                "ms": _launch_mean(geoms, f"{way}_ms"),
+                "plain_ms": _launch_mean(geoms, f"{way}_plain_ms"),
                 "bound_ms": sum(w for w, _ in weighted) / count,
                 "bound_by": max(weighted)[1],
                 # no PyTorch call computes a ghost-BN block
                 "library_ms": None,
-                "yardstick_ms": per_launch(f"{way}_yardstick_ms"),
+                "yardstick_ms": _launch_mean(geoms, f"{way}_yardstick_ms"),
                 "yardstick": "cuDNN convs + exact batch BN, not the same "
                              "function",
                 "shape": "ResNet-50 224 px batch 64 bf16, per launch "
                          "averaged over a step's " + ", ".join(
                              f"{g['count']} x {g['key']}" for g in geoms),
             })
+    geoms = k6["geoms"]
+    count = sum(g["count"] for g in geoms)
+    weighted = [(g["count"] * g["bound"][0], g["bound"][1]) for g in geoms]
+
+    record["kernels"].append({
+        "name": "fused_block_eval",
+        "route": "cuda",
+        "source": "kubeflow_tpu_torch/csrc/fused_block.cu",
+        "replaces": "kubeflow_tpu/ops/fused_block.py:124",
+        "launches": serve["launches"],
+        "max_abs_err": max(g["err"] for g in geoms),
+        "ms": _launch_mean(geoms, "ms"),
+        "plain_ms": _launch_mean(geoms, "plain_ms"),
+        "bound_ms": sum(w for w, _ in weighted) / count,
+        "bound_by": max(weighted)[1],
+        "library_ms": _launch_mean(geoms, "library_ms"),
+        "library": "the same block through cuDNN convs and folded affines "
+                   "(_xla_block_eval at stride 1)",
+        "shape": "ResNet-50 224 px batch 64 bf16, per launch averaged over "
+                 "a forward's " + ", ".join(
+                     f"{g['count']} x {g['key']}" for g in geoms),
+    })
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(dev["card"])
     print(json.dumps(record))

@@ -1,6 +1,6 @@
 """flax params tree → this package's state dict (the LM's, and ResNet's
-params with its ``batch_stats``), and JAX Adam state → the port's
-optimizer state.
+params with its ``batch_stats``), a JAX ``FusedBlockWeights`` → the
+port's, and JAX Adam state → the port's optimizer state.
 
 The port keeps every parameter in the shape flax gives it and names it by
 its flax path joined with dots (models/transformer.py), so converting is
@@ -54,6 +54,19 @@ def resnet_variables_from_jax(params: Mapping, batch_stats: Mapping
                 for name, a in flatten_params(tree).items()}
 
     return flat(params, "params"), flat(batch_stats, "batch_stats")
+
+
+def fused_block_weights_from_jax(w):
+    """A JAX ``FusedBlockWeights`` (numpy arrays, the projection fields
+    possibly None) as the port's
+    :class:`~kubeflow_tpu_torch.ops.fused_block.FusedBlockWeights`: f32
+    tensors of the same shapes."""
+    from ..ops.fused_block import FusedBlockWeights
+    fields = ("w1", "s1", "b1", "w2", "s2", "b2", "w3", "s3", "b3", "wp",
+              "sp", "bp")
+    return FusedBlockWeights(**{
+        f: None if getattr(w, f) is None else torch.from_numpy(
+            np.array(getattr(w, f), dtype=np.float32)) for f in fields})
 
 
 def adam_state_from_jax(state) -> dict:

@@ -26,9 +26,16 @@ verbatim because the tile it picks defines the ghost batch. The stem, the
 strided blocks (:func:`_xla_block_train`) and the head stay PyTorch ops,
 as the JAX package leaves them to XLA; the global pool runs in f32.
 Running statistics are EMA-updated from the tile-averaged ghost moments.
-Not ported yet: ``fused_eval_apply`` with its kernel K6 and
-``_xla_block_eval``, and the data-parallel ``pmean`` of ghost moments
-(ROADMAP Queue 1 items 12 and 3).
+
+**Fused inference path** (:func:`fused_eval_apply`): the eval forward with
+every BatchNorm folded to an affine and every stride-1 bottleneck as one
+call of the hand-written CUDA kernel K6 (ops/fused_block.py); the stem, the
+strided blocks (:func:`_xla_block_eval`) and the head stay PyTorch ops. It
+computes what ``ResNet.apply(train=False)`` computes, rounded at other
+places; the servables serve ``apply``, as the JAX package's do.
+
+Not ported yet: the data-parallel ``pmean`` of ghost moments (ROADMAP
+Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops import fused_block as _fb
 from ..ops import fused_block_train as _fbt
 from ..ops import fused_block_train_spatial as _fbts
 from . import RESNET_DEPTHS
@@ -376,6 +384,77 @@ def synthetic_batch(rng: torch.Generator, batch_size: int,
         "labels": torch.randint(0, num_classes, (batch_size,),
                                 generator=rng, dtype=torch.int32),
     }
+
+
+# -----------------------------------------------------------------------------
+# the fused inference path (ops/fused_block.py, K6)
+# -----------------------------------------------------------------------------
+
+def _affine(params: dict, stats: dict, name: str,
+            eps: float = BN_EPS) -> tuple[torch.Tensor, torch.Tensor]:
+    """BatchNorm ``name`` folded to (scale, shift) in f32, by the one
+    folding formula of ops/fused_block.py."""
+    return _fb._fold_bn(params, stats, name, eps)
+
+
+def _xla_block_eval(x: torch.Tensor, params: dict, stats: dict,
+                    strides: int,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """Strided bottleneck block at eval through PyTorch convs and folded
+    BN (the blocks the fused kernel does not cover); ``params`` and
+    ``stats`` by names relative to the block. Conv outputs round to
+    ``dtype`` before their affine; the residual adds the two ``dtype``
+    branches in f32 and rounds."""
+    def bn_relu(h, name, relu=True):
+        s, b = _affine(params, stats, name)
+        h = h.float() * s + b
+        return (torch.relu(h) if relu else h).to(dtype)
+
+    y = bn_relu(conv(x, params["Conv_0.kernel"], 1, dtype), "BatchNorm_0")
+    y = bn_relu(conv(y, params["Conv_1.kernel"], strides, dtype),
+                "BatchNorm_1")
+    y = bn_relu(conv(y, params["Conv_2.kernel"], 1, dtype), "BatchNorm_2",
+                relu=False)
+    if "conv_proj.kernel" in params:
+        res = bn_relu(conv(x, params["conv_proj.kernel"], strides, dtype),
+                      "norm_proj", relu=False)
+    else:
+        res = x
+    return torch.relu(res.float() + y.float()).to(dtype)
+
+
+def fused_eval_apply(variables: dict, images: torch.Tensor, *,
+                     depth: int = 50, dtype: torch.dtype = torch.bfloat16,
+                     block_bt: Optional[int] = None) -> torch.Tensor:
+    """Inference forward with every stride-1 bottleneck running as one call
+    of K6 (ops/fused_block.py): logits [B, classes] f32 from
+    ``{"params", "batch_stats"}``. The same computation as
+    ``ResNet.apply(train=False)`` (running statistics fold to exact
+    affines), rounded at other places; the global pool stays f32. Not the
+    serving default, as in the JAX package. Bottleneck depths only
+    (>= 50)."""
+    if depth < 50:
+        raise ValueError("fused_eval_apply supports bottleneck depths "
+                         "(>= 50); BasicBlock models have no Conv_2")
+    params, stats = variables["params"], variables["batch_stats"]
+    x = conv(images.to(dtype), params["conv_init.kernel"], 2, dtype)
+    s, b = _affine(params, stats, "bn_init")
+    x = torch.relu(x.float() * s + b).to(dtype)
+    x = max_pool_same(x)
+
+    for i, n_blocks in enumerate(STAGE_SIZES[depth]):
+        for j in range(n_blocks):
+            name = f"stage{i + 1}_block{j + 1}"
+            strides = 2 if i > 0 and j == 0 else 1
+            bp, bs = _block_params(params, name), _block_params(stats, name)
+            if strides == 1:
+                x = _fb.fused_bottleneck_eval(
+                    x.contiguous(), _fb.fold_block(bp, bs),
+                    block_bt=block_bt)
+            else:
+                x = _xla_block_eval(x, bp, bs, strides, dtype=dtype)
+    x = x.float().mean(dim=(1, 2))
+    return x @ params["head.kernel"].float() + params["head.bias"]
 
 
 # -----------------------------------------------------------------------------

@@ -14,6 +14,11 @@
   (batch x row-strip)-tiled with a 1-row halo (K5), forward and backward,
   one CUDA implementation (csrc/fused_block_train.cu), the counterparts of
   the Pallas kernels of the same modules.
+- :mod:`fused_block` — the fused ResNet bottleneck for inference, BN
+  folded to an affine (K6, csrc/fused_block.cu), the counterpart of the
+  Pallas ``_kernel`` of ``kubeflow_tpu/ops/fused_block.py``; run by
+  ``models/resnet.py`` ``fused_eval_apply``. K4–K6 share the bf16
+  tensor-core product of csrc/bf16_gemm.cuh.
 - :mod:`_build` — builds ``csrc/*.cu`` with nvcc and loads them with
   ctypes.
 """

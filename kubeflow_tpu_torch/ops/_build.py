@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` holds a plain ``extern "C"`` interface (no PyTorch
 headers), so one ``nvcc`` call takes seconds, where an extension that
-includes PyTorch's headers takes minutes. The shared library lands in
-``kubeflow_tpu_torch/_build/`` under a name keyed by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one is
-loaded as it is. A missing ``nvcc`` or a failed build raises: there is no
+includes PyTorch's headers takes minutes; ``csrc/*.cuh`` are headers the
+sources share. The shared library lands in ``kubeflow_tpu_torch/_build/``
+under a name keyed by a hash of the source, the headers and the flags, so
+an edited source or header rebuilds and an unchanged one is loaded as it
+is. A missing ``nvcc`` or a failed build raises: there is no
 fallback on the card.
 
     python -m kubeflow_tpu_torch.ops._build     # build every source, print ptxas
@@ -68,10 +69,14 @@ def _source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the build of ``csrc/<name>.cu`` lives, keyed by content."""
+    """Where the build of ``csrc/<name>.cu`` lives, keyed by its content,
+    the content of every header in csrc/ and the flags."""
     h = hashlib.sha256()
-    with open(_source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [_source_path(name)] + [os.path.join(CSRC_DIR, f)
+                                        for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

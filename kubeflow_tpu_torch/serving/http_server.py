@@ -403,8 +403,8 @@ def main(argv: Optional[list[str]] = None) -> int:
     p = argparse.ArgumentParser("tpu-model-server")
     p.add_argument("--model-name", default="model")
     p.add_argument("--model-type", default="resnet50",
-                   help="registered model builder (the port registers "
-                        "transformer_lm only)")
+                   help="registered model builder: resnet18 ... resnet152 "
+                        "or transformer_lm")
     p.add_argument("--model-path", default="")
     p.add_argument("--rest-port", type=int, default=8500)
     p.add_argument("--grpc-port", type=int, default=0,

@@ -1,8 +1,11 @@
 """Servables: named, versioned predict functions on a device.
 
 The port of ``kubeflow_tpu/serving/servable.py``. A Servable wraps a
-``predict_fn(params, batch_tensor) -> dict of tensors`` and its params (a
-flat state dict of tensors on the servable's device). Inputs are padded
+``predict_fn(params, batch_tensor) -> dict of tensors`` and its params on
+the servable's device: a flat state dict of tensors (the LM), or nested
+dicts of them (ResNet's ``{"params": ..., "batch_stats": ...}``, as the
+JAX package serves a variables tree). Registered builders:
+``transformer_lm`` and ``resnet18`` … ``resnet152``. Inputs are padded
 to power-of-two batch buckets, as the JAX package does for its compiled
 shapes; PyTorch runs eagerly, so here the buckets bound the shapes the
 kernels see and keep batches comparable between the two packages.
@@ -22,16 +25,19 @@ import os
 import threading
 import time
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
+from ..models import RESNET_DEPTHS
 from ..obs.registry import Registry
 from ..runtime.bootstrap import resolve_device
 
 log = logging.getLogger(__name__)
 
+# a state dict, or nested dicts of them: name → tensor | dict
 Params = dict
 # predict(params, batch_tensor) -> dict of tensors
 PredictFn = Callable[[Params, torch.Tensor], Any]
@@ -62,7 +68,9 @@ def next_bucket(n: int, max_batch: int) -> int:
 # is stored as int8 with one f32 scale per OUTPUT channel (the last axis,
 # the same axis as the JAX leaf's), absmax/127 over the other axes. At
 # predict the weights dequantize to f32, so every matmul accumulates from
-# f32 weights. Rank-0/1 params (norm scales) stay float. The parity gate
+# f32 weights. Rank-0/1 params (norm scales, biases, BN running statistics)
+# stay float. Nested dicts are walked as the JAX package walks a variables
+# tree. The parity gate
 # measures the accuracy delta on calibration batches at quantize time,
 # ledgers it, and refuses to serve past the threshold.
 
@@ -80,30 +88,36 @@ class QuantizationRefused(RuntimeError):
 
 def quantize_params_int8(params: Params) -> tuple[Params, dict]:
     """Per-channel absmax int8 quantization of every float param with
-    ndim >= 2. Returns (qparams, stats); quantized params become
-    ``{_Q_KEY: int8, _SCALE_KEY: f32[..., 1, channels]}`` dicts."""
-    out: Params = {}
-    n_q = n_kept = bytes_f = bytes_q = 0
-    for name, p in params.items():
-        if p.dim() >= 2 and p.is_floating_point():
-            p32 = p.float()
-            amax = p32.abs().amax(dim=tuple(range(p32.dim() - 1)),
-                                  keepdim=True)
-            scale = amax.clamp_min(1e-12) / 127.0
-            qv = torch.clamp(torch.round(p32 / scale), -127, 127
-                             ).to(torch.int8)
-            out[name] = {_Q_KEY: qv, _SCALE_KEY: scale}
-            n_q += 1
-            bytes_f += p32.numel() * 4
-            bytes_q += qv.numel() + scale.numel() * 4
-        else:
-            out[name] = p
-            n_kept += 1
-            bytes_f += p.numel() * 4
-            bytes_q += p.numel() * 4
-    return out, {"quantized_leaves": n_q, "float_leaves": n_kept,
-                 "weight_bytes_float": bytes_f,
-                 "weight_bytes_int8": bytes_q}
+    ndim >= 2, at any depth of nested dicts. Returns (qparams, stats);
+    quantized params become ``{_Q_KEY: int8, _SCALE_KEY: f32[..., 1,
+    channels]}`` dicts."""
+    stats = {"quantized_leaves": 0, "float_leaves": 0,
+             "weight_bytes_float": 0, "weight_bytes_int8": 0}
+
+    def q(tree: Params) -> Params:
+        out: Params = {}
+        for name, p in tree.items():
+            if isinstance(p, dict):
+                out[name] = q(p)
+            elif p.dim() >= 2 and p.is_floating_point():
+                p32 = p.float()
+                amax = p32.abs().amax(dim=tuple(range(p32.dim() - 1)),
+                                      keepdim=True)
+                scale = amax.clamp_min(1e-12) / 127.0
+                qv = torch.clamp(torch.round(p32 / scale), -127, 127
+                                 ).to(torch.int8)
+                out[name] = {_Q_KEY: qv, _SCALE_KEY: scale}
+                stats["quantized_leaves"] += 1
+                stats["weight_bytes_float"] += p32.numel() * 4
+                stats["weight_bytes_int8"] += qv.numel() + scale.numel() * 4
+            else:
+                out[name] = p
+                stats["float_leaves"] += 1
+                stats["weight_bytes_float"] += p.numel() * 4
+                stats["weight_bytes_int8"] += p.numel() * 4
+        return out
+
+    return q(params), stats
 
 
 def _is_qleaf(node) -> bool:
@@ -111,8 +125,9 @@ def _is_qleaf(node) -> bool:
 
 
 def dequantize_params(qparams: Params) -> Params:
-    """int8 · per-channel f32 scale → f32 weights."""
-    return {name: (n[_Q_KEY].float() * n[_SCALE_KEY]) if _is_qleaf(n) else n
+    """int8 · per-channel f32 scale → f32 weights, at any depth."""
+    return {name: (n[_Q_KEY].float() * n[_SCALE_KEY]) if _is_qleaf(n) else
+            dequantize_params(n) if isinstance(n, dict) else n
             for name, n in qparams.items()}
 
 
@@ -229,9 +244,9 @@ def quantize_servable(
 
 
 def _to_device(params: Params, device: torch.device) -> Params:
-    return {name: ({k: t.to(device) for k, t in p.items()}
-                   if isinstance(p, dict) else p.to(device))
-            for name, p in params.items()}
+    """Every tensor of (nested dicts of) params on ``device``."""
+    return {name: _to_device(p, device) if isinstance(p, dict) else
+            p.to(device) for name, p in params.items()}
 
 
 @dataclass
@@ -472,3 +487,29 @@ def _build_transformer(vocab_size: int = 32000, **cfg_kw):
     sig = {"inputs": {"shape": [-1, cfg.max_seq_len], "dtype": "int32"},
            "outputs": {"logits": [-1, cfg.max_seq_len, vocab_size]}}
     return predict, init_params, sig
+
+
+def _build_resnet(depth: int = 50, num_classes: int = 1000,
+                  image_size: int = 224):
+    from ..models import resnet as R
+    model = R.make_resnet(depth, num_classes=num_classes)
+
+    def init_params() -> Params:
+        # random weights until checkpoint loading is ported: the same
+        # seed for every load, so two servables share their weights
+        params, variables = model.init(torch.Generator().manual_seed(0))
+        return {"params": params, **variables}
+
+    def predict(variables: Params, images: torch.Tensor) -> dict:
+        logits = model.apply(variables["params"], variables["batch_stats"],
+                             images, train=False)
+        return {"logits": logits, "classes": torch.argmax(logits, dim=-1)}
+
+    sig = {"inputs": {"shape": [-1, image_size, image_size, 3],
+                      "dtype": "float32"},
+           "outputs": {"logits": [-1, num_classes], "classes": [-1]}}
+    return predict, init_params, sig
+
+
+for _depth in RESNET_DEPTHS:
+    register_model(f"resnet{_depth}")(partial(_build_resnet, depth=_depth))

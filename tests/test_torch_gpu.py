@@ -1,7 +1,7 @@
 """Card-only tests of the PyTorch/CUDA port: each CUDA kernel against its
 plain PyTorch version on the card, the LM served through K1, one train
-step through K1, K2 and K3, and one fused ResNet-50 step through K4 and
-K5.
+step through K1, K2 and K3, one fused ResNet-50 step through K4 and K5,
+and one fused ResNet-50 inference forward through K6.
 
 Every test here carries the ``gpu`` marker and skips where no card is
 present (decided in the ``cuda_device`` fixture, never at import). The
@@ -18,8 +18,8 @@ within 2^-7 |ref| + 2^-8 max|ref| (one bf16 step, plus half a step at
 the largest value for f32 sums of up to S terms taken in another order
 before the rounding), f32 within 1e-4 max(1, max|ref|). Fused Adam (K3):
 within 1e-6 (both round every operation on its own, in one order). The
-fused ghost-BN block (K4, K5): chip_smoke.py's bars, stated beside
-``_grad_ok`` below.
+fused ghost-BN block (K4, K5) and the fused inference block (K6):
+chip_smoke.py's bars, stated beside ``_grad_ok`` and the K6 tests below.
 """
 
 import importlib
@@ -359,3 +359,79 @@ def test_fused_resnet_step_launches_k4_and_k5(cuda_device):
     assert np.isfinite(metrics["loss"].item())
     assert all(v.device.type == "cuda" and not v.requires_grad
                for v in state.variables["batch_stats"].values())
+
+
+tfb = importlib.import_module("kubeflow_tpu_torch.ops.fused_block")
+
+
+def _eval_block(cuda_device, n, h, cin, cmid, cout, proj, seed=12):
+    """Folded-BN block weights of the model's kind (kernels N(0,
+    1/fan_in), scales near 1) and a bf16 input, on the card."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def kernel(*s):
+        return (torch.randn(s, generator=g) / np.sqrt(np.prod(s[:-1]))).to(
+            cuda_device)
+
+    def vec(c, mean=0.0):
+        return (mean + 0.1 * torch.randn(c, generator=g)).to(cuda_device)
+
+    kw = dict(wp=kernel(cin, cout), sp=vec(cout, 1.0), bp=vec(cout)) \
+        if proj else {}
+    w = tfb.FusedBlockWeights(
+        w1=kernel(cin, cmid), s1=vec(cmid, 1.0), b1=vec(cmid),
+        w2=kernel(3, 3, cmid, cmid), s2=vec(cmid, 1.0), b2=vec(cmid),
+        w3=kernel(cmid, cout), s3=vec(cout, 1.0), b3=vec(cout), **kw)
+    x = torch.randn((n, h, h, cin), generator=g).to(cuda_device,
+                                                    torch.bfloat16)
+    return x, w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,cin,cmid,cout,proj", [
+    (2, 8, 16, 8, 32, True),                 # small, projection
+    (3, 5, 24, 16, 24, False),               # odd sizes, image seams
+    (64, 14, 1024, 256, 1024, False),        # ResNet-50 stage 3
+])
+def test_fused_block_eval_kernel_matches_plain(cuda_device, n, h, cin, cmid,
+                                               cout, proj):
+    """K6 against its plain version on the same bf16 inputs (chip_smoke's
+    bars: |d| <= 2^-6 (|ref| + 1) for all but 10^-4 of the elements, and
+    at most 4% of the elements differing at all, since both round at the
+    same points); one counted call."""
+    x, w = _eval_block(cuda_device, n, h, cin, cmid, cout, proj)
+    before = tfb.fused_bottleneck_eval.launches
+    out = tfb.fused_bottleneck_eval(x, w)
+    torch.cuda.synchronize()
+    assert tfb.fused_bottleneck_eval.launches == before + 1
+    assert out.dtype == torch.bfloat16 and out.shape == (n, h, h, cout)
+    ref = tfb.fused_bottleneck_eval_plain(x, w)
+    d = (out.float() - ref.float()).abs()
+    assert (d > 2.0 ** -6 * (ref.float().abs() + 1)).float().mean() <= 1e-4
+    assert (d > 0).float().mean() <= 0.04
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfb.fused_bottleneck_eval(x.float(), w)
+
+
+@pytest.mark.gpu
+def test_fused_eval_apply_launches_k6_13_times(cuda_device):
+    """fused_eval_apply at 224 px, batch 2: every stride-1 block of
+    ResNet-50 runs K6 once (13 launches), and the logits stay within 5e-2
+    of the largest logit of ResNet.apply(train=False) on the same
+    weights."""
+    from kubeflow_tpu_torch.models import resnet as R
+    model = R.resnet50(num_classes=1000)
+    params, variables = model.init(torch.Generator().manual_seed(0))
+    params = {k: v.to(cuda_device) for k, v in params.items()}
+    stats = {k: v.to(cuda_device) for k, v in variables["batch_stats"].items()}
+    x = torch.randn((2, 224, 224, 3), generator=torch.Generator(
+        ).manual_seed(1)).to(cuda_device)
+    before = tfb.fused_bottleneck_eval.launches
+    with torch.inference_mode():
+        fused = R.fused_eval_apply({"params": params, "batch_stats": stats},
+                                   x)
+        default = model.apply(params, stats, x, train=False)
+    torch.cuda.synchronize()
+    assert tfb.fused_bottleneck_eval.launches - before == 13
+    assert fused.shape == (2, 1000) and torch.isfinite(fused).all()
+    assert (fused - default).abs().max() <= 5e-2 * default.abs().max()

@@ -41,6 +41,8 @@ def test_every_module_imports_without_jax():
     assert "kubeflow_tpu_torch.ops.fused_block_train" in modules
     assert "kubeflow_tpu_torch.ops.fused_block_train_spatial" in modules
     assert "kubeflow_tpu_torch.models.resnet" in modules
+    assert "kubeflow_tpu_torch.ops.fused_block" in modules
+    assert "kubeflow_tpu_torch.serving.batch_predict" in modules
     code = "\n".join([
         "import importlib, sys",
         "for name in ('jax', 'flax', 'optax', 'kubeflow_tpu'):",
@@ -102,7 +104,8 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build_all()
     assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd",
-                                "fused_adam", "fused_block_train"]
+                                "fused_adam", "fused_block",
+                                "fused_block_train"]
 
 
 def test_build_key_follows_the_source(monkeypatch, tmp_path):

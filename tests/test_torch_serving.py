@@ -249,8 +249,10 @@ def test_checkpoint_paths_refuse_until_ported():
                   device="cpu", **CFG)
     with pytest.raises(NotImplementedError):
         repo.reload("lm")
-    with pytest.raises(KeyError, match="resnet50"):
-        repo.load("r", "resnet50", device="cpu")
+    with pytest.raises(KeyError, match="resnet77"):
+        repo.load("r", "resnet77", device="cpu")
+    r = repo.load("r", "resnet50", device="cpu")
+    assert r.input_signature["inputs"]["shape"] == [-1, 224, 224, 3]
 
 
 def test_client_retry_helpers():
