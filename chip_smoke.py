@@ -14,11 +14,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
              never calls it):
              K1, the flash-attention forward: bf16 at the serving shape
              (batch 1 and 8, S 2048, 12 heads x 64, causal), non-causal,
-             a ragged S 1000, f32, and with_lse; yardstick sdpa.
+             a ragged S 1000, f32, and with_lse; then bf16 cases that
+             stress the tensor-core kernel (D 32, 128 and 40, S 1 and 65,
+             causal with Sq != Sk both ways, the fused-qkv slices);
+             yardstick sdpa.
              K2a/K2b, the backward (dq; dk and dv): bf16 at the training
-             shape [8, 2048, 12, 64] causal, non-causal, ragged S 1000 and
-             f32 S 333, on strided slices of a fused qkv tensor;
+             shape [8, 2048, 12, 64] causal, non-causal, ragged S 1000,
+             f32 S 333, and bf16 at D 32, 128 and 40, S 65 and one q row
+             over 65 keys, on strided slices of a fused qkv tensor;
              yardstick sdpa's backward through torch.autograd.grad.
+             Each case prints the largest share of its bar that any value
+             uses; each timing its TFLOP/s and its share of the bound.
              K3, the fused Adam update: the LM's 101 parameter tensors for
              3 steps with weight decay on the rank > 1 ones; yardstick
              torch.optim.Adam(fused=True).step().
@@ -248,22 +254,34 @@ def bound_ms(flops, nbytes, flops_peak) -> tuple:
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def attention_bound_ms(b, s, h, d, causal, itemsize, products=2,
-                       tensors_in=3, tensors_out=1, rows_f32=1) -> tuple:
-    """Least time for an attention function on the card: ``products``
-    S x S x D matmuls over the unmasked (row, col) pairs at the peak rate
-    for the input type, against ``tensors_in`` [B, S, H, D] inputs read
-    once and ``tensors_out`` written once in the input type, plus
-    ``rows_f32`` f32 [B, H, S] rows (lse, delta). The forward is 2
-    products (3 in, 1 out, lse); K2a 3 (s, dp, dq; q k v do in, dq out,
-    lse and delta); K2b 4 (s, dp, dv, dk; dk dv out); the whole backward
-    5 (s, dp, dq, dk, dv)."""
+def attention_work(b, s, h, d, causal, itemsize, products=2, tensors_in=3,
+                   tensors_out=1, rows_f32=1) -> tuple:
+    """(FLOPs, bytes) of an attention function: ``products`` S x S x D
+    matmuls over the unmasked (row, col) pairs, against ``tensors_in``
+    [B, S, H, D] inputs read once and ``tensors_out`` written once in the
+    input type, plus ``rows_f32`` f32 [B, H, S] rows (lse, delta). The
+    forward is 2 products (3 in, 1 out, lse); K2a 3 (s, dp, dq; q k v do
+    in, dq out, lse and delta); K2b 4 (s, dp, dv, dk; dk dv out); the
+    whole backward 5 (s, dp, dq, dk, dv)."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 2 * products * b * h * d * pairs
     nbytes = (tensors_in + tensors_out) * b * s * h * d * itemsize + \
         rows_f32 * b * h * s * 4
+    return flops, nbytes
+
+
+def attention_bound_ms(b, s, h, d, causal, itemsize, **work) -> tuple:
+    """Least time for an attention function on the card (attention_work
+    at the peak rate for the input type and the memory rate)."""
+    flops, nbytes = attention_work(b, s, h, d, causal, itemsize, **work)
     peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS
     return bound_ms(flops, nbytes, peak)
+
+
+def tflops(b, s, h, d, causal, itemsize, ms, **work) -> float:
+    """The rate a kernel reached: attention_work's FLOPs over its time."""
+    return attention_work(b, s, h, d, causal, itemsize, **work)[0] / \
+        (ms * 1e-3) / 1e12
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -297,27 +315,44 @@ def phase_kernels(fa) -> dict:
     F = torch.nn.functional
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(0)
+    h, d = SERVE_HEADS, SERVE_HEAD_DIM
 
-    def qkv(b, s, h, d, dtype):
+    def qkv(b, sq, sk, h, d, dtype, fused):
+        if fused:   # the model's slices of one fused qkv tensor
+            x = torch.randn((b, sq, 3, h, d), generator=gen, device=dev,
+                            dtype=torch.float32).to(dtype)
+            return x[:, :, 0], x[:, :, 1], x[:, :, 2]
         return tuple(torch.randn((b, s, h, d), generator=gen, device=dev,
                                  dtype=torch.float32).to(dtype)
-                     for _ in range(3))
+                     for s in (sq, sk, sk))
 
-    cases = [  # (label, b, s, causal, dtype)
-        ("serving b=1", 1, SERVE_SEQ, True, torch.bfloat16),
-        ("serving b=8", MAX_BATCH, SERVE_SEQ, True, torch.bfloat16),
-        ("non-causal b=2", 2, SERVE_SEQ, False, torch.bfloat16),
-        ("ragged S=1000", 2, 1000, True, torch.bfloat16),
-        ("f32 S=333", 2, 333, True, torch.float32),
+    bf = torch.bfloat16
+    cases = [  # (label, b, sq, sk, h, d, causal, dtype, fused)
+        ("serving b=1", 1, SERVE_SEQ, SERVE_SEQ, h, d, True, bf, False),
+        ("serving b=8", MAX_BATCH, SERVE_SEQ, SERVE_SEQ, h, d, True, bf,
+         False),
+        ("non-causal b=2", 2, SERVE_SEQ, SERVE_SEQ, h, d, False, bf, False),
+        ("ragged S=1000", 2, 1000, 1000, h, d, True, bf, False),
+        ("f32 S=333", 2, 333, 333, h, d, True, torch.float32, False),
+        # the bf16 kernel's templates (D 32, 64, 128), a padded D, S = 1,
+        # a ragged tile, causal with Sq != Sk, and the fused-qkv slices
+        ("D=32 S=300", 2, 300, 300, 4, 32, True, bf, False),
+        ("D=128 S=257", 2, 257, 257, 4, 128, True, bf, False),
+        ("D=40 S=190", 2, 190, 190, 3, 40, True, bf, False),
+        ("S=1", 3, 1, 1, h, d, True, bf, False),
+        ("S=65", 2, 65, 65, h, d, True, bf, False),
+        ("causal Sq=300 Sk=1000", 2, 300, 1000, h, d, True, bf, False),
+        ("causal Sq=1000 Sk=300", 2, 1000, 300, h, d, True, bf, False),
+        ("fused qkv b=2", 2, SERVE_SEQ, SERVE_SEQ, h, d, True, bf, True),
     ]
-    err_at_serving = 0.0
-    for label, b, s, causal, dtype in cases:
-        q, k, v = qkv(b, s, SERVE_HEADS, SERVE_HEAD_DIM, dtype)
+    err_at_serving, margins = 0.0, {}
+    for label, b, sq, sk, hh, dd, causal, dtype, fused in cases:
+        q, k, v = qkv(b, sq, sk, hh, dd, dtype, fused)
         o, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
         torch.cuda.synchronize()
         p_o, p_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
         if o.shape != p_o.shape or o.dtype != dtype or \
-                lse.shape != (b, SERVE_HEADS, s):
+                lse.shape != (b, hh, sq):
             fail(f"{label}: shapes {tuple(o.shape)} {tuple(lse.shape)}")
         if not (torch.isfinite(o.float()).all() and
                 torch.isfinite(lse).all()):
@@ -330,10 +365,13 @@ def phase_kernels(fa) -> dict:
         else:
             limit = torch.full_like(d_o, F32_ATOL)
             tol = f"|d| <= {F32_ATOL}"
+        # the largest share of its bar that any value uses (<= 1 passes)
+        margin = max((d_o / limit).max().item(), d_lse / LSE_ATOL)
+        margins[label] = margin
         ok = bool((d_o <= limit).all()) and d_lse <= LSE_ATOL
         log(f"[kernels] K1 {label}: max|d o| {d_o.max().item():.3e} "
-            f"({tol}), max|d lse| {d_lse:.3e} (<= {LSE_ATOL}) "
-            f"{'ok' if ok else 'MISMATCH'}")
+            f"({tol}), max|d lse| {d_lse:.3e} (<= {LSE_ATOL}), "
+            f"{margin:.3f} of the bar {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"K1 disagrees with its plain version at {label}")
         if label == f"serving b={MAX_BATCH}":
@@ -342,8 +380,7 @@ def phase_kernels(fa) -> dict:
 
     timings = {}
     for b in (1, MAX_BATCH):
-        q, k, v = qkv(b, SERVE_SEQ, SERVE_HEADS, SERVE_HEAD_DIM,
-                      torch.bfloat16)
+        q, k, v = qkv(b, SERVE_SEQ, SERVE_SEQ, h, d, bf, False)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         # inputs of 3 x b x 3 MB: at b=8 (75 MB) they exceed the 50 MB L2
         ms = cuda_time_ms(lambda: fa.flash_attention_fwd_cuda(
@@ -352,27 +389,35 @@ def phase_kernels(fa) -> dict:
             q, k, v, causal=True), iters=5)
         lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
-        bound, by = attention_bound_ms(b, SERVE_SEQ, SERVE_HEADS,
-                                       SERVE_HEAD_DIM, True, 2)
+        shape = (b, SERVE_SEQ, h, d, True, 2)
+        bound, by = attention_bound_ms(*shape)
+        rate = tflops(*shape, ms)
         timings[b] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                      "bound_ms": bound, "bound_by": by}
-        log(f"[kernels] K1 time b={b} S={SERVE_SEQ} H={SERVE_HEADS} "
-            f"D={SERVE_HEAD_DIM} bf16 causal: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {bound:.4f} "
+                      "bound_ms": bound, "bound_by": by, "tflops": rate}
+        log(f"[kernels] K1 time b={b} S={SERVE_SEQ} H={h} D={d} bf16 "
+            f"causal: kernel {ms:.4f} ms ({rate:.1f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms "
+            f"({tflops(*shape, lib_ms):.1f} TFLOP/s), bound {bound:.4f} "
             f"ms ({by}), kernel at {bound / ms:.2%} of bound")
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return {"err": err_at_serving, "timings": timings}
+    return {"err": err_at_serving, "timings": timings, "margins": margins}
 
 
-def _k2_close(got, ref, dtype) -> tuple[bool, float]:
+def _k2_close(got, ref, dtype) -> tuple[bool, float, float]:
+    """(within the bar, max|d|, the largest share of its bar that any
+    value uses)."""
     d = (got.float() - ref.float()).abs()
     r = ref.float().abs()
     if dtype == torch.bfloat16:
-        ok = bool((d <= K2_BF16_RTOL * r + K2_BF16_FLOOR * r.max()).all())
+        limit = K2_BF16_RTOL * r + K2_BF16_FLOOR * r.max()
+        margin = (d / limit.clamp_min(1e-30)).max().item()
+        ok = bool((d <= limit).all())
     else:
-        ok = d.max().item() <= K2_F32_TOL * max(1.0, r.max().item())
-    return ok, d.max().item()
+        limit = K2_F32_TOL * max(1.0, r.max().item())
+        margin = d.max().item() / limit
+        ok = d.max().item() <= limit
+    return ok, d.max().item(), margin
 
 
 def phase_k2(fa) -> dict:
@@ -384,24 +429,34 @@ def phase_k2(fa) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     h, d = SERVE_HEADS, SERVE_HEAD_DIM
 
-    def inputs(b, s, causal, dtype):
+    def inputs(b, s, causal, dtype, h=h, d=d, sq=None):
         qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev).to(
             dtype)
-        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+        q, k, v = qkv[:, :sq, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
         o, lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
         return q, k, v, do, lse, fa.attention_delta(o, do)
 
-    cases = [  # (label, b, s, causal, dtype)
-        (f"train b={TRAIN_BATCH}", TRAIN_BATCH, SERVE_SEQ, True,
-         torch.bfloat16),
-        ("non-causal b=2", 2, SERVE_SEQ, False, torch.bfloat16),
-        ("ragged S=1000", 2, 1000, True, torch.bfloat16),
-        ("f32 S=333", 2, 333, True, torch.float32),
+    bf = torch.bfloat16
+    cases = [  # (label, b, s (keys), causal, dtype, h, d, q rows)
+        (f"train b={TRAIN_BATCH}", TRAIN_BATCH, SERVE_SEQ, True, bf, h, d,
+         None),
+        ("non-causal b=2", 2, SERVE_SEQ, False, bf, h, d, None),
+        ("ragged S=1000", 2, 1000, True, bf, h, d, None),
+        ("f32 S=333", 2, 333, True, torch.float32, h, d, None),
+        # the bf16 K2b's templates (D 32, 64, 128), a padded D, a ragged
+        # tile, one key (a k tile with 127 of its 128 rows past Sk) and one
+        # q row over 65 keys
+        ("D=32 S=300", 2, 300, True, bf, 4, 32, None),
+        ("D=128 S=257", 2, 257, True, bf, 4, 128, None),
+        ("D=40 S=190", 2, 190, True, bf, 3, 40, None),
+        ("S=65", 2, 65, True, bf, h, d, None),
+        ("S=1", 3, 1, True, bf, 2, d, None),
+        ("Sq=1 Sk=65 non-causal", 3, 65, False, bf, h, d, 1),
     ]
-    errs = {}
-    for label, b, s, causal, dtype in cases:
-        q, k, v, do, lse, delta = inputs(b, s, causal, dtype)
+    errs, margins = {}, {}
+    for label, b, s, causal, dtype, hh, dd, sq in cases:
+        q, k, v, do, lse, delta = inputs(b, s, causal, dtype, hh, dd, sq)
         assert not q.is_contiguous()
         dq = fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta,
                                             causal=causal)
@@ -415,16 +470,24 @@ def phase_k2(fa) -> dict:
         results = {n: _k2_close(g, r, dtype) for n, g, r in
                    (("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv))}
         for n, g in (("dq", dq), ("dk", dk), ("dv", dv)):
-            if g.shape != q.shape or g.dtype != dtype or \
+            if g.shape != (q if n == "dq" else k).shape or \
+                    g.dtype != dtype or \
                     not torch.isfinite(g.float()).all():
                 fail(f"K2 {label}: {n} {tuple(g.shape)} {g.dtype} or "
                      f"non-finite")
         tol = (f"|d| <= 2^-7|ref| + 2^-8 max|ref|"
                if dtype == torch.bfloat16 else
                f"|d| <= {K2_F32_TOL} max(1, max|ref|)")
-        ok = all(r[0] for r in results.values())
+        # with one key p = 1 and ds = p (dp - delta) = 0, so dq and dk are
+        # 0 up to rounding noise, which no relative bar holds; dv (the sum
+        # of do over the q rows) is held to the bar as everywhere
+        held = ("dv",) if s == 1 else ("dq", "dk", "dv")
+        ok = all(results[n][0] for n in held)
+        margins[label] = {n: results[n][2] for n in held}
         log(f"[kernels] K2 {label}: " + ", ".join(
-            f"max|d {n}| {r[1]:.3e}" for n, r in results.items())
+            f"max|d {n}| {r[1]:.3e} "
+            + (f"({r[2]:.3f} of the bar)" if n in held else "(not held)")
+            for n, r in results.items())
             + f" ({tol}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"K2 disagrees with its plain version at {label}")
@@ -455,24 +518,29 @@ def phase_k2(fa) -> dict:
     t["library_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), iters=10)
     args = (b, SERVE_SEQ, SERVE_HEADS, SERVE_HEAD_DIM, True, 2)
-    t["dq_bound"] = attention_bound_ms(*args, products=3, tensors_in=4,
-                                       tensors_out=1, rows_f32=2)
-    t["dkv_bound"] = attention_bound_ms(*args, products=4, tensors_in=4,
-                                        tensors_out=2, rows_f32=2)
+    dq_work = dict(products=3, tensors_in=4, tensors_out=1, rows_f32=2)
+    dkv_work = dict(products=4, tensors_in=4, tensors_out=2, rows_f32=2)
+    t["dq_bound"] = attention_bound_ms(*args, **dq_work)
+    t["dkv_bound"] = attention_bound_ms(*args, **dkv_work)
+    t["dq_tflops"] = tflops(*args, t["dq_ms"], **dq_work)
+    t["dkv_tflops"] = tflops(*args, t["dkv_ms"], **dkv_work)
     whole, _ = attention_bound_ms(*args, products=5, tensors_in=5,
                                   tensors_out=3, rows_f32=1)
     log(f"[kernels] K2 time b={b} S={SERVE_SEQ} H={SERVE_HEADS} "
         f"D={SERVE_HEAD_DIM} bf16 causal: K2a (dq) {t['dq_ms']:.4f} ms "
-        f"(plain {t['dq_plain_ms']:.4f}, bound {t['dq_bound'][0]:.4f} ms "
-        f"{t['dq_bound'][1]}, {t['dq_bound'][0] / t['dq_ms']:.2%} of it); "
-        f"K2b (dk, dv) {t['dkv_ms']:.4f} ms (plain {t['dkv_plain_ms']:.4f}, "
-        f"bound {t['dkv_bound'][0]:.4f} ms {t['dkv_bound'][1]}, "
-        f"{t['dkv_bound'][0] / t['dkv_ms']:.2%} of it); K2a+K2b "
-        f"{t['dq_ms'] + t['dkv_ms']:.4f} ms against the whole backward's "
-        f"bound {whole:.4f} ms; sdpa backward {t['library_ms']:.4f} ms")
+        f"({t['dq_tflops']:.1f} TFLOP/s; plain {t['dq_plain_ms']:.4f}, "
+        f"bound {t['dq_bound'][0]:.4f} ms {t['dq_bound'][1]}, "
+        f"{t['dq_bound'][0] / t['dq_ms']:.2%} of it); K2b (dk, dv) "
+        f"{t['dkv_ms']:.4f} ms ({t['dkv_tflops']:.1f} TFLOP/s; plain "
+        f"{t['dkv_plain_ms']:.4f}, bound {t['dkv_bound'][0]:.4f} ms "
+        f"{t['dkv_bound'][1]}, {t['dkv_bound'][0] / t['dkv_ms']:.2%} of "
+        f"it); K2a+K2b {t['dq_ms'] + t['dkv_ms']:.4f} ms against the whole "
+        f"backward's bound {whole:.4f} ms; sdpa backward "
+        f"{t['library_ms']:.4f} ms (dq, dk and dv: "
+        f"{tflops(*args, t['library_ms'], products=5):.1f} TFLOP/s)")
     del q, k, v, do, lse, delta, qt, kt, vt, out, dot
     torch.cuda.empty_cache()
-    return {"err": errs, "timings": t}
+    return {"err": errs, "timings": t, "margins": margins}
 
 
 def phase_k3(fo, recipe, lm_shapes) -> dict:
@@ -1550,6 +1618,7 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": t["library_ms"],
+        "tflops": t["tflops"],
         "shape": f"[{MAX_BATCH}, {SERVE_SEQ}, {SERVE_HEADS}, "
                  f"{SERVE_HEAD_DIM}] bf16 causal",
     }, {
@@ -1577,6 +1646,7 @@ def main() -> int:
         "bound_ms": k2t["dkv_bound"][0],
         "bound_by": k2t["dkv_bound"][1],
         "library_ms": k2t["library_ms"],
+        "tflops": k2t["dkv_tflops"],
         "shape": train_shape,
     }, {
         "name": "fused_adam",

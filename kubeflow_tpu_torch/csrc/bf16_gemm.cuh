@@ -1,7 +1,7 @@
 // The bf16 tensor-core product that the ResNet bottleneck kernels share
 // (fused_block_train.cu: K4/K5; fused_block.cu: K6): C[M, N] = sum_k
 // A(m, k) B(k, n), bf16 operands, f32 accumulators, on Hopper's
-// `mma.sync.m16n8k16`.
+// `mma.sync.m16n8k16` (the wrapper and `pack2` are in warp_mma.cuh).
 //
 // Operands reach the product through loaders: `load8(row, col, o)` gives
 // 8 bf16 of a logical matrix whose `col` index is contiguous (col % 8 ==
@@ -16,14 +16,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_mma.cuh"
+
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 struct LdBf16 {  // plain row-major bf16 [rows, ld]
   const bf16* p;
@@ -35,15 +30,6 @@ struct LdBf16 {  // plain row-major bf16 [rows, ld]
 
 constexpr int BM = 128, BN = 64, BK = 32, LDS = BK + 8;
 constexpr int GEMM_THREADS = 256;
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 typedef float Acc[2][4][4];  // a warp's 32 x 32 share of the block tile
 

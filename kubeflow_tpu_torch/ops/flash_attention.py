@@ -14,7 +14,12 @@ inside the kernel, ``lse`` returned as ``[batch, heads, seq]`` f32 with
   forward-only, as in the JAX package: on CUDA, an input that requires
   grad there raises.
 - A CUDA tensor launches the kernels (built with nvcc at first use,
-  ops/_build.py) or raises. Nothing falls back.
+  ops/_build.py) or raises. Nothing falls back. The dtype picks the
+  kernel: bf16 K1 and K2b run on the tensor cores and stage their tiles
+  with 16-byte asynchronous copies, so their inputs need 16-byte aligned
+  pointers and strides that are multiples of 8 elements
+  (:func:`check_async_layout`; the model's fused-qkv slices pass); f32
+  runs the FMA kernels. K2a is one FMA kernel for both dtypes.
 - A CPU tensor runs the plain PyTorch versions
   (:func:`flash_attention_fwd_plain`, :func:`flash_attention_bwd_dq_plain`,
   :func:`flash_attention_bwd_dkv_plain`); the tests compare them with the
@@ -140,6 +145,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 
 
 def _check_inputs(q, k, v) -> None:
+    """What K1 and K2b take (their bf16 kernels put b*h on a flat grid)."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
             raise ValueError(f"{name} is on {x.device}; the kernel takes "
@@ -164,8 +170,39 @@ def _check_inputs(q, k, v) -> None:
     if d % 8 or d > 128:
         raise ValueError(f"head_dim {d}: the kernel takes a multiple of 8 "
                          f"up to 128")
+    if q.dtype != torch.bfloat16:
+        _check_grid_y(q)
+
+
+def _check_grid_y(q) -> None:
+    """The FMA kernels (f32 K1 and K2b, K2a in both dtypes) put b*h on
+    gridDim.y, at most 65535."""
+    b, _, h, _ = q.shape
     if b * h > 65535:
         raise ValueError(f"batch*heads {b * h} exceeds the grid limit 65535")
+
+
+def async_ready(x: torch.Tensor) -> bool:
+    """Whether the 16-byte asynchronous copies of the bf16 kernels can read
+    ``x`` ([batch, seq, heads, head_dim], unit-stride head dim): a 16-byte
+    aligned ``data_ptr()`` and (batch, seq, head) strides that are
+    multiples of 8 elements wherever that dim has more than one index."""
+    return x.data_ptr() % 16 == 0 and all(
+        x.shape[i] == 1 or x.stride(i) % 8 == 0 for i in range(3))
+
+
+def check_async_layout(**tensors: torch.Tensor) -> None:
+    """Raise ValueError for any named tensor the bf16 kernels cannot copy
+    asynchronously (see :func:`async_ready`). Nothing is copied to a
+    contiguous tensor behind the caller's back."""
+    for name, x in tensors.items():
+        if not async_ready(x):
+            raise ValueError(
+                f"{name}: the bf16 kernel copies 16-byte chunks, so it needs "
+                f"a 16-byte aligned data_ptr (got {x.data_ptr()} % 16 = "
+                f"{x.data_ptr() % 16}) and (batch, seq, head) strides that "
+                f"are multiples of 8 elements (got {x.stride()[:3]} for "
+                f"shape {tuple(x.shape)})")
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta) -> None:
@@ -210,10 +247,12 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              scale: Optional[float] = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1 on the current stream. Same contract as
-    :func:`flash_attention_fwd_plain`; raises on anything it does not
-    take, and on a launch error."""
+    """Launch K1 on the current stream (bf16: the tensor-core kernel; f32:
+    the FMA kernel). Same contract as :func:`flash_attention_fwd_plain`;
+    raises on anything it does not take, and on a launch error."""
     _check_inputs(q, k, v)
+    if q.dtype == torch.bfloat16:
+        check_async_layout(q=q, k=k, v=v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -238,6 +277,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, *,
     :func:`flash_attention_bwd_dq_plain`; raises on anything it does not
     take, and on a launch error."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
+    _check_grid_y(q)
     b, sq, h, d = q.shape
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lib = _library(_BWD)
@@ -257,9 +297,12 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *,
                                  causal: bool = True,
                                  scale: Optional[float] = None
                                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2b on the current stream. Same contract as
+    """Launch K2b on the current stream (bf16: the tensor-core kernel;
+    f32: the FMA kernel). Same contract as
     :func:`flash_attention_bwd_dkv_plain`."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        check_async_layout(q=q, k=k, v=v, do=do)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
@@ -328,7 +371,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
+        # the upstream gradient's layout is autograd's choice, not the
+        # caller's: give the kernels one they take
+        if do.stride(-1) != 1 or (do.is_cuda and do.dtype == torch.bfloat16
+                                  and not async_ready(do)):
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
                                          causal=ctx.causal, scale=ctx.scale)

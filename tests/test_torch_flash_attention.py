@@ -196,3 +196,68 @@ def test_bwd_cuda_wrappers_refuse_cpu_tensors():
         tfa.flash_attention_bwd_dkv_cuda(q, k, v, q, lse, lse)
     assert (tfa.flash_attention_bwd_dq.launches,
             tfa.flash_attention_bwd_dkv.launches) == launches
+
+
+def _view(base_elems, offset, shape, strides, dtype=torch.bfloat16):
+    flat = torch.zeros(base_elems, dtype=dtype)
+    return flat.as_strided(shape, strides, storage_offset=offset)
+
+
+@pytest.mark.parametrize("name,x,ready", [
+    ("contiguous", torch.zeros(2, 64, 3, 16, dtype=torch.bfloat16), True),
+    # the model's fused-qkv slices: offsets of h*d elements, seq stride
+    # 3*h*d
+    ("qkv slice k", torch.zeros(2, 64, 3, 3, 16,
+                                dtype=torch.bfloat16)[:, :, 1], True),
+    ("qkv slice v, d 40", torch.zeros(2, 9, 3, 2, 40,
+                                      dtype=torch.bfloat16)[:, :, 2], True),
+    ("one element in", _view(4096, 1, (2, 8, 2, 16), (256, 32, 16, 1)),
+     False),
+    ("head stride 12", _view(4096, 0, (2, 8, 2, 8), (192, 24, 12, 1)),
+     False),
+    ("seq stride 20", _view(4096, 0, (2, 8, 1, 16), (160, 20, 16, 1)),
+     False),
+    ("batch stride 100", _view(4096, 0, (2, 4, 2, 8), (100, 16, 8, 1)),
+     False),
+    # a dim with one index has no stride that matters
+    ("single head, odd head stride", _view(4096, 0, (2, 8, 1, 16),
+                                           (128, 16, 3, 1)), True),
+    ("single batch, odd batch stride", _view(4096, 0, (1, 8, 2, 16),
+                                             (7, 32, 16, 1)), True),
+])
+def test_async_layout_check(name, x, ready):
+    """The bf16 kernels' 16-byte copies need 16-byte aligned pointers and
+    (batch, seq, head) strides that are multiples of 8 elements: the
+    check is a pure function of the view, so crafted CPU views test it."""
+    assert x.data_ptr() % 16 == 0 or not ready
+    assert tfa.async_ready(x) is ready, name
+    if ready:
+        tfa.check_async_layout(q=x)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.check_async_layout(k=x, q=torch.zeros(1, 1, 1, 8))
+
+
+def test_bf16_wrappers_check_layout_after_device():
+    """On the CPU the wrappers refuse the tensor for its device first, so
+    the plain versions stay the CPU path; the layout check sits behind."""
+    x = _view(4096, 1, (1, 8, 1, 16), (128, 16, 16, 1))
+    lse = torch.zeros(1, 1, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd_cuda(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd_dkv_cuda(x, x, x, x, lse, lse)
+    o = tfa.flash_attention(x, x, x)      # the plain version takes any view
+    assert o.shape == x.shape and o.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("heads,ok", [(65535, True), (65536, False)])
+def test_fma_kernels_grid_limit(heads, ok):
+    """The FMA kernels put batch*heads on gridDim.y, so more than 65535
+    pairs raise before a launch (the bf16 K1 and K2b take a flat grid)."""
+    q = torch.empty((1, 1, heads, 8), device="meta")
+    if ok:
+        tfa._check_grid_y(q)
+    else:
+        with pytest.raises(ValueError, match="65535"):
+            tfa._check_grid_y(q)

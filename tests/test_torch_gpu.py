@@ -13,7 +13,9 @@ installed:
 Tolerances: f32 within 1e-5 (both sides f32, summed in another order);
 bf16 outputs within 1e-2 + 2^-7 |o| (the kernel and the plain version
 compute in f32 and round once to bf16, so they may land one bf16 step
-apart); lse within 1e-4 (f32 log of f32 sums). Backward (K2): bf16
+apart; the bf16 kernel also rounds P to bf16 for its tensor-core P.V,
+which over S 2048 stays within 0.4 of this bar in a CPU emulation); lse
+within 1e-4 (f32 log of f32 sums). Backward (K2): bf16
 within 2^-7 |ref| + 2^-8 max|ref| (one bf16 step, plus half a step at
 the largest value for f32 sums of up to S terms taken in another order
 before the rounding), f32 within 1e-4 max(1, max|ref|). Fused Adam (K3):
@@ -52,11 +54,22 @@ def _qkv(b, s, h, d, device, dtype, seed=4):
             device, dtype) for _ in range(3))
 
 
+# bf16 shapes that stress the tensor-core kernels: every head-dim
+# template (32, 64, 128), a head dim padded inside its template (40),
+# S = 1, a ragged S, and more than 65535 (batch, head) pairs (the bf16
+# kernels' flat grid)
+BF16_SHAPES = [
+    (1, 2048, 12, 64), (2, 1000, 12, 64), (2, 300, 4, 32), (1, 257, 2, 128),
+    (2, 190, 3, 40), (3, 1, 2, 64), (2, 65, 3, 64), (2, 16, 32800, 8),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,causal,dtype", [
-    ((1, 2048, 12, 64), True, torch.bfloat16),
-    ((2, 1000, 12, 64), True, torch.bfloat16),
     ((2, 1000, 12, 64), False, torch.bfloat16),
+    *((sh, True, torch.bfloat16) for sh in BF16_SHAPES),
+    ((1, 257, 2, 128), False, torch.bfloat16),
+    ((2, 65, 3, 40), False, torch.bfloat16),
     ((3, 77, 4, 32), True, torch.float32),
     ((1, 130, 2, 128), False, torch.float32),
     ((2, 65, 3, 8), True, torch.float32),
@@ -68,9 +81,15 @@ def test_kernel_matches_plain(cuda_device, shape, causal, dtype):
     o, lse = tfa.flash_attention(q, k, v, causal=causal, with_lse=True)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == launches + 1
+    _check_fwd(q, k, v, o, lse, causal)
+
+
+def _check_fwd(q, k, v, o, lse, causal):
     p_o, p_lse = tfa.flash_attention_fwd_plain(q, k, v, causal=causal)
+    dtype = q.dtype
     assert o.dtype == dtype and lse.dtype == torch.float32
-    assert lse.shape == (shape[0], shape[2], shape[1])
+    assert o.shape == q.shape
+    assert lse.shape == (q.shape[0], q.shape[2], q.shape[1])
     diff = (o.float() - p_o.float()).abs()
     if dtype == torch.bfloat16:
         assert bool((diff <= BF16_ATOL
@@ -78,6 +97,61 @@ def test_kernel_matches_plain(cuda_device, shape, causal, dtype):
     else:
         assert diff.max().item() <= 1e-5
     assert (lse - p_lse).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk", [(100, 300), (300, 100), (1, 130),
+                                   (129, 64)])
+def test_bf16_kernel_causal_with_unequal_lengths(cuda_device, sq, sk):
+    """Causal with Sq != Sk: the mask stays top-left aligned (cols <=
+    rows), so rows past Sk see every key and rows before it fewer."""
+    q = _qkv(2, sq, 3, 64, cuda_device, torch.bfloat16, seed=12)[0]
+    k, v = _qkv(2, sk, 3, 64, cuda_device, torch.bfloat16, seed=13)[:2]
+    o, lse = tfa.flash_attention(q, k, v, causal=True, with_lse=True)
+    _check_fwd(q, k, v, o, lse, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,d", [(2048, 12, 64), (333, 4, 32),
+                                   (190, 2, 128), (77, 3, 40)])
+def test_bf16_kernels_read_strided_qkv_slices(cuda_device, s, h, d):
+    """The model's fused-qkv slices in bf16: K1 and K2b copy them
+    asynchronously through their strides, no copy made."""
+    g = torch.Generator(device="cpu").manual_seed(14)
+    qkv = torch.randn(2, s, 3, h, d, generator=g).to(cuda_device,
+                                                     torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous() and tfa.async_ready(q)
+    o, lse = tfa.flash_attention(q, k, v, causal=True, with_lse=True)
+    _check_fwd(q, k, v, o, lse, True)
+    do = torch.randn(2, s, h, d, generator=g).to(cuda_device, torch.bfloat16)
+    _check_dkv(q, k, v, do, True)
+
+
+@pytest.mark.gpu
+def test_bf16_kernels_refuse_misaligned_views(cuda_device):
+    """The bf16 kernels copy 16-byte chunks: a view that starts one
+    element in, or whose rows are not 8 elements apart, raises ValueError
+    before any launch; nothing is copied behind the caller's back."""
+    flat = torch.zeros(2 * 64 * 2 * 16 + 8, device=cuda_device,
+                       dtype=torch.bfloat16)
+    shifted = flat[1:1 + 2 * 64 * 2 * 16].view(2, 64, 2, 16)
+    wide = torch.zeros(2, 64, 2, 20, device=cuda_device,
+                       dtype=torch.bfloat16)[..., :16]
+    ok = torch.zeros(2, 64, 2, 16, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(2, 2, 64, device=cuda_device)
+    before = (tfa.flash_attention.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    for bad in (shifted, wide):
+        assert not tfa.async_ready(bad)
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention(bad, ok, ok, with_lse=True)
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention_fwd_cuda(ok, ok, bad)
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention_bwd_dkv_cuda(ok, ok, ok, bad, lse, lse)
+    assert (tfa.flash_attention.launches,
+            tfa.flash_attention_bwd_dkv.launches) == before
 
 
 @pytest.mark.gpu
@@ -146,8 +220,12 @@ def _close(got, ref, dtype) -> bool:
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,causal,dtype", [
     ((2, 2048, 12, 64), True, torch.bfloat16),
-    ((2, 1000, 12, 64), True, torch.bfloat16),
     ((2, 1000, 12, 64), False, torch.bfloat16),
+    # not S = 1: with one key, dq and dk are 0 up to rounding noise, which
+    # no relative bar holds (a single q row is in the Sq != Sk test)
+    *((sh, True, torch.bfloat16) for sh in BF16_SHAPES[1:-1] if sh[1] > 1),
+    ((1, 257, 2, 128), False, torch.bfloat16),
+    ((2, 65, 3, 40), False, torch.bfloat16),
     ((2, 333, 4, 32), True, torch.float32),
     ((1, 130, 2, 128), False, torch.float32),
     ((2, 65, 3, 8), True, torch.float32),
@@ -169,13 +247,57 @@ def test_backward_kernels_match_plain(cuda_device, shape, causal, dtype):
         (before[0] + 1, before[1] + 1)
     p_dq = tfa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
                                             causal=causal)
+    assert dq.dtype == dtype and dq.shape == q.shape
+    assert _close(dq, p_dq, dtype), \
+        f"dq: max|d| {(dq.float() - p_dq.float()).abs().max()}"
+    _check_dkv(q, k, v, do, causal, (dk, dv), lse, delta)
+
+
+def _check_dkv(q, k, v, do, causal, got=None, lse=None, delta=None):
+    """K2b's (dk, dv) against its plain version; launches K2b when
+    ``got`` is not given."""
+    if lse is None:
+        o, lse = tfa.flash_attention_fwd_plain(q, k, v, causal=causal)
+        delta = tfa.attention_delta(o, do)
+    if got is None:
+        got = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                          causal=causal)
     p_dk, p_dv = tfa.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
                                                    causal=causal)
-    for name, got, ref in (("dq", dq, p_dq), ("dk", dk, p_dk),
-                           ("dv", dv, p_dv)):
-        assert got.dtype == dtype and got.shape == q.shape, name
-        assert _close(got, ref, dtype), \
-            f"{name}: max|d| {(got.float() - ref.float()).abs().max()}"
+    # with one key p = 1 and ds = p (dp - delta) = 0, so dk is 0 up to
+    # rounding noise, which no relative bar holds; dv (the sum of do over
+    # the q rows) is held to the bar as everywhere
+    held = ("dv",) if k.shape[1] == 1 else ("dk", "dv")
+    for name, g, ref in (("dk", got[0], p_dk), ("dv", got[1], p_dv)):
+        assert g.dtype == q.dtype and g.shape == k.shape, name
+        assert bool(torch.isfinite(g.float()).all()), name
+        if name in held:
+            assert _close(g, ref, q.dtype), \
+                f"{name}: max|d| {(g.float() - ref.float()).abs().max()}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,sk,causal", [
+    (100, 300, True), (100, 300, False), (300, 100, True), (64, 200, True),
+    (1, 65, False), (1, 1, True), (65, 1, True), (65, 1, False),
+])
+def test_bf16_dkv_kernel_with_unequal_lengths(cuda_device, sq, sk, causal):
+    """K2b with Sq != Sk: causal k tiles past every q row's diagonal get
+    zeros; a single q row (non-causal: causal, it sees one key and its
+    gradients are rounding noise) feeds every k tile; one key leaves 127
+    of the k tile's 128 rows past Sk, and dv is the sum of do."""
+    q, do = _qkv(2, sq, 3, 64, cuda_device, torch.bfloat16, seed=15)[:2]
+    k, v = _qkv(2, sk, 3, 64, cuda_device, torch.bfloat16, seed=16)[:2]
+    _check_dkv(q, k, v, do, causal)
+
+
+@pytest.mark.gpu
+def test_bf16_dkv_kernel_takes_a_flat_grid(cuda_device):
+    """More than 65535 (batch, head) pairs: K2b's flat grid takes them
+    (K2a, an FMA kernel with b*h on gridDim.y, does not)."""
+    q, k, v = _qkv(*BF16_SHAPES[-1], cuda_device, torch.bfloat16, seed=17)
+    do = _qkv(*BF16_SHAPES[-1], cuda_device, torch.bfloat16, seed=18)[0]
+    _check_dkv(q, k, v, do, True)
 
 
 @pytest.mark.gpu
