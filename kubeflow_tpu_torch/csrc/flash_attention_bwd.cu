@@ -15,16 +15,41 @@
 // causal) the backward needs five S x S x D products over the unmasked
 // (row, col) pairs against a few bytes per (row, head-dim) element, so
 // the card's arithmetic rate bounds it, not its memory. The TPU code's
-// split into two kernels stays (they recompute s and dp in both):
+// split into two kernels stays (they recompute s and dp in both). In bf16
+// both run on the tensor cores (`mma.sync.m16n8k16`, bf16 operands, f32
+// accumulators; 989 TFLOP/s peak against the CUDA cores' 67); each output
+// element has one owner, so there are no atomics and the backward is
+// deterministic:
+//
+// K2a in bf16: `flash_bwd_dq_bf16_kernel`, its three products on the
+// tensor cores:
+// - One block of 8 warps owns one 128-row q tile of one (b, h); each warp
+//   owns 16 q rows, and dQ accumulates in its registers over the key
+//   tiles, up to the diagonal. The flat grid starts the q tiles with the
+//   most key tiles first and takes any B*H.
+// - Q and dO are copied in once and held as A fragments (`ldmatrix`);
+//   lse and delta belong to the warp's own rows, so they sit in registers.
+// - K and V come in 128 keys a tile through a 2-stage ring of 16-byte
+//   `cp.async` copies (zero-filled past Sk and D): tile j + 1 is in
+//   flight while tile j is computed. A tile is consumed in steps of 32
+//   keys: S = Q.K^T and dP = dO.V^T (K and V as B operands, plain
+//   `ldmatrix`), P = exp(S scale - lse), dS = P (dP - delta), and dS,
+//   packed to bf16 straight from the C fragments, is the A operand of
+//   dQ += dS.K, with K read again from the same staged tile through
+//   `ldmatrix.trans`: dS never goes through shared memory.
+// - Causal: key tiles above the block's last row are never loaded; a warp
+//   skips a step whose keys all lie above its 16 rows (or past Sk); only
+//   steps on the diagonal or the ragged edge apply the mask.
+// - dQ is scaled once in f32 and written with 16-byte stores through the
+//   warp's own rows of the Q buffer.
 //
 // K2b in bf16: `flash_bwd_dkv_bf16_kernel`, its four products on the
-// tensor cores (`mma.sync.m16n8k16`, bf16 operands, f32 accumulators):
+// tensor cores:
 // - One block of 8 warps owns one 128-row k tile of one (b, h); each warp
 //   owns 16 key rows, and dK and dV accumulate in its registers over the
 //   q tiles (64 rows; 32 at D 128, for registers), from the diagonal
-//   down. Each output element has one owner: no atomics, and the backward
-//   stays deterministic. The flat grid starts the k tiles with the most q
-//   tiles first and takes any B*H.
+//   down. The flat grid starts the k tiles with the most q tiles first
+//   and takes any B*H.
 // - The scores come out transposed: S^T = K.Q^T and dP^T = V.dO^T, with
 //   key rows as M. P^T and dS^T then sit in the C-fragment layout that,
 //   packed to bf16, is the A operand of dV += P^T.dO and dK += dS^T.Q
@@ -38,18 +63,18 @@
 // - Causal: the loop starts at the diagonal tile; a warp whose keys all
 //   lie past a tile's rows skips it; only tiles on the diagonal or the
 //   ragged edge apply the mask.
-// - P and dS are rounded to bf16 before their products, a rounding point
-//   the JAX kernel does not have (it keeps them in f32); over S 2048 the
-//   gradients stay within 0.6 of the bar that holds them.
 //
-// K2a (both dtypes) and K2b in f32: the first port's FMA kernels on the
-// CUDA cores (peak 67 TFLOP/s; tensor cores would mean TF32 for f32,
-// which breaks the f32 bars):
+// dS (both) and P (K2b) are rounded to bf16 before their products, a
+// rounding point the JAX kernels do not have (they keep them in f32);
+// over S 2048 the gradients stay within 0.6 of the bar that holds them.
+//
+// In f32: the first port's FMA kernels on the CUDA cores (tensor cores
+// would mean TF32, which breaks the f32 bars):
 // - The TPU kernels carry their accumulators in VMEM across a sequential
 //   grid axis. Here one block owns one 64-row q tile (K2a) or one 64-row
 //   k tile (K2b) of one (batch, head) and loops over the other axis
 //   itself, so the dq (K2a) or dk/dv (K2b) accumulators stay in registers
-//   for the whole loop.
+//   for the whole loop. The grid is flat, as in bf16, and takes any B*H.
 // - Causal: K2a visits k tiles up to the diagonal; K2b visits q tiles
 //   from the diagonal down. Tiles wholly above the diagonal are never
 //   loaded (the TPU's `_when_relevant`).
@@ -59,17 +84,21 @@
 //   products that contract over the score columns.
 //
 // All of them take every sequence length: the ragged edge is masked (rows
-// >= Sq and columns >= Sk give p = 0 and are not written). q, k, v and do
-// are read through (batch, seq, head) strides with a unit stride on the
-// head dim, so the model's fused-qkv slices need no copy (the bf16 K2b
-// needs 16-byte aligned pointers and strides that are multiples of 8
-// elements). lse and delta are contiguous [B, H, Sq] f32; dq, dk and dv
-// are written contiguous [B, S, H, D].
+// >= Sq and columns >= Sk give p = 0 and are not written). The head dim
+// is padded with zeros to 32, 64 or 128: f32 takes any head dim up to
+// 128, bf16 a multiple of 8 (its 16-byte copies). q, k, v and do are read
+// through (batch, seq, head) strides with a unit stride on the head dim,
+// so the model's fused-qkv slices need no copy (bf16 needs 16-byte
+// aligned pointers and strides that are multiples of 8 elements). lse and
+// delta are contiguous [B, H, Sq] f32; dq, dk and dv are written
+// contiguous [B, S, H, D].
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "warp_mma.cuh"
 
@@ -84,23 +113,10 @@ struct Strides {  // in elements; the head dim is unit stride
   int64_t qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// rows [row0, row0 + 64) of a [.., S, .., D] input into a padded f32 tile
-template <typename T, int DMAX>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// rows [row0, row0 + 64) of a [.., S, .., D] f32 input into a padded
+// tile; columns >= D are zero-filled
+template <int DMAX>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int64_t row_stride, int row0,
                                           int rows, int D) {
   for (int idx = threadIdx.x; idx < 64 * DMAX; idx += THREADS) {
@@ -108,7 +124,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
     const int c = idx % DMAX;
     const int row = row0 + r;
     float x = 0.f;
-    if (row < rows && c < D) x = to_f32(src[row * row_stride + c]);
+    if (row < rows && c < D) x = src[row * row_stride + c];
     dst[r * (DMAX + 1) + c] = x;
   }
 }
@@ -124,15 +140,17 @@ constexpr size_t dkv_smem_bytes() {
          (4 * 64 * (DMAX + 1) + 2 * BLOCK_N * P_LD + 2 * BLOCK_M);
 }
 
-// K2a: one block per (b*h, 64-row q tile); loops over k tiles.
-template <typename T, int DMAX>
+// K2a in f32: one block per (b*h, 64-row q tile), the q tiles with the
+// most k tiles first; loops over k tiles.
+template <int DMAX>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int H, int Sq, int Sk, int D, Strides st, float scale,
-                    int causal) {
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int BH, int H, int Sq, int Sk, int D, Strides st,
+                    float scale, int causal) {
   constexpr int LD = DMAX + 1;
   constexpr int COLS = DMAX / 16;  // head-dim columns per thread
   extern __shared__ float smem[];
@@ -144,16 +162,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int bh = blockIdx.y;
+  const int tile = blockIdx.x / BH;
+  const int bh = blockIdx.x - tile * BH;
   const int b = bh / H;
   const int h = bh % H;
-  const int row0 = blockIdx.x * BLOCK_M;
+  const int row0 = ((Sq + BLOCK_M - 1) / BLOCK_M - 1 - tile) * BLOCK_M;
 
-  load_tile<T, DMAX>(q_s, q + b * st.qb + h * st.qh, st.qs, row0, Sq, D);
-  load_tile<T, DMAX>(do_s, dout + b * st.ob + h * st.oh, st.os, row0, Sq,
-                     D);
-  const T* kb = k + b * st.kb + h * st.kh;
-  const T* vb = v + b * st.vb + h * st.vh;
+  load_tile<DMAX>(q_s, q + b * st.qb + h * st.qh, st.qs, row0, Sq, D);
+  load_tile<DMAX>(do_s, dout + b * st.ob + h * st.oh, st.os, row0, Sq, D);
+  const float* kb = k + b * st.kb + h * st.kh;
+  const float* vb = v + b * st.vb + h * st.vh;
 
   float lse_r[4], delta_r[4], acc[4][COLS];
 #pragma unroll
@@ -175,8 +193,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < n_tiles; ++j) {
     const int col0 = j * BLOCK_N;
     __syncthreads();  // the previous tile's ds.k is done with k_s/ds_s
-    load_tile<T, DMAX>(k_s, kb, st.ks, col0, Sk, D);
-    load_tile<T, DMAX>(v_s, vb, st.vs, col0, Sk, D);
+    load_tile<DMAX>(k_s, kb, st.ks, col0, Sk, D);
+    load_tile<DMAX>(v_s, vb, st.vs, col0, Sk, D);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -238,24 +256,26 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty * 4 + i;
     if (row >= Sq) continue;
-    T* out = dq + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D;
+    float* out = dq + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < COLS; ++c) {
       const int col = tx + 16 * c;
-      if (col < D) out[col] = from_f32<T>(acc[i][c] * scale);
+      if (col < D) out[col] = acc[i][c] * scale;
     }
   }
 }
 
-// K2b: one block per (b*h, 64-row k tile); loops over q tiles.
-template <typename T, int DMAX>
+// K2b in f32: one block per (b*h, 64-row k tile), the k tiles with the
+// most q tiles (the first ones) first; loops over q tiles.
+template <int DMAX>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Sq, int Sk, int D,
-                     Strides st, float scale, int causal) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int BH, int H, int Sq, int Sk,
+                     int D, Strides st, float scale, int causal) {
   constexpr int LD = DMAX + 1;
   constexpr int COLS = DMAX / 16;
   extern __shared__ float smem[];
@@ -270,15 +290,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
-  const int bh = blockIdx.y;
+  const int tile = blockIdx.x / BH;
+  const int bh = blockIdx.x - tile * BH;
   const int b = bh / H;
   const int h = bh % H;
-  const int col0 = blockIdx.x * BLOCK_N;  // this block's k rows
+  const int col0 = tile * BLOCK_N;  // this block's k rows
 
-  load_tile<T, DMAX>(k_s, k + b * st.kb + h * st.kh, st.ks, col0, Sk, D);
-  load_tile<T, DMAX>(v_s, v + b * st.vb + h * st.vh, st.vs, col0, Sk, D);
-  const T* qb = q + b * st.qb + h * st.qh;
-  const T* ob = dout + b * st.ob + h * st.oh;
+  load_tile<DMAX>(k_s, k + b * st.kb + h * st.kh, st.ks, col0, Sk, D);
+  load_tile<DMAX>(v_s, v + b * st.vb + h * st.vh, st.vs, col0, Sk, D);
+  const float* qb = q + b * st.qb + h * st.qh;
+  const float* ob = dout + b * st.ob + h * st.oh;
 
   float dk_acc[4][COLS], dv_acc[4][COLS];
 #pragma unroll
@@ -291,8 +312,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = first; it < n_q; ++it) {
     const int row0 = it * BLOCK_M;
     __syncthreads();  // the previous tile's products are done with smem
-    load_tile<T, DMAX>(q_s, qb, st.qs, row0, Sq, D);
-    load_tile<T, DMAX>(do_s, ob, st.os, row0, Sq, D);
+    load_tile<DMAX>(q_s, qb, st.qs, row0, Sq, D);
+    load_tile<DMAX>(do_s, ob, st.os, row0, Sq, D);
     if (threadIdx.x < BLOCK_M) {
       const int row = row0 + threadIdx.x;
       const int64_t at = static_cast<int64_t>(bh) * Sq + row;
@@ -377,14 +398,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < COLS; ++c) {
       const int col = tx + 16 * c;
       if (col < D) {
-        dk[at + col] = from_f32<T>(dk_acc[i][c] * scale);
-        dv[at + col] = from_f32<T>(dv_acc[i][c]);
+        dk[at + col] = dk_acc[i][c] * scale;
+        dv[at + col] = dv_acc[i][c];
       }
     }
   }
 }
 
-template <typename T, int DMAX>
+// a flat grid of `tiles` x B*H blocks, within gridDim.x's limit
+bool flat_grid(int tiles, int B, int H, unsigned* blocks) {
+  const int64_t n = static_cast<int64_t>(tiles) * B * H;
+  *blocks = static_cast<unsigned>(n);
+  return n <= INT_MAX;
+}
+
+template <int DMAX>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int B, int H, int Sq, int Sk, int D,
@@ -392,18 +420,20 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, DMAX>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_bwd_dq_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, B * H);
-  flash_bwd_dq_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), H, Sq, Sk, D, st, scale, causal);
+  unsigned blocks;
+  if (!flat_grid((Sq + BLOCK_M - 1) / BLOCK_M, B, H, &blocks))
+    return cudaErrorInvalidValue;
+  flash_bwd_dq_kernel<DMAX><<<blocks, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dq), B * H, H, Sq, Sk, D, st, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T, int DMAX>
+template <int DMAX>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int H,
@@ -411,15 +441,200 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        int causal, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, DMAX>,
+      flash_bwd_dkv_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  unsigned blocks;
+  if (!flat_grid((Sk + BLOCK_N - 1) / BLOCK_N, B, H, &blocks))
+    return cudaErrorInvalidValue;
+  flash_bwd_dkv_kernel<DMAX><<<blocks, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), B * H, H, Sq,
+      Sk, D, st, scale, causal);
+  return cudaGetLastError();
+}
+
+// -- K2a, bf16: the tensor-core kernel ----------------------------------------
+
+constexpr int TC_QB = 16 * TC_WARPS;  // q rows per block, 16 per warp
+constexpr int TC_KT = 128;            // key rows per staged tile
+constexpr int TC_SUB = 32;            // key rows per step
+
+template <int DMAX>
+constexpr size_t dq_bf16_smem_bytes() {  // Q, dO, then 2 stages of K and V
+  return sizeof(bf16) * (2 * TC_QB + 4 * TC_KT) * (DMAX + 8);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(TC_THREADS, DMAX <= 64 ? 2 : 1)
+flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int BH, int H, int Sq, int Sk,
+                         int D, Strides st, float scale, int causal) {
+  constexpr int LD = DMAX + 8;   // padded row: ldmatrix rows hit 8 banks
+  constexpr int KD = DMAX / 16;  // k16 steps over the head dim
+  constexpr int NS = TC_SUB / 8;  // n8 tiles of a warp's score rows
+  constexpr int NO = DMAX / 8;   // n8 tiles of a warp's dQ rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16(*q_s)[LD] = reinterpret_cast<bf16(*)[LD]>(smem_raw);
+  bf16(*do_s)[LD] = q_s + TC_QB;
+  bf16(*k_s)[TC_KT][LD] = reinterpret_cast<bf16(*)[TC_KT][LD]>(do_s + TC_QB);
+  bf16(*v_s)[TC_KT][LD] = k_s + 2;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix row addresses
+  const int n_qt = (Sq + TC_QB - 1) / TC_QB;
+  const int bh = blockIdx.x % BH;
+  // the q tiles with the most key tiles (the last ones) start first
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x / BH);
+  const int b = bh / H, h = bh % H;
+  const int row0 = qt * TC_QB;
+  const int wrow = row0 + warp * 16;  // this warp's first q row
+  const bf16* kb = k + b * st.kb + h * st.kh;
+  const bf16* vb = v + b * st.vb + h * st.vh;
+
+  int n_tiles = (Sk + TC_KT - 1) / TC_KT;
+  if (causal) n_tiles = min(n_tiles, (min(row0 + TC_QB, Sq) - 1) / TC_KT + 1);
+
+  stage_rows<TC_QB, DMAX>(q_s, q + b * st.qb + h * st.qh, st.qs, row0, Sq,
+                          D);
+  stage_rows<TC_QB, DMAX>(do_s, dout + b * st.ob + h * st.oh, st.os, row0,
+                          Sq, D);
+  stage_rows<TC_KT, DMAX>(k_s[0], kb, st.ks, 0, Sk, D);
+  stage_rows<TC_KT, DMAX>(v_s[0], vb, st.vs, 0, Sk, D);
+  cp_async_commit();
+
+  // lse (base 2) and delta of this thread's rows wrow + g (lo) and
+  // wrow + g + 8 (hi); rows past Sq have p = 1 and dS = 0 and are not
+  // written
+  const int64_t row_at = static_cast<int64_t>(bh) * Sq;
+  const int r_lo = wrow + g, r_hi = wrow + g + 8;
+  const float lse_lo = r_lo < Sq ? lse[row_at + r_lo] * LOG2E : 0.f;
+  const float lse_hi = r_hi < Sq ? lse[row_at + r_hi] * LOG2E : 0.f;
+  const float dl_lo = r_lo < Sq ? delta[row_at + r_lo] : 0.f;
+  const float dl_hi = r_hi < Sq ? delta[row_at + r_hi] : 0.f;
+
+  const float sl2 = scale * LOG2E;
+  uint32_t qf[KD][4], of[KD][4];  // Q and dO as A fragments
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int sx = j & 1;
+    if (j + 1 < n_tiles) {  // tile j + 1 flies while tile j is computed
+      stage_rows<TC_KT, DMAX>(k_s[sx ^ 1], kb, st.ks, (j + 1) * TC_KT, Sk, D);
+      stage_rows<TC_KT, DMAX>(v_s[sx ^ 1], vb, st.vs, (j + 1) * TC_KT, Sk, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        ldmatrix_x4(qf[kd], &q_s[warp * 16 + lr + (lm & 1) * 8]
+                                [kd * 16 + (lm >> 1) * 8]);
+        ldmatrix_x4(of[kd], &do_s[warp * 16 + lr + (lm & 1) * 8]
+                                 [kd * 16 + (lm >> 1) * 8]);
+      }
+    }
+#pragma unroll
+    for (int c0 = 0; c0 < TC_KT; c0 += TC_SUB) {  // a step of 32 keys
+      const int col0 = j * TC_KT + c0;
+      // a step past Sk, or wholly above this warp's rows, has p = 0
+      if (col0 < Sk && (!causal || col0 <= wrow + 15)) {
+        // S = Q.K^T and dP = dO.V^T: 16 q rows by 32 keys
+        float s[NS][4], dp[NS][4];
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+        for (int kd = 0; kd < KD; ++kd) {
+#pragma unroll
+          for (int np = 0; np < NS / 2; ++np) {
+            uint32_t kf[4], vf[4];  // B fragments of key tiles 2np, 2np + 1
+            ldmatrix_x4(kf, &k_s[sx][c0 + np * 16 + lr + (lm >> 1) * 8]
+                                [kd * 16 + (lm & 1) * 8]);
+            ldmatrix_x4(vf, &v_s[sx][c0 + np * 16 + lr + (lm >> 1) * 8]
+                                [kd * 16 + (lm & 1) * 8]);
+            mma_bf16(s[2 * np], qf[kd], kf);
+            mma_bf16(s[2 * np + 1], qf[kd], kf + 2);
+            mma_bf16(dp[2 * np], of[kd], vf);
+            mma_bf16(dp[2 * np + 1], of[kd], vf + 2);
+          }
+        }
+        // dS = P (dP - delta), packed to bf16 as the A fragments of dS.K
+        const bool edge =
+            col0 + TC_SUB > Sk || (causal && col0 + TC_SUB - 1 > wrow);
+        uint32_t dsf[NS / 2][4];
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          float d[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = exp2f(s[n][e] * sl2 - (e < 2 ? lse_lo : lse_hi));
+            if (edge) {
+              const int col = col0 + n * 8 + 2 * t + (e & 1);
+              const int row = wrow + g + (e >> 1) * 8;
+              if (col >= Sk || (causal && col > row)) p = 0.f;
+            }
+            d[e] = p * (dp[n][e] - (e < 2 ? dl_lo : dl_hi));
+          }
+          dsf[n / 2][(n & 1) * 2] = pack2(d[0], d[1]);
+          dsf[n / 2][(n & 1) * 2 + 1] = pack2(d[2], d[3]);
+        }
+        // dQ += dS.K, contracting over the step's 32 keys
+#pragma unroll
+        for (int kk = 0; kk < NS / 2; ++kk) {
+#pragma unroll
+          for (int np = 0; np < NO / 2; ++np) {
+            uint32_t kf[4];  // B fragments of head-dim tiles 2np, 2np + 1
+            ldmatrix_x4_trans(kf, &k_s[sx][c0 + kk * 16 + lr + (lm & 1) * 8]
+                                      [np * 16 + (lm >> 1) * 8]);
+            mma_bf16(acc[2 * np], dsf[kk], kf);
+            mma_bf16(acc[2 * np + 1], dsf[kk], kf + 2);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with stage sx
+  }
+
+  // dQ, scaled once in f32, through this warp's own 16 rows of q_s
+  store_rows_16B<DMAX>(dq + (static_cast<int64_t>(b) * Sq * H + h) * D,
+                       static_cast<int64_t>(H) * D, wrow, Sq, D,
+                       q_s + warp * 16, acc, scale, scale);
+}
+
+template <int DMAX>
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dq, int B, int H, int Sq,
+                           int Sk, int D, const Strides& st, float scale,
+                           int causal, cudaStream_t stream) {
+  constexpr size_t smem = dq_bf16_smem_bytes<DMAX>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_bf16_kernel<DMAX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sk + BLOCK_N - 1) / BLOCK_N, B * H);
-  flash_bwd_dkv_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Sq, Sk, D, st, scale,
-      causal);
+  unsigned blocks;
+  if (!flat_grid((Sq + TC_QB - 1) / TC_QB, B, H, &blocks))
+    return cudaErrorInvalidValue;
+  flash_bwd_dq_bf16_kernel<DMAX><<<blocks, TC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dq), B * H, H, Sq, Sk, D, st, scale, causal);
   return cudaGetLastError();
 }
 
@@ -607,15 +822,14 @@ cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
       flash_bwd_dkv_bf16_kernel<DMAX>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int64_t blocks =
-      static_cast<int64_t>((Sk + TC_KB - 1) / TC_KB) * B * H;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  flash_bwd_dkv_bf16_kernel<DMAX>
-      <<<static_cast<unsigned>(blocks), TC_THREADS, smem, stream>>>(
-          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-          delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), B * H, H,
-          Sq, Sk, D, st, scale, causal);
+  unsigned blocks;
+  if (!flat_grid((Sk + TC_KB - 1) / TC_KB, B, H, &blocks))
+    return cudaErrorInvalidValue;
+  flash_bwd_dkv_bf16_kernel<DMAX><<<blocks, TC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
+      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), B * H, H, Sq,
+      Sk, D, st, scale, causal);
   return cudaGetLastError();
 }
 
@@ -624,12 +838,18 @@ Strides strides_from(const int64_t* s) {
                  s[6], s[7], s[8], s[9], s[10], s[11]};
 }
 
+// f32 takes any head dim up to 128; bf16 a multiple of 8 (16-byte copies)
 bool bad_args(int D, int dtype) {
-  return D <= 0 || D > 128 || D % 8 != 0 || dtype < 0 || dtype > 1;
+  return D <= 0 || D > 128 || dtype < 0 || dtype > 1 ||
+         (dtype == 1 && D % 8 != 0);
 }
 
-bool past_grid_y(int B, int H) {  // the FMA kernels put b*h on gridDim.y
-  return static_cast<int64_t>(B) * H > 65535;
+// calls f with the head-dim template (32, 64 or 128) that D is padded to
+template <typename F>
+cudaError_t by_dim(int D, F f) {
+  if (D <= 32) return f(std::integral_constant<int, 32>());
+  if (D <= 64) return f(std::integral_constant<int, 64>());
+  return f(std::integral_constant<int, 128>());
 }
 
 }  // namespace
@@ -638,40 +858,39 @@ bool past_grid_y(int B, int H) {  // the FMA kernels put b*h on gridDim.y
 // `strides` = {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s,
 // do_h}; the head dim is unit stride. lse, delta: contiguous [B, H, Sq]
 // f32. dq: contiguous [B, Sq, H, D] in the input dtype. dtype: 0 =
-// float32, 1 = bfloat16. Returns the launch's cudaError_t.
+// float32 (the FMA kernel, D <= 128), 1 = bfloat16 (the tensor-core
+// kernel; D a multiple of 8 up to 128, 16-byte aligned pointers, strides
+// multiples of 8). Any B*H. Returns the launch's cudaError_t.
 extern "C" int kftpu_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, int B, int H, int Sq,
     int Sk, int D, const int64_t* strides, float scale, int causal,
     int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return cudaSuccess;
-  if (bad_args(D, dtype) || past_grid_y(B, H)) return cudaErrorInvalidValue;
+  if (bad_args(D, dtype)) return cudaErrorInvalidValue;
   const Strides st = strides_from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (D <= 32)
-      return launch_dq<float, 32>(q, k, v, dout, lse, delta, dq, B, H, Sq,
-                                  Sk, D, st, scale, causal, s);
-    if (D <= 64)
-      return launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, H, Sq,
-                                  Sk, D, st, scale, causal, s);
-    return launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, H, Sq,
-                                 Sk, D, st, scale, causal, s);
-  }
-  if (D <= 32)
-    return launch_dq<__nv_bfloat16, 32>(q, k, v, dout, lse, delta, dq, B, H,
-                                        Sq, Sk, D, st, scale, causal, s);
-  if (D <= 64)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, B, H,
-                                        Sq, Sk, D, st, scale, causal, s);
-  return launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq, B, H,
-                                       Sq, Sk, D, st, scale, causal, s);
+  if (dtype == 0)
+    return by_dim(D, [&](auto dm) {
+      return launch_dq<decltype(dm)::value>(q, k, v, dout, lse, delta, dq, B,
+                                            H, Sq, Sk, D, st, scale, causal,
+                                            s);
+    });
+  if (!async_ready(q, strides, B, Sq, H) ||
+      !async_ready(k, strides + 3, B, Sk, H) ||
+      !async_ready(v, strides + 6, B, Sk, H) ||
+      !async_ready(dout, strides + 9, B, Sq, H) ||
+      reinterpret_cast<uintptr_t>(dq) % 16)
+    return cudaErrorMisalignedAddress;
+  return by_dim(D, [&](auto dm) {
+    return launch_dq_bf16<decltype(dm)::value>(q, k, v, dout, lse, delta, dq,
+                                               B, H, Sq, Sk, D, st, scale,
+                                               causal, s);
+  });
 }
 
-// Same inputs; dk, dv: contiguous [B, Sk, H, D] in the input dtype.
-// float32 runs the FMA kernel (B*H <= 65535); bfloat16 the tensor-core
-// kernel, which needs 16-byte aligned pointers and strides that are
-// multiples of 8 elements.
+// Same inputs and dtypes; dk, dv: contiguous [B, Sk, H, D] in the input
+// dtype.
 extern "C" int kftpu_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv, int B, int H,
@@ -681,17 +900,12 @@ extern "C" int kftpu_flash_attention_bwd_dkv(
   if (bad_args(D, dtype)) return cudaErrorInvalidValue;
   const Strides st = strides_from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (past_grid_y(B, H)) return cudaErrorInvalidValue;
-    if (D <= 32)
-      return launch_dkv<float, 32>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                   Sq, Sk, D, st, scale, causal, s);
-    if (D <= 64)
-      return launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                   Sq, Sk, D, st, scale, causal, s);
-    return launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, H,
-                                  Sq, Sk, D, st, scale, causal, s);
-  }
+  if (dtype == 0)
+    return by_dim(D, [&](auto dm) {
+      return launch_dkv<decltype(dm)::value>(q, k, v, dout, lse, delta, dk,
+                                             dv, B, H, Sq, Sk, D, st, scale,
+                                             causal, s);
+    });
   if (!async_ready(q, strides, B, Sq, H) ||
       !async_ready(k, strides + 3, B, Sk, H) ||
       !async_ready(v, strides + 6, B, Sk, H) ||
@@ -699,14 +913,11 @@ extern "C" int kftpu_flash_attention_bwd_dkv(
       reinterpret_cast<uintptr_t>(dk) % 16 ||
       reinterpret_cast<uintptr_t>(dv) % 16)
     return cudaErrorMisalignedAddress;
-  if (D <= 32)
-    return launch_dkv_bf16<32>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
-                               Sk, D, st, scale, causal, s);
-  if (D <= 64)
-    return launch_dkv_bf16<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
-                               Sk, D, st, scale, causal, s);
-  return launch_dkv_bf16<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
-                              Sk, D, st, scale, causal, s);
+  return by_dim(D, [&](auto dm) {
+    return launch_dkv_bf16<decltype(dm)::value>(q, k, v, dout, lse, delta,
+                                                dk, dv, B, H, Sq, Sk, D, st,
+                                                scale, causal, s);
+  });
 }
 
 extern "C" const char* kftpu_cuda_error_string(int err) {

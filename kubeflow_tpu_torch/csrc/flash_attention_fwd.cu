@@ -47,9 +47,11 @@
 //
 // f32: `flash_fwd_kernel`, the first port's f32 FMA kernel on the CUDA
 // cores (tensor cores would mean TF32, which breaks the f32 bars):
-// - One thread block per (b*h, 64-row q tile). The TPU's sequential third
-//   grid axis over k blocks becomes a loop inside the block, so the
-//   running (m, l, acc) state lives in registers for the whole row tile.
+// - One thread block per (b*h, 64-row q tile), on a flat grid that starts
+//   the q tiles with the most key tiles first and takes any B*H. The
+//   TPU's sequential third grid axis over k blocks becomes a loop inside
+//   the block, so the running (m, l, acc) state lives in registers for
+//   the whole row tile.
 // - Each 64-row K/V tile is staged once in shared memory (f32, rows
 //   padded by one word so the 16 threads of a row group hit 16 banks)
 //   and reused by all 64 q rows of the block.
@@ -59,6 +61,8 @@
 //   shared memory to the P·V product, where the same thread owns the same
 //   rows, so m and l never leave registers.
 // - Causal k tiles above the diagonal are never loaded.
+// - The head dim is padded with zeros to 32, 64 or 128, so it takes any
+//   head dim up to 128.
 //
 // Both take every sequence length: the ragged edge is masked (rows >= Sq
 // are not written, columns >= Sk score -inf), so the TPU's 8-aligned block
@@ -98,7 +102,8 @@ template <typename T, int DMAX>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int Sq, int Sk, int D,
+                 float* __restrict__ lse, int BH, int H, int Sq, int Sk,
+                 int D,
                  int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
                  int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
                  int64_t v_sh, float scale, int causal) {
@@ -114,10 +119,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int bh = blockIdx.y;
+  const int tile = blockIdx.x / BH;  // the q tiles with most keys first
+  const int bh = blockIdx.x - tile * BH;
   const int b = bh / H;
   const int h = bh % H;
-  const int row0 = blockIdx.x * BLOCK_M;
+  const int row0 = ((Sq + BLOCK_M - 1) / BLOCK_M - 1 - tile) * BLOCK_M;
 
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
@@ -258,11 +264,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       flash_fwd_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BLOCK_M - 1) / BLOCK_M, B * H);
-  flash_fwd_kernel<T, DMAX><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, H, Sq, Sk, D, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale, causal);
+  const int64_t blocks =
+      static_cast<int64_t>((Sq + BLOCK_M - 1) / BLOCK_M) * B * H;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  flash_fwd_kernel<T, DMAX>
+      <<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<T*>(o), lse, B * H, H, Sq,
+          Sk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+          st[8], scale, causal);
   return cudaGetLastError();
 }
 
@@ -493,22 +503,22 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 // q, k, v: [B, S, H, D] read through strides (in elements) `strides` =
 // {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h}; the head dim is unit
 // stride. o: contiguous [B, Sq, H, D] in the input dtype. lse: contiguous
-// [B, H, Sq] f32. dtype: 0 = float32 (the FMA kernel, B*H <= 65535),
-// 1 = bfloat16 (the tensor-core kernel; 16-byte aligned pointers, strides
-// multiples of 8). Returns the launch's cudaError_t; the caller checks it.
+// [B, H, Sq] f32. dtype: 0 = float32 (the FMA kernel, D <= 128), 1 =
+// bfloat16 (the tensor-core kernel; D a multiple of 8 up to 128, 16-byte
+// aligned pointers, strides multiples of 8). Any B*H. Returns the
+// launch's cudaError_t; the caller checks it.
 extern "C" int kftpu_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int B,
     int H, int Sq, int Sk, int D, const int64_t* strides, float scale,
     int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return cudaSuccess;
-  if (D <= 0 || D > 128 || D % 8 != 0 || dtype < 0 || dtype > 1)
+  if (D <= 0 || D > 128 || dtype < 0 || dtype > 1 ||
+      (dtype == 1 && D % 8 != 0))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (static_cast<int64_t>(B) * H > 65535) return cudaErrorInvalidValue;
+  if (dtype == 0)
     return dispatch_dim<float>(q, k, v, o, lse, B, H, Sq, Sk, D, strides,
                                scale, causal, s);
-  }
   if (!async_ready(q, strides, B, Sq, H) ||
       !async_ready(k, strides + 3, B, Sk, H) ||
       !async_ready(v, strides + 6, B, Sk, H) ||

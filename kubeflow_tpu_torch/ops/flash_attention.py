@@ -15,11 +15,12 @@ inside the kernel, ``lse`` returned as ``[batch, heads, seq]`` f32 with
   grad there raises.
 - A CUDA tensor launches the kernels (built with nvcc at first use,
   ops/_build.py) or raises. Nothing falls back. The dtype picks the
-  kernel: bf16 K1 and K2b run on the tensor cores and stage their tiles
-  with 16-byte asynchronous copies, so their inputs need 16-byte aligned
-  pointers and strides that are multiples of 8 elements
-  (:func:`check_async_layout`; the model's fused-qkv slices pass); f32
-  runs the FMA kernels. K2a is one FMA kernel for both dtypes.
+  kernel: bf16 K1, K2a and K2b run on the tensor cores and stage their
+  tiles with 16-byte asynchronous copies, so their inputs need a head
+  dim that is a multiple of 8, 16-byte aligned pointers and strides that
+  are multiples of 8 elements (:func:`check_async_layout`; the model's
+  fused-qkv slices pass); f32 runs the FMA kernels, which take any head
+  dim up to 128. Every kernel takes any batch*heads (a flat grid).
 - A CPU tensor runs the plain PyTorch versions
   (:func:`flash_attention_fwd_plain`, :func:`flash_attention_bwd_dq_plain`,
   :func:`flash_attention_bwd_dkv_plain`); the tests compare them with the
@@ -144,8 +145,19 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 # -- the CUDA kernels ---------------------------------------------------------
 
 
+def _check_head_dim(q) -> None:
+    """The kernels pad the head dim to 32, 64 or 128: f32 takes any head
+    dim up to 128, bf16 a multiple of 8 (its 16-byte copies)."""
+    d = q.shape[-1]
+    if not 0 < d <= 128:
+        raise ValueError(f"head_dim {d}: the kernels take 1 to 128")
+    if q.dtype == torch.bfloat16 and d % 8:
+        raise ValueError(f"head_dim {d}: the bf16 kernels take a multiple "
+                         f"of 8 (16-byte copies)")
+
+
 def _check_inputs(q, k, v) -> None:
-    """What K1 and K2b take (their bf16 kernels put b*h on a flat grid)."""
+    """What the kernels take."""
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.device.type != "cuda":
             raise ValueError(f"{name} is on {x.device}; the kernel takes "
@@ -167,19 +179,7 @@ def _check_inputs(q, k, v) -> None:
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if d % 8 or d > 128:
-        raise ValueError(f"head_dim {d}: the kernel takes a multiple of 8 "
-                         f"up to 128")
-    if q.dtype != torch.bfloat16:
-        _check_grid_y(q)
-
-
-def _check_grid_y(q) -> None:
-    """The FMA kernels (f32 K1 and K2b, K2a in both dtypes) put b*h on
-    gridDim.y, at most 65535."""
-    b, _, h, _ = q.shape
-    if b * h > 65535:
-        raise ValueError(f"batch*heads {b * h} exceeds the grid limit 65535")
+    _check_head_dim(q)
 
 
 def async_ready(x: torch.Tensor) -> bool:
@@ -273,11 +273,13 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, *,
                                 causal: bool = True,
                                 scale: Optional[float] = None
                                 ) -> torch.Tensor:
-    """Launch K2a on the current stream. Same contract as
+    """Launch K2a on the current stream (bf16: the tensor-core kernel;
+    f32: the FMA kernel). Same contract as
     :func:`flash_attention_bwd_dq_plain`; raises on anything it does not
     take, and on a launch error."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    _check_grid_y(q)
+    if q.dtype == torch.bfloat16:
+        check_async_layout(q=q, k=k, v=v, do=do)
     b, sq, h, d = q.shape
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lib = _library(_BWD)

@@ -1,8 +1,10 @@
 """Fused Adam update: a hand-written CUDA kernel for Hopper.
 
 The counterpart of ``kubeflow_tpu/ops/fused_adam.py``. One kernel
-(``csrc/fused_adam.cu``, K3) fuses, per element of one parameter tensor:
+(``csrc/fused_adam.cu``, K3) fuses, per element of every parameter tensor
+of one optimizer step:
 
+    g  ← g if norm < max_norm else (g / norm)·max_norm   (optional clip)
     g  ← g + wd·p                 (L2-into-gradient, the recipe's decay mask)
     m' ← β₁·m + (1−β₁)·g
     v' ← β₂·v + (1−β₂)·g²
@@ -10,18 +12,26 @@ The counterpart of ``kubeflow_tpu/ops/fused_adam.py``. One kernel
 
 with f32 moments, reading p, g, m, v once and writing p, m, v once. The
 JAX kernel emits Δp and leaves ``p + Δp`` to ``optax.apply_updates``; the
-port writes the same f32 sum in place.
+port writes the same f32 sum in place. The clip is the recipe's
+``optax.clip_by_global_norm`` folded in: its trigger and rounding order,
+with the pre-clip global norm read from the device, so nothing waits for
+the host.
 
-- :func:`fused_adam` updates one tensor in place: a CUDA tensor launches
-  the kernel (built with nvcc at first use, ops/_build.py) or raises; a
-  CPU tensor runs :func:`fused_adam_plain`, the same function in plain
-  PyTorch, which ``chip_smoke.py`` also holds the kernel against on the
-  card. ``fused_adam.launches`` counts kernel launches.
+- :func:`fused_adam` updates a list of tensors in place (the step's
+  table: params, grads, first and second moments, and a weight decay per
+  tensor): CUDA tensors take one kernel launch over all of them (built
+  with nvcc at first use, ops/_build.py; a launch takes up to the
+  kernel's capacity, 384 tensors) or raise; CPU tensors run
+  :func:`fused_adam_multi_plain`, which loops :func:`fused_adam_plain`,
+  the same function in plain PyTorch, over the same table.
+  ``chip_smoke.py`` also holds the kernel against it on the card.
+  ``fused_adam.launches`` counts kernel launches.
 - :class:`FusedAdam` is the ``torch.optim.Optimizer`` around it (the JAX
   ``fused_adam`` GradientTransformation): per-param f32 state ``mu`` and
   ``nu``, one shared ``count``, ``lr`` a float or a schedule (a callable
   of the count), weight decay per param group (the decay mask). Its
-  ``step()`` launches the kernel once per parameter tensor.
+  ``step(norm, max_norm)`` launches the kernel once over every param
+  that has a gradient.
 
 Semantics kept from the JAX package: lr is evaluated at the
 pre-increment count; the bias corrections use ``count + 1`` and are
@@ -35,7 +45,7 @@ params; a param whose ``.grad`` is None is skipped, as in ``torch.optim``.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Iterable, Union
+from typing import Callable, Iterable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -54,15 +64,41 @@ def bias_corrections(b1: float, b2: float, count: int) -> tuple[float, float]:
             float(one - np.power(np.float32(b2), n)))
 
 
+def clip_plain(g: torch.Tensor, norm: torch.Tensor,
+               max_norm: float) -> torch.Tensor:
+    """The kernel's clip in plain PyTorch, optax's
+    ``clip_by_global_norm`` for one tensor: g while ``norm < max_norm``,
+    else ``(g / norm) * max_norm``."""
+    return torch.where(norm < max_norm, g, (g / norm) * max_norm)
+
+
 def fused_adam_plain(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                      v: torch.Tensor, *, lr: float, wd: float, bc1: float,
-                     bc2: float, b1: float, b2: float, eps: float) -> None:
-    """The kernel's function in plain PyTorch, in place on p, m, v. Each
-    operation rounds on its own, in the kernel's order."""
-    g = g.float() + wd * p
+                     bc2: float, b1: float, b2: float, eps: float,
+                     norm: Optional[torch.Tensor] = None,
+                     max_norm: Optional[float] = None) -> None:
+    """The kernel's function for one tensor in plain PyTorch, in place on
+    p, m, v. With ``max_norm``, g is first clipped by the pre-clip global
+    ``norm`` (a 0-dim f32 tensor) in optax's form. Each operation rounds
+    on its own, in the kernel's order."""
+    g = g.float()
+    if max_norm is not None:
+        g = clip_plain(g, norm, max_norm)
+    g = g + wd * p
     m.mul_(b1).add_((1.0 - b1) * g)
     v.mul_(b2).add_((1.0 - b2) * (g * g))
     p.add_((-lr * (m / bc1)) / (torch.sqrt(v / bc2) + eps))
+
+
+def fused_adam_multi_plain(params: Sequence[torch.Tensor],
+                           grads: Sequence[torch.Tensor],
+                           mus: Sequence[torch.Tensor],
+                           nus: Sequence[torch.Tensor],
+                           wds: Sequence[float], **kw) -> None:
+    """:func:`fused_adam_plain` over every tensor of the table: the
+    function of one kernel launch."""
+    for p, g, m, v, wd in zip(params, grads, mus, nus, wds):
+        fused_adam_plain(p, g, m, v, wd=wd, **kw)
 
 
 def _library() -> ctypes.CDLL:
@@ -70,45 +106,80 @@ def _library() -> ctypes.CDLL:
     fn = lib.kftpu_fused_adam
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64]
-                       + [ctypes.c_float] * 9 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+                       + [ctypes.c_float] * 9
+                       + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
     return lib
 
 
-def fused_adam_cuda(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
-                    v: torch.Tensor, *, lr: float, wd: float, bc1: float,
-                    bc2: float, b1: float, b2: float, eps: float) -> None:
-    """Launch K3 on the current stream, in place on p, m, v. Takes
-    contiguous f32 CUDA tensors of one shape; raises on anything else and
-    on a launch error."""
-    for name, x in (("p", p), ("g", g), ("m", m), ("v", v)):
-        if x.device.type != "cuda" or x.device != p.device:
-            raise ValueError(f"{name} is on {x.device}; the kernel takes "
-                             f"CUDA tensors on one device")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} dtype {x.dtype}: the kernel takes "
-                            f"float32")
-        if x.shape != p.shape or not x.is_contiguous():
-            raise ValueError(f"{name} {tuple(x.shape)} must be contiguous "
-                             f"and shaped like p {tuple(p.shape)}")
+def fused_adam_cuda(params: Sequence[torch.Tensor],
+                    grads: Sequence[torch.Tensor],
+                    mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor],
+                    wds: Sequence[float], *, lr: float, bc1: float,
+                    bc2: float, b1: float, b2: float, eps: float,
+                    norm: Optional[torch.Tensor] = None,
+                    max_norm: Optional[float] = None) -> None:
+    """Launch K3 once over the table on the current stream, in place on
+    the params and moments. Takes contiguous f32 CUDA tensors on one
+    device, each quadruple of one shape, and ``norm`` a 0-dim f32 tensor
+    there when ``max_norm`` is given; raises on anything else and on a
+    launch error."""
+    quads = list(zip(params, grads, mus, nus))
+    if not quads:
+        return
+    dev = params[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"p[0] is on {dev}; the kernel takes CUDA tensors")
+    index = dev.index
+    f32 = torch.float32
+    ptrs = []
+    for i, quad in enumerate(quads):
+        shape = quad[0].shape
+        for name, x in zip("pgmv", quad):
+            if not (x.dtype is f32 and x.is_contiguous() and
+                    x.shape == shape and x.get_device() == index):
+                raise ValueError(
+                    f"{name}[{i}]: {x.dtype} {tuple(x.shape)} on {x.device} "
+                    f"(contiguous {x.is_contiguous()}); the kernel takes "
+                    f"contiguous float32 tensors on {dev}, shaped like p "
+                    f"{tuple(shape)}")
+            ptrs.append(x.data_ptr())
+    if max_norm is not None and (
+            norm is None or norm.device != dev or
+            norm.dtype != torch.float32 or norm.numel() != 1):
+        raise ValueError("clipping needs the pre-clip global norm as one "
+                         "f32 value on the params' device")
+    n = len(quads)
+    table = (ctypes.c_int64 * (4 * n))(*ptrs)
+    lengths = (ctypes.c_int64 * n)(*(quad[0].numel() for quad in quads))
+    decays = (ctypes.c_float * n)(*wds)
+    launched = ctypes.c_int(0)
     lib = _library()
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.kftpu_fused_adam(
-            p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
-            p.numel(), lr, wd, bc1, bc2, b1, 1.0 - b1, b2, 1.0 - b2, eps,
-            stream)
+            table, lengths, decays, n,
+            None if max_norm is None else norm.data_ptr(),
+            0.0 if max_norm is None else max_norm, lr, bc1, bc2, b1,
+            1.0 - b1, b2, 1.0 - b2, eps, stream, ctypes.byref(launched))
+    fused_adam.launches += launched.value
     _build.check(lib, err, "fused_adam launch")
-    fused_adam.launches += 1
 
 
-def fused_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
-               v: torch.Tensor, *, lr: float, wd: float, bc1: float,
-               bc2: float, b1: float, b2: float, eps: float) -> None:
-    """One tensor's fused update in place: the kernel for CUDA tensors,
-    the plain version for CPU tensors."""
-    fn = fused_adam_plain if p.device.type == "cpu" else fused_adam_cuda
-    fn(p, g, m, v, lr=lr, wd=wd, bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps)
+def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+               mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor],
+               wds: Sequence[float], *, lr: float, bc1: float, bc2: float,
+               b1: float, b2: float, eps: float,
+               norm: Optional[torch.Tensor] = None,
+               max_norm: Optional[float] = None) -> None:
+    """One fused update of every tensor of the table, in place: one kernel
+    launch for CUDA tensors, the plain version for CPU tensors."""
+    if not params:
+        return
+    fn = fused_adam_multi_plain if params[0].device.type == "cpu" \
+        else fused_adam_cuda
+    fn(params, grads, mus, nus, wds, lr=lr, bc1=bc1, bc2=bc2, b1=b1, b2=b2,
+       eps=eps, norm=norm, max_norm=max_norm)
 
 
 fused_adam.launches = 0
@@ -116,9 +187,9 @@ fused_adam.launches = 0
 
 class FusedAdam(torch.optim.Optimizer):
     """Adam with L2 decay folded into the gradient, one fused kernel
-    launch per parameter tensor. ``lr`` is a float or a callable of the
-    pre-increment count; ``weight_decay`` is per param group, so the
-    decay mask is a split into groups."""
+    launch a step over every param that has a gradient. ``lr`` is a float
+    or a callable of the pre-increment count; ``weight_decay`` is per
+    param group, so the decay mask is a split into groups."""
 
     def __init__(self, params: Iterable, lr: Union[float, Callable] = 1e-3,
                  *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -134,9 +205,14 @@ class FusedAdam(torch.optim.Optimizer):
         return float(np.float32(lr))
 
     @torch.no_grad()
-    def step(self) -> None:
-        lr = self.current_lr()
-        bc1, bc2 = bias_corrections(self.b1, self.b2, self.count)
+    def step(self, norm: Optional[torch.Tensor] = None,
+             max_norm: Optional[float] = None) -> None:
+        """One update. With ``max_norm``, the gradients are first clipped
+        by ``norm``, their pre-clip global norm (a 0-dim f32 tensor), in
+        optax's form, inside the same launch."""
+        if max_norm is not None and norm is None:
+            raise ValueError("max_norm needs the pre-clip global norm")
+        table = ([], [], [], [], [])
         for group in self.param_groups:
             wd = float(np.float32(group["weight_decay"]))
             for p in group["params"]:
@@ -146,9 +222,13 @@ class FusedAdam(torch.optim.Optimizer):
                 if not state:
                     state["mu"] = torch.zeros_like(p, dtype=torch.float32)
                     state["nu"] = torch.zeros_like(p, dtype=torch.float32)
-                fused_adam(p, p.grad, state["mu"], state["nu"], lr=lr, wd=wd,
-                           bc1=bc1, bc2=bc2, b1=self.b1, b2=self.b2,
-                           eps=self.eps)
+                for column, x in zip(table, (p, p.grad, state["mu"],
+                                             state["nu"], wd)):
+                    column.append(x)
+        bc1, bc2 = bias_corrections(self.b1, self.b2, self.count)
+        fused_adam(*table, lr=self.current_lr(), bc1=bc1, bc2=bc2,
+                   b1=self.b1, b2=self.b2, eps=self.eps, norm=norm,
+                   max_norm=max_norm)
         self.count += 1
 
     def state_dict(self) -> dict:

@@ -4,9 +4,11 @@ The port of ``kubeflow_tpu/runtime/recipe.py``. The JAX package builds one
 optax chain; here the chain is :class:`RecipeOptimizer`, in the same
 order:
 
-1. clip by global norm, in optax's form (scale by ``max_norm / norm`` only
-   when ``norm >= max_norm``; ``torch.nn.utils.clip_grad_norm_`` divides by
-   ``norm + 1e-6`` and is not used);
+1. clip by global norm, in optax's form: ``(g / norm) * max_norm``, only
+   when ``norm >= max_norm``, bit for bit (``torch.nn.utils.clip_grad_norm_``
+   multiplies by ``max_norm / (norm + 1e-6)`` and is not used). The
+   pre-clip norm is taken once a step: the train step hands the one it
+   reports as a metric to :meth:`RecipeOptimizer.step`;
 2. L2 weight decay folded into the gradient, for sgd, momentum, nesterov
    and adam, on the parameters ``decay_mask`` selects (a param group);
    adamw decays decoupled, on the same mask;
@@ -16,9 +18,10 @@ order:
 The stock tier builds on ``torch.optim.SGD`` / ``Adam`` / ``AdamW``
 (never ``fused=True``), as the JAX stock tier builds on optax. The
 ``fused_adam`` tier is :class:`~kubeflow_tpu_torch.ops.fused_adam.FusedAdam`,
-one hand-written kernel launch per parameter tensor, and still requires
-``adam``. ``lars``, ``rmsprop`` and ``runtime_schedule=True`` raise "not
-yet ported" (ROADMAP Queue 1 item 2).
+one hand-written kernel launch a step over every parameter tensor with
+the clip folded in, and still requires ``adam``. ``lars``, ``rmsprop``
+and ``runtime_schedule=True`` raise "not yet ported" (ROADMAP Queue 1
+item 2).
 
 Schedules are callables of the step count, evaluated on the host: the
 JAX package traces them into the step; eager PyTorch sets each step's lr
@@ -134,28 +137,40 @@ def decay_mask(params: Union[Mapping[str, torch.Tensor], Iterable]):
 
 def global_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
     """sqrt(sum of squares) over every element, in f32 (optax
-    ``global_norm``)."""
-    return torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    ``global_norm``): PyTorch's multi-tensor norm of each tensor, then the
+    norm of those, a few launches for any number of tensors. Like optax's,
+    it is a library reduction outside any kernel of the port."""
+    norms = torch._foreach_norm([g.float() for g in grads])
+    return torch.linalg.vector_norm(torch.stack(norms))
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list, max_norm: float) -> torch.Tensor:
-    """optax.clip_by_global_norm in place: grads are scaled by
-    ``max_norm / norm`` only when ``norm >= max_norm``. Returns the
-    pre-clip norm; no host sync."""
-    norm = global_norm(grads)
-    scale = torch.where(norm < max_norm, torch.ones_like(norm),
-                        max_norm / norm)
-    for g in grads:
-        g.mul_(scale.to(g.dtype))
+def clip_by_global_norm_(grads: list, max_norm: float,
+                         norm: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """optax.clip_by_global_norm in place, bit for bit: ``(g / norm) *
+    max_norm`` when ``norm >= max_norm``, else g untouched. ``norm`` is
+    the pre-clip global norm, taken here when not given. Returns it; no
+    host sync: the untouched branch divides and multiplies by 1, which is
+    exact."""
+    if norm is None:
+        norm = global_norm(grads)
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    divisor = torch.where(keep, one, norm)
+    factor = torch.where(keep, one, torch.full_like(norm, max_norm))
+    for dtype in {g.dtype for g in grads}:
+        same = [g for g in grads if g.dtype == dtype]
+        torch._foreach_div_(same, divisor.to(dtype))
+        torch._foreach_mul_(same, factor.to(dtype))
     return norm
 
 
 class RecipeOptimizer:
     """The recipe's chain around a ``torch.optim.Optimizer``: clip the
     gradients by their global norm, then step the optimizer with lr from
-    the schedule at the pre-increment count (a :class:`FusedAdam` reads
-    its schedule itself)."""
+    the schedule at the pre-increment count. A :class:`FusedAdam` reads
+    its schedule itself and clips inside its one kernel launch."""
 
     def __init__(self, inner: torch.optim.Optimizer, schedule: Schedule,
                  grad_clip: Optional[float]):
@@ -172,16 +187,23 @@ class RecipeOptimizer:
         self.inner.zero_grad(set_to_none=set_to_none)
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
+        """One update; ``grad_norm``, the gradients' pre-clip global norm
+        when the caller has it already, saves taking it again."""
+        norm = None
         if self.grad_clip:
             grads = [p.grad for g in self.param_groups for p in g["params"]
                      if p.grad is not None]
-            clip_by_global_norm_(grads, self.grad_clip)
-        if not isinstance(self.inner, FusedAdam):
+            norm = grad_norm if grad_norm is not None else global_norm(grads)
+        if isinstance(self.inner, FusedAdam):
+            self.inner.step(norm=norm, max_norm=self.grad_clip or None)
+        else:
+            if self.grad_clip:
+                clip_by_global_norm_(grads, self.grad_clip, norm=norm)
             lr = float(self.schedule(self.count))
             for group in self.inner.param_groups:
                 group["lr"] = lr
-        self.inner.step()
+            self.inner.step()
         self.count += 1
 
 

@@ -2,7 +2,8 @@
 
 The port of ``TrainState`` and ``TrainStepBuilder`` in
 ``kubeflow_tpu/runtime/trainstep.py``. One step is forward, backward,
-clip and update, the same order as the JAX step; the JAX package jits it
+clip and update, the same order as the JAX step, with the global norm
+taken once and nothing that waits for the card; the JAX package jits it
 into one XLA program and donates the state, while here it runs eagerly
 and updates the state in place (the params are leaf tensors the
 optimizer writes, which is what donation buys the JAX package).
@@ -12,7 +13,8 @@ optimizer writes, which is what donation buys the JAX package).
   ``torch.func.functional_call``).
 - ``optimizer`` is a factory ``params -> optimizer`` (a torch optimizer
   owns its params, so it is built in :meth:`TrainStepBuilder.init`);
-  runtime/recipe.py ``make_optimizer`` makes one.
+  runtime/recipe.py ``make_optimizer`` makes one, a ``RecipeOptimizer``,
+  whose ``step(grad_norm=...)`` takes the step's pre-clip global norm.
 - Metrics: ``loss``, ``grad_norm`` (the pre-clip global norm) and the loss
   function's aux (``perplexity`` for the LM), as device tensors.
 
@@ -97,8 +99,9 @@ class TrainStepBuilder:
                 loss.backward()
             grads = [p.grad for p in state.params.values()
                      if p.grad is not None]
+            # the pre-clip norm, taken once: the metric, and the clip's
             grad_norm = global_norm(grads)
-            state.opt_state.step()
+            state.opt_state.step(grad_norm=grad_norm)
             state.opt_state.zero_grad(set_to_none=True)
             state.variables = aux.pop("variables", state.variables)
             state.step += 1

@@ -251,13 +251,43 @@ def test_bf16_wrappers_check_layout_after_device():
     assert o.shape == x.shape and o.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("heads,ok", [(65535, True), (65536, False)])
-def test_fma_kernels_grid_limit(heads, ok):
-    """The FMA kernels put batch*heads on gridDim.y, so more than 65535
-    pairs raise before a launch (the bf16 K1 and K2b take a flat grid)."""
-    q = torch.empty((1, 1, heads, 8), device="meta")
+@pytest.mark.parametrize("shape,dtype,ok", [
+    # every kernel takes a flat grid: any batch*heads
+    ((1, 1, 65537, 8), torch.float32, True),
+    ((1, 1, 65537, 8), torch.bfloat16, True),
+    # f32 pads any head dim up to 128; bf16 copies 16 bytes at a time
+    ((1, 1, 2, 36), torch.float32, True),
+    ((1, 1, 2, 100), torch.float32, True),
+    ((1, 1, 2, 36), torch.bfloat16, False),
+    ((1, 1, 2, 136), torch.float32, False),
+    ((1, 1, 2, 256), torch.bfloat16, False),
+])
+def test_kernel_shape_contract(shape, dtype, ok):
+    """What the kernels take: any batch*heads; a head dim up to 128, a
+    multiple of 8 in bf16. A pure function of the shape and dtype, so meta
+    tensors test it."""
+    q = torch.empty(shape, dtype=dtype, device="meta")
     if ok:
-        tfa._check_grid_y(q)
+        tfa._check_head_dim(q)
     else:
-        with pytest.raises(ValueError, match="65535"):
-            tfa._check_grid_y(q)
+        with pytest.raises(ValueError, match="head_dim"):
+            tfa._check_head_dim(q)
+
+
+@pytest.mark.parametrize("d", [36, 100])
+def test_f32_head_dims_not_a_multiple_of_8(d):
+    """Head dims the f32 kernels now take: the port's forward and
+    gradients against the JAX Pallas kernels in interpret mode."""
+    q, k, v = _qkv(b=1, s=40, h=2, d=d, seed=8)
+    j_o = jfa.flash_attention(*_jax(q, k, v), block_q=16, block_k=16)
+    j_grads = jax.grad(
+        lambda *a: jnp.sum(_loss(jfa.flash_attention(*a))),
+        argnums=(0, 1, 2))(*_jax(q, k, v))
+    tq, tk, tv = (x.requires_grad_(True) for x in _torch(q, k, v))
+    t_o = tfa.flash_attention(tq, tk, tv)
+    np.testing.assert_allclose(_np(t_o.detach()), _np(j_o), atol=F32_ATOL,
+                               rtol=0)
+    _loss(t_o).sum().backward()
+    for name, got, ref in zip("qkv", (tq.grad, tk.grad, tv.grad), j_grads):
+        np.testing.assert_allclose(_np(got), _np(ref), atol=1e-4, rtol=1e-3,
+                                   err_msg=f"d{name} d={d}")

@@ -151,6 +151,6 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     x = torch.zeros(4)
     launches = tfo.fused_adam.launches
     with pytest.raises(ValueError, match="CUDA"):
-        tfo.fused_adam_cuda(x, x, x, x, lr=1e-3, wd=0.0, bc1=0.1, bc2=0.001,
-                            b1=0.9, b2=0.999, eps=1e-8)
+        tfo.fused_adam_cuda([x], [x], [x], [x], [0.0], lr=1e-3, bc1=0.1,
+                            bc2=0.001, b1=0.9, b2=0.999, eps=1e-8)
     assert tfo.fused_adam.launches == launches

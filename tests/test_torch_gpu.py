@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch/CUDA port: each CUDA kernel against its
 plain PyTorch version on the card, the LM served through K1, one train
-step through K1, K2 and K3, one fused ResNet-50 step through K4 and K5,
+step through K1, K2 and K3 (one K3 launch a step), one fused ResNet-50
+step through K4 and K5,
 and one fused ResNet-50 inference forward through K6.
 
 Every test here carries the ``gpu`` marker and skips where no card is
@@ -56,8 +57,8 @@ def _qkv(b, s, h, d, device, dtype, seed=4):
 
 # bf16 shapes that stress the tensor-core kernels: every head-dim
 # template (32, 64, 128), a head dim padded inside its template (40),
-# S = 1, a ragged S, and more than 65535 (batch, head) pairs (the bf16
-# kernels' flat grid)
+# S = 1, a ragged S, and more than 65535 (batch, head) pairs (the flat
+# grid)
 BF16_SHAPES = [
     (1, 2048, 12, 64), (2, 1000, 12, 64), (2, 300, 4, 32), (1, 257, 2, 128),
     (2, 190, 3, 40), (3, 1, 2, 64), (2, 65, 3, 64), (2, 16, 32800, 8),
@@ -74,6 +75,10 @@ BF16_SHAPES = [
     ((1, 130, 2, 128), False, torch.float32),
     ((2, 65, 3, 8), True, torch.float32),
     ((1, 1, 1, 16), True, torch.float32),
+    # f32: head dims that are not a multiple of 8, and the flat grid
+    ((2, 100, 3, 36), True, torch.float32),
+    ((2, 77, 2, 100), False, torch.float32),
+    ((1, 24, 65537, 8), True, torch.float32),
 ])
 def test_kernel_matches_plain(cuda_device, shape, causal, dtype):
     q, k, v = _qkv(*shape, cuda_device, dtype)
@@ -132,7 +137,8 @@ def test_bf16_kernels_read_strided_qkv_slices(cuda_device, s, h, d):
 def test_bf16_kernels_refuse_misaligned_views(cuda_device):
     """The bf16 kernels copy 16-byte chunks: a view that starts one
     element in, or whose rows are not 8 elements apart, raises ValueError
-    before any launch; nothing is copied behind the caller's back."""
+    before any launch (K1, K2a and K2b); nothing is copied behind the
+    caller's back."""
     flat = torch.zeros(2 * 64 * 2 * 16 + 8, device=cuda_device,
                        dtype=torch.bfloat16)
     shifted = flat[1:1 + 2 * 64 * 2 * 16].view(2, 64, 2, 16)
@@ -140,8 +146,9 @@ def test_bf16_kernels_refuse_misaligned_views(cuda_device):
                        dtype=torch.bfloat16)[..., :16]
     ok = torch.zeros(2, 64, 2, 16, device=cuda_device, dtype=torch.bfloat16)
     lse = torch.zeros(2, 2, 64, device=cuda_device)
-    before = (tfa.flash_attention.launches,
-              tfa.flash_attention_bwd_dkv.launches)
+    counts = (tfa.flash_attention, tfa.flash_attention_bwd_dq,
+              tfa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counts]
     for bad in (shifted, wide):
         assert not tfa.async_ready(bad)
         with pytest.raises(ValueError, match="16-byte"):
@@ -150,8 +157,11 @@ def test_bf16_kernels_refuse_misaligned_views(cuda_device):
             tfa.flash_attention_fwd_cuda(ok, ok, bad)
         with pytest.raises(ValueError, match="16-byte"):
             tfa.flash_attention_bwd_dkv_cuda(ok, ok, ok, bad, lse, lse)
-    assert (tfa.flash_attention.launches,
-            tfa.flash_attention_bwd_dkv.launches) == before
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention_bwd_dq_cuda(ok, bad, ok, ok, lse, lse)
+        with pytest.raises(ValueError, match="16-byte"):
+            tfa.flash_attention_bwd_dq_cuda(ok, ok, ok, bad, lse, lse)
+    assert [c.launches for c in counts] == before
 
 
 @pytest.mark.gpu
@@ -169,9 +179,13 @@ def test_kernel_reads_strided_qkv_slices(cuda_device):
 
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
-    x = torch.zeros(1, 16, 2, 12, device=cuda_device)   # D not % 8
+    x = torch.zeros(1, 16, 2, 12, device=cuda_device,
+                    dtype=torch.bfloat16)               # bf16 D not % 8
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention(x, x, x)
+    w = torch.zeros(1, 16, 2, 136, device=cuda_device)  # D over 128
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa.flash_attention(w, w, w)
     y = torch.zeros(1, 16, 2, 16, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="dtype"):
         tfa.flash_attention(y, y, y)
@@ -223,13 +237,18 @@ def _close(got, ref, dtype) -> bool:
     ((2, 1000, 12, 64), False, torch.bfloat16),
     # not S = 1: with one key, dq and dk are 0 up to rounding noise, which
     # no relative bar holds (a single q row is in the Sq != Sk test)
-    *((sh, True, torch.bfloat16) for sh in BF16_SHAPES[1:-1] if sh[1] > 1),
+    *((sh, True, torch.bfloat16) for sh in BF16_SHAPES[1:] if sh[1] > 1),
     ((1, 257, 2, 128), False, torch.bfloat16),
     ((2, 65, 3, 40), False, torch.bfloat16),
+    ((1, 40, 65537, 8), True, torch.bfloat16),
     ((2, 333, 4, 32), True, torch.float32),
     ((1, 130, 2, 128), False, torch.float32),
     ((2, 65, 3, 8), True, torch.float32),
     ((1, 1, 1, 16), True, torch.float32),
+    # f32: head dims that are not a multiple of 8, and the flat grid
+    ((2, 100, 3, 36), True, torch.float32),
+    ((2, 77, 2, 100), False, torch.float32),
+    ((1, 40, 65537, 8), True, torch.float32),
 ])
 def test_backward_kernels_match_plain(cuda_device, shape, causal, dtype):
     q, k, v = _qkv(*shape, cuda_device, dtype)
@@ -294,7 +313,7 @@ def test_bf16_dkv_kernel_with_unequal_lengths(cuda_device, sq, sk, causal):
 @pytest.mark.gpu
 def test_bf16_dkv_kernel_takes_a_flat_grid(cuda_device):
     """More than 65535 (batch, head) pairs: K2b's flat grid takes them
-    (K2a, an FMA kernel with b*h on gridDim.y, does not)."""
+    (K2a's and the f32 kernels' in test_backward_kernels_match_plain)."""
     q, k, v = _qkv(*BF16_SHAPES[-1], cuda_device, torch.bfloat16, seed=17)
     do = _qkv(*BF16_SHAPES[-1], cuda_device, torch.bfloat16, seed=18)[0]
     _check_dkv(q, k, v, do, True)
@@ -319,31 +338,77 @@ def test_autograd_through_strided_qkv(cuda_device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 5, 1000, 1_000_003])
-def test_fused_adam_kernel_matches_plain(cuda_device, n):
+@pytest.mark.parametrize("scale", [1e-4, 1.0])
+def test_fused_adam_kernel_matches_plain(cuda_device, n, scale):
+    """One tensor, 3 steps, the clip at 1.0 on (scale 1.0: the norm of n
+    normal values is above it from n 5 on) and off (scale 1e-4)."""
     rng = np.random.default_rng(n)
     p, m, v = (torch.from_numpy(rng.standard_normal(n).astype(np.float32))
                .to(cuda_device) for _ in range(3))
     v = v.abs()
     ref = [x.clone() for x in (p, m, v)]
     for count in range(3):
-        g = torch.from_numpy(rng.standard_normal(n).astype(
+        g = scale * torch.from_numpy(rng.standard_normal(n).astype(
             np.float32)).to(cuda_device)
+        norm = torch.linalg.vector_norm(g)
         bc1, bc2 = tfo.bias_corrections(0.9, 0.999, count)
-        kw = dict(lr=1e-3, wd=1e-4, bc1=bc1, bc2=bc2, b1=0.9, b2=0.999,
-                  eps=1e-8)
+        kw = dict(lr=1e-3, bc1=bc1, bc2=bc2, b1=0.9, b2=0.999, eps=1e-8,
+                  norm=norm, max_norm=1.0)
         before = tfo.fused_adam.launches
-        tfo.fused_adam(p, g, m, v, **kw)
+        tfo.fused_adam([p], [g], [m], [v], [1e-4], **kw)
         assert tfo.fused_adam.launches == before + 1
-        tfo.fused_adam_plain(*ref[:1], g, *ref[1:], **kw)
+        tfo.fused_adam_plain(*ref[:1], g, *ref[1:], wd=1e-4, **kw)
     torch.cuda.synchronize()
     for got, want in zip((p, m, v), ref):
         assert (got - want).abs().max().item() <= 1e-6
 
 
 @pytest.mark.gpu
+def test_fused_adam_one_launch_over_a_table(cuda_device):
+    """450 tensors of ragged lengths, a quarter read through pointers 4
+    bytes past 16-byte alignment, 64 without a gradient: one launch per
+    384 tensors with a gradient (the kernel's capacity), so 2 for 386,
+    each tensor as its plain version updates it, the skipped ones
+    untouched."""
+    g = torch.Generator(device="cpu").manual_seed(19)
+    lengths = [int(x) for x in torch.randint(1, 5000, (450,), generator=g)]
+    params = []
+    for i, n in enumerate(lengths):
+        base = torch.randn(n + 1, generator=g).to(cuda_device)
+        params.append(base[1:] if i % 4 == 0 else base[:n].clone())
+    ref = [(p.clone(), torch.zeros_like(p), torch.zeros_like(p))
+           for p in params]
+    opt = tfo.FusedAdam([{"params": params, "weight_decay": 1e-4}], lr=1e-3)
+    grads = [torch.randn(n, generator=g).to(cuda_device) for n in lengths]
+    for i, (p, gr) in enumerate(zip(params, grads)):
+        p.grad = None if i % 7 == 3 else gr
+    live = [gr for i, gr in enumerate(grads) if i % 7 != 3]
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(x) for x in live]))
+    before = tfo.fused_adam.launches
+    opt.step(norm=norm, max_norm=1.0)
+    assert tfo.fused_adam.launches == before + 2
+    bc1, bc2 = tfo.bias_corrections(0.9, 0.999, 0)
+    for i, ((q, m, v), gr) in enumerate(zip(ref, grads)):
+        if i % 7 != 3:
+            tfo.fused_adam_plain(q, gr, m, v, lr=1e-3,
+                                 wd=float(np.float32(1e-4)), bc1=bc1,
+                                 bc2=bc2, b1=0.9, b2=0.999, eps=1e-8,
+                                 norm=norm, max_norm=1.0)
+    torch.cuda.synchronize()
+    for i, (p, (q, m, v)) in enumerate(zip(params, ref)):
+        assert (p - q).abs().max().item() <= 1e-6, i
+        if i % 7 == 3:
+            assert p not in opt.state or not opt.state[p]
+        else:
+            assert (opt.state[p]["mu"] - m).abs().max().item() <= 1e-6, i
+            assert (opt.state[p]["nu"] - v).abs().max().item() <= 1e-6, i
+
+
+@pytest.mark.gpu
 def test_one_train_step_launches_every_kernel(cuda_device):
     """A 2-layer LM step with flash attention and fused Adam: K1, K2a and
-    K2b once per layer, K3 once per parameter tensor."""
+    K2b once per layer, K3 once over every parameter tensor."""
     from kubeflow_tpu_torch.models import transformer as T
     from kubeflow_tpu_torch.runtime.recipe import make_optimizer
     from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
@@ -364,7 +429,7 @@ def test_one_train_step_launches_every_kernel(cuda_device):
     state, metrics = builder.build()(state, batch)
     torch.cuda.synchronize()
     got = [c.launches - b for c, b in zip(counts, before)]
-    assert got == [2, 2, 2, len(state.params)] and len(state.params) == 21
+    assert got == [2, 2, 2, 1] and len(state.params) == 21
     assert np.isfinite(metrics["loss"].item())
     assert np.isfinite(metrics["grad_norm"].item())
 

@@ -10,8 +10,13 @@
   schedule, and gradients scaled so the clip triggers on the second step
   only: params within 1e-6 (f32; the two chains round in other places,
   which moves an O(1) param by an ulp or two).
+- The clip against ``optax.clip_by_global_norm`` bit for bit, on both
+  branches; the fused tier with its clip inside the kernel against the
+  JAX chain over 4 steps, within 1e-5.
 - The refusals.
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +29,8 @@ from kubeflow_tpu.api import trainingjob as JA
 from kubeflow_tpu.runtime import recipe as J
 from kubeflow_tpu_torch.api import trainingjob as TA
 from kubeflow_tpu_torch.runtime import recipe as T
+
+tfo = importlib.import_module("kubeflow_tpu_torch.ops.fused_adam")
 
 SHAPES = {"dense.kernel": (7, 5), "dense.bias": (5,),
           "head.kernel": (5, 13), "head.bias": (13,)}
@@ -106,6 +113,59 @@ def test_clip_is_optax_form(scale):
         np.testing.assert_allclose(t.numpy(),
                                    np.asarray(j_clipped[mod][leaf]),
                                    atol=1e-7, rtol=1e-6)
+
+
+@pytest.mark.parametrize("scale", [0.05, 3.0])
+@pytest.mark.parametrize("clip", ["clip_by_global_norm_", "fused plain"])
+def test_clip_matches_optax_bit_for_bit(clip, scale):
+    """Both of the port's clips (the stock tiers' and the fused kernel's
+    plain version) against optax.clip_by_global_norm on the same f32
+    gradients, on both branches (norm ~0.3 and ~19 against 1.0): equal to
+    the last bit, given the norm optax takes. The norm itself is a sum in
+    another order, held to 1e-6 in test_clip_is_optax_form."""
+    flat = _params(seed=6)
+    g = jax.tree.map(lambda p: jnp.sin(p) * scale, _tree(flat))
+    j_clipped, _ = optax.clip_by_global_norm(1.0).update(g, None)
+    norm = torch.tensor(np.asarray(optax.global_norm(g)))
+    grads = [torch.from_numpy(np.array(g[k.split(".")[0]][
+        k.split(".")[1]])) for k in flat]
+    if clip == "clip_by_global_norm_":
+        T.clip_by_global_norm_(grads, 1.0, norm=norm)
+    else:
+        grads = [tfo.clip_plain(x, norm, 1.0) for x in grads]
+    for t, key in zip(grads, flat):
+        mod, leaf = key.split(".")
+        np.testing.assert_array_equal(t.numpy(),
+                                      np.asarray(j_clipped[mod][leaf]))
+
+
+def test_fused_adam_with_clip_matches_jax_chain():
+    """make_optimizer(adam, fused_adam, grad_clip 0.7) against the JAX
+    package's chain (optax's clip, then its fused Pallas kernel in
+    interpret mode) over 4 steps whose gradient norms cross 0.7 both ways:
+    params within 1e-5, tests/test_torch_fused_adam.py's bar."""
+    kw = dict(learning_rate=1e-2, schedule="cosine", total_steps=4,
+              weight_decay=1e-4, kernels="fused_adam", grad_clip=0.7)
+    flat = _params(seed=7)
+    j_opt, _ = J.make_optimizer("adam", **kw)
+    jp = _tree(flat)
+    j_state = j_opt.init(jp)
+    params = {k: torch.from_numpy(a.copy()) for k, a in flat.items()}
+    t_opt, _ = T.make_optimizer(params, "adam", **kw)
+    norms = []
+    for step, scale in enumerate((3.0, 0.05, 3.0, 0.05)):
+        g = jax.tree.map(lambda p: jnp.sin(p + step) * scale, jp)
+        norms.append(float(optax.global_norm(g)))
+        up, j_state = j_opt.update(g, j_state, jp)
+        jp = optax.apply_updates(jp, up)
+        for p in params.values():
+            p.grad = torch.sin(p + step) * scale
+        t_opt.step()
+    assert norms[0] > 0.7 > norms[1] and norms[2] > 0.7 > norms[3]
+    for key, p in params.items():
+        mod, leaf = key.split(".")
+        np.testing.assert_allclose(p.numpy(), np.asarray(jp[mod][leaf]),
+                                   atol=1e-5, rtol=0, err_msg=key)
 
 
 def test_decay_mask_includes_embeddings():

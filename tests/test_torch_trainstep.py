@@ -33,6 +33,8 @@ from kubeflow_tpu.runtime.trainstep import TrainStepBuilder as JBuilder
 from kubeflow_tpu_torch.models import transformer as T
 from kubeflow_tpu_torch.models.convert import (flatten_params,
                                                transformer_params_from_jax)
+from kubeflow_tpu_torch.runtime import recipe as recipe_mod
+from kubeflow_tpu_torch.runtime import trainstep as trainstep_mod
 from kubeflow_tpu_torch.runtime.recipe import make_optimizer
 from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
 
@@ -163,3 +165,43 @@ def test_eval_step_matches_jax():
     for k in ("eval_loss", "eval_perplexity", "eval_token_accuracy"):
         np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
                                    err_msg=k)
+
+
+@pytest.mark.parametrize("kernels", ["stock", "fused_adam"])
+def test_step_takes_the_global_norm_once(kernels, monkeypatch):
+    """One training step with the clip on takes the pre-clip global norm
+    once (the metric and the clip share it). In the fused tier nothing in
+    the step reads a tensor's value back to the host (the stock tier's
+    torch.optim.Adam reads its own step counter, which it keeps there)."""
+    calls = []
+    norm = recipe_mod.global_norm
+
+    def counted(grads):
+        calls.append(1)
+        return norm(grads)
+
+    for mod in (recipe_mod, trainstep_mod):
+        monkeypatch.setattr(mod, "global_norm", counted)
+    params, tokens = numpy_params(seed=6), _tokens(seed=7)
+    spec = T.workload_spec(T.TransformerConfig(attention="einsum", **TINY),
+                           SEQ)
+    builder = TrainStepBuilder(
+        loss_fn=spec.loss_fn, device="cpu",
+        optimizer=lambda p: make_optimizer(p, "adam", kernels=kernels,
+                                           **OPT)[0])
+    state = builder.init(
+        lambda rng: (transformer_params_from_jax(params), {}), None)
+    step, batch = builder.build(), builder.place_batch({"tokens": tokens})
+
+    def no_sync(*args, **kwargs):
+        raise AssertionError("the step read a device value on the host")
+
+    with monkeypatch.context() as m:
+        if kernels == "fused_adam":
+            for name in ("item", "cpu", "tolist", "numpy", "__float__",
+                         "__bool__"):
+                m.setattr(torch.Tensor, name, no_sync)
+        state, metrics = step(state, batch)
+    assert len(calls) == 1
+    assert np.isfinite(float(metrics["grad_norm"]))
+    assert state.step == 1
