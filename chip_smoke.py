@@ -27,6 +27,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
              through torch.autograd.grad.
              Each case prints the largest share of its bar that any value
              uses; each timing its TFLOP/s and its share of the bound.
+             K1, K2a and K2b on their FMA kernels at the head dims the
+             tensor-core kernels do not take (256 in f32 and bf16, causal
+             and not; bf16 36 and 200) against their plain versions, and
+             timed at [8, 2048, 12, 256] bf16 causal beside sdpa's forward
+             and backward.
              K3, the fused Adam update with optax's clip folded in, one
              launch a step: the LM's 101 parameter tensors for 3 steps
              with weight decay on the rank > 1 ones, the clip on both
@@ -85,13 +90,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
 Phase 2 also holds K4 and K5 (the fused ghost-BN bottleneck, batch-tiled
 and spatial, csrc/fused_block_train.cu) against their plain versions at
 the five stride-1 geometries of ResNet-50 at 224 px, batch 64, bf16, with
-the JAX package's tiles: out and the 8 statistics, dx and every weight
-gradient against torch.autograd.grad of the plain version, and K5's
-seam rows of dx in norm against the backward's own formula in plain
-PyTorch (backward_plain, which rounds where the kernel rounds); timed
-beside the bound, the plain version and a cuDNN + batch-BN
-yardstick (not the same function: library_ms is null, the yardstick's
-time is yardstick_ms). And K6 (the fused inference bottleneck,
+the JAX package's tiles: out and the 8 statistics, the per-ghost
+statistics the forward saves against ghost_stats_plain, dx and every
+weight gradient of the backward from those saved statistics (as the
+training step runs it) against torch.autograd.grad of the plain version,
+a second call of that backward equal to the first bit for bit, and K5's
+seam rows of dx in norm against the backward's own formula in
+plain PyTorch (backward_plain, which rounds where the kernel rounds);
+each geometry prints the largest share of a bar it uses; timed beside
+the bound, the plain version and a cuDNN + batch-BN yardstick (not the
+same function: library_ms is null, the yardstick's time is
+yardstick_ms). And K6 (the fused inference bottleneck,
 csrc/fused_block.cu, phase_k6) against its plain version at the same five
 geometries with seeded folded-BN weights, timed beside its bound, the
 plain version and the same block through cuDNN convs and folded affines
@@ -559,6 +568,100 @@ def phase_k2(fa) -> dict:
     return {"err": errs, "timings": t, "margins": margins}
 
 
+# K1, K2a and K2b at head dims the tensor-core kernels do not take, which
+# their FMA kernels take: (label, b, s, h, d, causal, dtype)
+HEAD_DIM_CASES = [
+    ("f32 D=256 causal", 2, 300, 3, 256, True, torch.float32),
+    ("f32 D=256", 1, 129, 2, 256, False, torch.float32),
+    ("bf16 D=256 causal", 2, 300, 3, 256, True, torch.bfloat16),
+    ("bf16 D=256", 1, 129, 2, 256, False, torch.bfloat16),
+    ("bf16 D=36 causal", 2, 100, 3, 36, True, torch.bfloat16),
+    ("bf16 D=36", 1, 77, 2, 36, False, torch.bfloat16),
+    ("bf16 D=200 causal", 1, 65, 2, 200, True, torch.bfloat16),
+]
+HEAD_DIM_TIMED = 256
+
+
+def phase_head_dims(fa) -> dict:
+    """K1, K2a and K2b on the FMA kernels at the head dims the tensor-core
+    kernels do not take (HEAD_DIM_CASES), each against its plain version
+    under phase_kernels' and phase_k2's bars; then timed at [8, 2048, 12,
+    256] bf16 causal beside sdpa's forward and backward (timed here
+    only)."""
+    F = torch.nn.functional
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    margins = {}
+    for label, b, s, h, d, causal, dtype in HEAD_DIM_CASES:
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
+                                   device=dev).to(dtype) for _ in range(4))
+        if fa.tensor_core_route(q):
+            fail(f"head dims {label}: routed to the tensor-core kernels")
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal=causal)
+        p_o, p_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
+        delta = fa.attention_delta(p_o, do)
+        dq = fa.flash_attention_bwd_dq_cuda(q, k, v, do, p_lse, delta,
+                                            causal=causal)
+        dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, p_lse, delta,
+                                                 causal=causal)
+        torch.cuda.synchronize()
+        d_o = (o.float() - p_o.float()).abs()
+        if dtype == torch.bfloat16:
+            o_share = (d_o / (BF16_ATOL + BF16_RTOL * p_o.float().abs())
+                       ).max().item()
+        else:
+            o_share = d_o.max().item() / F32_ATOL
+        lse_share = (lse - p_lse).abs().max().item() / LSE_ATOL
+        p_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, p_lse, delta,
+                                               causal=causal)
+        p_dk, p_dv = fa.flash_attention_bwd_dkv_plain(q, k, v, do, p_lse,
+                                                      delta, causal=causal)
+        grads = [_k2_close(g, r, dtype) for g, r in
+                 ((dq, p_dq), (dk, p_dk), (dv, p_dv))]
+        share = max([o_share, lse_share] + [g[2] for g in grads])
+        ok = o_share <= 1 and lse_share <= 1 and all(g[0] for g in grads)
+        margins[label] = share
+        log(f"[kernels] K1/K2 head dims {label} [{b}, {s}, {h}, {d}]: o "
+            f"{o_share:.3f}, lse {lse_share:.3f}, dq {grads[0][2]:.3f}, dk "
+            f"{grads[1][2]:.3f}, dv {grads[2][2]:.3f} of their bars "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"the FMA flash kernels disagree with their plain versions "
+                 f"at {label}")
+    b, s, h, d = TRAIN_BATCH, SERVE_SEQ, SERVE_HEADS, HEAD_DIM_TIMED
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal=True)
+    delta = fa.attention_delta(o, do)
+    t = {"fwd_ms": cuda_time_ms(lambda: fa.flash_attention_fwd_cuda(
+        q, k, v, causal=True), iters=3, warmup=1)}
+    t["dq_ms"] = cuda_time_ms(lambda: fa.flash_attention_bwd_dq_cuda(
+        q, k, v, do, lse, delta), iters=3, warmup=1)
+    t["dkv_ms"] = cuda_time_ms(lambda: fa.flash_attention_bwd_dkv_cuda(
+        q, k, v, do, lse, delta), iters=3, warmup=1)
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(True)
+                  for x in (q, k, v))
+    t["sdpa_fwd_ms"] = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), iters=5)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    t["sdpa_bwd_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), do.transpose(1, 2), retain_graph=True), iters=5)
+    shape = (b, s, h, d, True, 2)
+    t["fwd_bound"] = attention_bound_ms(*shape)
+    t["bwd_bound"] = attention_bound_ms(*shape, products=5, tensors_in=5,
+                                        tensors_out=3, rows_f32=1)
+    log(f"[kernels] K1/K2 FMA time [{b}, {s}, {h}, {d}] bf16 causal: K1 "
+        f"{t['fwd_ms']:.4f} ms ({tflops(*shape, t['fwd_ms']):.1f} TFLOP/s; "
+        f"bound {t['fwd_bound'][0]:.4f} ms {t['fwd_bound'][1]}), sdpa "
+        f"{t['sdpa_fwd_ms']:.4f} ms; K2a {t['dq_ms']:.4f} + K2b "
+        f"{t['dkv_ms']:.4f} ms (bound of the whole backward "
+        f"{t['bwd_bound'][0]:.4f} ms), sdpa backward "
+        f"{t['sdpa_bwd_ms']:.4f} ms")
+    del q, k, v, do, o, lse, delta, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    return {"margins": margins, "timings": t}
+
+
 def _k3_err(opt, kernel, plain) -> float:
     """max|d| over p, m and v between the kernel's params (with the
     optimizer's state) and the plain version's (p, m, v) triples."""
@@ -766,6 +869,21 @@ def _grad_agree(got, ref) -> tuple[bool, float, float, float]:
     return ok, d.max().item(), norm, share
 
 
+def _ghost_err(got, ref, proj, ghosts, cmid, cout) -> float:
+    """The largest share of the statistics bar (|d| <= 1e-3 max|ref| +
+    1e-5 per BatchNorm's per-ghost mean or rsqrt) that the forward's saved
+    statistics use against their plain version; mp and rsp are not
+    written without a projection."""
+    sizes = [ghosts * cmid] * 4 + [ghosts * cout] * 4
+    share = 0.0
+    for i, (a, b) in enumerate(zip(got.split(sizes), ref.split(sizes))):
+        if i >= 6 and not proj:
+            continue
+        bar = 1e-3 * b.abs().max().item() + 1e-5
+        share = max(share, (a - b).abs().max().item() / bar)
+    return share
+
+
 def phase_k45(fbt, fbts, R) -> dict:
     """K4 and K5 at the five stride-1 geometries of ResNet-50 at 224 px,
     batch 64, bf16, each with the JAX package's (tile_bt, tile_h): forward
@@ -813,9 +931,14 @@ def phase_k45(fbt, fbts, R) -> dict:
                         device=dev).to(torch.bfloat16)
         g = torch.randn((RESNET_BATCH, h, h, cout), generator=gen,
                         device=dev).to(torch.bfloat16)
-        out, stats = fwd_k(x, w, *tiles)
-        dx, grads = bwd_k(x, g, w, *tiles)
+        out, stats, ghost = fwd_k(x, w, *tiles)
+        dx, grads = bwd_k(x, g, w, *tiles, ghost=ghost)
+        # a second call gives the same bits (fixed-order reductions)
+        r_dx, r_grads = bwd_k(x, g, w, *tiles, ghost=ghost)
         torch.cuda.synchronize()
+        same_bits = torch.equal(dx, r_dx) and all(
+            torch.equal(a, b) for a, b in zip(grads, r_grads))
+        del r_dx, r_grads
         p_out, p_stats = ref_fwd(x, w)
         p_dx, p_grads = ref_bwd(x, g, w)
         d_out = (out.float() - p_out.float()).abs()
@@ -823,12 +946,16 @@ def phase_k45(fbt, fbts, R) -> dict:
             .float().mean().item()
         ok_out = out_share <= K45_OUT_OUTLIERS and \
             torch.isfinite(out.float()).all().item()
-        stat_err = 0.0
-        ok_stats = True
+        stat_err = stat_share = 0.0
         for a, b in zip(stats, p_stats):
             e = (a - b).abs().max().item()
             stat_err = max(stat_err, e)
-            ok_stats &= e <= K45_STAT_TOL * b.abs().max().item() + 1e-5
+            stat_share = max(stat_share, e / (K45_STAT_TOL *
+                                              b.abs().max().item() + 1e-5))
+        ok_stats = stat_share <= 1.0
+        ghost_err = _ghost_err(ghost, fbts.ghost_stats_plain(
+            x, w, tile_bt=bt, tile_h=th or h), proj,
+            (RESNET_BATCH // bt) * (h // (th or h)), cmid, cout)
         dx_ok, dx_err, dx_norm, dx_share = _grad_agree(dx, p_dx)
         grad_errs = [_grad_agree(a, b) for a, b in zip(grads, p_grads)]
         seam_err, seam_note = 0.0, ""
@@ -841,18 +968,33 @@ def phase_k45(fbt, fbts, R) -> dict:
                          f"||d||/||ref|| {seam_err:.2e} (<= 2^-6)")
             del f_dx
         ok = ok_out and ok_stats and dx_ok and seam_err <= K45_SEAM_TOL \
-            and all(e[0] for e in grad_errs)
+            and all(e[0] for e in grad_errs) and same_bits and \
+            ghost_err <= 1.0
+        # the largest share of a bar that this geometry uses, and which
+        shares = {
+            "out": out_share / K45_OUT_OUTLIERS, "stats": stat_share,
+            "saved stats": ghost_err, "dx norm": dx_norm / K45_GRAD_FRAC,
+            "dx share": dx_share / K45_GRAD_OUTLIERS,
+            "grad norm": max(e[2] for e in grad_errs) / K45_GRAD_FRAC,
+            "grad share": max(e[3] for e in grad_errs) / K45_GRAD_OUTLIERS,
+            "seam": seam_err / K45_SEAM_TOL,
+            "bits": 0.0 if same_bits else float("inf")}
+        worst = max(shares, key=shares.get)
         log(f"[k45] {name} {key} (tile_bt {bt}, tile_h {th or h}, proj "
             f"{proj}): out max|d| {d_out.max().item():.3e}, share beyond "
             f"2^-6 (|ref| + 1) {out_share:.2e} (<= {K45_OUT_OUTLIERS}); "
-            f"stats max|d| {stat_err:.3e} (<= 1e-3 max|ref| + 1e-5); dx "
+            f"stats max|d| {stat_err:.3e} (<= 1e-3 max|ref| + 1e-5); saved "
+            f"per-ghost statistics {ghost_err:.3f} of that bar; backward "
+            f"from them {'gives' if same_bits else 'DOES NOT GIVE'} the "
+            f"same bits twice; dx "
             f"max|d| {dx_err:.3e} of max|ref| "
             f"{p_dx.float().abs().max().item():.3e}, ||d||/||ref|| "
             f"{dx_norm:.2e}, share beyond 2^-5 max|ref| {dx_share:.2e}; "
             f"weight grads ||d||/||ref|| " + ", ".join(
                 f"{e[2]:.2e}" for e in grad_errs) + ", shares " + ", ".join(
                 f"{e[3]:.1e}" for e in grad_errs)
-            + f" (norm <= 2^-5, share <= {K45_GRAD_OUTLIERS}){seam_note} "
+            + f" (norm <= 2^-5, share <= {K45_GRAD_OUTLIERS}){seam_note}; "
+            f"largest share of a bar {shares[worst]:.3f} ({worst}) "
             f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"{name} disagrees with its plain version at {key}")
@@ -863,8 +1005,10 @@ def phase_k45(fbt, fbts, R) -> dict:
              "out_err": d_out.max().item(), "dx_err": dx_err}
         t["fwd_ms"] = cuda_time_ms(lambda: fwd_k(x, w, *tiles), iters=5,
                                    warmup=1)
-        t["bwd_ms"] = cuda_time_ms(lambda: bwd_k(x, g, w, *tiles), iters=5,
-                                   warmup=1)
+        # the backward as the training step runs it: from the forward's
+        # saved statistics
+        t["bwd_ms"] = cuda_time_ms(
+            lambda: bwd_k(x, g, w, *tiles, ghost=ghost), iters=5, warmup=1)
         t["fwd_plain_ms"] = cuda_time_ms(lambda: ref_fwd(x, w), iters=2,
                                          warmup=1)
         t["bwd_plain_ms"] = cuda_time_ms(lambda: ref_bwd(x, g, w), iters=2,
@@ -896,7 +1040,7 @@ def phase_k45(fbt, fbts, R) -> dict:
             f"{t['bwd_plain_ms']:.4f} ms, yardstick "
             f"{t['bwd_yardstick_ms']:.4f} ms)")
         results.append(t)
-        del x, g, w, xs, ws, y_out
+        del x, g, w, xs, ws, y_out, ghost
         torch.cuda.empty_cache()
     return {"geoms": results}
 
@@ -1642,6 +1786,7 @@ def main() -> int:
             lm_shapes = {n: p.shape for n, p in T.TransformerLM(
                 T.TransformerConfig()).state_dict().items()}
         k3 = phase_k3(fo, recipe, lm_shapes)
+        phase_head_dims(fa)
         k45 = phase_k45(fbt, fbts, R)
         k6 = phase_k6(fb, R)
 

@@ -68,13 +68,17 @@
 // rounding point the JAX kernels do not have (they keep them in f32);
 // over S 2048 the gradients stay within 0.6 of the bar that holds them.
 //
-// In f32: the first port's FMA kernels on the CUDA cores (tensor cores
-// would mean TF32, which breaks the f32 bars):
+// In f32, and in bf16 at any other head dim (above 128, or not a multiple
+// of 8; each element loaded as bf16 and computed in f32, the gradients
+// rounded to bf16 once): the first port's FMA kernels on the CUDA cores
+// (for f32, tensor cores would mean TF32, which breaks the f32 bars):
 // - The TPU kernels carry their accumulators in VMEM across a sequential
 //   grid axis. Here one block owns one 64-row q tile (K2a) or one 64-row
 //   k tile (K2b) of one (batch, head) and loops over the other axis
-//   itself, so the dq (K2a) or dk/dv (K2b) accumulators stay in registers
-//   for the whole loop. The grid is flat, as in bf16, and takes any B*H.
+//   itself, in tiles of 64 rows (32 at head dim 256, so that the f32
+//   tiles fit 227 KB of shared memory), so the dq (K2a) or dk/dv (K2b)
+//   accumulators stay in registers for the whole loop. The grid is flat,
+//   as in bf16, and takes any B*H.
 // - Causal: K2a visits k tiles up to the diagonal; K2b visits q tiles
 //   from the diagonal down. Tiles wholly above the diagonal are never
 //   loaded (the TPU's `_when_relevant`).
@@ -85,8 +89,9 @@
 //
 // All of them take every sequence length: the ragged edge is masked (rows
 // >= Sq and columns >= Sk give p = 0 and are not written). The head dim
-// is padded with zeros to 32, 64 or 128: f32 takes any head dim up to
-// 128, bf16 a multiple of 8 (its 16-byte copies). q, k, v and do are read
+// is padded with zeros to 32, 64, 128 or 256: the FMA kernels take any
+// head dim up to 256, the tensor-core ones a multiple of 8 up to 128 (their
+// 16-byte copies). q, k, v and do are read
 // through (batch, seq, head) strides with a unit stride on the head dim,
 // so the model's fused-qkv slices need no copy (bf16 needs 16-byte
 // aligned pointers and strides that are multiples of 8 elements). lse and
@@ -104,61 +109,72 @@
 
 namespace {
 
-constexpr int BLOCK_M = 64;  // q rows per tile
-constexpr int BLOCK_N = 64;  // k rows per tile
+constexpr int BLOCK_M = 64;  // q rows per K2a tile
+constexpr int BLOCK_N = 64;  // k rows per K2b tile
 constexpr int THREADS = 256;
-constexpr int P_LD = BLOCK_N + 1;  // padded row of a 64-wide score tile
 
 struct Strides {  // in elements; the head dim is unit stride
   int64_t qb, qs, qh, kb, ks, kh, vb, vs, vh, ob, os, oh;
 };
 
-// rows [row0, row0 + 64) of a [.., S, .., D] f32 input into a padded
+// rows [row0, row0 + ROWS) of a [.., S, .., D] input into a padded f32
 // tile; columns >= D are zero-filled
-template <int DMAX>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
+template <int ROWS, int DMAX, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           int64_t row_stride, int row0,
                                           int rows, int D) {
-  for (int idx = threadIdx.x; idx < 64 * DMAX; idx += THREADS) {
+  for (int idx = threadIdx.x; idx < ROWS * DMAX; idx += THREADS) {
     const int r = idx / DMAX;
     const int c = idx % DMAX;
     const int row = row0 + r;
     float x = 0.f;
-    if (row < rows && c < D) x = src[row * row_stride + c];
+    if (row < rows && c < D) x = to_f32(src[row * row_stride + c]);
     dst[r * (DMAX + 1) + c] = x;
   }
 }
 
+// the FMA kernels' other tile side (K2a's k rows, K2b's q rows): 64, or 32
+// at DMAX 256 so that the tiles fit 227 KB of shared memory
+template <int DMAX>
+__host__ __device__ constexpr int fma_tile() {
+  return DMAX > 128 ? 32 : 64;
+}
+
 template <int DMAX>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * 64 * (DMAX + 1) + BLOCK_M * P_LD);
+  constexpr int BN = fma_tile<DMAX>();
+  return sizeof(float) *
+         ((2 * BLOCK_M + 2 * BN) * (DMAX + 1) + BLOCK_M * (BN + 1));
 }
 
 template <int DMAX>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) *
-         (4 * 64 * (DMAX + 1) + 2 * BLOCK_N * P_LD + 2 * BLOCK_M);
+  constexpr int BM = fma_tile<DMAX>();
+  return sizeof(float) * ((2 * BLOCK_N + 2 * BM) * (DMAX + 1) +
+                          2 * BLOCK_N * (BM + 1) + 2 * BM);
 }
 
-// K2a in f32: one block per (b*h, 64-row q tile), the q tiles with the
-// most k tiles first; loops over k tiles.
-template <int DMAX>
+// K2a on the CUDA cores: one block per (b*h, 64-row q tile), the q tiles
+// with the most k tiles first; loops over k tiles of BN rows.
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
+                    const float* __restrict__ delta, T* __restrict__ dq,
                     int BH, int H, int Sq, int Sk, int D, Strides st,
                     float scale, int causal) {
+  constexpr int BN = fma_tile<DMAX>();
+  constexpr int JN = BN / 16;      // score columns per thread
+  constexpr int P_LD = BN + 1;     // padded row of a score tile
   constexpr int LD = DMAX + 1;
   constexpr int COLS = DMAX / 16;  // head-dim columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;                 // [BLOCK_M][LD]
   float* do_s = q_s + BLOCK_M * LD;  // [BLOCK_M][LD]
-  float* k_s = do_s + BLOCK_M * LD;  // [BLOCK_N][LD]
-  float* v_s = k_s + BLOCK_N * LD;   // [BLOCK_N][LD]
-  float* ds_s = v_s + BLOCK_N * LD;  // [BLOCK_M][P_LD]
+  float* k_s = do_s + BLOCK_M * LD;  // [BN][LD]
+  float* v_s = k_s + BN * LD;        // [BN][LD]
+  float* ds_s = v_s + BN * LD;       // [BLOCK_M][P_LD]
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
@@ -168,10 +184,12 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = bh % H;
   const int row0 = ((Sq + BLOCK_M - 1) / BLOCK_M - 1 - tile) * BLOCK_M;
 
-  load_tile<DMAX>(q_s, q + b * st.qb + h * st.qh, st.qs, row0, Sq, D);
-  load_tile<DMAX>(do_s, dout + b * st.ob + h * st.oh, st.os, row0, Sq, D);
-  const float* kb = k + b * st.kb + h * st.kh;
-  const float* vb = v + b * st.vb + h * st.vh;
+  load_tile<BLOCK_M, DMAX>(q_s, q + b * st.qb + h * st.qh, st.qs, row0, Sq,
+                           D);
+  load_tile<BLOCK_M, DMAX>(do_s, dout + b * st.ob + h * st.oh, st.os, row0,
+                           Sq, D);
+  const T* kb = k + b * st.kb + h * st.kh;
+  const T* vb = v + b * st.vb + h * st.vh;
 
   float lse_r[4], delta_r[4], acc[4][COLS];
 #pragma unroll
@@ -184,41 +202,41 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
   }
 
-  int n_tiles = (Sk + BLOCK_N - 1) / BLOCK_N;
+  int n_tiles = (Sk + BN - 1) / BN;
   if (causal) {
     const int last_row = min(row0 + BLOCK_M, Sq) - 1;
-    n_tiles = min(n_tiles, last_row / BLOCK_N + 1);
+    n_tiles = min(n_tiles, last_row / BN + 1);
   }
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int col0 = j * BLOCK_N;
+    const int col0 = j * BN;
     __syncthreads();  // the previous tile's ds.k is done with k_s/ds_s
-    load_tile<DMAX>(k_s, kb, st.ks, col0, Sk, D);
-    load_tile<DMAX>(v_s, vb, st.vs, col0, Sk, D);
+    load_tile<BN, DMAX>(k_s, kb, st.ks, col0, Sk, D);
+    load_tile<BN, DMAX>(v_s, vb, st.vs, col0, Sk, D);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[4][JN], dp[4][JN];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+      for (int jj = 0; jj < JN; ++jj) s[i][jj] = dp[i][jj] = 0.f;
 #pragma unroll 8
     for (int c = 0; c < DMAX; ++c) {
-      float qv[4], dov[4], kv[4], vv[4];
+      float qv[4], dov[4], kv[JN], vv[JN];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         qv[i] = q_s[(ty * 4 + i) * LD + c];
         dov[i] = do_s[(ty * 4 + i) * LD + c];
       }
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < JN; ++jj) {
         kv[jj] = k_s[(tx + 16 * jj) * LD + c];
         vv[jj] = v_s[(tx + 16 * jj) * LD + c];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < JN; ++jj) {
           s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
           dp[i][jj] = fmaf(dov[i], vv[jj], dp[i][jj]);
         }
@@ -228,7 +246,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + ty * 4 + i;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < JN; ++jj) {
         const int col = col0 + tx + 16 * jj;
         float p = 0.f;
         if (row < Sq && col < Sk && !(causal && col > row))
@@ -239,7 +257,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < BLOCK_N; ++kk) {
+    for (int kk = 0; kk < BN; ++kk) {
       float dsv[4], kv[COLS];
 #pragma unroll
       for (int i = 0; i < 4; ++i) dsv[i] = ds_s[(ty * 4 + i) * P_LD + kk];
@@ -256,37 +274,40 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty * 4 + i;
     if (row >= Sq) continue;
-    float* out = dq + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D;
+    T* out = dq + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < COLS; ++c) {
       const int col = tx + 16 * c;
-      if (col < D) out[col] = acc[i][c] * scale;
+      if (col < D) out[col] = from_f32<T>(acc[i][c] * scale);
     }
   }
 }
 
-// K2b in f32: one block per (b*h, 64-row k tile), the k tiles with the
-// most q tiles (the first ones) first; loops over q tiles.
-template <int DMAX>
+// K2b on the CUDA cores: one block per (b*h, 64-row k tile), the k tiles
+// with the most q tiles (the first ones) first; loops over q tiles of BM
+// rows.
+template <typename T, int DMAX>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int BH, int H, int Sq, int Sk,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int BH, int H, int Sq, int Sk,
                      int D, Strides st, float scale, int causal) {
+  constexpr int BM = fma_tile<DMAX>();
+  constexpr int JQ = BM / 16;   // q columns of S^T per thread
+  constexpr int P_LD = BM + 1;  // padded row of a transposed score tile
   constexpr int LD = DMAX + 1;
   constexpr int COLS = DMAX / 16;
   extern __shared__ float smem[];
   float* k_s = smem;                    // [BLOCK_N][LD]
   float* v_s = k_s + BLOCK_N * LD;      // [BLOCK_N][LD]
-  float* q_s = v_s + BLOCK_N * LD;      // [BLOCK_M][LD]
-  float* do_s = q_s + BLOCK_M * LD;     // [BLOCK_M][LD]
-  float* p_s = do_s + BLOCK_M * LD;     // [BLOCK_N][P_LD], p transposed
+  float* q_s = v_s + BLOCK_N * LD;      // [BM][LD]
+  float* do_s = q_s + BM * LD;          // [BM][LD]
+  float* p_s = do_s + BM * LD;          // [BLOCK_N][P_LD], p transposed
   float* ds_s = p_s + BLOCK_N * P_LD;   // [BLOCK_N][P_LD], ds transposed
-  float* lse_s = ds_s + BLOCK_N * P_LD; // [BLOCK_M]
-  float* delta_s = lse_s + BLOCK_M;     // [BLOCK_M]
+  float* lse_s = ds_s + BLOCK_N * P_LD; // [BM]
+  float* delta_s = lse_s + BM;          // [BM]
 
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
@@ -296,10 +317,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = bh % H;
   const int col0 = tile * BLOCK_N;  // this block's k rows
 
-  load_tile<DMAX>(k_s, k + b * st.kb + h * st.kh, st.ks, col0, Sk, D);
-  load_tile<DMAX>(v_s, v + b * st.vb + h * st.vh, st.vs, col0, Sk, D);
-  const float* qb = q + b * st.qb + h * st.qh;
-  const float* ob = dout + b * st.ob + h * st.oh;
+  load_tile<BLOCK_N, DMAX>(k_s, k + b * st.kb + h * st.kh, st.ks, col0, Sk,
+                           D);
+  load_tile<BLOCK_N, DMAX>(v_s, v + b * st.vb + h * st.vh, st.vs, col0, Sk,
+                           D);
+  const T* qb = q + b * st.qb + h * st.qh;
+  const T* ob = dout + b * st.ob + h * st.oh;
 
   float dk_acc[4][COLS], dv_acc[4][COLS];
 #pragma unroll
@@ -307,14 +330,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < COLS; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
 
-  const int n_q = (Sq + BLOCK_M - 1) / BLOCK_M;
-  const int first = causal ? col0 / BLOCK_M : 0;  // the diagonal tile
+  const int n_q = (Sq + BM - 1) / BM;
+  const int first = causal ? col0 / BM : 0;  // the diagonal tile
   for (int it = first; it < n_q; ++it) {
-    const int row0 = it * BLOCK_M;
+    const int row0 = it * BM;
     __syncthreads();  // the previous tile's products are done with smem
-    load_tile<DMAX>(q_s, qb, st.qs, row0, Sq, D);
-    load_tile<DMAX>(do_s, ob, st.os, row0, Sq, D);
-    if (threadIdx.x < BLOCK_M) {
+    load_tile<BM, DMAX>(q_s, qb, st.qs, row0, Sq, D);
+    load_tile<BM, DMAX>(do_s, ob, st.os, row0, Sq, D);
+    if (threadIdx.x < BM) {
       const int row = row0 + threadIdx.x;
       const int64_t at = static_cast<int64_t>(bh) * Sq + row;
       lse_s[threadIdx.x] = row < Sq ? lse[at] : 0.f;
@@ -323,28 +346,28 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
     // transposed tiles: sT[kr][qc] = k[kr].q[qc], dpT[kr][qc] = v[kr].do[qc]
-    float sT[4][4], dpT[4][4];
+    float sT[4][JQ], dpT[4][JQ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) sT[i][jj] = dpT[i][jj] = 0.f;
+      for (int jj = 0; jj < JQ; ++jj) sT[i][jj] = dpT[i][jj] = 0.f;
 #pragma unroll 8
     for (int c = 0; c < DMAX; ++c) {
-      float kv[4], vv[4], qv[4], dov[4];
+      float kv[4], vv[4], qv[JQ], dov[JQ];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         kv[i] = k_s[(ty * 4 + i) * LD + c];
         vv[i] = v_s[(ty * 4 + i) * LD + c];
       }
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < JQ; ++jj) {
         qv[jj] = q_s[(tx + 16 * jj) * LD + c];
         dov[jj] = do_s[(tx + 16 * jj) * LD + c];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
+        for (int jj = 0; jj < JQ; ++jj) {
           sT[i][jj] = fmaf(kv[i], qv[jj], sT[i][jj]);
           dpT[i][jj] = fmaf(vv[i], dov[jj], dpT[i][jj]);
         }
@@ -354,7 +377,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int krow = col0 + ty * 4 + i;
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < JQ; ++jj) {
         const int qc = tx + 16 * jj;
         const int qrow = row0 + qc;
         float p = 0.f;
@@ -367,7 +390,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
 #pragma unroll 4
-    for (int qq = 0; qq < BLOCK_M; ++qq) {
+    for (int qq = 0; qq < BM; ++qq) {
       float pv[4], dsv[4], qv[COLS], dov[COLS];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -398,8 +421,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < COLS; ++c) {
       const int col = tx + 16 * c;
       if (col < D) {
-        dk[at + col] = dk_acc[i][c] * scale;
-        dv[at + col] = dv_acc[i][c];
+        dk[at + col] = from_f32<T>(dk_acc[i][c] * scale);
+        dv[at + col] = from_f32<T>(dv_acc[i][c]);
       }
     }
   }
@@ -412,7 +435,7 @@ bool flat_grid(int tiles, int B, int H, unsigned* blocks) {
   return n <= INT_MAX;
 }
 
-template <int DMAX>
+template <typename T, int DMAX>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int B, int H, int Sq, int Sk, int D,
@@ -420,20 +443,20 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       cudaStream_t stream) {
   constexpr size_t smem = dq_smem_bytes<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_dq_kernel<T, DMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   unsigned blocks;
   if (!flat_grid((Sq + BLOCK_M - 1) / BLOCK_M, B, H, &blocks))
     return cudaErrorInvalidValue;
-  flash_bwd_dq_kernel<DMAX><<<blocks, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dq), B * H, H, Sq, Sk, D, st, scale, causal);
+  flash_bwd_dq_kernel<T, DMAX><<<blocks, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dq), B * H, H, Sq, Sk, D, st, scale, causal);
   return cudaGetLastError();
 }
 
-template <int DMAX>
+template <typename T, int DMAX>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dk, void* dv, int B, int H,
@@ -441,17 +464,17 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        int causal, cudaStream_t stream) {
   constexpr size_t smem = dkv_smem_bytes<DMAX>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_bwd_dkv_kernel<T, DMAX>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   unsigned blocks;
   if (!flat_grid((Sk + BLOCK_N - 1) / BLOCK_N, B, H, &blocks))
     return cudaErrorInvalidValue;
-  flash_bwd_dkv_kernel<DMAX><<<blocks, THREADS, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      delta, static_cast<float*>(dk), static_cast<float*>(dv), B * H, H, Sq,
-      Sk, D, st, scale, causal);
+  flash_bwd_dkv_kernel<T, DMAX><<<blocks, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      static_cast<T*>(dk), static_cast<T*>(dv), B * H, H, Sq, Sk, D, st,
+      scale, causal);
   return cudaGetLastError();
 }
 
@@ -838,15 +861,25 @@ Strides strides_from(const int64_t* s) {
                  s[6], s[7], s[8], s[9], s[10], s[11]};
 }
 
-// f32 takes any head dim up to 128; bf16 a multiple of 8 (16-byte copies)
+// every kernel takes a head dim up to 256 (the tensor-core ones only
+// multiples of 8 up to 128: tensor_core_dim)
 bool bad_args(int D, int dtype) {
-  return D <= 0 || D > 128 || dtype < 0 || dtype > 1 ||
-         (dtype == 1 && D % 8 != 0);
+  return D <= 0 || D > 256 || dtype < 0 || dtype > 1;
 }
 
-// calls f with the head-dim template (32, 64 or 128) that D is padded to
+// calls f with the head-dim template (32, 64, 128 or 256) that D is padded
+// to
 template <typename F>
 cudaError_t by_dim(int D, F f) {
+  if (D <= 32) return f(std::integral_constant<int, 32>());
+  if (D <= 64) return f(std::integral_constant<int, 64>());
+  if (D <= 128) return f(std::integral_constant<int, 128>());
+  return f(std::integral_constant<int, 256>());
+}
+
+// the same for the tensor-core kernels (tensor_core_dim(D))
+template <typename F>
+cudaError_t by_tc_dim(int D, F f) {
   if (D <= 32) return f(std::integral_constant<int, 32>());
   if (D <= 64) return f(std::integral_constant<int, 64>());
   return f(std::integral_constant<int, 128>());
@@ -858,9 +891,10 @@ cudaError_t by_dim(int D, F f) {
 // `strides` = {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, do_b, do_s,
 // do_h}; the head dim is unit stride. lse, delta: contiguous [B, H, Sq]
 // f32. dq: contiguous [B, Sq, H, D] in the input dtype. dtype: 0 =
-// float32 (the FMA kernel, D <= 128), 1 = bfloat16 (the tensor-core
-// kernel; D a multiple of 8 up to 128, 16-byte aligned pointers, strides
-// multiples of 8). Any B*H. Returns the launch's cudaError_t.
+// float32 (the FMA kernel, D <= 256), 1 = bfloat16 (the tensor-core
+// kernel for D a multiple of 8 up to 128, with 16-byte aligned pointers
+// and strides multiples of 8; the FMA kernel on bf16 inputs for any other
+// D <= 256). Any B*H. Returns the launch's cudaError_t.
 extern "C" int kftpu_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, int B, int H, int Sq,
@@ -870,11 +904,14 @@ extern "C" int kftpu_flash_attention_bwd_dq(
   if (bad_args(D, dtype)) return cudaErrorInvalidValue;
   const Strides st = strides_from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0 || !tensor_core_dim(D))
     return by_dim(D, [&](auto dm) {
-      return launch_dq<decltype(dm)::value>(q, k, v, dout, lse, delta, dq, B,
-                                            H, Sq, Sk, D, st, scale, causal,
-                                            s);
+      constexpr int DM = decltype(dm)::value;
+      return dtype == 0
+          ? launch_dq<float, DM>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk,
+                                 D, st, scale, causal, s)
+          : launch_dq<bf16, DM>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk,
+                                D, st, scale, causal, s);
     });
   if (!async_ready(q, strides, B, Sq, H) ||
       !async_ready(k, strides + 3, B, Sk, H) ||
@@ -882,7 +919,7 @@ extern "C" int kftpu_flash_attention_bwd_dq(
       !async_ready(dout, strides + 9, B, Sq, H) ||
       reinterpret_cast<uintptr_t>(dq) % 16)
     return cudaErrorMisalignedAddress;
-  return by_dim(D, [&](auto dm) {
+  return by_tc_dim(D, [&](auto dm) {
     return launch_dq_bf16<decltype(dm)::value>(q, k, v, dout, lse, delta, dq,
                                                B, H, Sq, Sk, D, st, scale,
                                                causal, s);
@@ -900,11 +937,14 @@ extern "C" int kftpu_flash_attention_bwd_dkv(
   if (bad_args(D, dtype)) return cudaErrorInvalidValue;
   const Strides st = strides_from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0 || !tensor_core_dim(D))
     return by_dim(D, [&](auto dm) {
-      return launch_dkv<decltype(dm)::value>(q, k, v, dout, lse, delta, dk,
-                                             dv, B, H, Sq, Sk, D, st, scale,
-                                             causal, s);
+      constexpr int DM = decltype(dm)::value;
+      return dtype == 0
+          ? launch_dkv<float, DM>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
+                                  Sk, D, st, scale, causal, s)
+          : launch_dkv<bf16, DM>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
+                                 Sk, D, st, scale, causal, s);
     });
   if (!async_ready(q, strides, B, Sq, H) ||
       !async_ready(k, strides + 3, B, Sk, H) ||
@@ -913,7 +953,7 @@ extern "C" int kftpu_flash_attention_bwd_dkv(
       reinterpret_cast<uintptr_t>(dk) % 16 ||
       reinterpret_cast<uintptr_t>(dv) % 16)
     return cudaErrorMisalignedAddress;
-  return by_dim(D, [&](auto dm) {
+  return by_tc_dim(D, [&](auto dm) {
     return launch_dkv_bf16<decltype(dm)::value>(q, k, v, dout, lse, delta,
                                                 dk, dv, B, H, Sq, Sk, D, st,
                                                 scale, causal, s);

@@ -11,11 +11,11 @@
 // What bounds it on the H100: at the LM's serving shape (S 2048, D 64,
 // causal) the work is 4*S*S*D/2 FLOPs per (batch, head) against
 // 4*S*D*2 bytes, about 500 FLOPs per byte, so the card's arithmetic
-// rate bounds it, not its memory (3.35 TB/s). The input dtype picks one
-// of two kernels (a choice by dtype; a failed launch raises and is never
+// rate bounds it, not its memory (3.35 TB/s). The input dtype and the
+// head dim pick one of two kernels (a failed launch raises and is never
 // retried on the other):
 //
-// bf16: `flash_fwd_bf16_kernel`, both products on the tensor cores
+// bf16 with D a multiple of 8 up to 128: `flash_fwd_bf16_kernel`, both products on the tensor cores
 // (`mma.sync.m16n8k16`, bf16 operands, f32 accumulators; 989 TFLOP/s
 // peak against the CUDA cores' 67):
 // - One block of 8 warps per (b*h, 128-row q tile); each warp owns 16 q
@@ -45,8 +45,9 @@
 // The P rounding to bf16 is a rounding point the JAX kernel does not have
 // (it keeps P in f32); over S 2048 it stays within 0.4 of the output bar.
 //
-// f32: `flash_fwd_kernel`, the first port's f32 FMA kernel on the CUDA
-// cores (tensor cores would mean TF32, which breaks the f32 bars):
+// f32, and bf16 at any other D: `flash_fwd_kernel`, the first port's FMA
+// kernel on the CUDA cores (for f32, tensor cores would mean TF32, which
+// breaks the f32 bars):
 // - One thread block per (b*h, 64-row q tile), on a flat grid that starts
 //   the q tiles with the most key tiles first and takes any B*H. The
 //   TPU's sequential third grid axis over k blocks becomes a loop inside
@@ -61,8 +62,13 @@
 //   shared memory to the P·V product, where the same thread owns the same
 //   rows, so m and l never leave registers.
 // - Causal k tiles above the diagonal are never loaded.
-// - The head dim is padded with zeros to 32, 64 or 128, so it takes any
-//   head dim up to 128.
+// - The head dim is padded with zeros to 32, 64, 128 or 256, so it takes
+//   any head dim up to 256 (at 256 the tiles take 209 KB of shared
+//   memory).
+// - The same kernel on bf16 inputs (each element loaded as bf16 and
+//   computed in f32, o rounded to bf16 once) takes the bf16 head dims the
+//   tensor-core kernel does not: above 128, or not a multiple of 8. It
+//   reads scalars, so it needs no alignment.
 //
 // Both take every sequence length: the ragged edge is masked (rows >= Sq
 // are not written, columns >= Sk score -inf), so the TPU's 8-aligned block
@@ -85,12 +91,6 @@ constexpr int BLOCK_N = 64;
 constexpr int THREADS = 256;
 constexpr float NEG_INF = -1e30f;  // big-but-finite, as the TPU kernel
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
 
 template <int DMAX>
 constexpr size_t smem_bytes() {
@@ -287,7 +287,10 @@ cudaError_t dispatch_dim(const void* q, const void* k, const void* v,
   if (D <= 64)
     return launch<T, 64>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal,
                          stream);
-  return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal,
+  if (D <= 128)
+    return launch<T, 128>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale,
+                          causal, stream);
+  return launch<T, 256>(q, k, v, o, lse, B, H, Sq, Sk, D, st, scale, causal,
                         stream);
 }
 
@@ -503,22 +506,25 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 // q, k, v: [B, S, H, D] read through strides (in elements) `strides` =
 // {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h}; the head dim is unit
 // stride. o: contiguous [B, Sq, H, D] in the input dtype. lse: contiguous
-// [B, H, Sq] f32. dtype: 0 = float32 (the FMA kernel, D <= 128), 1 =
-// bfloat16 (the tensor-core kernel; D a multiple of 8 up to 128, 16-byte
-// aligned pointers, strides multiples of 8). Any B*H. Returns the
-// launch's cudaError_t; the caller checks it.
+// [B, H, Sq] f32. dtype: 0 = float32 (the FMA kernel, D <= 256), 1 =
+// bfloat16: the tensor-core kernel for D a multiple of 8 up to 128
+// (16-byte aligned pointers, strides multiples of 8), the FMA kernel on
+// bf16 inputs for any other D <= 256. Any B*H. Returns the launch's
+// cudaError_t; the caller checks it.
 extern "C" int kftpu_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int B,
     int H, int Sq, int Sk, int D, const int64_t* strides, float scale,
     int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return cudaSuccess;
-  if (D <= 0 || D > 128 || dtype < 0 || dtype > 1 ||
-      (dtype == 1 && D % 8 != 0))
+  if (D <= 0 || D > 256 || dtype < 0 || dtype > 1)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_dim<float>(q, k, v, o, lse, B, H, Sq, Sk, D, strides,
                                scale, causal, s);
+  if (!tensor_core_dim(D))
+    return dispatch_dim<bf16>(q, k, v, o, lse, B, H, Sq, Sk, D, strides,
+                              scale, causal, s);
   if (!async_ready(q, strides, B, Sq, H) ||
       !async_ready(k, strides + 3, B, Sk, H) ||
       !async_ready(v, strides + 6, B, Sk, H) ||

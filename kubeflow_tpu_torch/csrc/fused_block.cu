@@ -24,8 +24,8 @@
 // the 28x28, 14x14 and 7x7 ones (chip_smoke.py prints each bound). The TPU
 // kernel keeps a batch tile's whole interior in VMEM; a 56x56x64 bf16 h1 is
 // 392 KiB an image, more than an SM's 227 KB of shared memory, so here the
-// block is three launches of the shared bf16 product (bf16_gemm.cuh) over
-// device memory:
+// block is three launches of the pipelined bf16 product (tc_gemm.cuh,
+// shared with K4/K5) over device memory:
 //   1. x.w1, whose epilogue applies s1, b1, relu and the rounding -> h1;
 //   2. the 3x3 conv as one implicit product over k = tap * Cmid + c, whose
 //      loader reads h1 at the tap's source pixel, or zeros outside the
@@ -36,7 +36,9 @@
 // h1 and h2 make a round trip through device memory in bf16: bytes the TPU
 // kernel kept on chip. Speed is later work (wgmma, TMA, h1 kept on chip with
 // a recomputed halo); this version is the simple correct one.
-#include "bf16_gemm.cuh"
+#include <limits.h>
+
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -50,15 +52,25 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 // h[m, n] = bf16(relu(acc * s[n] + b[n])), row-major [M, ld]
 struct EpAffineRelu {
+  static constexpr int NV = 0;
   const float* s;
   const float* b;
   bf16* h;
   int ld;
-  __device__ __forceinline__ void operator()(int, int64_t m, int n, float v0,
-                                             float v1) const {
-    *reinterpret_cast<uint32_t*>(h + m * ld + n) =
-        pack2(fmaxf(affine(v0, s[n], b[n]), 0.f),
-              fmaxf(affine(v1, s[n + 1], b[n + 1]), 0.f));
+  typedef int64_t Row;  // the row's offset
+  typedef NoIn In;
+  __device__ __forceinline__ Row row(int m) const {
+    return static_cast<int64_t>(m) * ld;
+  }
+  __device__ __forceinline__ void load(Row, int, In&) const {}
+  __device__ __forceinline__ void operator()(int, Row off, int n,
+                                             const float* v, const In&,
+                                             float*) const {
+    float y[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      y[e] = fmaxf(affine(v[e], s[n + e], b[n + e]), 0.f);
+    *reinterpret_cast<uint4*>(h + off + n) = pack8(y);
   }
 };
 
@@ -67,19 +79,24 @@ struct EpAffineRelu {
 struct LdConv3x3 {
   const bf16* h;
   int C, H, W;
-  __device__ __forceinline__ void load8(int64_t m, int col, uint4& o) const {
-    const int tap = col / C, c = col - tap * C;
+  FastDiv dC, dH, dW;
+  struct Row {
+    const bf16* p;  // h at the row's own pixel
+    int y, x;
+  };
+  __device__ __forceinline__ const bf16* base() const { return h; }
+  __device__ __forceinline__ Row row(int m) const {
+    const int r = dW.div(m);
+    return Row{h + static_cast<int64_t>(m) * C, r - dH.div(r) * H,
+               m - r * W};
+  }
+  __device__ __forceinline__ const bf16* src(const Row& r, int col,
+                                             bool& ok) const {
+    const int tap = dC.div(col), c = col - tap * C;
     const int dy = tap / 3, dx = tap - 3 * dy;
-    const int x = static_cast<int>(m % W);
-    const int64_t r = m / W;
-    const int y = static_cast<int>(r % H);
-    const int64_t n = r / H;
-    const int ys = y + dy - 1, xs = x + dx - 1;
-    if (ys < 0 || ys >= H || xs < 0 || xs >= W) {
-      o = make_uint4(0, 0, 0, 0);
-      return;
-    }
-    o = *reinterpret_cast<const uint4*>(h + ((n * H + ys) * W + xs) * C + c);
+    const int ys = r.y + dy - 1, xs = r.x + dx - 1;
+    ok = ys >= 0 && ys < H && xs >= 0 && xs < W;
+    return r.p + static_cast<int64_t>((dy - 1) * W + dx - 1) * C + c;
   }
 };
 
@@ -87,43 +104,64 @@ struct OutArgs {
   const bf16 *h2, *w3, *x, *wp;
   const float *s3, *b3, *sp, *bp;
   bf16* out;
-  int64_t M;
-  int Cin, Cmid, Cout;
+  int M, Cin, Cmid, Cout;
 };
 
 // out = relu(bf16(bf16(h2.w3 * s3 + b3) + res)) for one 128 x 64 tile;
-// res = bf16(x.wp * sp + bp) from a second accumulator with PROJ, else x
+// res = bf16(x.wp * sp + bp) from a second accumulator with PROJ, else x.
+// The epilogue reads the accumulators' fragments in place (warp_mma.cuh's
+// C layout, tc_gemm.cuh's 4 x 2 warps).
 template <bool PROJ>
-__global__ void __launch_bounds__(GEMM_THREADS) block_out_kernel(OutArgs a) {
-  __shared__ __align__(16) bf16 As[BM][LDS];
-  __shared__ __align__(16) bf16 Bs[BN][LDS];
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * BM;
-  const int n0 = blockIdx.x * BN;
-  Acc acc3, accp;
-  zero_acc(acc3);
-  gemm_mainloop<true, false>(LdBf16{a.h2, a.Cmid}, LdBf16{a.w3, a.Cout}, m0,
-                             n0, a.M, a.Cout, 0, a.Cmid, As, Bs, acc3);
+__global__ void __launch_bounds__(TC_GEMM_THREADS) block_out_kernel(OutArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
+  TAcc acc3, accp;
+  tc_zero(acc3);
+  tc_mainloop<true, false>(LdRows{a.h2, a.Cmid}, LdRows{a.w3, a.Cout}, m0,
+                           n0, a.M, a.Cout, 0, a.Cmid, ring, acc3);
   if (PROJ) {
-    zero_acc(accp);
-    gemm_mainloop<true, false>(LdBf16{a.x, a.Cin}, LdBf16{a.wp, a.Cout}, m0,
-                               n0, a.M, a.Cout, 0, a.Cin, As, Bs, accp);
+    tc_zero(accp);
+    tc_mainloop<true, false>(LdRows{a.x, a.Cin}, LdRows{a.wp, a.Cout}, m0,
+                             n0, a.M, a.Cout, 0, a.Cin, ring, accp);
   }
-  for_each_pair(m0, n0, a.M, a.Cout,
-                [&](int64_t row, int col, int mi, int ni, int e) {
-    float o[2];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 1, wn = warp & 1;
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
-      const int c = col + t;
-      const float h3 = round_bf16(affine(acc3[mi][ni][e + t], a.s3[c],
-                                         a.b3[c]));
-      const float r = PROJ
-          ? round_bf16(affine(accp[mi][ni][e + t], a.sp[c], a.bp[c]))
-          : __bfloat162float(a.x[row * a.Cin + c]);
-      o[t] = fmaxf(round_bf16(__fadd_rn(h3, r)), 0.f);
-    }
-    *reinterpret_cast<uint32_t*>(a.out + row * a.Cout + col) =
-        pack2(o[0], o[1]);
-  });
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int row = m0 + wm * 32 + mi * 16 + hf * 8 + (lane >> 2);
+        const int col = n0 + wn * 32 + ni * 8 + (lane & 3) * 2;
+        if (row >= a.M || col >= a.Cout) continue;
+        float o[2];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int c = col + t;
+          const float h3 = round_bf16(
+              affine(acc3[mi][ni][2 * hf + t], a.s3[c], a.b3[c]));
+          const float r = PROJ
+              ? round_bf16(affine(accp[mi][ni][2 * hf + t], a.sp[c], a.bp[c]))
+              : __bfloat162float(a.x[static_cast<int64_t>(row) * a.Cin + c]);
+          o[t] = fmaxf(round_bf16(__fadd_rn(h3, r)), 0.f);
+        }
+        *reinterpret_cast<uint32_t*>(
+            a.out + static_cast<int64_t>(row) * a.Cout + col) =
+            pack2(o[0], o[1]);
+      }
+}
+
+template <bool PROJ>
+cudaError_t block_out(const OutArgs& o, cudaStream_t st) {
+  constexpr size_t smem = tc_smem_bytes<0>();
+  static std::atomic<uint64_t> done{0};
+  const cudaError_t e = allow_smem(done, block_out_kernel<PROJ>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((o.Cout + TBN - 1) / TBN, (o.M + TBM - 1) / TBM);
+  block_out_kernel<PROJ><<<grid, TC_GEMM_THREADS, smem, st>>>(o);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -148,31 +186,29 @@ struct KftpuBlockEvalArgs {
 extern "C" int kftpu_block_eval(const KftpuBlockEvalArgs* a, void* stream) {
   if (a->N <= 0 || a->H <= 0 || a->W <= 0 || a->Cin % 8 || a->Cmid % 8 ||
       a->Cout % 8 || a->Cin <= 0 || a->Cmid <= 0 || a->Cout <= 0 ||
-      (!a->proj && a->Cin != a->Cout))
+      (!a->proj && a->Cin != a->Cout) || a->N * a->H * a->W > INT_MAX ||
+      9 * a->Cmid > INT_MAX)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int64_t M = a->N * a->H * a->W;
+  const int M = static_cast<int>(a->N * a->H * a->W);
+  const int H = static_cast<int>(a->H), W = static_cast<int>(a->W);
   const int Cin = static_cast<int>(a->Cin), Cmid = static_cast<int>(a->Cmid),
             Cout = static_cast<int>(a->Cout);
   const bf16* x = static_cast<const bf16*>(a->x);
   bf16* h1 = static_cast<bf16*>(a->h1);
   bf16* h2 = static_cast<bf16*>(a->h2);
 
-  KFTPU_TRY((gemm_full<true, false>(
-      LdBf16{x, Cin}, LdBf16{static_cast<const bf16*>(a->w1), Cmid},
+  KFTPU_TRY((tc_gemm_full<true, false>(
+      LdRows{x, Cin}, LdRows{static_cast<const bf16*>(a->w1), Cmid},
       EpAffineRelu{a->s1, a->b1, h1, Cmid}, M, Cmid, Cin, st)));
-  KFTPU_TRY((gemm_full<true, false>(
-      LdConv3x3{h1, Cmid, static_cast<int>(a->H), static_cast<int>(a->W)},
-      LdBf16{static_cast<const bf16*>(a->w2), Cmid},
+  KFTPU_TRY((tc_gemm_full<true, false>(
+      LdConv3x3{h1, Cmid, H, W, fast_div(Cmid), fast_div(H), fast_div(W)},
+      LdRows{static_cast<const bf16*>(a->w2), Cmid},
       EpAffineRelu{a->s2, a->b2, h2, Cmid}, M, Cmid, 9 * Cmid, st)));
   const OutArgs o{h2, static_cast<const bf16*>(a->w3), x,
                   static_cast<const bf16*>(a->wp), a->s3, a->b3, a->sp,
                   a->bp, static_cast<bf16*>(a->out), M, Cin, Cmid, Cout};
-  if (a->proj)
-    block_out_kernel<true><<<gemm_grid(M, Cout, 1), GEMM_THREADS, 0, st>>>(o);
-  else
-    block_out_kernel<false><<<gemm_grid(M, Cout, 1), GEMM_THREADS, 0, st>>>(o);
-  return cudaGetLastError();
+  return a->proj ? block_out<true>(o, st) : block_out<false>(o, st);
 }
 
 extern "C" const char* kftpu_cuda_error_string(int err) {

@@ -23,10 +23,12 @@
 // conv reads one halo row above and below from the neighbouring strips,
 // normalised with the strip's own statistics; rows outside the image are
 // zero (SAME padding). The running-stat outputs are the ghost-averaged m
-// and v. The backward recomputes the interior from x and returns dx, every
-// weight, scale and bias gradient; `da1`, `da2`, `da3` and `dap` are
-// rounded to bf16 before their products; halo rows add to BN1's dgamma,
-// dbeta and correction sums, whose divisor is the interior count and whose
+// and v. The backward takes the forward's per-ghost m and rsqrt(v + eps)
+// (or recomputes them with the forward's own launches, bit for bit the
+// same), recomputes the interiors from x and returns dx, every weight,
+// scale and bias gradient; `da1`, `da2`, `da3` and `dap` are rounded to
+// bf16 before their products; halo rows add to BN1's dgamma, dbeta and
+// correction sums, whose divisor is the interior count and whose
 // correction applies to interior rows only; dx of halo rows comes back as
 // thin seam-row arrays that are added into the bf16 dx in bf16, top seams
 // first, as the TPU wrapper's `.at[].add` does.
@@ -40,24 +42,27 @@
 // 256-2048 channels does not fit the 227 KB of shared memory of one SM, and
 // BN needs a tile's statistics before anything downstream can run, so the
 // TPU kernel's single VMEM-resident pass becomes a short sequence of
-// launches over device memory:
-//   forward: 1x1 product (x.w1, and x.wp) -> per-ghost partial sums ->
-//   fixed-order reduce to m, rsqrt -> 3x3 implicit product whose operand
-//   loader applies BN1, relu, the bf16 rounding and the edge mask -> sums ->
-//   1x1 product whose loader applies BN2 -> sums -> output epilogue;
-//   backward: the same recompute, then per-ghost sums of dy and dy*xhat,
-//   da, dgrad products and wgrad products reduced over samples.
-// Every product is hand-written: bf16 `mma.sync.m16n8k16` with f32
-// accumulators (bf16_gemm.cuh, shared with fused_block.cu), operands staged
-// through shared memory by loaders that fuse the BN / relu / mask / halo
-// logic. Every reduction is fixed-order
-// (per-block partials, then one ordered reduce): no float atomics, so the
-// results do not change from run to run. Interiors (a1, acc2, a3 in f32)
-// live in device memory, bytes the TPU kernel kept in VMEM: speed is later
-// work, this version is the simple correct one.
+// launches over device memory. Every product runs on the pipelined
+// tensor-core product of tc_gemm.cuh (3-stage `cp.async` ring, `ldmatrix`,
+// `mma.sync`), whose operands are plain or gathered bf16 rows:
+//   forward: x.w1 over the haloed rows, its epilogue writing a1 and the
+//   per-(tile, ghost segment) sums of a and a^2 over interior rows ->
+//   ordered reduce -> m, rsqrt -> one pass writes the haloed bf16 h1 (each
+//   strip's rows normalised with its statistics, zero outside the image) ->
+//   the 3x3 conv as one implicit product that gathers h1 per tap (zero past
+//   the image columns) -> sums -> h2 -> h2.w3 -> sums -> output pass;
+//   backward: the same products with the saved statistics, whose epilogues
+//   write h1 and h2 at once and, for conv3, the sums of gz, gz*xh3 and
+//   gz*xhp; the dh2 and dh1 products' epilogues give BN2's and BN1's sums;
+//   then the da passes, the dgrad products and the weight-gradient products
+//   (split over samples, reduced in order).
+// Every reduction is fixed-order (per-tile partials, then one ordered
+// reduce): no float atomics, so the results do not change from run to run.
+// Interiors (a1, acc2, a3 in f32) live in device memory, bytes the TPU
+// kernel kept in VMEM.
 #include <math.h>
 
-#include "bf16_gemm.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
@@ -65,37 +70,40 @@ namespace {
 // geometry of the ghost tiling
 // ---------------------------------------------------------------------------
 
+// Sample rows m = (n * H + y) * W + x; haloed rows q = ((n * S + s) * th2 +
+// j) * W + x, j in [0, th2), image row y = s * th - hal + j. A segment is
+// the th * W sample rows (th2 * W haloed rows) of one (image, strip); ghost
+// (t, s) holds the segments of images t * bt .. t * bt + bt - 1 of strip s.
 struct Geo {
-  int N, H, W, bt, th, hal, S, th2;  // th2 = th + 2 * hal haloed rows
+  int N, H, W, bt, th, hal, S, th2;
+  FastDiv dW, dH, dth, dth2, dS, dbt, dL, dLh;
 
-  // ghost of the global sample row m = (n * H + y) * W + x
-  __device__ __forceinline__ int ghost_of(int64_t m) const {
-    int64_t r = m / W;
-    const int y = static_cast<int>(r % H);
-    const int n = static_cast<int>(r / H);
-    return (n / bt) * S + y / th;
+  __device__ __forceinline__ void split_row(int m, int& n, int& y,
+                                            int& x) const {
+    const int r = dW.div(m);
+    x = m - r * W;
+    n = dH.div(r);
+    y = r - n * H;
   }
-  // i-th interior sample of ghost gh, as a global row
-  __device__ __forceinline__ int64_t interior_row(int gh, int i) const {
-    const int t = gh / S, s = gh % S, per = th * W;
-    const int n = t * bt + i / per, rem = i % per;
-    return (static_cast<int64_t>(n) * H + s * th) * W + rem;
+  __device__ __forceinline__ void split_haloed(int q, int& n, int& s, int& j,
+                                               int& x) const {
+    const int r = dW.div(q);
+    x = q - r * W;
+    const int r2 = dth2.div(r);
+    j = r - r2 * th2;
+    n = dS.div(r2);
+    s = r2 - n * S;
   }
-  // haloed row q = ((n * S + s) * th2 + j) * W + x -> n, s, j, x
-  __device__ __forceinline__ void split_haloed(int64_t q, int& n, int& s,
-                                               int& j, int& x) const {
-    x = static_cast<int>(q % W);
-    int64_t r = q / W;
-    j = static_cast<int>(r % th2);
-    r /= th2;
-    s = static_cast<int>(r % S);
-    n = static_cast<int>(r / S);
+  // ghost of segment seg = n * S + s
+  __device__ __forceinline__ int ghost_of_seg(int seg) const {
+    const int n = dS.div(seg);
+    return dbt.div(n) * S + (seg - n * S);
   }
-  // i-th haloed sample of ghost gh, as a haloed row
-  __device__ __forceinline__ int64_t haloed_row(int gh, int i) const {
-    const int t = gh / S, s = gh % S, per = th2 * W;
-    const int n = t * bt + i / per, rem = i % per;
-    return (static_cast<int64_t>(n) * S + s) * th2 * W + rem;
+  __device__ __forceinline__ int ghost_of_row(int m) const {
+    return ghost_of_seg(dL.div(m));
+  }
+  __device__ __forceinline__ int ghost_of_haloed(int q) const {
+    return ghost_of_seg(dLh.div(q));
   }
 };
 
@@ -105,15 +113,6 @@ __device__ __forceinline__ float bn(float a, float m, float rs, float g,
   return __fadd_rn(__fmul_rn(g, __fmul_rn(__fsub_rn(a, m), rs)), b);
 }
 
-__device__ __forceinline__ uint4 pack8(const float* v) {
-  uint4 o;
-  o.x = pack2(v[0], v[1]);
-  o.y = pack2(v[2], v[3]);
-  o.z = pack2(v[4], v[5]);
-  o.w = pack2(v[6], v[7]);
-  return o;
-}
-
 __device__ __forceinline__ void load8f(const float* p, float* v) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
@@ -121,105 +120,114 @@ __device__ __forceinline__ void load8f(const float* p, float* v) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
-// ---------------------------------------------------------------------------
-// operand loaders: load8(row, col) gives 8 bf16 of a logical matrix whose
-// `col` index is contiguous in memory (col % 8 == 0)
-// ---------------------------------------------------------------------------
+// 8 read-only floats through the non-coherent cache
+__device__ __forceinline__ void ldg8(const float* p, float* v) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
 
-// bf16(relu(BN(a))) of an f32 [M, C] interior with per-ghost statistics
-struct LdBnRelu {
-  const float* a;
-  const float* mean;
-  const float* rs;
-  const float* g;
-  const float* b;
-  int C;
-  Geo geo;
-  __device__ __forceinline__ void load8(int64_t row, int col, uint4& o) const {
-    const int gh = geo.ghost_of(row);
-    float v[8];
-    load8f(a + row * C + col, v);
-    const float* mm = mean + static_cast<int64_t>(gh) * C + col;
-    const float* ss = rs + static_cast<int64_t>(gh) * C + col;
+__device__ __forceinline__ void store8f(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void unpack8(uint4 u, float* v) {
+  const bf16* e = reinterpret_cast<const bf16*>(&u);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      v[i] = fmaxf(bn(v[i], mm[i], ss[i], g[col + i], b[col + i]), 0.f);
-    o = pack8(v);
-  }
+  for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
+}
+
+// Per-ghost statistics [G, C] of the four BatchNorms: the forward writes
+// them, the backward reads them
+struct GhostStats {
+  float *m1, *rs1, *m2, *rs2, *m3, *rs3, *mp, *rsp;
 };
 
-// the 3x3 conv's implicit operand: row m (output sample), col = tap * C + c;
-// h1 at the tap's source pixel, normalised with the OUTPUT row's ghost
-// statistics, zero outside the image
-struct LdConvFwd {
-  const float* a1;
-  const float* mean;
-  const float* rs;
-  const float* g;
-  const float* b;
-  int C;
-  Geo geo;
-  __device__ __forceinline__ void load8(int64_t m, int col, uint4& o) const {
-    const int tap = col / C, c = col - tap * C;
-    const int dy = tap / 3, dx = tap - 3 * dy;
-    const int x = static_cast<int>(m % geo.W);
-    const int64_t r = m / geo.W;
-    const int y = static_cast<int>(r % geo.H);
-    const int n = static_cast<int>(r / geo.H);
-    const int ys = y + dy - 1, xs = x + dx - 1;
-    if (ys < 0 || ys >= geo.H || xs < 0 || xs >= geo.W) {
-      o = make_uint4(0, 0, 0, 0);
-      return;
-    }
-    const int gh = (n / geo.bt) * geo.S + y / geo.th;
-    float v[8];
-    load8f(a1 + ((static_cast<int64_t>(n) * geo.H + ys) * geo.W + xs) * C + c,
-           v);
-    const float* mm = mean + static_cast<int64_t>(gh) * C + c;
-    const float* ss = rs + static_cast<int64_t>(gh) * C + c;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      v[i] = fmaxf(bn(v[i], mm[i], ss[i], g[c + i], b[c + i]), 0.f);
-    o = pack8(v);
-  }
-};
+// ---------------------------------------------------------------------------
+// operand loaders (tc_gemm.cuh): row(r) once, src(row, c, ok) per chunk of
+// 8 bf16 at contiguous index c (c % 8 == 0)
+// ---------------------------------------------------------------------------
 
-// the 3x3 conv's transpose: row q (haloed sample of strip s), col = tap * C
-// + j; da2 at the output sample that read q through this tap, if that
-// sample lies in strip s and inside the image columns, else zero
-struct LdConvBwd {
-  const bf16* da2;
-  int C;
-  Geo geo;
-  __device__ __forceinline__ void load8(int64_t q, int col, uint4& o) const {
-    const int tap = col / C, j = col - tap * C;
-    const int dy = tap / 3, dx = tap - 3 * dy;
-    int n, s, jr, x;
-    geo.split_haloed(q, n, s, jr, x);
-    const int yo = s * geo.th - geo.hal + jr - dy + 1;
-    const int xo = x - dx + 1;
-    if (yo < s * geo.th || yo >= (s + 1) * geo.th || xo < 0 || xo >= geo.W) {
-      o = make_uint4(0, 0, 0, 0);
-      return;
-    }
-    o = *reinterpret_cast<const uint4*>(
-        da2 + ((static_cast<int64_t>(n) * geo.H + yo) * geo.W + xo) * C + j);
-  }
-};
-
-// x at a haloed row (rows outside the image clamp to the edge: their da1
-// is zero, so the value does not matter)
+// x at a haloed row (rows outside the image clamp to the edge: their
+// products are masked downstream, so the value does not matter)
 struct LdXHaloed {
   const bf16* x;
   int C;
   Geo geo;
-  __device__ __forceinline__ void load8(int64_t q, int col, uint4& o) const {
-    int n, s, jr, xw;
-    geo.split_haloed(q, n, s, jr, xw);
-    int y = s * geo.th - geo.hal + jr;
+  typedef const bf16* Row;
+  __device__ __forceinline__ const bf16* base() const { return x; }
+  __device__ __forceinline__ Row row(int q) const {
+    int n, s, j, xw;
+    geo.split_haloed(q, n, s, j, xw);
+    int y = s * geo.th - geo.hal + j;
     y = y < 0 ? 0 : (y >= geo.H ? geo.H - 1 : y);
-    o = *reinterpret_cast<const uint4*>(
-        x + ((static_cast<int64_t>(n) * geo.H + y) * geo.W + xw) * C + col);
+    return x + ((static_cast<int64_t>(n) * geo.H + y) * geo.W + xw) * C;
+  }
+  __device__ __forceinline__ const bf16* src(Row r, int c, bool&) const {
+    return r + c;
+  }
+};
+
+// the 3x3 conv's implicit operand: row m (output sample), col = tap * C +
+// c: the haloed h1 of the row's own strip at the tap's source, zero past
+// the image columns (and, without a halo, past the image rows)
+struct LdConv {
+  const bf16* h;
+  int C;
+  FastDiv dC;
+  Geo geo;
+  struct Row {
+    const bf16* p;  // h at the row's own (n, s, j, x)
+    int j, x;
+  };
+  __device__ __forceinline__ const bf16* base() const { return h; }
+  __device__ __forceinline__ Row row(int m) const {
+    int n, y, x;
+    geo.split_row(m, n, y, x);
+    const int s = geo.dth.div(y), j = y - s * geo.th + geo.hal;
+    return Row{h + ((static_cast<int64_t>(n * geo.S + s) * geo.th2 + j) *
+                        geo.W + x) * C,
+               j, x};
+  }
+  __device__ __forceinline__ const bf16* src(const Row& r, int col,
+                                             bool& ok) const {
+    const int tap = dC.div(col), c = col - tap * C;
+    const int dy = tap / 3, dx = tap - 3 * dy;
+    const int js = r.j + dy - 1, xs = r.x + dx - 1;
+    ok = js >= 0 && js < geo.th2 && xs >= 0 && xs < geo.W;
+    return r.p + static_cast<int64_t>((dy - 1) * geo.W + dx - 1) * C + c;
+  }
+};
+
+// the 3x3 conv's transpose: row q (haloed sample of strip s), col = tap * C
+// + j: da2 at the output sample that read q through this tap, if that
+// sample lies in strip s and inside the image columns, else zero
+struct LdConvT {
+  const bf16* da2;
+  int C;
+  FastDiv dC;
+  Geo geo;
+  struct Row {
+    const bf16* p;  // da2 at (n, y0, x), y0 = the image row below q
+    int y0, lo, x;  // lo = the strip's first row
+  };
+  __device__ __forceinline__ const bf16* base() const { return da2; }
+  __device__ __forceinline__ Row row(int q) const {
+    int n, s, j, x;
+    geo.split_haloed(q, n, s, j, x);
+    const int y0 = s * geo.th - geo.hal + j + 1;
+    return Row{da2 + ((static_cast<int64_t>(n) * geo.H + y0) * geo.W + x) * C,
+               y0, s * geo.th, x};
+  }
+  __device__ __forceinline__ const bf16* src(const Row& r, int col,
+                                             bool& ok) const {
+    const int tap = dC.div(col), j = col - tap * C;
+    const int dy = tap / 3, dx = tap - 3 * dy;
+    const int yo = r.y0 - dy, xo = r.x - dx + 1;
+    ok = yo >= r.lo && yo < r.lo + geo.th && xo >= 0 && xo < geo.W;
+    return r.p + static_cast<int64_t>(1 - dx - dy * geo.W) * C + j;
   }
 };
 
@@ -227,64 +235,320 @@ struct LdXHaloed {
 struct LdW2T {
   const bf16* w;
   int C;
-  __device__ __forceinline__ void load8(int64_t i, int col, uint4& o) const {
-    const int tap = col / C, j = col - tap * C;
-    o = *reinterpret_cast<const uint4*>(
-        w + (static_cast<int64_t>(tap) * C + i) * C + j);
+  FastDiv dC;
+  typedef const bf16* Row;
+  __device__ __forceinline__ const bf16* base() const { return w; }
+  __device__ __forceinline__ Row row(int i) const {
+    return w + static_cast<int64_t>(i) * C;
+  }
+  __device__ __forceinline__ const bf16* src(Row r, int col, bool&) const {
+    const int tap = dC.div(col);
+    return r + static_cast<int64_t>(tap) * C * C + (col - tap * C);
   }
 };
 
 // ---------------------------------------------------------------------------
-// epilogues: (split, row, col, v[col], v[col + 1])
+// epilogues (tc_gemm.cuh), 8 columns of a row at a time: row(m) once,
+// load(row, col, in) issues the row's 16-byte loads, then (split, row, col,
+// v[8], in, sums); NV values a column go to the per-(tile, ghost segment)
+// sums
 // ---------------------------------------------------------------------------
 
+struct F8 {  // 8 floats in flight
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ float operator[](int i) const {
+    const float4& h = i < 4 ? a : b;
+    switch (i & 3) {
+      case 0: return h.x;
+      case 1: return h.y;
+      case 2: return h.z;
+      default: return h.w;
+    }
+  }
+};
+
 struct EpF32 {
+  static constexpr int NV = 0;
   float* p;
   int ld;
-  __device__ __forceinline__ void operator()(int, int64_t m, int n, float v0,
-                                             float v1) const {
-    *reinterpret_cast<float2*>(p + m * ld + n) = make_float2(v0, v1);
+  typedef int64_t Row;  // the row's offset
+  typedef NoIn In;
+  __device__ __forceinline__ Row row(int m) const {
+    return static_cast<int64_t>(m) * ld;
+  }
+  __device__ __forceinline__ void load(Row, int, In&) const {}
+  __device__ __forceinline__ void operator()(int, Row off, int n,
+                                             const float* v, const In&,
+                                             float*) const {
+    store8f(p + off + n, v);
   }
 };
 
 struct EpPartial {  // split-K partials [splits, M, N]
+  static constexpr int NV = 0;
   float* p;
-  int64_t M;
-  int N;
-  __device__ __forceinline__ void operator()(int z, int64_t m, int n,
-                                             float v0, float v1) const {
-    *reinterpret_cast<float2*>(p + (z * M + m) * N + n) = make_float2(v0, v1);
+  int M, N;
+  typedef int Row;
+  typedef NoIn In;
+  __device__ __forceinline__ Row row(int m) const { return m; }
+  __device__ __forceinline__ void load(Row, int, In&) const {}
+  __device__ __forceinline__ void operator()(int z, Row m, int n,
+                                             const float* v, const In&,
+                                             float*) const {
+    store8f(p + (static_cast<int64_t>(z) * M + m) * N + n, v);
+  }
+};
+
+// the forward's products: the f32 interior, and a and a^2 summed over the
+// interior rows (a haloed product's halo rows add nothing)
+struct EpMoments {
+  static constexpr int NV = 2;
+  float* p;
+  int ld;
+  Geo geo;
+  int haloed;
+  struct Row {
+    int64_t off;
+    float in;  // 1 on an interior row
+  };
+  typedef NoIn In;
+  __device__ __forceinline__ Row row(int m) const {
+    float in = 1.f;
+    if (haloed && geo.hal) {
+      const int r = geo.dW.div(m);
+      const int jr = r - geo.dth2.div(r) * geo.th2;
+      in = jr >= geo.hal && jr < geo.th + geo.hal ? 1.f : 0.f;
+    }
+    return Row{static_cast<int64_t>(m) * ld, in};
+  }
+  __device__ __forceinline__ void load(const Row&, int, In&) const {}
+  __device__ __forceinline__ void operator()(int, const Row& r, int n,
+                                             const float* v, const In&,
+                                             float* s) const {
+    store8f(p + r.off + n, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s[e] = v[e] * r.in;
+      s[8 + e] = v[e] * v[e] * r.in;
+    }
+  }
+};
+
+// the ghost of row m (a haloed row when `haloed`) and whether it lies in
+// the image
+__device__ __forceinline__ int act_ghost(const Geo& geo, int m, int haloed,
+                                         bool& inside) {
+  inside = true;
+  if (!haloed) return geo.ghost_of_row(m);
+  int n, s, j, x;
+  geo.split_haloed(m, n, s, j, x);
+  const int y = s * geo.th - geo.hal + j;
+  inside = y >= 0 && y < geo.H;
+  return geo.dbt.div(n) * geo.S + s;
+}
+
+// a row of an f32 [rows, C] array with its ghost's statistics
+struct StatRow {
+  int64_t off, so;  // the row's offset; its ghost's row of the statistics
+  bool inside;      // a haloed row inside the image
+};
+
+__device__ __forceinline__ StatRow stat_row(const Geo& geo, int m, int C,
+                                            int haloed) {
+  bool inside;
+  const int gh = act_ghost(geo, m, haloed, inside);
+  return StatRow{static_cast<int64_t>(m) * C, static_cast<int64_t>(gh) * C,
+                 inside};
+}
+
+// xh = (a - m) * rs and y = g * xh + b of 8 columns, m, rs, g and b read
+// from where the pointers point: the BN of part of a row
+__device__ __forceinline__ void bn8(const float* a, const float* mean,
+                                    const float* rs, const float* g,
+                                    const float* b, float* xh, float* y) {
+  float mm[8], ss[8], gg[8], bb[8];
+  ldg8(mean, mm);
+  ldg8(rs, ss);
+  ldg8(g, gg);
+  ldg8(b, bb);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    xh[e] = __fmul_rn(__fsub_rn(a[e], mm[e]), ss[e]);
+    y[e] = __fadd_rn(__fmul_rn(gg[e], xh[e]), bb[e]);
+  }
+}
+
+// the backward's recomputed products: the f32 interior and its bf16
+// activation h = bf16(relu(BN(a))) with the saved statistics (0 at a
+// haloed row outside the image)
+struct EpAct {
+  static constexpr int NV = 0;
+  float* a;
+  bf16* h;
+  int C;
+  const float *mean, *rs, *g, *b;
+  Geo geo;
+  int haloed;
+  typedef StatRow Row;
+  typedef NoIn In;
+  __device__ __forceinline__ Row row(int m) const {
+    return stat_row(geo, m, C, haloed);
+  }
+  __device__ __forceinline__ void load(const Row&, int, In&) const {}
+  __device__ __forceinline__ void operator()(int, const Row& r, int n,
+                                             const float* v, const In&,
+                                             float*) const {
+    store8f(a + r.off + n, v);
+    float xh[8], y[8];
+    bn8(v, mean + r.so + n, rs + r.so + n, g + n, b + n, xh, y);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) y[e] = r.inside ? fmaxf(y[e], 0.f) : 0.f;
+    *reinterpret_cast<uint4*>(h + r.off + n) = pack8(y);
+  }
+};
+
+// the final relu's gradient gz and the BN3 (and proj-BN) sums gz, gz *
+// xh3, gz * xhp, from the recomputed conv3 product (a3 in registers)
+struct EpOut {
+  static constexpr int NV = 3;
+  float* a3;
+  const float* ap;
+  const bf16* x;
+  const bf16* g;
+  const float *m3, *rs3, *g3, *b3, *mp, *rsp, *gp, *bp;
+  int C, proj;
+  Geo geo;
+  typedef StatRow Row;
+  struct In {
+    uint4 g, x;  // bf16
+    F8 p;        // ap
+  };
+  __device__ __forceinline__ Row row(int m) const {
+    return stat_row(geo, m, C, 0);
+  }
+  __device__ __forceinline__ void load(const Row& r, int n, In& in) const {
+    in.g = __ldg(reinterpret_cast<const uint4*>(g + r.off + n));
+    if (proj)
+      in.p.load(ap + r.off + n);
+    else
+      in.x = __ldg(reinterpret_cast<const uint4*>(x + r.off + n));
+  }
+  __device__ __forceinline__ void operator()(int, const Row& r, int n,
+                                             const float* v, const In& in,
+                                             float* s) const {
+    store8f(a3 + r.off + n, v);
+    float xh3[8], y3[8], gz[8], res[8], xhp[8];
+    bn8(v, m3 + r.so + n, rs3 + r.so + n, g3 + n, b3 + n, xh3, y3);
+    unpack8(in.g, gz);
+    if (proj) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) p[e] = in.p[e];
+      bn8(p, mp + r.so + n, rsp + r.so + n, gp + n, bp + n, xhp, res);
+    } else {
+      unpack8(in.x, res);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) xhp[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float d = __fadd_rn(y3[e], res[e]) > 0.f ? gz[e] : 0.f;
+      s[e] = d;
+      s[8 + e] = d * xh3[e];
+      s[16 + e] = d * xhp[e];
+    }
+  }
+};
+
+// BN2 from the dh2 product (dh2 = dy2 in f32), and BN1 from the dh1
+// product over the haloed rows: dz = dh where y = BN(a) > 0 and the row
+// lies in the image; sums dz, dz * xh
+struct EpBnSums {
+  static constexpr int NV = 2;
+  float* dh;
+  const float* a;
+  const float *m, *rs, *g, *b;
+  int C;
+  Geo geo;
+  int haloed;
+  typedef StatRow Row;
+  struct In {
+    F8 a;
+  };
+  __device__ __forceinline__ Row row(int q) const {
+    return stat_row(geo, q, C, haloed);
+  }
+  __device__ __forceinline__ void load(const Row& r, int n, In& in) const {
+    in.a.load(a + r.off + n);
+  }
+  __device__ __forceinline__ void operator()(int, const Row& r, int n,
+                                             const float* v, const In& in,
+                                             float* s) const {
+    store8f(dh + r.off + n, v);
+    float av[8], xh[8], y[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) av[e] = in.a[e];
+    bn8(av, m + r.so + n, rs + r.so + n, g + n, b + n, xh, y);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float dz = r.inside && y[e] > 0.f ? v[e] : 0.f;
+      s[e] = dz;
+      s[8 + e] = dz * xh[e];
+    }
   }
 };
 
 // dx of a haloed row: interior rows add the residual gradient (f32) and go
 // to dx; halo rows go to the seam arrays [N, S, W, C]; all rounded to bf16
 struct EpDx {
+  static constexpr int NV = 0;
   const float* dres;
   bf16* dx;
   bf16* dxt;
   bf16* dxb;
   int C;
   Geo geo;
-  __device__ __forceinline__ void operator()(int, int64_t q, int c, float v0,
-                                             float v1) const {
+  struct Row {
+    bf16* out;  // the row of dx, or of a seam array
+    int64_t off;
+    bool interior;
+  };
+  struct In {
+    F8 r;
+  };
+  __device__ __forceinline__ Row row(int q) const {
     int n, s, jr, x;
     geo.split_haloed(q, n, s, jr, x);
     if (jr >= geo.hal && jr < geo.th + geo.hal) {
       const int y = s * geo.th - geo.hal + jr;
-      const int64_t off =
-          ((static_cast<int64_t>(n) * geo.H + y) * geo.W + x) * C + c;
-      const float2 r = *reinterpret_cast<const float2*>(dres + off);
-      *reinterpret_cast<uint32_t*>(dx + off) =
-          pack2(__fadd_rn(v0, r.x), __fadd_rn(v1, r.y));
-      return;
+      return Row{dx, ((static_cast<int64_t>(n) * geo.H + y) * geo.W + x) * C,
+                 true};
     }
-    bf16* seam = jr == 0 ? dxt : dxb;
-    const int64_t off =
-        ((static_cast<int64_t>(n) * geo.S + s) * geo.W + x) * C + c;
-    *reinterpret_cast<uint32_t*>(seam + off) = pack2(v0, v1);
+    return Row{jr == 0 ? dxt : dxb,
+               ((static_cast<int64_t>(n) * geo.S + s) * geo.W + x) * C,
+               false};
+  }
+  __device__ __forceinline__ void load(const Row& r, int c, In& in) const {
+    if (r.interior) in.r.load(dres + r.off + c);
+  }
+  __device__ __forceinline__ void operator()(int, const Row& r, int c,
+                                             const float* v, const In& in,
+                                             float*) const {
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      o[e] = r.interior ? __fadd_rn(v[e], in.r[e]) : v[e];
+    *reinterpret_cast<uint4*>(r.out + r.off + c) = pack8(o);
   }
 };
+
+// ---------------------------------------------------------------------------
+// reductions
+// ---------------------------------------------------------------------------
 
 // out[i] = sum over z of part[z][i], in z order
 __global__ void reduce_splits_kernel(const float* __restrict__ part,
@@ -298,218 +562,170 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
   out[i] = s;
 }
 
-// ---------------------------------------------------------------------------
-// per-ghost reductions: out[v][gh][c] = sum over the ghost's rows of the
-// functor's NV values; 8 row groups x 32 channels a block, then an ordered
-// sum of the 8 partials
-// ---------------------------------------------------------------------------
-
-constexpr int RED_ROWS = 8;
-
-template <int NV, class F>
-__global__ void __launch_bounds__(RED_ROWS * 32)
-ghost_sums_kernel(F f, int C, int rows_per_ghost, int G,
-                  float* __restrict__ out) {
-  __shared__ float red[NV][RED_ROWS][32];
-  const int gh = blockIdx.x;
-  const int lane = threadIdx.x & 31, rg = threadIdx.x >> 5;
-  const int c = blockIdx.y * 32 + lane;
-  float acc[NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) acc[v] = 0.f;
-  if (c < C)
-    for (int i = rg; i < rows_per_ghost; i += RED_ROWS) f(gh, i, c, acc);
-#pragma unroll
-  for (int v = 0; v < NV; ++v) red[v][rg][lane] = acc[v];
-  __syncthreads();
-  if (rg == 0 && c < C) {
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      float s = 0.f;
-      for (int r = 0; r < RED_ROWS; ++r) s += red[v][r][lane];
-      out[(static_cast<int64_t>(v) * G + gh) * C + c] = s;
-    }
-  }
-}
-
-struct SumsFwd {  // sum a, sum a^2 over the ghost's interior
-  const float* a;
-  int C;
-  Geo geo;
-  __device__ __forceinline__ void operator()(int gh, int i, int c,
-                                             float* acc) const {
-    const float v = a[geo.interior_row(gh, i) * C + c];
-    acc[0] += v;
-    acc[1] += v * v;
-  }
-};
-
-// the block output's gradient through the final relu, gz, and the BN3
-// (and proj-BN) sums: sum gz, sum gz * xh3 [, sum gz * xhp]
-struct OutGrad {
-  const float* a3;
-  const float* m3;
-  const float* rs3;
-  const float* g3;
-  const float* b3;
-  const float* ap;
-  const float* mp;
-  const float* rsp;
-  const float* gp;
-  const float* bp;
-  const bf16* x;
-  const bf16* g;
-  int C;
-  int proj;
-  __device__ __forceinline__ void at(int64_t m, int gh, int c, float& gz,
-                                     float& xh3, float& xhp) const {
-    const int64_t off = m * C + c, so = static_cast<int64_t>(gh) * C + c;
-    xh3 = __fmul_rn(__fsub_rn(a3[off], m3[so]), rs3[so]);
-    const float y3 = __fadd_rn(__fmul_rn(g3[c], xh3), b3[c]);
-    float r;
-    if (proj) {
-      xhp = __fmul_rn(__fsub_rn(ap[off], mp[so]), rsp[so]);
-      r = __fadd_rn(__fmul_rn(gp[c], xhp), bp[c]);
-    } else {
-      xhp = 0.f;
-      r = __bfloat162float(x[off]);
-    }
-    gz = __fadd_rn(y3, r) > 0.f ? __bfloat162float(g[off]) : 0.f;
-  }
-};
-
-struct SumsOut {
-  OutGrad o;
-  Geo geo;
-  __device__ __forceinline__ void operator()(int gh, int i, int c,
-                                             float* acc) const {
-    float gz, xh3, xhp;
-    o.at(geo.interior_row(gh, i), gh, c, gz, xh3, xhp);
-    acc[0] += gz;
-    acc[1] += gz * xh3;
-    acc[2] += gz * xhp;
-  }
-};
-
-// BN2: dz2 = dh2 where y2 > 0; sums dz2, dz2 * xh2
-struct SumsMid {
-  const float* acc2;
-  const float* dh2;
-  const float* m2;
-  const float* rs2;
-  const float* g2;
-  const float* b2;
-  int C;
-  Geo geo;
-  __device__ __forceinline__ void operator()(int gh, int i, int c,
-                                             float* acc) const {
-    const int64_t off = geo.interior_row(gh, i) * C + c;
-    const int64_t so = static_cast<int64_t>(gh) * C + c;
-    const float xh = __fmul_rn(__fsub_rn(acc2[off], m2[so]), rs2[so]);
-    const float y = __fadd_rn(__fmul_rn(g2[c], xh), b2[c]);
-    const float dz = y > 0.f ? dh2[off] : 0.f;
-    acc[0] += dz;
-    acc[1] += dz * xh;
-  }
-};
-
-// BN1 over the haloed rows: dz1 = dh1 where y1 > 0 and the row lies in
-// the image; sums dz1, dz1 * xh1
-struct SumsIn {
-  const float* a1;
-  const float* dh1;
-  const float* m1;
-  const float* rs1;
-  const float* g1;
-  const float* b1;
-  int C;
-  Geo geo;
-  __device__ __forceinline__ void operator()(int gh, int i, int c,
-                                             float* acc) const {
-    const int64_t q = geo.haloed_row(gh, i);
-    int n, s, jr, x;
-    geo.split_haloed(q, n, s, jr, x);
-    const int y = s * geo.th - geo.hal + jr;
-    if (y < 0 || y >= geo.H) return;
-    const int64_t m = (static_cast<int64_t>(n) * geo.H + y) * geo.W + x;
-    const int64_t so = static_cast<int64_t>(gh) * C + c;
-    const float xh = __fmul_rn(__fsub_rn(a1[m * C + c], m1[so]), rs1[so]);
-    const float yv = __fadd_rn(__fmul_rn(g1[c], xh), b1[c]);
-    const float dz = yv > 0.f ? dh1[q * C + c] : 0.f;
-    acc[0] += dz;
-    acc[1] += dz * xh;
-  }
-};
-
-// forward: per-ghost m, rsqrt(v + eps) and the ghost-averaged m and v
-__global__ void stats_finalize_kernel(const float* __restrict__ sums, int G,
-                                      int C, float count, float eps,
-                                      float* __restrict__ mean,
-                                      float* __restrict__ rs,
-                                      float* __restrict__ avg_m,
-                                      float* __restrict__ avg_v) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+// out[v][gh][c] = the per-(tile, segment) partials of an epilogue with NV
+// values (tc_gemm.cuh) summed over ghost gh's segments, in image and tile
+// order; L is the segment length in the product's rows
+template <int NV>
+__global__ void ghost_reduce_kernel(const float* __restrict__ part, int R,
+                                    int L, Geo geo, int G, int C,
+                                    float* __restrict__ out) {
+  const int gh = blockIdx.x, c = blockIdx.y * blockDim.x + threadIdx.x;
   if (c >= C) return;
-  const float inv_g = 1.f / static_cast<float>(G);
-  float am = 0.f, av = 0.f;
-  for (int g = 0; g < G; ++g) {
-    const int64_t o = static_cast<int64_t>(g) * C + c;
-    const float m = __fdiv_rn(sums[o], count);
-    const float v = __fsub_rn(__fdiv_rn(sums[static_cast<int64_t>(G) * C + o],
-                                        count),
-                              __fmul_rn(m, m));
-    mean[o] = m;
-    rs[o] = __frsqrt_rn(__fadd_rn(v, eps));
-    am = __fadd_rn(am, __fmul_rn(m, inv_g));
-    av = __fadd_rn(av, __fmul_rn(v, inv_g));
-  }
-  if (avg_m != nullptr) {
-    avg_m[c] = am;
-    avg_v[c] = av;
+  const int t = gh / geo.S, s = gh - t * geo.S;
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    float acc = 0.f;
+    for (int b = 0; b < geo.bt; ++b) {
+      const int seg = (t * geo.bt + b) * geo.S + s;
+      const int first = seg * L, last = first + L - 1;
+      for (int mt = first / TBM; mt <= last / TBM; ++mt) {
+        const int slot = seg - (mt * TBM) / L;
+        acc += part[(static_cast<int64_t>(mt * R + slot) * NV + v) * C + c];
+      }
+    }
+    out[(static_cast<int64_t>(v) * G + gh) * C + c] = acc;
   }
 }
 
-// backward: per-ghost corrections c1 = g * sum(dy) / n, c2 = g * sum(dy *
-// xh) / n; dgamma = sum over ghosts of sum(dy * xh), dbeta of sum(dy)
+// forward, per (ghost, channel): m = s0 / n, v = s1 / n - m^2 (written over
+// s1, for the averages), mean and rsqrt(v + eps)
+__global__ void stats_finalize_kernel(float* __restrict__ sums, int64_t gc,
+                                      float count, float eps,
+                                      float* __restrict__ mean,
+                                      float* __restrict__ rs) {
+  const int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (o >= gc) return;
+  const float m = __fdiv_rn(sums[o], count);
+  const float v = __fsub_rn(__fdiv_rn(sums[gc + o], count), __fmul_rn(m, m));
+  mean[o] = m;
+  rs[o] = __frsqrt_rn(__fadd_rn(v, eps));
+  sums[gc + o] = v;
+}
+
+// backward, per (ghost, channel): the corrections c1 = g * sum(dy) / n, c2 =
+// g * sum(dy * xh) / n
 __global__ void grad_finalize_kernel(const float* __restrict__ s1,
-                                     const float* __restrict__ s2, int G,
+                                     const float* __restrict__ s2, int64_t gc,
                                      int C, float count,
                                      const float* __restrict__ gamma,
                                      float* __restrict__ c1,
-                                     float* __restrict__ c2,
-                                     float* __restrict__ dgamma,
-                                     float* __restrict__ dbeta) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float dg = 0.f, db = 0.f;
-  for (int g = 0; g < G; ++g) {
-    const int64_t o = static_cast<int64_t>(g) * C + c;
-    c1[o] = __fdiv_rn(__fmul_rn(gamma[c], s1[o]), count);
-    c2[o] = __fdiv_rn(__fmul_rn(gamma[c], s2[o]), count);
-    dg = __fadd_rn(dg, s2[o]);
-    db = __fadd_rn(db, s1[o]);
+                                     float* __restrict__ c2) {
+  const int64_t o = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (o >= gc) return;
+  const float g = gamma[o % C];
+  c1[o] = __fdiv_rn(__fmul_rn(g, s1[o]), count);
+  c2[o] = __fdiv_rn(__fmul_rn(g, s2[o]), count);
+}
+
+// out_k[c] = scale * sum over ghosts of in_k[g][c] for k = 0, 1, in a fixed
+// order: 8 row groups of a block take every 8th ghost, then their partials
+// add in group order (the averaged statistics; dgamma and dbeta)
+__global__ void __launch_bounds__(256)
+colsum2_kernel(const float* __restrict__ in0, const float* __restrict__ in1,
+               int G, int C, float scale, float* __restrict__ out0,
+               float* __restrict__ out1) {
+  __shared__ float red[2][8][32];
+  const int lane = threadIdx.x & 31, rg = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  float a0 = 0.f, a1 = 0.f;
+  if (c < C)
+    for (int g = rg; g < G; g += 8) {
+      a0 += in0[static_cast<int64_t>(g) * C + c];
+      a1 += in1[static_cast<int64_t>(g) * C + c];
+    }
+  red[0][rg][lane] = a0;
+  red[1][rg][lane] = a1;
+  __syncthreads();
+  if (rg == 0 && c < C) {
+    float s0 = 0.f, s1 = 0.f;
+    for (int r = 0; r < 8; ++r) {
+      s0 += red[0][r][lane];
+      s1 += red[1][r][lane];
+    }
+    out0[c] = __fmul_rn(s0, scale);
+    out1[c] = __fmul_rn(s1, scale);
   }
-  dgamma[c] = dg;
-  dbeta[c] = db;
 }
 
 // ---------------------------------------------------------------------------
-// elementwise passes
+// elementwise passes: one thread per 8 channels of a row
 // ---------------------------------------------------------------------------
 
-__global__ void out_kernel(OutGrad o, Geo geo, int64_t total,
+struct Vec8 {  // i -> (row, channel), 8 channels a thread
+  int C;
+  FastDiv dC8;
+  __device__ __forceinline__ bool at(int64_t i, int64_t rows, int& row,
+                                     int& c) const {
+    if (i >= rows * (C / 8)) return false;
+    row = dC8.div(static_cast<int>(i));
+    c = (static_cast<int>(i) - row * (C / 8)) * 8;
+    return true;
+  }
+};
+
+__device__ __forceinline__ int64_t thread_index() {
+  return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+}
+
+// the forward's bf16 activations h = bf16(relu(BN(a))) (0 at a haloed row
+// outside the image)
+__global__ void norm_kernel(const float* __restrict__ a, bf16* __restrict__ h,
+                            Vec8 vc, int rows, const float* __restrict__ mean,
+                            const float* __restrict__ rs,
+                            const float* __restrict__ g,
+                            const float* __restrict__ b, Geo geo,
+                            int haloed) {
+  int m, c;
+  if (!vc.at(thread_index(), rows, m, c)) return;
+  const int64_t off = static_cast<int64_t>(m) * vc.C + c;
+  bool inside;
+  const int gh = act_ghost(geo, m, haloed, inside);
+  float v[8], xh[8], y[8];
+  load8f(a + off, v);
+  const int64_t so = static_cast<int64_t>(gh) * vc.C + c;
+  bn8(v, mean + so, rs + so, g + c, b + c, xh, y);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) y[i] = inside ? fmaxf(y[i], 0.f) : 0.f;
+  *reinterpret_cast<uint4*>(h + off) = pack8(y);
+}
+
+struct OutArgs {
+  const float *a3, *ap;
+  const bf16 *x, *g;
+  const float *m3, *rs3, *g3, *b3, *mp, *rsp, *gp, *bp;
+  int proj;
+};
+
+// y3 and the residual r of 8 channels of row m
+__device__ __forceinline__ void out_terms(const OutArgs& o, int64_t off,
+                                          int64_t so, int c, float* xh3,
+                                          float* y3, float* xhp, float* r) {
+  float a[8];
+  load8f(o.a3 + off, a);
+  bn8(a, o.m3 + so, o.rs3 + so, o.g3 + c, o.b3 + c, xh3, y3);
+  if (o.proj) {
+    load8f(o.ap + off, a);
+    bn8(a, o.mp + so, o.rsp + so, o.gp + c, o.bp + c, xhp, r);
+  } else {
+    unpack8(*reinterpret_cast<const uint4*>(o.x + off), r);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) xhp[i] = 0.f;
+  }
+}
+
+__global__ void out_kernel(OutArgs o, Vec8 vc, int rows, Geo geo,
                            bf16* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= total) return;
-  const int c = static_cast<int>(i % o.C);
-  const int64_t m = i / o.C;
-  const int gh = geo.ghost_of(m);
-  const int64_t so = static_cast<int64_t>(gh) * o.C + c;
-  const float y3 = bn(o.a3[i], o.m3[so], o.rs3[so], o.g3[c], o.b3[c]);
-  const float r = o.proj ? bn(o.ap[i], o.mp[so], o.rsp[so], o.gp[c], o.bp[c])
-                         : __bfloat162float(o.x[i]);
-  out[i] = __float2bfloat16_rn(fmaxf(__fadd_rn(y3, r), 0.f));
+  int m, c;
+  if (!vc.at(thread_index(), rows, m, c)) return;
+  const int64_t off = static_cast<int64_t>(m) * vc.C + c;
+  const int64_t so = static_cast<int64_t>(geo.ghost_of_row(m)) * vc.C + c;
+  float xh3[8], y3[8], xhp[8], r[8];
+  out_terms(o, off, so, c, xh3, y3, xhp, r);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) y3[i] = fmaxf(__fadd_rn(y3[i], r[i]), 0.f);
+  *reinterpret_cast<uint4*>(out + off) = pack8(y3);
 }
 
 // da = rs * ((dy * g - c1) - xh * c2), the BN backward of the interior BNs
@@ -521,80 +737,119 @@ __device__ __forceinline__ float bn_da(float dy, float xh, float rs, float g,
 
 // da3 (and dap) in bf16; without proj the residual's gradient gz goes to
 // dres in f32
-__global__ void out_da_kernel(OutGrad o, Geo geo, int64_t total,
+__global__ void out_da_kernel(OutArgs o, Vec8 vc, int rows, Geo geo,
                               const float* __restrict__ c13,
                               const float* __restrict__ c23,
                               const float* __restrict__ c1p,
                               const float* __restrict__ c2p,
                               bf16* __restrict__ da3, bf16* __restrict__ dap,
                               float* __restrict__ dres) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= total) return;
-  const int c = static_cast<int>(i % o.C);
-  const int64_t m = i / o.C;
-  const int gh = geo.ghost_of(m);
-  const int64_t so = static_cast<int64_t>(gh) * o.C + c;
-  float gz, xh3, xhp;
-  o.at(m, gh, c, gz, xh3, xhp);
-  da3[i] = __float2bfloat16_rn(
-      bn_da(gz, xh3, o.rs3[so], o.g3[c], c13[so], c23[so]));
-  if (o.proj)
-    dap[i] = __float2bfloat16_rn(
-        bn_da(gz, xhp, o.rsp[so], o.gp[c], c1p[so], c2p[so]));
-  else
-    dres[i] = gz;
+  int m, c;
+  if (!vc.at(thread_index(), rows, m, c)) return;
+  const int64_t off = static_cast<int64_t>(m) * vc.C + c;
+  const int64_t so = static_cast<int64_t>(geo.ghost_of_row(m)) * vc.C + c;
+  float xh3[8], y3[8], xhp[8], r[8], gz[8], d[8], s[8], g[8], k1[8], k2[8];
+  out_terms(o, off, so, c, xh3, y3, xhp, r);
+  unpack8(*reinterpret_cast<const uint4*>(o.g + off), gz);
+  ldg8(o.rs3 + so, s);
+  ldg8(o.g3 + c, g);
+  ldg8(c13 + so, k1);
+  ldg8(c23 + so, k2);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    gz[i] = __fadd_rn(y3[i], r[i]) > 0.f ? gz[i] : 0.f;
+    d[i] = bn_da(gz[i], xh3[i], s[i], g[i], k1[i], k2[i]);
+  }
+  *reinterpret_cast<uint4*>(da3 + off) = pack8(d);
+  if (o.proj) {
+    ldg8(o.rsp + so, s);
+    ldg8(o.gp + c, g);
+    ldg8(c1p + so, k1);
+    ldg8(c2p + so, k2);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      d[i] = bn_da(gz[i], xhp[i], s[i], g[i], k1[i], k2[i]);
+    *reinterpret_cast<uint4*>(dap + off) = pack8(d);
+  } else {
+    store8f(dres + off, gz);
+  }
 }
 
-__global__ void mid_da_kernel(SumsMid f, int64_t total,
+// an interior BN's backward: the f32 interior a, its gradient dh (both
+// [rows, C]) and the BN's statistics, scale and bias
+struct DaArgs {
+  const float *a, *dh, *m, *rs, *g, *b;
+};
+
+__global__ void mid_da_kernel(DaArgs f, Vec8 vc, int rows, Geo geo,
                               const float* __restrict__ c1,
                               const float* __restrict__ c2,
                               bf16* __restrict__ da2) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= total) return;
-  const int c = static_cast<int>(i % f.C);
-  const int64_t m = i / f.C;
-  const int gh = f.geo.ghost_of(m);
-  const int64_t so = static_cast<int64_t>(gh) * f.C + c;
-  const float xh = __fmul_rn(__fsub_rn(f.acc2[i], f.m2[so]), f.rs2[so]);
-  const float y = __fadd_rn(__fmul_rn(f.g2[c], xh), f.b2[c]);
-  const float dz = y > 0.f ? f.dh2[i] : 0.f;
-  da2[i] = __float2bfloat16_rn(bn_da(dz, xh, f.rs2[so], f.g2[c], c1[so],
-                                     c2[so]));
+  int m, c;
+  if (!vc.at(thread_index(), rows, m, c)) return;
+  const int64_t off = static_cast<int64_t>(m) * vc.C + c;
+  const int64_t so = static_cast<int64_t>(geo.ghost_of_row(m)) * vc.C + c;
+  float a[8], dh[8], d[8], mv[8], sv[8], gv[8], bv[8], k1[8], k2[8];
+  load8f(f.a + off, a);
+  load8f(f.dh + off, dh);
+  ldg8(f.m + so, mv);
+  ldg8(f.rs + so, sv);
+  ldg8(f.g + c, gv);
+  ldg8(f.b + c, bv);
+  ldg8(c1 + so, k1);
+  ldg8(c2 + so, k2);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float xh = __fmul_rn(__fsub_rn(a[i], mv[i]), sv[i]);
+    const float y = __fadd_rn(__fmul_rn(gv[i], xh), bv[i]);
+    const float dz = y > 0.f ? dh[i] : 0.f;
+    d[i] = bn_da(dz, xh, sv[i], gv[i], k1[i], k2[i]);
+  }
+  *reinterpret_cast<uint4*>(da2 + off) = pack8(d);
 }
 
 // da1 over the haloed rows: rs * (dxh - (c1 + xh * c2)) on interior rows,
 // rs * dxh on halo rows, zero outside the image
-__global__ void in_da_kernel(SumsIn f, int64_t total,
+__global__ void in_da_kernel(DaArgs f, Vec8 vc, int rows, Geo geo,
                              const float* __restrict__ c1,
                              const float* __restrict__ c2,
                              bf16* __restrict__ da1) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= total) return;
-  const Geo& geo = f.geo;
-  const int c = static_cast<int>(i % f.C);
-  const int64_t q = i / f.C;
+  int q, c;
+  if (!vc.at(thread_index(), rows, q, c)) return;
+  const int64_t off = static_cast<int64_t>(q) * vc.C + c;
   int n, s, jr, x;
   geo.split_haloed(q, n, s, jr, x);
   const int y = s * geo.th - geo.hal + jr;
+  float d[8];
   if (y < 0 || y >= geo.H) {
-    da1[i] = __float2bfloat16_rn(0.f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) d[i] = 0.f;
+    *reinterpret_cast<uint4*>(da1 + off) = pack8(d);
     return;
   }
-  const int gh = (n / geo.bt) * geo.S + s;
-  const int64_t m = (static_cast<int64_t>(n) * geo.H + y) * geo.W + x;
-  const int64_t so = static_cast<int64_t>(gh) * f.C + c;
-  const float xh = __fmul_rn(__fsub_rn(f.a1[m * f.C + c], f.m1[so]),
-                             f.rs1[so]);
-  const float yv = __fadd_rn(__fmul_rn(f.g1[c], xh), f.b1[c]);
-  const float dxh = __fmul_rn(yv > 0.f ? f.dh1[i] : 0.f, f.g1[c]);
+  const int64_t so =
+      static_cast<int64_t>(geo.dbt.div(n) * geo.S + s) * vc.C + c;
   const bool interior = jr >= geo.hal && jr < geo.th + geo.hal;
-  const float d = interior
-      ? __fsub_rn(dxh, __fadd_rn(c1[so], __fmul_rn(xh, c2[so])))
-      : dxh;
-  da1[i] = __float2bfloat16_rn(__fmul_rn(f.rs1[so], d));
+  float a[8], dh[8], mv[8], sv[8], gv[8], bv[8], k1[8], k2[8];
+  load8f(f.a + off, a);
+  load8f(f.dh + off, dh);
+  ldg8(f.m + so, mv);
+  ldg8(f.rs + so, sv);
+  ldg8(f.g + c, gv);
+  ldg8(f.b + c, bv);
+  ldg8(c1 + so, k1);
+  ldg8(c2 + so, k2);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float xh = __fmul_rn(__fsub_rn(a[i], mv[i]), sv[i]);
+    const float yv = __fadd_rn(__fmul_rn(gv[i], xh), bv[i]);
+    const float dxh = __fmul_rn(yv > 0.f ? dh[i] : 0.f, gv[i]);
+    const float dd = interior
+        ? __fsub_rn(dxh, __fadd_rn(k1[i], __fmul_rn(xh, k2[i])))
+        : dxh;
+    d[i] = __fmul_rn(sv[i], dd);
+  }
+  *reinterpret_cast<uint4*>(da1 + off) = pack8(d);
 }
 
 // dx[n, row, x, c] += seam[n, s, x, c] in bf16 for s in [s_lo, s_hi), row =
@@ -603,8 +858,7 @@ __global__ void seam_add_kernel(bf16* __restrict__ dx,
                                 const bf16* __restrict__ seam, Geo geo, int C,
                                 int s_lo, int s_hi, int row_off) {
   const int64_t per = static_cast<int64_t>(s_hi - s_lo) * geo.W * C;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
+  const int64_t i = thread_index();
   if (i >= per * geo.N) return;
   const int n = static_cast<int>(i / per);
   int64_t r = i % per;
@@ -623,40 +877,52 @@ __global__ void seam_add_kernel(bf16* __restrict__ dx,
 // host side
 // ---------------------------------------------------------------------------
 
+int blocks_for(int64_t n, int threads) {
+  return static_cast<int>((n + threads - 1) / threads);
+}
+
 // split-K for the wgrad products (K = samples): about 4 blocks an SM
-void wgrad_split(int64_t M, int N, int64_t K, int* splits, int64_t* kchunk) {
-  const int64_t tiles = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+void wgrad_split(int M, int N, int K, int* splits, int* kchunk) {
+  const int64_t tiles =
+      static_cast<int64_t>((M + TBM - 1) / TBM) * ((N + TBN - 1) / TBN);
   int64_t want = (528 + tiles - 1) / tiles;
   const int64_t most = (K + 255) / 256;
   if (want > most) want = most;
   if (want < 1) want = 1;
   int64_t chunk = (K + want - 1) / want;
-  chunk = (chunk + BK - 1) / BK * BK;
-  *kchunk = chunk;
+  chunk = (chunk + TBK - 1) / TBK * TBK;
+  *kchunk = static_cast<int>(chunk);
   *splits = static_cast<int>((K + chunk - 1) / chunk);
+}
+
+int64_t wgrad_floats(int M, int N, int K) {
+  int splits, chunk;
+  wgrad_split(M, N, K, &splits, &chunk);
+  return static_cast<int64_t>(splits) * M * N;
 }
 
 // out [M, N] f32 = sum over samples of A(m, i) B(m, n), through partials
 template <class LA, class LB>
-cudaError_t wgrad(LA la, LB lb, int64_t M, int N, int64_t K, float* part,
-                  float* out, cudaStream_t st) {
-  int splits;
-  int64_t chunk;
+cudaError_t wgrad(LA la, LB lb, int M, int N, int K, float* part, float* out,
+                  cudaStream_t st) {
+  int splits, chunk;
   wgrad_split(M, N, K, &splits, &chunk);
-  cudaError_t e = gemm<false, false>(la, lb, EpPartial{part, M, N}, M, N, K,
-                                     splits, chunk, st);
+  cudaError_t e = tc_gemm<false, false>(la, lb, EpPartial{part, M, N},
+                                        SegSums{nullptr, 1, 1}, M, N, K,
+                                        splits, chunk, st);
   if (e != cudaSuccess) return e;
-  const int64_t n = M * N;
+  const int64_t n = static_cast<int64_t>(M) * N;
   reduce_splits_kernel<<<blocks_for(n, 256), 256, 0, st>>>(part, splits, n,
                                                             out);
   return cudaGetLastError();
 }
 
-template <int NV, class F>
-cudaError_t ghost_sums(F f, int C, int rows, int G, float* out,
-                       cudaStream_t st) {
-  const dim3 grid(G, (C + 31) / 32);
-  ghost_sums_kernel<NV><<<grid, RED_ROWS * 32, 0, st>>>(f, C, rows, G, out);
+template <int NV>
+cudaError_t ghost_reduce(const SegSums& seg, const Geo& geo, int G, int C,
+                         float* out, cudaStream_t st) {
+  const dim3 grid(G, (C + 127) / 128);
+  ghost_reduce_kernel<NV><<<grid, 128, 0, st>>>(seg.part, seg.R, seg.L, geo,
+                                                G, C, out);
   return cudaGetLastError();
 }
 
@@ -676,6 +942,10 @@ struct KftpuBlockArgs {
   float *dw1, *dg1, *db1, *dw2, *dg2, *db2, *dw3, *dg3, *db3, *dwp, *dgp,
       *dbp;
   void* workspace;
+  // f32 per-ghost mean and rsqrt(v + eps): [G, Cmid] m1, rs1, m2, rs2, then
+  // [G, Cout] m3, rs3, mp, rsp. The forward writes them; the backward reads
+  // them, or recomputes them when 0
+  float* ghost;
 };
 
 namespace {
@@ -692,20 +962,14 @@ struct Carve {
   }
 };
 
-struct Bufs {  // the forward's interiors and statistics
-  float *a1, *ap, *acc2, *a3;
-  float *sum1, *mean1, *rs1, *sum2, *mean2, *rs2, *sum3, *mean3, *rs3, *sump,
-      *meanp, *rsp;
+struct Dims {  // the block's sizes as the launches use them
+  Geo geo;
+  int M, Mh, G, Cin, Cmid, Cout, L, Lh;
 };
 
-struct BwdBufs {
-  float *bsum3, *c13, *c23, *c1p, *c2p, *dres, *dh2, *bsum2, *c12, *c22;
-  float *dh1, *bsum1, *c11, *c21, *part;
-  bf16 *da3, *dap, *da2, *da1;
-};
-
-Geo geo_of(const KftpuBlockArgs& a) {
-  Geo g;
+Dims dims_of(const KftpuBlockArgs& a) {
+  Dims d;
+  Geo& g = d.geo;
   g.N = static_cast<int>(a.N);
   g.H = static_cast<int>(a.H);
   g.W = static_cast<int>(a.W);
@@ -714,66 +978,106 @@ Geo geo_of(const KftpuBlockArgs& a) {
   g.hal = static_cast<int>(a.hal);
   g.S = static_cast<int>(a.H / a.th);
   g.th2 = g.th + 2 * g.hal;
-  return g;
+  d.L = g.th * g.W;
+  d.Lh = g.th2 * g.W;
+  g.dW = fast_div(g.W);
+  g.dH = fast_div(g.H);
+  g.dth = fast_div(g.th);
+  g.dth2 = fast_div(g.th2);
+  g.dS = fast_div(g.S);
+  g.dbt = fast_div(g.bt);
+  g.dL = fast_div(d.L);
+  g.dLh = fast_div(d.Lh);
+  d.M = static_cast<int>(a.N * a.H * a.W);
+  d.Mh = g.N * g.S * d.Lh;
+  d.G = (g.N / g.bt) * g.S;
+  d.Cin = static_cast<int>(a.Cin);
+  d.Cmid = static_cast<int>(a.Cmid);
+  d.Cout = static_cast<int>(a.Cout);
+  return d;
 }
 
-Bufs carve_fwd(const KftpuBlockArgs& a, Carve& cv) {
-  const Geo geo = geo_of(a);
-  const int64_t M = a.N * a.H * a.W, G = (a.N / a.bt) * geo.S;
+GhostStats ghost_stats(float* p, const Dims& d) {
+  const int64_t gm = static_cast<int64_t>(d.G) * d.Cmid;
+  const int64_t go = static_cast<int64_t>(d.G) * d.Cout;
+  GhostStats s;
+  s.m1 = p;
+  s.rs1 = s.m1 + gm;
+  s.m2 = s.rs1 + gm;
+  s.rs2 = s.m2 + gm;
+  s.m3 = s.rs2 + gm;
+  s.rs3 = s.m3 + go;
+  s.mp = s.rs3 + go;
+  s.rsp = s.mp + go;
+  return s;
+}
+
+int64_t ghost_floats(const Dims& d) {
+  return static_cast<int64_t>(d.G) * (4 * d.Cmid + 4 * d.Cout);
+}
+
+struct Bufs {  // the interiors, their activations, sums
+  float *a1, *ap, *acc2, *a3;  // a1 over the haloed rows
+  bf16 *h1, *h2;               // h1 over the haloed rows
+  float *part, *sums;
+};
+
+// partials of an NV-value epilogue over `rows` product rows
+int64_t seg_floats(int rows, int L, int NV, int C) {
+  const SegSums s = seg_sums(nullptr, L);
+  return static_cast<int64_t>((rows + TBM - 1) / TBM) * s.R * NV * C;
+}
+
+Bufs carve_fwd(const KftpuBlockArgs& a, const Dims& d, Carve& cv) {
   Bufs b;
-  b.a1 = cv.take<float>(M * a.Cmid);
-  b.ap = a.proj ? cv.take<float>(M * a.Cout) : nullptr;
-  b.acc2 = cv.take<float>(M * a.Cmid);
-  b.a3 = cv.take<float>(M * a.Cout);
-  b.sum1 = cv.take<float>(2 * G * a.Cmid);
-  b.mean1 = cv.take<float>(G * a.Cmid);
-  b.rs1 = cv.take<float>(G * a.Cmid);
-  b.sum2 = cv.take<float>(2 * G * a.Cmid);
-  b.mean2 = cv.take<float>(G * a.Cmid);
-  b.rs2 = cv.take<float>(G * a.Cmid);
-  b.sum3 = cv.take<float>(2 * G * a.Cout);
-  b.mean3 = cv.take<float>(G * a.Cout);
-  b.rs3 = cv.take<float>(G * a.Cout);
-  b.sump = cv.take<float>(2 * G * a.Cout);
-  b.meanp = cv.take<float>(G * a.Cout);
-  b.rsp = cv.take<float>(G * a.Cout);
+  b.a1 = cv.take<float>(static_cast<int64_t>(d.Mh) * d.Cmid);
+  b.h1 = cv.take<bf16>(static_cast<int64_t>(d.Mh) * d.Cmid);
+  b.ap = a.proj ? cv.take<float>(static_cast<int64_t>(d.M) * d.Cout)
+                : nullptr;
+  b.acc2 = cv.take<float>(static_cast<int64_t>(d.M) * d.Cmid);
+  b.h2 = cv.take<bf16>(static_cast<int64_t>(d.M) * d.Cmid);
+  b.a3 = cv.take<float>(static_cast<int64_t>(d.M) * d.Cout);
+  int64_t part = seg_floats(d.Mh, d.Lh, 2, d.Cmid);
+  const int64_t p3 = seg_floats(d.M, d.L, 3, d.Cout);
+  const int64_t p2 = seg_floats(d.M, d.L, 2, d.Cmid);
+  if (p3 > part) part = p3;
+  if (p2 > part) part = p2;
+  b.part = cv.take<float>(part);
+  const int cmax = d.Cmid > d.Cout ? d.Cmid : d.Cout;
+  b.sums = cv.take<float>(3 * static_cast<int64_t>(d.G) * cmax);
   return b;
 }
 
-int64_t wgrad_floats(int64_t M, int N, int64_t K) {
-  int splits;
-  int64_t chunk;
-  wgrad_split(M, N, K, &splits, &chunk);
-  return splits * M * N;
-}
+struct BwdBufs {
+  float *c13, *c23, *c1p, *c2p, *dres, *dh2, *c12, *c22;
+  float *dh1, *c11, *c21, *part;
+  bf16 *da3, *dap, *da2, *da1;
+  float* ghost;  // recomputed statistics when the caller gives none
+};
 
-BwdBufs carve_bwd(const KftpuBlockArgs& a, Carve& cv) {
-  const Geo geo = geo_of(a);
-  const int64_t M = a.N * a.H * a.W, G = (a.N / a.bt) * geo.S;
-  const int64_t Mh = a.N * geo.S * geo.th2 * a.W;
+BwdBufs carve_bwd(const KftpuBlockArgs& a, const Dims& d, Carve& cv) {
+  const int64_t M = d.M, Mh = d.Mh, G = d.G;
   BwdBufs b;
-  b.bsum3 = cv.take<float>(3 * G * a.Cout);
-  b.c13 = cv.take<float>(G * a.Cout);
-  b.c23 = cv.take<float>(G * a.Cout);
-  b.c1p = cv.take<float>(G * a.Cout);
-  b.c2p = cv.take<float>(G * a.Cout);
-  b.da3 = cv.take<bf16>(M * a.Cout);
-  b.dap = a.proj ? cv.take<bf16>(M * a.Cout) : nullptr;
-  b.dres = cv.take<float>(M * a.Cin);
-  b.dh2 = cv.take<float>(M * a.Cmid);
-  b.bsum2 = cv.take<float>(2 * G * a.Cmid);
-  b.c12 = cv.take<float>(G * a.Cmid);
-  b.c22 = cv.take<float>(G * a.Cmid);
-  b.da2 = cv.take<bf16>(M * a.Cmid);
-  b.dh1 = cv.take<float>(Mh * a.Cmid);
-  b.bsum1 = cv.take<float>(2 * G * a.Cmid);
-  b.c11 = cv.take<float>(G * a.Cmid);
-  b.c21 = cv.take<float>(G * a.Cmid);
-  b.da1 = cv.take<bf16>(Mh * a.Cmid);
-  int64_t part = wgrad_floats(a.Cmid, static_cast<int>(a.Cout), M);  // dw3
-  int64_t p2 = wgrad_floats(9 * a.Cmid, static_cast<int>(a.Cmid), M);  // dw2
-  int64_t p1 = wgrad_floats(a.Cin, static_cast<int>(a.Cmid), Mh);  // dw1
-  int64_t pp = a.proj ? wgrad_floats(a.Cin, static_cast<int>(a.Cout), M) : 0;
+  b.ghost = a.ghost == nullptr ? cv.take<float>(ghost_floats(d)) : a.ghost;
+  b.c13 = cv.take<float>(G * d.Cout);
+  b.c23 = cv.take<float>(G * d.Cout);
+  b.c1p = cv.take<float>(G * d.Cout);
+  b.c2p = cv.take<float>(G * d.Cout);
+  b.da3 = cv.take<bf16>(M * d.Cout);
+  b.dap = a.proj ? cv.take<bf16>(M * d.Cout) : nullptr;
+  b.dres = cv.take<float>(M * d.Cin);
+  b.dh2 = cv.take<float>(M * d.Cmid);
+  b.c12 = cv.take<float>(G * d.Cmid);
+  b.c22 = cv.take<float>(G * d.Cmid);
+  b.da2 = cv.take<bf16>(M * d.Cmid);
+  b.dh1 = cv.take<float>(Mh * d.Cmid);
+  b.c11 = cv.take<float>(G * d.Cmid);
+  b.c21 = cv.take<float>(G * d.Cmid);
+  b.da1 = cv.take<bf16>(Mh * d.Cmid);
+  int64_t part = wgrad_floats(d.Cmid, d.Cout, d.M);           // dw3
+  const int64_t p2 = wgrad_floats(9 * d.Cmid, d.Cmid, d.M);   // dw2
+  const int64_t p1 = wgrad_floats(d.Cin, d.Cmid, d.Mh);       // dw1
+  const int64_t pp = a.proj ? wgrad_floats(d.Cin, d.Cout, d.M) : 0;
   if (p2 > part) part = p2;
   if (p1 > part) part = p1;
   if (pp > part) part = pp;
@@ -787,63 +1091,76 @@ BwdBufs carve_bwd(const KftpuBlockArgs& a, Carve& cv) {
     if (err_ != cudaSuccess) return err_;  \
   } while (0)
 
-// the forward: interiors and per-ghost statistics into `b`; the output and
-// the averaged statistics when `final_out`
-cudaError_t run_forward(const KftpuBlockArgs& a, const Bufs& b,
-                        bool final_out, cudaStream_t st) {
-  const Geo geo = geo_of(a);
-  const int64_t M = a.N * a.H * a.W;
-  const int G = static_cast<int>((a.N / a.bt) * geo.S);
-  const int Cin = static_cast<int>(a.Cin), Cmid = static_cast<int>(a.Cmid),
-            Cout = static_cast<int>(a.Cout);
-  const int rows = static_cast<int>(a.bt * a.th * a.W);
-  const float count = static_cast<float>(rows), eps = static_cast<float>(a.eps);
+Vec8 vec8(int C) { return Vec8{C, fast_div(C / 8)}; }
+
+// the forward: interiors, activations and per-ghost statistics (into
+// `gs`); the output and the averaged statistics when `final_out`
+cudaError_t run_forward(const KftpuBlockArgs& a, const Dims& d,
+                        const Bufs& b, const GhostStats& gs, bool final_out,
+                        cudaStream_t st) {
+  const Geo& geo = d.geo;
+  const int G = d.G, Cin = d.Cin, Cmid = d.Cmid, Cout = d.Cout;
+  const float count = static_cast<float>(a.bt * a.th * a.W);
+  const float eps = static_cast<float>(a.eps);
   const bf16* x = static_cast<const bf16*>(a.x);
   const bf16* w1 = static_cast<const bf16*>(a.w1);
   const bf16* w2 = static_cast<const bf16*>(a.w2);
   const bf16* w3 = static_cast<const bf16*>(a.w3);
   const bf16* wp = static_cast<const bf16*>(a.wp);
-  auto fin = [&](const float* sums, int C, float* mean, float* rs,
-                 float* am, float* av) {
-    stats_finalize_kernel<<<blocks_for(C, 128), 128, 0, st>>>(
-        sums, G, C, count, eps, mean, rs, final_out ? am : nullptr,
-        final_out ? av : nullptr);
+  const SegSums sh = seg_sums(b.part, d.Lh), sr = seg_sums(b.part, d.L);
+  // sums -> per-ghost m, rsqrt (and the averages when final_out)
+  auto stats = [&](const SegSums& seg, int C, float* mean, float* rs,
+                   float* am, float* av) -> cudaError_t {
+    KFTPU_TRY(ghost_reduce<2>(seg, geo, G, C, b.sums, st));
+    const int64_t gc = static_cast<int64_t>(G) * C;
+    stats_finalize_kernel<<<blocks_for(gc, 256), 256, 0, st>>>(
+        b.sums, gc, count, eps, mean, rs);
+    KFTPU_TRY(cudaGetLastError());
+    if (final_out) {
+      colsum2_kernel<<<(C + 31) / 32, 256, 0, st>>>(
+          mean, b.sums + gc, G, C, 1.f / static_cast<float>(G), am, av);
+      KFTPU_TRY(cudaGetLastError());
+    }
+    return cudaSuccess;
+  };
+  auto norm = [&](const float* src, bf16* h, int rows, int C,
+                  const float* mean, const float* rs, const float* g,
+                  const float* bb, int haloed) {
+    const int64_t n = static_cast<int64_t>(rows) * (C / 8);
+    norm_kernel<<<blocks_for(n, 256), 256, 0, st>>>(
+        src, h, vec8(C), rows, mean, rs, g, bb, geo, haloed);
     return cudaGetLastError();
   };
 
-  // conv1 (and proj) 1x1, BN1 statistics
-  KFTPU_TRY((gemm_full<true, false>(LdBf16{x, Cin}, LdBf16{w1, Cmid},
-                                    EpF32{b.a1, Cmid}, M, Cmid, Cin, st)));
-  KFTPU_TRY((ghost_sums<2>(SumsFwd{b.a1, Cmid, geo}, Cmid, rows, G, b.sum1,
-                           st)));
-  KFTPU_TRY(fin(b.sum1, Cmid, b.mean1, b.rs1, a.m1, a.v1));
+  // conv1 1x1 over the haloed rows, BN1 statistics over the interior, h1
+  KFTPU_TRY((tc_gemm_full<true, false>(
+      LdXHaloed{x, Cin, geo}, LdRows{w1, Cmid},
+      EpMoments{b.a1, Cmid, geo, 1}, d.Mh, Cmid, Cin, st, sh)));
+  KFTPU_TRY(stats(sh, Cmid, gs.m1, gs.rs1, a.m1, a.v1));
+  KFTPU_TRY(norm(b.a1, b.h1, d.Mh, Cmid, gs.m1, gs.rs1, a.g1, a.b1, 1));
   if (a.proj) {
-    KFTPU_TRY((gemm_full<true, false>(LdBf16{x, Cin}, LdBf16{wp, Cout},
-                                      EpF32{b.ap, Cout}, M, Cout, Cin, st)));
-    KFTPU_TRY((ghost_sums<2>(SumsFwd{b.ap, Cout, geo}, Cout, rows, G, b.sump,
-                             st)));
-    KFTPU_TRY(fin(b.sump, Cout, b.meanp, b.rsp, a.mp, a.vp));
+    KFTPU_TRY((tc_gemm_full<true, false>(
+        LdRows{x, Cin}, LdRows{wp, Cout}, EpMoments{b.ap, Cout, geo, 0},
+        d.M, Cout, Cin, st, sr)));
+    KFTPU_TRY(stats(sr, Cout, gs.mp, gs.rsp, a.mp, a.vp));
   }
-  // conv2 3x3 over BN1(a1), BN2 statistics
-  KFTPU_TRY((gemm_full<true, false>(
-      LdConvFwd{b.a1, b.mean1, b.rs1, a.g1, a.b1, Cmid, geo},
-      LdBf16{w2, Cmid}, EpF32{b.acc2, Cmid}, M, Cmid, 9 * Cmid, st)));
-  KFTPU_TRY((ghost_sums<2>(SumsFwd{b.acc2, Cmid, geo}, Cmid, rows, G, b.sum2,
-                           st)));
-  KFTPU_TRY(fin(b.sum2, Cmid, b.mean2, b.rs2, a.m2, a.v2));
-  // conv3 1x1 over BN2(acc2), BN3 statistics
-  KFTPU_TRY((gemm_full<true, false>(
-      LdBnRelu{b.acc2, b.mean2, b.rs2, a.g2, a.b2, Cmid, geo},
-      LdBf16{w3, Cout}, EpF32{b.a3, Cout}, M, Cout, Cmid, st)));
-  KFTPU_TRY((ghost_sums<2>(SumsFwd{b.a3, Cout, geo}, Cout, rows, G, b.sum3,
-                           st)));
-  KFTPU_TRY(fin(b.sum3, Cout, b.mean3, b.rs3, a.m3, a.v3));
+  // conv2 3x3 over h1, BN2 statistics, h2
+  KFTPU_TRY((tc_gemm_full<true, false>(
+      LdConv{b.h1, Cmid, fast_div(Cmid), geo}, LdRows{w2, Cmid},
+      EpMoments{b.acc2, Cmid, geo, 0}, d.M, Cmid, 9 * Cmid, st, sr)));
+  KFTPU_TRY(stats(sr, Cmid, gs.m2, gs.rs2, a.m2, a.v2));
+  KFTPU_TRY(norm(b.acc2, b.h2, d.M, Cmid, gs.m2, gs.rs2, a.g2, a.b2, 0));
+  // conv3 1x1 over h2, BN3 statistics
+  KFTPU_TRY((tc_gemm_full<true, false>(
+      LdRows{b.h2, Cmid}, LdRows{w3, Cout}, EpMoments{b.a3, Cout, geo, 0},
+      d.M, Cout, Cmid, st, sr)));
+  KFTPU_TRY(stats(sr, Cout, gs.m3, gs.rs3, a.m3, a.v3));
   if (final_out) {
-    const OutGrad o{b.a3, b.mean3, b.rs3, a.g3, a.b3, b.ap, b.meanp, b.rsp,
-                    a.gp, a.bp, x, nullptr, Cout, static_cast<int>(a.proj)};
-    const int64_t total = M * Cout;
-    out_kernel<<<blocks_for(total, 256), 256, 0, st>>>(
-        o, geo, total, static_cast<bf16*>(a.out));
+    const OutArgs o{b.a3, b.ap, x, nullptr, gs.m3, gs.rs3, a.g3, a.b3,
+                    gs.mp, gs.rsp, a.gp, a.bp, static_cast<int>(a.proj)};
+    const int64_t n = static_cast<int64_t>(d.M) * (Cout / 8);
+    out_kernel<<<blocks_for(n, 256), 256, 0, st>>>(
+        o, vec8(Cout), d.M, geo, static_cast<bf16*>(a.out));
     KFTPU_TRY(cudaGetLastError());
   }
   return cudaSuccess;
@@ -854,7 +1171,12 @@ bool args_ok(const KftpuBlockArgs& a) {
   if (a.N % a.bt || a.H % a.th) return false;
   if (a.Cin % 8 || a.Cmid % 8 || a.Cout % 8) return false;
   if (a.hal != 0 && a.hal != 1) return false;
+  if (a.hal == 0 && a.th != a.H) return false;
   if (!a.proj && a.Cin != a.Cout) return false;
+  // every row index and 9 * Cmid in 31 bits (the products' int indices)
+  const int64_t mh = a.N * (a.H / a.th) * (a.th + 2 * a.hal) * a.W;
+  if (mh >= (int64_t(1) << 31) || 9 * a.Cmid >= (int64_t(1) << 31))
+    return false;
   return true;
 }
 
@@ -863,123 +1185,151 @@ bool args_ok(const KftpuBlockArgs& a) {
 // Bytes of scratch the forward (backward = 0) or the backward (1) needs.
 extern "C" int64_t kftpu_block_train_workspace(const KftpuBlockArgs* a,
                                                int backward) {
+  const Dims d = dims_of(*a);
   Carve cv{nullptr, 0};
-  carve_fwd(*a, cv);
-  if (backward) carve_bwd(*a, cv);
+  carve_fwd(*a, d, cv);
+  if (backward) carve_bwd(*a, d, cv);
   return static_cast<int64_t>(cv.off) + 256;
 }
 
-// out and the 8 ghost-averaged statistics. Returns a cudaError_t.
+// out, the 8 ghost-averaged statistics and the per-ghost ones (`ghost`).
+// Returns a cudaError_t.
 extern "C" int kftpu_block_train_fwd(const KftpuBlockArgs* a, void* stream) {
-  if (!args_ok(*a)) return cudaErrorInvalidValue;
+  if (!args_ok(*a) || a->ghost == nullptr) return cudaErrorInvalidValue;
+  const Dims d = dims_of(*a);
   Carve cv{static_cast<char*>(a->workspace), 0};
-  const Bufs b = carve_fwd(*a, cv);
-  return run_forward(*a, b, true, static_cast<cudaStream_t>(stream));
+  const Bufs b = carve_fwd(*a, d, cv);
+  return run_forward(*a, d, b, ghost_stats(a->ghost, d), true,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // dx (with the seam rows added) and the 9 or 12 weight gradients, from x,
-// the output's gradient g and the weights (the interior is recomputed).
+// the output's gradient g, the weights and the forward's per-ghost
+// statistics (recomputed with the forward's launches when `ghost` is 0).
 extern "C" int kftpu_block_train_bwd(const KftpuBlockArgs* a, void* stream) {
   if (!args_ok(*a)) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Dims d = dims_of(*a);
+  const Geo& geo = d.geo;
   Carve cv{static_cast<char*>(a->workspace), 0};
-  const Bufs b = carve_fwd(*a, cv);
-  const BwdBufs d = carve_bwd(*a, cv);
-  KFTPU_TRY(run_forward(*a, b, false, st));
+  const Bufs b = carve_fwd(*a, d, cv);
+  const BwdBufs w = carve_bwd(*a, d, cv);
+  const GhostStats gs = ghost_stats(w.ghost, d);
+  if (a->ghost == nullptr) KFTPU_TRY(run_forward(*a, d, b, gs, false, st));
 
-  const Geo geo = geo_of(*a);
-  const int64_t M = a->N * a->H * a->W;
-  const int64_t Mh = a->N * geo.S * geo.th2 * a->W;
-  const int G = static_cast<int>((a->N / a->bt) * geo.S);
-  const int Cin = static_cast<int>(a->Cin), Cmid = static_cast<int>(a->Cmid),
-            Cout = static_cast<int>(a->Cout);
-  const int rows = static_cast<int>(a->bt * a->th * a->W);
-  const int hrows = static_cast<int>(a->bt * geo.th2 * a->W);
-  const float count = static_cast<float>(rows);
+  const int M = d.M, Mh = d.Mh, G = d.G;
+  const int Cin = d.Cin, Cmid = d.Cmid, Cout = d.Cout;
+  const float count = static_cast<float>(a->bt * a->th * a->W);
   const bf16* x = static_cast<const bf16*>(a->x);
   const bf16* w1 = static_cast<const bf16*>(a->w1);
   const bf16* w2 = static_cast<const bf16*>(a->w2);
   const bf16* w3 = static_cast<const bf16*>(a->w3);
   const bf16* wp = static_cast<const bf16*>(a->wp);
-  const int gfin = blocks_for(Cout, 128), mfin = blocks_for(Cmid, 128);
-
-  // final relu, BN3 (and proj BN): sums, corrections, da3 / dap / dres
-  const OutGrad o{b.a3, b.mean3, b.rs3, a->g3, a->b3, b.ap, b.meanp, b.rsp,
-                  a->gp, a->bp, x, static_cast<const bf16*>(a->g), Cout,
-                  static_cast<int>(a->proj)};
-  KFTPU_TRY((ghost_sums<3>(SumsOut{o, geo}, Cout, rows, G, d.bsum3, st)));
-  const int64_t gc = static_cast<int64_t>(G) * Cout;
-  grad_finalize_kernel<<<gfin, 128, 0, st>>>(d.bsum3, d.bsum3 + gc, G, Cout,
-                                              count, a->g3, d.c13, d.c23,
-                                              a->dg3, a->db3);
-  KFTPU_TRY(cudaGetLastError());
-  if (a->proj) {
-    grad_finalize_kernel<<<gfin, 128, 0, st>>>(d.bsum3, d.bsum3 + 2 * gc, G,
-                                                Cout, count, a->gp, d.c1p,
-                                                d.c2p, a->dgp, a->dbp);
+  const FastDiv dCmid = fast_div(Cmid);
+  const SegSums sh = seg_sums(b.part, d.Lh), sr = seg_sums(b.part, d.L);
+  // per-ghost sums s1 (dy), s2 (dy * xh) -> corrections; dgamma, dbeta
+  auto finalize = [&](const float* s1, const float* s2, int C,
+                      const float* gamma, float* c1, float* c2, float* dg,
+                      float* db) -> cudaError_t {
+    const int64_t gc = static_cast<int64_t>(G) * C;
+    grad_finalize_kernel<<<blocks_for(gc, 256), 256, 0, st>>>(
+        s1, s2, gc, C, count, gamma, c1, c2);
     KFTPU_TRY(cudaGetLastError());
-  }
-  const int64_t tout = M * Cout;
+    colsum2_kernel<<<(C + 31) / 32, 256, 0, st>>>(s2, s1, G, C, 1.f, dg, db);
+    return cudaGetLastError();
+  };
+
+  // the interiors with the saved statistics: a1 and h1 over the haloed
+  // rows, acc2 and h2; ap
+  KFTPU_TRY((tc_gemm_full<true, false>(
+      LdXHaloed{x, Cin, geo}, LdRows{w1, Cmid},
+      EpAct{b.a1, b.h1, Cmid, gs.m1, gs.rs1, a->g1, a->b1, geo, 1}, Mh,
+      Cmid, Cin, st)));
+  if (a->proj)
+    KFTPU_TRY((tc_gemm_full<true, false>(LdRows{x, Cin}, LdRows{wp, Cout},
+                                         EpF32{b.ap, Cout}, M, Cout, Cin,
+                                         st)));
+  KFTPU_TRY((tc_gemm_full<true, false>(
+      LdConv{b.h1, Cmid, dCmid, geo}, LdRows{w2, Cmid},
+      EpAct{b.acc2, b.h2, Cmid, gs.m2, gs.rs2, a->g2, a->b2, geo, 0}, M,
+      Cmid, 9 * Cmid, st)));
+  // conv3 with the final relu's and BN3's (and proj BN's) sums in its
+  // epilogue; corrections; da3 / dap / dres
+  const bf16* g = static_cast<const bf16*>(a->g);
+  KFTPU_TRY((tc_gemm_full<true, false>(
+      LdRows{b.h2, Cmid}, LdRows{w3, Cout},
+      EpOut{b.a3, b.ap, x, g, gs.m3, gs.rs3, a->g3, a->b3, gs.mp, gs.rsp,
+            a->gp, a->bp, Cout, static_cast<int>(a->proj), geo},
+      M, Cout, Cmid, st, sr)));
+  KFTPU_TRY(ghost_reduce<3>(sr, geo, G, Cout, b.sums, st));
+  const int64_t gc = static_cast<int64_t>(G) * Cout;
+  KFTPU_TRY(finalize(b.sums, b.sums + gc, Cout, a->g3, w.c13, w.c23,
+                     a->dg3, a->db3));
+  if (a->proj)
+    KFTPU_TRY(finalize(b.sums, b.sums + 2 * gc, Cout, a->gp, w.c1p, w.c2p,
+                       a->dgp, a->dbp));
+  const OutArgs o{b.a3, b.ap, x, g, gs.m3, gs.rs3, a->g3, a->b3, gs.mp,
+                  gs.rsp, a->gp, a->bp, static_cast<int>(a->proj)};
+  const int64_t tout = static_cast<int64_t>(M) * (Cout / 8);
   out_da_kernel<<<blocks_for(tout, 256), 256, 0, st>>>(
-      o, geo, tout, d.c13, d.c23, d.c1p, d.c2p, d.da3, d.dap, d.dres);
+      o, vec8(Cout), M, geo, w.c13, w.c23, w.c1p, w.c2p, w.da3, w.dap,
+      w.dres);
   KFTPU_TRY(cudaGetLastError());
 
-  // conv3: dw3 = h2^T da3, dh2 = da3 w3^T
-  KFTPU_TRY(wgrad(LdBnRelu{b.acc2, b.mean2, b.rs2, a->g2, a->b2, Cmid, geo},
-                  LdBf16{d.da3, Cout}, Cmid, Cout, M, d.part, a->dw3, st));
-  KFTPU_TRY((gemm_full<true, true>(LdBf16{d.da3, Cout}, LdBf16{w3, Cout},
-                                   EpF32{d.dh2, Cmid}, M, Cmid, Cout, st)));
-
-  // relu2, BN2: sums, corrections, da2
-  const SumsMid sm{b.acc2, d.dh2, b.mean2, b.rs2, a->g2, a->b2, Cmid, geo};
-  KFTPU_TRY((ghost_sums<2>(sm, Cmid, rows, G, d.bsum2, st)));
+  // conv3: dw3 = h2^T da3; dh2 = da3 w3^T with BN2's sums; da2
+  KFTPU_TRY(wgrad(LdRows{b.h2, Cmid}, LdRows{w.da3, Cout}, Cmid, Cout, M,
+                  w.part, a->dw3, st));
+  KFTPU_TRY((tc_gemm_full<true, true>(
+      LdRows{w.da3, Cout}, LdRows{w3, Cout},
+      EpBnSums{w.dh2, b.acc2, gs.m2, gs.rs2, a->g2, a->b2, Cmid, geo, 0}, M,
+      Cmid,
+      Cout, st, sr)));
+  KFTPU_TRY(ghost_reduce<2>(sr, geo, G, Cmid, b.sums, st));
   const int64_t gm = static_cast<int64_t>(G) * Cmid;
-  grad_finalize_kernel<<<mfin, 128, 0, st>>>(d.bsum2, d.bsum2 + gm, G, Cmid,
-                                              count, a->g2, d.c12, d.c22,
-                                              a->dg2, a->db2);
-  KFTPU_TRY(cudaGetLastError());
-  const int64_t tmid = M * Cmid;
-  mid_da_kernel<<<blocks_for(tmid, 256), 256, 0, st>>>(sm, tmid, d.c12, d.c22,
-                                                        d.da2);
+  KFTPU_TRY(finalize(b.sums, b.sums + gm, Cmid, a->g2, w.c12, w.c22,
+                     a->dg2, a->db2));
+  const int64_t tmid = static_cast<int64_t>(M) * (Cmid / 8);
+  mid_da_kernel<<<blocks_for(tmid, 256), 256, 0, st>>>(
+      DaArgs{b.acc2, w.dh2, gs.m2, gs.rs2, a->g2, a->b2}, vec8(Cmid), M, geo,
+      w.c12, w.c22, w.da2);
   KFTPU_TRY(cudaGetLastError());
 
-  // conv2: dw2 = h1_tap^T da2 per tap, dh1 (haloed) = the transposed conv
-  KFTPU_TRY(wgrad(LdConvFwd{b.a1, b.mean1, b.rs1, a->g1, a->b1, Cmid, geo},
-                  LdBf16{d.da2, Cmid}, 9 * Cmid, Cmid, M, d.part, a->dw2,
-                  st));
-  KFTPU_TRY((gemm_full<true, true>(LdConvBwd{d.da2, Cmid, geo},
-                                   LdW2T{w2, Cmid}, EpF32{d.dh1, Cmid}, Mh,
-                                   Cmid, 9 * Cmid, st)));
-
-  // relu1, BN1 over the haloed rows: sums, corrections, da1
-  const SumsIn si{b.a1, d.dh1, b.mean1, b.rs1, a->g1, a->b1, Cmid, geo};
-  KFTPU_TRY((ghost_sums<2>(si, Cmid, hrows, G, d.bsum1, st)));
-  grad_finalize_kernel<<<mfin, 128, 0, st>>>(d.bsum1, d.bsum1 + gm, G, Cmid,
-                                              count, a->g1, d.c11, d.c21,
-                                              a->dg1, a->db1);
-  KFTPU_TRY(cudaGetLastError());
-  const int64_t tin = Mh * Cmid;
-  in_da_kernel<<<blocks_for(tin, 256), 256, 0, st>>>(si, tin, d.c11, d.c21,
-                                                      d.da1);
+  // conv2: dw2 = h1_tap^T da2 per tap; dh1 (haloed) = the transposed conv
+  // with BN1's sums over the haloed rows; da1
+  KFTPU_TRY(wgrad(LdConv{b.h1, Cmid, dCmid, geo}, LdRows{w.da2, Cmid},
+                  9 * Cmid, Cmid, M, w.part, a->dw2, st));
+  KFTPU_TRY((tc_gemm_full<true, true>(
+      LdConvT{w.da2, Cmid, dCmid, geo}, LdW2T{w2, Cmid, dCmid},
+      EpBnSums{w.dh1, b.a1, gs.m1, gs.rs1, a->g1, a->b1, Cmid, geo, 1}, Mh,
+      Cmid,
+      9 * Cmid, st, sh)));
+  KFTPU_TRY(ghost_reduce<2>(sh, geo, G, Cmid, b.sums, st));
+  KFTPU_TRY(finalize(b.sums, b.sums + gm, Cmid, a->g1, w.c11, w.c21,
+                     a->dg1, a->db1));
+  const int64_t tin = static_cast<int64_t>(Mh) * (Cmid / 8);
+  in_da_kernel<<<blocks_for(tin, 256), 256, 0, st>>>(
+      DaArgs{b.a1, w.dh1, gs.m1, gs.rs1, a->g1, a->b1}, vec8(Cmid), Mh, geo,
+      w.c11, w.c21, w.da1);
   KFTPU_TRY(cudaGetLastError());
 
   // conv1: dw1 = x_haloed^T da1; proj: dwp = x^T dap, dres = dap wp^T
-  KFTPU_TRY(wgrad(LdXHaloed{x, Cin, geo}, LdBf16{d.da1, Cmid}, Cin, Cmid, Mh,
-                  d.part, a->dw1, st));
+  KFTPU_TRY(wgrad(LdXHaloed{x, Cin, geo}, LdRows{w.da1, Cmid}, Cin, Cmid,
+                  Mh, w.part, a->dw1, st));
   if (a->proj) {
-    KFTPU_TRY(wgrad(LdBf16{x, Cin}, LdBf16{d.dap, Cout}, Cin, Cout, M,
-                    d.part, a->dwp, st));
-    KFTPU_TRY((gemm_full<true, true>(LdBf16{d.dap, Cout}, LdBf16{wp, Cout},
-                                     EpF32{d.dres, Cin}, M, Cin, Cout, st)));
+    KFTPU_TRY(wgrad(LdRows{x, Cin}, LdRows{w.dap, Cout}, Cin, Cout, M,
+                    w.part, a->dwp, st));
+    KFTPU_TRY((tc_gemm_full<true, true>(LdRows{w.dap, Cout},
+                                        LdRows{wp, Cout}, EpF32{w.dres, Cin},
+                                        M, Cin, Cout, st)));
   }
   // dx = da1 w1^T (+ the residual's gradient on interior rows), seam rows
   // to the thin arrays, then added into dx: top halos, then bottom halos
   bf16* dx = static_cast<bf16*>(a->dx);
   bf16* dxt = static_cast<bf16*>(a->dxt);
   bf16* dxb = static_cast<bf16*>(a->dxb);
-  KFTPU_TRY((gemm_full<true, true>(LdBf16{d.da1, Cmid}, LdBf16{w1, Cmid},
-                                   EpDx{d.dres, dx, dxt, dxb, Cin, geo}, Mh,
-                                   Cin, Cmid, st)));
+  KFTPU_TRY((tc_gemm_full<true, true>(LdRows{w.da1, Cmid}, LdRows{w1, Cmid},
+                                      EpDx{w.dres, dx, dxt, dxb, Cin, geo},
+                                      Mh, Cin, Cmid, st)));
   if (geo.S > 1) {
     const int64_t seam = a->N * (geo.S - 1) * a->W * Cin;
     // strip s's top halo is row s * th - 1 (s >= 1)

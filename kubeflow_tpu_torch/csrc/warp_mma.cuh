@@ -2,9 +2,9 @@
 // (sm_90a): the `mma.sync.m16n8k16` product, `ldmatrix` fragment loads,
 // 16- and 4-byte `cp.async` copies into shared memory with zero-fill, a
 // row-tile stager built on them, packing two f32 into a bf16 pair, and
-// the 16-byte epilogue store of a warp's accumulator rows.
-// bf16_gemm.cuh (K4-K6) and the bf16 flash-attention kernels (K1, K2b)
-// share them.
+// the 16-byte epilogue store of a warp's accumulator rows. tc_gemm.cuh
+// (K4, K5, K6) and the bf16 flash-attention kernels (K1, K2a, K2b) share
+// them, and the FMA flash kernels its to_f32 / from_f32.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 // - A (16 x 16, row major), 4 registers of 2 bf16: a0 (g, 2t..2t+1),
@@ -24,9 +24,31 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
+// the FMA flash kernels' loads and stores in their input type
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint4 pack8(const float* v) {
+  uint4 o;
+  o.x = pack2(v[0], v[1]);
+  o.y = pack2(v[2], v[3]);
+  o.z = pack2(v[4], v[5]);
+  o.w = pack2(v[6], v[7]);
+  return o;
 }
 
 // c += a.b, bf16 operands, f32 accumulators
@@ -141,6 +163,10 @@ __device__ __forceinline__ void store_rows_16B(bf16* dst, int64_t stride,
           *reinterpret_cast<const uint4*>(&buf[r][c]);
   }
 }
+
+// The head dims the bf16 tensor-core flash kernels take (16-byte copies,
+// DMAX <= 128); the FMA kernels take the others on bf16 inputs
+inline bool tensor_core_dim(int D) { return D % 8 == 0 && D <= 128; }
 
 // What the 16-byte copies of a [B, S, H, D] input need: a 16-byte aligned
 // pointer and (batch, seq, head) strides `s` (in elements) that are

@@ -14,13 +14,16 @@ inside the kernel, ``lse`` returned as ``[batch, heads, seq]`` f32 with
   forward-only, as in the JAX package: on CUDA, an input that requires
   grad there raises.
 - A CUDA tensor launches the kernels (built with nvcc at first use,
-  ops/_build.py) or raises. Nothing falls back. The dtype picks the
-  kernel: bf16 K1, K2a and K2b run on the tensor cores and stage their
-  tiles with 16-byte asynchronous copies, so their inputs need a head
-  dim that is a multiple of 8, 16-byte aligned pointers and strides that
-  are multiples of 8 elements (:func:`check_async_layout`; the model's
-  fused-qkv slices pass); f32 runs the FMA kernels, which take any head
-  dim up to 128. Every kernel takes any batch*heads (a flat grid).
+  ops/_build.py) or raises. Nothing falls back. The dtype and the head
+  dim pick the kernel (:func:`tensor_core_route`): bf16 K1, K2a and K2b
+  at a head dim that is a multiple of 8 up to 128 run on the tensor
+  cores and stage their tiles with 16-byte asynchronous copies, so their
+  inputs need 16-byte aligned pointers and strides that are multiples of
+  8 elements (:func:`check_async_layout`; the model's fused-qkv slices
+  pass); f32 at any head dim, and bf16 at the others (above 128, or not
+  a multiple of 8), run the FMA kernels, which load each element in its
+  own type and compute in f32. Every kernel takes a head dim up to 256
+  and any batch*heads (a flat grid); a larger head dim raises.
 - A CPU tensor runs the plain PyTorch versions
   (:func:`flash_attention_fwd_plain`, :func:`flash_attention_bwd_dq_plain`,
   :func:`flash_attention_bwd_dkv_plain`); the tests compare them with the
@@ -145,15 +148,24 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 # -- the CUDA kernels ---------------------------------------------------------
 
 
+MAX_HEAD_DIM = 256
+
+
 def _check_head_dim(q) -> None:
-    """The kernels pad the head dim to 32, 64 or 128: f32 takes any head
-    dim up to 128, bf16 a multiple of 8 (its 16-byte copies)."""
+    """The kernels pad the head dim to 32, 64, 128 or 256; a larger one
+    would not fit the FMA kernels' f32 tiles in an SM's shared memory."""
     d = q.shape[-1]
-    if not 0 < d <= 128:
-        raise ValueError(f"head_dim {d}: the kernels take 1 to 128")
-    if q.dtype == torch.bfloat16 and d % 8:
-        raise ValueError(f"head_dim {d}: the bf16 kernels take a multiple "
-                         f"of 8 (16-byte copies)")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d}: the kernels take 1 to "
+                         f"{MAX_HEAD_DIM}")
+
+
+def tensor_core_route(q: torch.Tensor) -> bool:
+    """Whether the bf16 tensor-core kernels take ``q``'s head dim (a
+    multiple of 8 up to 128, their 16-byte copies); the FMA kernels take
+    every other one."""
+    d = q.shape[-1]
+    return q.dtype == torch.bfloat16 and d % 8 == 0 and d <= 128
 
 
 def _check_inputs(q, k, v) -> None:
@@ -247,11 +259,12 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, *, causal: bool = True,
                              scale: Optional[float] = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K1 on the current stream (bf16: the tensor-core kernel; f32:
-    the FMA kernel). Same contract as :func:`flash_attention_fwd_plain`;
-    raises on anything it does not take, and on a launch error."""
+    """Launch K1 on the current stream (the tensor-core kernel or the FMA
+    kernel, :func:`tensor_core_route`). Same contract as
+    :func:`flash_attention_fwd_plain`; raises on anything it does not
+    take, and on a launch error."""
     _check_inputs(q, k, v)
-    if q.dtype == torch.bfloat16:
+    if tensor_core_route(q):
         check_async_layout(q=q, k=k, v=v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -273,12 +286,12 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, *,
                                 causal: bool = True,
                                 scale: Optional[float] = None
                                 ) -> torch.Tensor:
-    """Launch K2a on the current stream (bf16: the tensor-core kernel;
-    f32: the FMA kernel). Same contract as
+    """Launch K2a on the current stream (the tensor-core kernel or the FMA
+    kernel, :func:`tensor_core_route`). Same contract as
     :func:`flash_attention_bwd_dq_plain`; raises on anything it does not
     take, and on a launch error."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    if q.dtype == torch.bfloat16:
+    if tensor_core_route(q):
         check_async_layout(q=q, k=k, v=v, do=do)
     b, sq, h, d = q.shape
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -299,11 +312,11 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *,
                                  causal: bool = True,
                                  scale: Optional[float] = None
                                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2b on the current stream (bf16: the tensor-core kernel;
-    f32: the FMA kernel). Same contract as
+    """Launch K2b on the current stream (the tensor-core kernel or the FMA
+    kernel, :func:`tensor_core_route`). Same contract as
     :func:`flash_attention_bwd_dkv_plain`."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    if q.dtype == torch.bfloat16:
+    if tensor_core_route(q):
         check_async_layout(q=q, k=k, v=v, do=do)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -375,7 +388,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         # the upstream gradient's layout is autograd's choice, not the
         # caller's: give the kernels one they take
-        if do.stride(-1) != 1 or (do.is_cuda and do.dtype == torch.bfloat16
+        if do.stride(-1) != 1 or (do.is_cuda and tensor_core_route(q)
                                   and not async_ready(do)):
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,

@@ -19,9 +19,14 @@ tile-averaged ghost moments.
 - :func:`fused_bottleneck_train` is the public block: ``(out, ghost stats
   by BatchNorm name)``. It runs a ``torch.autograd.Function`` whose forward
   is :func:`fused_block_train_fwd` and whose backward is
-  :func:`fused_block_train_bwd`; the backward recomputes the interior from
-  x, returns dx and every weight gradient (in the weights' dtype) and drops
-  the cotangent of the ghost statistics, as the JAX ``_fused_bwd`` does.
+  :func:`fused_block_train_bwd`; the forward returns its per-ghost means
+  and rsqrt(var + eps) of the four BatchNorms (a few hundred KB a block,
+  never the interiors), and the backward takes them, recomputes
+  the interiors from x without recomputing the statistics, returns dx and
+  every weight gradient (in the weights' dtype) and drops the cotangent of
+  the ghost statistics, as the JAX ``_fused_bwd`` does. Given no saved
+  statistics, the backward recomputes them with the forward's own
+  launches, bit for bit the same.
 - A CUDA tensor launches the kernels of ``csrc/fused_block_train.cu``
   (built with nvcc at first use, ops/_build.py) or raises. Nothing falls
   back. A CPU tensor runs the plain version,
@@ -201,7 +206,7 @@ _DIMS = ("N", "H", "W", "Cin", "Cmid", "Cout", "bt", "th", "hal", "proj")
 _PTRS = ("x", "g", "w1", "w2", "w3", "wp", "g1", "b1", "g2", "b2", "g3",
          "b3", "gp", "bp", "out", "m1", "v1", "m2", "v2", "m3", "v3", "mp",
          "vp", "dx", "dxt", "dxb", "dw1", "dg1", "db1", "dw2", "dg2", "db2",
-         "dw3", "dg3", "db3", "dwp", "dgp", "dbp", "workspace")
+         "dw3", "dg3", "db3", "dwp", "dgp", "dbp", "workspace", "ghost")
 
 
 class BlockArgs(ctypes.Structure):
@@ -262,12 +267,25 @@ def _kernel_weights(weights: tuple) -> list[torch.Tensor]:
             for k, w in enumerate(weights)]
 
 
+def ghost_numel(n: int, h: int, cmid: int, cout: int, tile_bt: int,
+                tile_h: int) -> int:
+    """Floats of the saved per-ghost statistics: m1, rs1, m2, rs2 [G,
+    Cmid], then m3, rs3, mp, rsp [G, Cout], for the G = (n / tile_bt) x (h
+    / tile_h) ghosts, ghost g = t * S + s (mp and rsp are not written
+    without a projection)."""
+    return (n // tile_bt) * (h // tile_h) * 4 * (cmid + cout)
+
+
 def launch_block(x: torch.Tensor, weights: tuple, tile_bt: int, tile_h: int,
-                 eps: float, g: Optional[torch.Tensor] = None):
+                 eps: float, g: Optional[torch.Tensor] = None,
+                 ghost: Optional[torch.Tensor] = None):
     """One call of the CUDA block on the current stream: the forward
-    ``(out, 8 stats)`` without ``g``, the backward ``(dx, grads)`` with it
-    (grads: 9, or 12 with proj, f32). ``tile_h == h`` is the batch-tiled
-    K4; a smaller ``tile_h`` the spatial K5 with a 1-row halo."""
+    ``(out, 8 stats, ghost)`` without ``g`` (``ghost`` the per-ghost
+    statistics, :func:`ghost_numel`), the backward ``(dx, grads)`` with it
+    (grads: 9, or 12 with proj, f32), from the forward's ``ghost`` or, when
+    it is None, from statistics it recomputes. ``tile_h == h`` is the
+    batch-tiled K4; a smaller ``tile_h`` the spatial K5 with a 1-row
+    halo."""
     cin, cmid, cout, has_proj = _check_inputs(x, weights, tile_bt, tile_h)
     n, h, w_, _ = x.shape
     s_count = h // tile_h
@@ -283,7 +301,15 @@ def launch_block(x: torch.Tensor, weights: tuple, tile_bt: int, tile_h: int,
         setattr(a, name, t.data_ptr())
     lib = _library()
     backward = g is not None
+    numel = ghost_numel(n, h, cmid, cout, tile_bt, tile_h)
     if backward:
+        if ghost is not None:
+            if ghost.shape != (numel,) or ghost.dtype != torch.float32 or \
+                    ghost.device != dev or not ghost.is_contiguous():
+                raise ValueError(f"ghost {tuple(ghost.shape)} {ghost.dtype} "
+                                 f"on {ghost.device} must be contiguous f32 "
+                                 f"({numel},) on {dev}")
+            a.ghost = ghost.data_ptr()
         if g.shape != (n, h, w_, cout) or g.dtype != x.dtype or \
                 g.device != dev or not g.is_contiguous():
             raise ValueError(f"g {tuple(g.shape)} {g.dtype} must be a "
@@ -303,7 +329,8 @@ def launch_block(x: torch.Tensor, weights: tuple, tile_bt: int, tile_h: int,
                  (cmid, cmid, cmid, cmid, cout, cout)]
         stats += [torch.empty((cout,), **f32) if has_proj else
                   torch.zeros((1,), **f32) for _ in range(2)]
-        a.out = out.data_ptr()
+        ghost = torch.empty((numel,), **f32)
+        a.out, a.ghost = out.data_ptr(), ghost.data_ptr()
         for name, t in zip(("m1", "v1", "m2", "v2", "m3", "v3", "mp", "vp"),
                            stats if has_proj else stats[:6]):
             setattr(a, name, t.data_ptr())
@@ -319,7 +346,7 @@ def launch_block(x: torch.Tensor, weights: tuple, tile_bt: int, tile_h: int,
                  ("backward" if backward else "forward"))
     if backward:
         return dx, tuple(grads if has_proj else grads[:9])
-    return out, tuple(stats)
+    return out, tuple(stats), ghost
 
 
 # -----------------------------------------------------------------------------
@@ -327,25 +354,30 @@ def launch_block(x: torch.Tensor, weights: tuple, tile_bt: int, tile_h: int,
 # -----------------------------------------------------------------------------
 
 def fused_block_train_fwd(x: torch.Tensor, weights: tuple, tile_bt: int,
-                          eps: float = 1e-5) -> tuple[torch.Tensor, tuple]:
-    """The block's forward: (out, 8 tile-averaged statistics)."""
+                          eps: float = 1e-5) -> tuple:
+    """The block's forward: (out, 8 tile-averaged statistics, the per-ghost
+    statistics the backward takes). The plain version gives None for the
+    last: its autograd backward recomputes them."""
     if x.device.type == "cpu":
-        return reference_bottleneck_train(x, weights, tile_bt=tile_bt,
-                                          eps=eps)
+        return (*reference_bottleneck_train(x, weights, tile_bt=tile_bt,
+                                            eps=eps), None)
     res = launch_block(x, weights, tile_bt, x.shape[1], eps)
     fused_block_train_fwd.launches += 1
     return res
 
 
 def fused_block_train_bwd(x: torch.Tensor, g: torch.Tensor, weights: tuple,
-                          tile_bt: int, eps: float = 1e-5
+                          tile_bt: int, eps: float = 1e-5,
+                          ghost: Optional[torch.Tensor] = None
                           ) -> tuple[torch.Tensor, tuple]:
     """The block's backward: (dx, f32 weight gradients) from x, the
-    output's gradient g and the weights."""
+    output's gradient g, the weights and the forward's per-ghost
+    statistics (recomputed when ``ghost`` is None)."""
     if x.device.type == "cpu":
         return autograd_backward(reference_bottleneck_train, x, g, weights,
                                  tile_bt=tile_bt, eps=eps)
-    res = launch_block(x, weights, tile_bt, x.shape[1], eps, g=g)
+    res = launch_block(x, weights, tile_bt, x.shape[1], eps, g=g,
+                       ghost=ghost)
     fused_block_train_bwd.launches += 1
     return res
 
@@ -356,15 +388,15 @@ fused_block_train_bwd.launches = 0
 
 class FusedBlock(torch.autograd.Function):
     """``(out, *stats) = fwd(x, weights, *tiles, eps)`` with ``bwd`` as
-    its backward. The statistics carry no gradient: they feed the
-    running-stat EMA only, which is stop-gradient in flax's BatchNorm as
-    well."""
+    its backward, which takes the forward's per-ghost statistics. The
+    statistics carry no gradient: they feed the running-stat EMA only,
+    which is stop-gradient in flax's BatchNorm as well."""
 
     @staticmethod
     def forward(ctx, fwd, bwd, tiles, eps, x, *weights):
-        out, stats = fwd(x, weights, *tiles, eps)
+        out, stats, ghost = fwd(x, weights, *tiles, eps)
         ctx.save_for_backward(x, *weights)
-        ctx.bwd, ctx.tiles, ctx.eps = bwd, tiles, eps
+        ctx.bwd, ctx.tiles, ctx.eps, ctx.ghost = bwd, tiles, eps, ghost
         ctx.mark_non_differentiable(*stats)
         return (out, *stats)
 
@@ -372,7 +404,7 @@ class FusedBlock(torch.autograd.Function):
     def backward(ctx, g_out, *g_stats):
         x, *weights = ctx.saved_tensors
         dx, grads = ctx.bwd(x, g_out.to(x.dtype).contiguous(), tuple(weights),
-                            *ctx.tiles, ctx.eps)
+                            *ctx.tiles, ctx.eps, ghost=ctx.ghost)
         return (None, None, None, None, dx,
                 *(gi.to(wi.dtype) for gi, wi in zip(grads, weights)))
 

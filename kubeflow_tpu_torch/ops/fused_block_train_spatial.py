@@ -37,13 +37,15 @@ from typing import Optional
 import torch
 
 from .fused_block_train import (VMEM_BUDGET_BYTES, FusedBlock, _mm,
-                                _per_image_bytes, block_weights,
-                                launch_block, autograd_backward, stats_to_tree)
+                                _per_image_bytes, autograd_backward,
+                                block_weights, launch_block,
+                                stats_to_tree)
 
 __all__ = ["fused_bottleneck_train_spatial",
            "reference_bottleneck_train_spatial", "default_tile_h",
            "fits_vmem_budget_spatial", "make_strips", "backward_plain",
-           "fused_block_train_spatial_fwd", "fused_block_train_spatial_bwd"]
+           "ghost_stats_plain", "fused_block_train_spatial_fwd",
+           "fused_block_train_spatial_bwd"]
 
 
 def _strip_bytes(tile_h: int, w: int, cin: int, cmid: int,
@@ -187,6 +189,20 @@ def backward_plain(x: torch.Tensor, g: torch.Tensor, weights: tuple, *,
     ``_bwd_kernel``s and ``_pallas_bwd``). Returns (dx, f32 weight
     gradients). It rounds where the kernels round, so it holds them to a
     closer bar than the autograd gradients of the plain forward can."""
+    return _backward_plain(x, g, weights, tile_bt, tile_h, eps)
+
+
+def ghost_stats_plain(x: torch.Tensor, weights: tuple, *, tile_bt: int,
+                      tile_h: int, eps: float = 1e-5) -> torch.Tensor:
+    """The per-ghost statistics the forward kernel saves for the backward,
+    in plain PyTorch: f32 m1, rs1, m2, rs2 [G, Cmid] then m3, rs3, mp, rsp
+    [G, Cout] flattened, ghost g = t * S + s (mp and rsp zero without a
+    projection); rs = rsqrt(var + eps)."""
+    return _backward_plain(x, None, weights, tile_bt, tile_h, eps)
+
+
+def _backward_plain(x, g, weights, tile_bt, tile_h, eps):
+    """backward_plain, or with ``g`` None the statistics it uses."""
     has_proj = len(weights) == 12
     w1, g1, b1, w2, g2, b2, w3, g3, b3 = weights[:9]
     n, h, w_, cin = x.shape
@@ -210,7 +226,8 @@ def backward_plain(x: torch.Tensor, g: torch.Tensor, weights: tuple, *,
 
     def moments(a):
         m = a.mean(dim=red, keepdim=True)
-        return m, (a * a).mean(dim=red, keepdim=True) - m * m
+        return m, torch.rsqrt((a * a).mean(dim=red, keepdim=True) - m * m
+                              + eps)
 
     def csum(a):                         # over every axis but channels
         return a.reshape(-1, a.shape[-1]).sum(dim=0)
@@ -233,8 +250,7 @@ def backward_plain(x: torch.Tensor, g: torch.Tensor, weights: tuple, *,
     xs = to_ghosts(x[:, rows.clamp(0, h - 1).reshape(-1)], th2)
     interior = slice(hal, hal + th)
     a1 = mm(xs, w1)
-    m1, v1 = moments(a1[:, :, :, interior])
-    s1 = torch.rsqrt(v1 + eps)
+    m1, s1 = moments(a1[:, :, :, interior])
     xh1 = (a1 - m1) * s1
     y1 = g1 * xh1 + b1
     h1 = (torch.relu(y1) * inside).to(dt)
@@ -242,25 +258,26 @@ def backward_plain(x: torch.Tensor, g: torch.Tensor, weights: tuple, *,
     taps = [(dy, dx) for dy in range(3) for dx in range(3)]
     acc2 = sum(mm(h1p[:, :, :, dy:dy + th, dx:dx + w_], w2[dy, dx])
                for dy, dx in taps)
-    m2, v2 = moments(acc2)
-    s2 = torch.rsqrt(v2 + eps)
+    m2, s2 = moments(acc2)
     xh2 = (acc2 - m2) * s2
     y2 = g2 * xh2 + b2
     h2 = torch.relu(y2).to(dt)
     a3 = mm(h2, w3)
-    m3, v3 = moments(a3)
-    s3 = torch.rsqrt(v3 + eps)
+    m3, s3 = moments(a3)
     xh3 = (a3 - m3) * s3
     xi = xs[:, :, :, interior]
     if has_proj:
         wp, gp, bp = weights[9:12]
         ap = mm(xi, wp)
-        mp, vp = moments(ap)
-        sp = torch.rsqrt(vp + eps)
+        mp, sp = moments(ap)
         xhp = (ap - mp) * sp
         r = gp * xhp + bp
     else:
         r = xi.float()
+        mp = sp = torch.zeros_like(m3)
+    if g is None:
+        return torch.cat([v.reshape(-1) for v in
+                          (m1, s1, m2, s2, m3, s3, mp, sp)])
 
     gz = torch.where(g3 * xh3 + b3 + r > 0, to_ghosts(g, th).float(), 0.0)
     da3, dg3, db3 = bn_bwd(gz, xh3, g3, s3)
@@ -309,10 +326,12 @@ def backward_plain(x: torch.Tensor, g: torch.Tensor, weights: tuple, *,
 def fused_block_train_spatial_fwd(x: torch.Tensor, weights: tuple,
                                   tile_bt: int, tile_h: int,
                                   eps: float = 1e-5):
-    """The spatial block's forward: (out, 8 ghost-averaged statistics)."""
+    """The spatial block's forward: (out, 8 ghost-averaged statistics, the
+    per-ghost statistics the backward takes; None from the plain
+    version, whose autograd backward recomputes them)."""
     if x.device.type == "cpu":
-        return reference_bottleneck_train_spatial(
-            x, weights, tile_bt=tile_bt, tile_h=tile_h, eps=eps)
+        return (*reference_bottleneck_train_spatial(
+            x, weights, tile_bt=tile_bt, tile_h=tile_h, eps=eps), None)
     res = launch_block(x, weights, tile_bt, tile_h, eps)
     fused_block_train_spatial_fwd.launches += 1
     return res
@@ -320,13 +339,15 @@ def fused_block_train_spatial_fwd(x: torch.Tensor, weights: tuple,
 
 def fused_block_train_spatial_bwd(x: torch.Tensor, g: torch.Tensor,
                                   weights: tuple, tile_bt: int, tile_h: int,
-                                  eps: float = 1e-5):
-    """The spatial block's backward: (dx, f32 weight gradients)."""
+                                  eps: float = 1e-5,
+                                  ghost: Optional[torch.Tensor] = None):
+    """The spatial block's backward: (dx, f32 weight gradients), from the
+    forward's per-ghost statistics (recomputed when ``ghost`` is None)."""
     if x.device.type == "cpu":
         return autograd_backward(reference_bottleneck_train_spatial, x, g,
                                  weights, tile_bt=tile_bt, tile_h=tile_h,
                                  eps=eps)
-    res = launch_block(x, weights, tile_bt, tile_h, eps, g=g)
+    res = launch_block(x, weights, tile_bt, tile_h, eps, g=g, ghost=ghost)
     fused_block_train_spatial_bwd.launches += 1
     return res
 

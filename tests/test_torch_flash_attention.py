@@ -255,23 +255,39 @@ def test_bf16_wrappers_check_layout_after_device():
     # every kernel takes a flat grid: any batch*heads
     ((1, 1, 65537, 8), torch.float32, True),
     ((1, 1, 65537, 8), torch.bfloat16, True),
-    # f32 pads any head dim up to 128; bf16 copies 16 bytes at a time
+    # the kernels pad any head dim up to 256, in f32 and in bf16 (the
+    # tensor-core kernels take multiples of 8 up to 128, the FMA kernels
+    # the rest); beyond 256 their f32 tiles would not fit shared memory
     ((1, 1, 2, 36), torch.float32, True),
     ((1, 1, 2, 100), torch.float32, True),
-    ((1, 1, 2, 36), torch.bfloat16, False),
-    ((1, 1, 2, 136), torch.float32, False),
-    ((1, 1, 2, 256), torch.bfloat16, False),
+    ((1, 1, 2, 36), torch.bfloat16, True),
+    ((1, 1, 2, 136), torch.float32, True),
+    ((1, 1, 2, 256), torch.bfloat16, True),
+    ((1, 1, 2, 257), torch.float32, False),
+    ((1, 1, 2, 264), torch.bfloat16, False),
+    ((1, 1, 2, 0), torch.float32, False),
 ])
 def test_kernel_shape_contract(shape, dtype, ok):
-    """What the kernels take: any batch*heads; a head dim up to 128, a
-    multiple of 8 in bf16. A pure function of the shape and dtype, so meta
-    tensors test it."""
+    """What the kernels take: any batch*heads; a head dim up to 256. A
+    pure function of the shape and dtype, so meta tensors test it."""
     q = torch.empty(shape, dtype=dtype, device="meta")
     if ok:
         tfa._check_head_dim(q)
     else:
         with pytest.raises(ValueError, match="head_dim"):
             tfa._check_head_dim(q)
+
+
+@pytest.mark.parametrize("d,dtype,tensor_core", [
+    (64, torch.bfloat16, True), (128, torch.bfloat16, True),
+    (36, torch.bfloat16, False), (136, torch.bfloat16, False),
+    (256, torch.bfloat16, False), (64, torch.float32, False),
+    (256, torch.float32, False)])
+def test_head_dim_picks_the_kernel(d, dtype, tensor_core):
+    """bf16 at a multiple of 8 up to 128 goes to the tensor-core kernels
+    (and their layout check); every other input to the FMA kernels."""
+    q = torch.empty((1, 4, 2, d), dtype=dtype, device="meta")
+    assert tfa.tensor_core_route(q) is tensor_core
 
 
 @pytest.mark.parametrize("d", [36, 100])
@@ -291,3 +307,42 @@ def test_f32_head_dims_not_a_multiple_of_8(d):
     for name, got, ref in zip("qkv", (tq.grad, tk.grad, tv.grad), j_grads):
         np.testing.assert_allclose(_np(got), _np(ref), atol=1e-4, rtol=1e-3,
                                    err_msg=f"d{name} d={d}")
+
+
+# bf16 gradients: each side computes in f32 from the same bf16 inputs and
+# rounds each gradient to bf16 once (the JAX kernels' o is bf16 too, so
+# delta = rowsum(do * o) agrees), so they may land one bf16 step apart:
+# 2^-7 of the value, plus a floor for values near 0
+BF16_GRAD_ATOL, BF16_GRAD_RTOL = 1e-2, 2.0 ** -7
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d,dtype", [(256, "float32"), (256, "bfloat16"),
+                                     (36, "bfloat16")])
+def test_head_dims_the_tensor_cores_do_not_take(d, dtype, causal):
+    """Head dims above 128 (f32 and bf16) and a bf16 head dim that is not
+    a multiple of 8, which the port's FMA kernels take on the card: its
+    plain forward and gradients against the JAX Pallas kernels in
+    interpret mode. f32 within the module's bars; bf16 output within
+    BF16_ATOL and gradients within one bf16 step."""
+    q, k, v = _qkv(b=1, s=24, h=2, d=d, seed=9)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    j_o = jfa.flash_attention(*_jax(q, k, v, dtype=jdt), causal=causal,
+                              block_q=8, block_k=8)
+    j_grads = jax.grad(
+        lambda *a: jnp.sum(_loss(jfa.flash_attention(
+            *a, causal=causal, block_q=8, block_k=8).astype(jnp.float32))),
+        argnums=(0, 1, 2))(*_jax(q, k, v, dtype=jdt))
+    tq, tk, tv = (x.requires_grad_(True) for x in _torch(q, k, v, dtype=tdt))
+    t_o = tfa.flash_attention(tq, tk, tv, causal=causal)
+    assert t_o.dtype == tdt
+    f32 = dtype == "float32"
+    np.testing.assert_allclose(_np(t_o.detach()), _np(j_o),
+                               atol=F32_ATOL if f32 else BF16_ATOL, rtol=0)
+    _loss(t_o.float()).sum().backward()
+    for name, got, ref in zip("qkv", (tq.grad, tk.grad, tv.grad), j_grads):
+        assert got.dtype == tdt
+        np.testing.assert_allclose(
+            _np(got), _np(ref), atol=1e-4 if f32 else BF16_GRAD_ATOL,
+            rtol=1e-3 if f32 else BF16_GRAD_RTOL,
+            err_msg=f"d{name} d={d} {dtype}")

@@ -363,3 +363,58 @@ def test_fused_model_matches_jax(force_spatial, monkeypatch):
         err = np.abs(got[k] - r).max()
         assert err <= 1e-4 * scale + 2 * floor, \
             f"{k}: max|d| {err}, noise floor {floor}, scale {scale}"
+
+
+@pytest.mark.parametrize("n,tile_bt,tile_h", [(4, 2, 8), (2, 1, 4),
+                                              (4, 2, 2)])
+def test_ghost_statistics_layout(n, tile_bt, tile_h):
+    """``ghost_stats_plain`` holds ghost g = t * S + s (batch tile t,
+    strip s) at row g of each [G, C] block: BN1's means against a1 = x.w1
+    averaged over each ghost's interior by hand, its rsqrt(var + eps)
+    against the same, and the ghost average against the forward's
+    tile-averaged statistics (f32, within 1e-5 of the largest value)."""
+    rng = np.random.default_rng(4)
+    w = T.block_weights(_port(_params(rng, 16, 8, 32, True)))
+    x = rng.normal(0, 1, (n, 8, 8, 16)).astype(np.float32)
+    ghost = TS.ghost_stats_plain(torch.from_numpy(x), w, tile_bt=tile_bt,
+                                 tile_h=tile_h).numpy()
+    assert ghost.shape == (T.ghost_numel(n, 8, 8, 32, tile_bt, tile_h),)
+    s_count = 8 // tile_h
+    g_count = (n // tile_bt) * s_count
+    m1, rs1 = ghost[:g_count * 8].reshape(g_count, 8), \
+        ghost[g_count * 8:2 * g_count * 8].reshape(g_count, 8)
+    a1 = x @ w[0].numpy()
+    for t in range(n // tile_bt):
+        for s in range(s_count):
+            rows = a1[t * tile_bt:(t + 1) * tile_bt,
+                      s * tile_h:(s + 1) * tile_h].reshape(-1, 8)
+            mean = rows.mean(0)
+            var = (rows * rows).mean(0) - mean * mean
+            np.testing.assert_allclose(m1[t * s_count + s], mean, rtol=0,
+                                       atol=1e-5 * np.abs(mean).max())
+            np.testing.assert_allclose(rs1[t * s_count + s],
+                                       1 / np.sqrt(var + 1e-5), rtol=1e-5)
+    _, stats = TS.reference_bottleneck_train_spatial(
+        torch.from_numpy(x), w, tile_bt=tile_bt, tile_h=tile_h)
+    np.testing.assert_allclose(m1.mean(0), stats[0].numpy(), rtol=0,
+                               atol=1e-5 * np.abs(m1).max())
+
+
+def test_plain_forward_hands_the_backward_nothing_to_carry():
+    """On CPU tensors the blocks run their plain versions: the forward
+    returns None for its per-ghost statistics (the plain backward's
+    autograd recomputes them), and the backward takes the keyword; the
+    autograd Function carries what the forward returns."""
+    rng = np.random.default_rng(5)
+    w = T.block_weights(_port(_params(rng, 32, 8, 32, False)))
+    x = torch.from_numpy(rng.normal(0, 1, (2, 8, 8, 32)).astype(np.float32))
+    g = torch.ones((2, 8, 8, 32))
+    for fwd, bwd, tiles in (
+            (T.fused_block_train_fwd, T.fused_block_train_bwd, (2,)),
+            (TS.fused_block_train_spatial_fwd,
+             TS.fused_block_train_spatial_bwd, (1, 4))):
+        out, stats, ghost = fwd(x, w, *tiles)
+        assert ghost is None and out.shape == x.shape and len(stats) == 8
+        dx, grads = bwd(x, g, w, *tiles, ghost=ghost)
+        dx2, _ = bwd(x, g, w, *tiles)
+        assert torch.equal(dx, dx2) and len(grads) == 9

@@ -179,11 +179,11 @@ def test_kernel_reads_strided_qkv_slices(cuda_device):
 
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
-    x = torch.zeros(1, 16, 2, 12, device=cuda_device,
-                    dtype=torch.bfloat16)               # bf16 D not % 8
+    x = torch.zeros(1, 16, 2, 264, device=cuda_device,
+                    dtype=torch.bfloat16)               # bf16 D over 256
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention(x, x, x)
-    w = torch.zeros(1, 16, 2, 136, device=cuda_device)  # D over 128
+    w = torch.zeros(1, 16, 2, 257, device=cuda_device)  # D over 256
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention(w, w, w)
     y = torch.zeros(1, 16, 2, 16, device=cuda_device, dtype=torch.float16)
@@ -270,6 +270,68 @@ def test_backward_kernels_match_plain(cuda_device, shape, causal, dtype):
     assert _close(dq, p_dq, dtype), \
         f"dq: max|d| {(dq.float() - p_dq.float()).abs().max()}"
     _check_dkv(q, k, v, do, causal, (dk, dv), lse, delta)
+
+
+# head dims the tensor-core kernels do not take, which the FMA kernels
+# take: 256 (their DMAX 256 template, 32-row tiles on the looped side) in
+# f32 and bf16, and bf16 head dims that are not a multiple of 8 or lie
+# above 128, loaded as bf16 and computed in f32
+FMA_HEAD_DIMS = [
+    ((2, 300, 3, 256), True, torch.float32),
+    ((1, 129, 2, 256), False, torch.float32),
+    ((2, 300, 3, 256), True, torch.bfloat16),
+    ((1, 129, 2, 256), False, torch.bfloat16),
+    ((2, 100, 3, 36), True, torch.bfloat16),
+    ((1, 77, 2, 36), False, torch.bfloat16),
+    ((1, 65, 2, 200), True, torch.bfloat16),
+    ((1, 40, 2, 250), False, torch.float32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,causal,dtype", FMA_HEAD_DIMS)
+def test_fma_head_dims_match_plain(cuda_device, shape, causal, dtype):
+    """K1, K2a and K2b at head dims the tensor-core kernels do not take,
+    each against its plain version under the bars above; one counted
+    launch each."""
+    q, k, v = _qkv(*shape, cuda_device, dtype)
+    assert not tfa.tensor_core_route(q)
+    before = (tfa.flash_attention.launches,
+              tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    o, lse = tfa.flash_attention(q, k, v, causal=causal, with_lse=True)
+    _check_fwd(q, k, v, o, lse, causal)
+    do = _qkv(*shape, cuda_device, dtype, seed=9)[0]
+    delta = tfa.attention_delta(o, do)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
+    dkv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                      causal=causal)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches,
+            tfa.flash_attention_bwd_dq.launches,
+            tfa.flash_attention_bwd_dkv.launches) == \
+        tuple(b + 1 for b in before)
+    p_dq = tfa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                            causal=causal)
+    assert dq.dtype == dtype and dq.shape == q.shape
+    assert _close(dq, p_dq, dtype), \
+        f"dq: max|d| {(dq.float() - p_dq.float()).abs().max()}"
+    _check_dkv(q, k, v, do, causal, dkv, lse, delta)
+
+
+@pytest.mark.gpu
+def test_fma_route_takes_misaligned_bf16_views(cuda_device):
+    """The FMA kernels read scalars, so a bf16 view at a head dim they
+    serve needs no 16-byte alignment (the tensor-core kernels refuse
+    one)."""
+    base = _qkv(1, 40, 2, 37, cuda_device, torch.bfloat16)
+    q, k, v = (x[..., 1:] for x in base)          # D 36, offset by 2 bytes
+    assert q.data_ptr() % 16 and not tfa.async_ready(q)
+    o = tfa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    p_o, _ = tfa.flash_attention_fwd_plain(q, k, v)
+    assert bool(((o.float() - p_o.float()).abs()
+                 <= BF16_ATOL + BF16_RTOL * p_o.float().abs()).all())
 
 
 def _check_dkv(q, k, v, do, causal, got=None, lse=None, delta=None):
@@ -476,12 +538,19 @@ def _grad_ok(got, ref) -> bool:
     (2, 8, 16, 8, 32, True, 2, 2),           # K5, four strips, proj
     (64, 14, 1024, 256, 1024, False, 1, None),   # K4, ResNet-50 stage 3
     (64, 56, 64, 64, 256, True, 1, 14),      # K5, ResNet-50 stage 1 head
+    # 98-row ghosts (7^2, tile_bt 2) straddle the products' 128-row tiles
+    (6, 7, 64, 32, 64, False, 2, None),
+    (4, 7, 32, 64, 96, True, 2, None),
+    # K5: seven strips of 2 rows, 16-row segments, several a tile
+    (3, 14, 48, 24, 48, False, 1, 2),
+    (4, 12, 24, 40, 72, True, 2, 3),
 ])
 def test_fused_block_kernels_match_plain(cuda_device, n, h, cin, cmid,
                                          cout, proj, tile_bt, tile_h):
     """K4/K5 forward (out, 8 statistics) and backward (dx and every weight
-    gradient) against the plain version and its autograd gradients, on
-    the same bf16 inputs; one counted call a direction."""
+    gradient, from the forward's saved statistics) against the plain
+    version and its autograd gradients, on the same bf16 inputs; one
+    counted call a direction."""
     x, dy, w = _block(cuda_device, n, h, cin, cmid, cout, proj)
     if tile_h is None:
         mod, name, tiles = tfbt, "fused_block_train", (tile_bt,)
@@ -494,8 +563,8 @@ def test_fused_block_kernels_match_plain(cuda_device, n, h, cin, cmid,
         kw = {"tile_bt": tile_bt, "tile_h": tile_h}
     fwd, bwd = getattr(mod, f"{name}_fwd"), getattr(mod, f"{name}_bwd")
     before = (fwd.launches, bwd.launches)
-    out, stats = fwd(x, w, *tiles)
-    dx, grads = bwd(x, dy, w, *tiles)
+    out, stats, ghost = fwd(x, w, *tiles)
+    dx, grads = bwd(x, dy, w, *tiles, ghost=ghost)
     torch.cuda.synchronize()
     assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
     p_out, p_stats = ref(x, w, **kw)
@@ -520,6 +589,53 @@ def test_fused_block_kernels_match_plain(cuda_device, n, h, cin, cmid,
     for a, b in zip(grads, p_grads):
         assert a.dtype == torch.float32 and a.shape == b.shape
         assert _grad_ok(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,cin,cmid,cout,proj,tile_bt,tile_h", [
+    (6, 7, 64, 32, 64, False, 2, None),      # K4, 98-row ghosts
+    (4, 8, 16, 8, 32, True, 2, None),        # K4, proj, Cin != Cout
+    (3, 14, 48, 24, 48, False, 1, 2),        # K5, seven strips
+    (4, 12, 24, 40, 72, True, 2, 3),         # K5, proj, bt 2
+    (64, 28, 512, 128, 512, False, 1, 14),   # K5, ResNet-50 stage 2
+])
+def test_fused_block_backward_takes_saved_statistics(cuda_device, n, h, cin,
+                                                     cmid, cout, proj,
+                                                     tile_bt, tile_h):
+    """The backward from the forward's saved per-ghost statistics. Its
+    guards are two: the saved statistics agree with their plain version
+    (per ghost, in the kernel's layout) within chip_smoke.py's statistics
+    bar, and a second call gives the same bits (fixed-order reductions, no
+    float atomics). It also equals, bit for bit, the backward that
+    recomputes the statistics; that one runs the forward's own launches
+    into a workspace, so it is the same by construction and catches only
+    nondeterminism, not a wrong saved statistic."""
+    x, dy, w = _block(cuda_device, n, h, cin, cmid, cout, proj, seed=13)
+    th = tile_h or h
+    mod, name, tiles = (tfbt, "fused_block_train", (tile_bt,)) \
+        if tile_h is None else \
+        (tfbts, "fused_block_train_spatial", (tile_bt, tile_h))
+    fwd, bwd = getattr(mod, f"{name}_fwd"), getattr(mod, f"{name}_bwd")
+    _, _, ghost = fwd(x, w, *tiles)
+    saved = bwd(x, dy, w, *tiles, ghost=ghost)
+    again = bwd(x, dy, w, *tiles, ghost=ghost)
+    recomputed = bwd(x, dy, w, *tiles)
+    torch.cuda.synchronize()
+    for other in (again, recomputed):
+        assert torch.equal(saved[0], other[0])
+        assert len(saved[1]) == len(other[1])
+        for a, b in zip(saved[1], other[1]):
+            assert torch.equal(a, b)
+    plain = tfbts.ghost_stats_plain(x, w, tile_bt=tile_bt, tile_h=th)
+    assert ghost.shape == plain.shape
+    cm, co = cmid * (n // tile_bt) * (h // th), cout * (n // tile_bt) * \
+        (h // th)
+    parts = [cm] * 4 + [co] * 4
+    for i, (a, b) in enumerate(zip(ghost.split(parts), plain.split(parts))):
+        if i >= 6 and not proj:
+            continue                     # mp, rsp: not written
+        assert (a - b).abs().max().item() <= \
+            1e-3 * b.abs().max().item() + 1e-5, i
 
 
 @pytest.mark.gpu
