@@ -29,9 +29,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
              uses; each timing its TFLOP/s and its share of the bound.
              K1, K2a and K2b on their FMA kernels at the head dims the
              tensor-core kernels do not take (256 in f32 and bf16, causal
-             and not; bf16 36 and 200) against their plain versions, and
-             timed at [8, 2048, 12, 256] bf16 causal beside sdpa's forward
-             and backward.
+             and not; bf16 36 and 200; 320 and 512, which run in chunks of
+             256 columns) and on a bf16 view at D 64 that the 16-byte
+             copies cannot read (the counted unaligned route) against
+             their plain versions, and timed at [8, 2048, 12, 256] bf16
+             causal beside sdpa's forward and backward.
              K3, the fused Adam update with optax's clip folded in, one
              launch a step: the LM's 101 parameter tensors for 3 steps
              with weight decay on the rank > 1 ones, the clip on both
@@ -100,16 +102,21 @@ plain PyTorch (backward_plain, which rounds where the kernel rounds);
 each geometry prints the largest share of a bar it uses; timed beside
 the bound, the plain version and a cuDNN + batch-BN yardstick (not the
 same function: library_ms is null, the yardstick's time is
-yardstick_ms). And K6 (the fused inference bottleneck,
-csrc/fused_block.cu, phase_k6) against its plain version at the same five
-geometries with seeded folded-BN weights, timed beside its bound, the
-plain version and the same block through cuDNN convs and folded affines
-(_xla_block_eval's ops at stride 1: the same function up to where the
-products round, so a true library_ms).
+yardstick_ms), and each geometry's forward workspace. And K6 (the fused
+inference bottleneck, csrc/fused_block.cu, phase_k6) against its plain
+version at the same five geometries with seeded folded-BN weights, timed
+beside its bound, the plain version and the same block through cuDNN
+convs and folded affines (_xla_block_eval's ops at stride 1: the same
+function up to where the products round, so a true library_ms); before
+it, cuobjdump's SASS of both fused-block builds must show HGMMA (`wgmma`)
+in every warpgroup-product kernel (csrc/wgmma_gemm.cuh), the products of
+K6 and of the K4/K5 forward.
 """
 
 from __future__ import annotations
 
+import ctypes
+import importlib
 import json
 import os
 import subprocess
@@ -578,6 +585,11 @@ HEAD_DIM_CASES = [
     ("bf16 D=36 causal", 2, 100, 3, 36, True, torch.bfloat16),
     ("bf16 D=36", 1, 77, 2, 36, False, torch.bfloat16),
     ("bf16 D=200 causal", 1, 65, 2, 200, True, torch.bfloat16),
+    ("f32 D=512 causal", 1, 130, 2, 512, True, torch.float32),
+    ("bf16 D=512", 1, 100, 2, 512, False, torch.bfloat16),
+    ("bf16 D=320 causal", 2, 65, 2, 320, True, torch.bfloat16),
+    # one element in: the 16-byte copies cannot read it, the FMA kernels can
+    ("bf16 D=64 misaligned causal", 2, 129, 3, 64, True, torch.bfloat16),
 ]
 HEAD_DIM_TIMED = 256
 
@@ -592,11 +604,18 @@ def phase_head_dims(fa) -> dict:
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(5)
     margins = {}
+    counts = (fa.flash_attention, fa.flash_attention_bwd_dq,
+              fa.flash_attention_bwd_dkv)
     for label, b, s, h, d, causal, dtype in HEAD_DIM_CASES:
-        q, k, v, do = (torch.randn((b, s, h, d), generator=gen,
-                                   device=dev).to(dtype) for _ in range(4))
-        if fa.tensor_core_route(q):
-            fail(f"head dims {label}: routed to the tensor-core kernels")
+        misaligned = "misaligned" in label
+        n = b * s * h * d
+        q, k, v, do = (torch.randn((n + 1,), generator=gen, device=dev).to(
+            dtype)[int(misaligned):][:n].view(b, s, h, d) for _ in range(4))
+        want = "fma_unaligned" if misaligned else "fma"
+        if fa.kernel_route(q, k, v, do) != want:
+            fail(f"head dims {label}: routed to "
+                 f"{fa.kernel_route(q, k, v, do)}, not {want}")
+        unaligned = [c.unaligned_launches for c in counts]
         o, lse = fa.flash_attention_fwd_cuda(q, k, v, causal=causal)
         p_o, p_lse = fa.flash_attention_fwd_plain(q, k, v, causal=causal)
         delta = fa.attention_delta(p_o, do)
@@ -605,6 +624,10 @@ def phase_head_dims(fa) -> dict:
         dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, p_lse, delta,
                                                  causal=causal)
         torch.cuda.synchronize()
+        if [c.unaligned_launches - u for c, u in zip(counts, unaligned)] != \
+                [int(misaligned)] * 3:
+            fail(f"head dims {label}: unaligned-route counts "
+                 f"{[c.unaligned_launches for c in counts]} from {unaligned}")
         d_o = (o.float() - p_o.float()).abs()
         if dtype == torch.bfloat16:
             o_share = (d_o / (BF16_ATOL + BF16_RTOL * p_o.float().abs())
@@ -884,6 +907,14 @@ def _ghost_err(got, ref, proj, ghosts, cmid, cout) -> float:
     return share
 
 
+def fwd_workspace_bytes(fbt, n, h, cin, cmid, cout, bt, th, proj) -> int:
+    """Bytes of device scratch one K4/K5 forward call takes."""
+    a = fbt.BlockArgs(N=n, H=h, W=h, Cin=cin, Cmid=cmid, Cout=cout, bt=bt,
+                      th=th, hal=int(h // th > 1), proj=int(proj), eps=1e-5)
+    return int(fbt._library().kftpu_block_train_workspace(ctypes.byref(a),
+                                                           0))
+
+
 def phase_k45(fbt, fbts, R) -> dict:
     """K4 and K5 at the five stride-1 geometries of ResNet-50 at 224 px,
     batch 64, bf16, each with the JAX package's (tile_bt, tile_h): forward
@@ -1002,7 +1033,9 @@ def phase_k45(fbt, fbts, R) -> dict:
 
         t = {"key": key, "name": name, "count": geo["count"],
              "tile_bt": bt, "tile_h": th or h, "proj": proj,
-             "out_err": d_out.max().item(), "dx_err": dx_err}
+             "out_err": d_out.max().item(), "dx_err": dx_err,
+             "fwd_workspace_bytes": fwd_workspace_bytes(
+                 fbt, RESNET_BATCH, h, cin, cmid, cout, bt, th or h, proj)}
         t["fwd_ms"] = cuda_time_ms(lambda: fwd_k(x, w, *tiles), iters=5,
                                    warmup=1)
         # the backward as the training step runs it: from the forward's
@@ -1038,7 +1071,8 @@ def phase_k45(fbt, fbts, R) -> dict:
             f"backward kernel {t['bwd_ms']:.4f} ms (bound "
             f"{t['bwd_bound'][0]:.4f} ms {t['bwd_bound'][1]}, plain "
             f"{t['bwd_plain_ms']:.4f} ms, yardstick "
-            f"{t['bwd_yardstick_ms']:.4f} ms)")
+            f"{t['bwd_yardstick_ms']:.4f} ms); forward workspace "
+            f"{t['fwd_workspace_bytes'] / 2 ** 20:.1f} MiB")
         results.append(t)
         del x, g, w, xs, ws, y_out, ghost
         torch.cuda.empty_cache()
@@ -1070,12 +1104,43 @@ def _on_device(tree: dict) -> dict:
     return {k: v.to(DEVICE) for k, v in tree.items()}
 
 
+def hgmma_counts(build, name: str) -> dict:
+    """{kernel: HGMMA instructions} of the warpgroup-product kernels
+    (wgmma_gemm.cuh's wg_gemm_kernel instances) in csrc/<name>.cu's build,
+    from cuobjdump's SASS."""
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.library_path(name)],
+                          capture_output=True, text=True, timeout=300)
+    if sass.returncode != 0:
+        fail(f"cuobjdump -sass on {name}: {sass.stderr.strip()}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in line:
+            counts[fn] += 1
+    return {f: n for f, n in counts.items() if "wg_gemm_kernel" in f}
+
+
 def phase_k6(fb, R) -> dict:
     """K6 at the five stride-1 geometries of ResNet-50 at 224 px, batch 64,
     bf16, on the folded weights of the first block of each geometry in the
     seeded model: against its plain version, timed beside the bound, the
     plain version and the same block through cuDNN (_xla_block_eval at
-    stride 1)."""
+    stride 1). First, every warpgroup-product kernel of K6's and K4/K5's
+    builds must issue `wgmma` (HGMMA in its SASS)."""
+    build = importlib.import_module("kubeflow_tpu_torch.ops._build")
+    hgmma = {}
+    for lib in ("fused_block", "fused_block_train"):
+        c = hgmma_counts(build, lib)
+        if not c or min(c.values()) == 0:
+            fail(f"{lib}: warpgroup-product kernels without HGMMA: {c}")
+        hgmma[lib] = {"kernels": len(c), "min": min(c.values()),
+                      "max": max(c.values()), "total": sum(c.values())}
+        log(f"[k6] csrc/{lib}.cu: {len(c)} warpgroup-product kernels, "
+            f"{min(c.values())} to {max(c.values())} HGMMA instructions "
+            f"each ({sum(c.values())} in all)")
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(6)
     v = nontrivial_variables(R.resnet50(num_classes=CLASSES), seed=7)
@@ -1138,7 +1203,7 @@ def phase_k6(fb, R) -> dict:
         results.append(t)
         del x, out, ref, lib
         torch.cuda.empty_cache()
-    return {"geoms": results}
+    return {"geoms": results, "hgmma": hgmma}
 
 
 # -- phase 3 ----------------------------------------------------------------
@@ -1966,6 +2031,7 @@ def main() -> int:
         "library_ms": _launch_mean(geoms, "library_ms"),
         "library": "the same block through cuDNN convs and folded affines "
                    "(_xla_block_eval at stride 1)",
+        "hgmma": k6["hgmma"],
         "shape": "ResNet-50 224 px batch 64 bf16, per launch averaged over "
                  "a forward's " + ", ".join(
                      f"{g['count']} x {g['key']}" for g in geoms),

@@ -69,9 +69,9 @@
 // over S 2048 the gradients stay within 0.6 of the bar that holds them.
 //
 // In f32, and in bf16 at any other head dim (above 128, or not a multiple
-// of 8; each element loaded as bf16 and computed in f32, the gradients
-// rounded to bf16 once): the first port's FMA kernels on the CUDA cores
-// (for f32, tensor cores would mean TF32, which breaks the f32 bars):
+// of 8) or layout (each element loaded as bf16 and computed in f32, the
+// gradients rounded to bf16 once): the first port's FMA kernels on the CUDA
+// cores (for f32, tensor cores would mean TF32, which breaks the f32 bars):
 // - The TPU kernels carry their accumulators in VMEM across a sequential
 //   grid axis. Here one block owns one 64-row q tile (K2a) or one 64-row
 //   k tile (K2b) of one (batch, head) and loops over the other axis
@@ -89,12 +89,17 @@
 //
 // All of them take every sequence length: the ragged edge is masked (rows
 // >= Sq and columns >= Sk give p = 0 and are not written). The head dim
-// is padded with zeros to 32, 64, 128 or 256: the FMA kernels take any
-// head dim up to 256, the tensor-core ones a multiple of 8 up to 128 (their
-// 16-byte copies). q, k, v and do are read
+// is padded with zeros to 32, 64, 128 or 256: the tensor-core kernels take
+// a multiple of 8 up to 128 (their 16-byte copies), the FMA kernels any
+// head dim: above 256 the 256 instance loops over the head dim in chunks
+// of 256 (S and dP summed over the chunks, each chunk's q, do, k and v
+// staged in turn) and splits the dq (or dk, dv) columns over the grid's
+// second dimension, one chunk a block, each block recomputing S and dP,
+// so no tile exceeds the shared memory. q, k, v and do are read
 // through (batch, seq, head) strides with a unit stride on the head dim,
-// so the model's fused-qkv slices need no copy (bf16 needs 16-byte
-// aligned pointers and strides that are multiples of 8 elements). lse and
+// so the model's fused-qkv slices need no copy; the tensor-core kernels
+// need 16-byte aligned pointers and strides that are multiples of 8
+// elements, and a bf16 view without them runs the FMA kernels. lse and
 // delta are contiguous [B, H, Sq] f32; dq, dk and dv are written
 // contiguous [B, S, H, D].
 #include <cuda_bf16.h>
@@ -184,10 +189,16 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bh % H;
   const int row0 = ((Sq + BLOCK_M - 1) / BLOCK_M - 1 - tile) * BLOCK_M;
 
-  load_tile<BLOCK_M, DMAX>(q_s, q + b * st.qb + h * st.qh, st.qs, row0, Sq,
-                           D);
-  load_tile<BLOCK_M, DMAX>(do_s, dout + b * st.ob + h * st.oh, st.os, row0,
-                           Sq, D);
+  // this block's dq columns [oc, oc + DMAX); D > DMAX runs chunked: S and
+  // dP summed over chunks of the head dim, q and do re-staged per tile
+  const int oc = blockIdx.y * DMAX;
+  const bool chunked = D > DMAX;
+  const T* qb = q + b * st.qb + h * st.qh;
+  const T* ob = dout + b * st.ob + h * st.oh;
+  if (!chunked) {
+    load_tile<BLOCK_M, DMAX>(q_s, qb, st.qs, row0, Sq, D);
+    load_tile<BLOCK_M, DMAX>(do_s, ob, st.os, row0, Sq, D);
+  }
   const T* kb = k + b * st.kb + h * st.kh;
   const T* vb = v + b * st.vb + h * st.vh;
 
@@ -210,36 +221,41 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j = 0; j < n_tiles; ++j) {
     const int col0 = j * BN;
-    __syncthreads();  // the previous tile's ds.k is done with k_s/ds_s
-    load_tile<BN, DMAX>(k_s, kb, st.ks, col0, Sk, D);
-    load_tile<BN, DMAX>(v_s, vb, st.vs, col0, Sk, D);
-    __syncthreads();
-
     float s[4][JN], dp[4][JN];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int jj = 0; jj < JN; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += DMAX) {
+      __syncthreads();  // the previous chunk's (tile's ds.k) reads are done
+      if (chunked) {
+        load_tile<BLOCK_M, DMAX>(q_s, qb + d0, st.qs, row0, Sq, D - d0);
+        load_tile<BLOCK_M, DMAX>(do_s, ob + d0, st.os, row0, Sq, D - d0);
+      }
+      load_tile<BN, DMAX>(k_s, kb + d0, st.ks, col0, Sk, D - d0);
+      load_tile<BN, DMAX>(v_s, vb + d0, st.vs, col0, Sk, D - d0);
+      __syncthreads();
 #pragma unroll 8
-    for (int c = 0; c < DMAX; ++c) {
-      float qv[4], dov[4], kv[JN], vv[JN];
+      for (int c = 0; c < DMAX; ++c) {
+        float qv[4], dov[4], kv[JN], vv[JN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = q_s[(ty * 4 + i) * LD + c];
-        dov[i] = do_s[(ty * 4 + i) * LD + c];
-      }
-#pragma unroll
-      for (int jj = 0; jj < JN; ++jj) {
-        kv[jj] = k_s[(tx + 16 * jj) * LD + c];
-        vv[jj] = v_s[(tx + 16 * jj) * LD + c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          qv[i] = q_s[(ty * 4 + i) * LD + c];
+          dov[i] = do_s[(ty * 4 + i) * LD + c];
+        }
 #pragma unroll
         for (int jj = 0; jj < JN; ++jj) {
-          s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
-          dp[i][jj] = fmaf(dov[i], vv[jj], dp[i][jj]);
+          kv[jj] = k_s[(tx + 16 * jj) * LD + c];
+          vv[jj] = v_s[(tx + 16 * jj) * LD + c];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < JN; ++jj) {
+            s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
+            dp[i][jj] = fmaf(dov[i], vv[jj], dp[i][jj]);
+          }
+      }
     }
 
 #pragma unroll
@@ -253,6 +269,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           p = expf(s[i][jj] * scale - lse_r[i]);
         ds_s[(ty * 4 + i) * P_LD + tx + 16 * jj] = p * (dp[i][jj] - delta_r[i]);
       }
+    }
+    if (chunked) {  // k's columns of this block's dq chunk
+      __syncthreads();
+      load_tile<BN, DMAX>(k_s, kb + oc, st.ks, col0, Sk, D - oc);
     }
     __syncthreads();
 
@@ -277,7 +297,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* out = dq + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < COLS; ++c) {
-      const int col = tx + 16 * c;
+      const int col = oc + tx + 16 * c;
       if (col < D) out[col] = from_f32<T>(acc[i][c] * scale);
     }
   }
@@ -317,10 +337,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bh % H;
   const int col0 = tile * BLOCK_N;  // this block's k rows
 
-  load_tile<BLOCK_N, DMAX>(k_s, k + b * st.kb + h * st.kh, st.ks, col0, Sk,
-                           D);
-  load_tile<BLOCK_N, DMAX>(v_s, v + b * st.vb + h * st.vh, st.vs, col0, Sk,
-                           D);
+  // this block's dk and dv columns [oc, oc + DMAX); D > DMAX runs chunked:
+  // S^T and dP^T summed over chunks of the head dim, k and v re-staged per
+  // q tile
+  const int oc = blockIdx.y * DMAX;
+  const bool chunked = D > DMAX;
+  const T* kb = k + b * st.kb + h * st.kh;
+  const T* vb = v + b * st.vb + h * st.vh;
+  if (!chunked) {
+    load_tile<BLOCK_N, DMAX>(k_s, kb, st.ks, col0, Sk, D);
+    load_tile<BLOCK_N, DMAX>(v_s, vb, st.vs, col0, Sk, D);
+  }
   const T* qb = q + b * st.qb + h * st.qh;
   const T* ob = dout + b * st.ob + h * st.oh;
 
@@ -334,43 +361,48 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int first = causal ? col0 / BM : 0;  // the diagonal tile
   for (int it = first; it < n_q; ++it) {
     const int row0 = it * BM;
-    __syncthreads();  // the previous tile's products are done with smem
-    load_tile<BM, DMAX>(q_s, qb, st.qs, row0, Sq, D);
-    load_tile<BM, DMAX>(do_s, ob, st.os, row0, Sq, D);
-    if (threadIdx.x < BM) {
-      const int row = row0 + threadIdx.x;
-      const int64_t at = static_cast<int64_t>(bh) * Sq + row;
-      lse_s[threadIdx.x] = row < Sq ? lse[at] : 0.f;
-      delta_s[threadIdx.x] = row < Sq ? delta[at] : 0.f;
-    }
-    __syncthreads();
-
     // transposed tiles: sT[kr][qc] = k[kr].q[qc], dpT[kr][qc] = v[kr].do[qc]
     float sT[4][JQ], dpT[4][JQ];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int jj = 0; jj < JQ; ++jj) sT[i][jj] = dpT[i][jj] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += DMAX) {
+      __syncthreads();  // the previous chunk's (tile's products') reads are done
+      if (chunked) {
+        load_tile<BLOCK_N, DMAX>(k_s, kb + d0, st.ks, col0, Sk, D - d0);
+        load_tile<BLOCK_N, DMAX>(v_s, vb + d0, st.vs, col0, Sk, D - d0);
+      }
+      load_tile<BM, DMAX>(q_s, qb + d0, st.qs, row0, Sq, D - d0);
+      load_tile<BM, DMAX>(do_s, ob + d0, st.os, row0, Sq, D - d0);
+      if (d0 == 0 && threadIdx.x < BM) {
+        const int row = row0 + threadIdx.x;
+        const int64_t at = static_cast<int64_t>(bh) * Sq + row;
+        lse_s[threadIdx.x] = row < Sq ? lse[at] : 0.f;
+        delta_s[threadIdx.x] = row < Sq ? delta[at] : 0.f;
+      }
+      __syncthreads();
 #pragma unroll 8
-    for (int c = 0; c < DMAX; ++c) {
-      float kv[4], vv[4], qv[JQ], dov[JQ];
+      for (int c = 0; c < DMAX; ++c) {
+        float kv[4], vv[4], qv[JQ], dov[JQ];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = k_s[(ty * 4 + i) * LD + c];
-        vv[i] = v_s[(ty * 4 + i) * LD + c];
-      }
-#pragma unroll
-      for (int jj = 0; jj < JQ; ++jj) {
-        qv[jj] = q_s[(tx + 16 * jj) * LD + c];
-        dov[jj] = do_s[(tx + 16 * jj) * LD + c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          kv[i] = k_s[(ty * 4 + i) * LD + c];
+          vv[i] = v_s[(ty * 4 + i) * LD + c];
+        }
 #pragma unroll
         for (int jj = 0; jj < JQ; ++jj) {
-          sT[i][jj] = fmaf(kv[i], qv[jj], sT[i][jj]);
-          dpT[i][jj] = fmaf(vv[i], dov[jj], dpT[i][jj]);
+          qv[jj] = q_s[(tx + 16 * jj) * LD + c];
+          dov[jj] = do_s[(tx + 16 * jj) * LD + c];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int jj = 0; jj < JQ; ++jj) {
+            sT[i][jj] = fmaf(kv[i], qv[jj], sT[i][jj]);
+            dpT[i][jj] = fmaf(vv[i], dov[jj], dpT[i][jj]);
+          }
+      }
     }
 
 #pragma unroll
@@ -386,6 +418,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         p_s[(ty * 4 + i) * P_LD + qc] = p;
         ds_s[(ty * 4 + i) * P_LD + qc] = p * (dpT[i][jj] - delta_s[qc]);
       }
+    }
+    if (chunked) {  // q's and do's columns of this block's dk, dv chunk
+      __syncthreads();
+      load_tile<BM, DMAX>(q_s, qb + oc, st.qs, row0, Sq, D - oc);
+      load_tile<BM, DMAX>(do_s, ob + oc, st.os, row0, Sq, D - oc);
     }
     __syncthreads();
 
@@ -419,7 +456,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t at = ((static_cast<int64_t>(b) * Sk + krow) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < COLS; ++c) {
-      const int col = tx + 16 * c;
+      const int col = oc + tx + 16 * c;
       if (col < D) {
         dk[at + col] = from_f32<T>(dk_acc[i][c] * scale);
         dv[at + col] = from_f32<T>(dv_acc[i][c]);
@@ -447,9 +484,12 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   unsigned blocks;
-  if (!flat_grid((Sq + BLOCK_M - 1) / BLOCK_M, B, H, &blocks))
+  const int chunks = (D + DMAX - 1) / DMAX;  // dq column chunks
+  if (!flat_grid((Sq + BLOCK_M - 1) / BLOCK_M, B, H, &blocks) ||
+      chunks > 65535)
     return cudaErrorInvalidValue;
-  flash_bwd_dq_kernel<T, DMAX><<<blocks, THREADS, smem, stream>>>(
+  flash_bwd_dq_kernel<T, DMAX><<<dim3(blocks, chunks), THREADS, smem,
+                                 stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), B * H, H, Sq, Sk, D, st, scale, causal);
@@ -468,9 +508,12 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   unsigned blocks;
-  if (!flat_grid((Sk + BLOCK_N - 1) / BLOCK_N, B, H, &blocks))
+  const int chunks = (D + DMAX - 1) / DMAX;  // dk, dv column chunks
+  if (!flat_grid((Sk + BLOCK_N - 1) / BLOCK_N, B, H, &blocks) ||
+      chunks > 65535)
     return cudaErrorInvalidValue;
-  flash_bwd_dkv_kernel<T, DMAX><<<blocks, THREADS, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, DMAX><<<dim3(blocks, chunks), THREADS, smem,
+                                  stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dk), static_cast<T*>(dv), B * H, H, Sq, Sk, D, st,
@@ -861,14 +904,21 @@ Strides strides_from(const int64_t* s) {
                  s[6], s[7], s[8], s[9], s[10], s[11]};
 }
 
-// every kernel takes a head dim up to 256 (the tensor-core ones only
-// multiples of 8 up to 128: tensor_core_dim)
-bool bad_args(int D, int dtype) {
-  return D <= 0 || D > 256 || dtype < 0 || dtype > 1;
+// the FMA kernels take any head dim (above 256 in chunks), the
+// tensor-core ones multiples of 8 up to 128 (tensor_core_dim)
+bool bad_args(int D, int dtype) { return D <= 0 || dtype < 0 || dtype > 1; }
+
+// whether the tensor-core kernels' 16-byte copies can read q, k, v and do
+bool tc_ready(const void* q, const void* k, const void* v, const void* dout,
+              const int64_t* strides, int B, int Sq, int Sk, int H) {
+  return async_ready(q, strides, B, Sq, H) &&
+         async_ready(k, strides + 3, B, Sk, H) &&
+         async_ready(v, strides + 6, B, Sk, H) &&
+         async_ready(dout, strides + 9, B, Sq, H);
 }
 
 // calls f with the head-dim template (32, 64, 128 or 256) that D is padded
-// to
+// to (above 256: the 256 instance, in chunks)
 template <typename F>
 cudaError_t by_dim(int D, F f) {
   if (D <= 32) return f(std::integral_constant<int, 32>());
@@ -904,7 +954,9 @@ extern "C" int kftpu_flash_attention_bwd_dq(
   if (bad_args(D, dtype)) return cudaErrorInvalidValue;
   const Strides st = strides_from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 || !tensor_core_dim(D))
+  if (dtype == 0 || !tensor_core_dim(D) ||
+      !tc_ready(q, k, v, dout, strides, B, Sq, Sk, H) ||
+      reinterpret_cast<uintptr_t>(dq) % 16)
     return by_dim(D, [&](auto dm) {
       constexpr int DM = decltype(dm)::value;
       return dtype == 0
@@ -913,12 +965,6 @@ extern "C" int kftpu_flash_attention_bwd_dq(
           : launch_dq<bf16, DM>(q, k, v, dout, lse, delta, dq, B, H, Sq, Sk,
                                 D, st, scale, causal, s);
     });
-  if (!async_ready(q, strides, B, Sq, H) ||
-      !async_ready(k, strides + 3, B, Sk, H) ||
-      !async_ready(v, strides + 6, B, Sk, H) ||
-      !async_ready(dout, strides + 9, B, Sq, H) ||
-      reinterpret_cast<uintptr_t>(dq) % 16)
-    return cudaErrorMisalignedAddress;
   return by_tc_dim(D, [&](auto dm) {
     return launch_dq_bf16<decltype(dm)::value>(q, k, v, dout, lse, delta, dq,
                                                B, H, Sq, Sk, D, st, scale,
@@ -937,7 +983,10 @@ extern "C" int kftpu_flash_attention_bwd_dkv(
   if (bad_args(D, dtype)) return cudaErrorInvalidValue;
   const Strides st = strides_from(strides);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 || !tensor_core_dim(D))
+  if (dtype == 0 || !tensor_core_dim(D) ||
+      !tc_ready(q, k, v, dout, strides, B, Sq, Sk, H) ||
+      reinterpret_cast<uintptr_t>(dk) % 16 ||
+      reinterpret_cast<uintptr_t>(dv) % 16)
     return by_dim(D, [&](auto dm) {
       constexpr int DM = decltype(dm)::value;
       return dtype == 0
@@ -946,13 +995,6 @@ extern "C" int kftpu_flash_attention_bwd_dkv(
           : launch_dkv<bf16, DM>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
                                  Sk, D, st, scale, causal, s);
     });
-  if (!async_ready(q, strides, B, Sq, H) ||
-      !async_ready(k, strides + 3, B, Sk, H) ||
-      !async_ready(v, strides + 6, B, Sk, H) ||
-      !async_ready(dout, strides + 9, B, Sq, H) ||
-      reinterpret_cast<uintptr_t>(dk) % 16 ||
-      reinterpret_cast<uintptr_t>(dv) % 16)
-    return cudaErrorMisalignedAddress;
   return by_tc_dim(D, [&](auto dm) {
     return launch_dkv_bf16<decltype(dm)::value>(q, k, v, dout, lse, delta,
                                                 dk, dv, B, H, Sq, Sk, D, st,

@@ -45,7 +45,9 @@
 // The P rounding to bf16 is a rounding point the JAX kernel does not have
 // (it keeps P in f32); over S 2048 it stays within 0.4 of the output bar.
 //
-// f32, and bf16 at any other D: `flash_fwd_kernel`, the first port's FMA
+// f32, bf16 at any other D, and bf16 views that the 16-byte copies cannot
+// read (a misaligned pointer or stride): `flash_fwd_kernel`, the first
+// port's FMA
 // kernel on the CUDA cores (for f32, tensor cores would mean TF32, which
 // breaks the f32 bars):
 // - One thread block per (b*h, 64-row q tile), on a flat grid that starts
@@ -62,9 +64,12 @@
 //   shared memory to the P·V product, where the same thread owns the same
 //   rows, so m and l never leave registers.
 // - Causal k tiles above the diagonal are never loaded.
-// - The head dim is padded with zeros to 32, 64, 128 or 256, so it takes
-//   any head dim up to 256 (at 256 the tiles take 209 KB of shared
-//   memory).
+// - The head dim is padded with zeros to 32, 64, 128 or 256 (at 256 the
+//   tiles take 209 KB of shared memory). A larger head dim runs the 256
+//   instance in chunks of 256 columns: S = Q.K^T is summed over the
+//   chunks (Q and K staged one chunk at a time), and the output's columns
+//   are split over the grid's second dimension, one chunk a block, each
+//   block recomputing S for its own chunk of P.V. So any head dim fits.
 // - The same kernel on bf16 inputs (each element loaded as bf16 and
 //   computed in f32, o rounded to bf16 once) takes the bf16 head dims the
 //   tensor-core kernel does not: above 128, or not a multiple of 8. It
@@ -74,8 +79,9 @@
 // are not written, columns >= Sk score -inf), so the TPU's 8-aligned block
 // rule and its fallback have no counterpart here. Inputs are read through
 // (batch, seq, head) strides with a unit stride on the head dim, so the
-// model's fused-qkv slices need no copy; the bf16 kernel needs 16-byte
-// aligned pointers and strides that are multiples of 8 elements.
+// model's fused-qkv slices need no copy; the tensor-core kernel needs
+// 16-byte aligned pointers and strides that are multiples of 8 elements,
+// and a bf16 view without them runs the FMA kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -128,15 +134,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qb = q + b * q_sb + h * q_sh;
   const T* kb = k + b * k_sb + h * k_sh;
   const T* vb = v + b * v_sb + h * v_sh;
+  // the output columns of this block: [oc, oc + DMAX); D > DMAX runs
+  // chunked (q re-staged per key tile and chunk)
+  const int oc = blockIdx.y * DMAX;
+  const bool chunked = D > DMAX;
 
-  for (int idx = tid; idx < BLOCK_M * DMAX; idx += THREADS) {
-    const int r = idx / DMAX;
-    const int c = idx % DMAX;
-    const int row = row0 + r;
-    float x = 0.f;
-    if (row < Sq && c < D) x = to_f32(qb[row * q_ss + c]) * scale;
-    q_s[r * QK_STRIDE + c] = x;
-  }
+  // q columns [d0, d0 + DMAX), scaled
+  auto stage_q = [&](int d0) {
+    for (int idx = tid; idx < BLOCK_M * DMAX; idx += THREADS) {
+      const int r = idx / DMAX;
+      const int c = idx % DMAX;
+      const int row = row0 + r;
+      float x = 0.f;
+      if (row < Sq && c < D - d0) x = to_f32(qb[row * q_ss + d0 + c]) * scale;
+      q_s[r * QK_STRIDE + c] = x;
+    }
+  };
+  if (!chunked) stage_q(0);
 
   float m[4], l[4], acc[4][COLS];
 #pragma unroll
@@ -155,38 +169,45 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int j = 0; j < n_tiles; ++j) {
     const int col0 = j * BLOCK_N;
-    __syncthreads();  // the previous tile's P·V is done with k_s/v_s/p_s
-    for (int idx = tid; idx < BLOCK_N * DMAX; idx += THREADS) {
-      const int r = idx / DMAX;
-      const int c = idx % DMAX;
-      const int col = col0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (col < Sk && c < D) {
-        kx = to_f32(kb[col * k_ss + c]);
-        vx = to_f32(vb[col * v_ss + c]);
-      }
-      k_s[r * QK_STRIDE + c] = kx;
-      v_s[r * DMAX + c] = vx;
-    }
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+    // S over the head dim, one chunk of DMAX columns at a time (one chunk
+    // unless chunked); v's chunk for this block's output columns comes in
+    // with the first
+    for (int d0 = 0; d0 < D; d0 += DMAX) {
+      __syncthreads();  // the previous chunk (or tile's P·V) is done with smem
+      if (chunked) stage_q(d0);
+      for (int idx = tid; idx < BLOCK_N * DMAX; idx += THREADS) {
+        const int r = idx / DMAX;
+        const int c = idx % DMAX;
+        const int col = col0 + r;
+        float kx = 0.f;
+        if (col < Sk && c < D - d0) kx = to_f32(kb[col * k_ss + d0 + c]);
+        k_s[r * QK_STRIDE + c] = kx;
+        if (d0 == 0) {
+          float vx = 0.f;
+          if (col < Sk && c < D - oc) vx = to_f32(vb[col * v_ss + oc + c]);
+          v_s[r * DMAX + c] = vx;
+        }
+      }
+      __syncthreads();
 #pragma unroll 8
-    for (int c = 0; c < DMAX; ++c) {
-      float qv[4], kv[4];
+      for (int c = 0; c < DMAX; ++c) {
+        float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty * 4 + i) * QK_STRIDE + c];
+        for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty * 4 + i) * QK_STRIDE + c];
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-        kv[jj] = k_s[(tx + 16 * jj) * QK_STRIDE + c];
+        for (int jj = 0; jj < 4; ++jj)
+          kv[jj] = k_s[(tx + 16 * jj) * QK_STRIDE + c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
+          for (int jj = 0; jj < 4; ++jj)
+            s[i][jj] = fmaf(qv[i], kv[jj], s[i][jj]);
+      }
     }
 
 #pragma unroll
@@ -247,10 +268,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + ((static_cast<int64_t>(b) * Sq + row) * H + h) * D;
 #pragma unroll
     for (int c = 0; c < COLS; ++c) {
-      const int col = tx + 16 * c;
+      const int col = oc + tx + 16 * c;
       if (col < D) orow[col] = from_f32<T>(acc[i][c] / li);
     }
-    if (tx == 0) lse[static_cast<int64_t>(bh) * Sq + row] = m[i] + logf(li);
+    if (tx == 0 && blockIdx.y == 0)
+      lse[static_cast<int64_t>(bh) * Sq + row] = m[i] + logf(li);
   }
 }
 
@@ -266,9 +288,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const int64_t blocks =
       static_cast<int64_t>((Sq + BLOCK_M - 1) / BLOCK_M) * B * H;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const int chunks = (D + DMAX - 1) / DMAX;  // output column chunks
+  if (blocks > INT_MAX || chunks > 65535) return cudaErrorInvalidValue;
   flash_fwd_kernel<T, DMAX>
-      <<<static_cast<unsigned>(blocks), THREADS, smem, stream>>>(
+      <<<dim3(static_cast<unsigned>(blocks), chunks), THREADS, smem,
+         stream>>>(
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<T*>(o), lse, B * H, H, Sq,
           Sk, D, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
@@ -506,30 +530,28 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 // q, k, v: [B, S, H, D] read through strides (in elements) `strides` =
 // {q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h}; the head dim is unit
 // stride. o: contiguous [B, Sq, H, D] in the input dtype. lse: contiguous
-// [B, H, Sq] f32. dtype: 0 = float32 (the FMA kernel, D <= 256), 1 =
-// bfloat16: the tensor-core kernel for D a multiple of 8 up to 128
-// (16-byte aligned pointers, strides multiples of 8), the FMA kernel on
-// bf16 inputs for any other D <= 256. Any B*H. Returns the launch's
-// cudaError_t; the caller checks it.
+// [B, H, Sq] f32. dtype: 0 = float32 (the FMA kernel), 1 = bfloat16: the
+// tensor-core kernel for D a multiple of 8 up to 128 with 16-byte aligned
+// pointers and strides multiples of 8, the FMA kernel on bf16 inputs for
+// any other D or layout (the caller counts that route). Any D (above 256
+// in chunks of 256), any B*H. Returns the launch's cudaError_t; the caller
+// checks it.
 extern "C" int kftpu_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, float* lse, int B,
     int H, int Sq, int Sk, int D, const int64_t* strides, float scale,
     int causal, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return cudaSuccess;
-  if (D <= 0 || D > 256 || dtype < 0 || dtype > 1)
-    return cudaErrorInvalidValue;
+  if (D <= 0 || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch_dim<float>(q, k, v, o, lse, B, H, Sq, Sk, D, strides,
                                scale, causal, s);
-  if (!tensor_core_dim(D))
-    return dispatch_dim<bf16>(q, k, v, o, lse, B, H, Sq, Sk, D, strides,
-                              scale, causal, s);
-  if (!async_ready(q, strides, B, Sq, H) ||
+  if (!tensor_core_dim(D) || !async_ready(q, strides, B, Sq, H) ||
       !async_ready(k, strides + 3, B, Sk, H) ||
       !async_ready(v, strides + 6, B, Sk, H) ||
       reinterpret_cast<uintptr_t>(o) % 16)
-    return cudaErrorMisalignedAddress;
+    return dispatch_dim<bf16>(q, k, v, o, lse, B, H, Sq, Sk, D, strides,
+                              scale, causal, s);
   if (D <= 32)
     return launch_bf16<32>(q, k, v, o, lse, B, H, Sq, Sk, D, strides, scale,
                            causal, s);

@@ -24,21 +24,23 @@
 // the 28x28, 14x14 and 7x7 ones (chip_smoke.py prints each bound). The TPU
 // kernel keeps a batch tile's whole interior in VMEM; a 56x56x64 bf16 h1 is
 // 392 KiB an image, more than an SM's 227 KB of shared memory, so here the
-// block is three launches of the pipelined bf16 product (tc_gemm.cuh,
-// shared with K4/K5) over device memory:
-//   1. x.w1, whose epilogue applies s1, b1, relu and the rounding -> h1;
+// block is three launches of the warpgroup product (wgmma_gemm.cuh: TMA
+// and `cp.async` into a 4-stage swizzled ring, `wgmma` from two consumer
+// warpgroups) over device memory:
+//   1. x.w1 (x by TMA), whose epilogue applies s1, b1, relu and the
+//      rounding -> h1;
 //   2. the 3x3 conv as one implicit product over k = tap * Cmid + c, whose
-//      loader reads h1 at the tap's source pixel, or zeros outside the
-//      image (per image, so the seam between two images is an edge too),
-//      and whose epilogue applies s2, b2, relu and the rounding -> h2;
+//      producer gathers h1 at the tap's source pixel by `cp.async`, or
+//      zeros outside the image (per image, so the seam between two images
+//      is an edge too), and whose epilogue applies s2, b2, relu and the
+//      rounding -> h2;
 //   3. h2.w3 and, with a projection, x.wp into a second accumulator of the
-//      same block tile, then the residual add and the final relu.
+//      same tile (both by TMA), then the residual add and the final relu.
 // h1 and h2 make a round trip through device memory in bf16: bytes the TPU
-// kernel kept on chip. Speed is later work (wgmma, TMA, h1 kept on chip with
-// a recomputed halo); this version is the simple correct one.
+// kernel kept on chip (0.015-0.12 ms a block at 3.35 TB/s).
 #include <limits.h>
 
-#include "tc_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -66,10 +68,11 @@ struct EpAffineRelu {
   __device__ __forceinline__ void operator()(int, Row off, int n,
                                              const float* v, const In&,
                                              float*) const {
-    float y[8];
+    float y[8], sv[8], bv[8];
+    ldg8(s + n, sv);
+    ldg8(b + n, bv);
 #pragma unroll
-    for (int e = 0; e < 8; ++e)
-      y[e] = fmaxf(affine(v[e], s[n + e], b[n + e]), 0.f);
+    for (int e = 0; e < 8; ++e) y[e] = fmaxf(affine(v[e], sv[e], bv[e]), 0.f);
     *reinterpret_cast<uint4*>(h + off + n) = pack8(y);
   }
 };
@@ -100,69 +103,57 @@ struct LdConv3x3 {
   }
 };
 
-struct OutArgs {
-  const bf16 *h2, *w3, *x, *wp;
+// out = relu(bf16(bf16(a3 * s3 + b3) + res)) from the tile's accumulators:
+// res = bf16(ap * sp + bp) from the second accumulator with PROJ, else x
+template <bool PROJ>
+struct EpBlockOut {
+  static constexpr int NV = 0;
+  const bf16* x;
   const float *s3, *b3, *sp, *bp;
   bf16* out;
-  int M, Cin, Cmid, Cout;
-};
-
-// out = relu(bf16(bf16(h2.w3 * s3 + b3) + res)) for one 128 x 64 tile;
-// res = bf16(x.wp * sp + bp) from a second accumulator with PROJ, else x.
-// The epilogue reads the accumulators' fragments in place (warp_mma.cuh's
-// C layout, tc_gemm.cuh's 4 x 2 warps).
-template <bool PROJ>
-__global__ void __launch_bounds__(TC_GEMM_THREADS) block_out_kernel(OutArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  const int m0 = blockIdx.y * TBM, n0 = blockIdx.x * TBN;
-  TAcc acc3, accp;
-  tc_zero(acc3);
-  tc_mainloop<true, false>(LdRows{a.h2, a.Cmid}, LdRows{a.w3, a.Cout}, m0,
-                           n0, a.M, a.Cout, 0, a.Cmid, ring, acc3);
-  if (PROJ) {
-    tc_zero(accp);
-    tc_mainloop<true, false>(LdRows{a.x, a.Cin}, LdRows{a.wp, a.Cout}, m0,
-                             n0, a.M, a.Cout, 0, a.Cin, ring, accp);
+  int Cin, Cout;
+  typedef int64_t Row;  // the row
+  struct In {
+    uint4 x;  // 8 bf16 of x without a projection
+  };
+  __device__ __forceinline__ Row row(int m) const { return m; }
+  __device__ __forceinline__ void load(Row m, int n, In& in) const {
+    if (!PROJ) in.x = __ldg(reinterpret_cast<const uint4*>(x + m * Cin + n));
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
+  __device__ __forceinline__ void write(Row m, int n, const float* v3,
+                                        const float* r) const {
+    float o[8], sv[8], bv[8];
+    ldg8(s3 + n, sv);
+    ldg8(b3 + n, bv);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int e = 0; e < 8; ++e) {
+      const float h3 = round_bf16(affine(v3[e], sv[e], bv[e]));
+      o[e] = fmaxf(round_bf16(__fadd_rn(h3, r[e])), 0.f);
+    }
+    *reinterpret_cast<uint4*>(out + m * Cout + n) = pack8(o);
+  }
+  // with a projection: two accumulators
+  __device__ __forceinline__ void operator()(Row m, int n, const float* v3,
+                                             const float* vp, const In&,
+                                             float*) const {
+    float r[8], sv[8], bv[8];
+    ldg8(sp + n, sv);
+    ldg8(bp + n, bv);
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+    for (int e = 0; e < 8; ++e) r[e] = round_bf16(affine(vp[e], sv[e], bv[e]));
+    write(m, n, v3, r);
+  }
+  // the identity residual: one accumulator
+  __device__ __forceinline__ void operator()(int, Row m, int n,
+                                             const float* v3, const In& in,
+                                             float*) const {
+    float r[8];
+    const bf16* e8 = reinterpret_cast<const bf16*>(&in.x);
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = m0 + wm * 32 + mi * 16 + hf * 8 + (lane >> 2);
-        const int col = n0 + wn * 32 + ni * 8 + (lane & 3) * 2;
-        if (row >= a.M || col >= a.Cout) continue;
-        float o[2];
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int c = col + t;
-          const float h3 = round_bf16(
-              affine(acc3[mi][ni][2 * hf + t], a.s3[c], a.b3[c]));
-          const float r = PROJ
-              ? round_bf16(affine(accp[mi][ni][2 * hf + t], a.sp[c], a.bp[c]))
-              : __bfloat162float(a.x[static_cast<int64_t>(row) * a.Cin + c]);
-          o[t] = fmaxf(round_bf16(__fadd_rn(h3, r)), 0.f);
-        }
-        *reinterpret_cast<uint32_t*>(
-            a.out + static_cast<int64_t>(row) * a.Cout + col) =
-            pack2(o[0], o[1]);
-      }
-}
-
-template <bool PROJ>
-cudaError_t block_out(const OutArgs& o, cudaStream_t st) {
-  constexpr size_t smem = tc_smem_bytes<0>();
-  static std::atomic<uint64_t> done{0};
-  const cudaError_t e = allow_smem(done, block_out_kernel<PROJ>, smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((o.Cout + TBN - 1) / TBN, (o.M + TBM - 1) / TBM);
-  block_out_kernel<PROJ><<<grid, TC_GEMM_THREADS, smem, st>>>(o);
-  return cudaGetLastError();
-}
+    for (int e = 0; e < 8; ++e) r[e] = __bfloat162float(e8[e]);
+    write(m, n, v3, r);
+  }
+};
 
 }  // namespace
 
@@ -198,17 +189,28 @@ extern "C" int kftpu_block_eval(const KftpuBlockEvalArgs* a, void* stream) {
   bf16* h1 = static_cast<bf16*>(a->h1);
   bf16* h2 = static_cast<bf16*>(a->h2);
 
-  KFTPU_TRY((tc_gemm_full<true, false>(
-      LdRows{x, Cin}, LdRows{static_cast<const bf16*>(a->w1), Cmid},
-      EpAffineRelu{a->s1, a->b1, h1, Cmid}, M, Cmid, Cin, st)));
-  KFTPU_TRY((tc_gemm_full<true, false>(
+  const bf16* w1 = static_cast<const bf16*>(a->w1);
+  const bf16* w2 = static_cast<const bf16*>(a->w2);
+  const bf16* w3 = static_cast<const bf16*>(a->w3);
+  const bf16* wp = static_cast<const bf16*>(a->wp);
+  KFTPU_TRY(wg_gemm(Plain{x, M, Cin, Cin}, Plain{w1, Cin, Cmid, Cmid},
+                    EpAffineRelu{a->s1, a->b1, h1, Cmid}, M, Cmid, Cin, st));
+  KFTPU_TRY(wg_gemm_gather(
       LdConv3x3{h1, Cmid, H, W, fast_div(Cmid), fast_div(H), fast_div(W)},
-      LdRows{static_cast<const bf16*>(a->w2), Cmid},
-      EpAffineRelu{a->s2, a->b2, h2, Cmid}, M, Cmid, 9 * Cmid, st)));
-  const OutArgs o{h2, static_cast<const bf16*>(a->w3), x,
-                  static_cast<const bf16*>(a->wp), a->s3, a->b3, a->sp,
-                  a->bp, static_cast<bf16*>(a->out), M, Cin, Cmid, Cout};
-  return a->proj ? block_out<true>(o, st) : block_out<false>(o, st);
+      Plain{w2, 9 * Cmid, Cmid, Cmid}, EpAffineRelu{a->s2, a->b2, h2, Cmid},
+      M, Cmid, 9 * Cmid, st));
+  bf16* out = static_cast<bf16*>(a->out);
+  const Plain h2m{h2, M, Cmid, Cmid}, w3m{w3, Cmid, Cout, Cout};
+  if (a->proj)
+    return wg_gemm2(h2m, w3m, Plain{x, M, Cin, Cin},
+                    Plain{wp, Cin, Cout, Cout},
+                    EpBlockOut<true>{x, a->s3, a->b3, a->sp, a->bp, out, Cin,
+                                     Cout},
+                    M, Cout, Cmid, Cin, st);
+  return wg_gemm(h2m, w3m,
+                 EpBlockOut<false>{x, a->s3, a->b3, nullptr, nullptr, out,
+                                   Cin, Cout},
+                 M, Cout, Cmid, st);
 }
 
 extern "C" const char* kftpu_cuda_error_string(int err) {

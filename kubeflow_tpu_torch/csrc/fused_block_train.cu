@@ -42,27 +42,34 @@
 // 256-2048 channels does not fit the 227 KB of shared memory of one SM, and
 // BN needs a tile's statistics before anything downstream can run, so the
 // TPU kernel's single VMEM-resident pass becomes a short sequence of
-// launches over device memory. Every product runs on the pipelined
-// tensor-core product of tc_gemm.cuh (3-stage `cp.async` ring, `ldmatrix`,
-// `mma.sync`), whose operands are plain or gathered bf16 rows:
-//   forward: x.w1 over the haloed rows, its epilogue writing a1 and the
-//   per-(tile, ghost segment) sums of a and a^2 over interior rows ->
+// launches over device memory, whose operands are plain or gathered bf16
+// rows:
+//   forward, on the warpgroup product of wgmma_gemm.cuh (TMA for plain
+//   rows and weights, `cp.async` for gathered rows, a 4-stage swizzled
+//   ring, `wgmma`): x.w1 over the haloed rows, its epilogue writing a1 and
+//   the per-(tile, ghost segment) sums of a and a^2 over interior rows ->
 //   ordered reduce -> m, rsqrt -> one pass writes the haloed bf16 h1 (each
 //   strip's rows normalised with its statistics, zero outside the image) ->
 //   the 3x3 conv as one implicit product that gathers h1 per tap (zero past
-//   the image columns) -> sums -> h2 -> h2.w3 -> sums -> output pass;
-//   backward: the same products with the saved statistics, whose epilogues
-//   write h1 and h2 at once and, for conv3, the sums of gz, gz*xh3 and
-//   gz*xhp; the dh2 and dh1 products' epilogues give BN2's and BN1's sums;
-//   then the da passes, the dgrad products and the weight-gradient products
-//   (split over samples, reduced in order).
+//   the image columns) -> sums -> h2. conv3 and the projection have a short
+//   contraction (Cmid, Cin), so they run twice rather than store their f32
+//   interiors: first a pass whose epilogue only sums (BN3's and BNp's
+//   statistics), then one output product that recomputes h2.w3 and x.wp
+//   into two accumulators of each tile (the same tiles and k order, so the
+//   same bits) and applies BN3, BNp or the identity, the add and the relu;
+//   backward, on the pipelined `mma.sync` product of tc_gemm.cuh: the same
+//   products with the saved statistics, whose epilogues write h1 and h2 at
+//   once and, for conv3, the sums of gz, gz*xh3 and gz*xhp; the dh2 and
+//   dh1 products' epilogues give BN2's and BN1's sums; then the da passes,
+//   the dgrad products and the weight-gradient products (split over
+//   samples, reduced in order).
 // Every reduction is fixed-order (per-tile partials, then one ordered
 // reduce): no float atomics, so the results do not change from run to run.
-// Interiors (a1, acc2, a3 in f32) live in device memory, bytes the TPU
-// kernel kept in VMEM.
+// a1 and acc2 (f32) live in device memory, bytes the TPU kernel kept in
+// VMEM; a3 and ap are never stored by the forward.
 #include <math.h>
 
-#include "tc_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -116,14 +123,6 @@ __device__ __forceinline__ float bn(float a, float m, float rs, float g,
 __device__ __forceinline__ void load8f(const float* p, float* v) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-// 8 read-only floats through the non-coherent cache
-__device__ __forceinline__ void ldg8(const float* p, float* v) {
-  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
@@ -338,6 +337,24 @@ struct EpMoments {
   }
 };
 
+// the forward's sums-only passes (conv3, the projection): a and a^2 of
+// every row, nothing stored
+struct EpSums {
+  static constexpr int NV = 2;
+  typedef int Row;
+  typedef NoIn In;
+  __device__ __forceinline__ Row row(int m) const { return m; }
+  __device__ __forceinline__ void load(Row, int, In&) const {}
+  __device__ __forceinline__ void operator()(int, Row, int, const float* v,
+                                             const In&, float* s) const {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      s[e] = v[e];
+      s[8 + e] = v[e] * v[e];
+    }
+  }
+};
+
 // the ghost of row m (a haloed row when `haloed`) and whether it lies in
 // the image
 __device__ __forceinline__ int act_ghost(const Geo& geo, int m, int haloed,
@@ -365,8 +382,20 @@ __device__ __forceinline__ StatRow stat_row(const Geo& geo, int m, int C,
                  inside};
 }
 
-// xh = (a - m) * rs and y = g * xh + b of 8 columns, m, rs, g and b read
-// from where the pointers point: the BN of part of a row
+// xh = (a - m) * rs and y = g * xh + b of 8 columns, from m, rs, g and b
+// in registers
+__device__ __forceinline__ void bn8v(const float* a, const float* mm,
+                                     const float* ss, const float* gg,
+                                     const float* bb, float* xh, float* y) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    xh[e] = __fmul_rn(__fsub_rn(a[e], mm[e]), ss[e]);
+    y[e] = __fadd_rn(__fmul_rn(gg[e], xh[e]), bb[e]);
+  }
+}
+
+// the same with m, rs, g and b read from where the pointers point: the BN
+// of part of a row
 __device__ __forceinline__ void bn8(const float* a, const float* mean,
                                     const float* rs, const float* g,
                                     const float* b, float* xh, float* y) {
@@ -375,11 +404,7 @@ __device__ __forceinline__ void bn8(const float* a, const float* mean,
   ldg8(rs, ss);
   ldg8(g, gg);
   ldg8(b, bb);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    xh[e] = __fmul_rn(__fsub_rn(a[e], mm[e]), ss[e]);
-    y[e] = __fadd_rn(__fmul_rn(gg[e], xh[e]), bb[e]);
-  }
+  bn8v(a, mm, ss, gg, bb, xh, y);
 }
 
 // the backward's recomputed products: the f32 interior and its bf16
@@ -715,18 +740,72 @@ __device__ __forceinline__ void out_terms(const OutArgs& o, int64_t off,
   }
 }
 
-__global__ void out_kernel(OutArgs o, Vec8 vc, int rows, Geo geo,
-                           bf16* __restrict__ out) {
-  int m, c;
-  if (!vc.at(thread_index(), rows, m, c)) return;
-  const int64_t off = static_cast<int64_t>(m) * vc.C + c;
-  const int64_t so = static_cast<int64_t>(geo.ghost_of_row(m)) * vc.C + c;
-  float xh3[8], y3[8], xhp[8], r[8];
-  out_terms(o, off, so, c, xh3, y3, xhp, r);
+// the forward's output from the output product's tile: y3 = BN3(a3) from
+// the first accumulator, r = BNp(ap) from the second with PROJ, else x;
+// out = bf16(relu(y3 + r))
+// The ghost's statistics of the last row are kept (the rows of a thread
+// mostly share a ghost), and the per-column scale and bias are read with
+// loads the rows can share.
+template <bool PROJ>
+struct EpTrainOut {
+  static constexpr int NV = 0;
+  const bf16* x;
+  const float *m3, *rs3, *g3, *b3, *mp, *rsp, *gp, *bp;
+  bf16* out;
+  int C;  // Cout (= Cin without a projection)
+  Geo geo;
+  mutable int64_t key = -1;  // ghost row offset + column of the kept stats
+  mutable float km3[8], krs3[8], kmp[8], krsp[8];
+  typedef StatRow Row;
+  struct In {
+    uint4 x;  // 8 bf16 of x without a projection
+  };
+  __device__ __forceinline__ Row row(int m) const {
+    return stat_row(geo, m, C, 0);
+  }
+  __device__ __forceinline__ void load(const Row& r, int n, In& in) const {
+    if (!PROJ) in.x = __ldg(reinterpret_cast<const uint4*>(x + r.off + n));
+  }
+  __device__ __forceinline__ void stats(const Row& r, int n) const {
+    if (r.so + n == key) return;
+    key = r.so + n;
+    ldg8(m3 + key, km3);
+    ldg8(rs3 + key, krs3);
+    if (PROJ) {
+      ldg8(mp + key, kmp);
+      ldg8(rsp + key, krsp);
+    }
+  }
+  __device__ __forceinline__ void write(int n, const float* a3,
+                                        const float* res, bf16* o) const {
+    float xh3[8], y3[8], gg[8], bb[8];
+    ldg8(g3 + n, gg);
+    ldg8(b3 + n, bb);
+    bn8v(a3, km3, krs3, gg, bb, xh3, y3);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) y3[i] = fmaxf(__fadd_rn(y3[i], r[i]), 0.f);
-  *reinterpret_cast<uint4*>(out + off) = pack8(y3);
-}
+    for (int e = 0; e < 8; ++e) y3[e] = fmaxf(__fadd_rn(y3[e], res[e]), 0.f);
+    *reinterpret_cast<uint4*>(o) = pack8(y3);
+  }
+  __device__ __forceinline__ void operator()(const Row& r, int n,
+                                             const float* a3,
+                                             const float* ap, const In&,
+                                             float*) const {
+    stats(r, n);
+    float xhp[8], res[8], gg[8], bb[8];
+    ldg8(gp + n, gg);
+    ldg8(bp + n, bb);
+    bn8v(ap, kmp, krsp, gg, bb, xhp, res);
+    write(n, a3, res, out + r.off + n);
+  }
+  __device__ __forceinline__ void operator()(int, const Row& r, int n,
+                                             const float* a3, const In& in,
+                                             float*) const {
+    stats(r, n);
+    float res[8];
+    unpack8(in.x, res);
+    write(n, a3, res, out + r.off + n);
+  }
+};
 
 // da = rs * ((dy * g - c1) - xh * c2), the BN backward of the interior BNs
 __device__ __forceinline__ float bn_da(float dy, float xh, float rs, float g,
@@ -1016,8 +1095,8 @@ int64_t ghost_floats(const Dims& d) {
   return static_cast<int64_t>(d.G) * (4 * d.Cmid + 4 * d.Cout);
 }
 
-struct Bufs {  // the interiors, their activations, sums
-  float *a1, *ap, *acc2, *a3;  // a1 over the haloed rows
+struct Bufs {  // the forward's interiors, their activations, sums
+  float *a1, *acc2;  // a1 over the haloed rows
   bf16 *h1, *h2;               // h1 over the haloed rows
   float *part, *sums;
 };
@@ -1032,11 +1111,8 @@ Bufs carve_fwd(const KftpuBlockArgs& a, const Dims& d, Carve& cv) {
   Bufs b;
   b.a1 = cv.take<float>(static_cast<int64_t>(d.Mh) * d.Cmid);
   b.h1 = cv.take<bf16>(static_cast<int64_t>(d.Mh) * d.Cmid);
-  b.ap = a.proj ? cv.take<float>(static_cast<int64_t>(d.M) * d.Cout)
-                : nullptr;
   b.acc2 = cv.take<float>(static_cast<int64_t>(d.M) * d.Cmid);
   b.h2 = cv.take<bf16>(static_cast<int64_t>(d.M) * d.Cmid);
-  b.a3 = cv.take<float>(static_cast<int64_t>(d.M) * d.Cout);
   int64_t part = seg_floats(d.Mh, d.Lh, 2, d.Cmid);
   const int64_t p3 = seg_floats(d.M, d.L, 3, d.Cout);
   const int64_t p2 = seg_floats(d.M, d.L, 2, d.Cmid);
@@ -1049,6 +1125,7 @@ Bufs carve_fwd(const KftpuBlockArgs& a, const Dims& d, Carve& cv) {
 }
 
 struct BwdBufs {
+  float *a3, *ap;  // the backward's recomputed conv3 and projection
   float *c13, *c23, *c1p, *c2p, *dres, *dh2, *c12, *c22;
   float *dh1, *c11, *c21, *part;
   bf16 *da3, *dap, *da2, *da1;
@@ -1059,6 +1136,8 @@ BwdBufs carve_bwd(const KftpuBlockArgs& a, const Dims& d, Carve& cv) {
   const int64_t M = d.M, Mh = d.Mh, G = d.G;
   BwdBufs b;
   b.ghost = a.ghost == nullptr ? cv.take<float>(ghost_floats(d)) : a.ghost;
+  b.a3 = cv.take<float>(M * d.Cout);
+  b.ap = a.proj ? cv.take<float>(M * d.Cout) : nullptr;
   b.c13 = cv.take<float>(G * d.Cout);
   b.c23 = cv.take<float>(G * d.Cout);
   b.c1p = cv.take<float>(G * d.Cout);
@@ -1132,38 +1211,46 @@ cudaError_t run_forward(const KftpuBlockArgs& a, const Dims& d,
     return cudaGetLastError();
   };
 
-  // conv1 1x1 over the haloed rows, BN1 statistics over the interior, h1
-  KFTPU_TRY((tc_gemm_full<true, false>(
-      LdXHaloed{x, Cin, geo}, LdRows{w1, Cmid},
-      EpMoments{b.a1, Cmid, geo, 1}, d.Mh, Cmid, Cin, st, sh)));
+  // conv1 1x1 over the haloed rows (x gathered with its halo, or plain x
+  // by TMA without one), BN1 statistics over the interior, h1
+  const Plain xm{x, d.M, Cin, Cin}, w1m{w1, Cin, Cmid, Cmid};
+  const EpMoments e1{b.a1, Cmid, geo, 1};
+  if (geo.hal)
+    KFTPU_TRY(wg_gemm_gather(LdXHaloed{x, Cin, geo}, w1m, e1, d.Mh, Cmid,
+                             Cin, st, sh));
+  else
+    KFTPU_TRY(wg_gemm(xm, w1m, e1, d.Mh, Cmid, Cin, st, sh));
   KFTPU_TRY(stats(sh, Cmid, gs.m1, gs.rs1, a.m1, a.v1));
   KFTPU_TRY(norm(b.a1, b.h1, d.Mh, Cmid, gs.m1, gs.rs1, a.g1, a.b1, 1));
+  // the projection's BN statistics (its product is run again for out)
+  const Plain wpm{wp, Cin, Cout, Cout};
   if (a.proj) {
-    KFTPU_TRY((tc_gemm_full<true, false>(
-        LdRows{x, Cin}, LdRows{wp, Cout}, EpMoments{b.ap, Cout, geo, 0},
-        d.M, Cout, Cin, st, sr)));
+    KFTPU_TRY(wg_gemm(xm, wpm, EpSums{}, d.M, Cout, Cin, st, sr));
     KFTPU_TRY(stats(sr, Cout, gs.mp, gs.rsp, a.mp, a.vp));
   }
   // conv2 3x3 over h1, BN2 statistics, h2
-  KFTPU_TRY((tc_gemm_full<true, false>(
-      LdConv{b.h1, Cmid, fast_div(Cmid), geo}, LdRows{w2, Cmid},
-      EpMoments{b.acc2, Cmid, geo, 0}, d.M, Cmid, 9 * Cmid, st, sr)));
+  KFTPU_TRY(wg_gemm_gather(LdConv{b.h1, Cmid, fast_div(Cmid), geo},
+                           Plain{w2, 9 * Cmid, Cmid, Cmid},
+                           EpMoments{b.acc2, Cmid, geo, 0}, d.M, Cmid,
+                           9 * Cmid, st, sr));
   KFTPU_TRY(stats(sr, Cmid, gs.m2, gs.rs2, a.m2, a.v2));
   KFTPU_TRY(norm(b.acc2, b.h2, d.M, Cmid, gs.m2, gs.rs2, a.g2, a.b2, 0));
-  // conv3 1x1 over h2, BN3 statistics
-  KFTPU_TRY((tc_gemm_full<true, false>(
-      LdRows{b.h2, Cmid}, LdRows{w3, Cout}, EpMoments{b.a3, Cout, geo, 0},
-      d.M, Cout, Cmid, st, sr)));
+  // conv3 1x1 over h2: BN3 statistics
+  const Plain h2m{b.h2, d.M, Cmid, Cmid}, w3m{w3, Cmid, Cout, Cout};
+  KFTPU_TRY(wg_gemm(h2m, w3m, EpSums{}, d.M, Cout, Cmid, st, sr));
   KFTPU_TRY(stats(sr, Cout, gs.m3, gs.rs3, a.m3, a.v3));
-  if (final_out) {
-    const OutArgs o{b.a3, b.ap, x, nullptr, gs.m3, gs.rs3, a.g3, a.b3,
-                    gs.mp, gs.rsp, a.gp, a.bp, static_cast<int>(a.proj)};
-    const int64_t n = static_cast<int64_t>(d.M) * (Cout / 8);
-    out_kernel<<<blocks_for(n, 256), 256, 0, st>>>(
-        o, vec8(Cout), d.M, geo, static_cast<bf16*>(a.out));
-    KFTPU_TRY(cudaGetLastError());
-  }
-  return cudaSuccess;
+  if (!final_out) return cudaSuccess;
+  // the output product: conv3 (and the projection) again, BN, add, relu
+  bf16* out = static_cast<bf16*>(a.out);
+  if (a.proj)
+    return wg_gemm2(h2m, w3m, xm, wpm,
+                    EpTrainOut<true>{x, gs.m3, gs.rs3, a.g3, a.b3, gs.mp,
+                                     gs.rsp, a.gp, a.bp, out, Cout, geo},
+                    d.M, Cout, Cmid, Cin, st);
+  return wg_gemm(h2m, w3m,
+                 EpTrainOut<false>{x, gs.m3, gs.rs3, a.g3, a.b3, nullptr,
+                                   nullptr, nullptr, nullptr, out, Cout, geo},
+                 d.M, Cout, Cmid, st);
 }
 
 bool args_ok(const KftpuBlockArgs& a) {
@@ -1247,7 +1334,7 @@ extern "C" int kftpu_block_train_bwd(const KftpuBlockArgs* a, void* stream) {
       Cmid, Cin, st)));
   if (a->proj)
     KFTPU_TRY((tc_gemm_full<true, false>(LdRows{x, Cin}, LdRows{wp, Cout},
-                                         EpF32{b.ap, Cout}, M, Cout, Cin,
+                                         EpF32{w.ap, Cout}, M, Cout, Cin,
                                          st)));
   KFTPU_TRY((tc_gemm_full<true, false>(
       LdConv{b.h1, Cmid, dCmid, geo}, LdRows{w2, Cmid},
@@ -1258,7 +1345,7 @@ extern "C" int kftpu_block_train_bwd(const KftpuBlockArgs* a, void* stream) {
   const bf16* g = static_cast<const bf16*>(a->g);
   KFTPU_TRY((tc_gemm_full<true, false>(
       LdRows{b.h2, Cmid}, LdRows{w3, Cout},
-      EpOut{b.a3, b.ap, x, g, gs.m3, gs.rs3, a->g3, a->b3, gs.mp, gs.rsp,
+      EpOut{w.a3, w.ap, x, g, gs.m3, gs.rs3, a->g3, a->b3, gs.mp, gs.rsp,
             a->gp, a->bp, Cout, static_cast<int>(a->proj), geo},
       M, Cout, Cmid, st, sr)));
   KFTPU_TRY(ghost_reduce<3>(sr, geo, G, Cout, b.sums, st));
@@ -1268,7 +1355,7 @@ extern "C" int kftpu_block_train_bwd(const KftpuBlockArgs* a, void* stream) {
   if (a->proj)
     KFTPU_TRY(finalize(b.sums, b.sums + 2 * gc, Cout, a->gp, w.c1p, w.c2p,
                        a->dgp, a->dbp));
-  const OutArgs o{b.a3, b.ap, x, g, gs.m3, gs.rs3, a->g3, a->b3, gs.mp,
+  const OutArgs o{w.a3, w.ap, x, g, gs.m3, gs.rs3, a->g3, a->b3, gs.mp,
                   gs.rsp, a->gp, a->bp, static_cast<int>(a->proj)};
   const int64_t tout = static_cast<int64_t>(M) * (Cout / 8);
   out_da_kernel<<<blocks_for(tout, 256), 256, 0, st>>>(

@@ -1,8 +1,9 @@
-// The pipelined bf16 tensor-core product of the fused ResNet bottleneck
-// kernels (fused_block_train.cu: K4/K5; fused_block.cu: K6): C[M, N] =
-// sum_k A(m, k) B(k, n),
-// bf16 operands, f32 accumulators, on Hopper's `mma.sync.m16n8k16` (the
-// wrapper, `ldmatrix` and `cp.async` are in warp_mma.cuh).
+// The pipelined bf16 tensor-core product of the fused ResNet bottleneck's
+// backward (fused_block_train.cu: K4/K5; the forward and K6 run on
+// wgmma_gemm.cuh, which shares this file's loaders, FastDiv and SegSums):
+// C[M, N] = sum_k A(m, k) B(k, n), bf16 operands, f32 accumulators, on
+// Hopper's `mma.sync.m16n8k16` (the wrapper, `ldmatrix` and `cp.async` are
+// in warp_mma.cuh).
 //
 // - A block of 256 threads (8 warps, 4 along m x 2 along n, a 32 x 32
 //   share each) owns a 128 x 64 output tile and walks k in steps of 64.

@@ -3,8 +3,9 @@
 // 16- and 4-byte `cp.async` copies into shared memory with zero-fill, a
 // row-tile stager built on them, packing two f32 into a bf16 pair, and
 // the 16-byte epilogue store of a warp's accumulator rows. tc_gemm.cuh
-// (K4, K5, K6) and the bf16 flash-attention kernels (K1, K2a, K2b) share
-// them, and the FMA flash kernels its to_f32 / from_f32.
+// (the K4/K5 backward) and the bf16 flash-attention kernels (K1, K2a, K2b)
+// share them, wgmma_gemm.cuh (K6, the K4/K5 forward) its `cp.async` and
+// packing, and the FMA flash kernels its to_f32 / from_f32.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 // - A (16 x 16, row major), 4 registers of 2 bf16: a0 (g, 2t..2t+1),

@@ -17,8 +17,10 @@
 - :mod:`fused_block` — the fused ResNet bottleneck for inference, BN
   folded to an affine (K6, csrc/fused_block.cu), the counterpart of the
   Pallas ``_kernel`` of ``kubeflow_tpu/ops/fused_block.py``; run by
-  ``models/resnet.py`` ``fused_eval_apply``. K4–K6 share the pipelined
-  bf16 tensor-core product of csrc/tc_gemm.cuh.
+  ``models/resnet.py`` ``fused_eval_apply``. K6 and the K4/K5 forward run
+  their products on the warpgroup (``wgmma``) product of
+  csrc/wgmma_gemm.cuh, the K4/K5 backward on the pipelined ``mma.sync``
+  product of csrc/tc_gemm.cuh.
 - :mod:`_build` — builds ``csrc/*.cu`` with nvcc and loads them with
   ctypes.
 """

@@ -14,16 +14,19 @@ inside the kernel, ``lse`` returned as ``[batch, heads, seq]`` f32 with
   forward-only, as in the JAX package: on CUDA, an input that requires
   grad there raises.
 - A CUDA tensor launches the kernels (built with nvcc at first use,
-  ops/_build.py) or raises. Nothing falls back. The dtype and the head
-  dim pick the kernel (:func:`tensor_core_route`): bf16 K1, K2a and K2b
-  at a head dim that is a multiple of 8 up to 128 run on the tensor
+  ops/_build.py) or raises. Nothing falls back. The dtype, the head dim
+  and the layout pick the kernel (:func:`kernel_route`): bf16 K1, K2a and
+  K2b at a head dim that is a multiple of 8 up to 128 run on the tensor
   cores and stage their tiles with 16-byte asynchronous copies, so their
   inputs need 16-byte aligned pointers and strides that are multiples of
-  8 elements (:func:`check_async_layout`; the model's fused-qkv slices
-  pass); f32 at any head dim, and bf16 at the others (above 128, or not
-  a multiple of 8), run the FMA kernels, which load each element in its
-  own type and compute in f32. Every kernel takes a head dim up to 256
-  and any batch*heads (a flat grid); a larger head dim raises.
+  8 elements (:func:`async_ready`; the model's fused-qkv slices pass); f32
+  at any head dim, bf16 at the others (above 128, or not a multiple of
+  8), and a bf16 view that the 16-byte copies cannot read run the FMA
+  kernels, which load each element in its own type and compute in f32.
+  That last route is counted (``unaligned_launches`` beside
+  ``launches``). The FMA kernels take any head dim (above 256 in chunks
+  of 256 columns, the output's columns split over the grid) and every
+  kernel any batch*heads (a flat grid).
 - A CPU tensor runs the plain PyTorch versions
   (:func:`flash_attention_fwd_plain`, :func:`flash_attention_bwd_dq_plain`,
   :func:`flash_attention_bwd_dkv_plain`); the tests compare them with the
@@ -148,16 +151,18 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = True,
 # -- the CUDA kernels ---------------------------------------------------------
 
 
-MAX_HEAD_DIM = 256
+# the FMA kernels' chunk of the head dim, and the most chunks the grid's
+# second dimension holds
+HEAD_DIM_CHUNK, MAX_HEAD_DIM_CHUNKS = 256, 65535
 
 
 def _check_head_dim(q) -> None:
-    """The kernels pad the head dim to 32, 64, 128 or 256; a larger one
-    would not fit the FMA kernels' f32 tiles in an SM's shared memory."""
+    """The kernels pad the head dim to 32, 64, 128 or 256; above 256 the
+    FMA kernels run in chunks of 256 columns, one chunk a grid row."""
     d = q.shape[-1]
-    if not 0 < d <= MAX_HEAD_DIM:
+    if not 0 < d <= HEAD_DIM_CHUNK * MAX_HEAD_DIM_CHUNKS:
         raise ValueError(f"head_dim {d}: the kernels take 1 to "
-                         f"{MAX_HEAD_DIM}")
+                         f"{HEAD_DIM_CHUNK * MAX_HEAD_DIM_CHUNKS}")
 
 
 def tensor_core_route(q: torch.Tensor) -> bool:
@@ -203,18 +208,19 @@ def async_ready(x: torch.Tensor) -> bool:
         x.shape[i] == 1 or x.stride(i) % 8 == 0 for i in range(3))
 
 
-def check_async_layout(**tensors: torch.Tensor) -> None:
-    """Raise ValueError for any named tensor the bf16 kernels cannot copy
-    asynchronously (see :func:`async_ready`). Nothing is copied to a
-    contiguous tensor behind the caller's back."""
-    for name, x in tensors.items():
-        if not async_ready(x):
-            raise ValueError(
-                f"{name}: the bf16 kernel copies 16-byte chunks, so it needs "
-                f"a 16-byte aligned data_ptr (got {x.data_ptr()} % 16 = "
-                f"{x.data_ptr() % 16}) and (batch, seq, head) strides that "
-                f"are multiples of 8 elements (got {x.stride()[:3]} for "
-                f"shape {tuple(x.shape)})")
+def kernel_route(q: torch.Tensor, *others: torch.Tensor) -> str:
+    """Which kernel a call on ``q`` and the other inputs takes:
+    ``"tensor_core"`` (bf16 at a head dim the tensor cores take, every view
+    :func:`async_ready`), ``"fma_unaligned"`` (the same dtype and head dim,
+    but a view the 16-byte copies cannot read: the bf16 FMA instance reads
+    scalars, so nothing is copied behind the caller's back) or ``"fma"``
+    (f32, and every other head dim). The kernels' own dispatch makes the
+    same choice."""
+    if not tensor_core_route(q):
+        return "fma"
+    if all(async_ready(x) for x in (q, *others)):
+        return "tensor_core"
+    return "fma_unaligned"
 
 
 def _check_bwd_inputs(q, k, v, do, lse, delta) -> None:
@@ -260,12 +266,11 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              scale: Optional[float] = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K1 on the current stream (the tensor-core kernel or the FMA
-    kernel, :func:`tensor_core_route`). Same contract as
+    kernel, :func:`kernel_route`). Same contract as
     :func:`flash_attention_fwd_plain`; raises on anything it does not
     take, and on a launch error."""
     _check_inputs(q, k, v)
-    if tensor_core_route(q):
-        check_async_layout(q=q, k=k, v=v)
+    route = kernel_route(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -279,6 +284,7 @@ def flash_attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor,
             _scale(q, scale), int(causal), _DTYPES[q.dtype], stream)
     _build.check(lib, err, "flash_attention_fwd launch")
     flash_attention.launches += 1
+    flash_attention.unaligned_launches += route == "fma_unaligned"
     return o, lse
 
 
@@ -287,12 +293,11 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, *,
                                 scale: Optional[float] = None
                                 ) -> torch.Tensor:
     """Launch K2a on the current stream (the tensor-core kernel or the FMA
-    kernel, :func:`tensor_core_route`). Same contract as
+    kernel, :func:`kernel_route`). Same contract as
     :func:`flash_attention_bwd_dq_plain`; raises on anything it does not
     take, and on a launch error."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    if tensor_core_route(q):
-        check_async_layout(q=q, k=k, v=v, do=do)
+    route = kernel_route(q, k, v, do)
     b, sq, h, d = q.shape
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lib = _library(_BWD)
@@ -305,6 +310,7 @@ def flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, *,
             int(causal), _DTYPES[q.dtype], stream)
     _build.check(lib, err, "flash_attention_bwd_dq launch")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.unaligned_launches += route == "fma_unaligned"
     return dq
 
 
@@ -313,11 +319,10 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *,
                                  scale: Optional[float] = None
                                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch K2b on the current stream (the tensor-core kernel or the FMA
-    kernel, :func:`tensor_core_route`). Same contract as
+    kernel, :func:`kernel_route`). Same contract as
     :func:`flash_attention_bwd_dkv_plain`."""
     _check_bwd_inputs(q, k, v, do, lse, delta)
-    if tensor_core_route(q):
-        check_async_layout(q=q, k=k, v=v, do=do)
+    route = kernel_route(q, k, v, do)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=k.device)
@@ -332,6 +337,7 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *,
             int(causal), _DTYPES[q.dtype], stream)
     _build.check(lib, err, "flash_attention_bwd_dkv launch")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.unaligned_launches += route == "fma_unaligned"
     return dk, dv
 
 
@@ -357,6 +363,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dq.unaligned_launches = 0
+flash_attention_bwd_dkv.unaligned_launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -418,6 +426,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.unaligned_launches = 0
 
 
 def reference_attention(q, k, v, *, causal: bool = True,

@@ -226,16 +226,19 @@ def _view(base_elems, offset, shape, strides, dtype=torch.bfloat16):
                                              (7, 32, 16, 1)), True),
 ])
 def test_async_layout_check(name, x, ready):
-    """The bf16 kernels' 16-byte copies need 16-byte aligned pointers and
-    (batch, seq, head) strides that are multiples of 8 elements: the
-    check is a pure function of the view, so crafted CPU views test it."""
+    """The bf16 tensor-core kernels' 16-byte copies need 16-byte aligned
+    pointers and (batch, seq, head) strides that are multiples of 8
+    elements; a view without them takes the bf16 FMA kernels, a counted
+    route, where it used to raise. The check and the route are pure
+    functions of the views, so crafted CPU views test them."""
     assert x.data_ptr() % 16 == 0 or not ready
     assert tfa.async_ready(x) is ready, name
-    if ready:
-        tfa.check_async_layout(q=x)
-    else:
-        with pytest.raises(ValueError, match="16-byte"):
-            tfa.check_async_layout(k=x, q=torch.zeros(1, 1, 1, 8))
+    ok = torch.zeros(1, 1, 1, x.shape[-1], dtype=torch.bfloat16)
+    want = "tensor_core" if ready else "fma_unaligned"
+    assert tfa.kernel_route(x) == want, name
+    # any misaligned input of the call moves the whole call
+    assert tfa.kernel_route(ok, x, ok) == want, name
+    assert tfa.kernel_route(x.float()) == "fma"
 
 
 def test_bf16_wrappers_check_layout_after_device():
@@ -257,19 +260,24 @@ def test_bf16_wrappers_check_layout_after_device():
     ((1, 1, 65537, 8), torch.bfloat16, True),
     # the kernels pad any head dim up to 256, in f32 and in bf16 (the
     # tensor-core kernels take multiples of 8 up to 128, the FMA kernels
-    # the rest); beyond 256 their f32 tiles would not fit shared memory
+    # the rest); beyond 256 the FMA kernels run in chunks of 256 columns,
+    # one chunk a grid row, so only the grid's 65535 rows bound it
     ((1, 1, 2, 36), torch.float32, True),
     ((1, 1, 2, 100), torch.float32, True),
     ((1, 1, 2, 36), torch.bfloat16, True),
     ((1, 1, 2, 136), torch.float32, True),
     ((1, 1, 2, 256), torch.bfloat16, True),
-    ((1, 1, 2, 257), torch.float32, False),
-    ((1, 1, 2, 264), torch.bfloat16, False),
+    ((1, 1, 2, 257), torch.float32, True),
+    ((1, 1, 2, 264), torch.bfloat16, True),
     ((1, 1, 2, 0), torch.float32, False),
+    ((1, 1, 2, 512), torch.bfloat16, True),
+    ((1, 1, 2, 256 * 65535), torch.float32, True),
+    ((1, 1, 2, 256 * 65535 + 1), torch.float32, False),
 ])
 def test_kernel_shape_contract(shape, dtype, ok):
-    """What the kernels take: any batch*heads; a head dim up to 256. A
-    pure function of the shape and dtype, so meta tensors test it."""
+    """What the kernels take: any batch*heads; any head dim the grid's
+    chunks cover. A pure function of the shape and dtype, so meta tensors
+    test it."""
     q = torch.empty(shape, dtype=dtype, device="meta")
     if ok:
         tfa._check_head_dim(q)
@@ -318,9 +326,12 @@ BF16_GRAD_ATOL, BF16_GRAD_RTOL = 1e-2, 2.0 ** -7
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d,dtype", [(256, "float32"), (256, "bfloat16"),
-                                     (36, "bfloat16")])
+                                     (36, "bfloat16"), (320, "float32"),
+                                     (320, "bfloat16"), (512, "float32"),
+                                     (512, "bfloat16")])
 def test_head_dims_the_tensor_cores_do_not_take(d, dtype, causal):
-    """Head dims above 128 (f32 and bf16) and a bf16 head dim that is not
+    """Head dims above 128 (f32 and bf16; 320 and 512 run the FMA kernels
+    in chunks of 256 columns on the card) and a bf16 head dim that is not
     a multiple of 8, which the port's FMA kernels take on the card: its
     plain forward and gradients against the JAX Pallas kernels in
     interpret mode. f32 within the module's bars; bf16 output within

@@ -135,33 +135,40 @@ def test_bf16_kernels_read_strided_qkv_slices(cuda_device, s, h, d):
 
 @pytest.mark.gpu
 def test_bf16_kernels_refuse_misaligned_views(cuda_device):
-    """The bf16 kernels copy 16-byte chunks: a view that starts one
-    element in, or whose rows are not 8 elements apart, raises ValueError
-    before any launch (K1, K2a and K2b); nothing is copied behind the
-    caller's back."""
-    flat = torch.zeros(2 * 64 * 2 * 16 + 8, device=cuda_device,
-                       dtype=torch.bfloat16)
-    shifted = flat[1:1 + 2 * 64 * 2 * 16].view(2, 64, 2, 16)
-    wide = torch.zeros(2, 64, 2, 20, device=cuda_device,
-                       dtype=torch.bfloat16)[..., :16]
-    ok = torch.zeros(2, 64, 2, 16, device=cuda_device, dtype=torch.bfloat16)
-    lse = torch.zeros(2, 2, 64, device=cuda_device)
+    """The bf16 tensor-core kernels copy 16-byte chunks: a view at D 64
+    that starts one element in, or whose rows are not 8 elements apart,
+    takes the bf16 FMA kernels instead (K1, K2a and K2b), one counted
+    launch each on the unaligned route, within the bars against the plain
+    versions; nothing is copied behind the caller's back."""
+    flat = torch.randn(2 * 64 * 2 * 64 + 8, generator=torch.Generator(
+        ).manual_seed(3)).to(cuda_device, torch.bfloat16)
+    shifted = flat[1:1 + 2 * 64 * 2 * 64].view(2, 64, 2, 64)
+    wide = torch.randn(2, 64, 2, 68, generator=torch.Generator(
+        ).manual_seed(4)).to(cuda_device, torch.bfloat16)[..., :64]
+    ok = _qkv(2, 64, 2, 64, cuda_device, torch.bfloat16)
     counts = (tfa.flash_attention, tfa.flash_attention_bwd_dq,
               tfa.flash_attention_bwd_dkv)
-    before = [c.launches for c in counts]
     for bad in (shifted, wide):
         assert not tfa.async_ready(bad)
-        with pytest.raises(ValueError, match="16-byte"):
-            tfa.flash_attention(bad, ok, ok, with_lse=True)
-        with pytest.raises(ValueError, match="16-byte"):
-            tfa.flash_attention_fwd_cuda(ok, ok, bad)
-        with pytest.raises(ValueError, match="16-byte"):
-            tfa.flash_attention_bwd_dkv_cuda(ok, ok, ok, bad, lse, lse)
-        with pytest.raises(ValueError, match="16-byte"):
-            tfa.flash_attention_bwd_dq_cuda(ok, bad, ok, ok, lse, lse)
-        with pytest.raises(ValueError, match="16-byte"):
-            tfa.flash_attention_bwd_dq_cuda(ok, ok, ok, bad, lse, lse)
-    assert [c.launches for c in counts] == before
+        for q, k, v, do in ((bad, ok[1], ok[2], ok[0]),
+                            (ok[0], ok[1], bad, ok[2]),
+                            (ok[0], ok[1], ok[2], bad)):
+            assert tfa.kernel_route(q, k, v, do) == "fma_unaligned"
+            before = [(c.launches, c.unaligned_launches) for c in counts]
+            o, lse = tfa.flash_attention_fwd_cuda(q, k, v)
+            delta = tfa.attention_delta(o, do)
+            dq = tfa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta)
+            dkv = tfa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+            torch.cuda.synchronize()
+            fwd_unaligned = int(tfa.kernel_route(q, k, v) == "fma_unaligned")
+            assert [(c.launches, c.unaligned_launches) for c in counts] == [
+                (before[0][0] + 1, before[0][1] + fwd_unaligned),
+                (before[1][0] + 1, before[1][1] + 1),
+                (before[2][0] + 1, before[2][1] + 1)]
+            _check_fwd(q, k, v, o, lse, True)
+            p_dq = tfa.flash_attention_bwd_dq_plain(q, k, v, do, lse, delta)
+            assert _close(dq, p_dq, torch.bfloat16)
+            _check_dkv(q, k, v, do, True, dkv, lse, delta)
 
 
 @pytest.mark.gpu
@@ -179,11 +186,14 @@ def test_kernel_reads_strided_qkv_slices(cuda_device):
 
 @pytest.mark.gpu
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
-    x = torch.zeros(1, 16, 2, 264, device=cuda_device,
-                    dtype=torch.bfloat16)               # bf16 D over 256
+    """Head dims over 256 now run (in chunks); what the kernels refuse is
+    an empty head dim, one past the grid's 65535 chunks, f16 and a
+    differentiated with_lse."""
+    x = torch.zeros(1, 16, 2, 0, device=cuda_device,
+                    dtype=torch.bfloat16)               # no head dim
     with pytest.raises(ValueError, match="head_dim"):
-        tfa.flash_attention(x, x, x)
-    w = torch.zeros(1, 16, 2, 257, device=cuda_device)  # D over 256
+        tfa.flash_attention_fwd_cuda(x, x, x)
+    w = torch.zeros(1, 1, 1, 256 * 65535 + 1, device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         tfa.flash_attention(w, w, w)
     y = torch.zeros(1, 16, 2, 16, device=cuda_device, dtype=torch.float16)
@@ -285,6 +295,13 @@ FMA_HEAD_DIMS = [
     ((1, 77, 2, 36), False, torch.bfloat16),
     ((1, 65, 2, 200), True, torch.bfloat16),
     ((1, 40, 2, 250), False, torch.float32),
+    # above 256: the 256 instance in chunks of 256 columns
+    ((2, 130, 3, 320), True, torch.float32),
+    ((1, 77, 2, 320), False, torch.bfloat16),
+    ((1, 100, 2, 512), True, torch.bfloat16),
+    ((2, 65, 2, 512), False, torch.float32),
+    ((1, 70, 1, 512), True, torch.float32),
+    ((1, 33, 2, 320), True, torch.bfloat16),
 ]
 
 
@@ -544,6 +561,13 @@ def _grad_ok(got, ref) -> bool:
     # K5: seven strips of 2 rows, 16-row segments, several a tile
     (3, 14, 48, 24, 48, False, 1, 2),
     (4, 12, 24, 40, 72, True, 2, 3),
+    # the warpgroup product's edges: the smallest widths (8 channels), M
+    # and K not multiples of 64, W not a multiple of 8, strips of 1 row
+    (2, 6, 8, 8, 8, False, 1, 1),
+    (3, 9, 72, 40, 72, False, 1, 3),
+    (1, 5, 24, 16, 40, True, 1, None),
+    (2, 28, 16, 24, 32, True, 2, 14),
+    (5, 7, 8, 72, 8, False, 1, 1),
 ])
 def test_fused_block_kernels_match_plain(cuda_device, n, h, cin, cmid,
                                          cout, proj, tile_bt, tile_h):
@@ -598,6 +622,8 @@ def test_fused_block_kernels_match_plain(cuda_device, n, h, cin, cmid,
     (3, 14, 48, 24, 48, False, 1, 2),        # K5, seven strips
     (4, 12, 24, 40, 72, True, 2, 3),         # K5, proj, bt 2
     (64, 28, 512, 128, 512, False, 1, 14),   # K5, ResNet-50 stage 2
+    (2, 6, 8, 8, 8, False, 1, 1),            # K5, 1-row strips, 8 wide
+    (4, 9, 72, 40, 72, True, 2, None),       # K4, M and K off 64, proj
 ])
 def test_fused_block_backward_takes_saved_statistics(cuda_device, n, h, cin,
                                                      cmid, cout, proj,
@@ -636,6 +662,35 @@ def test_fused_block_backward_takes_saved_statistics(cuda_device, n, h, cin,
             continue                     # mp, rsp: not written
         assert (a - b).abs().max().item() <= \
             1e-3 * b.abs().max().item() + 1e-5, i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,h,cin,cmid,cout,proj,tile_bt,tile_h", [
+    (64, 7, 2048, 512, 2048, False, 2, None),   # K4, ResNet-50 stage 4
+    (64, 56, 256, 64, 256, False, 1, 14),       # K5, ResNet-50 stage 1
+    (3, 9, 72, 40, 72, True, 1, 3),             # K5, odd sizes, proj
+    (2, 6, 8, 8, 8, False, 2, 1),               # K5, 1-row strips
+])
+def test_fused_block_forward_same_bits_twice(cuda_device, n, h, cin, cmid,
+                                             cout, proj, tile_bt, tile_h):
+    """Two forward calls give the same bits: out, the 8 averaged
+    statistics and the per-ghost ones (every sum of the warpgroup
+    product's epilogue and of the ghost reduce is taken in a fixed order,
+    with no float atomics)."""
+    x, _, w = _block(cuda_device, n, h, cin, cmid, cout, proj, seed=17)
+    mod, name, tiles = (tfbt, "fused_block_train", (tile_bt,)) \
+        if tile_h is None else \
+        (tfbts, "fused_block_train_spatial", (tile_bt, tile_h))
+    fwd = getattr(mod, f"{name}_fwd")
+    first = fwd(x, w, *tiles)
+    second = fwd(x, w, *tiles)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+    # the per-ghost statistics; mp and rsp are not written without proj
+    ghosts = (n // tile_bt) * (h // (tile_h or h))
+    written = ghosts * (4 * cmid + (4 if proj else 2) * cout)
+    assert torch.equal(first[2][:written], second[2][:written])
 
 
 @pytest.mark.gpu
@@ -695,6 +750,12 @@ def _eval_block(cuda_device, n, h, cin, cmid, cout, proj, seed=12):
     (2, 8, 16, 8, 32, True),                 # small, projection
     (3, 5, 24, 16, 24, False),               # odd sizes, image seams
     (64, 14, 1024, 256, 1024, False),        # ResNet-50 stage 3
+    # the warpgroup product's edges: 8 channels, M and K not multiples of
+    # 64, W not a multiple of 8, 128-column tiles with a ragged N
+    (2, 6, 8, 8, 8, False),
+    (3, 9, 72, 40, 72, False),
+    (1, 7, 8, 72, 200, True),
+    (64, 7, 2048, 512, 2048, False),         # ResNet-50 stage 4
 ])
 def test_fused_block_eval_kernel_matches_plain(cuda_device, n, h, cin, cmid,
                                                cout, proj):
