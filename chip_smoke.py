@@ -72,6 +72,39 @@ Phases, each of which fails the run (nonzero exit, no result line):
              routing equals the JAX package's fused_block_routing(50, 224),
              losses are finite, and at init the fused loss lies within 0.5
              of the default path's on the same weights and batch.
+6b. records - ResNet-50 fused at full width trained by train() from
+             record shards that the port's write_shards puts in a temp dir
+             (640 records of 224 px in 4 shards, 96.3 MB, and a holdout of
+             100; about 111 MB) and that the native pipeline, built by make
+             into kubeflow_tpu_torch/_build/native, reads: LARS, lr 0.1,
+             cosine with 2 warmup steps under the runtime schedule, 12
+             steps, sync_every 3, the whole holdout evaluated at the end,
+             with input_workers 0 and 2 by device_prefetch 0 and 2, then on
+             the synthetic pool with the same recipe: each timed, then
+             each again with a profile (after a capture this process's
+             steps stay slower, so every timed run comes first; the
+             synthetic run is timed once more after the captures). Each
+             run serves its /metrics port, which a poller reads
+             (/flightrecorder, /metrics; every 0.25 s in a timed run,
+             every 20 ms in a profiled one) and, in a profiled run, arms
+             (POST /profile?steps=3 once the first window closed). Every
+             K4/K5 count starts at 0 just before each run and is read just
+             after: K4 7 + 7 and K5 6 + 6 a step. Fails unless the window
+             losses are finite, the eval counted exactly 100 records (64,
+             then 36 padded and masked), the native pipeline and augment
+             made every batch, the capture holds a trace, the TensorBoard
+             dir an events file, /flightrecorder the windows with their
+             stage split and /metrics both input stages. Prints each
+             run's step ms and images/s, the recorder's stages and the
+             profiled device-idle share, and the device's busy time a step
+             over the timed step. Then
+             DevicePrefetcher over 20 batches while the consumer runs a K5
+             backward between batches, byte for byte against the host
+             batches and at most depth batches on the card;
+             device_normalize on the card against the CPU (<= 1e-6); LARS
+             and RMSProp, baked and under the runtime schedule, 5 steps
+             over ResNet-50's parameters on the card against the CPU
+             (<= 1e-5 relative).
 7. resnet-serve - ResNet-50 inference at full width (224 px, 1000
              classes, bf16, seeded variables whose BatchNorms all act:
              scales 1 + N(0, 0.1), shifts and running means N(0, 0.1),
@@ -1605,6 +1638,429 @@ def phase_resnet(counters, R, worker, trainstep, recipe, k45) -> dict:
             "dev_ms": dev_ms, "kernel_ms": kernel_ms}
 
 
+
+# -- phase 6b: ResNet-50 from record shards -----------------------------------
+
+# records at ImageNet's geometry: a train set of 640 in 4 shards and a
+# holdout of 100 (one batch of 64 and a short one of 36, padded and masked)
+RECORDS_TRAIN, RECORDS_SHARDS, RECORDS_HOLDOUT = 640, 4, 100
+RECORDS_STEPS, RECORDS_SYNC, RECORDS_PROFILE_STEPS = 12, 3, 3
+RECORDS_ARMS = ((0, 0), (2, 0), (0, 2), (2, 2))   # (input_workers, prefetch)
+PREFETCH_CHECK_BATCHES, PREFETCH_DEPTH = 20, 2
+# device_normalize on the card against the CPU: the same f32 multiply and
+# subtract on each element
+NORMALIZE_TOL = 1e-6
+# LARS / RMSProp on the card against the CPU: the same f32 arithmetic;
+# the tensor norms and the rounding of fused multiply-adds differ, each by
+# an ulp or two of a step that is itself a small part of a parameter
+CHAIN_RTOL = 1e-5
+
+
+class ObsPoller(threading.Thread):
+    """The worker's /metrics port from outside: read /flightrecorder and
+    /metrics every ``interval`` seconds until the port closes, keeping the
+    last answers; with ``profile_steps``, once the flight recorder holds a
+    window (so the capture covers steady steps), POST /profile?steps=N.
+    Each read takes the worker's interpreter lock from its host-bound
+    loop: at 20 ms the step slows measurably (tools/step_overheads.py),
+    so a timed run reads every 0.25 s."""
+
+    def __init__(self, port: int, profile_steps: int, interval: float):
+        super().__init__(daemon=True, name="obs-poller")
+        self.base = f"http://127.0.0.1:{port}"
+        self.profile_steps = profile_steps
+        self.interval = interval
+        self.armed = self.flight = self.metrics = None
+        self._halt = threading.Event()
+
+    def _get(self, path: str):
+        import urllib.request
+        with urllib.request.urlopen(self.base + path, timeout=5) as r:
+            return r.read().decode()
+
+    def run(self) -> None:
+        import urllib.request
+        while not self._halt.is_set():
+            try:
+                self.flight = json.loads(self._get("/flightrecorder"))
+                self.metrics = self._get("/metrics")
+                if self.armed is None and self.flight["records"]:
+                    req = urllib.request.Request(
+                        f"{self.base}/profile?steps={self.profile_steps}",
+                        data=b"", method="POST")
+                    with urllib.request.urlopen(req, timeout=5) as r:
+                        self.armed = json.loads(r.read())
+            except (OSError, ValueError):
+                pass        # not up yet, or already closed
+            self._halt.wait(self.interval)
+
+    def halt(self) -> None:
+        self._halt.set()
+        self.join(10)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def trace_idle(trace_dir: str) -> dict:
+    """Device busy time and idle share of a torch.profiler Chrome trace:
+    the union of the device's kernel, copy and memset intervals over the
+    span of every timed event in the capture."""
+    import glob
+    paths = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(paths) != 1:
+        fail(f"{trace_dir}: {len(paths)} traces")
+    with open(paths[0]) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                    for e in events if e.get("cat") in
+                    ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not device:
+        fail(f"{paths[0]}: the capture holds no device events")
+    busy, end = 0.0, -1.0
+    for a, b in device:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    return {"trace": paths[0], "busy_ms": busy / 1e3,
+            "span_ms": (t1 - t0) / 1e3,
+            "idle_share": 1.0 - busy / (t1 - t0),
+            "kernels": sum(1 for e in events if e.get("cat") == "kernel")}
+
+
+def _records_run(worker, counters, tmp, label, data=None, holdout=None,
+                 profile=False, **kw) -> dict:
+    """One fused ResNet-50 train() with the LARS runtime-schedule recipe,
+    the /metrics port, TensorBoard events and, with ``profile``, a
+    capture armed over steady steps (its stop writes a trace inside the
+    timed windows, so a profiled run's step time is not reported); the
+    counts start at 0 just before and are read just after."""
+    from kubeflow_tpu_torch.data.imagenet import IMPL_COUNTER
+    from kubeflow_tpu_torch.obs import registry as obsreg
+    impl = obsreg.counter(IMPL_COUNTER, "", labels=("stage", "impl"))
+    impl_before = {(s, i): impl.labels(stage=s, impl=i).value
+                   for s in ("records", "augment") for i in ("native", "py")}
+    port = _free_port()
+    poller = ObsPoller(port, RECORDS_PROFILE_STEPS if profile else 0,
+                       0.02 if profile else 0.25)
+    path = os.path.join(tmp, f"{label}.jsonl")
+    tb = os.path.join(tmp, f"tb-{label}")
+    profiles = os.path.join(tmp, f"profiles-{label}")
+    os.environ["KFTPU_PROFILE_DIR"] = profiles
+    poller.start()
+    for fn in counters.values():
+        fn.launches = 0               # the main path's counts start ...
+    t0 = time.perf_counter()
+    try:
+        result = worker.train(
+            workload="resnet50", workload_kwargs={"fused": True},
+            global_batch=RESNET_BATCH, steps=RECORDS_STEPS,
+            sync_every=RECORDS_SYNC, seed=0, optimizer="lars",
+            learning_rate=0.1, lr_schedule="cosine", warmup_steps=2,
+            runtime_schedule=True, data_dir=data, eval_data_dir=holdout,
+            eval_every=RECORDS_STEPS if holdout else 0, eval_batches=0,
+            metrics_path=path, tensorboard_dir=tb, obs_metrics_port=port,
+            handle_sigterm=False, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+    finally:
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}  # ... end
+        poller.halt()
+        del os.environ["KFTPU_PROFILE_DIR"]
+    impl_delta = {k: impl.labels(stage=k[0], impl=k[1]).value - v
+                  for k, v in impl_before.items()}
+    windows = _windows(path)
+    losses = [w["loss"] for w in windows]
+    if len(windows) != RECORDS_STEPS // RECORDS_SYNC or \
+            not np.isfinite(losses).all():
+        fail(f"{label}: windows {windows}")
+    if not any(f.startswith("events.out.tfevents.")
+               for f in os.listdir(tb)):
+        fail(f"{label}: no TensorBoard events file in {tb}")
+    idle = None
+    if profile:
+        if poller.armed is None or not poller.armed.get("armed") or \
+                not poller.armed["dir"].startswith(profiles):
+            fail(f"{label}: POST /profile answered {poller.armed}")
+        idle = trace_idle(poller.armed["dir"])
+    records = (poller.flight or {}).get("records", [])
+    split = ("data_s", "h2d_s", "dispatch_s", "drain_s", "device_wait_s")
+    if not all(set(split) <= set(r) for r in records) or (
+            profile and len(records) < 2):
+        fail(f"{label}: /flightrecorder answered {poller.flight}")
+    steady = records[1:]
+    stage_ms = {k: 1e3 * sum(r[k] for r in steady) / sum(
+        r["steps"] for r in steady) for k in split} if steady else None
+    step_s = result.mean_step_time_s
+    return {"label": label, "result": result, "launches": launches,
+            "losses": losses, "wall_s": wall, "impl": impl_delta,
+            "step_ms": step_s * 1e3, "images_per_s": RESNET_BATCH / step_s,
+            "idle": idle, "stage_ms": stage_ms, "windows_seen": len(records),
+            "metrics": poller.metrics or "", "armed": poller.armed}
+
+
+def _prefetch_check(fbts, R, train_dir) -> dict:
+    """DevicePrefetcher over 20 ImageNetSource batches while the consumer
+    runs a K5 backward at 56x56_256_64_256 between batches: every device
+    batch copied back equals its host batch, kept aside, byte for byte,
+    and the card holds at most `depth` batches after each hand-out."""
+    from kubeflow_tpu_torch.data.device_prefetch import DevicePrefetcher
+    from kubeflow_tpu_torch.data.imagenet import ImageNetSource
+    dev = torch.device(DEVICE)
+    geo = next(g for g in R.stride1_geometries(50, IMAGE)
+               if g["key"] == "56x56_256_64_256")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    w = _block_weights(gen, geo["cin"], geo["cmid"], geo["cout"],
+                       geo["proj"])
+    x = torch.randn((RESNET_BATCH, geo["h"], geo["h"], geo["cin"]),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    g = torch.randn((RESNET_BATCH, geo["h"], geo["h"], geo["cout"]),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    tiles = EXPECTED_TILES[geo["key"]][1:]
+    _, _, ghost = fbts.fused_block_train_spatial_fwd(x, w, *tiles)
+
+    def heavy():
+        return fbts.fused_block_train_spatial_bwd(x, g, w, *tiles,
+                                                  ghost=ghost)
+
+    heavy()                      # workspaces the wrapper keeps
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    src = ImageNetSource(train_dir, RESNET_BATCH, output="uint8")
+    host = []
+
+    def kept():
+        it = src.batches(seed=5)
+        for _ in range(PREFETCH_CHECK_BATCHES):
+            b = next(it)
+            host.append({k: v.copy() for k, v in b.items()})
+            yield b
+
+    def place(b):
+        return {k: torch.as_tensor(v).to(dev, non_blocking=True)
+                for k, v in b.items()}
+
+    pf = DevicePrefetcher(kept(), place, depth=PREFETCH_DEPTH, device=dev)
+    worst, n, bad = 0, 0, []
+    t0 = time.perf_counter()
+    try:
+        for i, batch in enumerate(pf):
+            nbytes = sum(-(-v.numel() * v.element_size() // 512) * 512
+                         for v in batch.values())
+            worst = max(worst, torch.cuda.memory_allocated() - base)
+            # depth batches and small allocations of the consumer's work
+            # (a few hundred bytes); one batch more would add nbytes
+            if worst > PREFETCH_DEPTH * nbytes + nbytes // 2:
+                fail(f"prefetch: {worst} bytes on the card after batch {i}, "
+                     f"more than {PREFETCH_DEPTH} x {nbytes}")
+            out = heavy()
+            for k, v in batch.items():
+                if v.cpu().numpy().tobytes() != host[i][k].tobytes():
+                    bad.append((i, k))
+            del batch, out
+            n += 1
+    finally:
+        pf.close()
+        src.close()
+    wall = time.perf_counter() - t0
+    if bad or n != PREFETCH_CHECK_BATCHES:
+        fail(f"prefetch: {n} batches, differing {bad}")
+    log(f"[records] prefetcher: {n} batches of {RESNET_BATCH} x {IMAGE}^2 "
+        f"uint8 staged {PREFETCH_DEPTH} ahead on a side stream while the "
+        f"consumer ran a K5 backward ({geo['key']}) between batches: every "
+        f"batch equal to its host copy byte for byte; at most {worst} bytes "
+        f"on the card after a hand-out ({PREFETCH_DEPTH} batches: "
+        f"{PREFETCH_DEPTH * nbytes}); {wall:.2f}s")
+    return {"batches": n, "worst_bytes": worst}
+
+
+def _chain_check(R, recipe) -> dict:
+    """LARS and RMSProp, baked and under the runtime schedule, 5 steps
+    over ResNet-50's parameter tensors on the card against the same steps
+    on the CPU, without the clip: its f32 global norm over 25.6M elements
+    sums in another order on each side (the CPU's reduction moves it by
+    more than this bar), and LARS hands a gradient's scale straight on
+    wherever its trust ratio is 1 (the zero-init BN scales), so the clip
+    would be measured instead of the chain."""
+    model = R.resnet50(num_classes=CLASSES)
+    params, _ = model.init(torch.Generator().manual_seed(0))
+    names = sorted(params)
+    gen = torch.Generator().manual_seed(1)
+    grads = [[torch.randn(params[k].shape, generator=gen) * 0.01
+              for k in names] for _ in range(5)]
+    kw = dict(learning_rate=0.1, schedule="cosine", total_steps=5,
+              warmup_steps=2, weight_decay=1e-4)
+    worst = {}
+    for name in ("lars", "rmsprop"):
+        for runtime in (False, True):
+            sides = []
+            for dev in ("cpu", DEVICE):
+                ps = [params[k].clone().to(dev) for k in names]
+                opt = recipe.make_optimizer(ps, name, grad_clip=None,
+                                            runtime_schedule=runtime, **kw)[0]
+                for step in range(5):
+                    for p, gr in zip(ps, grads[step]):
+                        p.grad = gr.clone().to(dev)
+                    opt.step()
+                sides.append(ps)
+            share = max((a.cpu() - b).abs().max().item() /
+                        (CHAIN_RTOL * max(b.abs().max().item(), 1e-30))
+                        for b, a in zip(*sides))
+            worst[(name, runtime)] = share
+            if not share <= 1.0:
+                fail(f"{name} (runtime schedule {runtime}) on the card: "
+                     f"{share:.3f} of the bar")
+    log(f"[records] LARS and RMSProp, 5 steps over ResNet-50's "
+        f"{len(names)} parameter tensors, card against CPU, baked / "
+        f"runtime schedule: largest share of the 1e-5 relative bar "
+        + ", ".join(f"{n} {'runtime' if r else 'baked'} {s:.3f}"
+                    for (n, r), s in worst.items()))
+    return worst
+
+
+def phase_resnet_records(counters, R, worker, recipe, fbts, per_step,
+                         card) -> dict:
+    """ResNet-50 at full width trained by train() from record shards at
+    224 px: LARS, lr 0.1, cosine with 2 warmup steps under the runtime
+    schedule, the holdout evaluated once at the end; input_workers 0 and
+    2 by device_prefetch 0 and 2, then the synthetic pool with the same
+    recipe; the prefetcher's bytes, device_normalize, LARS and RMSProp on
+    the card."""
+    import tempfile
+    from kubeflow_tpu_torch.data import native
+    from kubeflow_tpu_torch.data.imagenet import device_normalize, \
+        write_shards
+    if not native.native_available():
+        fail(f"the native record pipeline did not build into "
+             f"{native.BUILD_DIR} (g++ and make are needed)")
+    expected = {n: k * RECORDS_STEPS for n, k in per_step.items()}
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(17)
+        train_dir = os.path.join(tmp, "train")
+        holdout = os.path.join(tmp, "holdout")
+        t0 = time.perf_counter()
+        for d, n, per_shard in (
+                (train_dir, RECORDS_TRAIN, RECORDS_TRAIN // RECORDS_SHARDS),
+                (holdout, RECORDS_HOLDOUT, RECORDS_HOLDOUT)):
+            write_shards(d, rng.integers(0, 256, (n, IMAGE, IMAGE, 3),
+                                         dtype=np.uint8),
+                         rng.integers(0, CLASSES, n),
+                         shard_records=per_shard, num_classes=CLASSES)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d in (train_dir, holdout) for f in os.listdir(d))
+        log(f"[records] wrote {RECORDS_TRAIN} + {RECORDS_HOLDOUT} records "
+            f"of {IMAGE} px in {RECORDS_SHARDS} + 1 shards ({size / 1e6:.1f} "
+            f"MB) in {time.perf_counter() - t0:.1f}s; native pipeline "
+            f"{native.BUILD_DIR}")
+
+        def checked(label, **kw):
+            run = _records_run(worker, counters, tmp, label, **kw)
+            if run["launches"] != expected:
+                fail(f"{label}: launches {run['launches']}, expected "
+                     f"{expected}")
+            if "data" not in kw:
+                return run
+            fm = run["result"].final_metrics
+            if fm.get("eval_examples") != float(RECORDS_HOLDOUT) or \
+                    not np.isfinite(fm.get("eval_loss", np.nan)):
+                fail(f"{label}: the eval counted "
+                     f"{fm.get('eval_examples')} records, not "
+                     f"{RECORDS_HOLDOUT} ({fm})")
+            imp = run["impl"]
+            if imp[("records", "py")] or imp[("augment", "py")] or \
+                    imp[("records", "native")] < RECORDS_STEPS or \
+                    imp[("augment", "native")] < RECORDS_STEPS:
+                fail(f"{label}: batches by implementation {imp}: the run "
+                     f"did not use the native core")
+            return run
+
+        # each arm twice: timed without a capture, then profiled. Every
+        # timed run comes first: after a torch.profiler capture this
+        # process's steps stay slower (PERF.md §7)
+        arms = {f"w{w}p{p}": dict(data=train_dir, holdout=holdout,
+                                  input_workers=w, device_prefetch=p)
+                for w, p in RECORDS_ARMS}
+        for label, kw in arms.items():
+            torch.cuda.empty_cache()
+            runs.append(checked(label, **kw))
+            runs[-1].update(workers=kw["input_workers"],
+                            prefetch=kw["device_prefetch"])
+        text = runs[-1]["metrics"]
+        for stage in ("augment", "device_put"):
+            if f'kftpu_input_batches_total{{stage="{stage}"}}' not in text:
+                fail(f"GET /metrics lacks the {stage} stage:\n{text}")
+        synthetic = checked("synthetic")
+        for run, kw in zip(runs + [synthetic], [*arms.values(), {}]):
+            run["idle"] = checked(run["label"] + "-profiled", profile=True,
+                                  **kw)["idle"]
+        # the synthetic run again, timed, after the five captures
+        after = checked("synthetic-after-captures")
+        for run in runs + [synthetic]:
+            s, i = run["stage_ms"], run["idle"]
+            # the device's busy time a step from the capture, over the
+            # un-profiled run's step: the idle share without the
+            # profiler's own host cost
+            run["idle_unprofiled"] = 1.0 - i["busy_ms"] / (
+                RECORDS_PROFILE_STEPS * run["step_ms"])
+            log(f"[records] {run['label']}: ResNet-50 fused, LARS runtime "
+                f"schedule, {RECORDS_STEPS} steps "
+                + (f"from records (input_workers {run['workers']}, "
+                   f"device_prefetch {run['prefetch']})"
+                   if "workers" in run else "on the synthetic pool")
+                + f": step {run['step_ms']:.3f} ms, "
+                f"{run['images_per_s']:.1f} images/s (host clock over the "
+                f"windows after the first); "
+                + (f"flight recorder per step over {run['windows_seen'] - 1}"
+                   f" windows: data {s['data_s']:.3f}, h2d {s['h2d_s']:.3f},"
+                   f" dispatch {s['dispatch_s']:.3f}, drain "
+                   f"{s['drain_s']:.3f}, device wait "
+                   f"{s['device_wait_s']:.3f} ms" if s else
+                   "the flight recorder was read before its second window")
+                + "; a second run profiled "
+                f"{RECORDS_PROFILE_STEPS} steps: device busy "
+                f"{i['busy_ms']:.3f} of {i['span_ms']:.3f} ms, idle share "
+                f"{i['idle_share']:.3f} ({i['kernels']} kernels), busy a "
+                f"step over the un-profiled step: idle "
+                f"{run['idle_unprofiled']:.3f}; window "
+                f"losses {[round(x, 4) for x in run['losses']]}; eval "
+                + (f"{run['result'].final_metrics['eval_examples']:.0f} "
+                   f"records" if "workers" in run else "none")
+                + f"; wall {run['wall_s']:.1f}s | {card}")
+        change = after["step_ms"] / synthetic["step_ms"] - 1
+        log(f"[records] the synthetic run again after the five captures: "
+            f"step {after['step_ms']:.3f} ms ({change:+.1%} against before "
+            f"them) | {card}")
+        log(f"[records] per step K4 {per_step['fused_block_train_fwd']} + "
+            f"{per_step['fused_block_train_bwd']}, K5 "
+            f"{per_step['fused_block_train_spatial_fwd']} + "
+            f"{per_step['fused_block_train_spatial_bwd']} in every run; the "
+            f"native pipeline and augment made every batch; /metrics shows "
+            f"both input stages")
+
+        prefetch = _prefetch_check(fbts, R, train_dir)
+        x = torch.from_numpy(rng.integers(0, 256, (RESNET_BATCH, IMAGE,
+                                                   IMAGE, 3), dtype=np.uint8))
+        norm_err = (device_normalize(x.to(DEVICE)).cpu()
+                    - device_normalize(x)).abs().max().item()
+        log(f"[records] device_normalize on the card against the CPU, "
+            f"{RESNET_BATCH} x {IMAGE}^2 x 3: max|d| {norm_err:.3e} "
+            f"(<= {NORMALIZE_TOL})")
+        if not norm_err <= NORMALIZE_TOL:
+            fail("device_normalize differs on the card")
+    chain = _chain_check(R, recipe)
+    return {"runs": runs, "synthetic": synthetic, "after": after,
+            "prefetch": prefetch,
+            "normalize_err": norm_err, "chain": chain}
+
+
 # -- phase 7 ----------------------------------------------------------------
 
 
@@ -1903,6 +2359,8 @@ def main() -> int:
                 fbts.fused_block_train_spatial_bwd}
         resnet = phase_resnet(k45_counters, R, worker, trainstep, recipe,
                               k45)
+        records = phase_resnet_records(k45_counters, R, worker, recipe,
+                                       fbts, resnet["per_step"], dev["card"])
         serve = phase_resnet_serve(fb, R, ModelRepository, ModelServer,
                                    client, run_batch_predict, k6)
     except Exception:  # noqa: BLE001 - any phase failure fails the run
@@ -1998,6 +2456,9 @@ def main() -> int:
                 "replaces": f"{replaces}:{line}",
                 "launches": resnet["runs"]["fused"]["launches"][
                     f"{name}_{way}"],
+                # the same count in each run from record shards
+                "launches_records": [r["launches"][f"{name}_{way}"]
+                                     for r in records["runs"]],
                 "max_abs_err": max(g["out_err" if way == "fwd" else "dx_err"]
                                    for g in geoms),
                 "ms": _launch_mean(geoms, f"{way}_ms"),

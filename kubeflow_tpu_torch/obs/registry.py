@@ -4,7 +4,10 @@ The port's copy of ``kubeflow_tpu/obs/registry.py``: Counter / Gauge /
 Histogram families with labels and ``render()`` emitting the standard
 Prometheus text exposition (format 0.0.4). The model server, each
 servable and the replica health registry hold their own ``Registry`` so
-that several of them coexist in one process without sharing counts.
+that several of them coexist in one process without sharing counts; the
+training worker's ``/metrics`` port serves the process default registry
+(``default_registry()``; ``counter()`` registers on it), where the input
+pipeline's stages and the training loop count.
 
 - **Dependency-free.** The text format from the spec, nothing more.
 - **Hot-path cheap.** Call sites resolve their labeled child once and
@@ -267,3 +270,25 @@ class Registry:
             lines.extend(fam.render())
         return "\n".join(lines) + "\n" if lines else ""
 
+
+
+# ----------------------------------------------------------- default registry
+
+_default: Registry | None = None
+_default_lock = threading.Lock()
+
+
+def default_registry() -> Registry:
+    """The process-wide registry, created on first use: what the worker's
+    ``/metrics`` port serves (the input-pipeline stage counters, the
+    training loop's step times)."""
+    global _default
+    if _default is None:
+        with _default_lock:
+            if _default is None:
+                _default = Registry()
+    return _default
+
+
+def counter(name: str, help: str, labels: Sequence[str] = ()) -> _Family:
+    return default_registry().counter(name, help, labels)

@@ -7,6 +7,14 @@ device. Run as:
         --optimizer adam --learning-rate 1e-3 --kernel-attention flash \\
         --kernel-optimizer fused_adam --steps 100
 
+or, for ResNet-50 from ImageNet-format record shards:
+
+    python -m kubeflow_tpu_torch.runtime.worker --workload resnet50 \\
+        --fused-blocks --data-dir D --eval-data-dir E --eval-every 100 \\
+        --eval-batches 0 --optimizer lars --runtime-schedule \\
+        --input-workers 2 --device-prefetch 2 --tensorboard-dir T \\
+        --obs-metrics-port 9100
+
 It keeps the JAX worker's flag names and defaults, its ``KFTPU_*`` env
 contract and the order in which they resolve (CLI flag, then env, then
 the default), the synthetic pool of 4 placed batches and the
@@ -14,13 +22,23 @@ the default), the synthetic pool of 4 placed batches and the
 ``cuda`` unless asked for the CPU (``device="cpu"``, ``--device cpu``);
 with no card it raises.
 
+- Real data: ``data_dir`` streams uint8 records through
+  ``data/imagenet.py`` (``input_workers`` spawned augment processes or
+  the in-process native augment), stages them on the device through
+  ``data/device_prefetch.py`` (``device_prefetch`` batches ahead) and
+  normalizes on the device inside the loss. ``eval_data_dir`` evaluates
+  over a holdout, padding and masking its short last batch.
+- Run records: the flight recorder's per-window host stages, a
+  ``torch.profiler`` trace of the run (``profile_dir``) or of the next N
+  steps (``POST /profile?steps=N``), TensorBoard scalars
+  (``tensorboard_dir``) and ``/metrics`` (``obs_metrics_port``).
+
 Ported workloads: ``transformer`` and ``resnet18`` … ``resnet152``
 (``--fused-blocks`` trains a bottleneck ResNet through the ghost-BN
 kernels). ``transformer-pipelined``, and the flags of features
-not ported yet (checkpoints, AOT warm start, real data, held-out eval
-data, the numeric sentinel, multi-slice, the profiler, the worker's
-metrics port, TensorBoard), raise "not yet ported" when set — on the CLI,
-as a ``train()`` argument or in the operator-rendered env — naming the
+not ported yet (checkpoints, AOT warm start, the numeric sentinel,
+multi-slice), raise "not yet ported" when set — on the CLI, as a
+``train()`` argument or in the operator-rendered env — naming the
 ROADMAP item, rather than training without them.
 """
 
@@ -29,21 +47,26 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import tempfile
 import time
 import uuid
 from dataclasses import dataclass, replace
 from functools import partial
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..api.trainingjob import (ATTENTION_KERNELS, OPTIMIZER_KERNELS,
                                SERVING_KERNELS, WEIGHT_UPDATE_MODES,
                                validate_weight_update)
+from ..data.imagenet import ImageNetSource, device_normalize, read_meta
 from ..models import RESNET_DEPTHS
 from . import recipe
 from .bootstrap import WorkerContext, initialize
-from .metrics import METRICS_PATH_ENV, AsyncWindowFetch, MetricsLogger
+from .metrics import (FLIGHT_WINDOWS_ENV, METRICS_PATH_ENV, AsyncWindowFetch,
+                      FlightRecorder, MetricsLogger, ProfileArm,
+                      profile_trace)
 from .trainstep import TrainStepBuilder
 
 log = logging.getLogger(__name__)
@@ -101,8 +124,6 @@ _UNPORTED = {
     "resume_from": ("KFTPU_RESUME_FROM", "Queue 1 item 5"),
     "aot": ("KFTPU_AOT", "Queue 1 item 10"),
     "aot_dir": ("KFTPU_AOT_DIR", "Queue 1 item 10"),
-    "data_dir": ("KFTPU_DATA_DIR", "Queue 1 item 8"),
-    "eval_data_dir": ("KFTPU_EVAL_DATA_DIR", "Queue 1 item 8"),
     "integrity": ("KFTPU_INTEGRITY", "Queue 1 item 9"),
     "integrity_spike_z": ("KFTPU_INTEGRITY_SPIKE_Z", "Queue 1 item 9"),
     "integrity_window": ("KFTPU_INTEGRITY_WINDOW", "Queue 1 item 9"),
@@ -111,9 +132,6 @@ _UNPORTED = {
     "multislice_pipeline": ("KFTPU_MULTISLICE_PIPELINE", "Queue 1 item 11"),
     "multislice_microbatches": ("KFTPU_MULTISLICE_MICROBATCHES",
                                 "Queue 1 item 11"),
-    "profile_dir": ("KFTPU_PROFILE_DIR", "Queue 1 item 4"),
-    "obs_metrics_port": ("KFTPU_OBS_METRICS_PORT", "Queue 1 item 4"),
-    "tensorboard_dir": ("KFTPU_TB_DIR", "Queue 1 item 4"),
 }
 
 
@@ -156,11 +174,14 @@ class TrainResult:
 
 class PreemptionGuard:
     """SIGTERM-aware stop flag: the loop checks ``stop`` at step
-    boundaries, closes its window and exits cleanly."""
+    boundaries, closes its window and exits cleanly. ``on_term`` runs
+    inside the handler (the flight recorder's dump: a worker wedged in a
+    step never reaches the next boundary)."""
 
-    def __init__(self, install: bool = True):
+    def __init__(self, install: bool = True, on_term=None):
         self.stop = False
         self._prev = None
+        self._on_term_cb = on_term
         if install:
             import signal
             import threading
@@ -170,6 +191,11 @@ class PreemptionGuard:
     def _on_term(self, signum, frame):
         log.warning("SIGTERM: finishing the step and exiting")
         self.stop = True
+        if self._on_term_cb is not None:
+            try:
+                self._on_term_cb()
+            except Exception:  # noqa: BLE001 — evidence must not break
+                pass           # the graceful-stop path
 
     def uninstall(self) -> None:
         if self._prev is not None:
@@ -229,15 +255,34 @@ def train(
     _refuse_unported(locals())
     ctx = ctx or initialize(device=device)
     workload_kwargs = dict(workload_kwargs or {})
+
+    # real-data path: shard dirs are self-describing, so the dataset's
+    # geometry configures the model (the tf_cnn_benchmarks --data_dir
+    # analog)
+    data_dir = data_dir or os.environ.get("KFTPU_DATA_DIR")
+    eval_explicit = eval_data_dir is not None
+    eval_data_dir = eval_data_dir or os.environ.get("KFTPU_EVAL_DATA_DIR")
+    if eval_data_dir and workload not in _IMAGE_WORKLOADS:
+        if eval_explicit or eval_every > 0:
+            raise ValueError(
+                f"workload {workload!r} does not consume --eval-data-dir")
+        # a gang-wide env var meant for the image workers: warn only
+        log.warning("ignoring KFTPU_EVAL_DATA_DIR for workload %r "
+                    "(eval disabled)", workload)
+        eval_data_dir = None
+    # input-pipeline knobs: CLI flag wins, then the operator-rendered env,
+    # then in-process augment and double-buffered device staging
+    if input_workers is None:
+        input_workers = _env_int("KFTPU_INPUT_WORKERS", 0)
+    if device_prefetch is None:
+        device_prefetch = _env_int("KFTPU_DEVICE_PREFETCH", 2)
+    if input_workers < 0 or device_prefetch < 0:
+        raise ValueError(f"input_workers ({input_workers}) and "
+                         f"device_prefetch ({device_prefetch}) must be >= 0")
+    if data_dir and workload not in _IMAGE_WORKLOADS:
+        raise ValueError(f"workload {workload!r} does not consume --data-dir")
     if label_smoothing and workload in _IMAGE_WORKLOADS:
         workload_kwargs.setdefault("label_smoothing", label_smoothing)
-    # the input-pipeline knobs drive the real-data feed, which raises
-    # above; with the synthetic pool they only need to be valid
-    for knob in (input_workers, device_prefetch):
-        if knob is not None and knob < 0:
-            raise ValueError(f"input_workers ({input_workers}) and "
-                             f"device_prefetch ({device_prefetch}) must "
-                             f"be >= 0")
 
     # kernel tier: CLI flag wins, then the operator-rendered env
     # (KFTPU_KERNEL_*), then stock
@@ -266,10 +311,6 @@ def train(
     log.info("kernel tier: attention=%s optimizer=%s serving=%s",
              kernel_attention, kernel_optimizer, kernel_serving)
 
-    spec = WORKLOADS[workload](**workload_kwargs)
-    log.info("worker %d/%d device=%s workload=%s", ctx.process_id,
-             ctx.num_processes, ctx.device, spec.name)
-
     base_lr = recipe.scale_lr(learning_rate, global_batch) \
         if scale_lr_by_batch else learning_rate
     if runtime_schedule is None:
@@ -278,115 +319,304 @@ def train(
         weight_update or os.environ.get("KFTPU_WEIGHT_UPDATE")
         or "replicated")
     lr_fn = recipe.lr_schedule(lr_schedule, base_lr, steps, warmup_steps)
-    builder = TrainStepBuilder(
-        loss_fn=spec.loss_fn, device=ctx.device, weight_update=weight_update,
-        optimizer=lambda params: recipe.make_optimizer(
-            params, optimizer, base_lr, schedule=lr_schedule,
-            total_steps=steps, warmup_steps=warmup_steps,
-            weight_decay=weight_decay, momentum=momentum,
-            kernels=kernel_optimizer, runtime_schedule=runtime_schedule)[0])
-    state = builder.init(spec.init_fn, torch.Generator().manual_seed(seed))
-    step_fn = builder.build()
 
-    eval_step = builder.build_eval(spec.eval_fn) \
-        if eval_every and spec.eval_fn is not None else None
-
-    def run_eval(state) -> dict:
-        """Average spec.eval_fn over synthetic held-out batches."""
-        gen = torch.Generator().manual_seed(seed + 2)
-        n_batches = eval_batches if eval_batches > 0 else 8
-        totals: dict = {}
-        for _ in range(n_batches):
-            em = eval_step(state, builder.place_batch(
-                spec.batch_fn(gen, global_batch)))
-            for k, v in em.items():
-                totals[k] = totals.get(k, 0.0) + float(v)
-        out = {k: v / n_batches for k, v in totals.items()}
-        if "eval_perplexity" in out and "eval_loss" in out:
-            # perplexity = exp(mean loss), not the mean of exp(loss)
-            import math
-            out["eval_perplexity"] = math.exp(out["eval_loss"])
-        return out
-
-    metrics_path = metrics_path or os.environ.get(METRICS_PATH_ENV)
-    if metrics_path:
-        os.makedirs(os.path.dirname(metrics_path) or ".", exist_ok=True)
-    mlog = MetricsLogger(metrics_path, batch_size=global_batch)
-
-    # the synthetic pool: 4 batches placed once and cycled, so batch
-    # generation never shares the device with the step
-    data_rng = torch.Generator().manual_seed(seed + 1)
-    batch_pool = [builder.place_batch(spec.batch_fn(data_rng, global_batch))
-                  for _ in range(4)]
-
-    from ..obs.trace import SPAN_PATH_ENV, SpanWriter
-    span_path = span_path or os.environ.get(SPAN_PATH_ENV)
-    tracer = trace_id = None
-    if span_path:
-        trace_id = os.environ.get("KFTPU_TRACE_ID") or uuid.uuid4().hex
-        tracer = SpanWriter(span_path, "worker")
-        tracer.emit("train-start", start=time.time(), trace_id=trace_id,
-                    workload=spec.name, steps=steps,
-                    process=ctx.process_id)
-
-    start_step = state.step
-    last_metrics: dict = {}
-    first_step_s = 0.0
-    guard = PreemptionGuard(install=handle_sigterm)
+    # everything that holds a thread, a process, a port or a file is
+    # created inside the try, so the finally closes whatever exists
+    data_source = eval_source = dev_iter = obs_server = tracer = None
+    mlog = None
+    guard = None
     preempted = False
-    # the host reads metrics only at window edges, and a window's values
-    # a window later (AsyncWindowFetch), so the launch queue never empties
-    sync_every = max(1, int(sync_every))
-    afetch = AsyncWindowFetch(lag=1)
+    loop_error: Optional[BaseException] = None
+    recorder = FlightRecorder(windows=_env_int(FLIGHT_WINDOWS_ENV, 64))
     try:
-        window = 0
-        win_t0 = time.perf_counter()
-        for step in range(start_step, steps):
-            batch = batch_pool[step % len(batch_pool)]
-            state, metrics = step_fn(state, batch)
-            if step == start_step:
-                # one hard sync, once: the startup cost this measures
-                if ctx.device.type == "cuda":
-                    torch.cuda.synchronize(ctx.device)
-                first_step_s = time.perf_counter() - t_train_start
-            window += 1
-            stopping = guard.stop
-            final = step + 1 == steps
-            will_eval = eval_step is not None and (
-                (step + 1) % eval_every == 0 or final)
-            closed = window >= sync_every or final or will_eval or stopping
-            if closed:
-                t_now = time.perf_counter()
-                afetch.submit(step + 1, window, t_now - win_t0,
-                              {**metrics, "learning_rate": lr_fn(step)})
-                if tracer is not None:
-                    now_w = time.time()
-                    tracer.emit("window", start=now_w - (t_now - win_t0),
-                                end=now_w, trace_id=trace_id,
-                                step=step + 1, steps=window)
-                for s, w, wall, vals in afetch.drain(
-                        force=final or will_eval or stopping):
-                    last_metrics = vals
-                    mlog.record_window(s, w, wall, vals)
-                window = 0
-            if stopping:
-                preempted = True
-                break
-            if will_eval:
-                em = run_eval(state)
-                last_metrics.update(em)
-                mlog.event(step + 1, em)
-                log.info("eval @%d: %s", step + 1,
-                         {k: round(v, 4) for k, v in em.items()})
-            if closed:
-                win_t0 = time.perf_counter()
+        if data_dir:
+            # uint8 records host→device (1/4 the bytes of f32); the loss
+            # wrapper below normalizes on the card; input_workers > 0 fans
+            # decode+augment out over spawned processes
+            data_source = ImageNetSource(data_dir, batch_size=global_batch,
+                                         output="uint8",
+                                         workers=input_workers)
+            workload_kwargs.setdefault("image_size", data_source.image_size)
+            workload_kwargs.setdefault("num_classes",
+                                       data_source.num_classes)
+        spec = WORKLOADS[workload](**workload_kwargs)
+        if data_source is not None:
+            inner_loss = spec.loss_fn
+
+            def loss_fn_u8(params, variables, batch, rng,
+                           _inner=inner_loss):
+                batch = dict(batch, images=device_normalize(batch["images"]))
+                return _inner(params, variables, batch, rng)
+
+            spec = replace(spec, loss_fn=loss_fn_u8)
+        log.info("worker %d/%d device=%s workload=%s", ctx.process_id,
+                 ctx.num_processes, ctx.device, spec.name)
+
+        builder = TrainStepBuilder(
+            loss_fn=spec.loss_fn, device=ctx.device,
+            weight_update=weight_update,
+            optimizer=lambda params: recipe.make_optimizer(
+                params, optimizer, base_lr, schedule=lr_schedule,
+                total_steps=steps, warmup_steps=warmup_steps,
+                weight_decay=weight_decay, momentum=momentum,
+                kernels=kernel_optimizer,
+                runtime_schedule=runtime_schedule)[0])
+        state = builder.init(spec.init_fn, torch.Generator().manual_seed(seed))
+        step_fn = builder.build()
+
+        eval_step = builder.build_eval(spec.eval_fn) \
+            if eval_every and spec.eval_fn is not None else None
+        eval_bs = global_batch
+        if eval_step is not None and eval_data_dir:
+            # validation reads: no augmentation, normalized on the host;
+            # the eval batch is clamped to the holdout, and the short last
+            # batch comes through (drop_remainder=False) to be padded and
+            # masked, so a full pass counts every record once
+            eval_bs = min(global_batch,
+                          int(read_meta(eval_data_dir)["num_records"]))
+            eval_source = ImageNetSource(eval_data_dir, batch_size=eval_bs,
+                                         augment=False, drop_remainder=False)
+
+        def pad_mask(batch) -> tuple[dict, float]:
+            """Pad a (possibly short) holdout batch to the eval batch,
+            0/1-weighting the rows so eval_fn masks the padding out of
+            every metric. Returns (batch, real-record count)."""
+            n = int(batch["labels"].shape[0])
+            w = np.ones((n,), np.float32)
+            if n < eval_bs:
+                pad = eval_bs - n
+                batch = {
+                    "images": np.concatenate(
+                        [batch["images"],
+                         np.zeros((pad,) + batch["images"].shape[1:],
+                                  batch["images"].dtype)]),
+                    "labels": np.concatenate(
+                        [batch["labels"], np.zeros((pad,), np.int32)]),
+                }
+                w = np.concatenate([w, np.zeros((pad,), np.float32)])
+            return dict(batch, weight=w), float(n)
+
+        def run_eval(state) -> dict:
+            """Average spec.eval_fn over at most ONE pass of the held-out
+            shards (eval_batches caps it; 0 is the full holdout, every
+            record counted once), or over synthetic batches. Over the
+            holdout, the count of records averaged over is reported as
+            ``eval_examples``."""
+            if eval_source is not None:
+                eval_iter = eval_source.epoch(0, seed + 2)
+                n_batches = eval_source.num_batches if eval_batches <= 0 \
+                    else min(eval_batches, eval_source.num_batches)
+            else:
+                gen = torch.Generator().manual_seed(seed + 2)
+                n_batches = eval_batches if eval_batches > 0 else 8
+            totals: dict = {}
+            denom = 0.0
+            for _ in range(n_batches):
+                if eval_source is not None:
+                    b, bw = pad_mask(next(eval_iter))
+                else:
+                    b, bw = spec.batch_fn(gen, global_batch), 1.0
+                em = eval_step(state, builder.place_batch(b))
+                for k, v in em.items():
+                    totals[k] = totals.get(k, 0.0) + float(v) * bw
+                denom += bw
+            if not denom:
+                return {}
+            out = {k: v / denom for k, v in totals.items()}
+            if "eval_perplexity" in out and "eval_loss" in out:
+                # perplexity = exp(mean loss), not the mean of exp(loss)
+                import math
+                out["eval_perplexity"] = math.exp(out["eval_loss"])
+            if eval_source is not None:
+                out["eval_examples"] = denom
+            return out
+
+        metrics_path = metrics_path or os.environ.get(METRICS_PATH_ENV)
+        if metrics_path:
+            os.makedirs(os.path.dirname(metrics_path) or ".", exist_ok=True)
+        tensorboard_dir = tensorboard_dir or os.environ.get("KFTPU_TB_DIR")
+        # TB events come from process 0 only: one curve per run
+        mlog = MetricsLogger(metrics_path, batch_size=global_batch,
+                             tensorboard_dir=(tensorboard_dir
+                                              if ctx.process_id == 0
+                                              else None))
+
+        # host batches come from the augment pipeline (in-process or
+        # spawned workers); the device prefetcher stages them on the card
+        # `device_prefetch` batches ahead of the running step
+        data_iter = data_source.batches(seed, start_batch=state.step) \
+            if data_source is not None else None
+        if data_iter is not None and device_prefetch > 0:
+            from ..data.device_prefetch import DevicePrefetcher
+            dev_iter = DevicePrefetcher(data_iter, builder.place_batch,
+                                        depth=device_prefetch,
+                                        device=ctx.device)
+        # the synthetic pool: 4 batches placed once and cycled, so batch
+        # generation never shares the device with the step
+        batch_pool = []
+        if data_iter is None:
+            data_rng = torch.Generator().manual_seed(seed + 1)
+            batch_pool = [builder.place_batch(spec.batch_fn(data_rng,
+                                                            global_batch))
+                          for _ in range(4)]
+
+        from ..obs.trace import SPAN_PATH_ENV, SpanWriter
+        span_path = span_path or os.environ.get(SPAN_PATH_ENV)
+        trace_id = None
+        if span_path:
+            trace_id = os.environ.get("KFTPU_TRACE_ID") or uuid.uuid4().hex
+            tracer = SpanWriter(span_path, "worker")
+            tracer.emit("train-start", start=time.time(), trace_id=trace_id,
+                        workload=spec.name, steps=steps,
+                        process=ctx.process_id)
+        # the on-demand profiler: POST /profile?steps=N captures the next
+        # N steps under the base dir
+        profile_arm = ProfileArm(
+            base_dir=profile_dir or os.environ.get("KFTPU_PROFILE_DIR")
+            or os.path.join(tempfile.gettempdir(), "kftpu-profiles"),
+            tracer=tracer)
+        # the worker's scrape surface: /metrics over the process registry
+        # (step times, input-stage rates), the profiler trigger and the
+        # flight-recorder peek
+        if obs_metrics_port is None:
+            obs_metrics_port = _env_int("KFTPU_OBS_METRICS_PORT", 0)
+        if obs_metrics_port:
+            from ..obs.http import ObsServer
+            try:
+                obs_server = ObsServer(port=obs_metrics_port, handlers={
+                    ("POST", "/profile"):
+                        lambda q: profile_arm.request(q.get("steps", 0)),
+                    ("GET", "/flightrecorder"):
+                        lambda q: (200, recorder.snapshot()),
+                })
+                obs_server.start()
+            except (OSError, OverflowError) as e:
+                # a taken port costs the scrape surface, not the run
+                log.warning("obs metrics server on :%d failed: %s",
+                            obs_metrics_port, e)
+                obs_server = None
+
+        start_step = state.step
+        last_metrics: dict = {}
+        first_step_s = 0.0
+        guard = PreemptionGuard(
+            install=handle_sigterm,
+            on_term=lambda: recorder.dump(tracer, "sigterm"))
+        # the host reads metrics only at window edges, and a window's
+        # values a window later (AsyncWindowFetch), so the launch queue
+        # never empties
+        sync_every = max(1, int(sync_every))
+        afetch = AsyncWindowFetch(lag=1)
+        cuda = ctx.device.type == "cuda"
+        with profile_trace(profile_dir, enabled=profile_dir is not None,
+                           tracer=tracer):
+            window = 0
+            win_t0 = time.perf_counter()
+            step = start_step
+            for step in range(start_step, steps):
+                profile_arm.on_step_start()
+                recorder.mark("data", step)
+                t_a = time.perf_counter()
+                if dev_iter is not None:
+                    batch = next(dev_iter)
+                    t_h = t_b = time.perf_counter()
+                elif data_iter is not None:
+                    host_batch = next(data_iter)
+                    t_h = time.perf_counter()
+                    batch = builder.place_batch(host_batch)
+                    t_b = time.perf_counter()
+                else:
+                    batch = batch_pool[step % len(batch_pool)]
+                    t_h = t_b = time.perf_counter()
+                recorder.mark("first-step" if step == start_step
+                              else "step", step)
+                state, metrics = step_fn(state, batch)
+                if step == start_step:
+                    # one hard sync, once: the startup cost this measures
+                    if cuda:
+                        torch.cuda.synchronize(ctx.device)
+                    first_step_s = time.perf_counter() - t_train_start
+                step_cost = time.perf_counter() - t_b
+                recorder.note_step(
+                    data_s=t_h - t_a, h2d_s=t_b - t_h,
+                    dispatch_s=0.0 if step == start_step else step_cost,
+                    first_step_s=step_cost if step == start_step else 0.0)
+                profile_arm.on_step_end(step + 1)
+                window += 1
+                stopping = guard.stop
+                final = step + 1 == steps
+                will_eval = eval_step is not None and (
+                    (step + 1) % eval_every == 0 or final)
+                closed = window >= sync_every or final or will_eval or \
+                    stopping
+                if closed:
+                    t_now = time.perf_counter()
+                    afetch.submit(step + 1, window, t_now - win_t0,
+                                  {**metrics, "learning_rate": lr_fn(step)})
+                    if tracer is not None:
+                        now_w = time.time()
+                        tracer.emit("window", start=now_w - (t_now - win_t0),
+                                    end=now_w, trace_id=trace_id,
+                                    step=step + 1, steps=window)
+                    recorder.mark("drain", step + 1)
+                    t_drain0 = time.perf_counter()
+                    for s, w, wall, vals in afetch.drain(
+                            force=final or will_eval or stopping):
+                        last_metrics = vals
+                        mlog.record_window(s, w, wall, vals)
+                    recorder.close_window(
+                        step + 1, window, t_now - win_t0,
+                        drain_s=time.perf_counter() - t_drain0)
+                    window = 0
+                if stopping:
+                    preempted = True
+                    break
+                if will_eval:
+                    # the window closed above, so eval wall time is never
+                    # charged to throughput
+                    recorder.mark("eval", step + 1)
+                    em = run_eval(state)
+                    if em:
+                        last_metrics.update(em)
+                        mlog.event(step + 1, em)
+                        log.info("eval @%d: %s", step + 1,
+                                 {k: round(v, 4) for k, v in em.items()})
+                if closed:
+                    win_t0 = time.perf_counter()
+            # a capture still armed at the end stops with the loop
+            profile_arm.on_step_end(step + 1, force=True)
+    except BaseException as e:
+        loop_error = e
+        raise
     finally:
-        guard.uninstall()
+        # a failure must not leak the prefetch threads, the augment
+        # worker processes, the shard files, the port or the event files
+        # (train is called repeatedly in one process by sweeps and tests)
+        if dev_iter is not None:
+            dev_iter.close()    # release the staged device batches first
+        if data_source is not None:
+            data_source.close()
+        if eval_source is not None:
+            eval_source.close()
+        if guard is not None:
+            guard.uninstall()
+        if loop_error is not None:
+            # the crash dump: the ring's last records and the stage in
+            # progress say where the loop died
+            recorder.dump(tracer, "crash",
+                          error=f"{type(loop_error).__name__}: {loop_error}")
         if tracer is not None:
+            attrs = {"preempted": preempted}
+            if loop_error is not None:
+                attrs["error"] = f"{type(loop_error).__name__}: {loop_error}"
             tracer.emit("train-done", start=time.time(), trace_id=trace_id,
-                        step=state.step, preempted=preempted)
+                        step=state.step if loop_error is None else None,
+                        **attrs)
             tracer.close()
-        mlog.close()
+        if obs_server is not None:
+            obs_server.stop()
+        if mlog is not None:
+            mlog.close()
     summary = mlog.summary(warmup=1)
     if preempted:
         log.warning("preempted at step %d; exiting", state.step)

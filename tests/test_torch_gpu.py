@@ -799,3 +799,130 @@ def test_fused_eval_apply_launches_k6_13_times(cuda_device):
     assert tfb.fused_bottleneck_eval.launches - before == 13
     assert fused.shape == (2, 1000) and torch.isfinite(fused).all()
     assert (fused - default).abs().max() <= 5e-2 * default.abs().max()
+
+
+# -- the real-data path: the device prefetcher, device_normalize, LARS ---------
+
+def _record_source(tmp_path, n=64, size=32, batch=8):
+    from kubeflow_tpu_torch.data.imagenet import ImageNetSource, write_shards
+    rng = np.random.default_rng(12)
+    write_shards(str(tmp_path), rng.integers(0, 256, (n, size, size, 3),
+                                             dtype=np.uint8),
+                 rng.integers(0, 10, n), shard_records=32, num_classes=10)
+    return ImageNetSource(str(tmp_path), batch, output="uint8")
+
+
+def _kept(src, n, host):
+    """n batches of the source, each kept aside (copied) on the host."""
+    it = src.batches(seed=1)
+    for _ in range(n):
+        b = next(it)
+        host.append({k: v.copy() for k, v in b.items()})
+        yield b
+
+
+def _place(dev):
+    return lambda b: {k: torch.as_tensor(v).to(dev, non_blocking=True)
+                      for k, v in b.items()}
+
+
+@pytest.mark.gpu
+def test_prefetcher_bytes_survive_a_busy_consumer(cuda_device, tmp_path):
+    """Every staged batch equals its host batch byte for byte while the
+    consumer's stream runs products between batches, and at most
+    ``depth`` batches are on the card after each hand-out."""
+    from kubeflow_tpu_torch.data.device_prefetch import DevicePrefetcher
+    src = _record_source(tmp_path)
+    host = []
+    a = torch.randn(4096, 4096, device=cuda_device, dtype=torch.bfloat16)
+    a = torch.tanh(a @ a)           # the product's workspace, before base
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    pf = DevicePrefetcher(_kept(src, 16, host), _place(cuda_device),
+                          depth=2, device=cuda_device)
+    try:
+        for i, batch in enumerate(pf):
+            nbytes = sum(v.numel() * v.element_size()
+                         for v in batch.values())
+            assert torch.cuda.memory_allocated() - base <= 2 * (
+                nbytes + 1024)
+            for _ in range(6):
+                a = torch.tanh(a @ a)
+            for k, v in batch.items():
+                assert v.cpu().numpy().tobytes() == host[i][k].tobytes()
+            del batch
+        assert i == 15 and len(host) == 16
+    finally:
+        pf.close()
+        src.close()
+
+
+@pytest.mark.gpu
+def test_prefetcher_frees_a_batch_under_a_pending_read(cuda_device,
+                                                       tmp_path):
+    """depth 1, two pinned slots: the consumer queues a read of each
+    batch behind a spin on its stream and drops the batch at once, so the
+    next copy runs while the read is pending. record_stream keeps the
+    freed memory from the next copy; the slot's event keeps its pinned
+    buffer from the next fill. Every read sees its own batch."""
+    from kubeflow_tpu_torch.data.device_prefetch import DevicePrefetcher
+    src = _record_source(tmp_path)
+    host = []
+    pf = DevicePrefetcher(_kept(src, 12, host), _place(cuda_device),
+                          depth=1, device=cuda_device)
+    sums = []
+    try:
+        for batch in pf:
+            torch.cuda._sleep(20_000_000)
+            sums.append(batch["images"].to(torch.int64).sum())
+            del batch
+        torch.cuda.synchronize()
+    finally:
+        pf.close()
+        src.close()
+    assert [int(s) for s in sums] == [
+        int(h["images"].astype(np.int64).sum()) for h in host]
+
+
+@pytest.mark.gpu
+def test_device_normalize_on_the_card(cuda_device):
+    from kubeflow_tpu_torch.data.imagenet import device_normalize
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (4, 64, 64, 3), dtype=np.uint8))
+    got = device_normalize(x.to(cuda_device))
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert (got.cpu() - device_normalize(x)).abs().max().item() <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("runtime", [False, True])
+@pytest.mark.parametrize("name", ["lars", "rmsprop"])
+def test_lars_and_rmsprop_card_against_cpu(cuda_device, name, runtime):
+    """5 steps over bottleneck-shaped tensors (a zero-init BN scale
+    among them), weight decay on the kernels, each side with its own
+    copy of the gradients: the card's params within 1e-5 of the largest
+    CPU value of each tensor. Without the clip: the f32 global norm of
+    2.1M elements sums in another order on each side (the CPU's
+    reduction moves it by more than this bar), and LARS hands the
+    gradient's scale straight on where its trust ratio is 1 (the
+    zero-init scale), so the clip would be measured, not the chain."""
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    shapes = [(1, 1, 256, 64), (3, 3, 64, 64), (1, 1, 64, 256), (256,),
+              (256,), (64,), (1000,), (2048, 1000)]
+    gen = torch.Generator().manual_seed(2)
+    cpu = [torch.randn(s, generator=gen) * 0.1 for s in shapes]
+    cpu[3].zero_()
+    dev = [p.to(cuda_device) for p in cpu]
+    kw = dict(learning_rate=0.1, schedule="cosine", total_steps=5,
+              warmup_steps=2, weight_decay=1e-4, runtime_schedule=runtime,
+              grad_clip=None)
+    opts = [make_optimizer(ps, name, **kw)[0] for ps in (cpu, dev)]
+    for step in range(5):
+        grads = [torch.randn(s, generator=gen) * 1e-3 for s in shapes]
+        for ps, opt in zip((cpu, dev), opts):
+            for p, g in zip(ps, grads):
+                p.grad = g.clone().to(p.device)
+            opt.step()
+    for a, b in zip(dev, cpu):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 1e-5 * b.abs().max().item(), (a.shape, err)

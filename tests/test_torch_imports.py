@@ -43,6 +43,10 @@ def test_every_module_imports_without_jax():
     assert "kubeflow_tpu_torch.models.resnet" in modules
     assert "kubeflow_tpu_torch.ops.fused_block" in modules
     assert "kubeflow_tpu_torch.serving.batch_predict" in modules
+    for name in ("data.pipeline", "data.native", "data.imagenet",
+                 "data.mp_augment", "data.device_prefetch",
+                 "utils.tbevents", "obs.http"):
+        assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",
         "for name in ('jax', 'flax', 'optax', 'kubeflow_tpu'):",
@@ -61,6 +65,28 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ok")
+
+
+def test_data_layer_imports_without_torch():
+    """The augment workers are spawned processes that import the data
+    layer: the package's ``__init__``, ``data/__init__`` and the modules
+    they load must not pull in torch (or its CUDA state)."""
+    code = "\n".join([
+        "import importlib, sys",
+        "for name in ('torch', 'jax', 'kubeflow_tpu'):",
+        "    sys.modules[name] = None",
+        "for m in ('kubeflow_tpu_torch', 'kubeflow_tpu_torch.data',",
+        "          'kubeflow_tpu_torch.data.imagenet',",
+        "          'kubeflow_tpu_torch.data.mp_augment'):",
+        "    importlib.import_module(m)",
+        "print('ok')",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
 
 
 def test_no_source_line_imports_jax():
