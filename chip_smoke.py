@@ -121,6 +121,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
              logit and classes agreeing on >= 98% of rows, each other row's
              top-2 margin below the measured max|d logit|. Images/s and
              peak memory of both forwards (CUDA events).
+8. dp      - data parallel across processes. (a) initialize() on a
+             one-process contract env joins an NCCL group (the default
+             backend on the card) and the port's all_reduce,
+             reduce_scatter_tensor and all_gather_into_tensor return the
+             expected values on CUDA tensors, none staged through host
+             memory. (b) One process trains the full-width LM (flash,
+             fused_adam, clip 1.0, batch 8, 4 steps) with the replicated
+             update, then fused ResNet-50 (224 px, batch 64, 3 steps)
+             through a loss that takes the mean of the two 32-row halves
+             (what two ranks compute); the card is freed. Then two
+             worker processes, spawned with the topology-contract env
+             (and a pod identity), share the card in one gloo group (NCCL
+             refuses two ranks on one card), and each trains both through
+             train() with the sharded update (ZeRO-2) on its rows: per
+             rank per step K1, K2a, K2b 12 launches each and K3 one; K4 7
+             + 7 and K5 6 + 6. Each rank's losses within 1e-3 and grad
+             norms within 1e-2 of the one process, relative, per step;
+             the LM's param_sqnorm_replicas equal on both ranks; each
+             rank's Adam moments at most half the one process's plus the
+             replicated leaves; ResNet's batch_stats equal on both ranks
+             and within 1e-2 of each tensor's largest value of the one
+             process's. (d) A local HTTP server plays the apiserver: both
+             pods receive heartbeat PATCHes carrying step, lastLoss and
+             lastGradNorm. (e) Per rank: step time, the collectives'
+             device time a step (CUDA events around each call, host
+             staging included), the calls staged through host memory,
+             peak memory, each line with the card's name and power
+             limit. Two ranks on one card check numerics, launches and
+             memory; none of these times is a scaling figure.
 
 Phase 2 also holds K4 and K5 (the fused ghost-BN bottleneck, batch-tiled
 and spatial, csrc/fused_block_train.cu) against their plain versions at
@@ -400,11 +429,14 @@ def phase_kernels(fa) -> dict:
         ("causal Sq=300 Sk=1000", 2, 300, 1000, h, d, True, bf, False),
         ("causal Sq=1000 Sk=300", 2, 1000, 300, h, d, True, bf, False),
         ("fused qkv b=2", 2, SERVE_SEQ, SERVE_SEQ, h, d, True, bf, True),
+        # one rank's rows of phase 8's LM (the training shape over DP_RANKS)
+        (f"DP rank b={TRAIN_BATCH // DP_RANKS}", TRAIN_BATCH // DP_RANKS,
+         SERVE_SEQ, SERVE_SEQ, h, d, True, bf, True),
         # the f32 kernel's flat grid: more (batch, head) pairs than
         # gridDim.y takes
         ("f32 b*h=65537", 1, 16, 16, 65537, 8, True, torch.float32, False),
     ]
-    err_at_serving, margins = 0.0, {}
+    err_at_serving, err_dp, margins = 0.0, 0.0, {}
     for label, b, sq, sk, hh, dd, causal, dtype, fused in cases:
         q, k, v = qkv(b, sq, sk, hh, dd, dtype, fused)
         o, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
@@ -435,6 +467,8 @@ def phase_kernels(fa) -> dict:
             fail(f"K1 disagrees with its plain version at {label}")
         if label == f"serving b={MAX_BATCH}":
             err_at_serving = d_o.max().item()
+        if label.startswith("DP rank"):
+            err_dp = d_o.max().item()
         del q, k, v, o, lse, p_o, p_lse, d_o
 
     timings = {}
@@ -460,7 +494,8 @@ def phase_kernels(fa) -> dict:
             f"ms ({by}), kernel at {bound / ms:.2%} of bound")
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return {"err": err_at_serving, "timings": timings, "margins": margins}
+    return {"err": err_at_serving, "err_dp": err_dp, "timings": timings,
+            "margins": margins}
 
 
 def _k2_close(got, ref, dtype) -> tuple[bool, float, float]:
@@ -502,6 +537,8 @@ def phase_k2(fa) -> dict:
     cases = [  # (label, b, s (keys), causal, dtype, h, d, q rows)
         (f"train b={TRAIN_BATCH}", TRAIN_BATCH, SERVE_SEQ, True, bf, h, d,
          None),
+        (f"DP rank b={TRAIN_BATCH // DP_RANKS}", TRAIN_BATCH // DP_RANKS,
+         SERVE_SEQ, True, bf, h, d, None),
         ("non-causal b=2", 2, SERVE_SEQ, False, bf, h, d, None),
         ("ragged S=1000", 2, 1000, True, bf, h, d, None),
         ("f32 S=333", 2, 333, True, torch.float32, h, d, None),
@@ -518,7 +555,7 @@ def phase_k2(fa) -> dict:
         ("b*h=65537", 1, 40, True, bf, 65537, 8, None),
         ("f32 b*h=65537", 1, 40, True, torch.float32, 65537, 8, None),
     ]
-    errs, margins = {}, {}
+    errs, errs_dp, margins = {}, {}, {}
     for label, b, s, causal, dtype, hh, dd, sq in cases:
         q, k, v, do, lse, delta = inputs(b, s, causal, dtype, hh, dd, sq)
         assert not q.is_contiguous()
@@ -555,9 +592,10 @@ def phase_k2(fa) -> dict:
             + f" ({tol}) {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"K2 disagrees with its plain version at {label}")
-        if label.startswith("train"):
-            errs = {"dq": results["dq"][1],
-                    "dkv": max(results["dk"][1], results["dv"][1])}
+        if label.startswith(("train", "DP rank")):
+            (errs if label.startswith("train") else errs_dp).update(
+                dq=results["dq"][1],
+                dkv=max(results["dk"][1], results["dv"][1]))
         del q, k, v, do, lse, delta, dq, dk, dv, p_dq, p_dk, p_dv
 
     # time at the training shape; the inputs (4 x 25 MB) exceed the L2
@@ -605,7 +643,8 @@ def phase_k2(fa) -> dict:
         f"{tflops(*args, t['library_ms'], products=5):.1f} TFLOP/s)")
     del q, k, v, do, lse, delta, qt, kt, vt, out, dot
     torch.cuda.empty_cache()
-    return {"err": errs, "timings": t, "margins": margins}
+    return {"err": errs, "err_dp": errs_dp, "timings": t,
+            "margins": margins}
 
 
 # K1, K2a and K2b at head dims the tensor-core kernels do not take, which
@@ -729,7 +768,8 @@ def _k3_err(opt, kernel, plain) -> float:
     return err
 
 
-def phase_k3(fo, recipe, lm_shapes) -> dict:
+def phase_k3(fo, recipe, lm_shapes, timed: bool = True,
+             label: str = "") -> dict:
     """K3 over the LM's parameter tensors for 3 steps, one launch each,
     against the plain version updating its own copies with the same
     gradients: the clip on both branches (global norm ~1.2e4, then ~0.12,
@@ -738,7 +778,8 @@ def phase_k3(fo, recipe, lm_shapes) -> dict:
     and 1,000,003 read through a pointer 4 bytes past 16-byte alignment).
     Times one step against its bound and Adam(fused=True), and the whole
     update (global norm, clip and K3, as the train step runs it) against
-    clip_grad_norm_(foreach=True) + Adam(fused=True)."""
+    clip_grad_norm_(foreach=True) + Adam(fused=True). ``timed`` False
+    runs the 3 steps alone (phase 8's table of one rank's shards)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(2)
     shapes = list(lm_shapes.values())
@@ -776,14 +817,17 @@ def phase_k3(fo, recipe, lm_shapes) -> dict:
     err = _k3_err(opt, kernel_p, plain)
     n = sum(p.numel() for p in kernel_p)
     ok = err <= K3_ATOL
-    log(f"[kernels] K3 {len(shapes)} tensors ({n} elements) x 3 steps, one "
+    log(f"[kernels] K3{label} {len(shapes)} tensors ({n} elements) x 3 "
+        f"steps, one "
         f"launch each, wd {wd} on rank > 1, clip at {max_norm} with global "
         f"norms {', '.join(f'{x:.4g}' for x in norms)}, step 2 without the "
         f"gradient of tensor {skipped}: max|d| over p, m, v {err:.3e} (<= "
         f"{K3_ATOL}, {err / K3_ATOL:.3f} of the bar) "
         f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
-        fail("K3 disagrees with its plain version")
+        fail(f"K3{label} disagrees with its plain version")
+    if not timed:
+        return {"err": err, "elements": n}
 
     # ragged lengths, one tensor unaligned (4-byte accesses), both branches
     buf = torch.randn(1_000_003 + 1, generator=gen, device=dev)
@@ -948,14 +992,16 @@ def fwd_workspace_bytes(fbt, n, h, cin, cmid, cout, bt, th, proj) -> int:
                                                            0))
 
 
-def phase_k45(fbt, fbts, R) -> dict:
+def phase_k45(fbt, fbts, R, batch: int = RESNET_BATCH,
+              timed: bool = True) -> dict:
     """K4 and K5 at the five stride-1 geometries of ResNet-50 at 224 px,
-    batch 64, bf16, each with the JAX package's (tile_bt, tile_h): forward
+    batch 64 (or ``batch``), bf16, each with the JAX package's (tile_bt,
+    tile_h) at batch 64: forward
     (out and the 8 statistics) against the plain version, backward (dx and
     every weight gradient) against torch.autograd.grad of the plain
     version, K5's seam rows of dx also against the backward's own formula
     (backward_plain); times beside the bound, the plain version and the
-    cuDNN + batch-BN yardstick."""
+    cuDNN + batch-BN yardstick (``timed`` False: the checks alone)."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(4)
     results = []
@@ -964,7 +1010,7 @@ def phase_k45(fbt, fbts, R) -> dict:
         cin, cmid, cout, proj = geo["cin"], geo["cmid"], geo["cout"], \
             geo["proj"]
         kind, th = R._fused_route(h, h, cin, cmid, cout)
-        bt = fbt.default_tile_bt(RESNET_BATCH, h, h, cin, cmid, cout) \
+        bt = fbt.default_tile_bt(batch, h, h, cin, cmid, cout) \
             if kind == "batch" else 1
         if (kind, bt, th) != EXPECTED_TILES[key]:
             fail(f"{key}: route {(kind, bt, th)}, the JAX package's is "
@@ -991,9 +1037,9 @@ def phase_k45(fbt, fbts, R) -> dict:
                    {"tile_bt": bt}))
 
         w = _block_weights(gen, cin, cmid, cout, proj)
-        x = torch.randn((RESNET_BATCH, h, h, cin), generator=gen,
+        x = torch.randn((batch, h, h, cin), generator=gen,
                         device=dev).to(torch.bfloat16)
-        g = torch.randn((RESNET_BATCH, h, h, cout), generator=gen,
+        g = torch.randn((batch, h, h, cout), generator=gen,
                         device=dev).to(torch.bfloat16)
         out, stats, ghost = fwd_k(x, w, *tiles)
         dx, grads = bwd_k(x, g, w, *tiles, ghost=ghost)
@@ -1019,7 +1065,7 @@ def phase_k45(fbt, fbts, R) -> dict:
         ok_stats = stat_share <= 1.0
         ghost_err = _ghost_err(ghost, fbts.ghost_stats_plain(
             x, w, tile_bt=bt, tile_h=th or h), proj,
-            (RESNET_BATCH // bt) * (h // (th or h)), cmid, cout)
+            (batch // bt) * (h // (th or h)), cmid, cout)
         dx_ok, dx_err, dx_norm, dx_share = _grad_agree(dx, p_dx)
         grad_errs = [_grad_agree(a, b) for a, b in zip(grads, p_grads)]
         seam_err, seam_note = 0.0, ""
@@ -1044,8 +1090,9 @@ def phase_k45(fbt, fbts, R) -> dict:
             "seam": seam_err / K45_SEAM_TOL,
             "bits": 0.0 if same_bits else float("inf")}
         worst = max(shares, key=shares.get)
-        log(f"[k45] {name} {key} (tile_bt {bt}, tile_h {th or h}, proj "
-            f"{proj}): out max|d| {d_out.max().item():.3e}, share beyond "
+        log(f"[k45] {name} {key} batch {batch} (tile_bt {bt}, tile_h "
+            f"{th or h}, proj {proj}): out max|d| "
+            f"{d_out.max().item():.3e}, share beyond "
             f"2^-6 (|ref| + 1) {out_share:.2e} (<= {K45_OUT_OUTLIERS}); "
             f"stats max|d| {stat_err:.3e} (<= 1e-3 max|ref| + 1e-5); saved "
             f"per-ghost statistics {ghost_err:.3f} of that bar; backward "
@@ -1063,12 +1110,18 @@ def phase_k45(fbt, fbts, R) -> dict:
         if not ok:
             fail(f"{name} disagrees with its plain version at {key}")
         del out, stats, dx, grads, p_out, p_stats, p_dx, p_grads
+        if not timed:
+            results.append({"key": key, "name": name,
+                            "out_err": d_out.max().item(), "dx_err": dx_err})
+            del x, g, w, ghost
+            torch.cuda.empty_cache()
+            continue
 
         t = {"key": key, "name": name, "count": geo["count"],
              "tile_bt": bt, "tile_h": th or h, "proj": proj,
              "out_err": d_out.max().item(), "dx_err": dx_err,
              "fwd_workspace_bytes": fwd_workspace_bytes(
-                 fbt, RESNET_BATCH, h, cin, cmid, cout, bt, th or h, proj)}
+                 fbt, batch, h, cin, cmid, cout, bt, th or h, proj)}
         t["fwd_ms"] = cuda_time_ms(lambda: fwd_k(x, w, *tiles), iters=5,
                                    warmup=1)
         # the backward as the training step runs it: from the forward's
@@ -1086,7 +1139,7 @@ def phase_k45(fbt, fbts, R) -> dict:
         y_out = _yardstick_block(xs, ws)
         t["bwd_yardstick_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
             y_out, [xs, *ws], g, retain_graph=True), iters=5, warmup=1)
-        m = RESNET_BATCH * h * h
+        m = batch * h * h
         flops = _block_flops(m, cin, cmid, cout, proj)
         wbytes = 2 * (cin * cmid + 9 * cmid * cmid + cmid * cout
                       + (cin * cout if proj else 0))
@@ -2252,6 +2305,450 @@ def phase_resnet_serve(fb, R, ModelRepository, ModelServer, client,
             "k6_ms": k6_ms, "fused_err": err, "agree": agree}
 
 
+# -- phase 8: data parallel -------------------------------------------------
+
+DP_RANKS = 2
+DP_LM_STEPS, DP_RESNET_STEPS = 4, 3
+# two ranks of the global batch against one process on all of it: the
+# same kernels on the same rows (flash attention and K4/K5 work per row or
+# per ghost tile), the gradients reduced in another order and cuBLAS free
+# to pick other algorithms for another row count: within 1e-3 of the
+# loss and 1e-2 of the grad norm, relative, at every step; the running
+# statistics within 1e-2 of each tensor's largest value. (The clip
+# rescales by a global norm summed in another order, and lr 0.1 with
+# momentum carries that through ghost BN: at 32 px on the CPU, 4 rows a
+# half, ResNet's losses part by 4.5e-3 by step 3; at full size on an
+# NVIDIA H100 80GB HBM3 at 700.00 W by 2.8e-6, the LM's by 5.5e-6 and
+# its grad norm by 5.3e-4, and the statistics by 4.8e-5.)
+DP_LOSS_RTOL, DP_GNORM_RTOL, DP_STATS_TOL = 1e-3, 1e-2, 1e-2
+DP_TIMEOUT_S = 600
+
+
+class _Apiserver(threading.Thread):
+    """An HTTP server that plays the apiserver for the heartbeat: records
+    each PATCH's path and annotations, answers 200."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        patches = self.patches = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_PATCH(self):
+                body = json.loads(self.rfile.read(
+                    int(self.headers.get("Content-Length", 0))) or b"{}")
+                patches.append((self.path, body.get("metadata", {}).get(
+                    "annotations", {})))
+                data = json.dumps(body).encode()
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def run(self):
+        self.server.serve_forever()
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def _capture_states(worker, trainstep) -> dict:
+    """Make train() hand its builder and last state out (the runs of this
+    phase read the optimizer's shards and the batch statistics)."""
+    seen = {}
+
+    class Capture(trainstep.TrainStepBuilder):
+        def build(self):
+            step = super().build()
+            seen["builder"] = self
+
+            def run(state, batch):
+                state, m = step(state, batch)
+                seen["state"] = state
+                return state, m
+            return run
+
+    worker.TrainStepBuilder = Capture
+    return seen
+
+
+def _moment_bytes(opt) -> int:
+    inner = getattr(opt, "inner", opt)
+    return sum(t.numel() * t.element_size() for st in inner.state.values()
+               if isinstance(st, dict) for t in st.values()
+               if isinstance(t, torch.Tensor) and t.dim() > 0)
+
+
+def _dp_runs(T) -> dict:
+    """The two training runs of phase 8, as train() arguments."""
+    return {
+        "lm": dict(workload="transformer",
+                   workload_kwargs={"cfg": T.TransformerConfig()},
+                   kernel_attention="flash", kernel_optimizer="fused_adam",
+                   optimizer="adam", learning_rate=TRAIN_LR,
+                   global_batch=TRAIN_BATCH, steps=DP_LM_STEPS),
+        "resnet": dict(workload="resnet50", workload_kwargs={
+            "image_size": IMAGE, "num_classes": CLASSES, "fused": True},
+            global_batch=RESNET_BATCH, steps=DP_RESNET_STEPS),
+    }
+
+
+def _dp_train(worker, seen, run: dict, path: str, **kw) -> dict:
+    """One run through train(): per-step losses and grad norms (sync_every
+    1), the step time, the optimizer's moment bytes, the peak memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result = worker.train(seed=0, sync_every=1, metrics_path=path,
+                          handle_sigterm=False, **run, **kw)
+    torch.cuda.synchronize()
+    ctx = kw.get("ctx")
+    # process k > 0 of a gang writes <stem>.p<k>.jsonl beside the path
+    windows = _windows(worker._process_metrics_path(
+        path, ctx.process_id if ctx else 0))
+    state, builder = seen["state"], seen["builder"]
+    stats = state.variables.get("batch_stats", {})
+    return {
+        "loss": [w["loss"] for w in windows],
+        "grad_norm": [w["grad_norm"] for w in windows],
+        "step_ms": result.mean_step_time_s * 1e3,
+        # over every step, the first included: the window the collectives'
+        # events cover
+        "step_ms_all": 1e3 * float(np.mean([w["step_time_s"]
+                                            for w in windows])),
+        "moment_bytes": _moment_bytes(state.opt_state),
+        "replicated_bytes": sum(
+            state.params[n].numel() * 4 for n, d in builder.layout.items()
+            if d is None),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "probe": result.final_metrics.get("param_sqnorm_replicas"),
+        "stats": {k: v.cpu().numpy() for k, v in stats.items()},
+        "strategy": builder.strategy,
+    }
+
+
+def _dp_rank(rank: int, env: dict, queue) -> None:
+    """One rank of phase 8 (a spawned process): the contract env, a gloo
+    group on the shared card, the LM and fused ResNet-50 runs through
+    train() with the sharded update; launch counts, collective counts and
+    device time, per rank."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sys.path.insert(0, HERE)
+        os.environ.update(env)
+        from kubeflow_tpu_torch.models import transformer as T
+        from kubeflow_tpu_torch.parallel import collectives
+        fa, fo, fbt, fbts = (importlib.import_module(
+            f"kubeflow_tpu_torch.ops.{m}") for m in (
+                "flash_attention", "fused_adam", "fused_block_train",
+                "fused_block_train_spatial"))
+        from kubeflow_tpu_torch.runtime import bootstrap, trainstep, worker
+        counters = {"flash_attention_fwd": fa.flash_attention,
+                    "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                    "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                    "fused_adam": fo.fused_adam,
+                    "fused_block_train_fwd": fbt.fused_block_train_fwd,
+                    "fused_block_train_bwd": fbt.fused_block_train_bwd,
+                    "fused_block_train_spatial_fwd":
+                        fbts.fused_block_train_spatial_fwd,
+                    "fused_block_train_spatial_bwd":
+                        fbts.fused_block_train_spatial_bwd}
+        # a beat at every window edge (the reporter's default rate limit
+        # is 10 s)
+        from_env = worker.HeartbeatReporter.from_env.__func__
+        worker.HeartbeatReporter.from_env = classmethod(
+            lambda cls, **kw: from_env(cls, interval_s=0.0, **kw))
+        seen = _capture_states(worker, trainstep)
+        ctx = bootstrap.initialize(device=DEVICE, backend="gloo")
+        out = {"device": str(ctx.device), "world": ctx.mesh.size()}
+        import tempfile
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                for name, run in _dp_runs(T).items():
+                    for fn in counters.values():
+                        fn.launches = 0
+                    collectives.reset_counts()
+                    collectives.record_events(True)
+                    rec = _dp_train(worker, seen, run,
+                                    os.path.join(tmp, f"{name}.jsonl"),
+                                    ctx=ctx, weight_update="sharded")
+                    collectives.record_events(False)
+                    rec["launches"] = {n: fn.launches
+                                       for n, fn in counters.items()
+                                       if fn.launches}
+                    rec["collective_ms"] = collectives.events_ms()
+                    rec["calls"] = dict(collectives.calls)
+                    rec["host_staged"] = dict(collectives.host_staged)
+                    out[name] = rec
+        finally:
+            bootstrap.shutdown(ctx)
+        queue.put((rank, out, None))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def _halves(R, **kw):
+    """The fused ResNet-50 spec whose loss is the mean of the two halves'
+    (each half its own ghost tiles, stem and strided-block statistics, the
+    running statistics the mean of the halves' EMAs): what two ranks of 32
+    rows compute, in one process. It runs K4/K5 at 32 rows as the ranks
+    do, so it holds the data-parallel step, not the kernels: those are
+    held against their plain versions at 32 rows by phase_dp_kernels."""
+    spec = R.workload_spec(**kw)
+    inner = spec.loss_fn
+
+    def loss_fn(params, variables, batch, rng):
+        n = batch["images"].shape[0] // DP_RANKS
+        outs = [inner(params, variables,
+                      {k: v[i * n:(i + 1) * n] for k, v in batch.items()},
+                      rng) for i in range(DP_RANKS)]
+        loss = sum(o[0] for o in outs) / DP_RANKS
+        aux = {k: sum(o[1][k] for o in outs) / DP_RANKS
+               for k in outs[0][1] if k != "variables"}
+        stats = [o[1]["variables"]["batch_stats"] for o in outs]
+        aux["variables"] = {"batch_stats": {
+            k: sum(s[k] for s in stats) / DP_RANKS for k in stats[0]}}
+        return loss, aux
+
+    return replace(spec, loss_fn=loss_fn)
+
+
+def phase_dp_kernels(fo, fbt, fbts, R, recipe, lm_shapes) -> dict:
+    """Phase 8's kernels at the shapes one rank gives them, against their
+    plain versions: K3 over one rank's table (each LM leaf's block along
+    the dimension the sharded update picks, the leaves it cannot split
+    whole) and K4/K5 at the five geometries on 32 rows. (K1, K2a and K2b
+    at one rank's 4 rows are cases of phase_kernels and phase_k2.)"""
+    from kubeflow_tpu_torch.parallel.sharding_rules import weight_update_dim
+    shards = {}
+    for name, shape in lm_shapes.items():
+        d = weight_update_dim(shape, DP_RANKS)
+        shards[name] = shape if d is None else \
+            shape[:d] + (shape[d] // DP_RANKS,) + shape[d + 1:]
+    k3 = phase_k3(fo, recipe, shards, timed=False,
+                  label=f" (one rank's shards of {DP_RANKS})")
+    k45 = phase_k45(fbt, fbts, R, batch=RESNET_BATCH // DP_RANKS,
+                    timed=False)
+    return {"k3": k3, "k45": k45["geoms"]}
+
+
+def phase_nccl(bootstrap, collectives) -> dict:
+    """Phase 8a: one rank brought up by initialize() from a one-process
+    contract env on the default backend, and the three collectives of
+    the sharded step on CUDA tensors through the port's wrappers."""
+    import torch.distributed as dist
+    env = {"KFTPU_TOPOLOGY": "v5e-1", "KFTPU_NUM_PROCESSES": "1",
+           "KFTPU_PROCESS_ID": "0",
+           "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}"}
+    ctx = bootstrap.initialize(env)
+    try:
+        backend = dist.get_backend()
+        group = dist.group.WORLD
+        collectives.reset_counts()
+        x = torch.arange(1024, dtype=torch.float32, device=DEVICE)
+        got = {"all_reduce": collectives.all_reduce_(x.clone(), group),
+               "reduce_scatter": collectives.reduce_scatter(x, group),
+               "all_gather": collectives.all_gather(x, group)}
+        torch.cuda.synchronize()
+        staged = dict(collectives.host_staged)
+    finally:
+        bootstrap.shutdown(ctx)
+    log(f"[dp] NCCL bring-up: initialize() on a one-process contract -> "
+        f"backend {backend}, world 1, device {ctx.device}; all_reduce, "
+        f"reduce_scatter_tensor and all_gather_into_tensor on CUDA "
+        f"tensors; host-staged calls {staged}")
+    if backend != "nccl" or any(staged.values()):
+        fail(f"dp: backend {backend}, staged {staged}")
+    for op, t in got.items():
+        if not t.is_cuda or not torch.equal(t, x):
+            fail(f"dp: NCCL {op} at world 1 returned {t[:4]}")
+    return {"backend": backend}
+
+
+def phase_dp(T, R, worker, trainstep, bootstrap, collectives, card,
+             per_step_k45) -> dict:
+    """Phase 8: the data-parallel path. (a) NCCL at world 1; (b) the
+    full-width LM over two ranks that share the card in one gloo group,
+    sharded, against one process on the same global batch; (c) fused
+    ResNet-50 over two ranks x 32 against one process computing the two
+    halves; (d) both ranks' heartbeats PATCHed to a local apiserver; (e)
+    per-rank step time, collective device time and peak memory."""
+    import tempfile
+    nccl = phase_nccl(bootstrap, collectives)
+    runs = _dp_runs(T)
+    seen = _capture_states(worker, trainstep)
+    real_resnet = worker.WORKLOADS["resnet50"]
+    ref = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ref["lm"] = _dp_train(worker, seen, runs["lm"],
+                                  os.path.join(tmp, "lm.jsonl"),
+                                  device=DEVICE, weight_update="replicated")
+            worker.WORKLOADS["resnet50"] = lambda **kw: _halves(
+                R, depth=50, **kw)
+            ref["resnet"] = _dp_train(worker, seen, runs["resnet"],
+                                      os.path.join(tmp, "resnet.jsonl"),
+                                      device=DEVICE)
+    finally:
+        worker.WORKLOADS["resnet50"] = real_resnet
+        worker.TrainStepBuilder = trainstep.TrainStepBuilder
+    seen.clear()
+    torch.cuda.empty_cache()
+    log(f"[dp] one process (replicated, global batches {TRAIN_BATCH} and "
+        f"{RESNET_BATCH}): LM losses {ref['lm']['loss']}, peak "
+        f"{ref['lm']['peak_gib']:.2f} GiB; ResNet-50 two halves losses "
+        f"{ref['resnet']['loss']}")
+
+    import torch.multiprocessing as mp
+    server = _Apiserver()
+    server.start()
+    port = _free_port()
+    spawn = mp.get_context("spawn")
+    queue = spawn.Queue()
+    procs = [spawn.Process(target=_dp_rank, args=(r, {
+        "KFTPU_TOPOLOGY": f"v5e-{DP_RANKS}",
+        "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+        "KFTPU_NUM_PROCESSES": str(DP_RANKS), "KFTPU_PROCESS_ID": str(r),
+        "KFTPU_POD_NAME": f"dp-worker-{r}", "KFTPU_POD_NAMESPACE": "smoke",
+        "KFTPU_APISERVER": server.url}, queue)) for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    ranks, errors = {}, []
+    try:
+        for p in procs:
+            p.start()
+        for _ in procs:
+            r, out, err = queue.get(timeout=DP_TIMEOUT_S)
+            ranks[r] = out
+            if err:
+                errors.append(f"rank {r}:\n{err}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        server.stop()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail("dp: " + "\n".join(errors))
+    log(f"[dp] {DP_RANKS} ranks spawned, brought up from the contract env "
+        f"(gloo on {ranks[0]['device']}), both runs done in {wall:.1f}s")
+
+    per_step = {
+        "lm": {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+               "flash_attention_bwd_dkv": 12, "fused_adam": 1},
+        "resnet": per_step_k45}
+    steps = {"lm": DP_LM_STEPS, "resnet": DP_RESNET_STEPS}
+    result = {"nccl": nccl, "ranks": {}}
+    for name in ("lm", "resnet"):
+        want = {k: v * steps[name] for k, v in per_step[name].items()}
+        for r in range(DP_RANKS):
+            rec = ranks[r][name]
+            if rec["launches"] != want:
+                fail(f"dp {name} rank {r}: launches {rec['launches']}, "
+                     f"expected {want}")
+            if rec["strategy"] != ("zero2-explicit" if name == "lm"
+                                   else "zero2-gspmd"):
+                fail(f"dp {name}: strategy {rec['strategy']}")
+            worst = {}
+            for key, tol in (("loss", DP_LOSS_RTOL),
+                             ("grad_norm", DP_GNORM_RTOL)):
+                got, exp = np.array(rec[key]), np.array(ref[name][key])
+                if got.shape != exp.shape or not np.isfinite(got).all():
+                    fail(f"dp {name} rank {r}: {key} {got} vs {exp}")
+                worst[key] = float(np.max(np.abs(got - exp) / np.abs(exp))
+                                   / tol)
+                if worst[key] > 1.0:
+                    fail(f"dp {name} rank {r}: {key} {got.tolist()} vs one "
+                         f"process {exp.tolist()} (bar {tol} relative)")
+            limit = ref[name]["moment_bytes"] // DP_RANKS + \
+                2 * rec["replicated_bytes"] if name == "lm" else None
+            if limit is not None and rec["moment_bytes"] > limit:
+                fail(f"dp lm rank {r}: Adam moments {rec['moment_bytes']} "
+                     f"bytes > half of {ref[name]['moment_bytes']} plus the "
+                     f"replicated leaves")
+            # over every step, as step_ms_all (the init's broadcast apart)
+            coll = {k: v / steps[name] for k, v in
+                    rec["collective_ms"].items() if k != "broadcast"}
+            log(f"[dp] {name} rank {r} | {card} | launches {rec['launches']}"
+                f" ({per_step[name]} a step); losses {rec['loss']} (one "
+                f"process {ref[name]['loss']}), grad norms "
+                f"{rec['grad_norm']} (one process "
+                f"{ref[name]['grad_norm']}); largest share of a bar: loss "
+                f"{worst['loss']:.3f}, grad norm {worst['grad_norm']:.3f}; "
+                f"step "
+                f"{rec['step_ms_all']:.1f} ms over all {steps[name]} steps "
+                f"({rec['step_ms']:.1f} ms without the first; host clock, "
+                f"two ranks sharing one card over gloo: not a scaling "
+                f"figure); collectives a step over the same "
+                f"{steps[name]} steps {sum(coll.values()):.1f} ms "
+                f"({', '.join(f'{k} {v:.1f}' for k, v in coll.items())}; "
+                f"CUDA events around each call: the host staging and the "
+                f"wait for the other rank included); calls "
+                f"{rec['calls']}, host-staged {rec['host_staged']}; "
+                f"optimizer moments {rec['moment_bytes']} bytes (one "
+                f"process {ref[name]['moment_bytes']}, replicated leaves "
+                f"{rec['replicated_bytes']}); peak {rec['peak_gib']:.2f} "
+                f"GiB (one process {ref[name]['peak_gib']:.2f})")
+            result["ranks"].setdefault(name, []).append(
+                {**{k: rec[k] for k in ("loss", "grad_norm", "step_ms",
+                                        "step_ms_all", "moment_bytes",
+                                        "peak_gib",
+                                        "launches", "host_staged")},
+                 "collective_ms_per_step": coll, "worst": worst})
+    probes = [ranks[r]["lm"]["probe"] for r in range(DP_RANKS)]
+    flat = np.array(probes, dtype=np.float64)
+    if flat.shape != (DP_RANKS, DP_RANKS) or \
+            not np.all(flat == flat[0, 0]):
+        fail(f"dp lm: param_sqnorm_replicas disagree: {probes}")
+    log(f"[dp] lm param_sqnorm_replicas after the last step, per rank: "
+        f"{probes}")
+    stats = [ranks[r]["resnet"]["stats"] for r in range(DP_RANKS)]
+    worst_stat = 0.0
+    for k, v in ref["resnet"]["stats"].items():
+        if not np.array_equal(stats[0][k], stats[1][k]):
+            fail(f"dp resnet: batch_stats {k} differ across ranks")
+        worst_stat = max(worst_stat, float(
+            np.abs(stats[0][k] - v).max() / max(np.abs(v).max(), 1e-30)))
+    log(f"[dp] resnet batch_stats equal on both ranks; against the one "
+        f"process worst {worst_stat:.3e} of a tensor's largest value "
+        f"(<= {DP_STATS_TOL})")
+    if worst_stat > DP_STATS_TOL:
+        fail("dp resnet: batch_stats disagree with one process")
+
+    beats = {}
+    for path, ann in server.patches:
+        raw = ann.get("kubeflow.org/worker-heartbeat")
+        if raw:
+            beats.setdefault(path.rsplit("/", 1)[-1], []).append(
+                json.loads(raw))
+    for r in range(DP_RANKS):
+        got = beats.get(f"dp-worker-{r}", [])
+        full = [b for b in got if {"step", "lastLoss", "lastGradNorm"}
+                <= set(b) and np.isfinite(float(b["lastLoss"]))]
+        log(f"[dp] heartbeat dp-worker-{r}: {len(got)} PATCHes, "
+            f"{len(full)} with step, lastLoss and lastGradNorm; last "
+            f"{got[-1] if got else None}")
+        if not full:
+            fail(f"dp: no heartbeat with loss from dp-worker-{r}")
+    result["heartbeats"] = {k: len(v) for k, v in beats.items()}
+    result["wall_s"] = wall
+    return result
+
+
+def _dp_launches(dp: dict, run: str, kernel: str) -> list:
+    """Phase 8's launches of ``kernel`` in ``run``, one count per rank."""
+    return [r["launches"].get(kernel, 0) for r in dp["ranks"][run]]
+
+
 def _launch_mean(geoms: list, field: str) -> float:
     """A per-geometry time averaged over the launches of one training step
     or one forward (each geometry weighted by its launch count)."""
@@ -2286,7 +2783,8 @@ def main() -> int:
     fb = importlib.import_module("kubeflow_tpu_torch.ops.fused_block")
     from kubeflow_tpu_torch.models import resnet as R
     from kubeflow_tpu_torch.models import transformer as T
-    from kubeflow_tpu_torch.runtime import recipe, trainstep, worker
+    from kubeflow_tpu_torch.parallel import collectives
+    from kubeflow_tpu_torch.runtime import bootstrap, recipe, trainstep, worker
     from kubeflow_tpu_torch.serving import client
     from kubeflow_tpu_torch.serving.batch_predict import run_batch_predict
     from kubeflow_tpu_torch.serving.http_server import ModelServer
@@ -2363,6 +2861,9 @@ def main() -> int:
                                        fbts, resnet["per_step"], dev["card"])
         serve = phase_resnet_serve(fb, R, ModelRepository, ModelServer,
                                    client, run_batch_predict, k6)
+        dp_kernels = phase_dp_kernels(fo, fbt, fbts, R, recipe, lm_shapes)
+        dp = phase_dp(T, R, worker, trainstep, bootstrap, collectives,
+                      dev["card"], resnet["per_step"])
     except Exception:  # noqa: BLE001 - any phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2383,7 +2884,9 @@ def main() -> int:
         "replaces": "kubeflow_tpu/ops/flash_attention.py:112",
         "launches": serving["launches"],
         "launches_train": train["launches"]["flash_attention_fwd"],
+        "launches_dp": _dp_launches(dp, "lm", "flash_attention_fwd"),
         "max_abs_err": k1["err"],
+        "max_abs_err_dp": k1["err_dp"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
@@ -2398,7 +2901,9 @@ def main() -> int:
         "source": bwd_src,
         "replaces": "kubeflow_tpu/ops/flash_attention.py:196",
         "launches": train["launches"]["flash_attention_bwd_dq"],
+        "launches_dp": _dp_launches(dp, "lm", "flash_attention_bwd_dq"),
         "max_abs_err": k2["err"]["dq"],
+        "max_abs_err_dp": k2["err_dp"]["dq"],
         "ms": k2t["dq_ms"],
         "plain_ms": k2t["dq_plain_ms"],
         "bound_ms": k2t["dq_bound"][0],
@@ -2412,7 +2917,9 @@ def main() -> int:
         "source": bwd_src,
         "replaces": "kubeflow_tpu/ops/flash_attention.py:231",
         "launches": train["launches"]["flash_attention_bwd_dkv"],
+        "launches_dp": _dp_launches(dp, "lm", "flash_attention_bwd_dkv"),
         "max_abs_err": k2["err"]["dkv"],
+        "max_abs_err_dp": k2["err_dp"]["dkv"],
         "ms": k2t["dkv_ms"],
         "plain_ms": k2t["dkv_plain_ms"],
         "bound_ms": k2t["dkv_bound"][0],
@@ -2426,7 +2933,9 @@ def main() -> int:
         "source": "kubeflow_tpu_torch/csrc/fused_adam.cu",
         "replaces": "kubeflow_tpu/ops/fused_adam.py:62",
         "launches": train["launches"]["fused_adam"],
+        "launches_dp": _dp_launches(dp, "lm", "fused_adam"),
         "max_abs_err": k3["err"],
+        "max_abs_err_dp": dp_kernels["k3"]["err"],
         "ms": k3["ms"],
         "plain_ms": k3["plain_ms"],
         "bound_ms": k3["bound"][0],
@@ -2459,8 +2968,13 @@ def main() -> int:
                 # the same count in each run from record shards
                 "launches_records": [r["launches"][f"{name}_{way}"]
                                      for r in records["runs"]],
+                "launches_dp": _dp_launches(dp, "resnet", f"{name}_{way}"),
                 "max_abs_err": max(g["out_err" if way == "fwd" else "dx_err"]
                                    for g in geoms),
+                # one rank's 32 rows (phase 8)
+                "max_abs_err_dp": max(
+                    g["out_err" if way == "fwd" else "dx_err"]
+                    for g in dp_kernels["k45"] if g["name"] == name),
                 "ms": _launch_mean(geoms, f"{way}_ms"),
                 "plain_ms": _launch_mean(geoms, f"{way}_plain_ms"),
                 "bound_ms": sum(w for w, _ in weighted) / count,

@@ -8,9 +8,12 @@ hand-written Hopper kernel (``csrc/``, built by ``ops/_build.py``) with a
 plain PyTorch version beside it for CPU tensors.
 
 Ported so far (serving and training the Transformer LM; training
-ResNet-50 from record shards or the synthetic pool, serving it):
+ResNet-50 from record shards or the synthetic pool, serving it; training
+either data-parallel across processes):
 
-- ``api``      — the job-spec vocabularies the training path validates.
+- ``api``      — the job-spec vocabularies the training path validates,
+  ``ShardingSpec`` and the topology contract's env.
+- ``cluster``  — the REST client the worker patches its pod with.
 - ``data``     — the record pipeline (Python and the native core of
   ``native/``, built into ``_build/native``), ``ImageNetSource`` with
   its augment in process or in spawned workers, ``device_normalize``,
@@ -22,10 +25,14 @@ ResNet-50 from record shards or the synthetic pool, serving it):
   kernels).
 - ``models``   — the Transformer LM and ResNet (default, fused training
   and fused inference paths), and the flax → torch converters.
+- ``parallel`` — the mesh over the ranks, the sharded update's per-leaf
+  rule and the collectives (host staging of a gloo group's CUDA tensors
+  counted).
 - ``runtime``  — recipe (every optimizer family, LARS and RMSProp
-  included, and the runtime schedule), train step, metrics (JSONL,
-  TensorBoard, the flight recorder, ``torch.profiler`` captures),
-  bootstrap and the worker.
+  included, and the runtime schedule), train step (replicated or ZeRO-2
+  data parallelism), metrics (JSONL, TensorBoard, the flight recorder,
+  ``torch.profiler`` captures, the heartbeat), bootstrap and the
+  worker.
 - ``serving``  — servable, micro-batcher, REST model server and client,
   batch predict.
 - ``utils``    — TensorBoard event files.

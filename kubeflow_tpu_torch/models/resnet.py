@@ -34,8 +34,16 @@ strided blocks (:func:`_xla_block_eval`) and the head stay PyTorch ops. It
 computes what ``ResNet.apply(train=False)`` computes, rounded at other
 places; the servables serve ``apply``, as the JAX package's do.
 
-Not ported yet: the data-parallel ``pmean`` of ghost moments (ROADMAP
-Queue 1 item 3).
+**Data parallel** (a ``parallel/mesh.py`` mesh with more than one
+replica; each rank runs its rows of the global batch): the default path's
+BatchNorm takes its statistics over the global batch, as pjit computes
+them, through ``parallel/collectives.py`` ``global_sum`` (the sums of x
+and x² all-reduced in the forward, the two gradient sums in the
+backward), still flax's f32 E[x²] − E[x]² clamped at 0. The fused path
+keeps each rank's statistics its own (the ghost tiles, the stem and the
+strided blocks over the rank's rows: the JAX package's ``shard_map``
+semantics) and all-reduces the batch moments to their mean before the
+running-stat EMA, as its ``pmean`` does.
 """
 
 from __future__ import annotations
@@ -47,11 +55,14 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..ops import fused_block as _fb
 from ..ops import fused_block_train as _fbt
 from ..ops import fused_block_train_spatial as _fbts
+from ..parallel import collectives
+from ..parallel.mesh import replica_degree
 from . import RESNET_DEPTHS
 
 STAGE_SIZES = {
@@ -110,15 +121,25 @@ class _Run:
     stats: dict
     train: bool
     dtype: torch.dtype
+    group: object = None       # the replicas' process group, or None
     updated: dict = field(default_factory=dict)
 
     def bn(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` on NHWC x."""
+        """flax ``BatchNorm(momentum=0.9, epsilon=1e-5)`` on NHWC x; with
+        a group, its statistics over the global batch."""
         if self.train:
             xf = x.float()
-            mean = xf.mean(dim=(0, 1, 2))
-            var = torch.clamp((xf * xf).mean(dim=(0, 1, 2)) - mean * mean,
-                              min=0.0)
+            if self.group is None:
+                mean = xf.mean(dim=(0, 1, 2))
+                ex2 = (xf * xf).mean(dim=(0, 1, 2))
+            else:
+                n = xf[..., 0].numel() * \
+                    dist.get_world_size(self.group)
+                sums = collectives.global_sum(torch.stack(
+                    [xf.sum(dim=(0, 1, 2)), (xf * xf).sum(dim=(0, 1, 2))]),
+                    self.group)
+                mean, ex2 = sums[0] / n, sums[1] / n
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             for key, v in (("mean", mean), ("var", var)):
                 ra = self.stats[f"{name}.{key}"]
                 self.updated[f"{name}.{key}"] = (
@@ -212,10 +233,12 @@ class ResNet:
                 for j in range(n_blocks)]
 
     def apply(self, params: dict, batch_stats: dict, x: torch.Tensor,
-              train: bool = True):
+              train: bool = True, group=None):
         """Logits [B, classes] f32; in train mode also the updated running
-        statistics (detached), as flax's ``mutable=["batch_stats"]``."""
-        run = _Run(params, batch_stats, train, self.dtype)
+        statistics (detached), as flax's ``mutable=["batch_stats"]``.
+        ``group``: the replicas' process group, whose ranks' rows make the
+        global batch the statistics are taken over."""
+        run = _Run(params, batch_stats, train, self.dtype, group)
         x = x.to(self.dtype)
         x = torch.relu(run.bn("bn_init", run.conv("conv_init", x, 2)))
         x = max_pool_same(x)
@@ -331,13 +354,23 @@ def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return (logits.argmax(-1) == labels.long()).float().mean()
 
 
-def make_loss_fn(model: ResNet, label_smoothing: float = 0.0) -> Callable:
-    """Loss fn in the TrainStepBuilder signature; threads batch_stats."""
+def replica_group(mesh):
+    """The process group of ``mesh``'s replicas, or None for one
+    replica (no mesh)."""
+    return None if mesh is None or replica_degree(mesh) <= 1 \
+        else mesh.group
+
+
+def make_loss_fn(model: ResNet, label_smoothing: float = 0.0,
+                 mesh=None) -> Callable:
+    """Loss fn in the TrainStepBuilder signature; threads batch_stats.
+    Over a mesh, BatchNorm takes the global batch's statistics."""
+    group = replica_group(mesh)
 
     def loss_fn(params, variables, batch, rng):
         images, labels = batch["images"], batch["labels"]
         logits, updated = model.apply(params, variables["batch_stats"],
-                                      images, train=True)
+                                      images, train=True, group=group)
         loss = cross_entropy_loss(logits, labels, label_smoothing)
         return loss, {"accuracy": _accuracy(logits, labels),
                       "variables": {"batch_stats": updated}}
@@ -646,11 +679,15 @@ def _block_params(params: dict, name: str) -> dict:
 def fused_train_apply(variables: dict, images: torch.Tensor, *,
                       depth: int = 50, tile_bt: Optional[int] = None,
                       dtype: torch.dtype = torch.bfloat16,
-                      eps: float = BN_EPS) -> tuple[torch.Tensor, dict]:
+                      eps: float = BN_EPS,
+                      group=None) -> tuple[torch.Tensor, dict]:
     """Training forward with every stride-1 bottleneck running as one
     fused ghost-BN block (K4 or K5, by :func:`_fused_route`). Returns
     (logits, new batch_stats): the running statistics EMA-updated from
-    the tile-averaged ghost moments, detached."""
+    the tile-averaged ghost moments, detached. With ``group`` (the
+    replicas' process group; ``images`` are this rank's rows) the batch
+    moments are all-reduced to their mean over the ranks first, in one
+    call."""
     if depth < 50:
         raise ValueError("fused_train_apply supports bottleneck depths "
                          "(>= 50); BasicBlock models have no Conv_2")
@@ -686,40 +723,38 @@ def fused_train_apply(variables: dict, images: torch.Tensor, *,
 
     x = x.float().mean(dim=(1, 2))
     logits = x @ params["head.kernel"].float() + params["head.bias"]
+    if group is not None:
+        keys = sorted(moments)
+        flat = torch.cat([moments[k].detach().float().reshape(-1)
+                          for k in keys])
+        collectives.all_reduce_(flat, group)
+        flat = flat / dist.get_world_size(group)
+        moments = dict(zip(keys, flat.split(
+            [moments[k].numel() for k in keys])))
     # running-stat EMA, flax semantics: ra = m·ra + (1−m)·batch
     new_stats = {k: (_BN_MOMENTUM * ra + (1.0 - _BN_MOMENTUM)
                      * moments[k]).detach() for k, ra in stats.items()}
     return logits, new_stats
 
 
-def _data_parallel_size(mesh) -> int:
-    """Devices on the data axes of ``mesh``: None or an int device count,
-    or a ``torch.distributed`` DeviceMesh."""
-    if mesh is None:
-        return 1
-    if isinstance(mesh, int):
-        return mesh
-    return int(mesh.size())
-
-
 def make_fused_loss_fn(model: ResNet, label_smoothing: float = 0.0,
                        tile_bt: Optional[int] = None, mesh=None) -> Callable:
     """Loss fn (TrainStepBuilder signature) over
-    :func:`fused_train_apply`. More than one data-parallel device raises:
-    per-shard ghost BN without the pmean of the moments is not the JAX
-    package's function."""
+    :func:`fused_train_apply`. Over a mesh with more than one replica each
+    rank runs the fused blocks on its own rows (per-rank ghost BN, the JAX
+    package's ``shard_map`` over the data axes) and the batch moments are
+    averaged over the ranks before the EMA; the train step averages the
+    gradients."""
     if model.depth < 50:
         raise ValueError("fused blocks require a bottleneck ResNet "
                          "(depth >= 50)")
-    if _data_parallel_size(mesh) > 1:
-        raise NotImplementedError(
-            "the fused ghost-BN path over more than one data-parallel "
-            "device is not yet ported (ROADMAP Queue 1 item 3)")
+    group = replica_group(mesh)
 
     def loss_fn(params, variables, batch, rng):
         logits, new_stats = fused_train_apply(
             {"params": params, **variables}, batch["images"],
-            depth=model.depth, tile_bt=tile_bt, dtype=model.dtype)
+            depth=model.depth, tile_bt=tile_bt, dtype=model.dtype,
+            group=group)
         labels = batch["labels"]
         loss = cross_entropy_loss(logits, labels, label_smoothing)
         return loss, {"accuracy": _accuracy(logits, labels),
@@ -741,7 +776,8 @@ def workload_spec(image_size: int = 224, num_classes: int = 1000,
         loss_fn = make_fused_loss_fn(model, label_smoothing=label_smoothing,
                                      tile_bt=fused_tile_bt, mesh=mesh)
     else:
-        loss_fn = make_loss_fn(model, label_smoothing=label_smoothing)
+        loss_fn = make_loss_fn(model, label_smoothing=label_smoothing,
+                               mesh=mesh)
     return WorkloadSpec(
         name=f"resnet{depth}" + ("-fused" if fused else ""),
         init_fn=init_fn(model),

@@ -13,10 +13,11 @@ The port of the single-process part of ``kubeflow_tpu/runtime/metrics.py``:
   ``torch.profiler`` (CPU, and CUDA where a card is present), each
   writing a Chrome trace into its directory.
 
-``HeartbeatReporter`` (it needs ``cluster/http_client.py``) is not ported
-yet (ROADMAP Queue 1 item 4), and neither is the modeled ICI/DCN split of
-the recorder's records (``obs/collectives.py``): the port's records carry
-none.
+- ``HeartbeatReporter``: the worker's liveness annotation on its own pod
+  (``cluster/http_client.py``), for the operator's stall watchdog.
+
+The modeled ICI/DCN split of the recorder's records
+(``obs/collectives.py``) is not ported: the port's records carry none.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..api.trainingjob import HEARTBEAT_ANNOTATION
 from ..obs import registry as obsreg
 
 log = logging.getLogger(__name__)
@@ -46,6 +48,103 @@ METRICS_PATH_ENV = "KFTPU_METRICS_PATH"
 FLIGHT_WINDOWS_ENV = "KFTPU_FLIGHT_WINDOWS"
 # span name a flight-recorder dump lands under in the trace sink
 FLIGHT_RECORD_SPAN = "flight-record"
+
+# pod self-identity, rendered by the operator into every worker container;
+# with an apiserver URL the worker annotates its own pod with the
+# liveness heartbeat
+POD_NAME_ENV = "KFTPU_POD_NAME"
+POD_NAMESPACE_ENV = "KFTPU_POD_NAMESPACE"
+APISERVER_ENV = "KFTPU_APISERVER"
+
+
+class HeartbeatReporter:
+    """Worker-side liveness for the stall watchdog: patch our own pod's
+    heartbeat annotation (``api/trainingjob.py`` HEARTBEAT_ANNOTATION)
+    with the current training step and wall time. The controller restarts
+    a gang whose chief's heartbeat is staler than its stall timeout: a
+    wedged collective under a live pod never fails on its own, so this
+    annotation is the only signal the watchdog has.
+
+    Reporting is best-effort and rate-limited: a flaky apiserver must
+    never take down a healthy training loop, it only costs heartbeat
+    freshness. The last successful beat is also two gauges on the
+    process registry (``kftpu_heartbeat_last_time_seconds``,
+    ``kftpu_heartbeat_last_step``)."""
+
+    def __init__(self, client, namespace: str, pod: str,
+                 interval_s: float = 10.0):
+        self.client = client
+        self.namespace = namespace
+        self.pod = pod
+        self.interval_s = interval_s
+        self._last = 0.0
+        reg = obsreg.default_registry()
+        self._g_time = reg.gauge(
+            "kftpu_heartbeat_last_time_seconds",
+            "unix time of the last heartbeat annotation patch that "
+            "succeeded").labels()
+        self._g_step = reg.gauge(
+            "kftpu_heartbeat_last_step",
+            "training step advertised by the last successful "
+            "heartbeat").labels()
+
+    @classmethod
+    def from_env(cls, client=None, env: Optional[dict] = None,
+                 interval_s: float = 10.0) -> Optional["HeartbeatReporter"]:
+        """Build from the operator-rendered pod identity env, or None when
+        this process has no pod to annotate (bare-metal runs, tests) or no
+        way to reach an apiserver."""
+        env = os.environ if env is None else env
+        pod = env.get(POD_NAME_ENV)
+        if not pod:
+            return None
+        if client is None:
+            url = env.get(APISERVER_ENV)
+            if not url:
+                return None
+            from ..cluster.http_client import HttpKubeClient
+            # beat() runs inside the train loop, so the client fails
+            # fast: no retries (the next window's beat is the retry) and
+            # a short timeout
+            client = HttpKubeClient(url, timeout=5.0, retries=0)
+        return cls(client, env.get(POD_NAMESPACE_ENV, "default"), pod,
+                   interval_s=interval_s)
+
+    def beat(self, step: int, force: bool = False,
+             loss: Optional[float] = None,
+             grad_norm: Optional[float] = None) -> bool:
+        """Record progress at ``step``. Rate-limited to one patch per
+        interval unless forced; returns whether a patch was sent.
+        ``loss``/``grad_norm`` ride along as ``lastLoss``/``lastGradNorm``
+        in ``repr()`` form, so NaN and Inf survive strict JSON parsers."""
+        now = time.time()
+        if not force and now - self._last < self.interval_s:
+            return False
+        body: dict = {"step": int(step), "time": now}
+        if loss is not None:
+            body["lastLoss"] = repr(float(loss))
+        if grad_norm is not None:
+            body["lastGradNorm"] = repr(float(grad_norm))
+        if not self.annotate(HEARTBEAT_ANNOTATION, json.dumps(body)):
+            return False
+        self._last = now
+        self._g_time.set(now)
+        self._g_step.set(int(step))
+        return True
+
+    def annotate(self, annotation: str, payload: str) -> bool:
+        """Patch an annotation onto our own pod (the heartbeat, or the
+        anomaly evidence, ``ANOMALY_ANNOTATION``). Best-effort: a failure
+        is logged and returns False."""
+        try:
+            self.client.patch(
+                "v1", "Pod", self.namespace, self.pod,
+                {"metadata": {"annotations": {annotation: payload}}})
+        except Exception as e:  # noqa: BLE001 — liveness must not kill work
+            log.warning("annotation %s on %s/%s failed: %s", annotation,
+                        self.namespace, self.pod, e)
+            return False
+        return True
 
 
 @dataclass
@@ -175,9 +274,9 @@ class AsyncWindowFetch:
     pinned host memory and records a CUDA event behind the copies;
     ``drain()`` resolves windows ``lag`` submissions later, after waiting
     on their event, by which point the copies have long completed and the
-    launch queue never emptied. Hard sync points (eval, preemption, the
-    final step) force the drain. CPU tensors and host scalars pass
-    through."""
+    launch queue never emptied; a vector metric comes back as a list.
+    Hard sync points (eval, preemption, the final step) force the drain.
+    CPU tensors and host scalars pass through."""
 
     def __init__(self, lag: int = 1):
         self.lag = max(0, int(lag))
@@ -209,8 +308,16 @@ class AsyncWindowFetch:
             if event is not None:
                 event.synchronize()
             out.append((step, n_steps, wall_s,
-                        {k: float(v) for k, v in host.items()}))
+                        {k: _host_value(v) for k, v in host.items()}))
         return out
+
+
+def _host_value(v):
+    """A metric as a host float; a vector (the sharded step's
+    ``param_sqnorm_replicas``) as a list of floats."""
+    if isinstance(v, torch.Tensor) and v.numel() != 1:
+        return v.tolist()
+    return float(v)
 
 
 class FlightRecorder:

@@ -49,6 +49,7 @@ import torch
 
 from ..api.trainingjob import OPTIMIZER_KERNELS
 from ..ops.fused_adam import FusedAdam
+from ..parallel import collectives
 
 OPTIMIZERS = ("sgd", "momentum", "nesterov", "adam", "adamw", "lars",
               "rmsprop")
@@ -273,6 +274,28 @@ class ChainOptimizer(torch.optim.Optimizer):
         self.schedule = schedule
         if runtime is not None:
             self.state["runtime_lr"] = runtime
+        self._shard_group = None
+        self._sharded: set = set()
+
+    def shard_over(self, group, shards: Iterable[torch.Tensor]) -> None:
+        """Mark ``shards`` as this rank's blocks of tensors split over the
+        ranks of ``group``: their per-tensor norms (LARS's ‖p‖, ‖u‖) are
+        all-reduced so they are the whole tensor's."""
+        self._shard_group = group
+        self._sharded = {id(t) for t in shards}
+
+    def _tensor_norms(self, ps: list, xs: list[list]) -> list:
+        """Per-tensor L2 norms of each list in ``xs`` (each aligned with
+        ``ps``), over the whole tensor where ``ps[i]`` is a shard: the
+        shards' square sums all-reduced in one call."""
+        norms = [torch.stack(torch._foreach_norm(x)) for x in xs]
+        mask = [id(p) in self._sharded for p in ps]
+        if self._shard_group is None or not any(mask):
+            return norms
+        m = torch.tensor(mask, device=norms[0].device)
+        sq = torch.stack([torch.where(m, n.square(), 0.0) for n in norms])
+        collectives.all_reduce_(sq, self._shard_group)
+        return [torch.where(m, s.sqrt(), n) for s, n in zip(sq, norms)]
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -317,8 +340,7 @@ class ChainOptimizer(torch.optim.Optimizer):
         neg_lr = -lr
         if name in ("lars", "rmsprop"):
             if name == "lars":
-                pn = torch.stack(torch._foreach_norm(ps))
-                un = torch.stack(torch._foreach_norm(us))
+                pn, un = self._tensor_norms(ps, [ps, us])
                 ratio = LARS_TRUST_COEFFICIENT * pn / (un + 0.0)
                 ratio = torch.where((pn == 0.0) | (un == 0.0),
                                     torch.ones_like(ratio), ratio)
@@ -429,6 +451,16 @@ class RecipeOptimizer:
 
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.inner.zero_grad(set_to_none=set_to_none)
+
+    def shard_over(self, group, shards: Iterable[torch.Tensor]) -> None:
+        """The sharded update (runtime/trainstep.py): the optimizer's
+        params are this rank's blocks, ``shards`` those split over the
+        ranks of ``group``. The elementwise families need nothing; the
+        clip takes the exact global norm from the step; LARS reduces its
+        per-tensor norms (:meth:`ChainOptimizer.shard_over`). The decay
+        mask is keyed on ``ndim``, which a block keeps."""
+        if isinstance(self.inner, ChainOptimizer):
+            self.inner.shard_over(group, shards)
 
     @torch.no_grad()
     def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:

@@ -1,12 +1,15 @@
 """The worker main: bootstrap → train loop → metrics.
 
-The port of ``kubeflow_tpu/runtime/worker.py`` for one process on one
-device. Run as:
+The port of ``kubeflow_tpu/runtime/worker.py``: one process, or one rank
+of a data-parallel gang that the ``KFTPU_*`` topology contract in the env
+describes (``runtime/bootstrap.py``: the process group, the mesh, this
+rank's card). Run as:
 
     python -m kubeflow_tpu_torch.runtime.worker --workload transformer \\
         --optimizer adam --learning-rate 1e-3 --kernel-attention flash \\
         --kernel-optimizer fused_adam --steps 100
 
+(add ``--weight-update sharded`` for the ZeRO-2 update across the gang)
 or, for ResNet-50 from ImageNet-format record shards:
 
     python -m kubeflow_tpu_torch.runtime.worker --workload resnet50 \\
@@ -32,6 +35,16 @@ with no card it raises.
   ``torch.profiler`` trace of the run (``profile_dir``) or of the next N
   steps (``POST /profile?steps=N``), TensorBoard scalars
   (``tensorboard_dir``) and ``/metrics`` (``obs_metrics_port``).
+- Data parallel: every rank reads the same seeded global batch stream
+  (``global_batch`` rows) and copies only its block of rows to its card,
+  so a gang sees exactly the samples of one process. TensorBoard events
+  come from process 0 only; process k > 0 writes its metrics JSONL
+  beside process 0's (``metrics.p<k>.jsonl``), and on a gang whose
+  coordinator is this host (one network namespace) serves ``/metrics``
+  on the port + k.
+- Heartbeat: inside a pod (``KFTPU_POD_NAME``, ``KFTPU_APISERVER``) the
+  worker patches its pod's heartbeat annotation at the start and at
+  every window edge, with the last window's loss and grad norm.
 
 Ported workloads: ``transformer`` and ``resnet18`` … ``resnet152``
 (``--fused-blocks`` trains a bottleneck ResNet through the ghost-BN
@@ -62,11 +75,12 @@ from ..api.trainingjob import (ATTENTION_KERNELS, OPTIMIZER_KERNELS,
                                validate_weight_update)
 from ..data.imagenet import ImageNetSource, device_normalize, read_meta
 from ..models import RESNET_DEPTHS
+from ..parallel.mesh import local_batch_size
 from . import recipe
-from .bootstrap import WorkerContext, initialize
+from .bootstrap import WorkerContext, initialize, shutdown
 from .metrics import (FLIGHT_WINDOWS_ENV, METRICS_PATH_ENV, AsyncWindowFetch,
-                      FlightRecorder, MetricsLogger, ProfileArm,
-                      profile_trace)
+                      FlightRecorder, HeartbeatReporter, MetricsLogger,
+                      ProfileArm, profile_trace)
 from .trainstep import TrainStepBuilder
 
 log = logging.getLogger(__name__)
@@ -144,6 +158,25 @@ def _refuse_unported(args: dict) -> None:
         if value not in (None, False, 0, "") or env_value not in ("", "0"):
             raise NotImplementedError(
                 f"{arg} ({env}) is not yet ported (ROADMAP {item})")
+
+
+def _process_metrics_path(path: str, process_id: int) -> str:
+    """Process 0 writes ``path``; process k > 0 ``<stem>.p<k><ext>``."""
+    if process_id == 0:
+        return path
+    stem, ext = os.path.splitext(path)
+    return f"{stem}.p{process_id}{ext}"
+
+
+def _process_port(port: int, ctx: WorkerContext) -> int:
+    """The ``/metrics`` port of this process: the given one, or port + k
+    for process k of a gang whose coordinator is this host (its ranks
+    share one network namespace; pods each have their own)."""
+    if ctx.contract is None or port == 0:
+        return port
+    host = ctx.contract.coordinator_address.rsplit(":", 1)[0]
+    local = host in ("localhost", "127.0.0.1", "::1", "[::1]")
+    return port + ctx.process_id if local else port
 
 
 def _env_int(name: str, default: int) -> int:
@@ -253,75 +286,13 @@ def train(
 ) -> TrainResult:
     t_train_start = time.perf_counter()
     _refuse_unported(locals())
+    # the process group lives as long as this call when the call made it
+    # (from the contract env); a caller's context stays the caller's
+    owns_ctx = ctx is None
     ctx = ctx or initialize(device=device)
-    workload_kwargs = dict(workload_kwargs or {})
-
-    # real-data path: shard dirs are self-describing, so the dataset's
-    # geometry configures the model (the tf_cnn_benchmarks --data_dir
-    # analog)
-    data_dir = data_dir or os.environ.get("KFTPU_DATA_DIR")
-    eval_explicit = eval_data_dir is not None
-    eval_data_dir = eval_data_dir or os.environ.get("KFTPU_EVAL_DATA_DIR")
-    if eval_data_dir and workload not in _IMAGE_WORKLOADS:
-        if eval_explicit or eval_every > 0:
-            raise ValueError(
-                f"workload {workload!r} does not consume --eval-data-dir")
-        # a gang-wide env var meant for the image workers: warn only
-        log.warning("ignoring KFTPU_EVAL_DATA_DIR for workload %r "
-                    "(eval disabled)", workload)
-        eval_data_dir = None
-    # input-pipeline knobs: CLI flag wins, then the operator-rendered env,
-    # then in-process augment and double-buffered device staging
-    if input_workers is None:
-        input_workers = _env_int("KFTPU_INPUT_WORKERS", 0)
-    if device_prefetch is None:
-        device_prefetch = _env_int("KFTPU_DEVICE_PREFETCH", 2)
-    if input_workers < 0 or device_prefetch < 0:
-        raise ValueError(f"input_workers ({input_workers}) and "
-                         f"device_prefetch ({device_prefetch}) must be >= 0")
-    if data_dir and workload not in _IMAGE_WORKLOADS:
-        raise ValueError(f"workload {workload!r} does not consume --data-dir")
-    if label_smoothing and workload in _IMAGE_WORKLOADS:
-        workload_kwargs.setdefault("label_smoothing", label_smoothing)
-
-    # kernel tier: CLI flag wins, then the operator-rendered env
-    # (KFTPU_KERNEL_*), then stock
-    ka_set = kernel_attention or os.environ.get("KFTPU_KERNEL_ATTENTION")
-    kernel_attention = ka_set or "einsum"
-    kernel_optimizer = kernel_optimizer or \
-        os.environ.get("KFTPU_KERNEL_OPTIMIZER") or "stock"
-    kernel_serving = kernel_serving or \
-        os.environ.get("KFTPU_KERNEL_SERVING") or "stock"
-    for seg, val, vocab in (
-            ("attention", kernel_attention, ATTENTION_KERNELS),
-            ("optimizer", kernel_optimizer, OPTIMIZER_KERNELS),
-            ("serving", kernel_serving, SERVING_KERNELS)):
-        if val not in vocab:
-            raise ValueError(f"kernels.{seg} {val!r} not one of {vocab}")
-    if ka_set:
-        # on any other workload the attention tier would be a silent
-        # no-op the user mistakes for a speedup
-        if workload not in _TRANSFORMER_WORKLOADS:
-            raise ValueError(
-                f"kernels.attention applies to transformer workloads, "
-                f"not {workload!r}")
-        from ..models import transformer as T
-        cfg = workload_kwargs.get("cfg") or T.TransformerConfig.tiny()
-        workload_kwargs["cfg"] = replace(cfg, attention=kernel_attention)
-    log.info("kernel tier: attention=%s optimizer=%s serving=%s",
-             kernel_attention, kernel_optimizer, kernel_serving)
-
-    base_lr = recipe.scale_lr(learning_rate, global_batch) \
-        if scale_lr_by_batch else learning_rate
-    if runtime_schedule is None:
-        runtime_schedule = bool(_env_int("KFTPU_RUNTIME_SCHEDULE", 0))
-    weight_update = validate_weight_update(
-        weight_update or os.environ.get("KFTPU_WEIGHT_UPDATE")
-        or "replicated")
-    lr_fn = recipe.lr_schedule(lr_schedule, base_lr, steps, warmup_steps)
-
-    # everything that holds a thread, a process, a port or a file is
-    # created inside the try, so the finally closes whatever exists
+    # everything that holds a thread, a process, a port, a file or the
+    # process group is created inside the try, so the finally closes
+    # whatever exists
     data_source = eval_source = dev_iter = obs_server = tracer = None
     mlog = None
     guard = None
@@ -329,6 +300,79 @@ def train(
     loop_error: Optional[BaseException] = None
     recorder = FlightRecorder(windows=_env_int(FLIGHT_WINDOWS_ENV, 64))
     try:
+        workload_kwargs = dict(workload_kwargs or {})
+        # the global batch splits over the data-parallel ranks (raises when
+        # it does not divide)
+        local_batch_size(global_batch, ctx.mesh)
+        if workload in _IMAGE_WORKLOADS:
+            workload_kwargs.setdefault("mesh", ctx.mesh)
+
+        # real-data path: shard dirs are self-describing, so the dataset's
+        # geometry configures the model (the tf_cnn_benchmarks --data_dir
+        # analog)
+        data_dir = data_dir or os.environ.get("KFTPU_DATA_DIR")
+        eval_explicit = eval_data_dir is not None
+        eval_data_dir = eval_data_dir or os.environ.get("KFTPU_EVAL_DATA_DIR")
+        if eval_data_dir and workload not in _IMAGE_WORKLOADS:
+            if eval_explicit or eval_every > 0:
+                raise ValueError(
+                    f"workload {workload!r} does not consume --eval-data-dir")
+            # a gang-wide env var meant for the image workers: warn only
+            log.warning("ignoring KFTPU_EVAL_DATA_DIR for workload %r "
+                        "(eval disabled)", workload)
+            eval_data_dir = None
+        # input-pipeline knobs: CLI flag wins, then the operator-rendered env,
+        # then in-process augment and double-buffered device staging
+        if input_workers is None:
+            input_workers = _env_int("KFTPU_INPUT_WORKERS", 0)
+        if device_prefetch is None:
+            device_prefetch = _env_int("KFTPU_DEVICE_PREFETCH", 2)
+        if input_workers < 0 or device_prefetch < 0:
+            raise ValueError(f"input_workers ({input_workers}) and "
+                             f"device_prefetch ({device_prefetch}) must be "
+                             f">= 0")
+        if data_dir and workload not in _IMAGE_WORKLOADS:
+            raise ValueError(
+                f"workload {workload!r} does not consume --data-dir")
+        if label_smoothing and workload in _IMAGE_WORKLOADS:
+            workload_kwargs.setdefault("label_smoothing", label_smoothing)
+
+        # kernel tier: CLI flag wins, then the operator-rendered env
+        # (KFTPU_KERNEL_*), then stock
+        ka_set = kernel_attention or os.environ.get("KFTPU_KERNEL_ATTENTION")
+        kernel_attention = ka_set or "einsum"
+        kernel_optimizer = kernel_optimizer or \
+            os.environ.get("KFTPU_KERNEL_OPTIMIZER") or "stock"
+        kernel_serving = kernel_serving or \
+            os.environ.get("KFTPU_KERNEL_SERVING") or "stock"
+        for seg, val, vocab in (
+                ("attention", kernel_attention, ATTENTION_KERNELS),
+                ("optimizer", kernel_optimizer, OPTIMIZER_KERNELS),
+                ("serving", kernel_serving, SERVING_KERNELS)):
+            if val not in vocab:
+                raise ValueError(f"kernels.{seg} {val!r} not one of {vocab}")
+        if ka_set:
+            # on any other workload the attention tier would be a silent
+            # no-op the user mistakes for a speedup
+            if workload not in _TRANSFORMER_WORKLOADS:
+                raise ValueError(
+                    f"kernels.attention applies to transformer workloads, "
+                    f"not {workload!r}")
+            from ..models import transformer as T
+            cfg = workload_kwargs.get("cfg") or T.TransformerConfig.tiny()
+            workload_kwargs["cfg"] = replace(cfg, attention=kernel_attention)
+        log.info("kernel tier: attention=%s optimizer=%s serving=%s",
+                 kernel_attention, kernel_optimizer, kernel_serving)
+
+        base_lr = recipe.scale_lr(learning_rate, global_batch) \
+            if scale_lr_by_batch else learning_rate
+        if runtime_schedule is None:
+            runtime_schedule = bool(_env_int("KFTPU_RUNTIME_SCHEDULE", 0))
+        weight_update = validate_weight_update(
+            weight_update or os.environ.get("KFTPU_WEIGHT_UPDATE")
+            or "replicated")
+        lr_fn = recipe.lr_schedule(lr_schedule, base_lr, steps, warmup_steps)
+
         if data_dir:
             # uint8 records host→device (1/4 the bytes of f32); the loss
             # wrapper below normalizes on the card; input_workers > 0 fans
@@ -349,12 +393,14 @@ def train(
                 return _inner(params, variables, batch, rng)
 
             spec = replace(spec, loss_fn=loss_fn_u8)
-        log.info("worker %d/%d device=%s workload=%s", ctx.process_id,
-                 ctx.num_processes, ctx.device, spec.name)
+        log.info("worker %d/%d device=%s mesh=%s workload=%s",
+                 ctx.process_id, ctx.num_processes, ctx.device,
+                 {a: n for a, n in ctx.mesh.shape.items() if n > 1},
+                 spec.name)
 
         builder = TrainStepBuilder(
             loss_fn=spec.loss_fn, device=ctx.device,
-            weight_update=weight_update,
+            weight_update=weight_update, mesh=ctx.mesh,
             optimizer=lambda params: recipe.make_optimizer(
                 params, optimizer, base_lr, schedule=lr_schedule,
                 total_steps=steps, warmup_steps=warmup_steps,
@@ -372,10 +418,21 @@ def train(
             # the eval batch is clamped to the holdout, and the short last
             # batch comes through (drop_remainder=False) to be padded and
             # masked, so a full pass counts every record once
-            eval_bs = min(global_batch,
-                          int(read_meta(eval_data_dir)["num_records"]))
-            eval_source = ImageNetSource(eval_data_dir, batch_size=eval_bs,
-                                         augment=False, drop_remainder=False)
+            # rounded down to a multiple of the data-parallel degree
+            # (place_batch splits the rows over the ranks)
+            dp = global_batch // local_batch_size(global_batch, ctx.mesh)
+            n_rec = int(read_meta(eval_data_dir)["num_records"])
+            eval_bs = (min(global_batch, n_rec) // dp) * dp
+            if eval_bs == 0:
+                log.warning("eval disabled: holdout %s has %d records, "
+                            "fewer than the %d data-parallel ranks",
+                            eval_data_dir, n_rec, dp)
+                eval_step = None
+            else:
+                eval_source = ImageNetSource(eval_data_dir,
+                                             batch_size=eval_bs,
+                                             augment=False,
+                                             drop_remainder=False)
 
         def pad_mask(batch) -> tuple[dict, float]:
             """Pad a (possibly short) holdout batch to the eval batch,
@@ -433,6 +490,8 @@ def train(
 
         metrics_path = metrics_path or os.environ.get(METRICS_PATH_ENV)
         if metrics_path:
+            metrics_path = _process_metrics_path(metrics_path,
+                                                 ctx.process_id)
             os.makedirs(os.path.dirname(metrics_path) or ".", exist_ok=True)
         tensorboard_dir = tensorboard_dir or os.environ.get("KFTPU_TB_DIR")
         # TB events come from process 0 only: one curve per run
@@ -440,6 +499,12 @@ def train(
                              tensorboard_dir=(tensorboard_dir
                                               if ctx.process_id == 0
                                               else None))
+        # liveness for the stall watchdog: None outside a pod. The first,
+        # forced beat sets the baseline, so a worker that wedges inside
+        # its first window (the first collective) is still caught.
+        heartbeat = HeartbeatReporter.from_env()
+        if heartbeat is not None:
+            heartbeat.beat(state.step, force=True)
 
         # host batches come from the augment pipeline (in-process or
         # spawned workers); the device prefetcher stages them on the card
@@ -448,7 +513,9 @@ def train(
             if data_source is not None else None
         if data_iter is not None and device_prefetch > 0:
             from ..data.device_prefetch import DevicePrefetcher
-            dev_iter = DevicePrefetcher(data_iter, builder.place_batch,
+            # only this rank's rows are pinned and copied
+            dev_iter = DevicePrefetcher(map(builder.local_rows, data_iter),
+                                        builder.place_local,
                                         depth=device_prefetch,
                                         device=ctx.device)
         # the synthetic pool: 4 batches placed once and cycled, so batch
@@ -480,6 +547,7 @@ def train(
         # flight-recorder peek
         if obs_metrics_port is None:
             obs_metrics_port = _env_int("KFTPU_OBS_METRICS_PORT", 0)
+        obs_metrics_port = _process_port(obs_metrics_port, ctx)
         if obs_metrics_port:
             from ..obs.http import ObsServer
             try:
@@ -567,6 +635,13 @@ def train(
                     recorder.close_window(
                         step + 1, window, t_now - win_t0,
                         drain_s=time.perf_counter() - t_drain0)
+                    if heartbeat is not None:
+                        # every window edge: the step needs no device
+                        # fetch, so a loop that stops closing windows
+                        # stops beating, the watchdog's signal
+                        heartbeat.beat(
+                            step + 1, loss=last_metrics.get("loss"),
+                            grad_norm=last_metrics.get("grad_norm"))
                     window = 0
                 if stopping:
                     preempted = True
@@ -617,6 +692,8 @@ def train(
             obs_server.stop()
         if mlog is not None:
             mlog.close()
+        if owns_ctx:
+            shutdown(ctx)
     summary = mlog.summary(warmup=1)
     if preempted:
         log.warning("preempted at step %d; exiting", state.step)
@@ -668,9 +745,11 @@ def main(argv=None) -> int:
     p.add_argument("--multislice-microbatches", type=int, default=None)
     p.add_argument("--weight-update", default=None,
                    choices=WEIGHT_UPDATE_MODES,
-                   help="optimizer-update layout; defaults to "
-                        "$KFTPU_WEIGHT_UPDATE or 'replicated' ('sharded' "
-                        "is not yet ported)")
+                   help="optimizer-update layout across the data-"
+                        "parallel ranks: 'sharded' is ZeRO-2 (gradients "
+                        "reduce-scattered, each rank updates its shard, "
+                        "params all-gathered); defaults to "
+                        "$KFTPU_WEIGHT_UPDATE or 'replicated'")
     p.add_argument("--optimizer", default="momentum",
                    choices=recipe.OPTIMIZERS)
     p.add_argument("--lr-schedule", default="constant",

@@ -2,7 +2,9 @@
 plain PyTorch version on the card, the LM served through K1, one train
 step through K1, K2 and K3 (one K3 launch a step), one fused ResNet-50
 step through K4 and K5,
-and one fused ResNet-50 inference forward through K6.
+and one fused ResNet-50 inference forward through K6; and two gloo ranks
+sharing the card (sharded update) against one process, for one step of a
+small LM and of one fused block.
 
 Every test here carries the ``gpu`` marker and skips where no card is
 present (decided in the ``cuda_device`` fixture, never at import). The
@@ -926,3 +928,125 @@ def test_lars_and_rmsprop_card_against_cpu(cuda_device, name, runtime):
     for a, b in zip(dev, cpu):
         err = (a.cpu() - b).abs().max().item()
         assert err <= 1e-5 * b.abs().max().item(), (a.shape, err)
+
+
+# -- data parallel: two ranks sharing the card against one process -------------
+
+def _dp_lm_step(rank, world, mode):
+    """One sharded (or, alone, replicated) step of a 2-layer LM with
+    flash attention and fused Adam on the card: the metrics, this rank's
+    launches and the collectives staged through host memory."""
+    from kubeflow_tpu_torch.api.trainingjob import ShardingSpec
+    from kubeflow_tpu_torch.models import transformer as T
+    from kubeflow_tpu_torch.parallel import collectives
+    from kubeflow_tpu_torch.parallel.mesh import build_mesh
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = T.TransformerConfig(vocab_size=256, num_layers=2, embed_dim=64,
+                              num_heads=4, head_dim=16, mlp_dim=128,
+                              max_seq_len=96, attention="flash")
+    spec = T.workload_spec(cfg)
+    builder = TrainStepBuilder(
+        loss_fn=spec.loss_fn, device=torch.device("cuda", 0),
+        weight_update=mode, mesh=build_mesh(ShardingSpec(data=world)),
+        optimizer=lambda p: make_optimizer(p, "adam", 1e-3,
+                                           kernels="fused_adam")[0])
+    state = builder.init(spec.init_fn, torch.Generator().manual_seed(0))
+    batch = builder.place_batch(
+        spec.batch_fn(torch.Generator().manual_seed(1), 4))
+    counts = (tfa.flash_attention, tfa.flash_attention_bwd_dq,
+              tfa.flash_attention_bwd_dkv, tfo.fused_adam)
+    before = [c.launches for c in counts]
+    collectives.reset_counts()
+    state, m = builder.build()(state, batch)
+    torch.cuda.synchronize()
+    return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+            "launches": [c.launches - b for c, b in zip(counts, before)],
+            "staged": sum(collectives.host_staged.values()),
+            "params": {k: p.detach().cpu().numpy()
+                       for k, p in state.params.items()}}
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_the_card_match_one_for_an_lm_step(cuda_device):
+    """Two gloo ranks on the card, 2 rows each, sharded, against one
+    process on the 4 rows, replicated: each rank launches K1, K2a, K2b
+    once a layer and K3 once over its shards; loss within 1e-3 and grad
+    norm within 1e-2, relative (chip_smoke.py phase 8's bars), the new
+    params equal on both ranks; a gloo group stages its CUDA tensors
+    through host memory (counted)."""
+    from test_torch_dp import spawn
+    one = _dp_lm_step(0, 1, "replicated")
+    ranks = spawn(_dp_lm_step, 2, "sharded")
+    for out in ranks:
+        assert out["launches"] == [2, 2, 2, 1]
+        assert out["staged"] > 0
+        np.testing.assert_allclose(out["loss"], one["loss"], rtol=1e-3)
+        np.testing.assert_allclose(out["grad_norm"], one["grad_norm"],
+                                   rtol=1e-2)
+    assert one["staged"] == 0
+    for k, v in ranks[0]["params"].items():
+        np.testing.assert_array_equal(v, ranks[1]["params"][k], err_msg=k)
+
+
+def _dp_block_step(rank, world, rows):
+    """One SGD step at lr 1 of a fused stride-1 block (14x14, 256 → 64 →
+    256, K4) whose loss is the mean square of its output, on ``rows`` of
+    a seeded batch of 8: the new params (their change is the gradient)
+    and this rank's K4 launches. ``world`` 1 with both halves' losses
+    averaged is what two ranks compute."""
+    from kubeflow_tpu_torch.api.trainingjob import ShardingSpec
+    from kubeflow_tpu_torch.models import resnet as R
+    from kubeflow_tpu_torch.parallel.mesh import build_mesh
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
+    params = R.random_block_params(torch.Generator().manual_seed(0), 256,
+                                   64, 256, False)
+    x = torch.randn(8, 14, 14, 256, generator=torch.Generator().manual_seed(
+        1)).to(torch.bfloat16)
+
+    def block_loss(p, x):
+        out, _ = tfbt.fused_bottleneck_train(x.contiguous(), p, tile_bt=2)
+        return out.float().square().mean()
+
+    def loss_fn(p, variables, batch, rng):
+        xs = batch["x"]
+        if rows == "halves":
+            return (block_loss(p, xs[:4]) + block_loss(p, xs[4:])) / 2, {}
+        return block_loss(p, xs), {}
+
+    builder = TrainStepBuilder(
+        loss_fn=loss_fn, device=torch.device("cuda", 0),
+        weight_update="sharded", mesh=build_mesh(ShardingSpec(data=world)),
+        optimizer=lambda p: make_optimizer(p, "sgd", 1.0,
+                                           grad_clip=None)[0])
+    state = builder.init(lambda rng: (params, {}), None)
+    counts = (tfbt.fused_block_train_fwd, tfbt.fused_block_train_bwd)
+    before = [c.launches for c in counts]
+    state, m = builder.build()(state, builder.place_batch({"x": x}))
+    torch.cuda.synchronize()
+    # numpy, not tensors: a tensor through the queue would share memory
+    # with a process that exits
+    return {"grads": {k: (params[k] - p.detach().cpu()).numpy()
+                      for k, p in state.params.items()},
+            "launches": [c.launches - b for c, b in zip(counts, before)],
+            "loss": m["loss"].item()}
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_the_card_match_one_for_a_fused_block(cuda_device):
+    """The fused block over two ranks of 4 rows (each its own ghost
+    tiles) against one process averaging the two halves' losses: one K4
+    forward and backward a rank; the loss within 1e-5 relative and each
+    gradient within 1e-3 of its norm (the same kernels on the same rows,
+    the two halves' gradients summed in another order)."""
+    from test_torch_dp import spawn
+    one = _dp_block_step(0, 1, "halves")
+    ranks = spawn(_dp_block_step, 2, "rank")
+    for out in ranks:
+        assert out["launches"] == [1, 1]
+        np.testing.assert_allclose(out["loss"], one["loss"], rtol=1e-5)
+        for k, g in one["grads"].items():
+            d = np.linalg.norm(out["grads"][k] - g)
+            assert d <= 1e-3 * np.linalg.norm(g), (k, d)

@@ -45,7 +45,9 @@ def test_every_module_imports_without_jax():
     assert "kubeflow_tpu_torch.serving.batch_predict" in modules
     for name in ("data.pipeline", "data.native", "data.imagenet",
                  "data.mp_augment", "data.device_prefetch",
-                 "utils.tbevents", "obs.http"):
+                 "utils.tbevents", "obs.http", "api.topology",
+                 "cluster.http_client", "parallel.mesh",
+                 "parallel.sharding_rules", "parallel.collectives"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

@@ -257,3 +257,22 @@ def test_obs_server_serves_metrics_profile_and_flightrecorder(tmp_path):
             assert json.loads(resp.read()) == {"ok": True}
     finally:
         srv.stop()
+
+
+def test_window_fetch_takes_the_sharded_steps_vector_probe(tmp_path):
+    """The sharded step's ``param_sqnorm_replicas`` is a vector: the
+    window fetch hands it back as a list of floats (a scalar as a
+    float), and the JSONL window skips it."""
+    fetch = TM.AsyncWindowFetch(lag=0)
+    fetch.submit(2, 2, 0.5, {"loss": torch.tensor(1.5),
+                             "param_sqnorm_replicas": torch.tensor([3.0,
+                                                                    3.0])})
+    ((step, n, _, vals),) = fetch.drain(force=True)
+    assert (step, n) == (2, 2)
+    assert vals == {"loss": 1.5, "param_sqnorm_replicas": [3.0, 3.0]}
+    path = tmp_path / "m.jsonl"
+    log = TM.MetricsLogger(str(path), batch_size=4)
+    log.record_window(step, n, 0.5, vals)
+    log.close()
+    (row,) = [json.loads(line) for line in path.read_text().splitlines()]
+    assert row["loss"] == 1.5 and "param_sqnorm_replicas" not in row

@@ -276,10 +276,17 @@ def test_worker_trains_resnet_on_cpu(tmp_path):
 
 
 def test_fused_refusals():
+    """BasicBlock models have no fused path. A data-parallel mesh is
+    taken (tests/test_torch_dp_resnet.py); one whose tensor axis exceeds
+    1 cannot be built (ROADMAP Queue 1 item 6)."""
+    from kubeflow_tpu_torch.parallel.mesh import MESH_AXES, Mesh, check_axes
     with pytest.raises(ValueError, match="bottleneck"):
         R.make_fused_loss_fn(R.resnet18(num_classes=10))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        R.make_fused_loss_fn(R.resnet50(num_classes=10), mesh=2)
+    one = Mesh(shape=dict.fromkeys(MESH_AXES, 1))
+    assert callable(R.make_fused_loss_fn(R.resnet50(num_classes=10),
+                                         mesh=one))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        check_axes({**one.shape, "tensor": 2})
     with pytest.raises(SystemExit):
         worker.main(["--workload", "resnet18", "--fused-blocks",
                      "--device", "cpu"])

@@ -33,6 +33,7 @@ from kubeflow_tpu.runtime.trainstep import TrainStepBuilder as JBuilder
 from kubeflow_tpu_torch.models import transformer as T
 from kubeflow_tpu_torch.models.convert import (flatten_params,
                                                transformer_params_from_jax)
+from kubeflow_tpu_torch.parallel.mesh import MESH_AXES, Mesh
 from kubeflow_tpu_torch.runtime import recipe as recipe_mod
 from kubeflow_tpu_torch.runtime import trainstep as trainstep_mod
 from kubeflow_tpu_torch.runtime.recipe import make_optimizer
@@ -139,11 +140,20 @@ def test_bf16_steps_match_jax():
 
 
 def test_builder_refuses_unported_layouts():
+    """The sharded update is ported (tests/test_torch_dp.py): on one
+    replica it is the replicated strategy. A mesh axis whose sharding is
+    not ported raises, citing its ROADMAP item; an unknown layout is a
+    ValueError."""
     kw = dict(loss_fn=None, optimizer=None, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TrainStepBuilder(weight_update="sharded", **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TrainStepBuilder(num_devices=2, **kw)
+    assert TrainStepBuilder(weight_update="sharded",
+                            **kw).strategy == "replicated"
+    for axis, item in (("fsdp", "item 6"), ("tensor", "item 6"),
+                       ("sequence", "item 6"),
+                       ("expert", "item 11"), ("pipeline", "item 11")):
+        shape = {**dict.fromkeys(MESH_AXES, 1), axis: 2}
+        with pytest.raises(NotImplementedError,
+                           match=f"not yet ported.*{item}"):
+            TrainStepBuilder(mesh=Mesh(shape=shape), **kw)
     with pytest.raises(ValueError, match="weight_update"):
         TrainStepBuilder(weight_update="zero3", **kw)
 
@@ -205,3 +215,30 @@ def test_step_takes_the_global_norm_once(kernels, monkeypatch):
     assert len(calls) == 1
     assert np.isfinite(float(metrics["grad_norm"]))
     assert state.step == 1
+
+
+def test_init_copies_the_callers_arrays():
+    """On the CPU the state must not alias the arrays init_fn hands over
+    (``.to`` of an f32 array on its own device copies nothing): three
+    steps leave the caller's numpy params and variables as they were."""
+    params = {"w": np.ones((4, 2), np.float32), "b": np.zeros(2, np.float32)}
+    variables = {"stats": {"m": np.zeros(2, np.float32)}}
+    keep = {k: v.copy() for k, v in params.items()}
+
+    def loss_fn(p, v, batch, rng):
+        y = batch["x"] @ p["w"] + p["b"]
+        m = v["stats"]["m"] * 0.9 + 0.1 * y.mean(0).detach()
+        return (y ** 2).mean(), {"variables": {"stats": {"m": m}}}
+
+    builder = TrainStepBuilder(
+        loss_fn=loss_fn, device="cpu",
+        optimizer=lambda p: make_optimizer(p, "momentum", 0.1)[0])
+    state = builder.init(lambda rng: (params, variables), None)
+    step = builder.build()
+    batch = builder.place_batch({"x": np.ones((3, 4), np.float32)})
+    for _ in range(3):
+        state, _ = step(state, batch)
+    assert not np.array_equal(state.params["w"].detach().numpy(), keep["w"])
+    for k, v in keep.items():
+        np.testing.assert_array_equal(params[k], v, err_msg=k)
+    np.testing.assert_array_equal(variables["stats"]["m"], 0.0)

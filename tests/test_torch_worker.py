@@ -9,6 +9,9 @@
   non-transformer workload raises.
 - ``train()`` and ``main()`` default to cuda and raise without a card;
   features not ported yet raise "not yet ported" when set.
+- Data parallel: two worker CLI processes given only the topology-
+  contract env train resnet18 on CPU gloo with the sharded update and
+  match the JAX package's step on a data = 2 mesh.
 - From record shards (``data_dir``, at 32 px): one LARS step under the
   runtime schedule of the port's train step against the JAX package's on
   the same record batch, each through its own pipeline and
@@ -22,6 +25,9 @@ import glob
 import json
 import logging
 import os
+import socket
+import subprocess
+import sys
 import urllib.request
 
 import jax
@@ -40,6 +46,7 @@ from kubeflow_tpu_torch.models import resnet as TR
 from kubeflow_tpu_torch.models.convert import resnet_variables_from_jax
 from kubeflow_tpu_torch.models.transformer import TransformerConfig
 from kubeflow_tpu_torch.obs import registry as obsreg
+from kubeflow_tpu_torch.parallel.mesh import MESH_AXES, Mesh
 from kubeflow_tpu_torch.runtime import bootstrap, recipe, worker
 from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
 
@@ -162,10 +169,18 @@ def test_unported_features_raise(monkeypatch, kwargs, env):
 
 
 def test_unported_layouts_and_schedules_raise(monkeypatch):
-    """The sharded layout still raises; the runtime schedule, from the
-    env, now trains (lr from the optimizer's state, on its device)."""
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        worker.train(steps=1, weight_update="sharded", **KW)
+    """The sharded layout trains (on one replica it is the replicated
+    update: the same losses); a global batch the data-parallel ranks do
+    not divide raises before anything runs; the runtime schedule, from
+    the env, trains (lr from the optimizer's state, on its device)."""
+    sharded = worker.train(steps=2, weight_update="sharded", **KW)
+    replicated = worker.train(steps=2, **KW)
+    assert sharded.final_metrics["loss"] == \
+        replicated.final_metrics["loss"]
+    two = Mesh(shape={**dict.fromkeys(MESH_AXES, 1), "data": 2})
+    ctx = bootstrap.WorkerContext(device=torch.device("cpu"), mesh=two)
+    with pytest.raises(ValueError, match="not divisible"):
+        worker.train(steps=1, ctx=ctx, **{**KW, "global_batch": 3})
     made = []
     real = recipe.make_optimizer
 
@@ -184,13 +199,22 @@ def test_unported_layouts_and_schedules_raise(monkeypatch):
 
 
 def test_bootstrap_refuses_a_multi_process_contract():
-    env = {"KFTPU_TOPOLOGY": "v5e-8", "KFTPU_NUM_PROCESSES": "2",
-           "KFTPU_PROCESS_ID": "1"}
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        bootstrap.initialize(env, device="cpu")
-    ctx = bootstrap.initialize({**env, "KFTPU_NUM_PROCESSES": "1",
-                                "KFTPU_PROCESS_ID": "0"}, device="cpu")
-    assert (ctx.process_id, ctx.num_processes) == (0, 1)
+    """A multi-process contract now brings up the gang
+    (tests/test_torch_bootstrap.py); what it refuses is a sharding axis
+    that is not ported, on every rank, citing the ROADMAP item. One
+    process: the contract's ids, or this process alone without one."""
+    from test_torch_bootstrap import _free_port as free_port
+    from test_torch_bootstrap import _unported_axes, spawn_contract
+    for msgs, left in spawn_contract(_unported_axes, 2, free_port()):
+        assert not left and "item 6" in msgs[0], msgs
+    env = {"KFTPU_TOPOLOGY": "v5e-1", "KFTPU_NUM_PROCESSES": "1",
+           "KFTPU_PROCESS_ID": "0",
+           "KFTPU_COORDINATOR_ADDRESS": f"localhost:{free_port()}"}
+    ctx = bootstrap.initialize(env, device="cpu")
+    try:
+        assert (ctx.process_id, ctx.num_processes) == (0, 1)
+    finally:
+        bootstrap.shutdown(ctx)
     assert bootstrap.initialize({}, device="cpu").process_id == 0
 
 
@@ -387,3 +411,102 @@ def test_obs_metrics_port_profiles_and_records_while_training(
     text = seen["metrics"]
     assert 'kftpu_input_batches_total{stage="augment"}' in text
     assert "kftpu_step_seconds" in text
+
+
+# -- two worker processes from the contract env ---------------------------------
+
+def _cli(args: list, env: dict) -> subprocess.Popen:
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return subprocess.Popen(
+        [sys.executable, "-m", "kubeflow_tpu_torch.runtime.worker", *args],
+        cwd=repo, env={**env, "PYTHONPATH": repo, "OMP_NUM_THREADS": "2"},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _losses(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line)["loss"] for line in f
+                if '"loss"' in line]
+
+
+def _flax_tree(flat: dict) -> dict:
+    """The port's dotted names back into flax's nested dict."""
+    out: dict = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = t.numpy()
+    return out
+
+
+def test_two_workers_from_the_contract_env_match_the_jax_worker(
+        records, tmp_path):
+    """Two ``python -m kubeflow_tpu_torch.runtime.worker`` processes,
+    started with only the contract env, train resnet18 (the default exact-
+    BN path, bf16 activations) at 32 px from the record shards on CPU gloo,
+    sharded, 3 steps of a global batch of 8 (4 rows each, BatchNorm over
+    all 8). Both write the same per-step losses (process 1 to
+    ``m.p1.jsonl``), and they match the JAX package's sharded step on a
+    data = 2 mesh on the same record batches from the port's seed-0 init
+    (converted to flax), within rtol 3e-2, the bf16 bar of
+    tests/test_torch_trainstep.py; and one worker process on the same
+    flags within rtol 1e-2 (the same arithmetic in bf16, the BN sums and
+    the gradients summed in another order)."""
+    train_dir, _ = records
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KFTPU_")}
+    port = _free_port()
+    flags = ["--workload", "resnet18", "--device", "cpu", "--steps", "3",
+             "--global-batch", "8", "--sync-every", "1", "--data-dir",
+             train_dir, "--weight-update", "sharded", "--device-prefetch",
+             "0"]
+    ranks = [_cli(flags + ["--metrics-path", str(tmp_path / "m.jsonl")],
+                  {**env, "KFTPU_TOPOLOGY": "v5e-2",
+                   "KFTPU_COORDINATOR_ADDRESS": f"localhost:{port}",
+                   "KFTPU_NUM_PROCESSES": "2", "KFTPU_PROCESS_ID": str(r)})
+             for r in range(2)]
+    one = _cli(flags + ["--metrics-path", str(tmp_path / "one.jsonl")], env)
+    for p in ranks + [one]:
+        out, _ = p.communicate(timeout=240)
+        assert p.returncode == 0, out[-3000:]
+    got = _losses(str(tmp_path / "m.jsonl"))
+    assert len(got) == 3 and got == _losses(str(tmp_path / "m.p1.jsonl"))
+    np.testing.assert_allclose(got, _losses(str(tmp_path / "one.jsonl")),
+                               rtol=1e-2)
+
+    params, variables = TR.make_resnet(18, num_classes=CLASSES).init(
+        torch.Generator().manual_seed(0))
+    src = JI.ImageNetSource(train_dir, batch_size=8, output="uint8")
+    try:
+        it = src.batches(seed=0)
+        batches = [next(it) for _ in range(3)]
+    finally:
+        src.close()
+    inner = JR.make_loss_fn(JR.make_resnet(18, num_classes=CLASSES))
+
+    def j_loss(p, v, batch, rng):
+        batch = dict(batch, images=JI.device_normalize(batch["images"]))
+        return inner(p, v, batch, rng)
+
+    from kubeflow_tpu.api.trainingjob import ShardingSpec as JSpec
+    jb = JBuilder(mesh=build_mesh(JSpec(data=2), jax.devices()[:2]),
+                  loss_fn=j_loss, weight_update="sharded",
+                  optimizer=j_make_optimizer("momentum", learning_rate=0.1,
+                                             total_steps=3)[0])
+    js = jb.init(lambda rng: (_flax_tree(params), {
+        "batch_stats": _flax_tree(variables["batch_stats"])}),
+        jax.random.PRNGKey(0))
+    step = jb.build()
+    want = []
+    for b in batches:
+        js, m = step(js, jb.place_batch(b))
+        want.append(float(m["loss"]))
+    np.testing.assert_allclose(got, want, rtol=3e-2)
