@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --worker ARGS`` is phase 9's child: the worker
+CLI with the transformer workload at the default LM's widths.)
+
 Phases, each of which fails the run (nonzero exit, no result line):
 
 1. device  - the card's name and power limit; build every kernel in
@@ -150,6 +153,41 @@ Phases, each of which fails the run (nonzero exit, no result line):
              peak memory, each line with the card's name and power
              limit. Two ranks on one card check numerics, launches and
              memory; none of these times is a scaling figure.
+9. ckpt    - fault-tolerant training at full width, checkpoints in a temp
+             dir removed afterwards. (a) The LM of phase 5 (flash,
+             fused_adam, clip 1.0, batch 8) trains 6 steps through
+             train() with checkpoint_every 2; the worker CLI in a
+             subprocess (this script with --worker: the CLI's transformer
+             at the default widths) gets a real SIGTERM from a local stub
+             apiserver while its heartbeat reports step 2, and must exit
+             75 with step 3 committed and verified; train() resumes it to
+             step 6: 3 steps executed, K1, K2a, K2b 12 launches each and
+             K3 one a step, and the params within 1e-6 of the largest
+             |param| of the uninterrupted run's (0 expected). Prints each
+             save's synchronous and to-committed ms, the payload bytes a
+             step and the restore ms. (b) The worker CLI child again,
+             with the sentinel (check_every 1) and
+             KFTPU_CHAOS_NUMERIC=nan:5, must exit 76 with its evidence
+             posted to the stub (nan-loss or nan-grad at step 5 or 6, LKG
+             4), LKG 4 in the marker and nothing newer than 4 on disk;
+             train() rerun with KFTPU_RESUME_STEP=4 (the mark file says the
+             fault fired) executes 2 steps and ends within the same bar of
+             the uninterrupted run. (c)
+             ModelRepository.load(checkpoint_dir=...) serves version 6
+             through K1 (12 launches a forward), its logits within 5e-2 of
+             the largest logit of an einsum forward of final_params and
+             next_token equal; train() saves step 8 and reload() serves
+             it. (d) Across a change of degree: two gloo ranks sharing the
+             card train the LM sharded for 2 steps (run block
+             {replicaDegree 2, globalBatch 8}) and one process resumes it
+             for steps 3-4; one process trains fused ResNet-50 (batch 64,
+             momentum) 2 steps and two sharded ranks resume it for step 3.
+             Each against one process without a restore (phase 8's LM;
+             for ResNet the same process with the two halves' loss at
+             step 3), phase 8's bars; every segment's launches per
+             executed step checked; a global batch of 16 refuses the
+             resume with ElasticContractError. The kernels at these
+             shapes are held to their plain versions in phases 2 and 8.
 
 Phase 2 also holds K4 and K5 (the fused ghost-BN bottleneck, batch-tiled
 and spatial, csrc/fused_block_train.cu) against their plain versions at
@@ -181,6 +219,7 @@ import ctypes
 import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -2326,9 +2365,10 @@ DP_TIMEOUT_S = 600
 
 class _Apiserver(threading.Thread):
     """An HTTP server that plays the apiserver for the heartbeat: records
-    each PATCH's path and annotations, answers 200."""
+    each PATCH's path and annotations, calls ``on_patch(path,
+    annotations)`` before it answers, answers 200."""
 
-    def __init__(self):
+    def __init__(self, on_patch=None):
         super().__init__(daemon=True)
         from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
         patches = self.patches = []
@@ -2339,6 +2379,8 @@ class _Apiserver(threading.Thread):
                     int(self.headers.get("Content-Length", 0))) or b"{}")
                 patches.append((self.path, body.get("metadata", {}).get(
                     "annotations", {})))
+                if on_patch is not None:
+                    on_patch(*patches[-1])
                 data = json.dumps(body).encode()
                 self.send_response(200)
                 self.send_header("Content-Type", "application/json")
@@ -2446,21 +2488,8 @@ def _dp_rank(rank: int, env: dict, queue) -> None:
         os.environ.update(env)
         from kubeflow_tpu_torch.models import transformer as T
         from kubeflow_tpu_torch.parallel import collectives
-        fa, fo, fbt, fbts = (importlib.import_module(
-            f"kubeflow_tpu_torch.ops.{m}") for m in (
-                "flash_attention", "fused_adam", "fused_block_train",
-                "fused_block_train_spatial"))
         from kubeflow_tpu_torch.runtime import bootstrap, trainstep, worker
-        counters = {"flash_attention_fwd": fa.flash_attention,
-                    "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-                    "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-                    "fused_adam": fo.fused_adam,
-                    "fused_block_train_fwd": fbt.fused_block_train_fwd,
-                    "fused_block_train_bwd": fbt.fused_block_train_bwd,
-                    "fused_block_train_spatial_fwd":
-                        fbts.fused_block_train_spatial_fwd,
-                    "fused_block_train_spatial_bwd":
-                        fbts.fused_block_train_spatial_bwd}
+        counters = _all_counters()
         # a beat at every window edge (the reporter's default rate limit
         # is 10 s)
         from_env = worker.HeartbeatReporter.from_env.__func__
@@ -2741,12 +2770,552 @@ def phase_dp(T, R, worker, trainstep, bootstrap, collectives, card,
             fail(f"dp: no heartbeat with loss from dp-worker-{r}")
     result["heartbeats"] = {k: len(v) for k, v in beats.items()}
     result["wall_s"] = wall
+    result["ref_lm"] = {k: ref["lm"][k] for k in ("loss", "grad_norm")}
     return result
+
+
+# -- phase 9: fault-tolerant training -----------------------------------------
+
+CKPT_STEPS, CKPT_EVERY = 6, 2
+# SIGTERM reaches the worker CLI child while it reports step 2, so the
+# stop flag is read at the end of step 3: the forced save is step 3
+SIGTERM_AT_BEAT = 2
+FAULT_STEP, LKG_STEP = 5, 4
+SERVE_NEXT_STEP = 8
+# a resume (and the rollback) against the uninterrupted run: the same
+# kernels on the same data from the same state, so 0 is expected; held to
+# 1e-6 of the largest |param|
+RESUME_REL_TOL = 1e-6
+CKPT_TIMEOUT_S = 600
+LM_PER_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+               "flash_attention_bwd_dkv": 12, "fused_adam": 1}
+
+
+def worker_cli(argv: list) -> int:
+    """Phase 9a's child: the worker CLI (``runtime/worker.py main``) with
+    the transformer workload at the default LM's widths (the CLI's
+    transformer is the tiny config) and a heartbeat at every window edge
+    (its rate limit is 10 s), so the parent's stub apiserver sees each
+    step and sends SIGTERM while step 2 is reported."""
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from kubeflow_tpu_torch.models import transformer as T
+    from kubeflow_tpu_torch.runtime import worker
+    T.TransformerConfig.tiny = classmethod(lambda cls: cls())
+    from_env = worker.HeartbeatReporter.from_env.__func__
+    worker.HeartbeatReporter.from_env = classmethod(
+        lambda cls, **kw: from_env(cls, interval_s=0.0, **kw))
+    return worker.main(argv)
+
+
+def _capture_managers(worker) -> list:
+    """Make train() hand out every CheckpointManager it makes (their save
+    and restore times)."""
+    made = []
+    real = worker.CheckpointManager
+
+    class Capture(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    worker.CheckpointManager = Capture
+    return made
+
+
+def _worker_child(ckpt_dir: str, tmp: str, name: str, on_patch=None,
+                  extra_args: tuple = (), extra_env=None) -> tuple:
+    """Run the worker CLI at full LM width in a subprocess (this script
+    with --worker) as pod ``name`` under a local stub apiserver that
+    calls ``on_patch(pid, path, annotations)`` on each PATCH; (exit code,
+    seconds, the PATCHes). Its output goes to ``<tmp>/<name>.log``."""
+    holder = {}
+    server = _Apiserver(on_patch=None if on_patch is None else
+                        lambda *a: on_patch(holder["pid"], *a))
+    server.start()
+    env = {**os.environ, **(extra_env or {}), "KFTPU_POD_NAME": name,
+           "KFTPU_POD_NAMESPACE": "smoke", "KFTPU_APISERVER": server.url}
+    argv = [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+            "--worker", "--workload", "transformer", "--device", DEVICE,
+            "--steps", str(CKPT_STEPS), "--global-batch", str(TRAIN_BATCH),
+            "--learning-rate", str(TRAIN_LR), "--optimizer", "adam",
+            "--kernel-attention", "flash", "--kernel-optimizer",
+            "fused_adam", "--sync-every", "1", "--checkpoint-dir", ckpt_dir,
+            "--checkpoint-every", str(CKPT_EVERY), *extra_args]
+    t0 = time.perf_counter()
+    try:
+        with open(os.path.join(tmp, f"{name}.log"), "w") as f:
+            proc = subprocess.Popen(argv, env=env, stdout=f,
+                                    stderr=subprocess.STDOUT)
+            holder["pid"] = proc.pid
+            try:
+                rc = proc.wait(timeout=CKPT_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                raise
+    finally:
+        server.stop()
+    return rc, time.perf_counter() - t0, server.patches
+
+
+def _child_tail(tmp: str, name: str) -> str:
+    with open(os.path.join(tmp, f"{name}.log")) as f:
+        return f.read()[-4000:]
+
+
+def _lm_ckpt_run(T) -> dict:
+    """The LM of phases 5 and 8 through train(), with checkpoints."""
+    return dict(workload="transformer",
+                workload_kwargs={"cfg": T.TransformerConfig()},
+                kernel_attention="flash", kernel_optimizer="fused_adam",
+                optimizer="adam", learning_rate=TRAIN_LR,
+                global_batch=TRAIN_BATCH, seed=0, sync_every=1,
+                checkpoint_every=CKPT_EVERY, handle_sigterm=False)
+
+
+def _counted(counters, fn):
+    """(fn(), launches of each kernel during it)."""
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: c.launches for n, c in counters.items() if c.launches}
+
+
+def _expect(launches: dict, per_step: dict, steps: int, what: str) -> None:
+    want = {k: v * steps for k, v in per_step.items()}
+    if launches != want:
+        fail(f"ckpt {what}: launches {launches}, expected {want} "
+             f"({steps} steps)")
+
+
+def _param_delta(chaos, a_dir: str, b_dir: str) -> tuple:
+    """(max |Δparam|, max |param|) between the newest intact steps of two
+    directories, on the card."""
+    a = chaos.final_params(a_dir, device=DEVICE)
+    b = chaos.final_params(b_dir, device=DEVICE)
+    delta = max(float((a[k] - b[k]).abs().max()) for k in a)
+    scale = max(float(v.abs().max()) for v in a.values())
+    return delta, scale
+
+
+def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
+               ModelRepository, fa, card, tmp) -> dict:
+    """Phase 9a-c: preemption, anomaly rollback and serving from the
+    trainer's checkpoints, the LM at full width."""
+    import signal
+    run = _lm_ckpt_run(T)
+    made = _capture_managers(worker)
+    clean, pre = os.path.join(tmp, "clean"), os.path.join(tmp, "preempted")
+    out = {"launches": {}}
+    try:
+        # -- 9a: the uninterrupted run, then SIGTERM and resume -------------
+        res, launches = _counted(counters, lambda: worker.train(
+            steps=CKPT_STEPS, checkpoint_dir=clean, device=DEVICE, **run))
+        _expect(launches, LM_PER_STEP, CKPT_STEPS, "uninterrupted")
+        out["launches"]["uninterrupted"] = launches
+        stats = made[-1].save_stats
+        out["save"] = {"steps": [st["step"] for st in stats],
+                       "bytes": stats[-1]["bytes"]}
+        # per save: synchronous (of it, waiting for the previous write),
+        # then on the writer thread the host copies landing, the payload
+        # write with its fsync, the commit with the manifest; and from
+        # the call to committed
+        for key in ("sync", "wait", "copy", "write", "commit", "total"):
+            out["save"][f"{key}_ms"] = [st[f"{key}_s"] * 1e3 for st in stats]
+        step_dir = os.path.join(clean, str(CKPT_STEPS))
+        out["save"]["dir_bytes"] = sum(
+            os.path.getsize(os.path.join(r, f))
+            for r, _d, fs in os.walk(step_dir) for f in fs)
+        log(f"[ckpt] {card} | uninterrupted run: {CKPT_STEPS} steps, saves "
+            f"at {out['save']['steps']}, ms per save: " + "; ".join(
+                f"{k} {[round(v, 1) for v in out['save'][f'{k}_ms']]}"
+                for k in ("sync", "wait", "copy", "write", "commit",
+                          "total")) +
+            f"; {out['save']['bytes']:,} bytes of payload a step "
+            f"({out['save']['dir_bytes']:,} in the step directory); "
+            f"launches {launches}")
+
+        sent = []
+
+        def sigterm_at_step(pid, path, annotations):
+            raw = annotations.get("kubeflow.org/worker-heartbeat")
+            if raw and json.loads(raw).get("step") == SIGTERM_AT_BEAT and \
+                    not sent:
+                sent.append(time.time())
+                os.kill(pid, signal.SIGTERM)
+
+        rc, child_s, _patches = _worker_child(pre, tmp, "ckpt-worker-0",
+                                              on_patch=sigterm_at_step)
+        mgr = ckpt_mod.CheckpointManager(pre)
+        latest = mgr.latest_step()
+        # a fresh manager reads every payload byte: the verification a
+        # resumed worker pays before its restore
+        t0 = time.perf_counter()
+        verdict = ckpt_mod.CheckpointManager(pre).verify_step(
+            latest if latest is not None else -1)
+        out["verify_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"[ckpt] {card} | worker CLI child: SIGTERM while it reported "
+            f"step "
+            f"{SIGTERM_AT_BEAT}, exit {rc} in {child_s:.1f}s; steps on "
+            f"disk {mgr.all_steps()}, newest intact {latest} {verdict} "
+            f"(the manifest's crc32 pass over the step by a fresh manager "
+            f"{out['verify_ms']:.1f} ms)")
+        if rc != worker.PREEMPTED_EXIT_CODE or latest != 3 or \
+                verdict != (True, "verified"):
+            fail(f"ckpt: SIGTERM run exit {rc}, newest step {latest} "
+                 f"{verdict} (expected {worker.PREEMPTED_EXIT_CODE}, 3):\n"
+                 f"{_child_tail(tmp, 'ckpt-worker-0')}")
+        res, launches = _counted(counters, lambda: worker.train(
+            steps=CKPT_STEPS, checkpoint_dir=pre, device=DEVICE, **run))
+        if res.steps != CKPT_STEPS - 3:
+            fail(f"ckpt: the resume executed {res.steps} steps")
+        _expect(launches, LM_PER_STEP, res.steps, "resumed")
+        out["launches"]["resumed"] = launches
+        out["restore_ms"] = made[-1].restore_stats[0]["s"] * 1e3
+        delta, scale = _param_delta(chaos, clean, pre)
+        out["resume"] = {"delta": delta, "scale": scale}
+        log(f"[ckpt] {card} | resumed at step 3 (restore "
+            f"{out['restore_ms']:.1f} ms: the payload read memory-mapped "
+            f"and copied into the state on the card, after latest_step's "
+            f"verification), "
+            f"{res.steps} steps executed, launches {launches}; largest "
+            f"|dparam| against the uninterrupted run {delta:.3e} (largest "
+            f"|param| {scale:.4f}; bar {RESUME_REL_TOL} of it)")
+        if not delta <= RESUME_REL_TOL * scale:
+            fail("ckpt: the resumed run left the uninterrupted one")
+        shutil.rmtree(pre, ignore_errors=True)
+
+        # -- 9b: the numeric anomaly and the LKG rollback -------------------
+        anom = os.path.join(tmp, "anomaly")
+        fault = {sentinel.NUMERIC_FAULT_ENV: f"nan:{FAULT_STEP}",
+                 sentinel.NUMERIC_FAULT_MARK_ENV: os.path.join(tmp, "mark")}
+        rc, child_s, patches = _worker_child(
+            anom, tmp, "ckpt-worker-1", extra_env=fault,
+            extra_args=("--integrity", "--integrity-check-every", "1"))
+        posted = [json.loads(a["kubeflow.org/numeric-anomaly"])
+                  for _p, a in patches
+                  if "kubeflow.org/numeric-anomaly" in a]
+        ev = posted[0] if posted else {}
+        try:
+            with open(os.path.join(anom, ckpt_mod.LKG_MARKER)) as f:
+                lkg_marker = json.load(f)["step"]
+        except OSError:
+            lkg_marker = None
+        on_disk = ckpt_mod.CheckpointManager(anom).all_steps()
+        log(f"[ckpt] {card} | anomaly run (the worker CLI child): exit {rc} "
+            f"in {child_s:.1f}s, evidence posted {posted}, LKG marker "
+            f"{lkg_marker}, steps on disk {on_disk}")
+        if rc != sentinel.ANOMALY_EXIT_CODE or len(posted) != 1 or \
+                ev.get("kind") not in (sentinel.KIND_NAN_LOSS,
+                                       sentinel.KIND_NAN_GRAD) or \
+                ev.get("step") not in (FAULT_STEP, FAULT_STEP + 1) or \
+                ev.get("lkg") != LKG_STEP or lkg_marker != LKG_STEP or \
+                max(on_disk) > LKG_STEP:
+            fail(f"ckpt: the anomaly run did not trip as expected:\n"
+                 f"{_child_tail(tmp, 'ckpt-worker-1')}")
+        os.environ.update(fault)
+        os.environ[sentinel.RESUME_STEP_ENV] = str(LKG_STEP)
+        try:
+            back, launches = _counted(counters, lambda: worker.train(
+                steps=CKPT_STEPS, checkpoint_dir=anom, device=DEVICE,
+                integrity=True, integrity_check_every=1, **run))
+        finally:
+            for k in (sentinel.RESUME_STEP_ENV, sentinel.NUMERIC_FAULT_ENV,
+                      sentinel.NUMERIC_FAULT_MARK_ENV):
+                os.environ.pop(k)
+        if back.anomaly is not None or back.steps != CKPT_STEPS - LKG_STEP:
+            fail(f"ckpt: the rollback run: {back.steps} steps, anomaly "
+                 f"{back.anomaly}")
+        _expect(launches, LM_PER_STEP, back.steps, "rollback")
+        out["launches"]["rollback"] = launches
+        delta, scale = _param_delta(chaos, clean, anom)
+        out["rollback"] = {"delta": delta, "scale": scale,
+                           "evidence": ev}
+        log(f"[ckpt] {card} | rollback from LKG {LKG_STEP} (the fault "
+            f"has fired, the mark file says): {back.steps} steps, "
+            f"launches {launches}; largest |dparam| against the "
+            f"uninterrupted run {delta:.3e} (bar {RESUME_REL_TOL} of "
+            f"{scale:.4f})")
+        if not delta <= RESUME_REL_TOL * scale:
+            fail("ckpt: the rolled-back run left the uninterrupted one")
+        shutil.rmtree(anom, ignore_errors=True)
+
+        # -- 9c: serving the trainer's checkpoints --------------------------
+        repo = ModelRepository()
+        served = repo.load("lm", "transformer_lm", checkpoint_dir=clean,
+                           attention="flash", device=DEVICE)
+        ref = repo.load("lm_ref", "transformer_lm", attention="einsum",
+                        device=DEVICE)
+        ref.swap(chaos.final_params(clean, device=DEVICE), CKPT_STEPS)
+        x = np.random.default_rng(9).integers(
+            0, SERVE_VOCAB, (1, SERVE_SEQ)).astype(np.int32)
+        fa.flash_attention.launches = 0
+        got = served.predict(x)
+        k1 = fa.flash_attention.launches
+        want = ref.predict(x)
+        err = float(np.abs(got["logits"].astype(np.float32) -
+                           want["logits"].astype(np.float32)).max())
+        top = float(np.abs(want["logits"]).max())
+        same = bool(np.array_equal(got["next_token"], want["next_token"]))
+        log(f"[ckpt] {card} | served version {served.version} from the "
+            f"trainer's "
+            f"directory: K1 {k1} launches a forward; logits against an "
+            f"einsum forward of final_params max|d| {err:.4f} of max "
+            f"{top:.3f} (bar 5e-2 of it), next_token equal {same}")
+        if served.version != CKPT_STEPS or k1 != SERVE_LAYERS or \
+                err > 5e-2 * top or not same:
+            fail("ckpt: serving from the checkpoint directory")
+        res, launches = _counted(counters, lambda: worker.train(
+            steps=SERVE_NEXT_STEP, checkpoint_dir=clean, device=DEVICE,
+            **run))
+        _expect(launches, LM_PER_STEP, SERVE_NEXT_STEP - CKPT_STEPS,
+                "serving's trainer")
+        reloaded = repo.reload("lm")
+        log(f"[ckpt] {card} | the trainer saved step {SERVE_NEXT_STEP}: "
+            f"reload "
+            f"{reloaded}, version {served.version}")
+        if not reloaded or served.version != SERVE_NEXT_STEP:
+            fail("ckpt: reload did not pick up the newer step")
+        out["serve"] = {"k1": k1, "err": err, "top": top,
+                        "version": served.version}
+        del repo, served, ref
+    finally:
+        worker.CheckpointManager = ckpt_mod.CheckpointManager
+        torch.cuda.empty_cache()
+    return out
+
+
+def _switching(R, after: int, **kw):
+    """The fused ResNet-50 spec whose loss is the plain one for ``after``
+    steps and then the mean of the two 32-row halves' (_halves): one
+    process computing what one process and then two ranks compute."""
+    plain, halves = R.workload_spec(**kw), _halves(R, **kw)
+    calls = [0]
+
+    def loss_fn(*args):
+        calls[0] += 1
+        return (plain if calls[0] <= after else halves).loss_fn(*args)
+
+    return replace(plain, loss_fn=loss_fn)
+
+
+def _ckpt_rank(rank: int, env: dict, lm_dir: str, rn_dir: str,
+               queue) -> None:
+    """One rank of phase 9d (a spawned process): the LM sharded for 2
+    steps, saving at step 2; then fused ResNet-50 resumed from the one
+    process's step 2 at degree 2 for step 3."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sys.path.insert(0, HERE)
+        os.environ.update(env)
+        from kubeflow_tpu_torch.models import transformer as T
+        from kubeflow_tpu_torch.runtime import bootstrap, worker
+        counters = _all_counters()
+        ctx = bootstrap.initialize(device=DEVICE, backend="gloo")
+        out = {}
+        import tempfile
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                runs = {"lm": dict(_lm_ckpt_run(T), steps=2,
+                                   checkpoint_dir=lm_dir),
+                        "resnet": dict(_dp_runs(T)["resnet"], seed=0,
+                                       sync_every=1, handle_sigterm=False,
+                                       checkpoint_every=CKPT_EVERY,
+                                       checkpoint_dir=rn_dir)}
+                for name, run in runs.items():
+                    path = os.path.join(tmp, f"{name}.jsonl")
+                    res, launches = _counted(counters, lambda: worker.train(
+                        ctx=ctx, weight_update="sharded", metrics_path=path,
+                        **run))
+                    windows = _windows(worker._process_metrics_path(
+                        path, ctx.process_id))
+                    out[name] = {"steps": res.steps, "launches": launches,
+                                 "loss": [w["loss"] for w in windows],
+                                 "grad_norm": [w["grad_norm"]
+                                               for w in windows]}
+        finally:
+            bootstrap.shutdown(ctx)
+        queue.put((rank, out, None))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def _all_counters() -> dict:
+    """Every training kernel's wrapper, by name."""
+    fa, fo, fbt, fbts = (importlib.import_module(
+        f"kubeflow_tpu_torch.ops.{m}") for m in (
+            "flash_attention", "fused_adam", "fused_block_train",
+            "fused_block_train_spatial"))
+    return {"flash_attention_fwd": fa.flash_attention,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "fused_adam": fo.fused_adam,
+            "fused_block_train_fwd": fbt.fused_block_train_fwd,
+            "fused_block_train_bwd": fbt.fused_block_train_bwd,
+            "fused_block_train_spatial_fwd":
+                fbts.fused_block_train_spatial_fwd,
+            "fused_block_train_spatial_bwd":
+                fbts.fused_block_train_spatial_bwd}
+
+
+def _within(name: str, got: list, ref: list) -> dict:
+    """Each step's loss and grad norm against the one-process run, as a
+    share of phase 8's bars; fails past one."""
+    worst = {}
+    for key, tol in (("loss", DP_LOSS_RTOL), ("grad_norm", DP_GNORM_RTOL)):
+        g, e = np.array(got[key]), np.array(ref[key])
+        if g.shape != e.shape or not np.isfinite(g).all():
+            fail(f"ckpt {name}: {key} {g} vs {e}")
+        worst[key] = float(np.max(np.abs(g - e) / np.abs(e)) / tol)
+        if worst[key] > 1.0:
+            fail(f"ckpt {name}: {key} {g.tolist()} vs one process "
+                 f"{e.tolist()} (bar {tol} relative)")
+    return worst
+
+
+def phase_ckpt_degree(T, R, worker, ckpt_mod, card, ref_lm, per_step_k45,
+                      tmp) -> dict:
+    """Phase 9d: restore across a change of degree. The LM from two
+    sharded gloo ranks (step 2) to one process (steps 3-4) against phase
+    8's one-process run; fused ResNet-50 from one process (steps 1-2) to
+    two sharded ranks (step 3) against one process computing the same
+    (_switching). A changed global batch refuses the resume."""
+    import torch.multiprocessing as mp
+    counters = _all_counters()
+    lm_dir = os.path.join(tmp, "lm_degree")
+    rn_dir = os.path.join(tmp, "resnet_degree")
+    runs = _dp_runs(T)
+    rn_run = dict(runs["resnet"], seed=0, sync_every=1,
+                  handle_sigterm=False)
+    out = {}
+    # ResNet: the one-process reference, then the degree-1 segment
+    real = worker.WORKLOADS["resnet50"]
+    path = os.path.join(tmp, "rn_ref.jsonl")
+    worker.WORKLOADS["resnet50"] = lambda **kw: _switching(
+        R, CKPT_EVERY, depth=50, **kw)
+    try:
+        worker.train(device=DEVICE, metrics_path=path, **rn_run)
+    finally:
+        worker.WORKLOADS["resnet50"] = real
+    ref_rn = {k: [w[k] for w in _windows(path)]
+              for k in ("loss", "grad_norm")}
+    path = os.path.join(tmp, "rn_first.jsonl")
+    res, rn_launches = _counted(counters, lambda: worker.train(
+        device=DEVICE, metrics_path=path, checkpoint_dir=rn_dir,
+        checkpoint_every=CKPT_EVERY, **dict(rn_run, steps=CKPT_EVERY)))
+    _expect(rn_launches, per_step_k45, CKPT_EVERY, "ResNet degree 1")
+    first = {k: [w[k] for w in _windows(path)]
+             for k in ("loss", "grad_norm")}
+    torch.cuda.empty_cache()
+
+    server_port = _free_port()
+    spawn = mp.get_context("spawn")
+    queue = spawn.Queue()
+    procs = [spawn.Process(target=_ckpt_rank, args=(r, {
+        "KFTPU_TOPOLOGY": f"v5e-{DP_RANKS}",
+        "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{server_port}",
+        "KFTPU_NUM_PROCESSES": str(DP_RANKS), "KFTPU_PROCESS_ID": str(r)},
+        lm_dir, rn_dir, queue)) for r in range(DP_RANKS)]
+    ranks, errors = {}, []
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.start()
+        for _ in procs:
+            r, got, err = queue.get(timeout=DP_TIMEOUT_S)
+            ranks[r] = got
+            if err:
+                errors.append(f"rank {r}:\n{err}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        fail("ckpt degree: " + "\n".join(errors))
+    wall = time.perf_counter() - t0
+    for r in range(DP_RANKS):
+        _expect(ranks[r]["lm"]["launches"], LM_PER_STEP, 2,
+                f"LM rank {r}")
+        _expect(ranks[r]["resnet"]["launches"], per_step_k45, 1,
+                f"ResNet rank {r}")
+        if ranks[r]["resnet"]["steps"] != 1:
+            fail(f"ckpt degree: ResNet rank {r} executed "
+                 f"{ranks[r]['resnet']['steps']} steps")
+    meta = ckpt_mod.CheckpointManager(lm_dir).run_meta_of(2)
+    if meta != {"replicaDegree": DP_RANKS, "globalBatch": TRAIN_BATCH}:
+        fail(f"ckpt degree: the ranks' run metadata {meta}")
+    lm_run = dict(_lm_ckpt_run(T), checkpoint_dir=lm_dir)
+    try:
+        worker.train(steps=4, device=DEVICE,
+                     **dict(lm_run, global_batch=2 * TRAIN_BATCH))
+        fail("ckpt degree: a changed global batch resumed")
+    except ckpt_mod.ElasticContractError as e:
+        refused = str(e)
+    path = os.path.join(tmp, "lm_resumed.jsonl")
+    res, launches = _counted(counters, lambda: worker.train(
+        steps=4, device=DEVICE, metrics_path=path, **lm_run))
+    if res.steps != 2:
+        fail(f"ckpt degree: the LM resumed {res.steps} steps")
+    _expect(launches, LM_PER_STEP, 2, "LM degree 1")
+    lm_after = {k: [w[k] for w in _windows(path)]
+                for k in ("loss", "grad_norm")}
+    out["launches"] = {"lm_ranks": [ranks[r]["lm"]["launches"]
+                                    for r in range(DP_RANKS)],
+                       "lm_degree1": launches,
+                       "resnet_degree1": rn_launches,
+                       "resnet_ranks": [ranks[r]["resnet"]["launches"]
+                                        for r in range(DP_RANKS)]}
+    out["worst"] = {}
+    for r in range(DP_RANKS):
+        lm = {k: ranks[r]["lm"][k] + lm_after[k]
+              for k in ("loss", "grad_norm")}
+        rn = {k: first[k] + ranks[r]["resnet"][k]
+              for k in ("loss", "grad_norm")}
+        out["worst"][r] = {"lm": _within(f"LM rank {r}", lm, ref_lm),
+                           "resnet": _within(f"ResNet rank {r}", rn,
+                                             ref_rn)}
+        log(f"[ckpt] {card} | degree 2 -> 1 LM (rank {r}'s steps 1-2, then "
+            f"one process): losses {lm['loss']} (one process "
+            f"{ref_lm['loss']}), grad norms {lm['grad_norm']}; degree 1 -> "
+            f"2 ResNet-50 (one process's steps 1-2, then rank {r}): losses "
+            f"{rn['loss']} (one process {ref_rn['loss']}); largest share "
+            f"of a bar {out['worst'][r]}")
+    log(f"[ckpt] {card} | degree change: ranks done in {wall:.1f}s, "
+        f"launches "
+        f"{out['launches']}; the kernels at these shapes were held to "
+        f"their plain versions in phase 2 (K1/K2a/K2b at 8 and 4 rows, K3 "
+        f"over the LM's table, K4/K5 at 64 rows) and phase 8 (K3 over one "
+        f"rank's shards, K4/K5 at 32 rows); a global batch of "
+        f"{2 * TRAIN_BATCH} refused: {refused[:90]}...")
+    return out
 
 
 def _dp_launches(dp: dict, run: str, kernel: str) -> list:
     """Phase 8's launches of ``kernel`` in ``run``, one count per rank."""
     return [r["launches"].get(kernel, 0) for r in dp["ranks"][run]]
+
+
+def _ckpt_launches(ckpt: dict, degree: dict, kernel: str) -> dict:
+    """Phase 9's launches of ``kernel`` by run (0 where it does not run):
+    a's uninterrupted and resumed runs, b's rollback run, c's served
+    forward (K1), d's two ranks and one process across degrees."""
+    runs = {**{k: v.get(kernel, 0) for k, v in ckpt["launches"].items()},
+            "lm_ranks": [r.get(kernel, 0)
+                         for r in degree["launches"]["lm_ranks"]],
+            "lm_degree1": degree["launches"]["lm_degree1"].get(kernel, 0),
+            "resnet_degree1":
+                degree["launches"]["resnet_degree1"].get(kernel, 0),
+            "resnet_ranks": [r.get(kernel, 0)
+                             for r in degree["launches"]["resnet_ranks"]]}
+    if kernel == "flash_attention_fwd":
+        runs["serve"] = ckpt["serve"]["k1"]
+    return runs
 
 
 def _launch_mean(geoms: list, field: str) -> float:
@@ -2758,6 +3327,8 @@ def _launch_mean(geoms: list, field: str) -> float:
 
 def main() -> int:
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--worker"]:
+        return worker_cli(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on the card only", file=sys.stderr)
@@ -2864,6 +3435,19 @@ def main() -> int:
         dp_kernels = phase_dp_kernels(fo, fbt, fbts, R, recipe, lm_shapes)
         dp = phase_dp(T, R, worker, trainstep, bootstrap, collectives,
                       dev["card"], resnet["per_step"])
+        ckpt_mod = importlib.import_module(
+            "kubeflow_tpu_torch.runtime.checkpoint")
+        chaos = importlib.import_module("kubeflow_tpu_torch.cluster.chaos")
+        sentinel = importlib.import_module(
+            "kubeflow_tpu_torch.runtime.sentinel")
+        import tempfile
+        with tempfile.TemporaryDirectory(prefix="kftpu-ckpt-") as tmp:
+            ckpt = phase_ckpt(counters, T, worker, ckpt_mod, chaos,
+                              sentinel, ModelRepository, fa, dev["card"],
+                              tmp)
+            degree = phase_ckpt_degree(T, R, worker, ckpt_mod, dev["card"],
+                                       dp["ref_lm"], resnet["per_step"],
+                                       tmp)
     except Exception:  # noqa: BLE001 - any phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -2885,6 +3469,7 @@ def main() -> int:
         "launches": serving["launches"],
         "launches_train": train["launches"]["flash_attention_fwd"],
         "launches_dp": _dp_launches(dp, "lm", "flash_attention_fwd"),
+        "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_fwd"),
         "max_abs_err": k1["err"],
         "max_abs_err_dp": k1["err_dp"],
         "ms": t["ms"],
@@ -2902,6 +3487,7 @@ def main() -> int:
         "replaces": "kubeflow_tpu/ops/flash_attention.py:196",
         "launches": train["launches"]["flash_attention_bwd_dq"],
         "launches_dp": _dp_launches(dp, "lm", "flash_attention_bwd_dq"),
+        "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_bwd_dq"),
         "max_abs_err": k2["err"]["dq"],
         "max_abs_err_dp": k2["err_dp"]["dq"],
         "ms": k2t["dq_ms"],
@@ -2918,6 +3504,7 @@ def main() -> int:
         "replaces": "kubeflow_tpu/ops/flash_attention.py:231",
         "launches": train["launches"]["flash_attention_bwd_dkv"],
         "launches_dp": _dp_launches(dp, "lm", "flash_attention_bwd_dkv"),
+        "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_bwd_dkv"),
         "max_abs_err": k2["err"]["dkv"],
         "max_abs_err_dp": k2["err_dp"]["dkv"],
         "ms": k2t["dkv_ms"],
@@ -2934,6 +3521,7 @@ def main() -> int:
         "replaces": "kubeflow_tpu/ops/fused_adam.py:62",
         "launches": train["launches"]["fused_adam"],
         "launches_dp": _dp_launches(dp, "lm", "fused_adam"),
+        "launches_ckpt": _ckpt_launches(ckpt, degree, "fused_adam"),
         "max_abs_err": k3["err"],
         "max_abs_err_dp": dp_kernels["k3"]["err"],
         "ms": k3["ms"],
@@ -2969,6 +3557,8 @@ def main() -> int:
                 "launches_records": [r["launches"][f"{name}_{way}"]
                                      for r in records["runs"]],
                 "launches_dp": _dp_launches(dp, "resnet", f"{name}_{way}"),
+                "launches_ckpt": _ckpt_launches(ckpt, degree,
+                                                f"{name}_{way}"),
                 "max_abs_err": max(g["out_err" if way == "fwd" else "dx_err"]
                                    for g in geoms),
                 # one rank's 32 rows (phase 8)

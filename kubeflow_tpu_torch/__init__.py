@@ -9,17 +9,20 @@ plain PyTorch version beside it for CPU tensors.
 
 Ported so far (serving and training the Transformer LM; training
 ResNet-50 from record shards or the synthetic pool, serving it; training
-either data-parallel across processes):
+either data-parallel across processes; checkpoints, preemption, the
+numeric sentinel and serving from a trainer's checkpoints):
 
 - ``api``      — the job-spec vocabularies the training path validates,
   ``ShardingSpec`` and the topology contract's env.
-- ``cluster``  — the REST client the worker patches its pod with.
+- ``cluster``  — the REST client the worker patches its pod with, and
+  the checkpoint corruptors of the chaos drills.
 - ``data``     — the record pipeline (Python and the native core of
   ``native/``, built into ``_build/native``), ``ImageNetSource`` with
   its augment in process or in spawned workers, ``device_normalize``,
   and ``DevicePrefetcher`` (pinned buffers, a side CUDA stream).
 - ``obs``      — metrics registry and ``/metrics`` server, JSONL spans, the
   serving request ledger.
+- ``katib``    — the worker's trial-observation reporter.
 - ``ops``      — flash attention forward and backward, fused Adam, the
   fused ghost-BN training blocks and the fused inference block (CUDA
   kernels).
@@ -31,8 +34,9 @@ either data-parallel across processes):
 - ``runtime``  — recipe (every optimizer family, LARS and RMSProp
   included, and the runtime schedule), train step (replicated or ZeRO-2
   data parallelism), metrics (JSONL, TensorBoard, the flight recorder,
-  ``torch.profiler`` captures, the heartbeat), bootstrap and the
-  worker.
+  ``torch.profiler`` captures, the heartbeat), bootstrap, checkpoints
+  (the JAX package's directory contract, the port's payload), the
+  numeric sentinel and the worker.
 - ``serving``  — servable, micro-batcher, REST model server and client,
   batch predict.
 - ``utils``    — TensorBoard event files.

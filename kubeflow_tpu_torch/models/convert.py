@@ -1,6 +1,7 @@
 """flax params tree → this package's state dict (the LM's, and ResNet's
 params with its ``batch_stats``), a JAX ``FusedBlockWeights`` → the
-port's, and JAX Adam state → the port's optimizer state.
+port's, and a JAX recipe optimizer's state → the port's optimizer state
+(Adam's alone, or any family as a checkpoint tree).
 
 The port keeps every parameter in the shape flax gives it and names it by
 its flax path joined with dots (models/transformer.py), so converting is
@@ -85,3 +86,84 @@ def adam_state_from_jax(state) -> dict:
 
     return {"count": int(np.asarray(state.count)),
             "mu": moments(state.mu), "nu": moments(state.nu)}
+
+
+def _jax_states(state) -> list:
+    """Every optax state namedtuple inside a (nested tuple) chain state."""
+    if hasattr(state, "_fields"):
+        out = [state]
+        for f in state._fields:
+            out += _jax_states(getattr(state, f))
+        return out
+    if isinstance(state, (tuple, list)):
+        return [s for x in state for s in _jax_states(x)]
+    return []
+
+
+def optimizer_tree_from_jax(opt_state, optimizer: str,
+                            kernels: str = "stock",
+                            runtime_schedule: bool = False) -> dict:
+    """A JAX recipe optimizer's state (``kubeflow_tpu/runtime/recipe.py``
+    ``make_optimizer``'s chain, numpy arrays) as the port's checkpoint
+    tree of the same recipe (``runtime/recipe.py`` ``optimizer_tree``):
+    ``{"count": {...}, "slots": {slot: {name: tensor}}, "extra": {...}}``
+    under the dotted param names, in the slots of the optimizer the port
+    builds for that recipe — :class:`FusedAdam` (``mu``, ``nu``),
+    ``ChainOptimizer`` (``trace``; rmsprop's ``nu``; adam's ``step``,
+    ``mu``, ``nu``; the runtime schedule's scalars), ``torch.optim.SGD``
+    (``momentum_buffer``) or ``Adam``/``AdamW`` (``step``, ``exp_avg``,
+    ``exp_avg_sq``). Covers sgd, momentum, nesterov, adam, adamw, lars
+    and rmsprop."""
+    def tree(t) -> dict:
+        if set(t) == {"params"}:
+            t = t["params"]
+        return {n: torch.from_numpy(np.array(a, dtype=np.float32))
+                for n, a in flatten_params(t).items()}
+
+    found: dict = {}
+    for st in _jax_states(opt_state):
+        kind = type(st).__name__
+        if kind == "TraceState":
+            found["trace"] = tree(st.trace)
+        elif kind == "ScaleByRmsState":
+            found["rms_nu"] = tree(st.nu)
+        elif kind in ("ScaleByAdamState", "FusedAdamState"):
+            found["adam"] = (int(np.asarray(st.count)), tree(st.mu),
+                             tree(st.nu))
+        elif kind == "ScaleByScheduleState":
+            found["count"] = int(np.asarray(st.count))
+        elif kind == "RuntimeLRState":
+            found["runtime"] = st
+    slots: dict = {}
+    out: dict = {"count": {}, "slots": slots, "extra": {}}
+    runtime = found.get("runtime")
+    count = int(np.asarray(runtime.count)) if runtime is not None else \
+        found.get("count", found.get("adam", (0,))[0])
+    out["count"]["schedule"] = count
+    chain = runtime_schedule or optimizer in ("lars", "rmsprop")
+    if kernels == "fused_adam":
+        adam_count, slots["mu"], slots["nu"] = found["adam"]
+        out["count"]["inner"] = adam_count
+    elif chain:
+        if "trace" in found:
+            slots["trace"] = found["trace"]
+        if "rms_nu" in found:
+            slots["nu"] = found["rms_nu"]
+        if "adam" in found:
+            adam_count, slots["mu"], slots["nu"] = found["adam"]
+            slots["step"] = {n: torch.tensor(float(adam_count))
+                             for n in slots["mu"]}
+        if runtime is not None:
+            out["extra"]["runtime_lr"] = {
+                "count": torch.tensor(int(np.asarray(runtime.count)),
+                                      dtype=torch.int32),
+                **{f: torch.tensor(float(np.asarray(getattr(runtime, f))),
+                                   dtype=torch.float32)
+                   for f in ("base_lr", "warmup_steps", "total_steps")}}
+    elif "adam" in found:
+        adam_count, mu, nu = found["adam"]
+        slots.update(exp_avg=mu, exp_avg_sq=nu,
+                     step={n: torch.tensor(float(adam_count)) for n in mu})
+    elif "trace" in found:
+        slots["momentum_buffer"] = found["trace"]
+    return out

@@ -31,6 +31,14 @@ SERVING_BADPUT_CATEGORIES = (SERVING_QUEUE, SERVING_BATCH_FORM,
 # the one summary span every request emits (stage spans are sampled;
 # the ledger always lands) — serving_rollup() reads it
 SERVING_REQUEST_SPAN = "serving-request"
+
+# the training worker's span names (runtime/worker.py emits them from the
+# checkpoint manager's op log and on a tripped numeric sentinel); the
+# JAX package's ledger reads them under these names
+SPAN_CKPT_SAVE = "ckpt-save"
+SPAN_CKPT_RESTORE = "ckpt-restore"
+SPAN_ANOMALY = "anomaly"
+
 # stage spans a sampled request emits, in request order
 SERVING_STAGE_SPANS = ("accept", "queue", "batch-form", "h2d", "device",
                        "drain", "respond")

@@ -12,5 +12,11 @@ data-parallel gang.
   heartbeat (``HeartbeatReporter``).
 - ``bootstrap`` — ``WorkerContext`` from the topology-contract env: the
   process group, the mesh, this rank's card.
+- ``checkpoint`` — ``CheckpointManager``: the JAX package's directory
+  contract (commit marker, crc32 manifest, LKG marker, fallback walk,
+  the elastic contract) over the port's ``torch.save`` payload; async
+  saves, restores at any degree.
+- ``sentinel``  — the numeric-integrity detectors, the anomaly evidence
+  and exit code 76, the chaos numeric-fault hook.
 - ``worker``    — ``train()`` and the CLI.
 """

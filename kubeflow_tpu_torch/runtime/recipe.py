@@ -36,6 +36,11 @@ computed from them on the device every step (:func:`runtime_lr_at`),
 without a host sync: every family then runs on :class:`ChainOptimizer`,
 which applies the runtime lr where the JAX chain does (before the
 momentum trace for lars and rmsprop, last for the others).
+
+:func:`optimizer_tree` and :func:`load_optimizer_tree` carry any of
+these optimizers' state through a checkpoint by leaf name: the moments
+and traces, torch's per-param ``step``, ``FusedAdam``'s shared count,
+the schedule's host count and the runtime schedule's scalars.
 """
 
 from __future__ import annotations
@@ -481,6 +486,73 @@ class RecipeOptimizer:
                 group["lr"] = lr
             self.inner.step()
         self.count += 1
+
+
+def optimizer_tree(opt, names: Mapping[int, str],
+                   leaf: Callable[[str, torch.Tensor], object]) -> dict:
+    """Any optimizer of the recipe (a :class:`RecipeOptimizer` or its
+    inner optimizer) as a checkpoint tree keyed by leaf name, never by a
+    param's position in a group: ``{"count", "slots": {slot: {name:
+    leaf}}, "extra": {key: state}}``. ``count`` holds the schedule's host
+    count and, for :class:`FusedAdam`, its shared step count
+    (``inner_count``); ``slots`` every per-param state entry (Adam's
+    moments, a momentum trace, torch's ``step``), each params-shaped one
+    through ``leaf(name, tensor)`` (which wraps this rank's block of a
+    split param); ``extra`` the non-param entries (the runtime
+    schedule's scalars). ``names`` maps ``id`` of each tensor the
+    optimizer updates to its leaf name."""
+    inner = getattr(opt, "inner", opt)
+    tree: dict = {"count": {}, "slots": {}, "extra": {}}
+    if isinstance(opt, RecipeOptimizer):
+        tree["count"]["schedule"] = opt.count
+    if isinstance(inner, FusedAdam):
+        tree["count"]["inner"] = inner.count
+    for group in inner.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            for slot, v in inner.state.get(p, {}).items():
+                if isinstance(v, torch.Tensor):
+                    tree["slots"].setdefault(slot, {})[name] = \
+                        leaf(name, v) if v.dim() and v.shape == p.shape \
+                        else v
+    for key, v in inner.state.items():
+        if isinstance(key, str):
+            tree["extra"][key] = dict(v) if isinstance(v, dict) else v
+    return tree
+
+
+def load_optimizer_tree(opt, tree: dict, names: Mapping[int, str],
+                        block: Callable[[str, torch.Tensor], torch.Tensor]
+                        ) -> None:
+    """Load :func:`optimizer_tree`'s tree, with global CPU leaves, into
+    ``opt``: each params-shaped leaf cut by ``block(name, leaf)`` to the
+    tensor this optimizer updates and copied to its device; a 0-d entry
+    on its param's device, except torch's own Adam ``step``, which
+    ``torch.optim`` keeps on the CPU; the extra entries on the params'
+    device."""
+    inner = getattr(opt, "inner", opt)
+    counts = tree.get("count", {})
+    if isinstance(opt, RecipeOptimizer) and "schedule" in counts:
+        opt.count = int(counts["schedule"])
+    if isinstance(inner, FusedAdam) and "inner" in counts:
+        inner.count = int(counts["inner"])
+    by_name = {names[id(p)]: p for group in inner.param_groups
+               for p in group["params"]}
+    cpu_step = isinstance(inner, (torch.optim.Adam, torch.optim.AdamW)) \
+        and not any(g.get("fused") or g.get("capturable")
+                    for g in inner.param_groups)
+    for slot, leaves in tree.get("slots", {}).items():
+        for name, v in leaves.items():
+            p = by_name[name]
+            if v.dim() and v.shape != p.shape:
+                v = block(name, v)
+            dev = "cpu" if slot == "step" and cpu_step else p.device
+            inner.state[p][slot] = v.to(dev, copy=True)
+    device = next(iter(by_name.values())).device if by_name else None
+    for key, v in tree.get("extra", {}).items():
+        inner.state[key] = {k: t.to(device, copy=True)
+                            for k, t in v.items()} \
+            if isinstance(v, dict) else v.to(device, copy=True)
 
 
 def decay_groups(params: list, weight_decay: float) -> list[dict]:

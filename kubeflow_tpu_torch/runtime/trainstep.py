@@ -42,6 +42,12 @@ the JAX package).
   exact. The ``zero2-explicit`` strategy adds ``param_sqnorm_replicas``:
   each rank's post-update param square norm, all-gathered, which agree
   absent corruption.
+- Checkpoints: :func:`state_tree` turns a ``TrainState`` into a tree of
+  named leaves (the step, params, variables and the optimizer state by
+  leaf name, each sharded optimizer leaf as this rank's ``Shard`` of its
+  global leaf); :func:`load_state_tree` loads a tree of global leaves
+  back, cut along this state's layout, which may be another degree's
+  (runtime/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -56,9 +62,9 @@ from ..api.trainingjob import validate_weight_update
 from ..parallel import collectives
 from ..parallel.mesh import (MESH_AXES, Mesh, batch_rows, check_axes,
                              replica_axes, replica_degree)
-from ..parallel.sharding_rules import weight_update_dim
+from ..parallel.sharding_rules import Shard, block_of, weight_update_dim
 from .bootstrap import resolve_device
-from .recipe import global_norm
+from .recipe import global_norm, load_optimizer_tree, optimizer_tree
 
 # loss_fn(params, variables, batch, rng) -> (loss, aux_dict)
 LossFn = Callable[[dict, dict, dict, Any], tuple]
@@ -74,6 +80,62 @@ class TrainState:
     # the sharded update: name -> the leaf the optimizer updates (this
     # rank's block of the param, or the param itself when replicated)
     update_params: Optional[dict] = None
+    # the sharded update: name -> the dimension its block splits (None:
+    # replicated), and this rank's (index, count) of the blocks
+    layout: dict = field(default_factory=dict)
+    replica: tuple = (0, 1)
+
+
+def state_tree(state: TrainState) -> dict:
+    """The state as a checkpoint tree of named leaves, never positions:
+    ``{"step", "params", "variables", "opt"}`` (``opt`` from
+    :func:`~kubeflow_tpu_torch.runtime.recipe.optimizer_tree`). Params
+    and variables are whole on every rank; under the sharded update each
+    optimizer leaf of a split param is this rank's :class:`Shard` of the
+    global leaf."""
+    index, count = state.replica
+    held = state.update_params or state.params
+    names = {id(t): n for n, t in held.items()}
+
+    def leaf(name: str, t: torch.Tensor):
+        d = state.layout.get(name)
+        return t if d is None else Shard(t, d, index, count)
+
+    return {"step": int(state.step),
+            "params": dict(state.params),
+            "variables": {c: dict(vs) for c, vs in state.variables.items()},
+            "opt": optimizer_tree(state.opt_state, names, leaf)}
+
+
+@torch.no_grad()
+def load_state_tree(state: TrainState, tree: dict) -> TrainState:
+    """Load a checkpoint tree of global leaves (CPU tensors, as
+    runtime/checkpoint.py reads them) into ``state`` in place, on its
+    devices: the params into the leaf tensors the optimizer holds, the
+    variables, and the optimizer state cut to this rank's blocks along
+    this state's layout (which may split another dimension than the
+    writer's). ``update_params`` is rebuilt from the restored params."""
+    index, count = state.replica
+    for name, p in state.params.items():
+        p.copy_(tree["params"][name])
+    device = next(iter(state.params.values())).device
+    for col, vs in tree.get("variables", {}).items():
+        held = state.variables.setdefault(col, {})
+        for name, v in vs.items():
+            held[name] = v.to(device, copy=True)
+    if state.update_params is not None:
+        for name, u in state.update_params.items():
+            if u is not state.params[name]:
+                u.copy_(block_of(state.params[name], state.layout[name],
+                                 index, count))
+    held = state.update_params or state.params
+    names = {id(t): n for n, t in held.items()}
+    load_optimizer_tree(
+        state.opt_state, tree["opt"], names,
+        lambda name, full: block_of(full, state.layout.get(name), index,
+                                    count))
+    state.step = int(tree["step"])
+    return state
 
 
 def _sum_squares(ts: list) -> torch.Tensor:
@@ -160,7 +222,10 @@ class TrainStepBuilder:
                 update_params[n] for n, d in self.layout.items()
                 if d is not None])
         return TrainState(step=0, params=params, opt_state=opt,
-                          variables=variables, update_params=update_params)
+                          variables=variables, update_params=update_params,
+                          layout=dict(self.layout),
+                          replica=(self.mesh.rank, self.n_rep)
+                          if self.sharded else (0, 1))
 
     def _place(self, a) -> torch.Tensor:
         """A copy, always: on the CPU ``.to`` of an f32 array is the

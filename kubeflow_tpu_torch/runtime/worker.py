@@ -45,14 +45,30 @@ with no card it raises.
 - Heartbeat: inside a pod (``KFTPU_POD_NAME``, ``KFTPU_APISERVER``) the
   worker patches its pod's heartbeat annotation at the start and at
   every window edge, with the last window's loss and grad norm.
+- Checkpoints (``checkpoint_dir``, ``KFTPU_CHECKPOINT_DIR``;
+  runtime/checkpoint.py): resume from the newest intact step (at most
+  ``KFTPU_RESUME_STEP``, the LKG, after an anomaly; its newer steps are
+  discarded), else from ``resume_from``, checking the elastic contract
+  (the global batch fixed across a change of degree); the data stream
+  resumes at batch ``state.step``. A save every ``checkpoint_every``
+  steps, and a forced one at the final step and under SIGTERM, in the
+  same iteration, so a resume loses no step; SIGTERM exits 75.
+- Numeric sentinel (``integrity``, ``KFTPU_INTEGRITY*``;
+  runtime/sentinel.py): each drained window's loss, grad norm and
+  ``param_sqnorm_replicas``; a clean window promotes the newest earlier
+  saved step to last-known-good; a trip dumps the flight recorder,
+  emits the ``anomaly`` span, posts the evidence to the pod's
+  ``ANOMALY_ANNOTATION`` and exits 76 without saving.
+- Katib: under ``KFTPU_STUDY`` / ``KFTPU_TRIAL`` / ``KFTPU_VIZIER_URL``
+  process 0 reports every final metric and ``examples_per_sec``.
 
 Ported workloads: ``transformer`` and ``resnet18`` … ``resnet152``
 (``--fused-blocks`` trains a bottleneck ResNet through the ghost-BN
 kernels). ``transformer-pipelined``, and the flags of features
-not ported yet (checkpoints, AOT warm start, the numeric sentinel,
-multi-slice), raise "not yet ported" when set — on the CLI, as a
-``train()`` argument or in the operator-rendered env — naming the
-ROADMAP item, rather than training without them.
+not ported yet (AOT warm start, multi-slice), raise "not yet ported"
+when set — on the CLI, as a ``train()`` argument or in the
+operator-rendered env — naming the ROADMAP item, rather than training
+without them.
 """
 
 from __future__ import annotations
@@ -77,7 +93,9 @@ from ..data.imagenet import ImageNetSource, device_normalize, read_meta
 from ..models import RESNET_DEPTHS
 from ..parallel.mesh import local_batch_size
 from . import recipe
+from . import sentinel as sentinel_mod
 from .bootstrap import WorkerContext, initialize, shutdown
+from .checkpoint import CheckpointManager
 from .metrics import (FLIGHT_WINDOWS_ENV, METRICS_PATH_ENV, AsyncWindowFetch,
                       FlightRecorder, HeartbeatReporter, MetricsLogger,
                       ProfileArm, profile_trace)
@@ -134,15 +152,8 @@ _IMAGE_WORKLOADS = {f"resnet{d}" for d in RESNET_DEPTHS}
 
 # train() arguments of features not ported yet: (its env var, ROADMAP item)
 _UNPORTED = {
-    "checkpoint_dir": ("KFTPU_CHECKPOINT_DIR", "Queue 1 item 5"),
-    "resume_from": ("KFTPU_RESUME_FROM", "Queue 1 item 5"),
     "aot": ("KFTPU_AOT", "Queue 1 item 10"),
     "aot_dir": ("KFTPU_AOT_DIR", "Queue 1 item 10"),
-    "integrity": ("KFTPU_INTEGRITY", "Queue 1 item 9"),
-    "integrity_spike_z": ("KFTPU_INTEGRITY_SPIKE_Z", "Queue 1 item 9"),
-    "integrity_window": ("KFTPU_INTEGRITY_WINDOW", "Queue 1 item 9"),
-    "integrity_check_every": ("KFTPU_INTEGRITY_CHECK_EVERY",
-                              "Queue 1 item 9"),
     "multislice_pipeline": ("KFTPU_MULTISLICE_PIPELINE", "Queue 1 item 11"),
     "multislice_microbatches": ("KFTPU_MULTISLICE_MICROBATCHES",
                                 "Queue 1 item 11"),
@@ -190,6 +201,43 @@ def _env_int(name: str, default: int) -> int:
         raise ValueError(f"{name} must be an integer, got {v!r}") from None
 
 
+def _env_float(name: str, default: float) -> float:
+    """Float knob from the env, with a loud failure on garbage."""
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        raise ValueError(f"{name} must be a number, got {v!r}") from None
+
+
+def _emit_ckpt_spans(ckpt, tracer, trace_id) -> None:
+    """The checkpoint manager's op log as ckpt-save / ckpt-restore
+    spans."""
+    if ckpt is None or tracer is None:
+        return
+    for op, t0, t1, step in ckpt.drain_op_log():
+        tracer.emit(op, start=t0, end=t1, trace_id=trace_id, step=step)
+
+
+def _report_observations(metrics: dict, examples_per_sec: float,
+                         steps: int) -> None:
+    """Under a Katib study, report every final scalar metric and
+    ``examples_per_sec`` as the trial's observations; a failure warns and
+    never fails the run."""
+    from ..katib.vizier import STUDY_ENV, report_observation
+    if not os.environ.get(STUDY_ENV):
+        return
+    try:
+        for name, value in {**metrics,
+                            "examples_per_sec": examples_per_sec}.items():
+            if isinstance(value, (int, float)):
+                report_observation(name, float(value), step=steps)
+    except Exception as e:  # noqa: BLE001 - reporting must not fail runs
+        log.warning("observation report failed: %s", e)
+
+
 @dataclass
 class TrainResult:
     steps: int
@@ -202,7 +250,7 @@ class TrainResult:
     # port has no compile cache or AOT executable, so every start is cold
     time_to_first_step_s: float = 0.0
     start_kind: str = "cold"
-    anomaly: Optional[dict] = None   # the sentinel is not yet ported
+    anomaly: Optional[dict] = None   # the tripped sentinel's evidence
 
 
 class PreemptionGuard:
@@ -296,6 +344,9 @@ def train(
     data_source = eval_source = dev_iter = obs_server = tracer = None
     mlog = None
     guard = None
+    ckpt = None
+    anomaly = None
+    trace_id = None
     preempted = False
     loop_error: Optional[BaseException] = None
     recorder = FlightRecorder(windows=_env_int(FLIGHT_WINDOWS_ENV, 64))
@@ -408,6 +459,79 @@ def train(
                 kernels=kernel_optimizer,
                 runtime_schedule=runtime_schedule)[0])
         state = builder.init(spec.init_fn, torch.Generator().manual_seed(seed))
+
+        # the numeric sentinel: CLI flag, then the operator-rendered env,
+        # then off (it changes no math)
+        if integrity is None:
+            integrity = bool(_env_int("KFTPU_INTEGRITY", 0))
+        if integrity_spike_z is None:
+            integrity_spike_z = _env_float("KFTPU_INTEGRITY_SPIKE_Z",
+                                           sentinel_mod.DEFAULT_SPIKE_Z)
+        if integrity_window is None:
+            integrity_window = _env_int("KFTPU_INTEGRITY_WINDOW",
+                                        sentinel_mod.DEFAULT_WINDOW_STEPS)
+        if integrity_check_every is None:
+            integrity_check_every = _env_int(
+                "KFTPU_INTEGRITY_CHECK_EVERY",
+                sentinel_mod.DEFAULT_CHECK_EVERY)
+        sentinel = sentinel_mod.NumericSentinel(
+            spike_z=float(integrity_spike_z),
+            window_steps=int(integrity_window)) if integrity else None
+        # the operator's anomaly-rollback contract: resume from the
+        # newest intact step <= the LKG; the replay range arms the
+        # bisection verdict
+        resume_step = _env_int(sentinel_mod.RESUME_STEP_ENV, 0) or None
+        replay = sentinel_mod.parse_replay_range(
+            os.environ.get(sentinel_mod.REPLAY_RANGE_ENV))
+        replay_done = False
+        # the chaos numeric fault: poisons the state at an armed step
+        fault_hook = sentinel_mod.NumericFaultHook.from_env()
+
+        # checkpoints: the operator renders spec.checkpointDir/resumeFrom
+        # as these env vars; every save stamps the writer's replica
+        # degree and global batch (the elastic contract)
+        checkpoint_dir = checkpoint_dir or \
+            os.environ.get("KFTPU_CHECKPOINT_DIR")
+        resume_from = resume_from or os.environ.get("KFTPU_RESUME_FROM")
+        degree = builder.n_rep
+        run_meta = {"replicaDegree": degree, "globalBatch": global_batch}
+        gang = dict(process_index=ctx.process_id,
+                    process_count=ctx.num_processes, group=ctx.mesh.group)
+        early_ckpt_ops: list = []
+        if checkpoint_dir:
+            ckpt = CheckpointManager(checkpoint_dir,
+                                     save_interval_steps=checkpoint_every,
+                                     run_meta=run_meta, **gang)
+            if resume and ckpt.latest_step() is not None:
+                # the elastic contract is checked against the step the
+                # walk actually restores; max_step caps the walk at the
+                # LKG after an anomaly
+                state = ckpt.restore(state,
+                                     expect_run=(degree, global_batch),
+                                     max_step=resume_step)
+                log.info("resumed from step %d", state.step)
+                if resume_step is not None:
+                    # the steps after the LKG are tainted by the trip
+                    ckpt.discard_steps_after(state.step)
+        if resume_from and state.step == 0:
+            # warm start or gang restart: only when checkpoint_dir had
+            # nothing newer
+            src = ckpt if ckpt is not None and os.path.abspath(
+                resume_from) == ckpt.directory else \
+                CheckpointManager(resume_from, run_meta=run_meta, **gang)
+            if src.latest_step() is not None:
+                state = src.restore(state,
+                                    expect_run=(degree, global_batch))
+                log.info("resumed from %s at step %d", resume_from,
+                         state.step)
+            if src is not ckpt:
+                early_ckpt_ops = src.drain_op_log()
+                src.close()
+        # steps with a checkpoint on disk, promoted to last-known-good
+        # once a later window drains clean through the sentinel
+        latest = ckpt.latest_step() if ckpt is not None else None
+        saved_steps: list = [] if latest is None else [latest]
+
         step_fn = builder.build()
 
         eval_step = builder.build_eval(spec.eval_fn) \
@@ -529,13 +653,17 @@ def train(
 
         from ..obs.trace import SPAN_PATH_ENV, SpanWriter
         span_path = span_path or os.environ.get(SPAN_PATH_ENV)
-        trace_id = None
         if span_path:
             trace_id = os.environ.get("KFTPU_TRACE_ID") or uuid.uuid4().hex
             tracer = SpanWriter(span_path, "worker")
             tracer.emit("train-start", start=time.time(), trace_id=trace_id,
-                        workload=spec.name, steps=steps,
-                        process=ctx.process_id)
+                        workload=spec.name, start_step=state.step,
+                        steps=steps, process=ctx.process_id)
+            # the restores made before the tracer existed
+            for op, t0w, t1w, st in early_ckpt_ops:
+                tracer.emit(op, start=t0w, end=t1w, trace_id=trace_id,
+                            step=st)
+            _emit_ckpt_spans(ckpt, tracer, trace_id)
         # the on-demand profiler: POST /profile?steps=N captures the next
         # N steps under the base dir
         profile_arm = ProfileArm(
@@ -574,6 +702,10 @@ def train(
         # values a window later (AsyncWindowFetch), so the launch queue
         # never empties
         sync_every = max(1, int(sync_every))
+        if sentinel is not None:
+            # the sentinel reads drained windows: the window edge bounds
+            # detection latency
+            sync_every = min(sync_every, max(1, int(integrity_check_every)))
         afetch = AsyncWindowFetch(lag=1)
         cuda = ctx.device.type == "cuda"
         with profile_trace(profile_dir, enabled=profile_dir is not None,
@@ -610,13 +742,21 @@ def train(
                     dispatch_s=0.0 if step == start_step else step_cost,
                     first_step_s=step_cost if step == start_step else 0.0)
                 profile_arm.on_step_end(step + 1)
+                if fault_hook is not None and \
+                        fault_hook.should_fire(step + 1):
+                    # the chaos numeric fault: corrupt the state after the
+                    # step, so the damage shows in the next window
+                    state = fault_hook.poison(state, step + 1)
                 window += 1
+                # read once: SIGTERM between the save's force and the
+                # break must not exit without the forced checkpoint
                 stopping = guard.stop
                 final = step + 1 == steps
+                will_ckpt = ckpt is not None and ckpt.should_save(step + 1)
                 will_eval = eval_step is not None and (
                     (step + 1) % eval_every == 0 or final)
-                closed = window >= sync_every or final or will_eval or \
-                    stopping
+                closed = window >= sync_every or final or will_ckpt or \
+                    will_eval or stopping
                 if closed:
                     t_now = time.perf_counter()
                     afetch.submit(step + 1, window, t_now - win_t0,
@@ -629,9 +769,36 @@ def train(
                     recorder.mark("drain", step + 1)
                     t_drain0 = time.perf_counter()
                     for s, w, wall, vals in afetch.drain(
-                            force=final or will_eval or stopping):
+                            force=final or will_ckpt or will_eval
+                            or stopping):
                         last_metrics = vals
                         mlog.record_window(s, w, wall, vals)
+                        if sentinel is not None and anomaly is None:
+                            rep_sq = vals.get("param_sqnorm_replicas")
+                            anomaly = sentinel.observe(
+                                s, loss=vals.get("loss"),
+                                grad_norm=vals.get("grad_norm"),
+                                replica_sqnorms=rep_sq,
+                                lkg=ckpt.lkg_step()
+                                if ckpt is not None else None)
+                            if anomaly is None and ckpt is not None:
+                                # the window ending at s drained clean:
+                                # the newest step saved before it is
+                                # last-known-good
+                                cleared = [n for n in saved_steps if n < s]
+                                if cleared:
+                                    ckpt.tag_lkg(cleared[-1])
+                            if anomaly is None and replay is not None \
+                                    and not replay_done and s >= replay[1]:
+                                # the suspect range replayed clean
+                                replay_done = True
+                                if tracer is not None:
+                                    tracer.emit(
+                                        "anomaly-bisection",
+                                        start=time.time(),
+                                        trace_id=trace_id, lo=replay[0],
+                                        hi=replay[1], verdict="clean",
+                                        step=s)
                     recorder.close_window(
                         step + 1, window, t_now - win_t0,
                         drain_s=time.perf_counter() - t_drain0)
@@ -643,6 +810,37 @@ def train(
                             step + 1, loss=last_metrics.get("loss"),
                             grad_norm=last_metrics.get("grad_norm"))
                     window = 0
+                if anomaly is not None:
+                    # a tripped detector: dump the flight record, post
+                    # the evidence and exit without saving (the state is
+                    # tainted; the operator rolls back to the LKG)
+                    log.error("numeric anomaly %s at step %d (value %s, "
+                              "lkg %s): exiting for LKG rollback",
+                              anomaly.kind, anomaly.step,
+                              anomaly.to_dict()["value"], anomaly.lkg)
+                    from ..obs.goodput import SPAN_ANOMALY
+                    recorder.dump(tracer, SPAN_ANOMALY,
+                                  error=f"{anomaly.kind}@{anomaly.step}")
+                    if tracer is not None:
+                        tracer.emit(SPAN_ANOMALY, start=time.time(),
+                                    trace_id=trace_id, step=anomaly.step,
+                                    kind=anomaly.kind,
+                                    value=anomaly.to_dict()["value"],
+                                    lkg=anomaly.lkg,
+                                    **({"replay": list(replay)}
+                                       if replay is not None else {}))
+                    if heartbeat is not None:
+                        from ..api.trainingjob import ANOMALY_ANNOTATION
+                        heartbeat.annotate(ANOMALY_ANNOTATION,
+                                           anomaly.to_json())
+                    break
+                if ckpt is not None:
+                    # the final step and preemption force the save, in
+                    # this iteration: a resume loses no step
+                    recorder.mark("ckpt-save", step + 1)
+                    if ckpt.save(step + 1, state, force=stopping or final):
+                        saved_steps.append(step + 1)
+                    _emit_ckpt_spans(ckpt, tracer, trace_id)
                 if stopping:
                     preempted = True
                     break
@@ -675,13 +873,28 @@ def train(
             eval_source.close()
         if guard is not None:
             guard.uninstall()
+        save_error: Optional[BaseException] = None
+        if ckpt is not None:
+            # the final and the SIGTERM saves land before the process
+            # exits, and a failed background write fails the run; after
+            # a loop error the gang's commit barrier is skipped (a dead
+            # rank would hold it)
+            if loop_error is None:
+                try:
+                    ckpt.wait()
+                except Exception as e:  # noqa: BLE001
+                    save_error = e
+            ckpt.close(wait=False)
         if loop_error is not None:
             # the crash dump: the ring's last records and the stage in
             # progress say where the loop died
             recorder.dump(tracer, "crash",
                           error=f"{type(loop_error).__name__}: {loop_error}")
         if tracer is not None:
+            _emit_ckpt_spans(ckpt, tracer, trace_id)
             attrs = {"preempted": preempted}
+            if anomaly is not None:
+                attrs["anomaly"] = anomaly.kind
             if loop_error is not None:
                 attrs["error"] = f"{type(loop_error).__name__}: {loop_error}"
             tracer.emit("train-done", start=time.time(), trace_id=trace_id,
@@ -694,9 +907,16 @@ def train(
             mlog.close()
         if owns_ctx:
             shutdown(ctx)
+        if save_error is not None:
+            # a run that reports success has its final checkpoint
+            raise save_error
     summary = mlog.summary(warmup=1)
+    if ctx.process_id == 0:
+        _report_observations(last_metrics, summary["examples_per_sec"],
+                             summary["steps"])
     if preempted:
-        log.warning("preempted at step %d; exiting", state.step)
+        log.warning("preempted at step %d; checkpoint saved, exiting for "
+                    "the gang-restart resume", state.step)
     return TrainResult(
         steps=summary["steps"],
         examples_per_sec=summary["examples_per_sec"],
@@ -705,6 +925,7 @@ def train(
         preempted=preempted,
         first_window_s=summary.get("first_window_s", 0.0),
         time_to_first_step_s=first_step_s,
+        anomaly=anomaly.to_dict() if anomaly is not None else None,
     )
 
 
@@ -827,6 +1048,8 @@ def main(argv=None) -> int:
         runtime_schedule=args.runtime_schedule, device=args.device)
     log.info("done: %d steps, %.1f examples/sec", result.steps,
              result.examples_per_sec)
+    if result.anomaly:
+        return sentinel_mod.ANOMALY_EXIT_CODE
     return PREEMPTED_EXIT_CODE if result.preempted else 0
 
 

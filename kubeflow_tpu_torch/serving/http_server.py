@@ -288,12 +288,16 @@ def _make_handler(server: ModelServer):
 
         def _run_predict(self, predict, req: dict, ctx=None,
                          rid: Optional[str] = None):
-            """Shared predict body: parse instances, run, serialize —
-            one implementation for every predict endpoint. Instance
-            decode is charged to batch-form (it IS forming the device
-            input); the respond stage runs from the batcher's pipeline
-            end (so the future-wakeup gap is respond time, not
-            residual) through serialize + send."""
+            """Shared predict body: parse instances, run, serialize,
+            finish the request, send — one implementation for every
+            predict endpoint. Instance decode is charged to batch-form
+            (it IS forming the device input); the respond stage runs
+            from the batcher's pipeline end (so the future-wakeup gap is
+            respond time, not residual) through serialization. The
+            request context is finished (ledger, replica registry)
+            before the response bytes are written, so a client that
+            reads the registry after its response finds its request
+            counted."""
             t_parse = time.time()
             instances = self._parse_instances(req)
             if ctx is not None:
@@ -307,10 +311,11 @@ def _make_handler(server: ModelServer):
             predictions = {
                 k: np.asarray(v).tolist() for k, v in out.items()
             } if isinstance(out, dict) else np.asarray(out).tolist()
-            self._send(200, {"predictions": predictions},
-                       headers={REQUEST_ID_HEADER: rid} if rid else None)
             if ctx is not None:
                 ctx.stage("respond", t_resp, time.time())
+                ctx.finish("ok")
+            self._send(200, {"predictions": predictions},
+                       headers={REQUEST_ID_HEADER: rid} if rid else None)
 
         def _deadline_s(self) -> Optional[float]:
             """The client's remaining deadline budget (the
@@ -363,7 +368,6 @@ def _make_handler(server: ModelServer):
                         lambda x: batcher.predict(x, timeout=timeout,
                                                   ctx=ctx), req,
                         ctx=ctx, rid=rid)
-                    ctx.finish("ok")
                 finally:
                     server.replica.inflight_dec(name)
                     # errors are latency too (clients waited for them)
@@ -414,11 +418,11 @@ def main(argv: Optional[list[str]] = None) -> int:
                    help="torch device to serve on (default cuda; raises "
                         "when no card is present)")
     p.add_argument("--max-batch", type=int, default=64)
-    p.add_argument("--reload-interval", type=float, default=30.0,
-                   help="checkpoint version polling interval; accepted "
-                        "for the JAX server's command line, unused until "
-                        "checkpoint loading is ported (--model-path "
-                        "raises)")
+    p.add_argument("--reload-interval", "--poll-interval", type=float,
+                   default=30.0,
+                   help="with --model-path, poll the checkpoint directory "
+                        "every this many seconds and serve a newer intact "
+                        "step as the next version (0 = never)")
     p.add_argument("--no-warmup", action="store_true",
                    help="skip running a zero batch through each padded "
                         "bucket at load (the first request then pays the "
@@ -492,6 +496,8 @@ def main(argv: Optional[list[str]] = None) -> int:
                          quant_max_delta=args.int8_max_delta,
                          device=args.device)
     servable.max_batch = args.max_batch
+    if args.model_path and args.reload_interval:
+        repo.start_polling(args.reload_interval)
     if servable.quant is not None:
         print(f"int8 serving: accuracy delta "
               f"{servable.quant['accuracy_delta']} (gate "
@@ -536,6 +542,7 @@ def main(argv: Optional[list[str]] = None) -> int:
         done.wait()
     except KeyboardInterrupt:
         server.stop()
+    repo.stop_polling()
     return 0
 
 

@@ -14,8 +14,12 @@ Devices: every entry point takes ``device`` and defaults to ``"cuda"``.
 A CUDA device with no card present raises; nothing continues on the CPU
 unless the caller asked for it (``device="cpu"``, as the tests do).
 
-Not yet ported: loading from a checkpoint directory, ``reload`` and
-``start_polling`` (the JAX package restores with orbax); they raise.
+Checkpoints: ``ModelRepository.load(checkpoint_dir=...)`` serves the
+params (and a ResNet's ``batch_stats``) of the newest intact step a
+trainer wrote (runtime/checkpoint.py), the step as the version, and an
+empty directory as version 0 with the builder's seed weights; ``reload``
+and ``start_polling`` swap in a newer intact step, an int8 servable
+through the parity gate again.
 """
 
 from __future__ import annotations
@@ -221,12 +225,8 @@ def quantize_servable(
             sum(np.asarray(b).shape[0] for b in calibration)),
         **qstats,
     }
-    quantized.quant = quant_info
     quantized._float_predict = float_predict
-    quantized.registry.gauge(
-        "kubeflow_model_quant_accuracy_delta",
-        "measured int8-vs-float accuracy delta (argmax disagreement)",
-        labels=("model",)).labels(model=servable.name).set(float(delta))
+    quantized._ledger_quant(quant_info)
     log.info("int8 quantization of %s: delta=%.4f (gate %.4f), "
              "logits_rel_err=%.5f, weight bytes %d -> %d",
              servable.name, delta, max_delta, logits_err,
@@ -369,13 +369,28 @@ class Servable:
         self._sync()
         return buckets
 
-    def swap(self, params: Params, version: int) -> None:
+    def _ledger_quant(self, quant: dict) -> None:
+        """Record an int8 version's quantization: ``quant`` and the
+        accuracy-delta gauge."""
+        self.quant = quant
+        self.registry.gauge(
+            "kubeflow_model_quant_accuracy_delta",
+            "measured int8-vs-float accuracy delta (argmax disagreement)",
+            labels=("model",)).labels(model=self.name).set(
+                quant["accuracy_delta"])
+
+    def swap(self, params: Params, version: int,
+             quant: Optional[dict] = None) -> None:
         """Hot-swap to a newer model version; in-flight predicts finish on
-        the old params (they captured the reference)."""
+        the old params (they captured the reference). An int8 servable
+        takes the new version's quantized params and its ``quant``
+        record."""
         params = _to_device(params, self.device)
         with self._lock:
             self.params = params
             self.version = version
+            if quant is not None:
+                self._ledger_quant(quant)
 
     def metadata(self) -> dict:
         """TF-Serving /metadata analog."""
@@ -398,11 +413,18 @@ class Servable:
 
 
 class ModelRepository:
-    """name → Servable registry."""
+    """name → Servable registry, with checkpoint directories as version
+    sources (the TF-Serving file-system monitor: a trainer writes newer
+    steps, the server serves them as they land)."""
 
     def __init__(self):
         self._models: dict[str, Servable] = {}
+        # name → (CheckpointManager, nested): one manager a source, so
+        # its verified-step cache spares a poll re-hashing unchanged steps
+        self._sources: dict[str, tuple] = {}
         self._lock = threading.Lock()
+        self._stop: Optional[threading.Event] = None
+        self._poll_thread: Optional[threading.Thread] = None
 
     def add(self, servable: Servable) -> None:
         with self._lock:
@@ -413,7 +435,10 @@ class ModelRepository:
              kernels: Optional[str] = None,
              quant_max_delta: Optional[float] = None,
              device: Any = "cuda", **kw) -> Servable:
-        """Load a servable with random weights from the builder's seed;
+        """Load a servable: from the newest intact step of
+        ``checkpoint_dir`` (the step is the version), or with the
+        builder's seed weights (version 1; version 0 for an empty
+        checkpoint directory, so the trainer's first step is newer);
         ``kernels="int8"`` quantizes behind the parity gate (a
         QuantizationRefused propagates). ``device`` defaults to "cuda"
         and raises where no card is present."""
@@ -421,10 +446,6 @@ class ModelRepository:
             raise KeyError(
                 f"unknown model type {model_type!r}; "
                 f"registered: {sorted(_MODEL_BUILDERS)}")
-        if checkpoint_dir:
-            raise NotImplementedError(
-                "loading from a checkpoint directory is not yet ported "
-                "(the JAX package restores with orbax)")
         if kernels is None:
             kernels = os.environ.get("KFTPU_KERNEL_SERVING") or "stock"
         if kernels not in ("stock", "int8"):
@@ -434,22 +455,97 @@ class ModelRepository:
         device = resolve_device(device)
         predict_fn, init_params, signature = \
             _MODEL_BUILDERS[model_type](**kw)
+        params, version = init_params(), 1
+        # the servable takes {"params", **variables} (ResNet) or the
+        # params alone (the LM)
+        nested = isinstance(params.get("params"), dict)
+        mgr = None
+        if checkpoint_dir:
+            from ..runtime.checkpoint import CheckpointManager
+            mgr = CheckpointManager(checkpoint_dir)
+            step = mgr.latest_step()
+            if step is None:
+                version = 0   # nothing written yet: the first step is newer
+            else:
+                params = mgr.restore_params(step, device=device,
+                                            variables=nested)
+                version = step
         servable = Servable(name=name, predict_fn=predict_fn,
-                            params=init_params(), version=1,
+                            params=params, version=version,
                             input_signature=signature, device=device)
         if kernels == "int8":
             servable = quantize_servable(servable,
                                          max_delta=quant_max_delta)
         self.add(servable)
+        if mgr is not None:
+            with self._lock:
+                self._sources[name] = (mgr, nested)
         return servable
 
     def reload(self, name: str) -> bool:
-        raise NotImplementedError(
-            "checkpoint version reload is not yet ported")
+        """Swap in a newer intact checkpoint step, if one landed; False
+        when the servable is current or has no checkpoint source. An
+        int8 servable re-quantizes the new version through the same
+        parity gate; a refusal keeps the old version serving. The
+        servable object stays the one a server's batcher holds: the new
+        version is swapped into it."""
+        servable = self.get(name)
+        with self._lock:
+            source = self._sources.get(name)
+        if source is None:
+            return False
+        mgr, nested = source
+        step = mgr.latest_step()
+        if step is None or step <= servable.version:
+            return False
+        params = mgr.restore_params(step, device=servable.device,
+                                    variables=nested)
+        if servable.quant is not None:
+            base = Servable(
+                name=servable.name, predict_fn=servable._float_predict,
+                params=params, version=step,
+                input_signature=servable.input_signature,
+                max_batch=servable.max_batch, device=servable.device)
+            try:
+                newq = quantize_servable(
+                    base, max_delta=servable.quant["max_delta"])
+            except QuantizationRefused as e:
+                log.warning("model %s version %d refused by the int8 "
+                            "parity gate (%s); keeping version %d", name,
+                            step, e, servable.version)
+                return False
+            servable.swap(newq.params, step, quant=newq.quant)
+            log.info("model %s reloaded to version %d (int8, delta %.4f)",
+                     name, step, newq.quant["accuracy_delta"])
+            return True
+        servable.swap(params, step)
+        log.info("model %s reloaded to version %d", name, step)
+        return True
 
     def start_polling(self, interval_s: float = 30.0) -> None:
-        raise NotImplementedError(
-            "checkpoint version polling is not yet ported")
+        """A background thread that reloads every checkpoint-backed model
+        each ``interval_s`` seconds."""
+        if self._poll_thread is not None:
+            return
+        self._stop = threading.Event()
+
+        def loop():
+            while not self._stop.wait(interval_s):
+                for name in self.names():
+                    try:
+                        self.reload(name)
+                    except Exception as e:  # noqa: BLE001 — keep serving
+                        log.warning("reload %s failed: %s", name, e)
+
+        self._poll_thread = threading.Thread(target=loop, daemon=True,
+                                             name="model-version-poller")
+        self._poll_thread.start()
+
+    def stop_polling(self) -> None:
+        if self._poll_thread is not None:
+            self._stop.set()
+            self._poll_thread.join(timeout=5)
+            self._poll_thread = None
 
     def get(self, name: str) -> Servable:
         with self._lock:
@@ -473,8 +569,8 @@ def _build_transformer(vocab_size: int = 32000, **cfg_kw):
     lock = threading.Lock()
 
     def init_params() -> Params:
-        # random weights until checkpoint loading is ported: the same
-        # seed for every load, so two servables share their weights
+        # random weights from one seed when no checkpoint is given: two
+        # servables share their weights
         model.init_weights(torch.Generator().manual_seed(0))
         return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
@@ -495,8 +591,8 @@ def _build_resnet(depth: int = 50, num_classes: int = 1000,
     model = R.make_resnet(depth, num_classes=num_classes)
 
     def init_params() -> Params:
-        # random weights until checkpoint loading is ported: the same
-        # seed for every load, so two servables share their weights
+        # random weights from one seed when no checkpoint is given: two
+        # servables share their weights
         params, variables = model.init(torch.Generator().manual_seed(0))
         return {"params": params, **variables}
 

@@ -109,11 +109,35 @@ def test_main_on_the_cpu(tmp_path, capsys):
 
 
 def test_main_refuses_a_model_path(tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TB.main(["--model-type", "resnet18", "--device", "cpu",
-                 "--model-path", str(tmp_path), "--input-file-patterns",
-                 str(tmp_path / "*.npy"), "--output-result-file",
-                 str(tmp_path / "o.jsonl")])
+    """``--model-path`` no longer refuses: the job predicts with the
+    params and batch statistics of the directory's newest intact step
+    (here seeded ResNet-18 variables saved as a trainer's tree at step
+    3), as a direct predict with the same variables does."""
+    from kubeflow_tpu_torch.models import resnet as TR
+    from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
+    params, variables = TR.make_resnet(18).init(
+        torch.Generator().manual_seed(3))
+    mgr = CheckpointManager(str(tmp_path / "ckpt"))
+    mgr.save(3, {"step": 3, "params": params, "variables": variables},
+             force=True)
+    mgr.close()
+    x = np.random.default_rng(0).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32)
+    np.save(tmp_path / "x.npy", x)
+    out = tmp_path / "o.jsonl"
+    assert TB.main(["--model-type", "resnet18", "--device", "cpu",
+                    "--model-path", str(tmp_path / "ckpt"),
+                    "--batch-size", "2", "--input-file-patterns",
+                    str(tmp_path / "x.npy"), "--output-result-file",
+                    str(out)]) == 0
+    preds, summary = _records(out)
+    ref = TS.ModelRepository().load("r", "resnet18", device="cpu")
+    ref.swap({"params": params, **variables}, 3)
+    want = ref.predict(x)
+    np.testing.assert_allclose(
+        [p["prediction"]["logits"] for p in preds], want["logits"],
+        rtol=1e-5, atol=1e-5)
+    assert summary["instances"] == 2 and summary["version"] == 3
 
 
 def test_compile_cache_env_warns_and_goes_on(tmp_path, monkeypatch,

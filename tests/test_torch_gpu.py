@@ -1050,3 +1050,100 @@ def test_two_ranks_on_the_card_match_one_for_a_fused_block(cuda_device):
         for k, g in one["grads"].items():
             d = np.linalg.norm(out["grads"][k] - g)
             assert d <= 1e-3 * np.linalg.norm(g), (k, d)
+
+
+def _linear_loss(params, variables, batch, rng):
+    y = batch["x"] @ params["w"] + params["b"]
+    return torch.mean((y - batch["y"]) ** 2), {}
+
+
+def _linear(seed: int = 0) -> tuple[dict, dict]:
+    rs = np.random.RandomState(seed)
+    return ({"w": rs.randn(6, 8).astype(np.float32),
+             "b": np.zeros((8,), np.float32)},
+            {"x": rs.randn(8, 6).astype(np.float32),
+             "y": rs.randn(8, 8).astype(np.float32)})
+
+
+@pytest.mark.gpu
+def test_fused_adam_state_round_trips_on_the_card(cuda_device, tmp_path):
+    """Two fused_adam steps on the card, a save (pinned host copies, the
+    write on a background thread) and a restore into a template built
+    from other weights: the params, K3's moments (on the card) and its
+    count come back equal, and the next step — one K3 launch on each
+    side — gives the same bits."""
+    from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    from kubeflow_tpu_torch.runtime.trainstep import (TrainStepBuilder,
+                                                      state_tree)
+    params, batch = _linear()
+
+    def fresh(seed):
+        b = TrainStepBuilder(
+            loss_fn=_linear_loss, device=cuda_device,
+            optimizer=lambda p: make_optimizer(p, "adam", 1e-2,
+                                               kernels="fused_adam")[0])
+        return b, b.init(lambda rng: (_linear(seed)[0], {}), None)
+
+    b, state = fresh(0)
+    step = b.build()
+    for _ in range(2):
+        state, _m = step(state, b.place_batch(batch))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(2, state, force=True)
+    mgr.wait()
+    b2, other = fresh(1)
+    restored = mgr.restore(other)
+    mgr.close()
+    want, got = state_tree(state), state_tree(restored)
+    assert got["opt"]["count"] == want["opt"]["count"] == {
+        "schedule": 2, "inner": 2}
+    for slot in ("mu", "nu"):
+        for n, v in want["opt"]["slots"][slot].items():
+            g = got["opt"]["slots"][slot][n]
+            assert g.is_cuda and torch.equal(g, v), (slot, n)
+    before = tfo.fused_adam.launches
+    _s, m1 = step(state, b.place_batch(batch))
+    _s, m2 = b2.build()(restored, b2.place_batch(batch))
+    torch.cuda.synchronize()
+    assert tfo.fused_adam.launches - before == 2
+    assert m1["loss"].item() == m2["loss"].item()
+    for n in state.params:
+        assert torch.equal(state.params[n], restored.params[n]), n
+
+
+def _poison_rank(rank, world):
+    from kubeflow_tpu_torch.api.trainingjob import ShardingSpec
+    from kubeflow_tpu_torch.parallel.mesh import build_mesh
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    from kubeflow_tpu_torch.runtime.sentinel import NumericFaultHook
+    from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
+    params, batch = _linear()
+    b = TrainStepBuilder(
+        loss_fn=_linear_loss, device=torch.device("cuda", 0),
+        weight_update="sharded", mesh=build_mesh(ShardingSpec(data=world)),
+        optimizer=lambda p: make_optimizer(p, "sgd", 1e-4,
+                                           grad_clip=None)[0])
+    state = b.init(lambda rng: (params, {}), None)
+    step = b.build()
+    state, _m = step(state, b.place_batch(batch))
+    w0 = state.params["w"].detach().clone()
+    u0 = state.update_params["w"].detach().clone()
+    NumericFaultHook("spike", 1, 8.0, None).poison(state, 1)
+    blocks = bool(torch.equal(state.update_params["w"], u0 * 8.0))
+    state, _m = step(state, b.place_batch(batch))
+    torch.cuda.synchronize()
+    return {"blocks": blocks, "cuda": state.params["w"].is_cuda,
+            "ratio": float((state.params["w"] / w0).median())}
+
+
+@pytest.mark.gpu
+def test_poison_under_the_sharded_update_on_the_card(cuda_device):
+    """Two gloo ranks on the card, the sharded update: the spike poisons
+    each rank's block of the optimizer in place as well as the params,
+    so after the next step's all-gather the params stay 8x (within the
+    1e-4 step), not the clean blocks written back."""
+    from test_torch_dp import spawn
+    for out in spawn(_poison_rank, 2):
+        assert out["blocks"] and out["cuda"]
+        assert abs(out["ratio"] - 8.0) < 1e-2, out

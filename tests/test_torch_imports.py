@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax():
                  "data.mp_augment", "data.device_prefetch",
                  "utils.tbevents", "obs.http", "api.topology",
                  "cluster.http_client", "parallel.mesh",
-                 "parallel.sharding_rules", "parallel.collectives"):
+                 "parallel.sharding_rules", "parallel.collectives",
+                 "runtime.checkpoint", "runtime.sentinel", "cluster.chaos",
+                 "katib.vizier"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

@@ -10,6 +10,7 @@ port's through ``transformer_params_from_jax``. Config: 2 layers, embed
 
 import json
 import threading
+import time
 import urllib.request
 
 import jax.numpy as jnp
@@ -224,6 +225,37 @@ def test_rest_round_trip_matches_jax(params, tmp_path):
     assert stages[0] == "accept" and stages[-1] == "respond"
 
 
+def test_registry_counts_each_request_before_its_response(params,
+                                                          monkeypatch):
+    """The request context is finished (ledger, replica registry) before
+    the response bytes are written: straight after each of 50 REST
+    responses, with no sleep, the registry already counts the request.
+    Finishing is slowed by 20 ms, so a response written first would be
+    read before its count."""
+    from kubeflow_tpu_torch.serving import request_trace
+    real = request_trace.RequestTrace.finish
+
+    def slow_finish(self, *a, **kw):
+        time.sleep(0.02)
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(request_trace.RequestTrace, "finish", slow_finish)
+    repo = TS.ModelRepository()
+    torch_servable(params, repo=repo)
+    srv = ModelServer(repo, host="127.0.0.1", port=0, max_batch=MAX_BATCH,
+                      sample_every=0)
+    port = srv.start()
+    try:
+        x = tokens(1)
+        for i in range(50):
+            TC.predict(f"127.0.0.1:{port}", "lm", x, dtype="int32")
+            row = next(m for m in srv.replica.snapshot()["models"]
+                       if m["model"] == "lm")
+            assert row["requests"] == i + 1, i
+    finally:
+        srv.stop()
+
+
 def test_decompose_request_partitions_the_wall():
     led = gp.decompose_request(0.100, {
         gp.SERVING_QUEUE: 0.02, gp.SERVING_BATCH_FORM: 0.005,
@@ -242,13 +274,8 @@ def test_cli_refuses_grpc_until_ported():
               "--device", "cpu"])
 
 
-def test_checkpoint_paths_refuse_until_ported():
+def test_unknown_model_type_and_resnet_signature():
     repo = TS.ModelRepository()
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        repo.load("lm", "transformer_lm", checkpoint_dir="/nonexistent",
-                  device="cpu", **CFG)
-    with pytest.raises(NotImplementedError):
-        repo.reload("lm")
     with pytest.raises(KeyError, match="resnet77"):
         repo.load("r", "resnet77", device="cpu")
     r = repo.load("r", "resnet50", device="cpu")

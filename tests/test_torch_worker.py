@@ -8,7 +8,11 @@
   ``KFTPU_KERNEL_*`` env, then stock; ``kernel_attention`` on a
   non-transformer workload raises.
 - ``train()`` and ``main()`` default to cuda and raise without a card;
-  features not ported yet raise "not yet ported" when set.
+  features not ported yet (AOT, multi-slice) raise "not yet ported" when
+  set.
+- Katib: under ``KFTPU_STUDY`` / ``KFTPU_TRIAL`` / ``KFTPU_VIZIER_URL``
+  a port ``train()`` reports to a local ``VizierService`` the metric
+  names a JAX ``train()`` of the same workload reports.
 - Data parallel: two worker CLI processes given only the topology-
   contract env train resnet18 on CPU gloo with the sharded update and
   match the JAX package's step on a data = 2 mesh.
@@ -67,6 +71,9 @@ def _clean_env(monkeypatch):
                  "KFTPU_DATA_DIR", "KFTPU_EVAL_DATA_DIR", "KFTPU_PROFILE_DIR",
                  "KFTPU_OBS_METRICS_PORT", "KFTPU_TB_DIR",
                  "KFTPU_INPUT_WORKERS", "KFTPU_DEVICE_PREFETCH",
+                 "KFTPU_CHECKPOINT_DIR", "KFTPU_RESUME_FROM",
+                 "KFTPU_INTEGRITY", "KFTPU_RESUME_STEP",
+                 "KFTPU_CHAOS_NUMERIC", "KFTPU_STUDY", "KFTPU_POD_NAME",
                  *(env for env, _ in worker._UNPORTED.values())):
         monkeypatch.delenv(name, raising=False)
 
@@ -155,11 +162,8 @@ def test_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,env", [
-    ({"checkpoint_dir": "/nonexistent"}, None),
     ({"aot": True}, None),
-    ({"integrity": True}, None),
     ({"multislice_pipeline": True}, None),
-    ({}, ("KFTPU_CHECKPOINT_DIR", "/nonexistent")),
 ])
 def test_unported_features_raise(monkeypatch, kwargs, env):
     if env is not None:
@@ -510,3 +514,78 @@ def test_two_workers_from_the_contract_env_match_the_jax_worker(
         js, m = step(js, jb.place_batch(b))
         want.append(float(m["loss"]))
     np.testing.assert_allclose(got, want, rtol=3e-2)
+
+
+def _observed(svc, study: str, trial: str) -> dict:
+    """metric → value of the observations a trial reported."""
+    return svc.db.trial_metrics(study, trial)
+
+
+def test_katib_observations_match_jax(monkeypatch):
+    from kubeflow_tpu.katib.vizier import VizierService
+    from kubeflow_tpu.runtime import worker as jworker
+    from kubeflow_tpu_torch.katib import vizier as TV
+    svc = VizierService()
+    svc.db.create_study("s", objective_name="loss")
+    port = svc.start()
+    try:
+        monkeypatch.setenv(TV.VIZIER_URL_ENV, f"http://127.0.0.1:{port}")
+        monkeypatch.setenv(TV.STUDY_ENV, "s")
+        monkeypatch.setenv(TV.TRIAL_ENV, "torch")
+        r = worker.train(steps=2, sync_every=1, **KW)
+        monkeypatch.setenv(TV.TRIAL_ENV, "jax")
+        jworker.train(workload="transformer", steps=2, global_batch=8,
+                      sync_every=1, optimizer="adam", learning_rate=1e-2,
+                      handle_sigterm=False, workload_kwargs={})
+        got, want = _observed(svc, "s", "torch"), _observed(svc, "s", "jax")
+        assert set(got) == set(want)
+        assert {"loss", "grad_norm", "examples_per_sec"} <= set(got)
+        assert got["loss"] == pytest.approx(r.final_metrics["loss"])
+        # a dead service warns and never fails the run
+        svc.stop()
+        monkeypatch.setenv(TV.TRIAL_ENV, "torch2")
+        assert worker.train(steps=1, **KW).steps == 1
+    finally:
+        svc.stop()
+
+
+class _StopAtStep2:
+    """A guard whose stop flag turns True at its second read: SIGTERM
+    arriving during step 2."""
+
+    def __init__(self, install=True, on_term=None):
+        self.reads = 0
+
+    @property
+    def stop(self):
+        self.reads += 1
+        return self.reads >= 2
+
+    def uninstall(self):
+        pass
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+def test_record_fed_resume_continues_the_stream(records, tmp_path,
+                                                monkeypatch, prefetch):
+    """A run from record shards (LARS under the runtime cosine schedule)
+    preempted at step 2 and resumed to step 5 reads batches 2, 3 and 4 of
+    the seeded stream (no replay, no skip) with the schedule's state
+    restored: its params equal an uninterrupted run's, bit for bit on the
+    CPU."""
+    from kubeflow_tpu_torch.cluster.chaos import final_params
+    kw = dict(workload="resnet18", device="cpu", data_dir=records[0],
+              global_batch=4, optimizer="lars", runtime_schedule=True,
+              lr_schedule="cosine", warmup_steps=1, sync_every=1,
+              checkpoint_every=100, device_prefetch=prefetch, seed=0,
+              handle_sigterm=False, steps=5)
+    clean, cut = str(tmp_path / "clean"), str(tmp_path / "cut")
+    assert worker.train(checkpoint_dir=clean, **kw).steps == 5
+    monkeypatch.setattr(worker, "PreemptionGuard", _StopAtStep2)
+    first = worker.train(checkpoint_dir=cut, **kw)
+    assert first.preempted and first.steps == 2
+    monkeypatch.undo()
+    assert worker.train(checkpoint_dir=cut, **kw).steps == 3
+    a, b = final_params(clean, device="cpu"), final_params(cut, "cpu")
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
