@@ -8,7 +8,8 @@ CLI with the transformer workload at the default LM's widths.)
 
 Phases, each of which fails the run (nonzero exit, no result line):
 
-1. device  - the card's name and power limit; build every kernel in
+1. device  - the card's name and power limit, the versions of grpc and
+             protobuf (or that each is absent); build every kernel in
              kubeflow_tpu_torch/csrc/ with nvcc, one process per source,
              all started together (ptxas report printed for each).
 2. kernels - each kernel against its plain PyTorch version on the card,
@@ -188,6 +189,36 @@ Phases, each of which fails the run (nonzero exit, no result line):
              executed step checked; a global batch of 16 refuses the
              resume with ElasticContractError. The kernels at these
              shapes are held to their plain versions in phases 2 and 8.
+10. serving tier - the serving paths past one replica, each on K1 at the
+             LM's full width (run right after phase 4, on its server; K1
+             at these shapes is held to its plain version in phase 2).
+             Every launch count starts at 0 just before each path and is
+             read just after: K1 12 launches a forward. (b) gRPC, where
+             grpc imports (otherwise said so, and skipped): the port's
+             GrpcPredictServer on the phase-3 ModelServer answers
+             predict_grpc for 1 and 2 rows of lm128 (S 128) and
+             GetModelStatus; the same tokens over REST give the same
+             next_token and logits within 5e-2 of the largest. (d)
+             Routers mounted at /v1/routers/: an ABTestRouter (seed 3)
+             over the S-128 LM at seeds 0 and 1 answers 8 requests, split
+             as the seeded sequence and each with the chosen version's
+             next_token; a ShadowRouter copies 4 requests to a serving
+             shadow and another 4 to a failing one, no primary failing.
+             (c) Fleet: three LM replicas on the card (S 128, each its own
+             272 MB of weights, answering next_token alone so JSON
+             carries a token, not 4.1M logits) behind a FleetRouter, 6
+             closed-loop clients for 1.5 s a scenario: one replica killed
+             mid-load and restarted, then another drained; 100% client
+             success, the victim re-admitted, no in-flight request lost,
+             audit(): ledgers that sum, no request answered twice; 16
+             sampled answers equal a direct forward's. (a) Cold -> warm:
+             two fresh `python -m kubeflow_tpu_torch.serving.http_server
+             --model-type transformer_lm --attention flash --grpc-port 0`
+             processes, one after the other, on one empty
+             KFTPU_COMPILE_CACHE_DIR: the first runs nvcc (>= 1) and
+             /metrics says kind="cold"; the second runs none, loads >= 1
+             library from the cache and says kind="warm"; each one's
+             seconds from spawn to listening and its build seconds.
 
 Phase 2 also holds K4 and K5 (the fused ghost-BN bottleneck, batch-tiled
 and spatial, csrc/fused_block_train.cu) against their plain versions at
@@ -422,6 +453,12 @@ def phase_device(build) -> dict:
     name = torch.cuda.get_device_name(0)
     log(f"[device] {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {name} x {torch.cuda.device_count()}")
+    for mod in ("grpc", "google.protobuf"):
+        try:
+            version = importlib.import_module(mod).__version__
+            log(f"[device] {mod} {version}")
+        except ImportError as e:
+            log(f"[device] {mod} absent ({e})")
     t0 = time.perf_counter()
     built = build.build_all(verbose=True)
     log(f"[device] built {sorted(built)} in "
@@ -3296,6 +3333,354 @@ def phase_ckpt_degree(T, R, worker, ckpt_mod, card, ref_lm, per_step_k45,
     return out
 
 
+# -- phase 10 ---------------------------------------------------------------
+
+FLEET_REPLICAS, FLEET_THREADS = 3, 6
+FLEET_SECONDS = 1.5         # closed-loop load per scenario: kill, drain
+FLEET_SAMPLES = 16
+AB_SEED, AB_REQUESTS, SHADOW_REQUESTS = 3, 8, 4
+SERVER_CHILD_TIMEOUT_S = 300
+LM_REL_BAR = 5e-2           # PERF.md §2's LM bar: max|d logit| / max|logit|
+
+
+def token_servable(TS, name: str, base):
+    """``base``'s forward answering next_token alone: the fleet and the
+    routers move a row's token through JSON, not its 4.1M logits."""
+    def predict(params, tokens):
+        return {"next_token": base.predict_fn(params, tokens)["next_token"]}
+
+    return TS.Servable(name=name, predict_fn=predict, params=base.params,
+                       input_signature=base.input_signature,
+                       max_batch=MAX_BATCH, device=DEVICE)
+
+
+def _post_json(url: str, body: dict, timeout: float = 300.0) -> dict:
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _forwards(servables) -> int:
+    return sum(s.metadata()["stats"]["request_count"] for s in servables)
+
+
+def phase_grpc(fa, server, repo, client) -> dict:
+    """10b: PredictionService on the phase-3 ModelServer (lm128, its
+    MicroBatcher), through the port's predict_grpc; GetModelStatus; the
+    same tokens over REST."""
+    try:
+        import grpc
+    except ImportError as e:
+        log(f"[grpc] grpcio does not import ({e}): phase 10b skipped")
+        return {"skipped": str(e)}
+    from kubeflow_tpu_torch.serving import tpu_serving_pb2 as pb
+    from kubeflow_tpu_torch.serving.grpc_server import (GrpcPredictServer,
+                                                        predict_stub)
+    lm128 = repo.get("lm128")
+    rng = np.random.default_rng(10)
+    xs = [rng.integers(0, SERVE_VOCAB, (n, REST_SEQ)).astype(np.int32)
+          for n in (1, 2)]
+    gs = GrpcPredictServer(server, host="127.0.0.1", port=0)
+    addr = f"127.0.0.1:{gs.start()}"
+    got, grpc_s = [], []
+    try:
+        forwards0 = _forwards([lm128])
+        fa.flash_attention.launches = 0      # the gRPC path's count starts
+        for x in xs:
+            t0 = time.perf_counter()
+            got.append(client.predict_grpc(addr, "lm128", x, dtype="int32",
+                                           timeout_s=300.0)["predictions"])
+            grpc_s.append(time.perf_counter() - t0)
+        launches = fa.flash_attention.launches   # ... and is read here
+        forwards = _forwards([lm128]) - forwards0
+        channel = grpc.insecure_channel(addr)
+        try:
+            req = pb.GetModelStatusRequest()
+            req.model_spec.name = "lm128"
+            status = predict_stub(channel)["GetModelStatus"](req, timeout=30)
+        finally:
+            channel.close()
+    finally:
+        gs.stop(grace=5.0)
+    if forwards < 1 or launches != SERVE_LAYERS * forwards:
+        fail(f"gRPC: K1 launched {launches} times for {forwards} forwards")
+    vs = status.model_version_status[0]
+    if vs.version != lm128.version or \
+            vs.state != pb.ModelVersionStatus.AVAILABLE:
+        fail(f"GetModelStatus: {status}")
+    worst, rest_s = 0.0, []
+    for i, x in enumerate(xs):
+        t0 = time.perf_counter()
+        rest = client.predict(f"127.0.0.1:{server.port}", "lm128", x,
+                              dtype="int32", timeout_s=300.0,
+                              retries=0)["predictions"]
+        rest_s.append(time.perf_counter() - t0)
+        g = np.asarray(got[i]["logits"], np.float32)
+        r = np.asarray(rest["logits"], np.float32)
+        if g.shape != (len(x), REST_SEQ, SERVE_VOCAB) or \
+                not np.isfinite(g).all():
+            fail(f"gRPC request {i}: logits {g.shape} or non-finite")
+        if got[i]["next_token"] != rest["next_token"]:
+            fail(f"gRPC request {i}: next_token {got[i]['next_token']} != "
+                 f"REST {rest['next_token']}")
+        worst = max(worst, float(np.max(np.abs(g - r)) / np.max(np.abs(r))))
+    if worst > LM_REL_BAR:
+        fail(f"gRPC logits {worst} of the largest from REST's")
+    log(f"[grpc] Predict x{len(xs)} ({sum(len(x) for x in xs)} rows at S "
+        f"{REST_SEQ}) on the phase-3 server: K1 {launches} for {forwards} "
+        f"forwards; next_token equal to REST; max|d logit| {worst:.3e} of "
+        f"the largest (<= {LM_REL_BAR}); GetModelStatus version "
+        f"{vs.version} AVAILABLE; host gRPC "
+        f"{', '.join(f'{t:.3f}s' for t in grpc_s)}, REST "
+        f"{', '.join(f'{t:.3f}s' for t in rest_s)}")
+    return {"launches": launches, "forwards": forwards, "grpc_s": grpc_s,
+            "rest_s": rest_s, "rel_err": worst}
+
+
+def phase_routers(fa, TS, T, server, repo) -> dict:
+    """10d: an A/B router over two LM versions (seeds 0 and 1, S 128)
+    and two shadow routers (one shadow serving, one failing) mounted on
+    the phase-3 ModelServer at /v1/routers/."""
+    from kubeflow_tpu_torch.serving.router import (ABTestRouter,
+                                                   RoutedModel, ShadowRouter)
+    lm128 = repo.get("lm128")
+    cfg = T.TransformerConfig(max_seq_len=REST_SEQ, attention="flash")
+    with torch.device("meta"):
+        shapes = T.TransformerLM(cfg).state_dict()
+    v1 = TS.Servable(name="lm128_v1", predict_fn=lm128.predict_fn,
+                     params={k: torch.empty_like(v, device=DEVICE)
+                             for k, v in shapes.items()},
+                     input_signature=lm128.input_signature,
+                     max_batch=MAX_BATCH, device=DEVICE)
+    v1.swap(T.TransformerLM(cfg).init_weights(
+        torch.Generator().manual_seed(1)).state_dict(), 1)
+    arms = {"ab_v0": token_servable(TS, "ab_v0", lm128),
+            "ab_v1": token_servable(TS, "ab_v1", v1)}
+
+    def down(params, tokens):
+        raise RuntimeError("shadow down")
+
+    broken = TS.Servable(name="ab_broken", predict_fn=down, params={},
+                         input_signature=lm128.input_signature,
+                         device=DEVICE)
+    for s in (*arms.values(), broken):
+        repo.add(s)
+    server.add_router(RoutedModel(
+        ABTestRouter(list(arms), seed=AB_SEED), repo, name="ab"))
+    server.add_router(RoutedModel(ShadowRouter("ab_v0", "ab_v1"), repo,
+                                  name="shadow"))
+    server.add_router(RoutedModel(ShadowRouter("ab_v0", "ab_broken"), repo,
+                                  name="shadow_broken"))
+    seq = ABTestRouter(list(arms), seed=AB_SEED)
+    want_arms = [seq.route() for _ in range(AB_REQUESTS)]
+    rng = np.random.default_rng(11)
+    xs = [rng.integers(0, SERVE_VOCAB, (1, REST_SEQ)).astype(np.int32)
+          for _ in range(AB_REQUESTS + SHADOW_REQUESTS)]
+    base = f"http://127.0.0.1:{server.port}/v1/routers"
+    answers = {"ab": [], "shadow": [], "shadow_broken": []}
+    forwards0 = _forwards(arms.values())
+    fa.flash_attention.launches = 0          # the routed path's count starts
+    for i, x in enumerate(xs):
+        body = {"instances": x.tolist(), "dtype": "int32"}
+        names = ("ab",) if i < AB_REQUESTS else ("shadow", "shadow_broken")
+        for name in names:
+            answers[name].append(_post_json(f"{base}/{name}:predict",
+                                            body)["predictions"])
+    for name in ("shadow", "shadow_broken"):
+        server.routers[name].drain_shadow()
+    launches = fa.flash_attention.launches   # ... and is read here
+    forwards = _forwards(arms.values()) - forwards0
+    if forwards < 1 or launches != SERVE_LAYERS * forwards:
+        fail(f"routers: K1 launched {launches} times for {forwards} "
+             f"forwards")
+    status = {name: {a["name"]: a for a in server.routers[name].status()[
+        "arms"]} for name in answers}
+    split = {a: status["ab"][a]["requests"] for a in arms}
+    if split != {a: want_arms.count(a) for a in arms}:
+        fail(f"A/B split {split} != the seeded sequence {want_arms}")
+    direct = {a: [s.predict(x)["next_token"].tolist() for x in xs]
+              for a, s in arms.items()}
+    for i, arm in enumerate(want_arms):
+        if answers["ab"][i]["next_token"] != direct[arm][i]:
+            fail(f"A/B request {i}: answered {answers['ab'][i]} but the "
+                 f"seeded arm {arm} gives {direct[arm][i]}")
+    for name in ("shadow", "shadow_broken"):
+        for j, ans in enumerate(answers[name]):
+            if ans["next_token"] != direct["ab_v0"][AB_REQUESTS + j]:
+                fail(f"{name} request {j}: the primary's answer differs")
+    sh, br = status["shadow"], status["shadow_broken"]
+    if sh["ab_v1"]["requests"] != SHADOW_REQUESTS or \
+            sh["ab_v1"]["failures"] or \
+            br["ab_broken"]["requests"] != SHADOW_REQUESTS or \
+            br["ab_broken"]["failures"] != SHADOW_REQUESTS or \
+            br["ab_v0"]["failures"]:
+        fail(f"shadow copies: {sh} / {br}")
+    differ = sum(direct["ab_v0"][i] != direct["ab_v1"][i]
+                 for i in range(len(xs)))
+    log(f"[routers] A/B (seed {AB_SEED}) split {split} = the seeded "
+        f"sequence, each answer the chosen version's next_token (v0 and "
+        f"v1 differ on {differ}/{len(xs)} rows); shadow: {SHADOW_REQUESTS} "
+        f"copies served, a failing shadow failed {SHADOW_REQUESTS} copies "
+        f"and no primary; K1 {launches} for {forwards} forwards")
+    return {"launches": launches, "forwards": forwards, "split": split}
+
+
+def phase_fleet(fa, TS, chaos, gp, tmp: str) -> dict:
+    """10c: three LM replicas on the card (S 128, each its own weights)
+    behind a FleetRouter under closed-loop load; one killed mid-load and
+    restarted, then one drained."""
+    repo = TS.ModelRepository()
+    bases = []
+    for i in range(FLEET_REPLICAS):
+        b = repo.load(f"fleet{i}", "transformer_lm", attention="flash",
+                      max_seq_len=REST_SEQ, device=DEVICE)
+        b.max_batch = MAX_BATCH
+        b.warmup([1, 2, 4, 8])
+        bases.append(b)
+    replicas = [token_servable(TS, "lm", b) for b in bases]
+    rng = np.random.default_rng(12)
+    xs = [rng.integers(0, SERVE_VOCAB, (1, REST_SEQ)).astype(np.int32)
+          for _ in range(8)]
+    bodies = [json.dumps({"instances": x.tolist(),
+                          "dtype": "int32"}).encode() for x in xs]
+    sink = os.path.join(tmp, "fleet-spans.jsonl")
+    soak = chaos.ServingSoak(span_path=sink, replicas=FLEET_REPLICAS,
+                             servables=replicas, bodies=bodies,
+                             seconds=FLEET_SECONDS, threads=FLEET_THREADS,
+                             keep_responses=FLEET_SAMPLES)
+    forwards0 = _forwards(replicas)
+    fa.flash_attention.launches = 0          # the fleet path's count starts
+    t0 = time.perf_counter()
+    kill = soak.run_kill()
+    drain = soak.run_drain()
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention.launches   # ... and is read here
+    forwards = _forwards(replicas) - forwards0
+    audit = soak.audit()
+    for name, r in (("kill", kill), ("drain", drain)):
+        if r["success_pct"] != 100.0 or not r["requests"]:
+            fail(f"fleet {name}: {r['ok']}/{r['requests']} ok: "
+                 f"{r['errors']}")
+    if not kill["victim_readmitted"] or not drain["router_saw_draining"] \
+            or drain["in_flight_lost"] != 0:
+        fail(f"fleet: readmitted {kill['victim_readmitted']}, saw draining "
+             f"{drain['router_saw_draining']}, lost "
+             f"{drain['in_flight_lost']}")
+    if not audit["ledger_sum_ok"] or audit["duplicate_side_effects"]:
+        fail(f"fleet audit: {audit}")
+    if forwards < 1 or launches != SERVE_LAYERS * forwards:
+        fail(f"fleet: K1 launched {launches} times for {forwards} forwards")
+    direct = [bases[0].predict(x)["next_token"].tolist() for x in xs]
+    samples = kill["samples"] + drain["samples"]
+    for i, out in samples:
+        if out["predictions"]["next_token"] != direct[i]:
+            fail(f"fleet answer {out} != a direct forward's {direct[i]}")
+    roll = gp.fleet_rollup(sink)
+    log(f"[fleet] {FLEET_REPLICAS} LM replicas, {FLEET_THREADS} closed-loop "
+        f"clients, {FLEET_SECONDS}s a scenario: kill {kill['ok']}/"
+        f"{kill['requests']} ok (victim re-admitted), drain {drain['ok']}/"
+        f"{drain['requests']} ok (in flight lost 0); audit: "
+        f"{audit['fleet_requests']} routed, ledgers sum, duplicates 0, "
+        f"retry badput {audit['retry_badput_s']}s; client p50 "
+        f"{roll['p50Ms']} ms p99 {roll['p99Ms']} ms, retries "
+        f"{roll['retries']}; K1 {launches} for {forwards} forwards in "
+        f"{wall:.1f}s; {len(samples)} sampled answers = a direct forward")
+    return {"launches": launches, "forwards": forwards, "audit": audit,
+            "kill": {k: kill[k] for k in ("requests", "ok")},
+            "drain": {k: drain[k] for k in ("requests", "ok")},
+            "p50_ms": roll["p50Ms"], "p99_ms": roll["p99Ms"],
+            "retries": roll["retries"]}
+
+
+def _server_child(cache: str, label: str) -> dict:
+    """The model server CLI in a subprocess on one LM (flash, max_batch
+    2, every bucket warmed) with the build cache at ``cache``: seconds
+    from spawn to listening, its start-kind line, /metrics; then SIGTERM."""
+    import re
+    import urllib.request
+    port = _free_port()
+    env = {**os.environ, "KFTPU_COMPILE_CACHE_DIR": cache,
+           "PYTHONPATH": os.pathsep.join(
+               [HERE] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    argv = [sys.executable, "-m", "kubeflow_tpu_torch.serving.http_server",
+            "--model-type", "transformer_lm", "--model-name", "lm",
+            "--attention", "flash", "--grpc-port", "0", "--rest-port",
+            str(port), "--max-batch", "2", "--device", DEVICE]
+    lines: list = []
+    ready = threading.Event()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=HERE, env=env, text=True,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT)
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if "model server listening" in line:
+                ready.set()
+
+    reader = threading.Thread(target=pump, daemon=True)
+    reader.start()
+    try:
+        while not ready.wait(0.2):
+            if proc.poll() is not None or \
+                    time.perf_counter() - t0 > SERVER_CHILD_TIMEOUT_S:
+                fail(f"{label} server not ready (rc {proc.poll()}): "
+                     + "\n".join(lines[-30:]))
+        ready_s = time.perf_counter() - t0
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+    m = next((re.match(r"start_kind (\w+): kernel libraries loaded from the "
+                       r"build cache (\d+) \(([\d.]+)s\), nvcc runs (\d+) "
+                       r"\(([\d.]+)s\)", line) for line in lines
+              if line.startswith("start_kind ")), None)
+    kind = re.search(r'kftpu_serving_start_kind\{model="lm",kind="(\w+)"\} 1',
+                     metrics)
+    if m is None or kind is None:
+        fail(f"{label} server: no start-kind evidence:\n"
+             + "\n".join(lines[-30:]))
+    return {"ready_s": ready_s, "kind": kind.group(1),
+            "printed_kind": m.group(1), "hits": int(m.group(2)),
+            "hit_s": float(m.group(3)), "nvcc": int(m.group(4)),
+            "build_s": float(m.group(5)), "rc": proc.returncode}
+
+
+def phase_cold_warm(tmp: str, expect: bool = True) -> dict:
+    """10a: two fresh server processes, one after the other, on one empty
+    KFTPU_COMPILE_CACHE_DIR: the first builds K1 (cold), the second loads
+    it (warm)."""
+    cache = os.path.join(tmp, "kernel-cache")
+    cold = _server_child(cache, "cold")
+    warm = _server_child(cache, "warm")
+    built = sorted(os.listdir(cache))
+    if expect and not (cold["nvcc"] >= 1 and cold["kind"] == "cold"
+                       and warm["nvcc"] == 0 and warm["hits"] >= 1
+                       and warm["kind"] == "warm"):
+        fail(f"cold/warm evidence: cold {cold}, warm {warm}")
+    for r in (cold, warm):
+        if r["printed_kind"] != r["kind"]:
+            fail(f"start kind printed {r['printed_kind']}, /metrics "
+                 f"{r['kind']}")
+    log(f"[cold-warm] cold: ready {cold['ready_s']:.2f}s after spawn, nvcc "
+        f"runs {cold['nvcc']} ({cold['build_s']:.2f}s), hits "
+        f"{cold['hits']}, /metrics kind={cold['kind']}; warm: ready "
+        f"{warm['ready_s']:.2f}s, nvcc runs {warm['nvcc']}, hits "
+        f"{warm['hits']} ({warm['hit_s']:.3f}s), kind={warm['kind']}; "
+        f"cache holds {built}")
+    return {"cold": cold, "warm": warm, "cache": built}
+
+
 def _dp_launches(dp: dict, run: str, kernel: str) -> list:
     """Phase 8's launches of ``kernel`` in ``run``, one count per rank."""
     return [r["launches"].get(kernel, 0) for r in dp["ranks"][run]]
@@ -3358,8 +3743,11 @@ def main() -> int:
     from kubeflow_tpu_torch.runtime import bootstrap, recipe, trainstep, worker
     from kubeflow_tpu_torch.serving import client
     from kubeflow_tpu_torch.serving.batch_predict import run_batch_predict
+    from kubeflow_tpu_torch.obs import goodput as gp
+    from kubeflow_tpu_torch.serving import servable as TS
     from kubeflow_tpu_torch.serving.http_server import ModelServer
     from kubeflow_tpu_torch.serving.servable import ModelRepository
+    chaos = importlib.import_module("kubeflow_tpu_torch.cluster.chaos")
 
     # the plain versions' f32 matmuls in full f32, as stated tolerances
     # assume (these are PyTorch's defaults, set here explicitly)
@@ -3403,10 +3791,20 @@ def main() -> int:
         server.start()
         serving = phase_serving(fa, server, repo, k1["timings"])
         phase_rest(fa, server, repo, client)
+        # phase 10: the serving tier past one replica, on K1
+        t10 = time.perf_counter()
+        grpc_r = phase_grpc(fa, server, repo, client)
+        routers = phase_routers(fa, TS, T, server, repo)
         server.stop()
         server = None
         del repo, flash, einsum, lm128
         torch.cuda.empty_cache()
+        import tempfile
+        with tempfile.TemporaryDirectory(prefix="kftpu-serving-") as tmp:
+            fleet = phase_fleet(fa, TS, chaos, gp, tmp)
+            torch.cuda.empty_cache()
+            cold_warm = phase_cold_warm(tmp)
+        log(f"[serving-tier] phase 10 in {time.perf_counter() - t10:.1f}s")
 
         counters = {"flash_attention_fwd": fa.flash_attention,
                     "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
@@ -3437,10 +3835,8 @@ def main() -> int:
                       dev["card"], resnet["per_step"])
         ckpt_mod = importlib.import_module(
             "kubeflow_tpu_torch.runtime.checkpoint")
-        chaos = importlib.import_module("kubeflow_tpu_torch.cluster.chaos")
         sentinel = importlib.import_module(
             "kubeflow_tpu_torch.runtime.sentinel")
-        import tempfile
         with tempfile.TemporaryDirectory(prefix="kftpu-ckpt-") as tmp:
             ckpt = phase_ckpt(counters, T, worker, ckpt_mod, chaos,
                               sentinel, ModelRepository, fa, dev["card"],
@@ -3470,6 +3866,11 @@ def main() -> int:
         "launches_train": train["launches"]["flash_attention_fwd"],
         "launches_dp": _dp_launches(dp, "lm", "flash_attention_fwd"),
         "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_fwd"),
+        # phase 10, each (launches, forwards): gRPC, routers, the fleet
+        "launches_serving_tier": {
+            name: [r["launches"], r["forwards"]] if "launches" in r else None
+            for name, r in (("grpc", grpc_r), ("routers", routers),
+                            ("fleet", fleet))},
         "max_abs_err": k1["err"],
         "max_abs_err_dp": k1["err_dp"],
         "ms": t["ms"],
@@ -3601,7 +4002,9 @@ def main() -> int:
                  "a forward's " + ", ".join(
                      f"{g['count']} x {g['key']}" for g in geoms),
     })
-    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s")
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s; "
+        f"cold start ready in {cold_warm['cold']['ready_s']:.2f}s, warm "
+        f"{cold_warm['warm']['ready_s']:.2f}s")
     print(dev["card"])
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,10 @@ object over the apiserver's REST paths, with the client's timeout,
 bearer token and bounded retries of transient failures (5xx, 429 and
 connection errors; a 4xx is meaning and raises at once). A failed
 request raises ``KubeError`` with the apiserver's Status reason.
+
+``retry_after_s`` and ``jittered_backoff`` are the retry helpers the
+serving client (serving/client.py) and the fleet router
+(serving/fleet.py) share with this client's loop.
 """
 
 from __future__ import annotations
@@ -19,6 +23,29 @@ from urllib.error import HTTPError, URLError
 from urllib.request import Request, urlopen
 
 log = logging.getLogger(__name__)
+
+
+def retry_after_s(headers) -> Optional[float]:
+    """A server-sent Retry-After in seconds off a headers mapping, or
+    None (numeric form only; unparseable reads as absent): a throttling
+    server telling us when to come back must not be hammered at our own
+    jitter cadence."""
+    if headers is None:
+        return None
+    raw = headers.get("Retry-After")
+    if raw is None:
+        return None
+    try:
+        return max(0.0, float(raw))
+    except (TypeError, ValueError):
+        return None
+
+
+def jittered_backoff(delay_s: float, rng=random) -> float:
+    """One jittered backoff interval: uniform in [delay, 1.5*delay], so a
+    fleet of retriers does not hammer a recovering server in lockstep."""
+    return delay_s * rng.uniform(1.0, 1.5)
+
 
 class KubeError(RuntimeError):
     """A request the apiserver refused, or could not be reached for."""
@@ -69,7 +96,7 @@ class HttpKubeClient:
                 code = payload.get("code") or 0
                 if attempt < self.retries and (code == 0 or code >= 500
                                                or code == 429):
-                    sleep = delay * random.uniform(1.0, 1.5)
+                    sleep = jittered_backoff(delay)
                     log.warning("%s %s transient (%s); retry %d/%d in "
                                 "%.2fs", method, path,
                                 payload.get("reason", "?"), attempt + 1,

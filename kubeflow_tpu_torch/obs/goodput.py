@@ -4,9 +4,13 @@ The serving part of ``kubeflow_tpu/obs/goodput.py``. Of one request's
 wall-clock, the device time spent on its real rows is goodput; the rest
 is named badput (queue, batch forming, pad rows, host→device copy,
 respond), and the residual nothing claims is reported as ``other``,
-never absorbed. The vocabulary is defined once, here; the request tracer
-(serving/request_trace.py) and the replica registry
-(serving/replica_state.py) import it. Stdlib only.
+never absorbed. One layer up, the fleet router's ledger splits a routed
+request's client wall-clock into the winning upstream attempt, retries
+and other, with a lost hedge's duplicated work named ``hedge_waste``.
+The vocabulary is defined once, here; the request tracer
+(serving/request_trace.py), the replica registry
+(serving/replica_state.py) and the fleet router (serving/fleet.py)
+import it. Stdlib only.
 """
 
 from __future__ import annotations
@@ -42,6 +46,120 @@ SPAN_ANOMALY = "anomaly"
 # stage spans a sampled request emits, in request order
 SERVING_STAGE_SPANS = ("accept", "queue", "batch-form", "h2d", "device",
                        "drain", "respond")
+
+
+# --------------------------------------------- the FLEET request vocabulary
+# The fleet router (serving/fleet.py) applies the same accounting
+# discipline one layer up: of one ROUTED request's client wall-clock,
+# how much was the winning upstream attempt — and where did the rest
+# go? Failed attempts and their backoff sleeps are `retry` badput; a
+# lost tail-hedge's duplicated upstream work is `hedge_waste`. Defined
+# once here; the fleet router (serving/fleet.py) and the serving soak
+# (cluster/chaos.py) import these.
+SERVING_RETRY = "retry"                 # failed attempts + backoff sleeps
+SERVING_HEDGE_WASTE = "hedge_waste"     # lost-hedge duplicated upstream work
+
+FLEET_BADPUT_CATEGORIES = (SERVING_RETRY, SERVING_HEDGE_WASTE,
+                           BADPUT_OTHER)
+
+# the one summary span the fleet router emits per routed request
+FLEET_REQUEST_SPAN = "fleet-request"
+# fleet event spans (retry/hedge/breaker/drain transitions), stamped
+# with the request id where one applies
+FLEET_EVENT_SPANS = ("fleet-retry", "fleet-hedge", "fleet-eject",
+                     "fleet-admit", "fleet-drain")
+
+
+def decompose_fleet_request(wall_seconds: float, upstream_seconds: float,
+                            retry_seconds: float,
+                            hedge_waste_seconds: float = 0.0) -> dict:
+    """Fold one routed request's measured attempt seconds into its
+    fleet ledger. The client wall-clock partitions as upstream (the
+    winning attempt) + retry (failed attempts and backoff sleeps,
+    sequential on the wall) + other (client-side routing overhead —
+    reported honestly, never absorbed). ``hedge_waste`` is the lost
+    hedge's duplicated upstream work: it OVERLAPS the winner on the
+    wall, so it is named badput (chip time wasted) outside the wall
+    partition — ``fleet_sum_ok`` checks upstream + retry + other
+    against wallSeconds and deliberately excludes it."""
+    wall = max(0.0, float(wall_seconds))
+    upstream = max(0.0, float(upstream_seconds))
+    retry = max(0.0, float(retry_seconds))
+    other = max(0.0, wall - upstream - retry)
+    return {
+        "wallSeconds": round(wall, 6),
+        "upstreamSeconds": round(upstream, 6),
+        "upstreamRatio": round(upstream / wall, 6) if wall else 0.0,
+        "badputSeconds": {
+            SERVING_RETRY: round(retry, 6),
+            SERVING_HEDGE_WASTE: round(
+                max(0.0, float(hedge_waste_seconds)), 6),
+            BADPUT_OTHER: round(other, 6),
+        },
+    }
+
+
+def fleet_sum_ok(ledger: dict, tol: float = 0.02) -> bool:
+    """Whether a fleet ledger's wall partition holds: upstream + retry
+    + other re-adds to wallSeconds within ``tol`` (hedge_waste overlaps
+    the winner and is excluded by contract — see
+    decompose_fleet_request)."""
+    wall = float(ledger.get("wallSeconds", 0.0))
+    bad = ledger.get("badputSeconds") or {}
+    total = float(ledger.get("upstreamSeconds", 0.0)) + \
+        float(bad.get(SERVING_RETRY, 0.0)) + \
+        float(bad.get(BADPUT_OTHER, 0.0))
+    return abs(total - wall) <= max(tol * wall, 1e-6)
+
+
+def fleet_rollup(path: str) -> dict:
+    """The fleet rollup off the span sink: every ``fleet-request``
+    summary span folded into one table — request/outcome counts,
+    attempt/retry/hedge totals, p50/p99/p99.9 client latency, summed
+    fleet badput, and per-replica win counts."""
+    lat: list = []
+    outcomes: dict = {}
+    per_replica: dict = {}
+    bad = {c: 0.0 for c in FLEET_BADPUT_CATEGORIES}
+    wall_s = upstream_s = 0.0
+    attempts = retries = hedges = 0
+    for rec in load_spans(path):
+        if rec.get("name") != FLEET_REQUEST_SPAN:
+            continue
+        a = _attrs(rec)
+        ledger = a.get("ledger")
+        ledger = ledger if isinstance(ledger, dict) else {}
+        wall = float(ledger.get("wallSeconds", 0.0) or 0.0)
+        lat.append(wall)
+        wall_s += wall
+        upstream_s += float(ledger.get("upstreamSeconds", 0.0) or 0.0)
+        for c, v in (ledger.get("badputSeconds") or {}).items():
+            if c in bad:
+                bad[c] += float(v or 0.0)
+        outcome = str(a.get("outcome", "ok"))
+        outcomes[outcome] = outcomes.get(outcome, 0) + 1
+        attempts += int(a.get("attempts", 1) or 1)
+        retries += int(a.get("retries", 0) or 0)
+        if a.get("hedged"):
+            hedges += 1
+        replica = str(a.get("replica", ""))
+        if replica:
+            per_replica[replica] = per_replica.get(replica, 0) + 1
+    lat.sort()
+    n = len(lat)
+    return {
+        "requests": n,
+        "outcomes": outcomes,
+        "attempts": attempts,
+        "retries": retries,
+        "hedged": hedges,
+        "p50Ms": round(_percentile(lat, 0.50) * 1e3, 3),
+        "p99Ms": round(_percentile(lat, 0.99) * 1e3, 3),
+        "p999Ms": round(_percentile(lat, 0.999) * 1e3, 3),
+        "upstreamRatio": round(upstream_s / wall_s, 6) if wall_s else 0.0,
+        "badputSeconds": {c: round(v, 6) for c, v in bad.items()},
+        "replicas": dict(sorted(per_replica.items())),
+    }
 
 
 def decompose_request(wall_seconds: float, stages: dict) -> dict:

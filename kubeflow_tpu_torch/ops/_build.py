@@ -3,11 +3,20 @@
 Each ``csrc/<name>.cu`` holds a plain ``extern "C"`` interface (no PyTorch
 headers), so one ``nvcc`` call takes seconds, where an extension that
 includes PyTorch's headers takes minutes; ``csrc/*.cuh`` are headers the
-sources share. The shared library lands in ``kubeflow_tpu_torch/_build/``
-under a name keyed by a hash of the source, the headers and the flags, so
-an edited source or header rebuilds and an unchanged one is loaded as it
-is. A missing ``nvcc`` or a failed build raises: there is no
-fallback on the card.
+sources share. The shared library lands in the build directory under a
+name keyed by a hash of the source, the headers, the flags and ``nvcc
+--version``'s release line, so an edited source or header, or another
+toolkit, rebuilds and an unchanged one is loaded as it is. A missing
+``nvcc`` or a failed build raises: there is no fallback on the card.
+
+The build directory is ``kubeflow_tpu_torch/_build/``, or, once
+``runtime/compile_cache.enable_compilation_cache`` has set one, the
+compile cache's directory and only that (a volume shared by the
+processes of a namespace: the first builds, the rest load). Every
+library loaded from disk counts as a hit and every ``nvcc`` run as a
+miss, with their seconds (``stats()``), also in the process registry
+under the JAX package's compile-cache families
+(runtime/compile_cache.py says what each counts).
 
     python -m kubeflow_tpu_torch.ops._build     # build every source, print ptxas
 """
@@ -15,6 +24,7 @@ fallback on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -22,6 +32,8 @@ import subprocess
 import threading
 import time
 from typing import Optional
+
+from ..obs import registry as obsreg
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -34,6 +46,11 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+# the compile cache's directory, when one is enabled (set_cache_dir)
+_cache_dir: Optional[str] = None
+# per process: libraries loaded from disk (hits) and nvcc runs (misses)
+_stats = {"hits": 0, "misses": 0, "hit_s": 0.0, "build_s": 0.0}
+_stats_lock = threading.Lock()
 
 
 class KernelBuildError(RuntimeError):
@@ -61,6 +78,67 @@ def find_nvcc() -> str:
         f"no fallback")
 
 
+def set_cache_dir(path: Optional[str]) -> None:
+    """Build into and load from ``path`` only (None: back to _build/)."""
+    global _cache_dir
+    with _lock:
+        _cache_dir = path
+        _loaded.clear()
+
+
+def build_dir() -> str:
+    """Where libraries are built and looked for: the compile cache's
+    directory when one is set, ``_build/`` otherwise."""
+    return _cache_dir or BUILD_DIR
+
+
+def stats() -> dict:
+    """This process's hits (libraries loaded from disk) and misses
+    (``nvcc`` runs), with their seconds."""
+    with _stats_lock:
+        return dict(_stats)
+
+
+def _count(event: str, seconds: float) -> None:
+    """One ``"hit"`` or ``"miss"``: the process's stats and metrics."""
+    key, secs = ("hits", "hit_s") if event == "hit" else \
+        ("misses", "build_s")
+    with _stats_lock:
+        _stats[key] += 1
+        _stats[secs] += seconds
+    # families resolved per event: the default registry is resettable
+    events = obsreg.counter(
+        "kftpu_compile_cache_events_total",
+        "persistent compilation cache activity (hit/miss/request)",
+        labels=("event",))
+    events.labels(event=event).inc()
+    events.labels(event="request").inc()
+    stages = obsreg.counter(
+        "kftpu_xla_compile_seconds_total",
+        "cumulative seconds by stage: every kernel library built or "
+        "loaded vs the loads from the cache", labels=("stage",))
+    stages.labels(stage="compile_or_load").inc(seconds)
+    if event == "hit":
+        stages.labels(stage="cache_load").inc(seconds)
+
+
+@functools.lru_cache(maxsize=None)
+def _release_of(nvcc: str) -> str:
+    out = subprocess.run([nvcc, "--version"], capture_output=True,
+                         text=True, timeout=60).stdout
+    return next((line.strip() for line in out.splitlines()
+                 if "release" in line), out.strip())
+
+
+def nvcc_release() -> str:
+    """``nvcc --version``'s release line, or "" where there is no nvcc
+    (the build then raises)."""
+    try:
+        return _release_of(find_nvcc())
+    except (KernelBuildError, OSError, subprocess.SubprocessError):
+        return ""
+
+
 def _source_path(name: str) -> str:
     path = os.path.join(CSRC_DIR, f"{name}.cu")
     if not os.path.isfile(path):
@@ -70,7 +148,8 @@ def _source_path(name: str) -> str:
 
 def library_path(name: str) -> str:
     """Where the build of ``csrc/<name>.cu`` lives, keyed by its content,
-    the content of every header in csrc/ and the flags."""
+    the content of every header in csrc/, the flags and the toolkit's
+    release."""
     h = hashlib.sha256()
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for path in [_source_path(name)] + [os.path.join(CSRC_DIR, f)
@@ -78,12 +157,13 @@ def library_path(name: str) -> str:
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    h.update(nvcc_release().encode())
+    return os.path.join(build_dir(), f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str, verbose: bool) -> tuple[subprocess.Popen, str, str]:
     out = library_path(name)
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
     cmd = [find_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
            "-o", tmp, _source_path(name)]
@@ -113,10 +193,15 @@ def build_all(names: Optional[list[str]] = None,
     t0 = time.perf_counter()
     started = [(n, *_start(n, verbose)) for n in names]
     result = {}
+    t_prev = t0
     for name, proc, tmp, out in started:
         log = _finish(name, proc, tmp, out)
-        result[name] = {"path": out, "log": log,
-                        "seconds": time.perf_counter() - t0}
+        t_done = time.perf_counter()
+        # the builds overlap: each miss is charged the wall time since the
+        # previous one finished, so the misses sum to the wall time
+        _count("miss", t_done - t_prev)
+        t_prev = t_done
+        result[name] = {"path": out, "log": log, "seconds": t_done - t0}
     return result
 
 
@@ -128,9 +213,12 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         path = library_path(name)
-        if not os.path.exists(path):
+        t0 = time.perf_counter()
+        hit = os.path.exists(path)
+        if not hit:
             _finish(name, *_start(name, verbose=False))
         lib = ctypes.CDLL(path)
+        _count("hit" if hit else "miss", time.perf_counter() - t0)
         _loaded[name] = lib
         return lib
 

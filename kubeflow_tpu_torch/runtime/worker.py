@@ -91,8 +91,9 @@ from ..api.trainingjob import (ATTENTION_KERNELS, OPTIMIZER_KERNELS,
                                validate_weight_update)
 from ..data.imagenet import ImageNetSource, device_normalize, read_meta
 from ..models import RESNET_DEPTHS
+from ..obs.registry import default_registry
 from ..parallel.mesh import local_batch_size
-from . import recipe
+from . import compile_cache, recipe
 from . import sentinel as sentinel_mod
 from .bootstrap import WorkerContext, initialize, shutdown
 from .checkpoint import CheckpointManager
@@ -246,8 +247,9 @@ class TrainResult:
     final_metrics: dict
     preempted: bool = False
     first_window_s: float = 0.0   # the first window: builds + first launches
-    # train() entry → first completed step (ends in a device sync); the
-    # port has no compile cache or AOT executable, so every start is cold
+    # train() entry → first completed step (ends in a device sync);
+    # "warm" when every kernel library so far came from the build cache
+    # and no nvcc ran (runtime/compile_cache.py)
     time_to_first_step_s: float = 0.0
     start_kind: str = "cold"
     anomaly: Optional[dict] = None   # the tripped sentinel's evidence
@@ -334,6 +336,11 @@ def train(
 ) -> TrainResult:
     t_train_start = time.perf_counter()
     _refuse_unported(locals())
+    # warm restarts load their kernels from the build cache
+    # (KFTPU_COMPILE_CACHE_DIR) instead of running nvcc
+    compile_cache.enable_compilation_cache()
+    stats_at_entry = compile_cache.compile_stats()
+    start_kind = "cold"
     # the process group lives as long as this call when the call made it
     # (from the contract env); a caller's context stays the caller's
     owns_ctx = ctx is None
@@ -736,6 +743,22 @@ def train(
                     if cuda:
                         torch.cuda.synchronize(ctx.device)
                     first_step_s = time.perf_counter() - t_train_start
+                    stats = compile_cache.compile_stats()
+                    start_kind = compile_cache.start_kind(stats_at_entry,
+                                                          stats)
+                    default_registry().histogram(
+                        "kftpu_time_to_first_step_seconds",
+                        "train()-entry to first completed step, by "
+                        "start kind (cold/warm)",
+                        labels=("start",)).labels(
+                            start=start_kind).observe(first_step_s)
+                    if tracer is not None:
+                        tracer.emit(
+                            "first-step", start=time.time(),
+                            trace_id=trace_id, start_kind=start_kind,
+                            seconds=round(first_step_s, 3), step=step + 1,
+                            **{k: stats[k] - stats_at_entry[k] for k in
+                               ("xla_backend_compiles", "cache_hits")})
                 step_cost = time.perf_counter() - t_b
                 recorder.note_step(
                     data_s=t_h - t_a, h2d_s=t_b - t_h,
@@ -925,6 +948,7 @@ def train(
         preempted=preempted,
         first_window_s=summary.get("first_window_s", 0.0),
         time_to_first_step_s=first_step_s,
+        start_kind=start_kind,
         anomaly=anomaly.to_dict() if anomaly is not None else None,
     )
 

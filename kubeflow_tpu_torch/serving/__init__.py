@@ -8,8 +8,15 @@
 - :mod:`batcher`  — micro-batching queue (continuous or window
   admission), bounded ``max_pending`` load shedding.
 - :mod:`http_server` — REST front: /v1/models/<name>[:predict|/metadata],
-  /healthz, /metrics.
-- :mod:`client` — the REST predict client with bounded retries.
+  /v1/routers/<name>[:predict|:feedback], /healthz, /metrics; ``main()``
+  also starts the gRPC front.
+- :mod:`grpc_server` — TF-Serving's PredictionService (Predict,
+  GetModelStatus) over the REST server's MicroBatchers
+  (:mod:`tpu_serving_pb2`, the JAX package's generated messages).
+- :mod:`router` — A/B, epsilon-greedy and shadow experiment routers.
+- :mod:`fleet` — the health-routed, breaker-guarded router over N
+  replicas: failover under a deadline budget, tail hedging.
+- :mod:`client` — the REST and gRPC predict clients.
 - :mod:`request_trace` — per-request ids, stage spans and ledgers.
 - :mod:`replica_state` — per-model rolling health and SLO burn rates.
 """

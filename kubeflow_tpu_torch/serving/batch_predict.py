@@ -16,8 +16,6 @@ from __future__ import annotations
 
 import glob
 import json
-import logging
-import os
 import time
 from pathlib import Path
 from typing import Iterator, Optional
@@ -25,10 +23,6 @@ from typing import Iterator, Optional
 import numpy as np
 
 from .servable import ModelRepository, Servable
-
-log = logging.getLogger(__name__)
-
-COMPILE_CACHE_ENV = "KFTPU_COMPILE_CACHE_DIR"
 
 
 def _iter_input(path: str) -> Iterator[np.ndarray]:
@@ -134,19 +128,6 @@ def run_batch_predict(servable: Servable, input_patterns: list[str],
     return summary
 
 
-def _compile_cache_note() -> None:
-    """The JAX job points its persistent compile cache at
-    $KFTPU_COMPILE_CACHE_DIR and downgrades every failure of it to a
-    warning. The port has no compile cache yet (ROADMAP Queue 1 item 10);
-    a cache changes start time, never results, so the job warns and goes
-    on."""
-    cache_dir = os.environ.get(COMPILE_CACHE_ENV)
-    if cache_dir:
-        log.warning("%s=%s: the compile cache is not yet ported (ROADMAP "
-                    "Queue 1 item 10); running without it",
-                    COMPILE_CACHE_ENV, cache_dir)
-
-
 def main(argv=None) -> int:
     """CLI: the batch-predict job. The flags are the JAX package's, plus
     ``--device``."""
@@ -168,7 +149,10 @@ def main(argv=None) -> int:
                         "when no card is present)")
     args = p.parse_args(argv)
 
-    _compile_cache_note()
+    # a restarted job loads its kernels from the build cache
+    # ($KFTPU_COMPILE_CACHE_DIR); a broken cache volume only warns
+    from ..runtime.compile_cache import enable_compilation_cache
+    enable_compilation_cache()
     repo = ModelRepository()
     servable = repo.load(args.model_name, args.model_type,
                          checkpoint_dir=args.model_path or None,

@@ -1,18 +1,17 @@
-"""Serving client: ``predict()`` against the model server's REST surface.
+"""Serving client: ``predict()`` over the model server's REST surface and
+``predict_grpc()`` over its PredictionService.
 
-The port of ``kubeflow_tpu/serving/client.py`` (REST only; the gRPC wire
-is not yet ported). It keeps its own copies of ``retry_after_s`` and
-``jittered_backoff`` from ``kubeflow_tpu/cluster/http_client.py``.
+The port of ``kubeflow_tpu/serving/client.py``; the retry helpers are
+cluster/http_client.py's.
 
     python -m kubeflow_tpu_torch.serving.client --server 127.0.0.1:8500 \\
-        --model lm --npy tokens.npy --dtype int32
+        --model lm --npy tokens.npy --dtype int32 [--grpc]
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import random
 import sys
 import time
 import urllib.error
@@ -21,28 +20,11 @@ from typing import Optional
 
 import numpy as np
 
+from ..cluster.http_client import jittered_backoff, retry_after_s
 from .request_trace import (DEADLINE_HEADER, REQUEST_ID_HEADER,
                             mint_request_id)
 
-
-def retry_after_s(headers) -> Optional[float]:
-    """A server-sent Retry-After in seconds off a headers mapping, or None
-    (numeric form only; unparseable reads as absent)."""
-    if headers is None:
-        return None
-    raw = headers.get("Retry-After")
-    if raw is None:
-        return None
-    try:
-        return max(0.0, float(raw))
-    except (TypeError, ValueError):
-        return None
-
-
-def jittered_backoff(delay_s: float, rng=random) -> float:
-    """One jittered backoff interval: uniform in [delay, 1.5*delay], so a
-    fleet of retriers does not hammer a recovering server in lockstep."""
-    return delay_s * rng.uniform(1.0, 1.5)
+__all__ = ["predict", "predict_grpc", "retry_after_s", "jittered_backoff"]
 
 
 def predict(server: str, model: str, instances, dtype: str = "float32",
@@ -91,19 +73,55 @@ def predict(server: str, model: str, instances, dtype: str = "float32",
     raise RuntimeError("unreachable")  # pragma: no cover
 
 
+def predict_grpc(server: str, model: str, instances,
+                 dtype: str = "float32", timeout_s: float = 60.0) -> dict:
+    """Predict over the gRPC surface (PredictionService on :9000,
+    serving/grpc_server.py): binary tensors, a REST-shaped result —
+    named outputs become the predictions dict, a single unnamed output
+    the bare list."""
+    import grpc as grpc_mod
+
+    from . import tpu_serving_pb2 as pb
+    from .grpc_server import (MESSAGE_OPTIONS, ndarray_to_tensor,
+                              predict_stub, tensor_to_ndarray)
+    channel = grpc_mod.insecure_channel(server, options=MESSAGE_OPTIONS)
+    try:
+        stub = predict_stub(channel)
+        req = pb.PredictRequest()
+        req.model_spec.name = model
+        req.inputs["instances"].CopyFrom(
+            ndarray_to_tensor(np.asarray(instances, np.dtype(dtype))))
+        resp = stub["Predict"](req, timeout=timeout_s)
+        outs = {k: tensor_to_ndarray(v).tolist()
+                for k, v in resp.outputs.items()}
+        if list(outs) == ["outputs"]:
+            return {"predictions": outs["outputs"]}
+        return {"predictions": outs}
+    finally:
+        channel.close()
+
+
 def main(argv=None) -> int:
-    p = argparse.ArgumentParser(description="model-server REST client")
-    p.add_argument("--server", default="127.0.0.1:8500", help="host:port")
+    p = argparse.ArgumentParser(description="model-server client")
+    p.add_argument("--server",
+                   help="host:port (default: 127.0.0.1:8500 REST, "
+                        "127.0.0.1:9000 with --grpc)")
     p.add_argument("--model", default="model")
     p.add_argument("--npy", required=True,
                    help="input batch (.npy), first axis = rows")
     p.add_argument("--dtype", default=None,
                    help="dtype the server casts the instances to "
                         "(default: the array's)")
+    p.add_argument("--grpc", action="store_true",
+                   help="use the PredictionService gRPC wire (:9000) "
+                        "instead of REST")
     args = p.parse_args(argv)
     batch = np.load(args.npy)
-    result = predict(args.server, args.model, batch,
-                     dtype=args.dtype or str(batch.dtype))
+    server = args.server or \
+        ("127.0.0.1:9000" if args.grpc else "127.0.0.1:8500")
+    send = predict_grpc if args.grpc else predict
+    result = send(server, args.model, batch,
+                  dtype=args.dtype or str(batch.dtype))
     preds = result.get("predictions") or {}
     if isinstance(preds, dict) and "next_token" in preds:
         print(json.dumps({"next_token": preds["next_token"]}))

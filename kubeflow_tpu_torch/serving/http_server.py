@@ -6,15 +6,20 @@ The port of ``kubeflow_tpu/serving/http_server.py``:
 - ``GET  /v1/models/<name>/metadata``   → signature metadata
 - ``POST /v1/models/<name>:predict``    → {"instances": [...]} →
   {"predictions": [...]}
+- ``GET  /v1/routers/<name>``           → an experiment router's arm stats
+- ``POST /v1/routers/<name>:predict``   → predict through the chosen arm
+- ``POST /v1/routers/<name>:feedback``  → {"arm", "reward"}
 - ``GET  /healthz`` (``?verbose=1``: the replica health snapshot) and
   ``GET /metrics`` (Prometheus text).
 
 stdlib ThreadingHTTPServer: requests are I/O-light; the device work is
-serialized by the per-model MicroBatcher. Experiment routers
-(serving/router.py) and the gRPC surface are not yet ported.
+serialized by the per-model MicroBatcher. ``main()`` also serves
+TF-Serving's PredictionService over gRPC (serving/grpc_server.py) on
+``--grpc-port`` (default 9000) where grpcio is installed, on the same
+MicroBatchers.
 
     python -m kubeflow_tpu_torch.serving.http_server \
-        --model-type transformer_lm --rest-port 8500 --device cuda
+        --model-type transformer_lm --attention flash --rest-port 8500
 """
 
 from __future__ import annotations
@@ -58,6 +63,18 @@ class ModelServer:
         self.max_wait_ms = max_wait_ms
         self._batchers: dict[str, MicroBatcher] = {}
         self._batchers_lock = threading.Lock()
+        # live handler connections, for kill() (simulated SIGKILL:
+        # in-flight clients see a reset, not a response)
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+        self._killed = False
+        # predict answers being written: kill() lets them finish, so a
+        # request whose ledger says "ok" was delivered, and one cut by the
+        # kill reads "error" (a failover's answer is then its only "ok")
+        self._sending = 0
+        self._sending_cv = threading.Condition()
+        # experiment routers (A/B, bandit, shadow — serving/router.py)
+        self.routers: dict[str, object] = {}
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         # per-server registry (obs/registry.py), not the process default:
@@ -92,11 +109,33 @@ class ModelServer:
         --slo-availability): burn-rate gauges start tracking it."""
         self.replica.set_slo(model, slo)
 
+    def add_router(self, routed) -> None:
+        """Mount a RoutedModel at /v1/routers/<name>; when it serves this
+        server's repository, its arms resolve through the server's
+        MicroBatchers so routed and direct traffic batch together. A
+        caller-set resolver or foreign repository is left alone. The
+        router also adopts this server's request observability so its
+        shadow copies trace into the same sink with role=shadow."""
+        if routed.predict_resolver is None and \
+                routed.repository is self.repository:
+            routed.predict_resolver = lambda arm: self.batcher(arm).predict
+        if routed.request_obs is None:
+            routed.request_obs = self.obs
+        self.routers[routed.name] = routed
+
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> int:
-        self._httpd = ThreadingHTTPServer((self.host, self.port),
-                                          _make_handler(self))
+        owner = self
+
+        class _Httpd(ThreadingHTTPServer):
+            def handle_error(self, request, client_address):
+                # a killed server's handler threads die on purpose
+                # (OSError on send): no traceback; real errors still print
+                if not owner._killed:
+                    super().handle_error(request, client_address)
+
+        self._httpd = _Httpd((self.host, self.port), _make_handler(self))
         self.port = self._httpd.server_address[1]  # resolve port 0
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True,
@@ -146,6 +185,32 @@ class ModelServer:
                 "inFlightRemaining": self.replica.total_inflight(),
                 "flushed": flushed, "failed": failed,
                 "drainTimeoutSeconds": timeout_s}
+
+    def kill(self) -> None:
+        """Simulated SIGKILL (the chaos replica-crash fault,
+        cluster/chaos.py): close the listener and every live connection
+        with NO drain — in-flight clients see a reset or an empty
+        response, queued work is abandoned. Only answers already being
+        written finish first, so every request the ledger counts "ok"
+        reached its client (the soak's no-duplicate audit reads the
+        ledger). Real code never calls this; the soak does, to prove the
+        fleet survives it."""
+        with self._sending_cv:
+            self._killed = True
+            self._sending_cv.wait_for(lambda: self._sending == 0,
+                                      timeout=10.0)
+        if self._httpd:
+            self._httpd.shutdown()
+            # don't wait for handler threads — SIGKILL wouldn't
+            self._httpd.block_on_close = False
+            self._httpd.server_close()
+        with self._conns_lock:
+            conns = list(self._conns)
+        for c in conns:
+            try:
+                c.close()
+            except OSError:
+                pass
 
     # -- dispatch -----------------------------------------------------------
 
@@ -200,8 +265,25 @@ def _make_handler(server: ModelServer):
         def log_message(self, *a):  # quiet
             pass
 
+        def setup(self):
+            super().setup()
+            with server._conns_lock:
+                server._conns.add(self.connection)
+
+        def finish(self):
+            with server._conns_lock:
+                server._conns.discard(self.connection)
+            try:
+                super().finish()
+            except OSError:
+                pass  # connection already torn down by kill()
+
         def _send(self, code: int, payload, content_type="application/json",
-                  headers: Optional[dict] = None):
+                  headers: Optional[dict] = None, committed: bool = False):
+            if server._killed and not committed:
+                # simulated SIGKILL: the response must never leave — the
+                # client sees a dead connection, not a late answer
+                raise OSError("server killed")
             body = (payload if isinstance(payload, bytes)
                     else json.dumps(payload).encode())
             self.send_response(code)
@@ -250,6 +332,12 @@ def _make_handler(server: ModelServer):
             if path == "/metrics":
                 return self._send(200, server.metrics_text().encode(),
                                   content_type="text/plain")
+            if path.startswith("/v1/routers/"):
+                name = path[len("/v1/routers/"):]
+                routed = server.routers.get(name)
+                if routed is None:
+                    return self._error(404, f"router {name!r} not found")
+                return self._send(200, routed.status())
             if path.startswith("/v1/models/"):
                 rest = path[len("/v1/models/"):]
                 try:
@@ -297,7 +385,9 @@ def _make_handler(server: ModelServer):
             request context is finished (ledger, replica registry)
             before the response bytes are written, so a client that
             reads the registry after its response finds its request
-            counted."""
+            counted; a kill() waits for these writes, and one that came
+            first turns the answer into an error (the client sees a
+            dead connection)."""
             t_parse = time.time()
             instances = self._parse_instances(req)
             if ctx is not None:
@@ -311,11 +401,21 @@ def _make_handler(server: ModelServer):
             predictions = {
                 k: np.asarray(v).tolist() for k, v in out.items()
             } if isinstance(out, dict) else np.asarray(out).tolist()
-            if ctx is not None:
-                ctx.stage("respond", t_resp, time.time())
-                ctx.finish("ok")
-            self._send(200, {"predictions": predictions},
-                       headers={REQUEST_ID_HEADER: rid} if rid else None)
+            with server._sending_cv:
+                if server._killed:
+                    raise OSError("server killed")
+                server._sending += 1
+            try:
+                if ctx is not None:
+                    ctx.stage("respond", t_resp, time.time())
+                    ctx.finish("ok")
+                self._send(200, {"predictions": predictions},
+                           headers={REQUEST_ID_HEADER: rid} if rid else None,
+                           committed=True)
+            finally:
+                with server._sending_cv:
+                    server._sending -= 1
+                    server._sending_cv.notify_all()
 
         def _deadline_s(self) -> Optional[float]:
             """The client's remaining deadline budget (the
@@ -336,6 +436,8 @@ def _make_handler(server: ModelServer):
             if ":" not in self.path:
                 return self._error(404, "expected /v1/models/<name>:predict")
             route, verb = self.path.rsplit(":", 1)
+            if route.startswith("/v1/routers/"):
+                return self._router_post(route[len("/v1/routers/"):], verb)
             if not route.startswith("/v1/models/") or verb != "predict":
                 return self._error(404, f"no route {self.path}")
             name = route[len("/v1/models/"):]
@@ -397,12 +499,50 @@ def _make_handler(server: ModelServer):
                 code = int(getattr(e, "http_status", 400))
                 self._error(code, f"{type(e).__name__}: {e}", headers=hdr)
 
+        def _router_post(self, name: str, verb: str):
+            """/v1/routers/<name>:predict and :feedback."""
+            routed = server.routers.get(name)
+            if routed is None:
+                return self._error(404, f"router {name!r} not found")
+            rid = self._request_id()
+            hdr = {REQUEST_ID_HEADER: rid}
+            ctx = None
+            try:
+                req = self._read_body()
+                if verb == "feedback":
+                    routed.record_feedback(req["arm"], float(req["reward"]))
+                    return self._send(200, routed.status())
+                if verb != "predict":
+                    return self._error(404, f"unknown verb {verb!r}")
+                # the router stamps the chosen arm onto the ctx once
+                # routed; the span's model is the ARM, attrs carry the
+                # router name (serving/router.py)
+                ctx = server.obs.begin(f"router:{name}", request_id=rid,
+                                       force_sample=self._force_sample())
+                self._run_predict(
+                    lambda x: routed.predict(x, ctx=ctx), req,
+                    ctx=ctx, rid=rid)
+            except QueueFullError as e:
+                if ctx is not None:
+                    ctx.finish("shed", error=str(e))
+                self._error(429, f"QueueFullError: {e}", headers={
+                    **hdr, "Retry-After":
+                        f"{getattr(e, 'retry_after_s', 1.0):.1f}"})
+            except Exception as e:  # noqa: BLE001 — surface to client
+                if ctx is not None:
+                    ctx.finish("error", error=f"{type(e).__name__}: {e}")
+                self._error(400, f"{type(e).__name__}: {e}", headers=hdr)
+
     return Handler
 
 
-def main(argv: Optional[list[str]] = None) -> int:
-    """CLI: the model server process. The flags are the JAX package's,
-    plus ``--device``; ``--grpc-port`` defaults to 0 (not yet ported)."""
+def serve(argv: Optional[list[str]] = None) -> dict:
+    """The model server process up to the point where it serves: parse
+    the flags (the JAX package's, plus ``--device`` and ``--attention``),
+    point the kernel builds at the compile cache, load and warm the
+    model, start REST and, where grpcio is installed, gRPC. Returns
+    ``{"args", "repo", "servable", "server", "grpc"}`` (``grpc`` None
+    when off); ``main()`` then waits for SIGTERM."""
     import argparse
     p = argparse.ArgumentParser("tpu-model-server")
     p.add_argument("--model-name", default="model")
@@ -411,9 +551,12 @@ def main(argv: Optional[list[str]] = None) -> int:
                         "or transformer_lm")
     p.add_argument("--model-path", default="")
     p.add_argument("--rest-port", type=int, default=8500)
-    p.add_argument("--grpc-port", type=int, default=0,
-                   help="TF-Serving-compatible PredictionService port; "
-                        "not yet ported, so only 0 (off) is accepted")
+    p.add_argument("--grpc-port", type=int, default=9000,
+                   help="TF-Serving-compatible PredictionService port "
+                        "(0 disables; without grpcio only REST serves)")
+    p.add_argument("--attention", default=None, choices=["einsum", "flash"],
+                   help="transformer_lm's attention: einsum (the model's "
+                        "default) or the flash-attention kernel")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default cuda; raises "
                         "when no card is present)")
@@ -479,12 +622,18 @@ def main(argv: Optional[list[str]] = None) -> int:
                         "in-flight requests get this long to finish "
                         "before the process exits")
     args = p.parse_args(argv)
+    model_kw = {}
+    if args.attention is not None:
+        if args.model_type != "transformer_lm":
+            p.error("--attention applies to --model-type transformer_lm")
+        model_kw["attention"] = args.attention
 
-    if args.grpc_port:
-        raise NotImplementedError(
-            "--grpc-port: the gRPC surface (serving/grpc_server.py) is not "
-            "yet ported; use the REST port")
-
+    # warm restarts load their kernels from the build cache
+    # (KFTPU_COMPILE_CACHE_DIR, rendered by the serving manifest onto the
+    # model volume) instead of running nvcc in warmup()
+    from ..runtime.compile_cache import (compile_stats,
+                                         enable_compilation_cache)
+    enable_compilation_cache()
     repo = ModelRepository()
     # a QuantizationRefused from the int8 parity gate propagates and
     # kills the server at startup — an operator asking for a quantized
@@ -494,7 +643,7 @@ def main(argv: Optional[list[str]] = None) -> int:
                          checkpoint_dir=args.model_path or None,
                          kernels=args.kernel_serving,
                          quant_max_delta=args.int8_max_delta,
-                         device=args.device)
+                         device=args.device, **model_kw)
     servable.max_batch = args.max_batch
     if args.model_path and args.reload_interval:
         repo.start_polling(args.reload_interval)
@@ -505,6 +654,12 @@ def main(argv: Optional[list[str]] = None) -> int:
     if not args.no_warmup:
         buckets = servable.warmup()
         print(f"warmed buckets {buckets}", flush=True)
+    st = compile_stats()
+    print(f"start_kind {servable.start_kind}: kernel libraries loaded from "
+          f"the build cache {st['cache_hits']} ({st['cache_load_s']:.3f}s), "
+          f"nvcc runs {st['xla_backend_compiles']} "
+          f"({st['compile_or_load_s'] - st['cache_load_s']:.3f}s)",
+          flush=True)
     slos = {}
     if args.slo_p99_ms is not None or args.slo_availability is not None:
         from .replica_state import ModelSLO as _SLO
@@ -520,8 +675,28 @@ def main(argv: Optional[list[str]] = None) -> int:
                          batching=args.batching,
                          max_wait_ms=args.max_wait_ms)
     port = server.start()
+    grpc_server = None
+    if args.grpc_port:
+        from .grpc_server import HAVE_GRPC, GrpcPredictServer
+        if HAVE_GRPC:
+            grpc_server = GrpcPredictServer(
+                server, port=args.grpc_port,
+                drain_grace_s=args.drain_timeout)
+            gport = grpc_server.start()
+            print(f"gRPC PredictionService on :{gport}", flush=True)
+        else:
+            print("grpcio is not installed: serving REST only", flush=True)
     print(f"model server listening on :{port} "
           f"(models: {repo.names()})", flush=True)
+    return {"args": args, "repo": repo, "servable": servable,
+            "server": server, "grpc": grpc_server}
+
+
+def main(argv: Optional[list[str]] = None) -> int:
+    """CLI: the model server process (``serve()``), until SIGTERM."""
+    running = serve(argv)
+    args, server, grpc_server = (running["args"], running["server"],
+                                 running["grpc"])
 
     # graceful drain on SIGTERM (the kubelet's pod-stop signal): flip
     # readiness, flush + finish in-flight up to --drain-timeout, THEN
@@ -533,6 +708,8 @@ def main(argv: Optional[list[str]] = None) -> int:
               f"(budget {args.drain_timeout:.0f}s)", flush=True)
         report = server.drain()
         print(f"drain: {report}", flush=True)
+        if grpc_server:
+            grpc_server.stop(grace=args.drain_timeout)
         server.stop()
         done.set()
 
@@ -541,8 +718,10 @@ def main(argv: Optional[list[str]] = None) -> int:
     try:
         done.wait()
     except KeyboardInterrupt:
+        if grpc_server:
+            grpc_server.stop()
         server.stop()
-    repo.stop_polling()
+    running["repo"].stop_polling()
     return 0
 
 

@@ -142,15 +142,25 @@ def test_main_refuses_a_model_path(tmp_path):
 
 def test_compile_cache_env_warns_and_goes_on(tmp_path, monkeypatch,
                                              caplog):
-    monkeypatch.setenv("KFTPU_COMPILE_CACHE_DIR", str(tmp_path / "cache"))
+    """The job enables the kernel build cache at $KFTPU_COMPILE_CACHE_DIR;
+    a cache volume it cannot use (here a path under a regular file) only
+    warns, and the job goes on."""
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.runtime import compile_cache as CC
+    monkeypatch.setattr(_build, "_cache_dir", None)
+    monkeypatch.setattr(CC, "_active", None)
+    (tmp_path / "file").write_text("")
+    monkeypatch.setenv("KFTPU_COMPILE_CACHE_DIR",
+                       str(tmp_path / "file" / "cache"))
     np.save(tmp_path / "x.npy", np.zeros((1, 224, 224, 3), np.float32))
     with caplog.at_level(logging.WARNING,
-                         logger="kubeflow_tpu_torch.serving.batch_predict"):
+                         logger="kubeflow_tpu_torch.runtime.compile_cache"):
         assert TB.main(["--model-type", "resnet18", "--device", "cpu",
                         "--batch-size", "1", "--input-file-patterns",
                         str(tmp_path / "x.npy"), "--output-result-file",
                         str(tmp_path / "o.jsonl")]) == 0
-    assert "item 10" in caplog.text and str(tmp_path / "cache") in \
-        caplog.text
+    assert "compilation cache disabled" in caplog.text and \
+        str(tmp_path / "file" / "cache") in caplog.text
+    assert _build.build_dir() == _build.BUILD_DIR
     preds, summary = _records(tmp_path / "o.jsonl")
     assert len(preds) == 1 and summary["instances"] == 1

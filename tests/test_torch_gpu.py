@@ -1147,3 +1147,133 @@ def test_poison_under_the_sharded_update_on_the_card(cuda_device):
     for out in spawn(_poison_rank, 2):
         assert out["blocks"] and out["cuda"]
         assert abs(out["ratio"] - 8.0) < 1e-2, out
+
+
+# -- the serving tier past one replica (K1 on every path) ------------------
+
+SMALL_LM = dict(vocab_size=256, num_layers=2, embed_dim=64, num_heads=4,
+                head_dim=16, mlp_dim=128, max_seq_len=96)
+
+# a server process on the small LM (the CLI's builder cut to SMALL_LM):
+# serve() with the build cache from the env, then its start kind, the
+# compile stats and the /metrics gauge on one line of JSON
+_SERVER_CHILD = """
+import json, sys, urllib.request
+from kubeflow_tpu_torch.serving import http_server, servable as TS
+from kubeflow_tpu_torch.runtime.compile_cache import compile_stats
+real = TS._MODEL_BUILDERS["transformer_lm"]
+TS._MODEL_BUILDERS["transformer_lm"] = lambda **kw: real(**{**kw, **%r})
+run = http_server.serve(["--model-type", "transformer_lm", "--model-name",
+                         "lm", "--attention", "flash", "--grpc-port", "0",
+                         "--rest-port", "0", "--max-batch", "2"])
+port = run["server"].port
+text = urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics").read()
+run["server"].stop()
+print(json.dumps({"kind": run["servable"].start_kind,
+                  "stats": compile_stats(), "metrics": text.decode()}))
+""" % (SMALL_LM,)
+
+
+@pytest.mark.gpu
+def test_cold_then_warm_server_processes(cuda_device, tmp_path):
+    """Two server processes on one empty build cache: the first runs
+    nvcc for K1 (cold), the second loads it (warm); /metrics agrees."""
+    import json
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "KFTPU_COMPILE_CACHE_DIR": str(tmp_path / "cache"),
+           "PYTHONPATH": repo}
+    runs = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", _SERVER_CHILD], cwd=repo,
+                             env=env, capture_output=True, text=True,
+                             timeout=600)
+        assert out.returncode == 0, out.stderr[-3000:]
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    cold, warm = runs
+    assert cold["kind"] == "cold" and cold["stats"]["xla_backend_compiles"] \
+        >= 1
+    assert warm["kind"] == "warm" and warm["stats"]["cache_hits"] >= 1 and \
+        warm["stats"]["xla_backend_compiles"] == 0
+    assert 'kftpu_serving_start_kind{model="lm",kind="warm"} 1' in \
+        warm["metrics"]
+    assert any(f.startswith("flash_attention_fwd-")
+               for f in os.listdir(tmp_path / "cache"))
+
+
+def _small_servables(n):
+    from kubeflow_tpu_torch.serving.servable import ModelRepository
+    repo = ModelRepository()
+    out = []
+    for i in range(n):
+        s = repo.load("lm", "transformer_lm", attention="flash", **SMALL_LM)
+        s.max_batch = 4
+        out.append(s)
+    return out
+
+
+@pytest.mark.gpu
+def test_grpc_predict_launches_k1(cuda_device):
+    """PredictionService on the card: K1 once per layer per forward, the
+    answers equal REST's through the same MicroBatcher."""
+    pytest.importorskip("grpc")
+    from kubeflow_tpu_torch.serving import client
+    from kubeflow_tpu_torch.serving.grpc_server import GrpcPredictServer
+    from kubeflow_tpu_torch.serving.http_server import ModelServer
+    (lm,) = _small_servables(1)
+    server = ModelServer(host="127.0.0.1", port=0, max_batch=4)
+    server.repository.add(lm)
+    server.start()
+    gs = GrpcPredictServer(server, host="127.0.0.1", port=0)
+    gport = gs.start()
+    x = np.random.default_rng(7).integers(0, 256, (3, 96)).astype(np.int32)
+    try:
+        launches = tfa.flash_attention.launches
+        forwards = lm.metadata()["stats"]["request_count"]
+        got = client.predict_grpc(f"127.0.0.1:{gport}", "lm", x,
+                                  dtype="int32")["predictions"]
+        forwards = lm.metadata()["stats"]["request_count"] - forwards
+        assert forwards >= 1 and \
+            tfa.flash_attention.launches - launches == 2 * forwards
+        rest = client.predict(f"127.0.0.1:{server.port}", "lm", x,
+                              dtype="int32")["predictions"]
+    finally:
+        gs.stop(grace=1.0)
+        server.stop()
+    assert got["next_token"] == rest["next_token"]
+    np.testing.assert_allclose(np.asarray(got["logits"]),
+                               np.asarray(rest["logits"]), rtol=0,
+                               atol=1e-5 * np.abs(rest["logits"]).max())
+
+
+@pytest.mark.gpu
+def test_three_replica_fleet_on_the_card_survives_kill(cuda_device,
+                                                       tmp_path):
+    """Three small-LM replicas on the card behind a FleetRouter: one is
+    killed mid-load and restarted; every client request succeeds, no
+    request is answered twice, and K1 ran once per layer per forward."""
+    import json
+    from kubeflow_tpu_torch.cluster.chaos import ServingSoak
+    replicas = _small_servables(3)
+    rng = np.random.default_rng(8)
+    xs = [rng.integers(0, 256, (1, 96)).astype(np.int32) for _ in range(4)]
+    soak = ServingSoak(span_path=str(tmp_path / "spans.jsonl"),
+                       servables=replicas, seconds=1.0, threads=4,
+                       keep_responses=8, bodies=[json.dumps(
+                           {"instances": x.tolist(), "dtype": "int32"}
+                       ).encode() for x in xs])
+    launches = tfa.flash_attention.launches
+    forwards = sum(r.metadata()["stats"]["request_count"] for r in replicas)
+    report = soak.run_kill()
+    forwards = sum(r.metadata()["stats"]["request_count"]
+                   for r in replicas) - forwards
+    assert report["success_pct"] == 100.0, report["errors"]
+    assert forwards >= 1 and \
+        tfa.flash_attention.launches - launches == 2 * forwards
+    audit = soak.audit()
+    assert audit["ledger_sum_ok"] and audit["duplicate_side_effects"] == 0
+    for i, out in report["samples"]:
+        assert out["predictions"]["next_token"] == \
+            replicas[0].predict(xs[i])["next_token"].tolist()

@@ -49,7 +49,9 @@ def test_every_module_imports_without_jax():
                  "cluster.http_client", "parallel.mesh",
                  "parallel.sharding_rules", "parallel.collectives",
                  "runtime.checkpoint", "runtime.sentinel", "cluster.chaos",
-                 "katib.vizier"):
+                 "katib.vizier", "runtime.compile_cache",
+                 "serving.grpc_server", "serving.tpu_serving_pb2",
+                 "serving.router", "serving.fleet", "scheduler.health"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",
@@ -69,6 +71,29 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.startswith("ok")
+
+
+def test_rest_serving_imports_without_grpcio():
+    """grpcio and protobuf are optional: without them the gRPC module
+    imports with HAVE_GRPC False and the REST server, the router, the
+    fleet and the client import as they are."""
+    code = "\n".join([
+        "import sys",
+        "for name in ('grpc', 'google.protobuf', 'jax', 'kubeflow_tpu'):",
+        "    sys.modules[name] = None",
+        "from kubeflow_tpu_torch.serving import grpc_server",
+        "assert not grpc_server.HAVE_GRPC",
+        "from kubeflow_tpu_torch.serving import (client, fleet,",
+        "                                        http_server, router)",
+        "from kubeflow_tpu_torch.cluster import chaos",
+        "print('ok')",
+    ])
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
 
 
 def test_data_layer_imports_without_torch():

@@ -25,7 +25,7 @@ from kubeflow_tpu_torch.obs.trace import load_spans
 from kubeflow_tpu_torch.serving import client as TC
 from kubeflow_tpu_torch.serving import servable as TS
 from kubeflow_tpu_torch.serving.batcher import MicroBatcher
-from kubeflow_tpu_torch.serving.http_server import ModelServer, main
+from kubeflow_tpu_torch.serving.http_server import ModelServer, serve
 
 from test_torch_transformer import CFG, numpy_params
 
@@ -268,10 +268,44 @@ def test_decompose_request_partitions_the_wall():
     assert gp._percentile([1.0, 2.0, 3.0, 4.0], 0.5) == 3.0
 
 
-def test_cli_refuses_grpc_until_ported():
-    with pytest.raises(NotImplementedError, match="grpc"):
-        main(["--model-type", "transformer_lm", "--grpc-port", "9000",
-              "--device", "cpu"])
+def test_cli_refuses_grpc_until_ported(params, monkeypatch, capsys):
+    """The gRPC surface is ported: ``--grpc-port N`` serves
+    PredictionService beside REST on the same MicroBatcher (same answers),
+    and without grpcio the CLI says it serves REST only."""
+    import socket
+
+    from kubeflow_tpu_torch.serving import grpc_server
+    real = TS._MODEL_BUILDERS["transformer_lm"]
+    monkeypatch.setitem(TS._MODEL_BUILDERS, "transformer_lm",
+                        lambda **kw: real(**{**CFG, **kw,
+                                             "dtype": torch.float32}))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        gport = sock.getsockname()[1]
+    argv = ["--model-type", "transformer_lm", "--model-name", "lm",
+            "--device", "cpu", "--rest-port", "0", "--max-batch", "4",
+            "--attention", "flash"]
+    running = serve(argv + ["--grpc-port", str(gport)])
+    try:
+        assert running["grpc"].port == gport
+        running["servable"].swap(
+            transformer_params_from_jax({"params": params}), 1)
+        x = tokens(2, seed=4)
+        rest = TC.predict(f"127.0.0.1:{running['server'].port}", "lm", x,
+                          dtype="int32")["predictions"]
+        got = TC.predict_grpc(f"127.0.0.1:{gport}", "lm", x,
+                              dtype="int32")["predictions"]
+        assert_same_predictions(got, rest)
+        assert running["servable"].start_kind == "cold"
+    finally:
+        running["grpc"].stop(grace=0)
+        running["server"].stop()
+    assert f"gRPC PredictionService on :{gport}" in capsys.readouterr().out
+    monkeypatch.setattr(grpc_server, "HAVE_GRPC", False)
+    running = serve(argv + ["--grpc-port", str(gport), "--no-warmup"])
+    running["server"].stop()
+    assert running["grpc"] is None
+    assert "serving REST only" in capsys.readouterr().out
 
 
 def test_unknown_model_type_and_resnet_signature():
