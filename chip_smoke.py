@@ -219,6 +219,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
              /metrics says kind="cold"; the second runs none, loads >= 1
              library from the cache and says kind="warm"; each one's
              seconds from spawn to listening and its build seconds.
+11. aot    - the worker's AOT ladder (runtime/aot.py), last: for the LM
+             of phase 5 (flash, fused_adam, batch 8 x 2048) and the
+             fused ResNet-50 recipe of phase 6b (LARS, cosine with 2
+             warmup steps under the runtime schedule, 224 px, batch 64,
+             synthetic pool), each over one fresh build cache
+             (KFTPU_COMPILE_CACHE_DIR) and one fresh AOT dir, three
+             fresh worker processes (this script with --aot-child) of
+             the same 20 seeded steps: cold (empty cache, aot: nvcc >= 1,
+             the step captured as one CUDA graph, outcomes miss and
+             export, start_kind cold), warm (no aot: cache hits, 0 nvcc,
+             eager, start_kind warm) and aot (outcome hit, 0 nvcc, the
+             step captured, start_kind aot). Prints per arm the start
+             kind, nvcc runs, outcomes, first-step seconds and the median
+             step ms over steps 5-20. Fails unless the three arms' losses
+             and final params agree within 1e-5 (|d| printed; 0
+             expected), the step object's launches are K1/K2a/K2b 12 and
+             K3 1, or K4 7 + 7 and K5 6 + 6, a replay and the wrappers'
+             counts are 20 times that, a trace of two more replays of the
+             aot arm's step holds the same per step by kernel name, and
+             neither AOT arm counted export-failed or deserialize-failed
+             or ran eagerly. Then a truncated record and one re-keyed must
+             each fall back (outcome corrupt, key-mismatch; then export),
+             train the 20 steps equal to cold's and read start_kind warm
+             from the cache. Prints the device's idle share of the traced
+             captured and eager fused ResNet steps.
 
 Phase 2 also holds K4 and K5 (the fused ghost-BN bottleneck, batch-tiled
 and spatial, csrc/fused_block_train.cu) against their plain versions at
@@ -950,7 +975,7 @@ def phase_k3(fo, recipe, lm_shapes, timed: bool = True,
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        opt.step(norm=norm, max_norm=max_norm)
+        opt.launch(norm=norm, max_norm=max_norm)
     device_ms = cuda_time_ms(graph.replay, iters=10)
     plain_p = [q for q, _, _ in plain]
     plain_ms = cuda_time_ms(lambda: [
@@ -3710,10 +3735,366 @@ def _launch_mean(geoms: list, field: str) -> float:
         sum(g["count"] for g in geoms)
 
 
+# -- phase 11: the AOT ladder ---------------------------------------------------
+
+AOT_STEPS = 20
+AOT_CHILD_TIMEOUT_S = 300
+AOT_TOL = 1e-5              # the reference's cold-vs-aot bar (0 expected)
+AOT_OUTCOMES = ("miss", "corrupt", "key-mismatch", "signature-mismatch",
+                "deserialize-failed", "hit", "export", "export-failed")
+# per step of each model, by the wrappers' names (runtime/trainstep.py
+# kernel_counters) and by the kernel families a trace counts
+AOT_LAUNCHES = {
+    "lm": {"flash_attention": SERVE_LAYERS,
+           "flash_attention_bwd_dq": SERVE_LAYERS,
+           "flash_attention_bwd_dkv": SERVE_LAYERS, "fused_adam": 1},
+    "resnet": {"fused_block_train_fwd": 7, "fused_block_train_bwd": 7,
+               "fused_block_train_spatial_fwd": 6,
+               "fused_block_train_spatial_bwd": 6},
+}
+AOT_TRACE_STEPS = 2
+
+
+def _aot_train_kwargs(model: str) -> dict:
+    """Phase 5's LM (flash, fused_adam, batch 8 x 2048) or phase 6b's
+    fused ResNet-50 recipe (LARS, cosine with 2 warmup steps under the
+    runtime schedule, 224 px, batch 64) on the synthetic pool."""
+    if model == "lm":
+        from kubeflow_tpu_torch.models import transformer as T
+        return dict(workload="transformer",
+                    workload_kwargs={"cfg": T.TransformerConfig()},
+                    kernel_attention="flash", kernel_optimizer="fused_adam",
+                    optimizer="adam", learning_rate=TRAIN_LR,
+                    global_batch=TRAIN_BATCH)
+    return dict(workload="resnet50", workload_kwargs={"fused": True},
+                global_batch=RESNET_BATCH, optimizer="lars",
+                learning_rate=0.1, lr_schedule="cosine", warmup_steps=2,
+                runtime_schedule=True)
+
+
+def trace_kernels(trace_dir: str, steps: int) -> dict:
+    """Per step, the launches of each kernel of the two paths in a Chrome
+    trace, by the CUDA kernels' names: K1/K2a/K2b/K3 by their own; a
+    K4/K5 forward ends in one output product (EpTrainOut), K5's starts by
+    gathering haloed rows (a wg_gemm over LdXHaloed); a backward makes one
+    in_da_kernel, K5's two seam_add_kernel."""
+    import glob
+    (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+    def n(*subs) -> int:
+        return sum(all(x in name for x in subs) for name in names)
+
+    fwd, k5_fwd = n("wg_gemm", "EpTrainOut"), n("wg_gemm", "LdXHaloed")
+    bwd, k5_bwd = n("in_da_kernel"), n("seam_add_kernel") // 2
+    counts = {
+        "flash_attention": n("flash_fwd"),
+        "flash_attention_bwd_dq": n("flash_bwd_dq"),
+        "flash_attention_bwd_dkv": n("flash_bwd_dkv"),
+        "fused_adam": n("fused_adam_kernel"),
+        "fused_block_train_fwd": fwd - k5_fwd,
+        "fused_block_train_bwd": bwd - k5_bwd,
+        "fused_block_train_spatial_fwd": k5_fwd,
+        "fused_block_train_spatial_bwd": k5_bwd}
+    return {k: v / steps for k, v in counts.items() if v}
+
+
+def aot_child(argv: list) -> int:
+    """Phase 11's child: one worker process that trains the model named
+    in its JSON argument through train() (``aot`` on or off, on the build
+    cache its env names) and writes what it saw to ``<out>/result.json``:
+    the start kind, nvcc runs and cache hits, the AOT outcomes, each
+    step's loss and time, the step object's launches and replays, the
+    final params (``params.pt``) and, with ``profile``, a trace of two more
+    steps (the kernels per step and the device's idle share)."""
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(argv[0])
+    from kubeflow_tpu_torch.obs import registry as obsreg
+    from kubeflow_tpu_torch.runtime import compile_cache, trainstep, worker
+    seen = {}
+    # an event behind each step on its stream: consecutive events time
+    # the step as the card sees it, idle gaps included (the worker's
+    # windows time the host's dispatch, which a replay leaves far behind)
+    ends: list = []
+
+    def mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+
+    replay = trainstep.CompiledStep.__call__
+
+    def timed_replay(self, state, batch):
+        out = replay(self, state, batch)
+        mark()
+        return out
+
+    trainstep.CompiledStep.__call__ = timed_replay
+
+    class Capture(trainstep.TrainStepBuilder):
+        def build(self):
+            step = super().build()
+            seen["builder"] = self
+
+            def run(state, batch):
+                seen["state"], seen["batch"] = state, batch
+                out = step(state, batch)
+                mark()
+                return out
+            return run
+
+        def build_compiled(self, state, batch):
+            seen["compiled"] = super().build_compiled(state, batch)
+            return seen["compiled"]
+
+    worker.TrainStepBuilder = Capture
+    out = spec["out"]
+    path = os.path.join(out, "metrics.jsonl")
+    steps = spec["steps"]
+    result = worker.train(steps=steps, aot=spec["aot"],
+                          aot_dir=spec["aot_dir"], metrics_path=path,
+                          sync_every=1, seed=0, handle_sigterm=False,
+                          device=DEVICE, **_aot_train_kwargs(spec["model"]))
+    torch.cuda.synchronize()
+    counts = {n: getattr(f, a) for n, (f, a) in
+              trainstep.kernel_counters().items() if getattr(f, a)}
+    stats = compile_cache.compile_stats()
+    fam = obsreg.counter("kftpu_aot_executable_total", "",
+                         labels=("outcome",))
+    compiled = seen.get("compiled")
+    captured = compiled is not None and compiled.graph is not None and \
+        compiled.replays == steps
+    state = compiled.state if captured else seen["state"]
+    windows = _windows(path)
+    rec = {"start_kind": result.start_kind,
+           "first_step_s": result.time_to_first_step_s,
+           "nvcc": stats["xla_backend_compiles"],
+           "hits": stats["cache_hits"],
+           "outcomes": {o: fam.labels(outcome=o).value for o in AOT_OUTCOMES
+                        if fam.labels(outcome=o).value},
+           "losses": [w["loss"] for w in windows],
+           "step_ms": [a.elapsed_time(b) for a, b in zip(ends, ends[1:])],
+           "window_ms": [w["step_time_s"] * 1e3 for w in windows],
+           "captured": captured, "counts": counts,
+           "launches": compiled.launches if captured else None,
+           "replays": compiled.replays if compiled is not None else 0}
+    torch.save({n: p.detach().cpu() for n, p in state.params.items()},
+               os.path.join(out, "params.pt"))
+    if spec["profile"]:
+        trainstep.CompiledStep.__call__ = replay
+        step = compiled if captured else seen["builder"].build()
+        batch = compiled.static_batch if captured else seen["batch"]
+        trace_dir = os.path.join(out, "trace")
+        os.makedirs(trace_dir)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(AOT_TRACE_STEPS):
+                state, _m = step(state, batch)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(os.path.join(trace_dir,
+                                              "steps.pt.trace.json"))
+        rec["trace_kernels"] = trace_kernels(trace_dir, AOT_TRACE_STEPS)
+        idle = trace_idle(trace_dir)
+        rec["idle"] = {k: idle[k] for k in ("busy_ms", "span_ms",
+                                             "idle_share")}
+    with open(os.path.join(out, "result.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _aot_start(tmp: str, model: str, arm: str, cache: str, aot_dir: str,
+               aot: bool, profile: bool = False) -> tuple:
+    """Start one fresh worker process (this script with --aot-child) on
+    the build cache ``cache``; its output goes to ``<out>/child.log``."""
+    out = os.path.join(tmp, f"{model}-{arm}")
+    os.makedirs(out)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("KFTPU_AOT", "KFTPU_AOT_DIR")}
+    env["KFTPU_COMPILE_CACHE_DIR"] = cache
+    argv = [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+            "--aot-child", json.dumps({
+                "model": model, "steps": AOT_STEPS, "aot": aot,
+                "aot_dir": aot_dir, "out": out, "profile": profile})]
+    with open(os.path.join(out, "child.log"), "w") as f:
+        proc = subprocess.Popen(argv, env=env, stdout=f,
+                                stderr=subprocess.STDOUT)
+    return proc, out, time.perf_counter(), f"{model} {arm}"
+
+
+def _aot_finish(started: tuple) -> dict:
+    """Wait for a child of :func:`_aot_start`; its result.json, with its
+    wall seconds."""
+    proc, out, t0, label = started
+    try:
+        rc = proc.wait(timeout=AOT_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise
+    if rc != 0:
+        with open(os.path.join(out, "child.log")) as f:
+            fail(f"phase 11 {label}: exit {rc}\n{f.read()[-4000:]}")
+    with open(os.path.join(out, "result.json")) as f:
+        rec = json.load(f)
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["out"] = out
+    return rec
+
+
+def _aot_run(*args, **kw) -> dict:
+    return _aot_finish(_aot_start(*args, **kw))
+
+
+def _max_delta(a: dict, b: dict) -> float:
+    return max((a[n].float() - b[n].float()).abs().max().item() for n in a)
+
+
+def phase_aot(tmp: str, models=("lm", "resnet")) -> dict:
+    """Phase 11: the AOT ladder of the worker, per model, over one fresh
+    build cache and one fresh AOT directory: cold (empty cache, aot: nvcc,
+    the capture, outcome export), warm (no aot: cache hits, 0 nvcc,
+    eager) and aot (outcome hit, 0 nvcc, start_kind "aot") worker
+    processes of the same 20 seeded steps, then a truncated record and a
+    record of another key, each falling back and training."""
+    import pickle
+    import statistics
+    out = {}
+    for model in models:
+        cache = os.path.join(tmp, f"{model}-cache")
+        aot_dir = os.path.join(tmp, f"{model}-records")
+        arms = {"cold": _aot_run(tmp, model, "cold", cache, aot_dir, True),
+                "warm": _aot_run(tmp, model, "warm", cache, aot_dir, False,
+                                 profile=model == "resnet"),
+                "aot": _aot_run(tmp, model, "aot", cache, aot_dir, True,
+                                profile=True)}
+        want = AOT_LAUNCHES[model]
+        for arm, r in arms.items():
+            # step_ms[i] ends step i + 2
+            r["median_ms"] = statistics.median(r["step_ms"][3:])
+            r["median_window_ms"] = statistics.median(
+                r["window_ms"][4:AOT_STEPS])
+            log(f"[aot] {model} {arm}: start_kind {r['start_kind']}, nvcc "
+                f"runs {r['nvcc']}, cache hits {r['hits']}, outcomes "
+                f"{r['outcomes']}, first step {r['first_step_s']:.3f} s "
+                f"(train() entry to the first step's sync), median step "
+                f"{r['median_ms']:.3f} ms over steps 5-{AOT_STEPS} (CUDA "
+                f"events between step ends; the worker's windows "
+                f"{r['median_window_ms']:.3f} ms), "
+                f"{'captured, ' + str(r['replays']) + ' replays' if r['captured'] else 'eager'}; "
+                f"process wall {r['wall_s']:.1f} s")
+        cold, warm, aot = arms["cold"], arms["warm"], arms["aot"]
+        for arm in ("cold", "aot"):
+            bad = {k: v for k, v in arms[arm]["outcomes"].items()
+                   if k in ("export-failed", "deserialize-failed")}
+            if bad or not arms[arm]["captured"]:
+                fail(f"phase 11 {model} {arm}: outcomes {bad}, captured "
+                     f"{arms[arm]['captured']}: the AOT arm ran eagerly")
+        if not (cold["start_kind"] == "cold" and cold["nvcc"] >= 1 and
+                cold["outcomes"] == {"miss": 1, "export": 1}):
+            fail(f"phase 11 {model} cold arm: {cold['start_kind']}, nvcc "
+                 f"{cold['nvcc']}, outcomes {cold['outcomes']}")
+        if not (warm["start_kind"] == "warm" and warm["nvcc"] == 0 and
+                warm["hits"] >= 1 and not warm["outcomes"] and
+                not warm["captured"]):
+            fail(f"phase 11 {model} warm arm: {warm['start_kind']}, nvcc "
+                 f"{warm['nvcc']}, hits {warm['hits']}, outcomes "
+                 f"{warm['outcomes']}")
+        if not (aot["start_kind"] == "aot" and aot["nvcc"] == 0 and
+                aot["outcomes"] == {"hit": 1}):
+            fail(f"phase 11 {model} aot arm: {aot['start_kind']}, nvcc "
+                 f"{aot['nvcc']}, outcomes {aot['outcomes']}")
+        # the three arms: the same kernels in the same order
+        params = {arm: torch.load(os.path.join(r["out"], "params.pt"))
+                  for arm, r in arms.items()}
+        d_loss = max(abs(a - b) for arm in ("warm", "aot")
+                     for a, b in zip(arms[arm]["losses"], cold["losses"]))
+        d_param = max(_max_delta(params[arm], params["cold"])
+                      for arm in ("warm", "aot"))
+        del params
+        log(f"[aot] {model}: warm and aot against cold over {AOT_STEPS} "
+            f"steps: max|d loss| {d_loss:.3e}, max|d param| {d_param:.3e} "
+            f"(<= {AOT_TOL})")
+        if not (len(cold["losses"]) == AOT_STEPS and d_loss <= AOT_TOL
+                and d_param <= AOT_TOL):
+            fail(f"phase 11 {model}: the arms disagree")
+        for arm in ("cold", "warm", "aot"):
+            if arm != "warm" and arms[arm]["launches"] != want:
+                fail(f"phase 11 {model} {arm}: the step object's launches "
+                     f"{arms[arm]['launches']}, expected {want}")
+            # a captured arm's warm-up step launched through the wrappers
+            n = AOT_STEPS + (arm != "warm")
+            total = {k: v * n for k, v in want.items()}
+            got = {k: arms[arm]["counts"].get(k, 0) for k in want}
+            if got != total:
+                fail(f"phase 11 {model} {arm}: counted launches {got}, "
+                     f"expected {total} ({n} steps)")
+        if aot["trace_kernels"] != want:
+            fail(f"phase 11 {model}: the trace of {AOT_TRACE_STEPS} "
+                 f"replays holds {aot['trace_kernels']} a step, expected "
+                 f"{want}")
+        idle = {arm: arms[arm]["idle"] for arm in ("warm", "aot")
+                if "idle" in arms[arm]}
+        log(f"[aot] {model}: the trace of {AOT_TRACE_STEPS} replays holds "
+            f"{aot['trace_kernels']} a step; " + "; ".join(
+                f"{'captured' if arm == 'aot' else 'eager'} step traced: "
+                f"device busy {i['busy_ms']:.3f} of {i['span_ms']:.3f} ms, "
+                f"idle share {i['idle_share']:.3f}"
+                for arm, i in idle.items()))
+        # the fallbacks, side by side (untimed): a truncated record and a
+        # re-keyed one, each in its own directory, each trains and reads
+        # its kind from the cache
+        (name,) = os.listdir(aot_dir)
+        with open(os.path.join(aot_dir, name), "rb") as f:
+            blob = f.read()
+        rekeyed = pickle.loads(blob)
+        rekeyed["key"] = "0" * 24
+        started = []
+        for damage, bad in (("corrupt", blob[:len(blob) // 2]),
+                            ("key-mismatch", pickle.dumps(rekeyed))):
+            d = os.path.join(tmp, f"{model}-records-{damage}")
+            os.makedirs(d)
+            with open(os.path.join(d, name), "wb") as f:
+                f.write(bad)
+            started.append((damage, _aot_start(tmp, model, damage, cache,
+                                               d, True)))
+        drills = {}
+        for damage, st in started:
+            r = _aot_finish(st)
+            d = max(abs(a - b) for a, b in zip(r["losses"], cold["losses"]))
+            log(f"[aot] {model} {damage} record: start_kind "
+                f"{r['start_kind']}, nvcc {r['nvcc']}, outcomes "
+                f"{r['outcomes']}, {len(r['losses'])} steps, max|d loss| "
+                f"against cold {d:.3e}")
+            if not (r["outcomes"] == {damage: 1, "export": 1} and
+                    r["start_kind"] == "warm" and r["nvcc"] == 0 and
+                    len(r["losses"]) == AOT_STEPS and d <= AOT_TOL):
+                fail(f"phase 11 {model}: the {damage} record did not fall "
+                     f"back to a warm start that trains")
+            drills[damage] = {k: r[k] for k in ("start_kind", "outcomes")}
+        out[model] = {
+            "arms": {arm: {k: r[k] for k in (
+                "start_kind", "nvcc", "hits", "outcomes", "first_step_s",
+                "median_ms", "median_window_ms", "captured", "replays",
+                "wall_s")}
+                for arm, r in arms.items()},
+            "idle": idle, "d_loss": d_loss, "d_param": d_param,
+            "trace_kernels": aot["trace_kernels"],
+            "counts": aot["counts"], "drills": drills}
+    return out
+
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     if sys.argv[1:2] == ["--worker"]:
         return worker_cli(sys.argv[2:])
+    if sys.argv[1:2] == ["--aot-child"]:
+        return aot_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); this script runs on the card only", file=sys.stderr)
@@ -3844,6 +4225,12 @@ def main() -> int:
             degree = phase_ckpt_degree(T, R, worker, ckpt_mod, dev["card"],
                                        dp["ref_lm"], resnet["per_step"],
                                        tmp)
+        # phase 11: the AOT ladder, in worker processes
+        torch.cuda.empty_cache()
+        t11 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="kftpu-aot-") as tmp:
+            aot_r = phase_aot(tmp)
+        log(f"[aot] phase 11 in {time.perf_counter() - t11:.1f}s")
     except Exception:  # noqa: BLE001 - any phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4002,6 +4389,14 @@ def main() -> int:
                  "a forward's " + ", ".join(
                      f"{g['count']} x {g['key']}" for g in geoms),
     })
+    # phase 11: each kernel's launches in the aot arm's 20 replays
+    for k in record["kernels"]:
+        model = "lm" if k["name"].startswith(("flash", "fused_adam")) \
+            else "resnet"
+        name = "flash_attention" if k["name"] == "flash_attention_fwd" \
+            else k["name"]
+        if name in AOT_LAUNCHES[model]:
+            k["launches_aot"] = aot_r[model]["counts"].get(name, 0)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s; "
         f"cold start ready in {cold_warm['cold']['ready_s']:.2f}s, warm "
         f"{cold_warm['warm']['ready_s']:.2f}s")

@@ -19,8 +19,11 @@
 // the next op (optax.apply_updates); this kernel writes p + dp in place
 // of p, the same f32 sum, so the update reads p, g, m, v once and writes
 // p, m, v once (28 bytes per element). lr, bc1 and bc2 are launch
-// arguments (the TPU kernel's SMEM scalars), wd one per tensor (the decay
-// mask); b1, b2 and eps are fixed by the optimizer. (1 - b1) and (1 - b2)
+// arguments (the TPU kernel's SMEM scalars) or, when `scalars` is given,
+// read from three floats in device memory that the optimizer writes
+// before each step, so a step captured into a CUDA graph takes each
+// replay's values; wd is one per tensor (the decay mask); b1, b2 and eps
+// are fixed by the optimizer. (1 - b1) and (1 - b2)
 // arrive computed on the host, as the JAX code computes them from Python
 // floats.
 //
@@ -100,7 +103,13 @@ __device__ __forceinline__ void adam4(float4& p, float4 g, float4& m,
 
 __global__ void __launch_bounds__(THREADS)
 fused_adam_kernel(const __grid_constant__ Table t,
-                  const float* __restrict__ norm_ptr, const Hyper h) {
+                  const float* __restrict__ norm_ptr,
+                  const float* __restrict__ scalars, Hyper h) {
+  if (scalars != nullptr) {  // this step's lr, bc1, bc2 from the device
+    h.lr = scalars[0];
+    h.bc1 = scalars[1];
+    h.bc2 = scalars[2];
+  }
   // this block's tensor: the last entry whose first block is <= it
   const int blk = blockIdx.x;
   int lo = 0, hi = t.count - 1;
@@ -164,13 +173,15 @@ bool aligned16(const void* x) {
 // `ptrs` holds 4 * count addresses (p, g, m, v of each tensor, contiguous
 // f32), `ns` their lengths and `wds` their weight decays. `norm`, when
 // not null, is a device pointer to the pre-clip global norm, and the
-// gradients are clipped to `max_norm` first. Launches once per CAPACITY
+// gradients are clipped to `max_norm` first. `scalars`, when not null, is
+// a device pointer to (lr, bc1, bc2), read in place of the arguments. Launches once per CAPACITY
 // tensors (tensors of length 0 are skipped) on `stream` and writes the
 // number of launches to `launched`. Returns the first failing launch's
 // cudaError_t; the caller checks it.
 extern "C" int kftpu_fused_adam(const int64_t* ptrs, const int64_t* ns,
                                 const float* wds, int count,
-                                const float* norm, float max_norm, float lr,
+                                const float* norm, const float* scalars,
+                                float max_norm, float lr,
                                 float bc1, float bc2, float b1,
                                 float one_minus_b1, float b2,
                                 float one_minus_b2, float eps, void* stream,
@@ -204,7 +215,8 @@ extern "C" int kftpu_fused_adam(const int64_t* ptrs, const int64_t* ns,
       continue;
     }
     fused_adam_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(t, norm, h);
+                        static_cast<cudaStream_t>(stream)>>>(t, norm, scalars,
+                                                            h);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ++*launched;

@@ -26,8 +26,10 @@ host waits. So on a CUDA device the prefetcher
   without it the caching allocator could give their memory to the next
   copy while the step still reads it.
 
-A batch value that is not host memory (a CUDA tensor) raises: there is
-nothing to stage. On a CPU device it is the plain queue around
+A captured train step (runtime/trainstep.py ``CompiledStep``) copies a
+handed-out batch into its static buffers on the consuming stream, so
+after that wait and with no host sync. A batch value that is not host
+memory (a CUDA tensor) raises: there is nothing to stage. On a CPU device it is the plain queue around
 ``place_fn``. Each staged batch counts
 ``kftpu_input_batches_total{stage="device_put"}`` on the port's process
 registry.

@@ -18,6 +18,11 @@ miss, with their seconds (``stats()``), also in the process registry
 under the JAX package's compile-cache families
 (runtime/compile_cache.py says what each counts).
 
+``loaded_libraries()`` names the libraries this process has loaded, each
+with its file name and sha256, and ``load_recorded`` loads one by such a
+record, from the build directory only and never through ``nvcc``: the
+AOT warm start (runtime/aot.py) keeps them in its step record.
+
     python -m kubeflow_tpu_torch.ops._build     # build every source, print ptxas
 """
 
@@ -46,6 +51,7 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_loaded_paths: dict[str, str] = {}     # name -> the file it was loaded from
 # the compile cache's directory, when one is enabled (set_cache_dir)
 _cache_dir: Optional[str] = None
 # per process: libraries loaded from disk (hits) and nvcc runs (misses)
@@ -84,6 +90,7 @@ def set_cache_dir(path: Optional[str]) -> None:
     with _lock:
         _cache_dir = path
         _loaded.clear()
+        _loaded_paths.clear()
 
 
 def build_dir() -> str:
@@ -220,6 +227,53 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         _count("hit" if hit else "miss", time.perf_counter() - t0)
         _loaded[name] = lib
+        _loaded_paths[name] = path
+        return lib
+
+
+def file_digest(path: str) -> str:
+    """sha256 of a file's bytes, hex."""
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def loaded_libraries() -> list[tuple[str, str, str]]:
+    """``(name, file name under build_dir(), sha256)`` of every library
+    this process has loaded, sorted by name."""
+    with _lock:
+        paths = sorted(_loaded_paths.items())
+    return [(name, os.path.basename(path), file_digest(path))
+            for name, path in paths]
+
+
+def load_recorded(name: str, file_name: str, sha256: str) -> ctypes.CDLL:
+    """Load ``csrc/<name>.cu``'s library from the record of an earlier
+    process: ``file_name`` under :func:`build_dir` with the digest
+    ``sha256``. Never runs ``nvcc``: raises KernelBuildError when the
+    file is missing, its digest differs, or it is not the build of this
+    checkout's sources (its name is keyed by their hash). Counted as a
+    hit, as :func:`load_library` counts a load from disk."""
+    with _lock:
+        if os.path.basename(library_path(name)) != file_name:
+            raise KernelBuildError(
+                f"{file_name} is not the build of this checkout's "
+                f"csrc/{name}.cu")
+        path = os.path.join(build_dir(), file_name)
+        if not os.path.exists(path):
+            raise KernelBuildError(f"{path} is not in the build cache")
+        if _loaded_paths.get(name) == path:
+            return _loaded[name]
+        t0 = time.perf_counter()
+        if file_digest(path) != sha256:
+            raise KernelBuildError(f"{path}: sha256 differs from the "
+                                   f"record's")
+        lib = ctypes.CDLL(path)
+        _count("hit", time.perf_counter() - t0)
+        _loaded[name] = lib
+        _loaded_paths[name] = path
         return lib
 
 

@@ -6,7 +6,9 @@ data-parallel gang.
   schedules, the global-norm clip, the recipe fingerprints.
 - ``trainstep`` — ``TrainState`` and ``TrainStepBuilder``: forward,
   backward, the gradient reduction (all-reduce, or the ZeRO-2
-  reduce-scatter and all-gather), clip, update.
+  reduce-scatter and all-gather), clip, update; ``build_compiled``, the
+  step captured as one CUDA graph.
+- ``aot``       — the keyed AOT step record of the warm-start ladder.
 - ``metrics``   — ``MetricsLogger`` (JSONL, TensorBoard), the lagged
   window fetch, the flight recorder, the profiler hooks and the pod
   heartbeat (``HeartbeatReporter``).

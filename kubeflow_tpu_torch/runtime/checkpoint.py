@@ -397,7 +397,10 @@ class CheckpointManager:
 
     def _host_copy(self, key: str, t: torch.Tensor) -> torch.Tensor:
         """A host copy of ``t``: into a pinned buffer, asynchronously on
-        the current stream, for a CUDA tensor; a clone otherwise."""
+        the current stream, for a CUDA tensor; a clone otherwise. Queued
+        on the step's stream, the copy reads the saved step's values
+        before the next step (a captured step's replay too) overwrites
+        them in place."""
         t = t.detach()
         if t.device.type != "cuda":
             return t.clone(memory_format=torch.contiguous_format)

@@ -25,7 +25,9 @@ JAX package's names so one dashboard reads both:
   seconds of every hit and miss; ``cache_load`` = the hits' share of it.
 
 ``compile_stats()`` keeps the JAX package's keys; its
-``xla_backend_compiles`` is the count of ``nvcc`` runs.
+``xla_backend_compiles`` is the count of ``nvcc`` runs. :func:`start_kind`
+is the warm/cold rule; "aot" comes from the worker's AOT ladder only
+(runtime/aot.py), as in the JAX package.
 """
 
 from __future__ import annotations

@@ -53,7 +53,7 @@ from typing import Callable, Iterable, Mapping, Optional, Union
 import torch
 
 from ..api.trainingjob import OPTIMIZER_KERNELS
-from ..ops.fused_adam import FusedAdam
+from ..ops.fused_adam import FusedAdam, write_scalars
 from ..parallel import collectives
 
 OPTIMIZERS = ("sgd", "momentum", "nesterov", "adam", "adamw", "lars",
@@ -428,18 +428,39 @@ def clip_by_global_norm_(grads: list, max_norm: float,
     return norm
 
 
+class CaptureError(RuntimeError):
+    """The optimizer keeps a per-step scalar on the host that a captured
+    step would bake in."""
+
+
 class RecipeOptimizer:
     """The recipe's chain around a ``torch.optim.Optimizer``: clip the
     gradients by their global norm, then step the optimizer with lr from
     the schedule at the pre-increment count. A :class:`FusedAdam` reads
-    its schedule itself and clips inside its one kernel launch."""
+    its schedule itself and clips inside its one kernel launch.
+
+    :meth:`step` is three parts, so a train step captured into a CUDA
+    graph (runtime/trainstep.py ``build_compiled``) can run the middle
+    one alone: :meth:`stage` writes this step's host scalars where the
+    device reads them, :meth:`apply` is the update on the device, and
+    :meth:`advance` moves the host counts on. :meth:`prepare_capture`
+    moves every per-step host scalar onto the device first: FusedAdam's
+    (lr, bc₁, bc₂) are there already, the runtime schedule's lr too; a
+    baked lr of the chain becomes a device buffer, Adam and AdamW on a
+    card turn ``capturable`` with a device lr; ``torch.optim.SGD`` takes
+    lr only as a host number, which a capture bakes in: right for a
+    constant schedule (``constant_lr``), a :class:`CaptureError`
+    otherwise."""
 
     def __init__(self, inner: torch.optim.Optimizer, schedule: Schedule,
-                 grad_clip: Optional[float]):
+                 grad_clip: Optional[float], constant_lr: bool = False):
         self.inner = inner
         self.schedule = schedule
         self.grad_clip = grad_clip
+        self.constant_lr = constant_lr
         self.count = 0
+        # the captured path's lr on the device (None: a host float)
+        self.lr_buffer: Optional[torch.Tensor] = None
 
     @property
     def param_groups(self) -> list:
@@ -471,21 +492,82 @@ class RecipeOptimizer:
     def step(self, grad_norm: Optional[torch.Tensor] = None) -> None:
         """One update; ``grad_norm``, the gradients' pre-clip global norm
         when the caller has it already, saves taking it again."""
+        self.stage()
+        self.apply(grad_norm)
+        self.advance()
+
+    def stage(self) -> None:
+        """This step's host scalars, from the pre-increment count, where
+        the update reads them: FusedAdam's device buffer, the captured
+        path's lr buffer (written on the current stream), or each group's
+        lr. The runtime schedule has none."""
+        if isinstance(self.inner, FusedAdam):
+            self.inner.stage()
+            return
+        if "runtime_lr" in self.inner.state:
+            return
+        lr = float(self.schedule(self.count))
+        if self.lr_buffer is not None:
+            write_scalars(self.lr_buffer.view(1), (lr,))
+            return
+        for group in self.inner.param_groups:
+            group["lr"] = lr
+
+    @torch.no_grad()
+    def apply(self, grad_norm: Optional[torch.Tensor] = None) -> None:
+        """The update on the device, from the scalars :meth:`stage` wrote:
+        the clip and the optimizer; no host count moves."""
         norm = None
         if self.grad_clip:
             grads = [p.grad for g in self.param_groups for p in g["params"]
                      if p.grad is not None]
             norm = grad_norm if grad_norm is not None else global_norm(grads)
         if isinstance(self.inner, FusedAdam):
-            self.inner.step(norm=norm, max_norm=self.grad_clip or None)
-        else:
-            if self.grad_clip:
-                clip_by_global_norm_(grads, self.grad_clip, norm=norm)
-            lr = float(self.schedule(self.count))
-            for group in self.inner.param_groups:
-                group["lr"] = lr
-            self.inner.step()
+            self.inner.launch(norm=norm, max_norm=self.grad_clip or None)
+            return
+        if self.grad_clip:
+            clip_by_global_norm_(grads, self.grad_clip, norm=norm)
+        self.inner.step()
+
+    def advance(self) -> None:
+        """Move the host counts on by one step."""
         self.count += 1
+        if isinstance(self.inner, FusedAdam):
+            self.inner.count += 1
+
+    def prepare_capture(self) -> None:
+        """Move every per-step host scalar onto the params' device so that
+        a captured update reads each step's values (see the class
+        docstring); raises :class:`CaptureError` for a family that
+        cannot. Idempotent; the trajectory is unchanged except that
+        capturable Adam takes its bias corrections on the device."""
+        inner = self.inner
+        if isinstance(inner, FusedAdam) or "runtime_lr" in inner.state:
+            return
+        if isinstance(inner, torch.optim.SGD):
+            if not self.constant_lr:
+                raise CaptureError(
+                    "torch.optim.SGD (sgd, momentum, nesterov) takes lr as "
+                    "a host number, which a capture bakes in: capture it "
+                    "under a constant schedule or the runtime schedule")
+            return
+        params = [p for g in inner.param_groups for p in g["params"]]
+        adam = isinstance(inner, (torch.optim.Adam, torch.optim.AdamW))
+        if adam and params[0].device.type != "cuda":
+            return      # the CPU runs the step eagerly: host step and lr
+        if self.lr_buffer is None:
+            self.lr_buffer = torch.zeros((), dtype=torch.float32,
+                                         device=params[0].device)
+        if adam:
+            for group in inner.param_groups:
+                group["capturable"] = True
+                group["foreach"] = True
+            for p in params:
+                st = inner.state.get(p, {})
+                if "step" in st:
+                    st["step"] = st["step"].to(p.device, torch.float32)
+        for group in inner.param_groups:
+            group["lr"] = self.lr_buffer
 
 
 def optimizer_tree(opt, names: Mapping[int, str],
@@ -547,12 +629,28 @@ def load_optimizer_tree(opt, tree: dict, names: Mapping[int, str],
             if v.dim() and v.shape != p.shape:
                 v = block(name, v)
             dev = "cpu" if slot == "step" and cpu_step else p.device
-            inner.state[p][slot] = v.to(dev, copy=True)
+            _load_into(inner.state[p], slot, v, dev)
     device = next(iter(by_name.values())).device if by_name else None
     for key, v in tree.get("extra", {}).items():
-        inner.state[key] = {k: t.to(device, copy=True)
-                            for k, t in v.items()} \
-            if isinstance(v, dict) else v.to(device, copy=True)
+        if isinstance(v, dict):
+            held = inner.state.setdefault(key, {})
+            for k, t in v.items():
+                _load_into(held, k, t, device)
+        else:
+            _load_into(inner.state, key, v, device)
+
+
+@torch.no_grad()
+def _load_into(held, key, v: torch.Tensor, device) -> None:
+    """``held[key] = v`` on ``device``: copied into the tensor already
+    there when it matches in shape, dtype and device (a captured train
+    step reads that storage), a new tensor otherwise."""
+    t = held.get(key)
+    if isinstance(t, torch.Tensor) and t.shape == v.shape and \
+            t.dtype == v.dtype and t.device == torch.device(device):
+        t.copy_(v)
+    else:
+        held[key] = v.to(device, copy=True)
 
 
 def decay_groups(params: list, weight_decay: float) -> list[dict]:
@@ -630,4 +728,6 @@ def make_optimizer(
         inner = torch.optim.Adam(groups, lr=lr0, fused=False)
     else:  # adamw
         inner = torch.optim.AdamW(groups, lr=lr0, fused=False)
-    return RecipeOptimizer(inner, sched, grad_clip), sched
+    return RecipeOptimizer(
+        inner, sched, grad_clip,
+        constant_lr=schedule == "constant" and warmup_steps == 0), sched

@@ -47,7 +47,11 @@ the JAX package).
   leaf name, each sharded optimizer leaf as this rank's ``Shard`` of its
   global leaf); :func:`load_state_tree` loads a tree of global leaves
   back, cut along this state's layout, which may be another degree's
-  (runtime/checkpoint.py).
+  (runtime/checkpoint.py), into the state's own storage.
+- The AOT step (:meth:`TrainStepBuilder.build_compiled`, the counterpart
+  of the JAX package's compiled step executable): the whole step captured
+  as one CUDA graph and replayed, one host call a step
+  (:class:`CompiledStep`).
 """
 
 from __future__ import annotations
@@ -64,7 +68,8 @@ from ..parallel.mesh import (MESH_AXES, Mesh, batch_rows, check_axes,
                              replica_axes, replica_degree)
 from ..parallel.sharding_rules import Shard, block_of, weight_update_dim
 from .bootstrap import resolve_device
-from .recipe import global_norm, load_optimizer_tree, optimizer_tree
+from .recipe import (CaptureError, global_norm, load_optimizer_tree,
+                     optimizer_tree)
 
 # loss_fn(params, variables, batch, rng) -> (loss, aux_dict)
 LossFn = Callable[[dict, dict, dict, Any], tuple]
@@ -122,7 +127,13 @@ def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     for col, vs in tree.get("variables", {}).items():
         held = state.variables.setdefault(col, {})
         for name, v in vs.items():
-            held[name] = v.to(device, copy=True)
+            # into the tensor the state holds (a captured step reads its
+            # storage), a new one where there is none of that shape
+            t = held.get(name)
+            if t is not None and t.shape == v.shape and t.dtype == v.dtype:
+                t.copy_(v)
+            else:
+                held[name] = v.to(device, copy=True)
     if state.update_params is not None:
         for name, u in state.update_params.items():
             if u is not state.params[name]:
@@ -287,45 +298,67 @@ class TrainStepBuilder:
         collectives.all_reduce_(v.div_(self.n_rep), self.group)
         return dict(zip(keys, v.unbind()))
 
-    def build(self) -> Callable[[TrainState, dict], tuple]:
-        loss_fn = self.loss_fn
+    def _device_step(self, state: TrainState, batch: dict,
+                     update: Callable[[torch.Tensor], None]) -> dict:
+        """Forward, backward, the gradient reduction and ``update(grad
+        norm)``, the optimizer's; rebinds ``state.variables`` to the new
+        ones and returns the metrics. Host state moves only in
+        ``update``."""
+        with torch.enable_grad():
+            loss, aux = self.loss_fn(state.params, state.variables, batch,
+                                     state.rng)
+            loss.backward()
+        if self.group is None:
+            grads = [p.grad for p in state.params.values()
+                     if p.grad is not None]
+            # the pre-clip norm, taken once: the metric, and the clip's
+            grad_norm = global_norm(grads)
+        elif self.sharded:
+            grad_norm = self._reduce_sharded(state)
+        else:
+            grad_norm = self._reduce_replicated(state)
+        update(grad_norm)
+        state.opt_state.zero_grad(set_to_none=True)
+        if self.sharded:
+            self._gather_params(state)
+            for p in state.params.values():
+                p.grad = None
+        state.variables = aux.pop("variables", state.variables)
+        scalars = {"loss": loss.detach(),
+                   **{k: v.detach() for k, v in aux.items()}}
+        if self.group is not None:
+            scalars = self._cross_rank_mean(scalars)
+        metrics = {"loss": scalars.pop("loss"), "grad_norm": grad_norm,
+                   **scalars}
+        if self.strategy == "zero2-explicit":
+            with torch.no_grad():
+                p2 = _sum_squares(list(state.params.values()))
+                metrics["param_sqnorm_replicas"] = \
+                    collectives.all_gather(p2.reshape(1), self.group)
+        return metrics
 
+    def build(self) -> Callable[[TrainState, dict], tuple]:
         def step_fn(state: TrainState, batch: dict) -> tuple:
-            with torch.enable_grad():
-                loss, aux = loss_fn(state.params, state.variables, batch,
-                                    state.rng)
-                loss.backward()
-            if self.group is None:
-                grads = [p.grad for p in state.params.values()
-                         if p.grad is not None]
-                # the pre-clip norm, taken once: the metric, and the clip's
-                grad_norm = global_norm(grads)
-            elif self.sharded:
-                grad_norm = self._reduce_sharded(state)
-            else:
-                grad_norm = self._reduce_replicated(state)
-            state.opt_state.step(grad_norm=grad_norm)
-            state.opt_state.zero_grad(set_to_none=True)
-            if self.sharded:
-                self._gather_params(state)
-                for p in state.params.values():
-                    p.grad = None
-            state.variables = aux.pop("variables", state.variables)
+            metrics = self._device_step(
+                state, batch,
+                lambda norm: state.opt_state.step(grad_norm=norm))
             state.step += 1
-            scalars = {"loss": loss.detach(),
-                       **{k: v.detach() for k, v in aux.items()}}
-            if self.group is not None:
-                scalars = self._cross_rank_mean(scalars)
-            metrics = {"loss": scalars.pop("loss"), "grad_norm": grad_norm,
-                       **scalars}
-            if self.strategy == "zero2-explicit":
-                with torch.no_grad():
-                    p2 = _sum_squares(list(state.params.values()))
-                    metrics["param_sqnorm_replicas"] = \
-                        collectives.all_gather(p2.reshape(1), self.group)
             return state, metrics
 
         return step_fn
+
+    def build_compiled(self, state: TrainState, batch: dict
+                       ) -> "CompiledStep":
+        """The AOT path: the step captured as one CUDA graph now, against
+        ``state`` and an example ``batch`` of the real shapes, and
+        returned as a :class:`CompiledStep` with :meth:`build`'s
+        ``step_fn`` signature. On a CUDA device a step that cannot be
+        captured raises here (:class:`~kubeflow_tpu_torch.runtime.recipe.
+        CaptureError`, or the capture's own error), never later and never
+        by running eagerly inside the object; the worker's ladder then
+        runs :meth:`build`'s step. On the CPU the object runs the same
+        body eagerly through the same static buffers and copy-backs."""
+        return CompiledStep(self, state, batch)
 
     def build_eval(self, eval_fn: Callable[[dict, dict, dict], dict]
                    ) -> Callable[[TrainState, dict], dict]:
@@ -370,3 +403,239 @@ class TrainStepBuilder:
         """A global host batch → this rank's rows on the device: the
         contiguous block ``P(data_axes)`` puts on device ``rank``."""
         return self.place_local(self.local_rows(batch))
+
+
+def kernel_counters() -> dict:
+    """``{name: (wrapper, attribute)}`` of every kernel wrapper's launch
+    counter (``launches``, and the flash wrappers' ``unaligned_launches``),
+    by the wrapper's name."""
+    from ..ops.flash_attention import (flash_attention,
+                                       flash_attention_bwd_dkv,
+                                       flash_attention_bwd_dq)
+    from ..ops.fused_adam import fused_adam
+    from ..ops.fused_block import fused_bottleneck_eval
+    from ..ops.fused_block_train import (fused_block_train_bwd,
+                                         fused_block_train_fwd)
+    from ..ops.fused_block_train_spatial import (
+        fused_block_train_spatial_bwd, fused_block_train_spatial_fwd)
+    out = {}
+    for fn in (flash_attention, flash_attention_bwd_dq,
+               flash_attention_bwd_dkv, fused_adam, fused_block_train_fwd,
+               fused_block_train_bwd, fused_block_train_spatial_fwd,
+               fused_block_train_spatial_bwd, fused_bottleneck_eval):
+        for attr in ("launches", "unaligned_launches"):
+            if hasattr(fn, attr):
+                name = fn.__name__ if attr == "launches" else \
+                    f"{fn.__name__}.{attr}"
+                out[name] = (fn, attr)
+    return out
+
+
+def _tensor_slots(state: TrainState) -> dict:
+    """Every tensor the step reads and writes in place or rebinds, as
+    ``{path: (container, key)}``: params, variables, this rank's update
+    blocks and the optimizer's state (per param by leaf name, and its
+    named entries such as the runtime schedule's scalars)."""
+    slots: dict = {("params", n): (state.params, n) for n in state.params}
+    for col, vs in state.variables.items():
+        for n in vs:
+            slots[("variables", col, n)] = (vs, n)
+    held = state.update_params or state.params
+    for n, u in (state.update_params or {}).items():
+        if u is not state.params[n]:
+            slots[("update", n)] = (state.update_params, n)
+    names = {id(t): n for n, t in held.items()}
+    inner = getattr(state.opt_state, "inner", state.opt_state)
+    for key, st in getattr(inner, "state", {}).items():
+        owner = key if isinstance(key, str) else names.get(id(key))
+        if isinstance(st, dict):
+            for k, v in st.items():
+                if isinstance(v, torch.Tensor):
+                    slots[("opt", owner, k)] = (st, k)
+        elif isinstance(st, torch.Tensor):
+            slots[("opt", owner)] = (inner.state, key)
+    return slots
+
+
+def _tensors(state: TrainState) -> dict:
+    return {path: c[k] for path, (c, k) in _tensor_slots(state).items()}
+
+
+@torch.no_grad()
+def _fix_point(before: dict, state: TrainState) -> list:
+    """Make the step a fixed point of the state's storage: every tensor
+    the step rebound (the new BatchNorm statistics, a moment the
+    optimizer made anew) is copied into the tensor it replaced, which
+    goes back in its place. Returns the paths the step made that did
+    not exist before."""
+    made = []
+    for path, (c, k) in _tensor_slots(state).items():
+        orig = before.get(path)
+        if orig is None:
+            made.append(path)
+        elif c[k] is not orig:
+            orig.copy_(c[k])
+            c[k] = orig
+    return made
+
+
+def static_input_names(state: TrainState, batch: dict) -> list[str]:
+    """What a captured step reads from outside its graph: the state's
+    params and variables by path, and the batch's keys (the optimizer's
+    state is its own)."""
+    names = [f"params/{n}" for n in state.params]
+    names += [f"variables/{c}/{n}" for c, vs in state.variables.items()
+              for n in vs]
+    return sorted(names) + [f"batch/{k}" for k in sorted(batch)]
+
+
+class CompiledStep:
+    """The train step captured as one CUDA graph: every kernel of the
+    forward, backward, reduction and update (K1, K2a, K2b and K3, or K4
+    and K5, among PyTorch's own) recorded once and replayed, one host call
+    a step. Called as ``step(state, batch) -> (state, metrics)`` on the
+    state it was built for; per call:
+
+    - the batch's tensors are copied into static buffers, on the current
+      stream (after the device prefetcher's event, which the caller's
+      stream already waits on), without a host sync;
+    - the optimizer's host scalars go to the device (``stage``: K3's lr,
+      bc₁ and bc₂, a baked lr), outside the graph, in stream order;
+    - the graph replays; the new BatchNorm statistics and any optimizer
+      state the update made anew are copied back into the storage the
+      graph reads, inside the graph, so the step is a fixed point of the
+      state's storage (the port's form of the JAX package's "state out ≡
+      state in");
+    - the metrics come back as device copies of the graph's outputs (no
+      sync), so a value held across steps is not overwritten by the next
+      replay; the host counts (``state.step``, the schedule's) advance on
+      the host.
+
+    Building it warms the step up once on a side stream with the example
+    batch (kernels loaded, gradients and optimizer state allocated) and
+    restores every state tensor in place afterwards (one made by that
+    step to zeros, its initial value), so the trajectory is the eager
+    one's; then captures. A replay does not pass through the wrappers'
+    Python counters: the launches each kernel made during the capture
+    (:attr:`launches`) are added to its counter at every replay, and the
+    capture's own are not counted.
+
+    On the CPU there is no graph: each call runs the same body eagerly
+    through the same static buffers and copy-backs."""
+
+    def __init__(self, builder: "TrainStepBuilder", state: TrainState,
+                 batch: dict):
+        opt = state.opt_state
+        if not all(hasattr(opt, a) for a in ("stage", "apply", "advance",
+                                             "prepare_capture")):
+            raise CaptureError(f"{type(opt).__name__} is not a recipe "
+                               f"optimizer with a device-side update")
+        if builder.group is not None and any(
+                collectives.host_staging(p, builder.group)
+                for p in list(state.params.values())[:1]):
+            raise CaptureError("the gloo group stages its collectives "
+                               "through host memory, which a graph cannot "
+                               "hold")
+        opt.prepare_capture()
+        self.builder = builder
+        self.state = state
+        self.device = builder.device
+        self.static_batch = {k: torch.empty_like(torch.as_tensor(v),
+                                                 device=self.device)
+                             for k, v in batch.items()}
+        self.static_inputs = static_input_names(state, batch)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.static_metrics: dict = {}
+        self.launches: dict = {}        # per replay, by kernel
+        self._counters = kernel_counters()
+        self.replays = 0
+        if self.device.type == "cuda":
+            self._capture(batch)
+
+    def _load_batch(self, batch: dict) -> None:
+        if set(batch) != set(self.static_batch):
+            raise ValueError(f"batch keys {sorted(batch)}, the step was "
+                             f"built for {sorted(self.static_batch)}")
+        for k, v in batch.items():
+            buf = self.static_batch[k]
+            v = torch.as_tensor(v)
+            if v.shape != buf.shape or v.dtype != buf.dtype:
+                raise ValueError(f"batch[{k!r}] {v.dtype} "
+                                 f"{tuple(v.shape)}; the step was built "
+                                 f"for {buf.dtype} {tuple(buf.shape)}")
+            buf.copy_(v, non_blocking=True)
+
+    def _body(self, state: TrainState) -> tuple[dict, list]:
+        before = _tensors(state)
+        metrics = self.builder._device_step(state, self.static_batch,
+                                            state.opt_state.apply)
+        return metrics, _fix_point(before, state)
+
+    def _capture(self, batch: dict) -> None:
+        state = self.state
+        dev = self.device
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        self._load_batch(batch)
+        state.opt_state.stage()
+        snap = {path: t.clone() for path, t in _tensors(state).items()}
+        rng = state.rng.get_state() \
+            if isinstance(state.rng, torch.Generator) else None
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            # the warm-up: one step, then every state tensor restored
+            self._body(state)
+            with torch.no_grad():
+                for path, t in _tensors(state).items():
+                    if path in snap:
+                        t.copy_(snap[path])
+                    else:
+                        t.zero_()
+        cur.wait_stream(side)
+        if rng is not None:
+            state.rng.set_state(rng)
+        del snap
+        counters = self._counters
+        at = {n: getattr(f, a) for n, (f, a) in counters.items()}
+        graph = torch.cuda.CUDAGraph()
+        try:
+            # on the warm-up's stream: autograd's accumulate nodes made
+            # there are the capture's
+            with torch.cuda.graph(graph, stream=side):
+                metrics, made = self._body(state)
+                if made:
+                    raise CaptureError(f"the captured step made state "
+                                       f"{made}")
+            self.launches = {n: getattr(f, a) - at[n]
+                             for n, (f, a) in counters.items()
+                             if getattr(f, a) != at[n]}
+        finally:
+            for n, (f, a) in counters.items():
+                setattr(f, a, at[n])
+        self.graph = graph
+        self.static_metrics = metrics
+
+    def __call__(self, state: TrainState, batch: dict) -> tuple:
+        if state is not self.state:
+            raise ValueError("a compiled step runs the state it was built "
+                             "for")
+        self._load_batch(batch)
+        opt = state.opt_state
+        opt.stage()
+        if self.graph is None:
+            # the CPU: the body eagerly, its metrics through the same
+            # static outputs as a replay's
+            metrics, _ = self._body(state)
+            for k, v in metrics.items():
+                self.static_metrics.setdefault(k, torch.empty_like(v))
+                self.static_metrics[k].copy_(v)
+        else:
+            self.graph.replay()
+            for n, k in self.launches.items():
+                f, a = self._counters[n]
+                setattr(f, a, getattr(f, a) + k)
+        metrics = {k: v.clone() for k, v in self.static_metrics.items()}
+        self.replays += 1
+        opt.advance()
+        state.step += 1
+        return state, metrics

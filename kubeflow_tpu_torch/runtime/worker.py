@@ -61,14 +61,23 @@ with no card it raises.
   ``ANOMALY_ANNOTATION`` and exits 76 without saving.
 - Katib: under ``KFTPU_STUDY`` / ``KFTPU_TRIAL`` / ``KFTPU_VIZIER_URL``
   process 0 reports every final metric and ``examples_per_sec``.
+- Warm start (``aot``, ``--aot``, ``KFTPU_AOT``; runtime/aot.py): the
+  ladder of the JAX worker. A keyed step record in ``aot_dir``
+  (``--aot-dir``, ``KFTPU_AOT_DIR``, else
+  ``<checkpointDir>/.jax-aot-executables``) whose kernel libraries are in
+  the build cache: the step is captured as one CUDA graph before the
+  first step, with no ``nvcc``, and replayed (``start_kind`` "aot"); a
+  miss captures, exports the record and runs the captured step (compile
+  once); a stale, corrupt or mismatched record, or a step that does not
+  capture, falls back to the eager step, counted, with ``start_kind``
+  read from the build cache's evidence ("warm" or "cold").
 
 Ported workloads: ``transformer`` and ``resnet18`` … ``resnet152``
 (``--fused-blocks`` trains a bottleneck ResNet through the ghost-BN
-kernels). ``transformer-pipelined``, and the flags of features
-not ported yet (AOT warm start, multi-slice), raise "not yet ported"
-when set — on the CLI, as a ``train()`` argument or in the
-operator-rendered env — naming the ROADMAP item, rather than training
-without them.
+kernels). ``transformer-pipelined``, and the flags of multi-slice, not
+ported yet, raise "not yet ported" when set — on the CLI, as a
+``train()`` argument or in the operator-rendered env — naming the
+ROADMAP item, rather than training without them.
 """
 
 from __future__ import annotations
@@ -93,6 +102,7 @@ from ..data.imagenet import ImageNetSource, device_normalize, read_meta
 from ..models import RESNET_DEPTHS
 from ..obs.registry import default_registry
 from ..parallel.mesh import local_batch_size
+from . import aot as aot_mod
 from . import compile_cache, recipe
 from . import sentinel as sentinel_mod
 from .bootstrap import WorkerContext, initialize, shutdown
@@ -153,8 +163,6 @@ _IMAGE_WORKLOADS = {f"resnet{d}" for d in RESNET_DEPTHS}
 
 # train() arguments of features not ported yet: (its env var, ROADMAP item)
 _UNPORTED = {
-    "aot": ("KFTPU_AOT", "Queue 1 item 10"),
-    "aot_dir": ("KFTPU_AOT_DIR", "Queue 1 item 10"),
     "multislice_pipeline": ("KFTPU_MULTISLICE_PIPELINE", "Queue 1 item 11"),
     "multislice_microbatches": ("KFTPU_MULTISLICE_MICROBATCHES",
                                 "Queue 1 item 11"),
@@ -239,6 +247,36 @@ def _report_observations(metrics: dict, examples_per_sec: float,
         log.warning("observation report failed: %s", e)
 
 
+def _aot_ladder(builder: TrainStepBuilder, state, example: dict,
+                step_fn: Callable, aot_dir: str, key: str,
+                sig: dict) -> tuple[Callable, bool]:
+    """The AOT rung: ``(step, aot_used)``. A verified record (its
+    libraries loaded from the build cache) → the step captured now, an
+    "aot" start; a miss → the step captured, its record exported, and the
+    captured step run (compile once). A step that does not capture on a
+    miss counts ``export-failed``, on a hit ``deserialize-failed``; both
+    run ``step_fn``, the eager step, as does any other failure."""
+    record = aot_mod.load_step(aot_dir, key, sig)
+    try:
+        compiled = builder.build_compiled(state, example)
+        if record is not None and \
+                compiled.static_inputs != record["static_inputs"]:
+            raise ValueError("the captured step reads other inputs than "
+                             "the record names")
+    except Exception as e:  # noqa: BLE001 - an optimization only
+        log.warning("AOT: the step did not capture (%s); running the "
+                    "eager step", e)
+        aot_mod._count("export-failed" if record is None
+                       else "deserialize-failed")
+        return step_fn, False
+    if record is not None:
+        log.info("AOT step record loaded (key %s): the step captured "
+                 "with no kernel build", key)
+        return compiled, True
+    aot_mod.export_step(aot_dir, key, compiled, sig)
+    return compiled, False
+
+
 @dataclass
 class TrainResult:
     steps: int
@@ -248,6 +286,7 @@ class TrainResult:
     preempted: bool = False
     first_window_s: float = 0.0   # the first window: builds + first launches
     # train() entry → first completed step (ends in a device sync);
+    # "aot" when the step came from its record (runtime/aot.py), else
     # "warm" when every kernel library so far came from the build cache
     # and no nvcc ran (runtime/compile_cache.py)
     time_to_first_step_s: float = 0.0
@@ -658,6 +697,65 @@ def train(
                                                             global_batch))
                           for _ in range(4)]
 
+        # warm start: the AOT step record (runtime/aot.py). The ladder: a
+        # keyed record (no nvcc, the step captured before its first step)
+        # → the build cache (kernels loaded, the eager step) → nvcc. Each
+        # rung downgrades to the next with a warning; start_kind says
+        # which rung ran the first step
+        aot_used = False
+        if aot is None:
+            aot = bool(_env_int(aot_mod.AOT_ENABLE_ENV, 0))
+        if aot:
+            aot_dir = aot_dir or os.environ.get(aot_mod.AOT_DIR_ENV) or (
+                aot_mod.default_aot_dir(checkpoint_dir) if checkpoint_dir
+                else None)
+            if not aot_dir:
+                log.warning("AOT warm start requested but no --aot-dir / "
+                            "%s / checkpoint volume to keep step records "
+                            "on; continuing without it", aot_mod.AOT_DIR_ENV)
+            else:
+                if data_source is not None:
+                    s = data_source.image_size
+                    example = builder.place_batch({
+                        "images": np.zeros((global_batch, s, s, 3),
+                                           np.uint8),
+                        "labels": np.zeros((global_batch,), np.int32)})
+                else:
+                    example = batch_pool[0]
+                knobs = dict(
+                    workload=spec.name, optimizer=optimizer,
+                    lr_schedule=lr_schedule, learning_rate=base_lr,
+                    warmup_steps=warmup_steps, weight_decay=weight_decay,
+                    momentum=momentum, label_smoothing=label_smoothing,
+                    steps=steps, real_data=data_source is not None,
+                    kernels={"attention": kernel_attention,
+                             "optimizer": kernel_optimizer},
+                    # the mesh's shape keys the step below; its repr
+                    # holds the process group's address
+                    workload_kwargs={k: v for k, v in workload_kwargs.items()
+                                     if k != "mesh"})
+                # under the runtime schedule lr, warmup and steps are
+                # device state, not constants of the step: lr-variant
+                # trials share one record; the flag joins the key
+                fp = recipe.compile_shape_fingerprint(
+                    runtime_schedule=True, **knobs) if runtime_schedule \
+                    else recipe.recipe_fingerprint(**knobs)
+                step_fn, aot_used = _aot_ladder(
+                    builder, state, example, step_fn, aot_dir,
+                    sig=aot_mod.abstract_signature(state, example),
+                    key=aot_mod.step_key(
+                        topology=os.environ.get("KFTPU_TOPOLOGY", "")
+                        or f"local-{ctx.num_processes}p",
+                        num_slices=int(os.environ.get("KFTPU_NUM_SLICES",
+                                                      "1") or 1),
+                        model_fingerprint=fp, weight_update=weight_update,
+                        sharding={a: int(n)
+                                  for a, n in ctx.mesh.shape.items()},
+                        global_batch=global_batch,
+                        kernels={"attention": kernel_attention,
+                                 "optimizer": kernel_optimizer},
+                        device=ctx.device))
+
         from ..obs.trace import SPAN_PATH_ENV, SpanWriter
         span_path = span_path or os.environ.get(SPAN_PATH_ENV)
         if span_path:
@@ -737,19 +835,36 @@ def train(
                     t_h = t_b = time.perf_counter()
                 recorder.mark("first-step" if step == start_step
                               else "step", step)
-                state, metrics = step_fn(state, batch)
+                if step == start_step and aot_used:
+                    try:
+                        state, metrics = step_fn(state, batch)
+                        if cuda:
+                            torch.cuda.synchronize(ctx.device)
+                    except Exception as e:  # noqa: BLE001 - see below
+                        # the last rung: a record that passed its checks
+                        # and captured but cannot replay falls back to
+                        # the eager step; the state is untouched unless
+                        # the replay ran, and then the card has failed
+                        log.warning("AOT step failed at its first replay "
+                                    "(%s); running the eager step", e)
+                        aot_mod._count("deserialize-failed")
+                        aot_used = False
+                        step_fn = builder.build()
+                        state, metrics = step_fn(state, batch)
+                else:
+                    state, metrics = step_fn(state, batch)
                 if step == start_step:
                     # one hard sync, once: the startup cost this measures
                     if cuda:
                         torch.cuda.synchronize(ctx.device)
                     first_step_s = time.perf_counter() - t_train_start
                     stats = compile_cache.compile_stats()
-                    start_kind = compile_cache.start_kind(stats_at_entry,
-                                                          stats)
+                    start_kind = "aot" if aot_used else \
+                        compile_cache.start_kind(stats_at_entry, stats)
                     default_registry().histogram(
                         "kftpu_time_to_first_step_seconds",
                         "train()-entry to first completed step, by "
-                        "start kind (cold/warm)",
+                        "start kind (cold/warm/aot)",
                         labels=("start",)).labels(
                             start=start_kind).observe(first_step_s)
                     if tracer is not None:

@@ -1277,3 +1277,263 @@ def test_three_replica_fleet_on_the_card_survives_kill(cuda_device,
     for i, out in report["samples"]:
         assert out["predictions"]["next_token"] == \
             replicas[0].predict(xs[i])["next_token"].tolist()
+
+
+# -- the captured train step (runtime/trainstep.py build_compiled) ----------
+
+
+def _small_lm_run(cuda_device, opt="adam", kernels="fused_adam", **kw):
+    """A 2-layer LM on flash attention (head dim 64, the tensor-core K1,
+    K2a, K2b), its builder, state and 6 seeded batches of 4 x 128."""
+    from kubeflow_tpu_torch.models import transformer as T
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
+    cfg = T.TransformerConfig(vocab_size=512, num_layers=2, embed_dim=128,
+                              num_heads=2, head_dim=64, mlp_dim=256,
+                              max_seq_len=128, attention="flash")
+    spec = T.workload_spec(cfg)
+    b = TrainStepBuilder(
+        loss_fn=spec.loss_fn, device=cuda_device,
+        optimizer=lambda p: make_optimizer(p, opt, 1e-3, kernels=kernels,
+                                           total_steps=6, **kw)[0])
+    gen = torch.Generator().manual_seed(1)
+    batches = [b.place_batch(spec.batch_fn(gen, 4)) for _ in range(6)]
+    return spec, b, batches
+
+
+def _small_resnet_run(cuda_device, opt="lars", **kw):
+    """Fused ResNet-50 at 64 px, batch 8 (K4 and K5 at their tiles), and
+    6 seeded batches."""
+    from kubeflow_tpu_torch.models import resnet as R
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
+    spec = R.workload_spec(64, 10, fused=True)
+    b = TrainStepBuilder(
+        loss_fn=spec.loss_fn, device=cuda_device,
+        optimizer=lambda p: make_optimizer(p, opt, 0.1, total_steps=6,
+                                           **kw)[0])
+    gen = torch.Generator().manual_seed(1)
+    batches = [b.place_batch(spec.batch_fn(gen, 8)) for _ in range(6)]
+    return spec, b, batches
+
+
+def _trajectory(spec, b, batches, compiled):
+    state = b.init(spec.init_fn, torch.Generator().manual_seed(0))
+    step = b.build_compiled(state, batches[0]) if compiled else b.build()
+    losses = []
+    for batch in batches:
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    return state, [x.item() for x in losses], step
+
+
+def _same_state(a, b):
+    for n, p in a.params.items():
+        assert torch.equal(p, b.params[n]), n
+    for c, vs in a.variables.items():
+        for n, v in vs.items():
+            assert torch.equal(v, b.variables[c][n]), (c, n)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model,kw", [
+    ("lm", {}),
+    ("resnet", dict(schedule="cosine", warmup_steps=2,
+                    runtime_schedule=True)),
+])
+def test_captured_step_equals_eager(cuda_device, model, kw):
+    """The step captured as one CUDA graph and replayed 6 times gives the
+    eager step's losses, params and BatchNorm statistics bit for bit (the
+    same kernels in the same order): the LM on K1, K2a, K2b and K3, the
+    fused ResNet-50 on K4 and K5 with LARS under the runtime schedule."""
+    run = _small_lm_run if model == "lm" else _small_resnet_run
+    spec, b, batches = run(cuda_device, **kw)
+    eager, le, _ = _trajectory(spec, b, batches, compiled=False)
+    captured, lc, step = _trajectory(spec, b, batches, compiled=True)
+    assert step.graph is not None and step.replays == 6
+    assert lc == le
+    _same_state(captured, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opt,kernels", [("adam", "fused_adam"),
+                                         ("lars", "stock")])
+def test_captured_step_follows_a_warmup_cosine_schedule(cuda_device, opt,
+                                                        kernels):
+    """A host warmup + cosine schedule: K3's (lr, bc1, bc2) and LARS's
+    baked lr are written to the device before each replay, so the params
+    after 6 replays equal the eager run's."""
+    if opt == "lars":
+        spec, b, batches = _small_resnet_run(
+            cuda_device, "lars", schedule="cosine", warmup_steps=2)
+    else:
+        spec, b, batches = _small_lm_run(cuda_device, schedule="cosine",
+                                         warmup_steps=2)
+    eager, le, _ = _trajectory(spec, b, batches, compiled=False)
+    captured, lc, _ = _trajectory(spec, b, batches, compiled=True)
+    assert lc == le
+    _same_state(captured, eager)
+
+
+@pytest.mark.gpu
+def test_restore_and_rollback_into_captured_storage(cuda_device, tmp_path):
+    """A checkpoint restore (``load_state_tree`` through the manager) and
+    an LKG rollback after a NaN poison write into the storage the graph
+    reads: the replays after each retrace the steps after the saved one,
+    bit for bit."""
+    from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
+    from kubeflow_tpu_torch.runtime.sentinel import NumericFaultHook
+    spec, b, batches = _small_resnet_run(cuda_device, "momentum")
+    state = b.init(spec.init_fn, torch.Generator().manual_seed(0))
+    step = b.build_compiled(state, batches[0])
+    for batch in batches[:2]:
+        state, _ = step(state, batch)
+    mgr = CheckpointManager(str(tmp_path), save_interval_steps=1)
+    mgr.save(2, state, force=True)
+    mgr.wait()
+    want = []
+    for batch in batches[2:4]:
+        state, m = step(state, batch)
+        want.append(m["loss"].item())
+    restored = mgr.restore(state)
+    assert restored is state and state.step == 2
+    got = []
+    for batch in batches[2:4]:
+        state, m = step(state, batch)
+        got.append(m["loss"].item())
+    assert got == want
+    hook = NumericFaultHook("nan", 5, 1.0, None)
+    state = hook.poison(state, 5)
+    state, m = step(state, batches[4])
+    assert not np.isfinite(m["loss"].item())
+    mgr.restore(state, max_step=2)                  # the rollback
+    mgr.close()
+    again = []
+    for batch in batches[2:4]:
+        state, m = step(state, batch)
+        again.append(m["loss"].item())
+    assert again == want
+
+
+@pytest.mark.gpu
+def test_async_save_between_replays_holds_the_saved_step(cuda_device,
+                                                         tmp_path):
+    """The save's host copies are queued on the step's stream before the
+    next replay, which overwrites the state in place: the checkpoint
+    holds the saved step's values."""
+    from kubeflow_tpu_torch.runtime.checkpoint import CheckpointManager
+    spec, b, batches = _small_lm_run(cuda_device)
+    state = b.init(spec.init_fn, torch.Generator().manual_seed(0))
+    step = b.build_compiled(state, batches[0])
+    for batch in batches[:2]:
+        state, _ = step(state, batch)
+    want = {n: p.detach().cpu() for n, p in state.params.items()}
+    mgr = CheckpointManager(str(tmp_path), save_interval_steps=1)
+    mgr.save(2, state)
+    for batch in batches[2:5]:
+        state, _ = step(state, batch)
+    mgr.wait()
+    got = mgr.read_tree(2)["params"]
+    mgr.close()
+    for n, v in want.items():
+        assert torch.equal(got[n], v), n
+
+
+@pytest.mark.gpu
+def test_prefetched_batches_feed_the_captured_step(cuda_device):
+    """Batches staged by the DevicePrefetcher on its side stream reach
+    the graph's static buffers after its event, with no host sync: the
+    losses equal the eager step's on the same host batches."""
+    from kubeflow_tpu_torch.data.device_prefetch import DevicePrefetcher
+    spec, b, batches = _small_lm_run(cuda_device)
+    host = [{k: v.cpu() for k, v in batch.items()} for batch in batches]
+    _, le, _ = _trajectory(spec, b, batches, compiled=False)
+    state = b.init(spec.init_fn, torch.Generator().manual_seed(0))
+    step = b.build_compiled(state, batches[0])
+    feed = DevicePrefetcher(iter(host), b.place_local, depth=2,
+                            device=cuda_device)
+    losses = []
+    for batch in feed:
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    assert [x.item() for x in losses] == le
+
+
+@pytest.mark.gpu
+def test_k3_device_scalars_entry_matches_plain(cuda_device):
+    """K3 reading (lr, bc1, bc2) from a device buffer, launched eagerly
+    and replayed from a CUDA graph with the buffer rewritten between
+    replays, against the plain version with the same values: within
+    1e-6."""
+    rng = np.random.default_rng(23)
+    n = 10_007
+    p, m = (torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+            .to(cuda_device) for _ in range(2))
+    v = torch.from_numpy(np.abs(rng.standard_normal(n)).astype(
+        np.float32)).to(cuda_device)
+    g = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        cuda_device)
+    norm = torch.linalg.vector_norm(g)
+    ref = [x.clone() for x in (p, m, v)]
+    buf = torch.zeros(3, dtype=torch.float32, device=cuda_device)
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, norm=norm, max_norm=1.0)
+
+    def launch():
+        tfo.fused_adam([p], [g], [m], [v], [1e-4], scalars=buf, **kw)
+
+    values = [(1e-3 * (c + 1), *tfo.bias_corrections(0.9, 0.999, c))
+              for c in range(4)]
+    tfo.write_scalars(buf, values[0])
+    launch()                                    # eager, and the warm-up
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch()
+    for lr, bc1, bc2 in values[1:]:
+        tfo.write_scalars(buf, (lr, bc1, bc2))
+        graph.replay()
+    for lr, bc1, bc2 in values:
+        tfo.fused_adam_plain(ref[0], g, ref[1], ref[2], lr=lr, wd=1e-4,
+                             bc1=bc1, bc2=bc2, **kw)
+    torch.cuda.synchronize()
+    for got, want in zip((p, m, v), ref):
+        assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["lm", "resnet"])
+def test_replays_add_the_captured_launches(cuda_device, model):
+    """A replay does not pass through the wrappers: the step object
+    records each kernel's launches in its capture (those of one eager
+    step: K1, K2a, K2b 2 each and K3 1 for the 2-layer LM; K4 13 + 13
+    for ResNet-50 at 64 px, whose stage-1 and -2 strips are whole
+    images) and adds them to the counters at every replay; the capture
+    itself counts none."""
+    from kubeflow_tpu_torch.runtime.trainstep import kernel_counters
+    if model == "lm":
+        spec, b, batches = _small_lm_run(cuda_device)
+        want = {"flash_attention": 2, "flash_attention_bwd_dq": 2,
+                "flash_attention_bwd_dkv": 2, "fused_adam": 1}
+    else:
+        spec, b, batches = _small_resnet_run(cuda_device, "momentum")
+        want = {"fused_block_train_fwd": 13, "fused_block_train_bwd": 13}
+    counters = kernel_counters()
+    state = b.init(spec.init_fn, torch.Generator().manual_seed(0))
+    at = {n: getattr(f, a) for n, (f, a) in counters.items()}
+    b.build()(b.init(spec.init_fn, None), batches[0])   # one eager step
+    assert {n: getattr(f, a) - at[n] for n, (f, a) in counters.items()
+            if getattr(f, a) != at[n]} == want
+    at = {n: getattr(f, a) for n, (f, a) in counters.items()}
+    step = b.build_compiled(state, batches[0])
+    assert step.launches == want
+    # the warm-up step launched once through the wrappers, the capture
+    # counted nothing
+    assert {n: getattr(f, a) - at[n] for n, (f, a) in counters.items()
+            if getattr(f, a) != at[n]} == want
+    for batch in batches[:3]:
+        state, _ = step(state, batch)
+    assert {n: getattr(f, a) - at[n] for n, (f, a) in counters.items()
+            if getattr(f, a) != at[n]} == {k: 4 * v for k, v in want.items()}

@@ -51,7 +51,8 @@ def test_every_module_imports_without_jax():
                  "runtime.checkpoint", "runtime.sentinel", "cluster.chaos",
                  "katib.vizier", "runtime.compile_cache",
                  "serving.grpc_server", "serving.tpu_serving_pb2",
-                 "serving.router", "serving.fleet", "scheduler.health"):
+                 "serving.router", "serving.fleet", "scheduler.health",
+                 "runtime.aot"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

@@ -8,8 +8,7 @@
   ``KFTPU_KERNEL_*`` env, then stock; ``kernel_attention`` on a
   non-transformer workload raises.
 - ``train()`` and ``main()`` default to cuda and raise without a card;
-  features not ported yet (AOT, multi-slice) raise "not yet ported" when
-  set.
+  features not ported yet (multi-slice) raise "not yet ported" when set.
 - Katib: under ``KFTPU_STUDY`` / ``KFTPU_TRIAL`` / ``KFTPU_VIZIER_URL``
   a port ``train()`` reports to a local ``VizierService`` the metric
   names a JAX ``train()`` of the same workload reports.
@@ -162,7 +161,7 @@ def test_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,env", [
-    ({"aot": True}, None),
+    ({}, ("KFTPU_MULTISLICE_MICROBATCHES", "4")),
     ({"multislice_pipeline": True}, None),
 ])
 def test_unported_features_raise(monkeypatch, kwargs, env):
