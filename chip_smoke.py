@@ -239,11 +239,32 @@ Phases, each of which fails the run (nonzero exit, no result line):
              counts are 20 times that, a trace of two more replays of the
              aot arm's step holds the same per step by kernel name, and
              neither AOT arm counted export-failed or deserialize-failed
-             or ran eagerly. Then a truncated record and one re-keyed must
-             each fall back (outcome corrupt, key-mismatch; then export),
+             or ran eagerly. Then, for both models at once (untimed), a
+             truncated record and one re-keyed must each fall back
+             (outcome corrupt, key-mismatch; then export),
              train the 20 steps equal to cold's and read start_kind warm
              from the cache. Prints the device's idle share of the traced
-             captured and eager fused ResNet steps.
+             captured and eager fused ResNet steps. A captured arm's
+             worker windows (edge to edge, the drain's wait included)
+             must read within 10% of its CUDA-event step.
+12. mp     - before phase 11: (a) the MoE LM at the default widths (8
+             experts, top-2, capacity 1.25, aux weight 0.01), flash +
+             fused_adam, lr 6e-4, clip 1.0, batch 8 x 2048, 6 steps
+             through train() with remat off, then on: launches K1/K2a/
+             K2b 12 and K3 1 a step, K1 24 under remat; the aux loss
+             finite and > 0; remat's losses equal and params within
+             1e-6 of max|param| (0 expected); the first step against
+             einsum + stock Adam at batch 2 (phase 5's bars); peak
+             memory and step ms off and on. (b) two gloo ranks sharing
+             the card, the contract env, at full width cut to 4 layers,
+             3 steps on {data 2} (the MoE LM: its aux loss over the
+             global batch), {tensor 2} (the dense LM), {expert 2} and
+             {fsdp 2} (the MoE LM, the sharded update) against one
+             process on the same global batch: phase 8's bars a step,
+             K1/K2a/K2b 4 and K3 1 a rank a step, each rank's param
+             bytes at most half of one process's plus its replicated
+             leaves, and what init held above its blocks at most twice
+             the largest leaf.
 
 Phase 2 also holds K4 and K5 (the fused ghost-BN bottleneck, batch-tiled
 and spatial, csrc/fused_block_train.cu) against their plain versions at
@@ -2470,6 +2491,15 @@ def _capture_states(worker, trainstep) -> dict:
     seen = {}
 
     class Capture(trainstep.TrainStepBuilder):
+        def init(self, *args, **kwargs):
+            # what init held on the card above what it kept: the whole
+            # leaves it broadcast and cut
+            torch.cuda.reset_peak_memory_stats()
+            state = super().init(*args, **kwargs)
+            seen["init_transient"] = torch.cuda.max_memory_allocated() \
+                - torch.cuda.memory_allocated()
+            return state
+
         def build(self):
             step = super().build()
             seen["builder"] = self
@@ -2618,10 +2648,12 @@ def phase_dp_kernels(fo, fbt, fbts, R, recipe, lm_shapes) -> dict:
     the dimension the sharded update picks, the leaves it cannot split
     whole) and K4/K5 at the five geometries on 32 rows. (K1, K2a and K2b
     at one rank's 4 rows are cases of phase_kernels and phase_k2.)"""
-    from kubeflow_tpu_torch.parallel.sharding_rules import weight_update_dim
+    from kubeflow_tpu_torch.parallel.sharding_rules import \
+        weight_update_spec
     shards = {}
     for name, shape in lm_shapes.items():
-        d = weight_update_dim(shape, DP_RANKS)
+        spec = weight_update_spec((), shape, {"data": DP_RANKS}, ("data",))
+        d = None if spec is None else spec.index("data")
         shards[name] = shape if d is None else \
             shape[:d] + (shape[d] // DP_RANKS,) + shape[d + 1:]
     k3 = phase_k3(fo, recipe, shards, timed=False,
@@ -3728,6 +3760,17 @@ def _ckpt_launches(ckpt: dict, degree: dict, kernel: str) -> dict:
     return runs
 
 
+def _mp_launches(moe: dict, mp_r: dict, kernel: str) -> dict:
+    """Phase 12's launches of one kernel: the MoE LM in one process (6
+    steps, remat off and on) and each model-parallel mesh, per rank (3
+    steps at 4 layers)."""
+    return {"launches_moe": moe["launches"].get(kernel, 0),
+            "launches_moe_remat": moe["launches_remat"].get(kernel, 0),
+            "launches_mp": {name: [r["launches"].get(kernel, 0)
+                                   for r in ranks]
+                            for name, ranks in mp_r["meshes"].items()}}
+
+
 def _launch_mean(geoms: list, field: str) -> float:
     """A per-geometry time averaged over the launches of one training step
     or one forward (each geometry weighted by its launch count)."""
@@ -3740,6 +3783,7 @@ def _launch_mean(geoms: list, field: str) -> float:
 AOT_STEPS = 20
 AOT_CHILD_TIMEOUT_S = 300
 AOT_TOL = 1e-5              # the reference's cold-vs-aot bar (0 expected)
+AOT_WINDOW_TOL = 0.10       # a captured window's ms against the card's
 AOT_OUTCOMES = ("miss", "corrupt", "key-mismatch", "signature-mismatch",
                 "deserialize-failed", "hit", "export", "export-failed")
 # per step of each model, by the wrappers' names (runtime/trainstep.py
@@ -3959,134 +4003,460 @@ def phase_aot(tmp: str, models=("lm", "resnet")) -> dict:
     build cache and one fresh AOT directory: cold (empty cache, aot: nvcc,
     the capture, outcome export), warm (no aot: cache hits, 0 nvcc,
     eager) and aot (outcome hit, 0 nvcc, start_kind "aot") worker
-    processes of the same 20 seeded steps, then a truncated record and a
-    record of another key, each falling back and training."""
-    import pickle
-    import statistics
-    out = {}
+    processes of the same 20 seeded steps, one at a time (their step
+    times are measured); then every model's fallback drills at once
+    (untimed): a truncated record and a record of another key, each
+    falling back and training."""
+    out, drills = {}, []
     for model in models:
-        cache = os.path.join(tmp, f"{model}-cache")
-        aot_dir = os.path.join(tmp, f"{model}-records")
-        arms = {"cold": _aot_run(tmp, model, "cold", cache, aot_dir, True),
-                "warm": _aot_run(tmp, model, "warm", cache, aot_dir, False,
-                                 profile=model == "resnet"),
-                "aot": _aot_run(tmp, model, "aot", cache, aot_dir, True,
-                                profile=True)}
-        want = AOT_LAUNCHES[model]
-        for arm, r in arms.items():
-            # step_ms[i] ends step i + 2
-            r["median_ms"] = statistics.median(r["step_ms"][3:])
-            r["median_window_ms"] = statistics.median(
-                r["window_ms"][4:AOT_STEPS])
-            log(f"[aot] {model} {arm}: start_kind {r['start_kind']}, nvcc "
-                f"runs {r['nvcc']}, cache hits {r['hits']}, outcomes "
-                f"{r['outcomes']}, first step {r['first_step_s']:.3f} s "
-                f"(train() entry to the first step's sync), median step "
-                f"{r['median_ms']:.3f} ms over steps 5-{AOT_STEPS} (CUDA "
-                f"events between step ends; the worker's windows "
-                f"{r['median_window_ms']:.3f} ms), "
-                f"{'captured, ' + str(r['replays']) + ' replays' if r['captured'] else 'eager'}; "
-                f"process wall {r['wall_s']:.1f} s")
-        cold, warm, aot = arms["cold"], arms["warm"], arms["aot"]
-        for arm in ("cold", "aot"):
-            bad = {k: v for k, v in arms[arm]["outcomes"].items()
-                   if k in ("export-failed", "deserialize-failed")}
-            if bad or not arms[arm]["captured"]:
-                fail(f"phase 11 {model} {arm}: outcomes {bad}, captured "
-                     f"{arms[arm]['captured']}: the AOT arm ran eagerly")
-        if not (cold["start_kind"] == "cold" and cold["nvcc"] >= 1 and
-                cold["outcomes"] == {"miss": 1, "export": 1}):
-            fail(f"phase 11 {model} cold arm: {cold['start_kind']}, nvcc "
-                 f"{cold['nvcc']}, outcomes {cold['outcomes']}")
-        if not (warm["start_kind"] == "warm" and warm["nvcc"] == 0 and
-                warm["hits"] >= 1 and not warm["outcomes"] and
-                not warm["captured"]):
-            fail(f"phase 11 {model} warm arm: {warm['start_kind']}, nvcc "
-                 f"{warm['nvcc']}, hits {warm['hits']}, outcomes "
-                 f"{warm['outcomes']}")
-        if not (aot["start_kind"] == "aot" and aot["nvcc"] == 0 and
-                aot["outcomes"] == {"hit": 1}):
-            fail(f"phase 11 {model} aot arm: {aot['start_kind']}, nvcc "
-                 f"{aot['nvcc']}, outcomes {aot['outcomes']}")
-        # the three arms: the same kernels in the same order
-        params = {arm: torch.load(os.path.join(r["out"], "params.pt"))
-                  for arm, r in arms.items()}
-        d_loss = max(abs(a - b) for arm in ("warm", "aot")
-                     for a, b in zip(arms[arm]["losses"], cold["losses"]))
-        d_param = max(_max_delta(params[arm], params["cold"])
-                      for arm in ("warm", "aot"))
-        del params
-        log(f"[aot] {model}: warm and aot against cold over {AOT_STEPS} "
-            f"steps: max|d loss| {d_loss:.3e}, max|d param| {d_param:.3e} "
-            f"(<= {AOT_TOL})")
-        if not (len(cold["losses"]) == AOT_STEPS and d_loss <= AOT_TOL
-                and d_param <= AOT_TOL):
-            fail(f"phase 11 {model}: the arms disagree")
-        for arm in ("cold", "warm", "aot"):
-            if arm != "warm" and arms[arm]["launches"] != want:
-                fail(f"phase 11 {model} {arm}: the step object's launches "
-                     f"{arms[arm]['launches']}, expected {want}")
-            # a captured arm's warm-up step launched through the wrappers
-            n = AOT_STEPS + (arm != "warm")
-            total = {k: v * n for k, v in want.items()}
-            got = {k: arms[arm]["counts"].get(k, 0) for k in want}
-            if got != total:
-                fail(f"phase 11 {model} {arm}: counted launches {got}, "
-                     f"expected {total} ({n} steps)")
-        if aot["trace_kernels"] != want:
-            fail(f"phase 11 {model}: the trace of {AOT_TRACE_STEPS} "
-                 f"replays holds {aot['trace_kernels']} a step, expected "
-                 f"{want}")
-        idle = {arm: arms[arm]["idle"] for arm in ("warm", "aot")
-                if "idle" in arms[arm]}
-        log(f"[aot] {model}: the trace of {AOT_TRACE_STEPS} replays holds "
-            f"{aot['trace_kernels']} a step; " + "; ".join(
-                f"{'captured' if arm == 'aot' else 'eager'} step traced: "
-                f"device busy {i['busy_ms']:.3f} of {i['span_ms']:.3f} ms, "
-                f"idle share {i['idle_share']:.3f}"
-                for arm, i in idle.items()))
-        # the fallbacks, side by side (untimed): a truncated record and a
-        # re-keyed one, each in its own directory, each trains and reads
-        # its kind from the cache
-        (name,) = os.listdir(aot_dir)
-        with open(os.path.join(aot_dir, name), "rb") as f:
-            blob = f.read()
-        rekeyed = pickle.loads(blob)
-        rekeyed["key"] = "0" * 24
-        started = []
-        for damage, bad in (("corrupt", blob[:len(blob) // 2]),
-                            ("key-mismatch", pickle.dumps(rekeyed))):
-            d = os.path.join(tmp, f"{model}-records-{damage}")
-            os.makedirs(d)
-            with open(os.path.join(d, name), "wb") as f:
-                f.write(bad)
-            started.append((damage, _aot_start(tmp, model, damage, cache,
-                                               d, True)))
-        drills = {}
-        for damage, st in started:
-            r = _aot_finish(st)
-            d = max(abs(a - b) for a, b in zip(r["losses"], cold["losses"]))
-            log(f"[aot] {model} {damage} record: start_kind "
-                f"{r['start_kind']}, nvcc {r['nvcc']}, outcomes "
-                f"{r['outcomes']}, {len(r['losses'])} steps, max|d loss| "
-                f"against cold {d:.3e}")
-            if not (r["outcomes"] == {damage: 1, "export": 1} and
-                    r["start_kind"] == "warm" and r["nvcc"] == 0 and
-                    len(r["losses"]) == AOT_STEPS and d <= AOT_TOL):
-                fail(f"phase 11 {model}: the {damage} record did not fall "
-                     f"back to a warm start that trains")
-            drills[damage] = {k: r[k] for k in ("start_kind", "outcomes")}
-        out[model] = {
-            "arms": {arm: {k: r[k] for k in (
-                "start_kind", "nvcc", "hits", "outcomes", "first_step_s",
-                "median_ms", "median_window_ms", "captured", "replays",
-                "wall_s")}
-                for arm, r in arms.items()},
-            "idle": idle, "d_loss": d_loss, "d_param": d_param,
-            "trace_kernels": aot["trace_kernels"],
-            "counts": aot["counts"], "drills": drills}
+        out[model], starts, cold = _aot_model(tmp, model)
+        drills += [(model, damage, start, cold) for damage, start in starts]
+    running = [(model, damage, start(), cold)
+               for model, damage, start, cold in drills]
+    for model, damage, started, cold in running:
+        r = _aot_finish(started)
+        d = max(abs(a - b) for a, b in zip(r["losses"], cold["losses"]))
+        log(f"[aot] {model} {damage} record: start_kind "
+            f"{r['start_kind']}, nvcc {r['nvcc']}, outcomes "
+            f"{r['outcomes']}, {len(r['losses'])} steps, max|d loss| "
+            f"against cold {d:.3e}")
+        if not (r["outcomes"] == {damage: 1, "export": 1} and
+                r["start_kind"] == "warm" and r["nvcc"] == 0 and
+                len(r["losses"]) == AOT_STEPS and d <= AOT_TOL):
+            fail(f"phase 11 {model}: the {damage} record did not fall "
+                 f"back to a warm start that trains")
+        out[model].setdefault("drills", {})[damage] = {
+            k: r[k] for k in ("start_kind", "outcomes")}
     return out
 
+
+def _aot_model(tmp: str, model: str) -> tuple:
+    """One model's timed AOT ladder of phase 11: (its record, (damage,
+    start) of each fallback drill, its cold arm)."""
+    import pickle
+    import statistics
+    cache = os.path.join(tmp, f"{model}-cache")
+    aot_dir = os.path.join(tmp, f"{model}-records")
+    arms = {"cold": _aot_run(tmp, model, "cold", cache, aot_dir, True),
+            "warm": _aot_run(tmp, model, "warm", cache, aot_dir, False,
+                             profile=model == "resnet"),
+            "aot": _aot_run(tmp, model, "aot", cache, aot_dir, True,
+                            profile=True)}
+    want = AOT_LAUNCHES[model]
+    for arm, r in arms.items():
+        # step_ms[i] ends step i + 2
+        r["median_ms"] = statistics.median(r["step_ms"][3:])
+        r["median_window_ms"] = statistics.median(
+            r["window_ms"][4:AOT_STEPS])
+        # the worker times a window edge to edge, the drain's wait for
+        # the card included: a captured step's window reads the card
+        r["window_share"] = r["median_window_ms"] / r["median_ms"]
+        if r["captured"] and abs(r["window_share"] - 1) > AOT_WINDOW_TOL:
+            fail(f"phase 11 {model} {arm}: the window reads "
+                 f"{r['median_window_ms']:.3f} ms a step, the card "
+                 f"{r['median_ms']:.3f} ms (bar {AOT_WINDOW_TOL:.0%})")
+        log(f"[aot] {model} {arm}: start_kind {r['start_kind']}, nvcc "
+            f"runs {r['nvcc']}, cache hits {r['hits']}, outcomes "
+            f"{r['outcomes']}, first step {r['first_step_s']:.3f} s "
+            f"(train() entry to the first step's sync), median step "
+            f"{r['median_ms']:.3f} ms over steps 5-{AOT_STEPS} (CUDA "
+            f"events between step ends; the worker's windows "
+            f"{r['median_window_ms']:.3f} ms, "
+            f"{r['window_share']:.3f} of it), "
+            f"{'captured, ' + str(r['replays']) + ' replays' if r['captured'] else 'eager'}; "
+            f"process wall {r['wall_s']:.1f} s")
+    cold, warm, aot = arms["cold"], arms["warm"], arms["aot"]
+    for arm in ("cold", "aot"):
+        bad = {k: v for k, v in arms[arm]["outcomes"].items()
+               if k in ("export-failed", "deserialize-failed")}
+        if bad or not arms[arm]["captured"]:
+            fail(f"phase 11 {model} {arm}: outcomes {bad}, captured "
+                 f"{arms[arm]['captured']}: the AOT arm ran eagerly")
+    if not (cold["start_kind"] == "cold" and cold["nvcc"] >= 1 and
+            cold["outcomes"] == {"miss": 1, "export": 1}):
+        fail(f"phase 11 {model} cold arm: {cold['start_kind']}, nvcc "
+             f"{cold['nvcc']}, outcomes {cold['outcomes']}")
+    if not (warm["start_kind"] == "warm" and warm["nvcc"] == 0 and
+            warm["hits"] >= 1 and not warm["outcomes"] and
+            not warm["captured"]):
+        fail(f"phase 11 {model} warm arm: {warm['start_kind']}, nvcc "
+             f"{warm['nvcc']}, hits {warm['hits']}, outcomes "
+             f"{warm['outcomes']}")
+    if not (aot["start_kind"] == "aot" and aot["nvcc"] == 0 and
+            aot["outcomes"] == {"hit": 1}):
+        fail(f"phase 11 {model} aot arm: {aot['start_kind']}, nvcc "
+             f"{aot['nvcc']}, outcomes {aot['outcomes']}")
+    # the three arms: the same kernels in the same order
+    params = {arm: torch.load(os.path.join(r["out"], "params.pt"))
+              for arm, r in arms.items()}
+    d_loss = max(abs(a - b) for arm in ("warm", "aot")
+                 for a, b in zip(arms[arm]["losses"], cold["losses"]))
+    d_param = max(_max_delta(params[arm], params["cold"])
+                  for arm in ("warm", "aot"))
+    del params
+    log(f"[aot] {model}: warm and aot against cold over {AOT_STEPS} "
+        f"steps: max|d loss| {d_loss:.3e}, max|d param| {d_param:.3e} "
+        f"(<= {AOT_TOL})")
+    if not (len(cold["losses"]) == AOT_STEPS and d_loss <= AOT_TOL
+            and d_param <= AOT_TOL):
+        fail(f"phase 11 {model}: the arms disagree")
+    for arm in ("cold", "warm", "aot"):
+        if arm != "warm" and arms[arm]["launches"] != want:
+            fail(f"phase 11 {model} {arm}: the step object's launches "
+                 f"{arms[arm]['launches']}, expected {want}")
+        # a captured arm's warm-up step launched through the wrappers
+        n = AOT_STEPS + (arm != "warm")
+        total = {k: v * n for k, v in want.items()}
+        got = {k: arms[arm]["counts"].get(k, 0) for k in want}
+        if got != total:
+            fail(f"phase 11 {model} {arm}: counted launches {got}, "
+                 f"expected {total} ({n} steps)")
+    if aot["trace_kernels"] != want:
+        fail(f"phase 11 {model}: the trace of {AOT_TRACE_STEPS} "
+             f"replays holds {aot['trace_kernels']} a step, expected "
+             f"{want}")
+    idle = {arm: arms[arm]["idle"] for arm in ("warm", "aot")
+            if "idle" in arms[arm]}
+    log(f"[aot] {model}: the trace of {AOT_TRACE_STEPS} replays holds "
+        f"{aot['trace_kernels']} a step; " + "; ".join(
+            f"{'captured' if arm == 'aot' else 'eager'} step traced: "
+            f"device busy {i['busy_ms']:.3f} of {i['span_ms']:.3f} ms, "
+            f"idle share {i['idle_share']:.3f}"
+            for arm, i in idle.items()))
+    # the fallbacks (untimed, started with every model's after the last
+    # ladder): a truncated record and a re-keyed one, each in its own
+    # directory, each trains and reads its kind from the cache
+    (name,) = os.listdir(aot_dir)
+    with open(os.path.join(aot_dir, name), "rb") as f:
+        blob = f.read()
+    rekeyed = pickle.loads(blob)
+    rekeyed["key"] = "0" * 24
+    bad = {"corrupt": blob[:len(blob) // 2],
+           "key-mismatch": pickle.dumps(rekeyed)}
+    for damage, data in bad.items():
+        d = os.path.join(tmp, f"{model}-records-{damage}")
+        os.makedirs(d)
+        with open(os.path.join(d, name), "wb") as f:
+            f.write(data)
+    return {
+        "arms": {arm: {k: r[k] for k in (
+            "start_kind", "nvcc", "hits", "outcomes", "first_step_s",
+            "median_ms", "median_window_ms", "captured", "replays",
+            "wall_s")}
+            for arm, r in arms.items()},
+        "idle": idle, "d_loss": d_loss, "d_param": d_param,
+        "trace_kernels": aot["trace_kernels"],
+        "counts": aot["counts"]}, [
+            (damage, lambda damage=damage: _aot_start(
+                tmp, model, damage, cache,
+                os.path.join(tmp, f"{model}-records-{damage}"), True))
+            for damage in bad], cold
+
+
+
+# -- phase 12: the LM on a model-parallel mesh ----------------------------
+
+MOE_KW = dict(num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
+              moe_aux_weight=0.01)
+# remat recomputes each block's forward in the backward with the same
+# deterministic kernels: losses and params equal (0 expected)
+REMAT_TOL = 1e-6
+# 12b: full width, depth cut to 4 layers (two ranks on one card, every
+# product of a tensor or expert rank's collectives staged through the
+# host by gloo); phase 8's bars against one process
+MP_LAYERS, MP_STEPS = 4, 3
+MP_MESHES = (("data2", {"data": 2}, True, "replicated"),
+             ("tensor2", {"tensor": 2}, False, "replicated"),
+             ("expert2", {"expert": 2}, True, "replicated"),
+             ("fsdp2", {"fsdp": 2}, True, "sharded"))
+MP_TIMEOUT_S = 900
+# the caching allocator's rounding above the two whole-leaf buffers
+INIT_SLACK = 2 ** 20
+
+
+def _mp_cfg(T, moe: bool, layers: int = SERVE_LAYERS, **kw):
+    cfg = replace(T.TransformerConfig(), num_layers=layers, **kw)
+    return replace(cfg, **MOE_KW) if moe else cfg
+
+
+def _mp_train(worker, seen, cfg, path: str, **kw) -> dict:
+    """One LM run through train() (flash, fused_adam, lr 6e-4, the clip
+    at 1.0, sync_every 1): per-step losses, grad norms and aux losses,
+    the step time, the peak memory and the rank's param bytes."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result = worker.train(
+        workload="transformer", workload_kwargs={"cfg": cfg},
+        kernel_attention=kw.pop("kernel_attention", "flash"),
+        kernel_optimizer=kw.pop("kernel_optimizer", "fused_adam"),
+        optimizer="adam", learning_rate=TRAIN_LR, lr_schedule="constant",
+        seed=0, sync_every=1, metrics_path=path, handle_sigterm=False,
+        **kw)
+    torch.cuda.synchronize()
+    ctx = kw.get("ctx")
+    windows = _windows(worker._process_metrics_path(
+        path, ctx.process_id if ctx else 0))
+    state, builder = seen["state"], seen["builder"]
+    return {
+        "loss": [w["loss"] for w in windows],
+        "grad_norm": [w["grad_norm"] for w in windows],
+        "aux": [w.get("moe_aux_loss") for w in windows],
+        "step_ms": result.mean_step_time_s * 1e3,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "param_bytes": sum(p.numel() * 4 for p in state.params.values()),
+        "replicated_bytes": sum(p.numel() * 4 for n, p in
+                                state.params.items()
+                                if n not in state.param_blocks),
+        "largest_leaf_bytes": max(p.numel() * 4
+                                  for p in state.params.values()),
+        "init_transient": seen["init_transient"],
+        "strategy": builder.strategy,
+    }
+
+
+def phase_moe(counters, T, worker, trainstep) -> dict:
+    """Phase 12a: the MoE LM at the default widths (12 layers, 8 experts,
+    top-2) through train() in one process, remat off then on: the launch
+    counts (K1 24 a step under remat), the aux loss, remat's losses and
+    params equal to the run without it, and the first step against
+    einsum + stock Adam on the same weights and batch."""
+    import tempfile
+    seen = _capture_states(worker, trainstep)
+    cfg = _mp_cfg(T, True)
+    runs, cmp = {}, {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for remat in (False, True):
+                rec, launches = _counted(counters, lambda: _mp_train(
+                    worker, seen, replace(cfg, remat=remat),
+                    os.path.join(tmp, f"remat{remat}.jsonl"),
+                    device=DEVICE, global_batch=TRAIN_BATCH,
+                    steps=TRAIN_STEPS))
+                rec["launches"] = launches
+                rec["params"] = {n: p.detach().cpu() for n, p in
+                                 seen["state"].params.items()}
+                seen.clear()
+                runs[remat] = rec
+            for arm, ka, ko in (("flash+fused_adam", "flash", "fused_adam"),
+                                ("einsum+stock", "einsum", "stock")):
+                cmp[arm] = _mp_train(
+                    worker, seen, cfg, os.path.join(tmp, f"{ka}.jsonl"),
+                    device=DEVICE, global_batch=COMPARE_BATCH, steps=1,
+                    kernel_attention=ka, kernel_optimizer=ko)
+                seen.clear()
+    finally:
+        worker.TrainStepBuilder = trainstep.TrainStepBuilder
+    torch.cuda.empty_cache()
+    per = {False: {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+                   "flash_attention_bwd_dkv": 12, "fused_adam": 1}}
+    per[True] = {**per[False], "flash_attention_fwd": 24}
+    tokens = TRAIN_BATCH * SERVE_SEQ
+    for remat, rec in runs.items():
+        want = {k: v * TRAIN_STEPS for k, v in per[remat].items()}
+        log(f"[moe] remat {remat}: {TRAIN_STEPS} steps of the MoE LM (8 "
+            f"experts, top-2, capacity 1.25) at batch {TRAIN_BATCH} x S "
+            f"{SERVE_SEQ}; launches {rec['launches']} (expected {want}); "
+            f"losses {rec['loss']}; aux {rec['aux']}; step "
+            f"{rec['step_ms']:.1f} ms (host clock, windows after the "
+            f"first), {tokens / rec['step_ms'] * 1e3:.0f} tokens/s; peak "
+            f"{rec['peak_gib']:.2f} GiB")
+        if rec["launches"] != want:
+            fail(f"moe remat {remat}: launches {rec['launches']}, "
+                 f"expected {want}")
+        if not (np.isfinite(rec["loss"]).all() and
+                np.isfinite(rec["grad_norm"]).all() and
+                all(a is not None and np.isfinite(a) and a > 0
+                    for a in rec["aux"])):
+            fail(f"moe remat {remat}: losses {rec['loss']}, grad norms "
+                 f"{rec['grad_norm']}, aux {rec['aux']}")
+    off, on = runs[False], runs[True]
+    scale = max(p.abs().max().item() for p in off["params"].values())
+    delta = max((off["params"][n] - on["params"][n]).abs().max().item()
+                for n in off["params"])
+    log(f"[moe] remat against no remat: losses equal "
+        f"{off['loss'] == on['loss']}, max |d param| {delta:.3e} of max "
+        f"|param| {scale:.3f} (bar {REMAT_TOL} of it); peak memory "
+        f"{off['peak_gib']:.2f} -> {on['peak_gib']:.2f} GiB")
+    if off["loss"] != on["loss"] or delta > REMAT_TOL * scale:
+        fail("moe: remat changed the function")
+    a, b = cmp["flash+fused_adam"], cmp["einsum+stock"]
+    worst = {k: abs(a[k][0] - b[k][0]) / abs(b[k][0])
+             for k in ("loss", "grad_norm")}
+    log(f"[moe] first step at batch {COMPARE_BATCH}, same weights and "
+        f"batch: flash+fused_adam loss {a['loss'][0]:.6f} grad norm "
+        f"{a['grad_norm'][0]:.5f}, einsum+stock {b['loss'][0]:.6f} / "
+        f"{b['grad_norm'][0]:.5f}; relative {worst['loss']:.3e} (<= "
+        f"{LOSS_RTOL}), {worst['grad_norm']:.3e} (<= {GNORM_RTOL})")
+    if worst["loss"] > LOSS_RTOL or worst["grad_norm"] > GNORM_RTOL:
+        fail("moe: flash+fused_adam disagrees with einsum+stock")
+    return {"launches": off["launches"], "launches_remat": on["launches"],
+            "step_ms": off["step_ms"], "step_ms_remat": on["step_ms"],
+            "peak_gib": off["peak_gib"], "peak_gib_remat": on["peak_gib"],
+            "losses": off["loss"], "aux": off["aux"], "compare": worst,
+            "remat_delta": delta}
+
+
+def _mp_rank(rank: int, env: dict, queue) -> None:
+    """One rank of phase 12b (a spawned process): the contract env, a
+    gloo group on the shared card, then each mesh of MP_MESHES built over
+    it and trained through train(); per mesh the launches, the rank's
+    param bytes and the host-staged collectives."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sys.path.insert(0, HERE)
+        os.environ.update(env)
+        import dataclasses
+        from kubeflow_tpu_torch.api.trainingjob import ShardingSpec
+        from kubeflow_tpu_torch.models import transformer as T
+        from kubeflow_tpu_torch.parallel import collectives
+        from kubeflow_tpu_torch.parallel.mesh import build_mesh
+        from kubeflow_tpu_torch.runtime import bootstrap, trainstep, worker
+        counters = _all_counters()
+        seen = _capture_states(worker, trainstep)
+        ctx = bootstrap.initialize(device=DEVICE, backend="gloo")
+        out = {}
+        import tempfile
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                for name, mesh, moe, mode in MP_MESHES:
+                    sharding = ShardingSpec.from_dict(mesh)
+                    mctx = dataclasses.replace(
+                        ctx, sharding=sharding, mesh=build_mesh(sharding))
+                    collectives.reset_counts()
+                    rec, launches = _counted(counters, lambda: _mp_train(
+                        worker, seen, _mp_cfg(T, moe, MP_LAYERS),
+                        os.path.join(tmp, f"{name}.jsonl"), ctx=mctx,
+                        weight_update=mode, global_batch=TRAIN_BATCH,
+                        steps=MP_STEPS))
+                    rec["launches"] = launches
+                    rec["host_staged"] = dict(collectives.host_staged)
+                    rec["coords"] = {a: c for a, c in
+                                     mctx.mesh.coords.items()
+                                     if mesh.get(a)}
+                    seen.clear()
+                    out[name] = rec
+        finally:
+            bootstrap.shutdown(ctx)
+        queue.put((rank, out, None))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def phase_mp(T, worker, trainstep, card) -> dict:
+    """Phase 12b: the LM on model-parallel meshes of two ranks that share
+    the card over gloo ({data 2} MoE, {tensor 2} dense, {expert 2} MoE,
+    {fsdp 2} MoE with the sharded update), at full width and 4 layers,
+    against one process on the same global batch: phase 8's bars a step,
+    the launches per rank exact, each rank's param bytes at most half of
+    one process's plus its replicated leaves, init's transient at most
+    twice the largest leaf (one whole leaf and its staged broadcast)."""
+    import tempfile
+    import torch.multiprocessing as mp
+    seen = _capture_states(worker, trainstep)
+    ref = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for moe in (False, True):
+                ref[moe] = _mp_train(worker, seen, _mp_cfg(T, moe, MP_LAYERS),
+                                     os.path.join(tmp, f"ref{moe}.jsonl"),
+                                     device=DEVICE, global_batch=TRAIN_BATCH,
+                                     steps=MP_STEPS)
+                seen.clear()
+    finally:
+        worker.TrainStepBuilder = trainstep.TrainStepBuilder
+    torch.cuda.empty_cache()
+    port = _free_port()
+    spawn = mp.get_context("spawn")
+    queue = spawn.Queue()
+    procs = [spawn.Process(target=_mp_rank, args=(r, {
+        "KFTPU_TOPOLOGY": f"v5e-{DP_RANKS}",
+        "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+        "KFTPU_NUM_PROCESSES": str(DP_RANKS), "KFTPU_PROCESS_ID": str(r)},
+        queue)) for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    ranks, errors = {}, []
+    try:
+        for p in procs:
+            p.start()
+        for _ in procs:
+            r, out, err = queue.get(timeout=MP_TIMEOUT_S)
+            ranks[r] = out
+            if err:
+                errors.append(f"rank {r}:\n{err}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail("mp: " + "\n".join(errors))
+    per_step = {"flash_attention_fwd": MP_LAYERS,
+                "flash_attention_bwd_dq": MP_LAYERS,
+                "flash_attention_bwd_dkv": MP_LAYERS, "fused_adam": 1}
+    want = {k: v * MP_STEPS for k, v in per_step.items()}
+    result = {"wall_s": wall, "meshes": {}}
+    for name, mesh, moe, mode in MP_MESHES:
+        one = ref[moe]
+        for r in range(DP_RANKS):
+            rec = ranks[r][name]
+            if rec["launches"] != want:
+                fail(f"mp {name} rank {r}: launches {rec['launches']}, "
+                     f"expected {want}")
+            worst = {}
+            for key, tol in (("loss", DP_LOSS_RTOL),
+                             ("grad_norm", DP_GNORM_RTOL)):
+                got, exp = np.array(rec[key]), np.array(one[key])
+                if got.shape != exp.shape or not np.isfinite(got).all():
+                    fail(f"mp {name} rank {r}: {key} {got} vs {exp}")
+                worst[key] = float(np.max(np.abs(got - exp) / np.abs(exp))
+                                   / tol)
+                if worst[key] > 1.0:
+                    fail(f"mp {name} rank {r}: {key} {got.tolist()} vs one "
+                         f"process {exp.tolist()} (bar {tol} relative)")
+            if moe and not all(a is not None and np.isfinite(a) and a > 0
+                               for a in rec["aux"]):
+                fail(f"mp {name} rank {r}: aux {rec['aux']}")
+            limit = one["param_bytes"] / 2 + rec["replicated_bytes"]
+            if rec["param_bytes"] > limit:
+                fail(f"mp {name} rank {r}: params {rec['param_bytes']} "
+                     f"bytes > half of {one['param_bytes']} plus the "
+                     f"replicated {rec['replicated_bytes']}")
+            # init holds one whole leaf and its host-staged broadcast
+            # beside the blocks, never the whole model
+            init_limit = 2 * one["largest_leaf_bytes"] + INIT_SLACK
+            if rec["init_transient"] > init_limit:
+                fail(f"mp {name} rank {r}: init held "
+                     f"{rec['init_transient']} bytes above its blocks, "
+                     f"over twice the largest leaf "
+                     f"({one['largest_leaf_bytes']}) plus {INIT_SLACK}")
+            log(f"[mp] {name} rank {r} {rec['coords']} | {card} | launches "
+                f"{rec['launches']} ({per_step} a step); losses "
+                f"{rec['loss']} (one process {one['loss']}), grad norms "
+                f"{rec['grad_norm']} (one process {one['grad_norm']}); "
+                f"largest share of a bar: loss {worst['loss']:.3f}, grad "
+                f"norm {worst['grad_norm']:.3f}; params "
+                f"{rec['param_bytes']} bytes (one process "
+                f"{one['param_bytes']}, replicated here "
+                f"{rec['replicated_bytes']}; init transient "
+                f"{rec['init_transient']} bytes, bar {init_limit}); step {rec['step_ms']:.1f} ms "
+                f"without the first (host clock, two ranks sharing one "
+                f"card over gloo, every collective staged through the "
+                f"host: {rec['host_staged']}; not a scaling figure); peak "
+                f"{rec['peak_gib']:.2f} GiB")
+            result["meshes"].setdefault(name, []).append(
+                {**{k: rec[k] for k in ("loss", "grad_norm", "step_ms",
+                                        "param_bytes", "peak_gib",
+                                        "init_transient", "launches",
+                                        "strategy")},
+                 "worst": worst})
+    log(f"[mp] {DP_RANKS} ranks, {len(MP_MESHES)} meshes, {MP_STEPS} steps "
+        f"each at {MP_LAYERS} layers, in {wall:.1f}s; one process: dense "
+        f"step {ref[False]['step_ms']:.1f} ms, MoE {ref[True]['step_ms']:.1f}"
+        f" ms")
+    return result
 
 
 def main() -> int:
@@ -4225,6 +4595,12 @@ def main() -> int:
             degree = phase_ckpt_degree(T, R, worker, ckpt_mod, dev["card"],
                                        dp["ref_lm"], resnet["per_step"],
                                        tmp)
+        # phase 12: the MoE and remat LM, then model-parallel meshes
+        torch.cuda.empty_cache()
+        t12 = time.perf_counter()
+        moe = phase_moe(counters, T, worker, trainstep)
+        mp_r = phase_mp(T, worker, trainstep, dev["card"])
+        log(f"[mp] phase 12 in {time.perf_counter() - t12:.1f}s")
         # phase 11: the AOT ladder, in worker processes
         torch.cuda.empty_cache()
         t11 = time.perf_counter()
@@ -4253,6 +4629,7 @@ def main() -> int:
         "launches_train": train["launches"]["flash_attention_fwd"],
         "launches_dp": _dp_launches(dp, "lm", "flash_attention_fwd"),
         "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_fwd"),
+        **_mp_launches(moe, mp_r, "flash_attention_fwd"),
         # phase 10, each (launches, forwards): gRPC, routers, the fleet
         "launches_serving_tier": {
             name: [r["launches"], r["forwards"]] if "launches" in r else None
@@ -4276,6 +4653,7 @@ def main() -> int:
         "launches": train["launches"]["flash_attention_bwd_dq"],
         "launches_dp": _dp_launches(dp, "lm", "flash_attention_bwd_dq"),
         "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_bwd_dq"),
+        **_mp_launches(moe, mp_r, "flash_attention_bwd_dq"),
         "max_abs_err": k2["err"]["dq"],
         "max_abs_err_dp": k2["err_dp"]["dq"],
         "ms": k2t["dq_ms"],
@@ -4293,6 +4671,7 @@ def main() -> int:
         "launches": train["launches"]["flash_attention_bwd_dkv"],
         "launches_dp": _dp_launches(dp, "lm", "flash_attention_bwd_dkv"),
         "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_bwd_dkv"),
+        **_mp_launches(moe, mp_r, "flash_attention_bwd_dkv"),
         "max_abs_err": k2["err"]["dkv"],
         "max_abs_err_dp": k2["err_dp"]["dkv"],
         "ms": k2t["dkv_ms"],
@@ -4310,6 +4689,7 @@ def main() -> int:
         "launches": train["launches"]["fused_adam"],
         "launches_dp": _dp_launches(dp, "lm", "fused_adam"),
         "launches_ckpt": _ckpt_launches(ckpt, degree, "fused_adam"),
+        **_mp_launches(moe, mp_r, "fused_adam"),
         "max_abs_err": k3["err"],
         "max_abs_err_dp": dp_kernels["k3"]["err"],
         "ms": k3["ms"],

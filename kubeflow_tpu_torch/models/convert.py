@@ -7,7 +7,10 @@ The port keeps every parameter in the shape flax gives it and names it by
 its flax path joined with dots (models/transformer.py), so converting is
 flattening the tree: ``{"layer0": {"attn": {"qkv": {"kernel": a}}}}``
 becomes ``{"layer0.attn.qkv.kernel": tensor(a)}``. Adam's moments are
-params-shaped trees and convert the same way.
+params-shaped trees and convert the same way; the MoE layers' params
+(``layer{i}/moe/{router,wi,wo}``, no ``kernel`` level) become
+``layer{i}.moe.router`` and so on. :func:`shard_params` cuts a converted
+global state into one rank's blocks on a mesh.
 """
 
 from __future__ import annotations
@@ -39,6 +42,21 @@ def transformer_params_from_jax(params: Mapping) -> dict:
         params = params["params"]
     return {name: torch.from_numpy(np.array(a, dtype=np.float32))
             for name, a in flatten_params(params).items()}
+
+
+def shard_params(params: Mapping, mesh, rules, logical_axes: Mapping
+                 ) -> dict:
+    """The blocks of a global state dict (name -> tensor) that the rank
+    of ``mesh`` (``parallel/mesh.py``) holds under ``rules`` and
+    ``logical_axes`` (name -> logical-axis tuple, the workload spec's):
+    each leaf cut by ``rules.spec_for(axes, mesh.shape)``, as
+    ``TrainStepBuilder.init`` places it."""
+    from ..parallel.sharding_rules import cut_block
+    coords = mesh.coords
+    return {name: cut_block(t, rules.spec_for(logical_axes[name],
+                                              mesh.shape),
+                            mesh.shape, coords)
+            for name, t in params.items()}
 
 
 def resnet_variables_from_jax(params: Mapping, batch_stats: Mapping

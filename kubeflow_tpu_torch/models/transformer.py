@@ -22,12 +22,32 @@ The training surface mirrors the JAX module's: ``next_token_loss``,
 ``make_loss_fn`` / ``make_eval_fn`` (functions of a params dict, run
 through ``torch.func.functional_call`` on a parameterless copy of the
 model on the ``meta`` device), ``init_fn``, ``synthetic_batch`` (from a
-``torch.Generator``) and ``workload_spec`` for runtime/worker.py.
+``torch.Generator``), ``logical_axes`` and ``workload_spec`` for
+runtime/worker.py.
+
+- ``num_experts > 0`` swaps each block's MLP for ``MoEMLP``
+  (models/moe.py) under the name ``moe``; each block returns its weighted
+  aux loss, and ``make_loss_fn`` adds their sum to the loss and reports
+  it as ``moe_aux_loss`` (the eval function ignores it, as the JAX
+  package's does).
+- ``remat`` runs each block under ``torch.utils.checkpoint`` (non-
+  reentrant): the backward recomputes the block's forward, K1 included.
+- Model parallelism (``mesh`` with fsdp, tensor or expert above 1): the
+  loss function sees this rank's block of each param, cut by
+  ``TRANSFORMER_RULES`` from ``logical_axes``. Each fsdp-sharded leaf is
+  gathered whole before the forward (its gradient reduce-scattered into
+  the block). Over ``tensor`` the blocks run Megatron's pattern: ``qkv``
+  split by heads (the attention on the local heads), ``attn.out`` and
+  ``mlp.wo`` row-parallel (all-reduced forward), the inputs of the
+  column-parallel products all-reduced backward, ``tok_embed`` split
+  over the vocabulary (a masked lookup, all-reduced), and the head
+  column-parallel with its logits gathered over the vocabulary.
 """
 
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -35,8 +55,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
+from ..parallel import collectives
+from ..parallel.sharding_rules import TRANSFORMER_RULES, entry_axes
+
 
 @dataclass(frozen=True)
 class TransformerConfig:
@@ -48,10 +72,16 @@ class TransformerConfig:
     mlp_dim: int = 3072
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = False          # checkpoint each block (memory for FLOPs)
     # "einsum" (plain PyTorch) or "flash" (the CUDA kernel,
     # ops/flash_attention); "ring" is a later slice
     attention: str = "einsum"
+    # mixture-of-experts: num_experts > 0 swaps the dense MLP for MoEMLP
+    # (models/moe.py), its expert weights over the mesh axis "expert"
     num_experts: int = 0
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     def __post_init__(self):
         valid = ("einsum", "flash", "ring")
@@ -60,11 +90,8 @@ class TransformerConfig:
                 f"attention={self.attention!r} not in {valid}")
         if self.attention == "ring":
             raise NotImplementedError(
-                "attention='ring' (ops/ring_attention.py) is not yet ported")
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                "mixture-of-experts (num_experts > 0, models/moe.py) is not "
-                "yet ported")
+                "attention='ring' (ops/ring_attention.py) is not yet ported "
+                "(ROADMAP Queue 1 item 11)")
 
     @classmethod
     def tiny(cls) -> "TransformerConfig":
@@ -109,10 +136,18 @@ class LayerNorm(nn.Module):
             + self.bias
 
 
+def _tensor_group(mesh) -> Optional[object]:
+    return None if mesh is None else mesh.group_of("tensor")
+
+
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    """Over ``tensor`` the params are this rank's heads: ``qkv`` [E, 3,
+    H/t, D] and ``out`` [H/t, D, E], row-parallel."""
+
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         e, h, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
         self.qkv = _Kernel(e, 3, h, d)
         self.out = _Kernel(h, d, e)
@@ -120,7 +155,9 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.dtype
-        qkv = torch.einsum("bse,ethd->bsthd", x.to(dt),
+        tg = _tensor_group(self.mesh)
+        qkv = torch.einsum("bse,ethd->bsthd",
+                           collectives.copy_to(x.to(dt), tg),
                            self.qkv.kernel.to(dt))
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if cfg.attention == "flash":
@@ -134,47 +171,81 @@ class Attention(nn.Module):
             logits = logits.masked_fill(~mask, torch.finfo(dt).min)
             probs = torch.softmax(logits.float(), dim=-1).to(dt)
             out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
-        return torch.einsum("bshd,hde->bse", out, self.out.kernel.to(dt))
+        out = torch.einsum("bshd,hde->bse", out, self.out.kernel.to(dt))
+        return collectives.reduce_from(out, tg)
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    """Over ``tensor``: ``wi`` [E, F/t] column- and ``wo`` [F/t, E]
+    row-parallel."""
+
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         self.wi = _Kernel(cfg.embed_dim, cfg.mlp_dim)
         self.wo = _Kernel(cfg.mlp_dim, cfg.embed_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
-        h = x.to(dt) @ self.wi.kernel.to(dt)
+        tg = _tensor_group(self.mesh)
+        h = collectives.copy_to(x.to(dt), tg) @ self.wi.kernel.to(dt)
         h = F.gelu(h, approximate="tanh")   # flax nn.gelu's default
-        return h @ self.wo.kernel.to(dt)
+        return collectives.reduce_from(h @ self.wo.kernel.to(dt), tg)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    """``x -> (x', aux)``: aux is the MoE layer's weighted aux loss (None
+    for the dense MLP)."""
+
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = LayerNorm(cfg.embed_dim)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, mesh)
         self.ln2 = LayerNorm(cfg.embed_dim)
-        self.mlp = MLP(cfg)
+        if cfg.num_experts > 0:
+            from .moe import MoEMLP
+            self.moe = MoEMLP(cfg.num_experts, cfg.embed_dim, cfg.mlp_dim,
+                              top_k=cfg.moe_top_k,
+                              capacity_factor=cfg.moe_capacity_factor,
+                              aux_loss_weight=cfg.moe_aux_weight,
+                              dtype=cfg.dtype, mesh=mesh)
+        else:
+            self.mlp = MLP(cfg, mesh)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor
+                ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        y = self.ln2(x)
+        if self.cfg.num_experts > 0:
+            ff, aux = self.moe(y)
+        else:
+            ff, aux = self.mlp(y), None
+        return x + ff, aux
+
+
+def _get(module: nn.Module, name: str) -> torch.Tensor:
+    """The tensor at a dotted name (under ``functional_call``, the one
+    swapped in)."""
+    for part in name.split("."):
+        module = getattr(module, part)
+    return module
 
 
 class TransformerLM(nn.Module):
-    """tokens [B, S] int → logits [B, S, V] f32."""
+    """tokens [B, S] int → logits [B, S, V] f32 (with ``with_aux``,
+    ``(logits, the summed MoE aux loss or None)``). ``mesh``: the params
+    are this rank's blocks (the module docstring)."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         self.tok_embed = _Embed(cfg.vocab_size, cfg.embed_dim)
         self.pos_embed = _Embed(cfg.max_seq_len, cfg.embed_dim)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer{i}", Block(cfg))
+            self.add_module(f"layer{i}", Block(cfg, mesh))
         self.ln_f = LayerNorm(cfg.embed_dim)
         self.head = _Kernel(cfg.embed_dim, cfg.vocab_size)
 
@@ -182,14 +253,48 @@ class TransformerLM(nn.Module):
         return [getattr(self, f"layer{i}")
                 for i in range(self.cfg.num_layers)]
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token lookup; over ``tensor`` the table is this rank's
+        rows of the vocabulary: a masked lookup, summed over the ranks."""
+        table = self.tok_embed.embedding
+        tg = _tensor_group(self.mesh)
+        ids = tokens.long()
+        if tg is None:
+            return F.embedding(ids, table)
+        rows = table.shape[0]
+        local = ids - self.mesh.coords["tensor"] * rows
+        hit = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), table) * hit[..., None]
+        return collectives.reduce_from(x, tg)
+
+    def _remat(self, block: Block, x: torch.Tensor) -> tuple:
+        """``block(x)`` under the non-reentrant checkpoint; the params go
+        in as inputs, so the backward's recompute (after
+        ``functional_call`` has returned) sees the same tensors."""
+        names = [n for n, _ in block.named_parameters()]
+
+        def run(h, *ps):
+            return functional_call(block, dict(zip(names, ps)), (h,))
+
+        # the blocks draw no random numbers: no RNG state to replay, and
+        # none to read inside a CUDA graph capture
+        return checkpoint(run, x, *[_get(block, n) for n in names],
+                          use_reentrant=False, preserve_rng_state=False)
+
+    def forward(self, tokens: torch.Tensor, with_aux: bool = False):
         dt = self.cfg.dtype
-        x = F.embedding(tokens.long(), self.tok_embed.embedding).to(dt)
+        x = self._embed(tokens).to(dt)
         pos = self.pos_embed.embedding[:tokens.shape[1]].to(dt)
         x = x + pos[None]
+        aux = None
         for block in self.blocks():
-            x = block(x)
-        return self.ln_f(x) @ self.head.kernel
+            x, a = self._remat(block, x) if self.cfg.remat else block(x)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        tg = _tensor_group(self.mesh)
+        logits = collectives.copy_to(self.ln_f(x), tg) @ self.head.kernel
+        logits = collectives.gather_from(logits, tg, -1)
+        return (logits, aux) if with_aux else logits
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "TransformerLM":
@@ -202,6 +307,8 @@ class TransformerLM(nn.Module):
             if name.endswith("embedding"):
                 fan_in = p.shape[1]
             elif name.endswith("attn.out.kernel"):     # [H, D, E]
+                fan_in = p.shape[0] * p.shape[1]
+            elif name.endswith(("moe.wi", "moe.wo")):  # [E, in, out]
                 fan_in = p.shape[0] * p.shape[1]
             else:                                      # [in, ...]
                 fan_in = p.shape[0]
@@ -226,24 +333,48 @@ def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> tuple:
     return loss, {"perplexity": torch.exp(loss)}
 
 
-def make_loss_fn(model: TransformerLM) -> Callable:
+def gather_params(params: dict, dims: Optional[dict], group) -> dict:
+    """Each fsdp-sharded block in ``params`` gathered whole along its
+    dimension (``dims``: name -> dimension); the gradient of a gathered
+    leaf reduce-scatters into its block."""
+    if not dims:
+        return params
+    return {n: collectives.gather_shards(p, group, dims[n])
+            if n in dims else p for n, p in params.items()}
+
+
+def make_loss_fn(model: TransformerLM,
+                 fsdp_dims: Optional[dict] = None) -> Callable:
     """``loss_fn(params, variables, batch, rng) -> (loss, aux)`` over a
-    params dict keyed like the model's state dict."""
+    params dict keyed like the model's state dict (this rank's blocks
+    under a mesh; ``fsdp_dims`` the dimension of each fsdp-sharded
+    leaf). With experts, the loss includes the summed aux loss, reported
+    as ``moe_aux_loss``."""
+    group = None if model.mesh is None else model.mesh.group_of("fsdp")
 
     def loss_fn(params, variables, batch, rng):
         tokens = batch["tokens"]
-        logits = functional_call(model, params, (tokens,))
-        return next_token_loss(logits, tokens)
+        logits, aux = functional_call(
+            model, gather_params(params, fsdp_dims, group), (tokens,),
+            {"with_aux": True})
+        loss, metrics = next_token_loss(logits, tokens)
+        if aux is None:
+            return loss, metrics
+        metrics["moe_aux_loss"] = aux
+        return loss + aux, metrics
 
     return loss_fn
 
 
-def make_eval_fn(model: TransformerLM) -> Callable:
+def make_eval_fn(model: TransformerLM,
+                 fsdp_dims: Optional[dict] = None) -> Callable:
     """Held-out eval: next-token loss / perplexity / token accuracy."""
+    group = None if model.mesh is None else model.mesh.group_of("fsdp")
 
     def eval_fn(params, variables, batch):
         tokens = batch["tokens"]
-        logits = functional_call(model, params, (tokens,))
+        logits = functional_call(
+            model, gather_params(params, fsdp_dims, group), (tokens,))
         loss, _ = next_token_loss(logits, tokens)
         preds = logits[:, :-1].argmax(-1)
         return {"eval_loss": loss,
@@ -273,23 +404,90 @@ def synthetic_batch(rng: torch.Generator, batch_size: int, seq_len: int,
                                     generator=rng, dtype=torch.int32)}
 
 
+# Param name → logical axes, the JAX package's table over the flax paths
+# ("/"-joined; the port's dotted names are matched with "/" for ".").
+# Order matters: the first match wins.
+_LOGICAL_PATTERNS: list[tuple[str, tuple]] = [
+    # "vocab_table", not "vocab": the table is gather-indexed on this
+    # dimension (a masked lookup over tensor); the head's "vocab" is the
+    # column-parallel product
+    (r"tok_embed.*embedding", ("vocab_table", "embed")),
+    (r"pos_embed.*embedding", (None, "embed")),
+    (r"attn/qkv.*kernel", ("embed", None, "heads", "head_dim")),
+    (r"attn/out.*kernel", ("heads", "head_dim", "embed")),
+    (r"mlp/wi.*kernel", ("embed", "mlp")),
+    (r"mlp/wo.*kernel", ("mlp", "embed")),
+    (r"moe/router", ("embed", None)),
+    (r"moe/wi", ("expert", "embed", "mlp")),
+    (r"moe/wo", ("expert", "mlp", "embed")),
+    (r"head.*kernel", ("embed", "vocab")),
+    (r"(ln\d*|ln_f)/(scale|bias)", ("embed",)),
+]
+
+
+def logical_axes(params: dict) -> dict:
+    """Name → logical-axis tuple for a state dict (or any name → tensor
+    or shape map), by the first matching pattern; unmatched leaves are
+    replicated."""
+    out = {}
+    for name, leaf in params.items():
+        ndim = len(leaf) if isinstance(leaf, (tuple, list, torch.Size)) \
+            else leaf.dim()
+        path = name.replace(".", "/")
+        for pat, axes in _LOGICAL_PATTERNS:
+            if re.search(pat, path):
+                if len(axes) != ndim:
+                    raise ValueError(f"{name}: {axes} vs rank {ndim}")
+                out[name] = axes
+                break
+        else:
+            out[name] = (None,) * ndim
+    return out
+
+
+def fsdp_dims(axes: dict, rules, mesh) -> dict:
+    """Name → the dimension the fsdp axis shards, for every leaf it
+    shards on ``mesh``."""
+    out = {}
+    if mesh is None:
+        return out
+    for name, ax in axes.items():
+        spec = rules.spec_for(ax, mesh.shape)
+        for d, entry in enumerate(spec):
+            if "fsdp" in entry_axes(entry):
+                if entry_axes(entry) != ("fsdp",):
+                    raise NotImplementedError(
+                        f"{name}: dimension {d} over {entry}; an fsdp "
+                        f"gather of a dimension split over several axes "
+                        f"is not ported")
+                out[name] = d
+    return out
+
+
 def workload_spec(cfg: Optional[TransformerConfig] = None,
-                  seq_len: Optional[int] = None):
-    """WorkloadSpec factory for runtime.worker. The sharding annotations
-    (``rules``, ``param_logical_axes``) stay None until sharding is
-    ported (ROADMAP Queue 1 item 3)."""
+                  seq_len: Optional[int] = None, mesh=None):
+    """WorkloadSpec factory for runtime.worker, annotated for the fsdp,
+    tensor and expert axes (``rules``, ``param_logical_axes``). Under a
+    ``mesh`` the loss and eval functions take this rank's blocks
+    (TrainStepBuilder cuts them by the same rules) and run the mesh's
+    collectives; an axis of size 1 has none, so a data-only mesh runs
+    only the MoE aux loss's sums over the global batch."""
     from ..runtime.worker import WorkloadSpec
     cfg = cfg or TransformerConfig.tiny()
     seq_len = seq_len or cfg.max_seq_len
     # the module without storage: the loss and eval functions take their
     # parameters from a params dict (functional_call)
     with torch.device("meta"):
-        model = TransformerLM(cfg)
+        model = TransformerLM(cfg, mesh)
+        axes = logical_axes(dict(TransformerLM(cfg).state_dict()))
+    dims = fsdp_dims(axes, TRANSFORMER_RULES, mesh)
     return WorkloadSpec(
         name="transformer",
         init_fn=init_fn(model),
-        loss_fn=make_loss_fn(model),
+        loss_fn=make_loss_fn(model, dims),
         batch_fn=lambda rng, bs: synthetic_batch(rng, bs, seq_len,
                                                  cfg.vocab_size),
-        eval_fn=make_eval_fn(model),
+        rules=TRANSFORMER_RULES,
+        param_logical_axes=axes,
+        eval_fn=make_eval_fn(model, dims),
     )

@@ -24,6 +24,22 @@ all-reduces its input and the backward all-reduces the gradient, so a
 loss written over the rank's rows that takes a statistic over the global
 batch (a BatchNorm's sums, a global mean) gets the gradient of the
 global-batch function.
+
+The model-parallel step's differentiable exchanges (Megatron's
+operators; each is the identity over a None group):
+
+- ``copy_to``: identity forward, the gradient all-reduced backward (the
+  input of a product whose weight is split over the group);
+- ``reduce_from``: the partial sums all-reduced forward, identity
+  backward (the output of a row-parallel product);
+- ``gather_from``: the ranks' blocks concatenated along a dimension
+  forward, this rank's block of the gradient backward (column-parallel
+  logits);
+- ``gather_shards``: the same forward, the gradient reduce-scattered
+  backward (an fsdp-sharded param, gathered for its use: each rank's
+  block gets the sum of the ranks' gradients).
+
+Sums of a floating tensor narrower than f32 run in f32 and round once.
 """
 
 from __future__ import annotations
@@ -165,3 +181,87 @@ def global_sum(x: torch.Tensor, group: Any) -> torch.Tensor:
     gradient of each rank's input is the sum of the ranks' output
     gradients); ``x`` itself when ``group`` is None."""
     return x if group is None else _GlobalSum.apply(x, group)
+
+
+def _sum_(t: torch.Tensor, group: Any) -> torch.Tensor:
+    """All-reduce ``t`` (a new tensor of t's dtype), in f32 for a
+    narrower floating dtype."""
+    if t.is_floating_point() and t.element_size() < 4:
+        return all_reduce_(t.float(), group).to(t.dtype)
+    return all_reduce_(t.clone(memory_format=torch.contiguous_format),
+                       group)
+
+
+def _gather_dim(t: torch.Tensor, group: Any, dim: int) -> torch.Tensor:
+    return all_gather(t.movedim(dim, 0), group).movedim(0, dim)
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.index = dist.get_rank(group)
+        return _gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.n, ctx.n), None, None
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.movedim(ctx.dim, 0)
+        dt = g.dtype
+        if g.is_floating_point() and g.element_size() < 4:
+            g = g.float()
+        out = reduce_scatter(g, ctx.group).movedim(0, ctx.dim)
+        return out.to(dt), None, None
+
+
+def copy_to(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """Identity forward; the gradient summed over ``group`` backward."""
+    return x if group is None else _CopyTo.apply(x, group)
+
+
+def reduce_from(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """The sum over ``group`` forward; identity backward."""
+    return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def gather_from(x: torch.Tensor, group: Any, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in group-rank order
+    forward; this rank's block of the gradient backward."""
+    return x if group is None else _GatherFrom.apply(x, group, dim)
+
+
+def gather_shards(x: torch.Tensor, group: Any, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` forward; the gradient
+    reduce-scattered (summed, this rank's block) backward."""
+    return x if group is None else _GatherShards.apply(x, group, dim)

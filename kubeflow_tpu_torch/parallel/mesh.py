@@ -1,25 +1,33 @@
 """The mesh over the ranks of a ``torch.distributed`` process group.
 
-The port of the data-parallel half of ``kubeflow_tpu/parallel/mesh.py``.
-One rank drives one device, so the mesh's devices are the group's ranks
-in rank order, reshaped row-major into the six axes of ``ShardingSpec``
-(``data`` outermost). Only ``data`` may exceed 1 here: every rank holds
-the whole model, so the collectives run over the whole group and the
-mesh is its axis sizes over that group. An fsdp axis greater than 1
-(which shards the params themselves) raises, as an expert, pipeline,
-sequence or tensor axis does (ROADMAP Queue 1 items 6 and 11).
+The port of ``kubeflow_tpu/parallel/mesh.py``. One rank drives one
+device, so the mesh's devices are the group's ranks in rank order,
+reshaped row-major into the six axes of ``ShardingSpec`` (``data``
+outermost, ``tensor`` innermost), the order the JAX package reshapes its
+device list in: rank r sits at ``Mesh.coords``, ``np.unravel_index(r,
+sizes)``.
 
-``data_axes``, ``replica_axes``, ``replica_degree`` and
-``local_batch_size`` are the JAX package's; ``batch_rows`` names the
-rows of a global batch that ``P(data_axes)`` puts on this rank: block
-``rank`` of ``replica_degree`` equal blocks.
+The data, fsdp, expert and tensor axes are ported. ``data`` and
+``fsdp`` are the replica axes (the batch splits over them); fsdp,
+expert and tensor shard the params by the workload's rules
+(``parallel/sharding_rules.py``). A sequence or pipeline axis greater
+than 1 raises (ROADMAP Queue 1 item 11).
+
+The mesh holds one process group for each axis tuple a step reduces
+over (:data:`GROUP_AXES`), made by every rank in the same order; a tuple
+whose nontrivial axes span the world is the world group, and one of a
+single rank is None (nothing to exchange). ``data_axes``,
+``replica_axes``, ``replica_degree`` and ``local_batch_size`` are the JAX
+package's; ``batch_rows`` names the rows of a global batch that
+``P(("data", "fsdp"))`` puts on this rank.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
+import numpy as np
 import torch.distributed as dist
 
 from ..api.trainingjob import ShardingSpec
@@ -27,20 +35,29 @@ from ..api.trainingjob import ShardingSpec
 MESH_AXES = ShardingSpec.AXES  # ("data", "fsdp", "expert", "pipeline",
 #                                 "sequence", "tensor")
 REPLICA_AXES = ("data", "fsdp")
+MODEL_AXES = ("fsdp", "expert", "tensor")     # axes that shard params
 # axes whose sharding is not ported, and the ROADMAP item that ports it
-UNPORTED_AXES = {"fsdp": "Queue 1 item 6",
-                 "expert": "Queue 1 item 11", "pipeline": "Queue 1 item 11",
-                 "sequence": "Queue 1 item 6", "tensor": "Queue 1 item 6"}
+UNPORTED_AXES = {"pipeline": "Queue 1 item 11",
+                 "sequence": "Queue 1 item 11"}
+# the axis tuples a step reduces over, in the order every rank makes
+# their groups: the replica axes (gradient sums, metrics), each axis
+# alone (fsdp gathers, the data sum of an fsdp-sharded leaf, tensor
+# products) and the MoE combine's partial sums
+GROUP_AXES = (("data", "fsdp"), ("data",), ("fsdp",), ("expert",),
+              ("tensor",), ("expert", "tensor"))
 
 
 @dataclass(frozen=True)
 class Mesh:
     """Axis sizes (every axis of ``MESH_AXES``, in order) over a process
-    group; ``group`` None is the one-process mesh."""
+    group; ``group`` None is the one-process mesh. ``groups`` maps each
+    canonical axis tuple (its axes of size > 1, in mesh order) to the
+    process group of this rank's ranks along it."""
 
     shape: dict
     group: Any = None
     rank: int = 0
+    groups: dict = field(default_factory=dict, compare=False, repr=False)
 
     def size(self) -> int:
         n = 1
@@ -48,20 +65,106 @@ class Mesh:
             n *= s
         return n
 
+    @property
+    def coords(self) -> dict:
+        """This rank's coordinate on every axis (row-major over
+        ``MESH_AXES``)."""
+        return rank_coords(self.rank, self.shape)
 
-def build_mesh(sharding: Optional[ShardingSpec] = None,
-               group: Any = None) -> Mesh:
-    """The mesh over ``group`` (default: the world group once
-    ``torch.distributed`` is initialized, else this process alone)."""
+    def axes_size(self, axes) -> int:
+        n = 1
+        for a in axes:
+            n *= self.shape.get(a, 1)
+        return n
+
+    def axes_index(self, axes) -> int:
+        """This rank's row-major position over ``axes``."""
+        c, i = self.coords, 0
+        for a in axes:
+            i = i * self.shape.get(a, 1) + c.get(a, 0)
+        return i
+
+    def group_of(self, axes) -> Any:
+        """The process group of this rank's ranks along ``axes`` (None
+        for one rank)."""
+        key = canonical(axes, self.shape)
+        if not key:
+            return None
+        if self.axes_size(key) == self.size():
+            return self.group
+        if key not in self.groups:
+            raise KeyError(f"no process group over {key}: the mesh makes "
+                           f"groups over {GROUP_AXES}")
+        return self.groups[key]
+
+    def model_sharded(self) -> bool:
+        """Whether any axis that shards params exceeds 1."""
+        return any(self.shape.get(a, 1) > 1 for a in MODEL_AXES)
+
+
+def canonical(axes, shape: dict) -> tuple:
+    """``axes`` as a tuple of its axes of size > 1, in mesh order."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return tuple(a for a in MESH_AXES if a in axes and shape.get(a, 1) > 1)
+
+
+def rank_coords(rank: int, shape: dict) -> dict:
+    """The coordinates of ``rank`` on a mesh of ``shape``: row-major over
+    ``MESH_AXES``, as ``np.asarray(devices).reshape(sizes)`` places
+    device ``rank``."""
+    idx = np.unravel_index(rank, tuple(shape[a] for a in MESH_AXES))
+    return {a: int(i) for a, i in zip(MESH_AXES, idx)}
+
+
+def axis_groups(shape: dict) -> list[tuple]:
+    """``(axes, [ranks of each group])`` for every canonical tuple of
+    ``GROUP_AXES`` over ``shape`` that is neither one rank nor the whole
+    world, in a fixed order."""
+    sizes = tuple(shape[a] for a in MESH_AXES)
+    world = int(np.prod(sizes))
+    ranks = np.arange(world).reshape(sizes)
+    out, seen = [], set()
+    for axes in GROUP_AXES:
+        key = canonical(axes, shape)
+        if not key or key in seen:
+            continue
+        seen.add(key)
+        inner = [MESH_AXES.index(a) for a in key]
+        outer = [i for i in range(len(MESH_AXES)) if i not in inner]
+        flat = ranks.transpose(outer + inner).reshape(
+            -1, int(np.prod([sizes[i] for i in inner])))
+        if flat.shape[1] == world:
+            out.append((key, None))          # the world group itself
+        else:
+            out.append((key, [list(map(int, r)) for r in flat]))
+    return out
+
+
+def build_mesh(sharding: Optional[ShardingSpec] = None) -> Mesh:
+    """The mesh over the world group once ``torch.distributed`` is
+    initialized (else this process alone), with its axis groups. Every
+    rank calls it, in the same order (each ``new_group`` is collective
+    over the world)."""
     sharding = sharding or ShardingSpec()
     if dist.is_available() and dist.is_initialized():
-        group = group or dist.group.WORLD
+        group = dist.group.WORLD
         n, rank = dist.get_world_size(group), dist.get_rank(group)
     else:
         group, n, rank = None, 1, 0
     sizes = check_axes(sharding.resolve(n))
-    return Mesh(shape={a: sizes[a] for a in MESH_AXES},
-                group=group if n > 1 else None, rank=rank)
+    shape = {a: sizes[a] for a in MESH_AXES}
+    groups: dict = {}
+    if n > 1:
+        for key, parts in axis_groups(shape):
+            if parts is None:
+                groups[key] = group
+                continue
+            for ranks in parts:
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    groups[key] = g
+    return Mesh(shape=shape, group=group if n > 1 else None, rank=rank,
+                groups=groups)
 
 
 def check_axes(sizes: dict) -> dict:
@@ -71,7 +174,7 @@ def check_axes(sizes: dict) -> dict:
         if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"sharding axis {axis}={sizes[axis]} is not yet ported "
-                f"(ROADMAP {item}); only data may exceed 1")
+                f"(ROADMAP {item})")
     return sizes
 
 
@@ -107,7 +210,10 @@ def local_batch_size(global_batch: int, mesh: Mesh) -> int:
 
 
 def batch_rows(global_batch: int, mesh: Mesh) -> slice:
-    """This rank's rows of a global batch: the contiguous block ``rank``,
-    the rows ``P(data_axes)`` places on device ``rank``."""
+    """This rank's rows of a global batch: the contiguous block at its
+    row-major position over ``("data", "fsdp")``, the rows
+    ``P(("data", "fsdp"))`` places on its device (ranks that differ only
+    on a model axis read the same rows)."""
     n = local_batch_size(global_batch, mesh)
-    return slice(mesh.rank * n, (mesh.rank + 1) * n)
+    i = mesh.axes_index(REPLICA_AXES)
+    return slice(i * n, (i + 1) * n)

@@ -30,12 +30,17 @@ not read these. Under ``state/`` each process writes one
 ``torch.save`` file of its tensors (``rank-00000.pt`` …), and process 0
 an ``index.json`` of every leaf's path, global shape and dtype and the
 tree's plain scalars. A tree (runtime/trainstep.py ``state_tree``) holds
-each leaf under its name; a leaf that the sharded update splits is a
+each leaf under its name; a leaf that a mesh splits (a model-sharded
+param, a moment of the sharded update) is a
 :class:`~kubeflow_tpu_torch.parallel.sharding_rules.Shard`, saved as its
-global logical array from every rank's block, so the saved shapes do not
-depend on the degree. Restore reads the files memory-mapped, assembles
-each global leaf and cuts it to the reader's layout, which may split
-another dimension than the writer's (a restore at another degree).
+global logical array: the index records its block grid, and each block
+is written once, by its writer, under ``<path>@<i>.<j>...``, so the
+saved shapes do not depend on the mesh. Restore reads the files
+memory-mapped, assembles each global leaf and cuts it to the reader's
+layout, which may split other dimensions than the writer's (a restore at
+another degree or on another mesh). A step in the older ``kftpu-torch/1``
+payload (a split leaf as ``{dim, blocks}``, block i in rank file i under
+the bare path) reads too.
 
 Saving is asynchronous on the hot path: :meth:`CheckpointManager.save`
 copies the tree to host memory (pinned buffers, reused from save to
@@ -82,7 +87,10 @@ LKG_MARKER = "kftpu.lkg.json"
 TMP_SUFFIX = ".kftpu-tmp"
 PAYLOAD_DIR = "state"
 INDEX_NAME = "index.json"
-PAYLOAD_FORMAT = "kftpu-torch/1"
+PAYLOAD_FORMAT = "kftpu-torch/2"
+# formats read_tree reads: /1 (before the block grid) split a leaf along
+# one dimension, block i in rank file i under the bare path
+READ_FORMATS = ("kftpu-torch/1", PAYLOAD_FORMAT)
 
 
 def _obs_duration(op: str):
@@ -226,6 +234,11 @@ def _unflatten(flat: dict) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = value
     return out
+
+
+def _block_key(path: str, index) -> str:
+    """A block's key in a rank file: its leaf's path and grid index."""
+    return f"{path}@{'.'.join(str(int(i)) for i in index)}"
 
 
 def _rank_file(index: int) -> str:
@@ -420,14 +433,13 @@ class CheckpointManager:
         events = set()
         for path, v in _flatten(tree).items():
             if isinstance(v, Shard):
-                if v.index != self.process_index:
-                    raise ValueError(
-                        f"{path}: block {v.index} of {v.count} held by "
-                        f"process {self.process_index}")
                 leaves[path] = {"shape": list(v.shape),
                                 "dtype": _dtype_name(v.block.dtype),
-                                "dim": v.dim, "blocks": v.count}
+                                "grid": list(v.count)}
+                if not v.writer:
+                    continue      # another rank writes the same block
                 t = v.block
+                path = _block_key(path, v.index)
             elif isinstance(v, (torch.Tensor, np.ndarray)):
                 t = torch.as_tensor(v)
                 leaves[path] = {"shape": list(t.shape),
@@ -843,10 +855,10 @@ class CheckpointManager:
         pdir = os.path.join(self._step_dir(step), PAYLOAD_DIR)
         with open(os.path.join(pdir, INDEX_NAME)) as f:
             index = json.load(f)
-        if index.get("format") != PAYLOAD_FORMAT:
+        if index.get("format") not in READ_FORMATS:
             raise ValueError(f"step {step}: payload format "
-                             f"{index.get('format')!r}, not "
-                             f"{PAYLOAD_FORMAT!r}")
+                             f"{index.get('format')!r}, not one of "
+                             f"{READ_FORMATS}")
         files: dict[int, dict] = {}
 
         def rank_file(i: int) -> dict:
@@ -859,11 +871,41 @@ class CheckpointManager:
         def wanted(path: str) -> bool:
             return not only or path.split("/", 1)[0] in only
 
+        blocks: Optional[dict] = None
+
+        def assemble(path: str, meta: dict) -> torch.Tensor:
+            nonlocal blocks
+            if blocks is None:
+                # every rank file's blocks, by leaf
+                blocks = {}
+                for i in range(index["processes"]):
+                    for key, t in rank_file(i).items():
+                        if "@" in key:
+                            leaf, at = key.rsplit("@", 1)
+                            blocks.setdefault(leaf, {})[tuple(
+                                int(x) for x in at.split("."))] = t
+            grid = meta["grid"]
+            have = blocks.get(path, {})
+            out = torch.empty(meta["shape"],
+                              dtype=getattr(torch, meta["dtype"]))
+            for at in np.ndindex(*grid):
+                if at not in have:
+                    raise ValueError(f"step {step} leaf {path}: block "
+                                     f"{at} of {grid} missing")
+                view = out
+                for d, (i, n) in enumerate(zip(at, grid)):
+                    b = out.shape[d] // n
+                    view = view.narrow(d, i * b, b)
+                view.copy_(have[at])
+            return out
+
         flat: dict[str, Any] = {}
         for path, meta in index["leaves"].items():
             if not wanted(path):
                 continue
-            if meta.get("blocks"):
+            if "grid" in meta:
+                t = assemble(path, meta)
+            elif meta.get("blocks"):
                 t = torch.cat([rank_file(i)[path]
                                for i in range(meta["blocks"])],
                               dim=meta["dim"])

@@ -282,8 +282,7 @@ class AsyncWindowFetch:
         self.lag = max(0, int(lag))
         self._pending: deque = deque()
 
-    def submit(self, step: int, n_steps: int, wall_s: float,
-               metrics: dict) -> None:
+    def submit(self, step: int, n_steps: int, metrics: dict) -> None:
         host, device = {}, None
         for k, v in metrics.items():
             if isinstance(v, torch.Tensor) and v.device.type == "cuda":
@@ -296,18 +295,17 @@ class AsyncWindowFetch:
         if device is not None:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(device))
-        self._pending.append((step, n_steps, wall_s, host, event))
+        self._pending.append((step, n_steps, host, event))
 
-    def drain(self, force: bool = False
-              ) -> list[tuple[int, int, float, dict]]:
+    def drain(self, force: bool = False) -> list[tuple[int, int, dict]]:
         """Windows ready to report, oldest first, values as host floats.
         Without ``force`` the newest ``lag`` submissions stay pending."""
         out = []
         while self._pending and (force or len(self._pending) > self.lag):
-            step, n_steps, wall_s, host, event = self._pending.popleft()
+            step, n_steps, host, event = self._pending.popleft()
             if event is not None:
                 event.synchronize()
-            out.append((step, n_steps, wall_s,
+            out.append((step, n_steps,
                         {k: _host_value(v) for k, v in host.items()}))
         return out
 

@@ -22,7 +22,8 @@ the JAX package).
   whose ``step(grad_norm=...)`` takes the step's pre-clip global norm.
 - ``mesh`` (``parallel/mesh.py``): with more than one replica each rank
   runs forward and backward on its block of the global batch
-  (:meth:`place_batch`), then
+  (:meth:`place_batch`; ranks that differ only on a model axis read the
+  same rows), then
   - ``weight_update="replicated"``: every gradient is all-reduced to the
     global mean and every rank runs the whole update;
   - ``"sharded"`` (ZeRO-2, ``kubeflow_tpu/runtime/trainstep.py:311-468``):
@@ -34,6 +35,21 @@ the JAX package).
     global norm (the shards' square sums all-reduced, each replicated
     leaf counted once); then one all-gather per leaf writes the new
     params. One collective per leaf.
+- Model parallelism (``rules`` and ``param_logical_axes``, the JAX
+  package's names): on a mesh whose fsdp, tensor or expert axis exceeds
+  1, each rank holds its block of each param, cut by
+  ``rules.spec_for(axes, mesh)`` (``parallel/sharding_rules.py``), and the
+  loss function (the workload's, built for the same mesh) runs the
+  collectives of its forward and backward. After the backward each
+  block's gradient is summed over the replica axes its spec leaves free
+  (the fsdp sum happened in the backward's reduce-scatter) and divided
+  by the replica degree; under ``"sharded"`` (the port of the JAX
+  package's ``zero2-gspmd``) ``weight_update_spec`` splits one more
+  dimension of the block over those axes. The clip takes the exact
+  global norm: each block's square sum weighted by one over the number
+  of ranks that hold the same block, all-reduced over the world in one
+  call. A mesh with a model axis above 1 and a workload without rules
+  raises.
 - Metrics: ``loss``, ``grad_norm`` (the pre-clip global norm of the
   reduced gradient) and the loss function's aux (``perplexity`` for the
   LM), as device tensors. Under a mesh the loss and aux leave as the
@@ -44,10 +60,11 @@ the JAX package).
   absent corruption.
 - Checkpoints: :func:`state_tree` turns a ``TrainState`` into a tree of
   named leaves (the step, params, variables and the optimizer state by
-  leaf name, each sharded optimizer leaf as this rank's ``Shard`` of its
-  global leaf); :func:`load_state_tree` loads a tree of global leaves
-  back, cut along this state's layout, which may be another degree's
-  (runtime/checkpoint.py), into the state's own storage.
+  leaf name, each model-sharded param and each split optimizer leaf as
+  this rank's ``Shard`` of its global leaf); :func:`load_state_tree`
+  loads a tree of global leaves back, cut along this state's layout,
+  which may be another degree's or mesh's (runtime/checkpoint.py), into
+  the state's own storage.
 - The AOT step (:meth:`TrainStepBuilder.build_compiled`, the counterpart
   of the JAX package's compiled step executable): the whole step captured
   as one CUDA graph and replayed, one host call a step
@@ -66,7 +83,8 @@ from ..api.trainingjob import validate_weight_update
 from ..parallel import collectives
 from ..parallel.mesh import (MESH_AXES, Mesh, batch_rows, check_axes,
                              replica_axes, replica_degree)
-from ..parallel.sharding_rules import Shard, block_of, weight_update_dim
+from ..parallel.sharding_rules import (Shard, block_index, cut, entry_axes,
+                                       spec_axes, weight_update_spec)
 from .bootstrap import resolve_device
 from .recipe import (CaptureError, global_norm, load_optimizer_tree,
                      optimizer_tree)
@@ -85,29 +103,31 @@ class TrainState:
     # the sharded update: name -> the leaf the optimizer updates (this
     # rank's block of the param, or the param itself when replicated)
     update_params: Optional[dict] = None
-    # the sharded update: name -> the dimension its block splits (None:
-    # replicated), and this rank's (index, count) of the blocks
-    layout: dict = field(default_factory=dict)
-    replica: tuple = (0, 1)
+    # name -> (index, count, writer) of this rank's block of the global
+    # leaf, per dimension: the params under model parallelism, and the
+    # leaves the optimizer updates (its state's shape); absent: whole
+    param_blocks: dict = field(default_factory=dict)
+    update_blocks: dict = field(default_factory=dict)
 
 
 def state_tree(state: TrainState) -> dict:
     """The state as a checkpoint tree of named leaves, never positions:
     ``{"step", "params", "variables", "opt"}`` (``opt`` from
-    :func:`~kubeflow_tpu_torch.runtime.recipe.optimizer_tree`). Params
-    and variables are whole on every rank; under the sharded update each
-    optimizer leaf of a split param is this rank's :class:`Shard` of the
+    :func:`~kubeflow_tpu_torch.runtime.recipe.optimizer_tree`). Variables
+    are whole on every rank; a model-sharded param, and each optimizer
+    leaf of a split update leaf, is this rank's :class:`Shard` of the
     global leaf."""
-    index, count = state.replica
     held = state.update_params or state.params
     names = {id(t): n for n, t in held.items()}
 
     def leaf(name: str, t: torch.Tensor):
-        d = state.layout.get(name)
-        return t if d is None else Shard(t, d, index, count)
+        b = state.update_blocks.get(name)
+        return t if b is None else Shard(t, *b)
 
     return {"step": int(state.step),
-            "params": dict(state.params),
+            "params": {n: Shard(p, *state.param_blocks[n])
+                       if n in state.param_blocks else p
+                       for n, p in state.params.items()},
             "variables": {c: dict(vs) for c, vs in state.variables.items()},
             "opt": optimizer_tree(state.opt_state, names, leaf)}
 
@@ -118,11 +138,15 @@ def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     runtime/checkpoint.py reads them) into ``state`` in place, on its
     devices: the params into the leaf tensors the optimizer holds, the
     variables, and the optimizer state cut to this rank's blocks along
-    this state's layout (which may split another dimension than the
-    writer's). ``update_params`` is rebuilt from the restored params."""
-    index, count = state.replica
+    this state's layout (which may split another dimension, or another
+    mesh, than the writer's). ``update_params`` is rebuilt from the
+    restored params."""
+    def block(blocks: dict, name: str, full: torch.Tensor):
+        b = blocks.get(name)
+        return full if b is None else cut(full, b[0], b[1])
+
     for name, p in state.params.items():
-        p.copy_(tree["params"][name])
+        p.copy_(block(state.param_blocks, name, tree["params"][name]))
     device = next(iter(state.params.values())).device
     for col, vs in tree.get("variables", {}).items():
         held = state.variables.setdefault(col, {})
@@ -137,16 +161,21 @@ def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     if state.update_params is not None:
         for name, u in state.update_params.items():
             if u is not state.params[name]:
-                u.copy_(block_of(state.params[name], state.layout[name],
-                                 index, count))
+                u.copy_(block(state.update_blocks, name,
+                              tree["params"][name]))
     held = state.update_params or state.params
     names = {id(t): n for n, t in held.items()}
     load_optimizer_tree(
         state.opt_state, tree["opt"], names,
-        lambda name, full: block_of(full, state.layout.get(name), index,
-                                    count))
+        lambda name, full: block(state.update_blocks, name, full))
     state.step = int(tree["step"])
     return state
+
+
+def _writer(mesh: Mesh, used: set) -> bool:
+    """Whether this rank writes its block: the first (coordinate 0 on
+    every axis the block is not split on) of the ranks holding it."""
+    return all(c == 0 for a, c in mesh.coords.items() if a not in used)
 
 
 def _sum_squares(ts: list) -> torch.Tensor:
@@ -166,6 +195,10 @@ class TrainStepBuilder:
     device: Any = "cuda"
     weight_update: str = "replicated"
     mesh: Optional[Mesh] = None
+    # the workload's sharding rules and name -> logical axes; None =
+    # every param replicated
+    rules: Optional[Any] = None
+    param_logical_axes: Optional[dict] = None
 
     def __post_init__(self):
         validate_weight_update(self.weight_update)
@@ -173,24 +206,48 @@ class TrainStepBuilder:
         if self.mesh is None:
             self.mesh = Mesh(shape=dict.fromkeys(MESH_AXES, 1))
         check_axes(self.mesh.shape)
+        if self.mesh.model_sharded() and (
+                self.rules is None or self.param_logical_axes is None):
+            axes = {a: n for a, n in self.mesh.shape.items() if n > 1}
+            raise ValueError(
+                f"mesh {axes} shards the params by the workload's sharding "
+                f"rules, and this workload carries none (rules or "
+                f"param_logical_axes is None); only data may exceed 1")
         self.n_rep = replica_degree(self.mesh)
-        self.group = self.mesh.group if self.n_rep > 1 else None
+        self.world = self.mesh.size()
+        self.group = self.mesh.group_of(replica_axes(self.mesh)) \
+            if self.n_rep > 1 else None
         self.strategy = self.update_strategy()
         self.sharded = self.strategy != "replicated"
-        self.layout: dict = {}          # name -> sharded dim (or None)
+        # name -> (dimension, axes) of the update's split (None: the
+        # param's block), name -> replica axes its gradient sums over,
+        # name -> ranks that hold the same update block
+        self.layout: dict = {}
+        self.reduce_axes: dict = {}
+        self.copies: dict = {}
+
+    def param_spec(self, name: str) -> tuple:
+        """The spec of param ``name`` on this mesh (() = replicated)."""
+        if self.rules is None or self.param_logical_axes is None:
+            return ()
+        return self.rules.spec_for(self.param_logical_axes[name],
+                                   self.mesh.shape)
 
     def update_strategy(self, variables: Optional[dict] = None) -> str:
         """How the weight update runs: "replicated" (every rank holds the
-        whole optimizer state); "zero2-explicit" (the sharded update of a
-        model without mutable variables); "zero2-gspmd" (the same
-        dataflow for a model with batch statistics, which its loss takes
-        over the global batch). Pass the workload's ``variables`` for the
-        second distinction, as the JAX package's ``update_strategy``."""
+        whole optimizer state of its params); "zero2-explicit" (the
+        sharded update of replicated params of a model without mutable
+        variables); "zero2-gspmd" (the same dataflow for a model with
+        batch statistics, which its loss takes over the global batch, or
+        for model-sharded params). Pass the workload's ``variables`` for
+        the BatchNorm distinction, as the JAX package's
+        ``update_strategy``."""
         if self.weight_update != "sharded" or not replica_axes(self.mesh):
             return "replicated"
         stateless = variables is None or not any(
             len(v) for v in variables.values())
-        return "zero2-explicit" if stateless else "zero2-gspmd"
+        return "zero2-explicit" if stateless and \
+            not self.mesh.model_sharded() else "zero2-gspmd"
 
     def init(self, init_fn: Callable, rng) -> TrainState:
         """``init_fn(rng) -> (params, variables)``; params (tensors or
@@ -199,44 +256,84 @@ class TrainStepBuilder:
         the sharded update). Variables (a collection name → {name:
         array}, such as ResNet's ``batch_stats``) become f32 tensors on
         the device, without gradients. Under a mesh, rank 0's params and
-        variables are broadcast to every rank."""
+        variables are broadcast to every rank, and each rank keeps its
+        block of each model-sharded param: placed, broadcast and cut one
+        leaf at a time, so the device holds one whole leaf beside the
+        blocks, never the whole model."""
         params, variables = init_fn(rng)
-        params = {name: self._place(p) for name, p in params.items()}
-        variables = {col: {name: self._place(v) for name, v in vs.items()}
+        params = dict(params)     # the caller's dict stays as it was
+        mesh = self.mesh
+
+        def placed(a) -> torch.Tensor:
+            t = self._place(a)
+            if self.world > 1:
+                collectives.broadcast_(t, mesh.group)
+            return t
+
+        coords = mesh.coords
+        free = replica_axes(mesh)
+        param_blocks, update_blocks = {}, {}
+        for name in list(params):
+            full = placed(params[name])
+            shape = full.shape
+            spec = self.param_spec(name)
+            index, count = block_index(spec, full.dim(), mesh.shape, coords)
+            used = spec_axes(spec)
+            params[name] = full
+            if any(n > 1 for n in count):
+                params[name] = cut(full, index, count).clone()
+                param_blocks[name] = (index, count, _writer(mesh, used))
+            del full
+            uspec = weight_update_spec(spec, shape, mesh.shape, free) \
+                if self.sharded else None
+            if uspec is not None:
+                d = next(i for i, e in enumerate(uspec) if e is not None
+                         and (i >= len(spec) or e != spec[i]))
+                axes = entry_axes(uspec[d])
+                self.layout[name] = (d, axes)
+                used = spec_axes(uspec)
+                uidx, ucnt = list(index), list(count)
+                uidx[d], ucnt[d] = mesh.axes_index(axes), mesh.axes_size(axes)
+                update_blocks[name] = (tuple(uidx), tuple(ucnt),
+                                       _writer(mesh, used))
+            else:
+                self.layout[name] = None
+                if name in param_blocks:
+                    update_blocks[name] = param_blocks[name]
+            self.reduce_axes[name] = tuple(a for a in free if a not in
+                                           spec_axes(spec))
+            self.copies[name] = self.world // mesh.axes_size(used)
+        variables = {col: {name: placed(v) for name, v in vs.items()}
                      for col, vs in variables.items()}
-        if self.group is not None:
-            for t in list(params.values()) + [
-                    v for vs in variables.values() for v in vs.values()]:
-                collectives.broadcast_(t, self.group)
         for p in params.values():
             p.requires_grad_(True)
         update_params = None
         opt_params = params
         if self.sharded:
             self.strategy = self.update_strategy(variables)
-            r = self.mesh.rank
-            self.layout = {name: weight_update_dim(p.shape, self.n_rep)
-                           for name, p in params.items()}
             update_params = {}
             for name, p in params.items():
-                d = self.layout[name]
-                if d is None:
+                lay = self.layout[name]
+                if lay is None:
                     update_params[name] = p
                 else:
-                    blk = p.shape[d] // self.n_rep
+                    d, axes = lay
+                    blk = p.shape[d] // mesh.axes_size(axes)
                     update_params[name] = p.detach().narrow(
-                        d, r * blk, blk).clone().requires_grad_(True)
+                        d, mesh.axes_index(axes) * blk,
+                        blk).clone().requires_grad_(True)
             opt_params = update_params
         opt = self.optimizer(opt_params)
-        if self.sharded and hasattr(opt, "shard_over"):
-            opt.shard_over(self.group, [
-                update_params[n] for n, d in self.layout.items()
-                if d is not None])
+        # LARS's per-tensor norms sum each split leaf's blocks over the
+        # world: a block that c ranks hold counts c times in both ‖p‖ and
+        # ‖u‖, which its trust ratio cancels
+        split = [n for n in params if self.copies[n] < self.world]
+        if split and hasattr(opt, "shard_over"):
+            opt.shard_over(mesh.group, [opt_params[n] for n in split])
         return TrainState(step=0, params=params, opt_state=opt,
                           variables=variables, update_params=update_params,
-                          layout=dict(self.layout),
-                          replica=(self.mesh.rank, self.n_rep)
-                          if self.sharded else (0, 1))
+                          param_blocks=param_blocks,
+                          update_blocks=update_blocks)
 
     def _place(self, a) -> torch.Tensor:
         """A copy, always: on the CPU ``.to`` of an f32 array is the
@@ -248,51 +345,66 @@ class TrainStepBuilder:
 
     # -- the gradient reduction ----------------------------------------------
 
-    def _reduce_replicated(self, state: TrainState) -> torch.Tensor:
-        """All-reduce every gradient to the global mean; its norm."""
-        grads = [p.grad for p in state.params.values() if p.grad is not None]
-        for g in grads:
-            collectives.all_reduce_(g.div_(self.n_rep), self.group)
-        return global_norm(grads)
-
-    def _reduce_sharded(self, state: TrainState) -> torch.Tensor:
-        """Reduce-scatter each gradient into its update leaf (all-reduce
-        where the leaf is replicated); the exact global norm."""
-        sharded, replicated = [], []
+    def _reduce(self, state: TrainState) -> torch.Tensor:
+        """Sum each gradient over the replica axes its block is not split
+        on, divided by the replica degree: reduce-scattered into the
+        update block where the update splits the leaf, all-reduced
+        otherwise. Returns the exact global norm of the reduced
+        gradient."""
+        mesh = self.mesh
+        whole, parts = [], {}
         for name, p in state.params.items():
             g = p.grad
             if g is None:
                 continue
-            d = self.layout[name]
-            g = g / self.n_rep
-            if d is None:
-                p.grad = collectives.all_reduce_(g, self.group)
-                replicated.append(p.grad)
-                continue
-            block = collectives.reduce_scatter(g.movedim(d, 0), self.group)
-            u = state.update_params[name]
-            u.grad = block.movedim(0, d).contiguous()
-            p.grad = None
-            sharded.append(u.grad)
-        # the shards' square sums over the ranks, each replicated leaf
-        # (whole and equal on every rank) counted once
-        sq = _sum_squares(sharded).to(self.device)
-        collectives.all_reduce_(sq, self.group)
-        return torch.sqrt(sq + _sum_squares(replicated).to(self.device))
+            if self.n_rep > 1:
+                g = g / self.n_rep
+            lay = self.layout.get(name)
+            if lay is not None:
+                d, axes = lay
+                block = collectives.reduce_scatter(g.movedim(d, 0),
+                                                   mesh.group_of(axes))
+                u = state.update_params[name]
+                u.grad = block.movedim(0, d).contiguous()
+                p.grad = None
+                g = u.grad
+            else:
+                if self.reduce_axes.get(name):
+                    collectives.all_reduce_(
+                        g, mesh.group_of(self.reduce_axes[name]))
+                p.grad = g
+            c = self.copies.get(name, self.world)
+            if c == self.world:
+                whole.append(g)
+            else:
+                parts.setdefault(c, []).append(g)
+        if not parts:
+            return global_norm(whole)
+        # the blocks' square sums over the world, each block counted once
+        # (weighted by one over the ranks that hold it)
+        sq = None
+        for c in sorted(parts):
+            x = _sum_squares(parts[c]).to(self.device)
+            x = x if c == 1 else x / c
+            sq = x if sq is None else sq + x
+        collectives.all_reduce_(sq, mesh.group)
+        return torch.sqrt(sq + _sum_squares(whole).to(self.device))
 
     @torch.no_grad()
     def _gather_params(self, state: TrainState) -> None:
-        """One all-gather per sharded leaf writes the new params."""
-        for name, d in self.layout.items():
-            if d is None:
+        """One all-gather per split update leaf writes the new params."""
+        for name, lay in self.layout.items():
+            if lay is None:
                 continue
+            d, axes = lay
             full = collectives.all_gather(
-                state.update_params[name].movedim(d, 0), self.group)
+                state.update_params[name].movedim(d, 0),
+                self.mesh.group_of(axes))
             state.params[name].copy_(full.movedim(0, d))
 
     def _cross_rank_mean(self, metrics: dict) -> dict:
-        """The scalar metrics as their mean over the ranks, in one
-        all-reduce."""
+        """The scalar metrics as their mean over the replicas, in one
+        all-reduce (the ranks of a model axis hold equal values)."""
         keys = list(metrics)
         v = torch.stack([metrics[k].float().reshape(()) for k in keys])
         collectives.all_reduce_(v.div_(self.n_rep), self.group)
@@ -308,15 +420,8 @@ class TrainStepBuilder:
             loss, aux = self.loss_fn(state.params, state.variables, batch,
                                      state.rng)
             loss.backward()
-        if self.group is None:
-            grads = [p.grad for p in state.params.values()
-                     if p.grad is not None]
-            # the pre-clip norm, taken once: the metric, and the clip's
-            grad_norm = global_norm(grads)
-        elif self.sharded:
-            grad_norm = self._reduce_sharded(state)
-        else:
-            grad_norm = self._reduce_replicated(state)
+        # the pre-clip norm, taken once: the metric, and the clip's
+        grad_norm = self._reduce(state)
         update(grad_norm)
         state.opt_state.zero_grad(set_to_none=True)
         if self.sharded:
@@ -530,8 +635,8 @@ class CompiledStep:
                                              "prepare_capture")):
             raise CaptureError(f"{type(opt).__name__} is not a recipe "
                                f"optimizer with a device-side update")
-        if builder.group is not None and any(
-                collectives.host_staging(p, builder.group)
+        if builder.world > 1 and any(
+                collectives.host_staging(p, builder.mesh.group)
                 for p in list(state.params.values())[:1]):
             raise CaptureError("the gloo group stages its collectives "
                                "through host memory, which a graph cannot "

@@ -42,6 +42,14 @@ with no card it raises.
   beside process 0's (``metrics.p<k>.jsonl``), and on a gang whose
   coordinator is this host (one network namespace) serves ``/metrics``
   on the port + k.
+- Model parallel (``KFTPU_SHARDING`` with fsdp, tensor or expert above
+  1, the transformer workload): the spec's rules cut each rank's block
+  of every param and the LM's forward runs the mesh's collectives
+  (models/transformer.py, runtime/trainstep.py); ranks that differ only
+  on a model axis read the same rows.
+- Windows are timed edge to edge: from the previous edge (after its
+  eval and save) to this edge after the lagged drain, so the drain's
+  wait for the card is in ``step_time_s`` and ``examples_per_sec``.
 - Heartbeat: inside a pod (``KFTPU_POD_NAME``, ``KFTPU_APISERVER``) the
   worker patches its pod's heartbeat annotation at the start and at
   every window edge, with the last window's loss and grad norm.
@@ -127,8 +135,8 @@ class WorkloadSpec:
     init_fn: Callable                      # rng -> (params, variables)
     loss_fn: Callable                      # (params, vars, batch, rng) -> (loss, aux)
     batch_fn: Callable                     # (rng, batch_size) -> batch dict
-    rules: Optional[object] = None         # sharding rules: not yet ported
-    param_logical_axes: Optional[object] = None
+    rules: Optional[object] = None         # parallel/sharding_rules.py
+    param_logical_axes: Optional[dict] = None   # name -> logical axes
     eval_fn: Optional[Callable] = None     # (params, vars, batch) -> metrics
 
 
@@ -401,7 +409,7 @@ def train(
         # the global batch splits over the data-parallel ranks (raises when
         # it does not divide)
         local_batch_size(global_batch, ctx.mesh)
-        if workload in _IMAGE_WORKLOADS:
+        if workload in _IMAGE_WORKLOADS or workload == "transformer":
             workload_kwargs.setdefault("mesh", ctx.mesh)
 
         # real-data path: shard dirs are self-describing, so the dataset's
@@ -497,7 +505,8 @@ def train(
 
         builder = TrainStepBuilder(
             loss_fn=spec.loss_fn, device=ctx.device,
-            weight_update=weight_update, mesh=ctx.mesh,
+            weight_update=weight_update, mesh=ctx.mesh, rules=spec.rules,
+            param_logical_axes=spec.param_logical_axes,
             optimizer=lambda params: recipe.make_optimizer(
                 params, optimizer, base_lr, schedule=lr_schedule,
                 total_steps=steps, warmup_steps=warmup_steps,
@@ -812,6 +821,10 @@ def train(
             # detection latency
             sync_every = min(sync_every, max(1, int(integrity_check_every)))
         afetch = AsyncWindowFetch(lag=1)
+        # each window's wall, edge to edge: from the previous edge (after
+        # its eval and save) to its own edge after the drain, so the
+        # drain's wait for the card is in it; reported when drained
+        walls: dict = {}
         cuda = ctx.device.type == "cuda"
         with profile_trace(profile_dir, enabled=profile_dir is not None,
                            tracer=tracer):
@@ -897,20 +910,22 @@ def train(
                     will_eval or stopping
                 if closed:
                     t_now = time.perf_counter()
-                    afetch.submit(step + 1, window, t_now - win_t0,
+                    afetch.submit(step + 1, window,
                                   {**metrics, "learning_rate": lr_fn(step)})
-                    if tracer is not None:
-                        now_w = time.time()
-                        tracer.emit("window", start=now_w - (t_now - win_t0),
-                                    end=now_w, trace_id=trace_id,
-                                    step=step + 1, steps=window)
                     recorder.mark("drain", step + 1)
                     t_drain0 = time.perf_counter()
-                    for s, w, wall, vals in afetch.drain(
-                            force=final or will_ckpt or will_eval
-                            or stopping):
+                    drained = afetch.drain(force=final or will_ckpt or
+                                           will_eval or stopping)
+                    walls[step + 1] = time.perf_counter() - win_t0
+                    if tracer is not None:
+                        now_w = time.time()
+                        tracer.emit("window",
+                                    start=now_w - walls[step + 1],
+                                    end=now_w, trace_id=trace_id,
+                                    step=step + 1, steps=window)
+                    for s, w, vals in drained:
                         last_metrics = vals
-                        mlog.record_window(s, w, wall, vals)
+                        mlog.record_window(s, w, walls.pop(s), vals)
                         if sentinel is not None and anomaly is None:
                             rep_sq = vals.get("param_sqnorm_replicas")
                             anomaly = sentinel.observe(

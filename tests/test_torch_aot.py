@@ -35,6 +35,7 @@ import dataclasses
 import json
 import os
 import pickle
+from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
@@ -382,6 +383,26 @@ class TestWorkerLadder:
                         "lr_schedule": "constant"})
         assert len(_files(d)) == 2
 
+    def test_experts_and_remat_rekey_the_record(self, tmp_path):
+        """``num_experts`` and ``remat`` are in the workload kwargs the
+        key hashes: each makes a record of its own, and the MoE + remat
+        step (a CompiledStep; captured on the card,
+        tests/test_torch_gpu.py) trains to the eager step's loss."""
+        d = tmp_path / "aot"
+        worker.train(steps=2, aot=True, aot_dir=str(d), **KW)
+        moe = replace(TINY, num_experts=2)
+        runs = []
+        for cfg in (moe, replace(moe, remat=True)):
+            kw = {**KW, "workload_kwargs": {"cfg": cfg}}
+            before = outcomes()
+            r = worker.train(steps=2, aot=True, aot_dir=str(d), **kw)
+            assert counted(before) == {"miss": 1, "export": 1}
+            assert r.final_metrics["loss"] == worker.train(
+                steps=2, **kw).final_metrics["loss"]
+            runs.append(r.final_metrics["loss"])
+        assert len(_files(d)) == 3
+        assert runs[0] == runs[1]      # remat: the same function
+
     def test_uncapturable_family_counts_export_failed(self, tmp_path,
                                                       caplog):
         """torch.optim.SGD takes lr as a host number: under a host cosine
@@ -568,8 +589,8 @@ def test_lagged_window_fetch_keeps_each_windows_values():
     for i, batch in enumerate(batches):
         state, m = cstep(state, batch)
         want.append(float(m["loss"]))
-        fetch.submit(i + 1, 1, 0.0, m)
-    got = [vals["loss"] for _, _, _, vals in fetch.drain(force=True)]
+        fetch.submit(i + 1, 1, m)
+    got = [vals["loss"] for _, _, vals in fetch.drain(force=True)]
     assert got == want and len(set(got)) == len(got)
 
 

@@ -119,33 +119,44 @@ def test_contract_env_gives_rank_world_device_and_sharding():
 
 
 def _unported_axes(rank, env, port2):
-    """The refused bring-up, then a second group on another port (a rank
-    done with the first store must not find the other's still open)."""
-    msgs = []
+    """The refused bring-up (a sequence axis), then a second group on
+    another port (a rank done with the first store must not find the
+    other's still open): the model axes build, the unported ones
+    raise."""
+    msgs, built = [], {}
     try:
         bootstrap.initialize(dict(env, KFTPU_SHARDING=json.dumps(
-            {"data": 1, "tensor": 2})), device="cpu")
+            {"data": 1, "sequence": 2})), device="cpu")
     except NotImplementedError as e:
         msgs.append(str(e))
     left = dist.is_initialized()
     ctx = bootstrap.initialize(dict(
         env, KFTPU_COORDINATOR_ADDRESS=f"localhost:{port2}"), device="cpu")
-    for axis in ("fsdp", "tensor", "sequence", "expert", "pipeline"):
+    for axis in ("fsdp", "tensor", "expert", "sequence", "pipeline"):
         try:
-            build_mesh(ShardingSpec(data=1, **{axis: 2}))
+            mesh = build_mesh(ShardingSpec(data=1, **{axis: 2}))
+            built[axis] = (mesh.coords[axis], replica_degree(mesh),
+                           batch_rows(8, mesh))
         except NotImplementedError as e:
             msgs.append(str(e))
     bootstrap.shutdown(ctx)
-    return msgs, left
+    return msgs, left, built
 
 
 def test_an_unported_axis_greater_than_one_raises():
-    for msgs, left in spawn_contract(_unported_axes, 2, _free_port()):
+    """Sequence and pipeline raise on every rank, citing ROADMAP item 11;
+    fsdp, tensor and expert build at world 2, the rank's coordinate on
+    the axis its rank, the batch split over fsdp only."""
+    for r, (msgs, left, built) in enumerate(
+            spawn_contract(_unported_axes, 2, _free_port())):
         assert not left            # the refused bring-up left no group
-        assert len(msgs) == 6, msgs
-        for msg, item in zip(msgs, ("item 6", "item 6", "item 6", "item 6",
-                                    "item 11", "item 11")):
-            assert "not yet ported" in msg and item in msg, msg
+        assert len(msgs) == 3, msgs
+        assert all("item 11" in m for m in msgs), msgs
+        assert built == {"fsdp": (r, 2, slice(4 * r, 4 * r + 4)),
+                         "tensor": (r, 1, slice(0, 8)),
+                         "expert": (r, 1, slice(0, 8))}
+        for msg in msgs:
+            assert "not yet ported" in msg and "item 11" in msg, msg
 
 
 def test_strict_mismatch_raises_and_the_default_refits():

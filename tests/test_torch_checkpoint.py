@@ -413,6 +413,66 @@ def test_state_tree_round_trip(tmp_path, name, kernels, runtime):
         assert torch.equal(state.params[n], restored.params[n])
 
 
+def _as_format_1(step_dir: str, split: dict) -> None:
+    """Rewrite a one-process step as the ``kftpu-torch/1`` payload of a
+    two-process sharded save: each leaf of ``split`` (path → dimension)
+    in two blocks, block i in rank file i under its bare path, its index
+    entry ``{dim, blocks}``; every other leaf in rank file 0."""
+    pdir = os.path.join(step_dir, TCK.PAYLOAD_DIR)
+    index = json.loads(open(os.path.join(pdir, TCK.INDEX_NAME)).read())
+    tensors = torch.load(os.path.join(pdir, "rank-00000.pt"))
+    files = [dict(tensors), {}]
+    for path, d in split.items():
+        halves = tensors[path].chunk(2, dim=d)
+        for i, h in enumerate(halves):
+            files[i][path] = h.clone()
+        index["leaves"][path].update(dim=d, blocks=2)
+    for i, f in enumerate(files):
+        torch.save(f, os.path.join(pdir, f"rank-{i:05d}.pt"))
+    index.update(format="kftpu-torch/1", processes=2)
+    with open(os.path.join(pdir, TCK.INDEX_NAME), "w") as f:
+        json.dump(index, f)
+    manifest = json.loads(open(os.path.join(
+        step_dir, TCK.MANIFEST_NAME)).read())
+    os.remove(os.path.join(step_dir, TCK.MANIFEST_NAME))
+    TCK.write_manifest(step_dir, run_meta=manifest.get("run"))
+
+
+def test_format_1_payload_restores(tmp_path):
+    """A step written before the block grid (``kftpu-torch/1``: a split
+    leaf as ``{dim, blocks}``, block i in rank file i) restores: its
+    whole leaves as written, each split leaf concatenated, equal to the
+    state that was saved."""
+    from kubeflow_tpu_torch.models import transformer as T
+    tiny = T.TransformerConfig(vocab_size=32, num_layers=1, embed_dim=16,
+                               num_heads=2, head_dim=8, mlp_dim=32,
+                               max_seq_len=8, dtype=torch.float32)
+    spec = T.workload_spec(tiny)
+    batch = {"tokens": np.random.default_rng(0).integers(
+        0, 32, (2, 8)).astype(np.int32)}
+    b = _port_builder(spec, "adam", "stock", False, 1e-2)
+    state = b.init(spec.init_fn, torch.Generator().manual_seed(0))
+    state, _m = b.build()(state, b.place_batch(batch))
+    mgr = TCK.CheckpointManager(str(tmp_path))
+    mgr.save(1, state, force=True)
+    mgr.wait()
+    split = {"opt/slots/exp_avg/layer0.mlp.wi.kernel": 1,
+             "opt/slots/exp_avg_sq/tok_embed.embedding": 0}
+    _as_format_1(str(tmp_path / "1"), split)
+    assert mgr.verify_step(1) == (True, "verified")
+    other = _port_builder(spec, "adam", "stock", False, 1e-2).init(
+        spec.init_fn, torch.Generator().manual_seed(1))
+    restored = mgr.restore(other)
+    mgr.close()
+    tree, back = state_tree(state), state_tree(restored)
+    assert back["step"] == 1
+    for n, p in tree["params"].items():
+        assert torch.equal(back["params"][n], p), n
+    for slot, leaves in tree["opt"]["slots"].items():
+        for n, v in leaves.items():
+            assert torch.equal(back["opt"]["slots"][slot][n], v), (slot, n)
+
+
 def test_a_rewritten_byte_is_caught_after_the_write(tmp_path, monkeypatch):
     """The manager takes each file's crc32 while writing it, knows the
     step it commits intact and checks it by the stat of its files; a

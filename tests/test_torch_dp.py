@@ -31,8 +31,8 @@ import torch.multiprocessing as mp
 
 from kubeflow_tpu_torch.api.trainingjob import ShardingSpec
 from kubeflow_tpu_torch.parallel import collectives
+from kubeflow_tpu_torch.parallel import sharding_rules as TR
 from kubeflow_tpu_torch.parallel.mesh import build_mesh
-from kubeflow_tpu_torch.parallel.sharding_rules import weight_update_dim
 from kubeflow_tpu_torch.runtime import recipe
 from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
 
@@ -269,7 +269,8 @@ def test_leaf_dimension_choice_equals_weight_update_spec(shape, n):
     spec = weight_update_spec(P(), shape, mesh, ("data",))
     want = None if spec is None else next(
         i for i, e in enumerate(spec) if e is not None)
-    assert weight_update_dim(shape, n) == want
+    got = TR.weight_update_spec((), shape, {"data": n}, ("data",))
+    assert (None if got is None else got.index("data")) == want
 
 
 # -- the batch-statistics model ---------------------------------------------------

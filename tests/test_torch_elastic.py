@@ -79,17 +79,24 @@ def _builder(world: int, mode: str) -> TrainStepBuilder:
         optimizer=lambda p: recipe.make_optimizer(p, "adam", 1e-2)[0])
 
 
+def _split_dim(count) -> int:
+    """The one dimension a block grid splits."""
+    (d,) = [d for d, n in enumerate(count) if n > 1]
+    return d
+
+
 def _blocks(state) -> dict:
     """This rank's tree as numpy: whole leaves, and each block with its
     dimension."""
     tree = state_tree(state)
     out = {"params": {n: p.detach().numpy().copy()
                       for n, p in tree["params"].items()},
-           "slots": {}, "layout": dict(state.layout)}
+           "slots": {}, "layout": {
+               n: _split_dim(b[1]) for n, b in state.update_blocks.items()}}
     for slot, leaves in tree["opt"]["slots"].items():
         out["slots"][slot] = {
-            n: (v.block.numpy().copy(), v.dim) if hasattr(v, "block")
-            else (v.detach().numpy().copy(), None)
+            n: (v.block.numpy().copy(), _split_dim(v.count))
+            if hasattr(v, "block") else (v.detach().numpy().copy(), None)
             for n, v in leaves.items()}
     return out
 

@@ -1537,3 +1537,108 @@ def test_replays_add_the_captured_launches(cuda_device, model):
         state, _ = step(state, batch)
     assert {n: getattr(f, a) - at[n] for n, (f, a) in counters.items()
             if getattr(f, a) != at[n]} == {k: 4 * v for k, v in want.items()}
+
+
+# -- mixture-of-experts and remat (models/moe.py, TransformerConfig.remat) ---
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_layer_on_the_card_matches_the_cpu(cuda_device, dtype):
+    """The MoE layer (8 experts, top-2, the capacity of 1.25) on the card
+    against the same layer on the CPU, seeded: output, aux loss and the
+    gradients of router, wi, wo and x. The router is f32 on both, so the
+    routing is the same; f32 within 1e-5 of each tensor's largest value,
+    bf16 within 3e-2 (8 bits of mantissa, products rounded in another
+    order), the aux loss within 1e-5 relative."""
+    from kubeflow_tpu_torch.models.moe import MoEMLP
+    rng = np.random.default_rng(12)
+    b, s, m, h, e = 2, 64, 32, 64, 8
+    params = {"router": rng.standard_normal((m, e)),
+              "wi": rng.standard_normal((e, m, h)) / np.sqrt(m),
+              "wo": rng.standard_normal((e, h, m)) / np.sqrt(h)}
+    x = rng.standard_normal((b, s, m)).astype(np.float32)
+    r = rng.standard_normal((b, s, m)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        layer = MoEMLP(e, m, h, dtype=dtype).to(dev)
+        with torch.no_grad():
+            for k, v in params.items():
+                getattr(layer, k).copy_(torch.from_numpy(
+                    v.astype(np.float32)))
+        xt = torch.from_numpy(x).to(dev).requires_grad_(True)
+        y, aux = layer(xt)
+        (torch.sum(y.float() * torch.from_numpy(r).to(dev)) + aux).backward()
+        out[str(dev)] = {"y": y.float(), "aux": aux, "x": xt.grad,
+                         **{k: getattr(layer, k).grad for k in params}}
+    tol = 1e-5 if dtype == torch.float32 else 3e-2
+    cpu, card = out["cpu"], out[str(cuda_device)]
+    assert abs(card["aux"].item() - cpu["aux"].item()) <= \
+        1e-5 * abs(cpu["aux"].item())
+    for k in ("y", "x", "router", "wi", "wo"):
+        want = cpu[k].float()
+        err = (card[k].float().cpu() - want).abs().max().item()
+        assert err <= tol * want.abs().max().item(), (k, err)
+
+
+def _moe_lm_builder(cuda_device, remat):
+    from kubeflow_tpu_torch.models import transformer as T
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
+    cfg = T.TransformerConfig(vocab_size=512, num_layers=2, embed_dim=128,
+                              num_heads=2, head_dim=64, mlp_dim=256,
+                              max_seq_len=128, attention="flash",
+                              num_experts=4, remat=remat)
+    spec = T.workload_spec(cfg)
+    b = TrainStepBuilder(
+        loss_fn=spec.loss_fn, device=cuda_device,
+        optimizer=lambda p: make_optimizer(p, "adam", 1e-3,
+                                           kernels="fused_adam",
+                                           total_steps=6)[0])
+    gen = torch.Generator().manual_seed(1)
+    batches = [b.place_batch(spec.batch_fn(gen, 4)) for _ in range(6)]
+    return spec, b, batches
+
+
+@pytest.mark.gpu
+def test_remat_launches_k1_twice_a_layer(cuda_device):
+    """Under remat the backward recomputes each block's forward: K1 runs
+    twice a layer a step (2 x 2 for 2 layers), K2a and K2b once, K3
+    once; the losses and params are the run's without remat, bit for bit
+    (the same deterministic kernels)."""
+    from kubeflow_tpu_torch.runtime.trainstep import kernel_counters
+    counters = kernel_counters()
+    runs = {}
+    for remat in (False, True):
+        spec, b, batches = _moe_lm_builder(cuda_device, remat)
+        state = b.init(spec.init_fn, torch.Generator().manual_seed(0))
+        step = b.build()
+        at = {n: getattr(f, a) for n, (f, a) in counters.items()}
+        losses = []
+        for batch in batches[:3]:
+            state, m = step(state, batch)
+            losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        runs[remat] = (losses, state, {
+            n: getattr(f, a) - at[n] for n, (f, a) in counters.items()
+            if getattr(f, a) != at[n]})
+    per = {"flash_attention": 2, "flash_attention_bwd_dq": 2,
+           "flash_attention_bwd_dkv": 2, "fused_adam": 1}
+    assert runs[False][2] == {k: 3 * v for k, v in per.items()}
+    assert runs[True][2] == {**{k: 3 * v for k, v in per.items()},
+                             "flash_attention": 12}
+    assert runs[False][0] == runs[True][0]
+    _same_state(runs[True][1], runs[False][1])
+
+
+@pytest.mark.gpu
+def test_moe_remat_step_is_captured(cuda_device):
+    """The MoE + remat LM step captures as one CUDA graph (the one-hots
+    by comparison, no host sync; remat without RNG state) and its 6
+    replays equal the eager step bit for bit."""
+    spec, b, batches = _moe_lm_builder(cuda_device, True)
+    eager, le, _ = _trajectory(spec, b, batches, compiled=False)
+    captured, lc, step = _trajectory(spec, b, batches, compiled=True)
+    assert step.graph is not None and step.replays == 6
+    assert lc == le
+    _same_state(captured, eager)

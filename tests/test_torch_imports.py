@@ -52,7 +52,7 @@ def test_every_module_imports_without_jax():
                  "katib.vizier", "runtime.compile_cache",
                  "serving.grpc_server", "serving.tpu_serving_pb2",
                  "serving.router", "serving.fleet", "scheduler.health",
-                 "runtime.aot"):
+                 "runtime.aot", "models.moe"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

@@ -264,10 +264,9 @@ def test_window_fetch_takes_the_sharded_steps_vector_probe(tmp_path):
     window fetch hands it back as a list of floats (a scalar as a
     float), and the JSONL window skips it."""
     fetch = TM.AsyncWindowFetch(lag=0)
-    fetch.submit(2, 2, 0.5, {"loss": torch.tensor(1.5),
-                             "param_sqnorm_replicas": torch.tensor([3.0,
-                                                                    3.0])})
-    ((step, n, _, vals),) = fetch.drain(force=True)
+    fetch.submit(2, 2, {"loss": torch.tensor(1.5),
+                        "param_sqnorm_replicas": torch.tensor([3.0, 3.0])})
+    ((step, n, vals),) = fetch.drain(force=True)
     assert (step, n) == (2, 2)
     assert vals == {"loss": 1.5, "param_sqnorm_replicas": [3.0, 3.0]}
     path = tmp_path / "m.jsonl"

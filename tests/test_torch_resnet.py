@@ -277,16 +277,26 @@ def test_worker_trains_resnet_on_cpu(tmp_path):
 
 def test_fused_refusals():
     """BasicBlock models have no fused path. A data-parallel mesh is
-    taken (tests/test_torch_dp_resnet.py); one whose tensor axis exceeds
-    1 cannot be built (ROADMAP Queue 1 item 6)."""
+    taken (tests/test_torch_dp_resnet.py); on one whose tensor axis
+    exceeds 1 TrainStepBuilder raises, since the ResNet spec carries no
+    sharding rules (as the JAX ResNet's), and a sequence axis is not
+    ported (ROADMAP Queue 1 item 11)."""
     from kubeflow_tpu_torch.parallel.mesh import MESH_AXES, Mesh, check_axes
+    from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
     with pytest.raises(ValueError, match="bottleneck"):
         R.make_fused_loss_fn(R.resnet18(num_classes=10))
     one = Mesh(shape=dict.fromkeys(MESH_AXES, 1))
     assert callable(R.make_fused_loss_fn(R.resnet50(num_classes=10),
                                          mesh=one))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        check_axes({**one.shape, "tensor": 2})
+    spec = R.workload_spec(32, 10, fused=True)
+    assert spec.rules is None and spec.param_logical_axes is None
+    with pytest.raises(ValueError, match="carries none"):
+        TrainStepBuilder(loss_fn=spec.loss_fn, optimizer=None, device="cpu",
+                         mesh=Mesh(shape={**one.shape, "tensor": 2}),
+                         rules=spec.rules,
+                         param_logical_axes=spec.param_logical_axes)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        check_axes({**one.shape, "sequence": 2})
     with pytest.raises(SystemExit):
         worker.main(["--workload", "resnet18", "--fused-blocks",
                      "--device", "cpu"])

@@ -246,9 +246,9 @@ def test_poison_under_the_sharded_update(tmp_path):
     update = {"w": params["w"][:3].clone(), "b": params["b"][:4].clone(),
               "s": params["s"]}
     state = TrainState(step=5, opt_state=None, params=params,
-                       update_params=update, layout={"w": 0, "b": 0,
-                                                     "s": None},
-                       replica=(0, 2))
+                       update_params=update,
+                       update_blocks={"w": ((0, 0), (2, 1), True),
+                                      "b": ((0,), (2,), True)})
     ref = {k: v.clone() for k, v in update.items()}
     TS.NumericFaultHook("spike", 5, 8.0, str(tmp_path / "m")).poison(
         state, 5)

@@ -14,6 +14,8 @@ layer, e.g. gelu and the einsum softmax). The hazard cases show the f32
 tolerance catches an exact gelu or torch's default LayerNorm eps.
 """
 
+from dataclasses import replace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -150,10 +152,19 @@ def test_torch_layernorm_eps_would_fail(monkeypatch):
 
 
 def test_config_refuses_unported_paths():
-    with pytest.raises(NotImplementedError, match="ring"):
+    """Ring attention still raises (ROADMAP item 11); experts and remat
+    build, with the JAX package's defaults (tests/test_torch_moe.py holds
+    their numerics)."""
+    with pytest.raises(NotImplementedError, match="ring.*item 11"):
         T.TransformerConfig(attention="ring")
-    with pytest.raises(NotImplementedError, match="experts"):
-        T.TransformerConfig(num_experts=4)
+    cfg = T.TransformerConfig(num_experts=8, remat=True)
+    model = T.TransformerLM(replace(cfg, num_layers=1, vocab_size=64,
+                                    embed_dim=32, mlp_dim=64))
+    assert tuple(model.layer0.moe.wi.shape) == (8, 32, 64)
+    j = J.TransformerConfig()
+    for key in ("remat", "num_experts", "moe_top_k", "moe_capacity_factor",
+                "moe_aux_weight"):
+        assert getattr(T.TransformerConfig(), key) == getattr(j, key), key
     with pytest.raises(ValueError, match="attention"):
         T.TransformerConfig(attention="sparse")
 

@@ -77,6 +77,38 @@ def _clean_env(monkeypatch):
         monkeypatch.delenv(name, raising=False)
 
 
+SLOW_FETCH_S = 0.2
+
+
+def test_window_time_includes_the_drains_wait(tmp_path, monkeypatch):
+    """A window is timed edge to edge, the drain's wait for the card
+    included: with every metrics fetch slowed by a fixed sleep (the card
+    still busy with the window), each window after the first (whose
+    edge drains nothing: the fetch lags one window) and
+    ``mean_step_time_s`` carry the sleep, and ``examples_per_sec`` falls
+    with it. Timed to the window edge before the drain (the old rule), a
+    one-step window of the tiny LM reads a few ms on the CPU."""
+    real = worker.AsyncWindowFetch.drain
+
+    def slow_drain(self, force=False):
+        out = real(self, force)
+        if out:
+            import time
+            time.sleep(SLOW_FETCH_S)
+        return out
+
+    monkeypatch.setattr(worker.AsyncWindowFetch, "drain", slow_drain)
+    path = tmp_path / "metrics.jsonl"
+    r = worker.train(steps=6, sync_every=1, metrics_path=str(path), **KW)
+    windows = [json.loads(line) for line in path.read_text().splitlines()]
+    assert [w["step"] for w in windows] == [1, 2, 3, 4, 5, 6]
+    for w in windows[1:]:
+        assert w["step_time_s"] >= SLOW_FETCH_S, w
+        assert w["examples_per_sec"] <= KW["global_batch"] / SLOW_FETCH_S
+    assert r.mean_step_time_s >= SLOW_FETCH_S
+    assert r.examples_per_sec <= KW["global_batch"] / SLOW_FETCH_S
+
+
 def _tier(caplog) -> str:
     lines = [r.getMessage() for r in caplog.records
              if r.getMessage().startswith("kernel tier:")]
@@ -208,8 +240,8 @@ def test_bootstrap_refuses_a_multi_process_contract():
     process: the contract's ids, or this process alone without one."""
     from test_torch_bootstrap import _free_port as free_port
     from test_torch_bootstrap import _unported_axes, spawn_contract
-    for msgs, left in spawn_contract(_unported_axes, 2, free_port()):
-        assert not left and "item 6" in msgs[0], msgs
+    for msgs, left, _ in spawn_contract(_unported_axes, 2, free_port()):
+        assert not left and "item 11" in msgs[0], msgs
     env = {"KFTPU_TOPOLOGY": "v5e-1", "KFTPU_NUM_PROCESSES": "1",
            "KFTPU_PROCESS_ID": "0",
            "KFTPU_COORDINATOR_ADDRESS": f"localhost:{free_port()}"}
