@@ -21,12 +21,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
              a ragged S 1000, f32, and with_lse; then bf16 cases that
              stress the tensor-core kernel (D 32, 128 and 40, S 1 and 65,
              causal with Sq != Sk both ways, the fused-qkv slices), and
-             f32 with 65,537 (batch, head) pairs; yardstick sdpa.
+             f32 with 65,537 (batch, head) pairs, and phase 13's
+             microbatches [2 and 1, 2048, 12, 64]; yardstick sdpa.
              K2a/K2b, the backward (dq; dk and dv), both bf16 kernels on
              the tensor cores: bf16 at the training shape [8, 2048, 12,
              64] causal, non-causal, ragged S 1000, f32 S 333, and bf16 at
-             D 32, 128 and 40, S 65, S 1 and one q row over 65 keys, and
-             65,537 (batch, head) pairs in bf16 and f32, on strided
+             D 32, 128 and 40, S 65, S 1 and one q row over 65 keys,
+             65,537 (batch, head) pairs in bf16 and f32, and phase 13's
+             microbatches [2 and 1, 2048, 12, 64], on strided
              slices of a fused qkv tensor; yardstick sdpa's backward
              through torch.autograd.grad.
              Each case prints the largest share of its bar that any value
@@ -265,6 +267,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
              bytes at most half of one process's plus its replicated
              leaves, and what init held above its blocks at most twice
              the largest leaf.
+13. pp     - after phase 12, before phase 11: the pipelined LM (12
+             stacked layers at the default widths), flash + fused_adam,
+             lr 6e-4, clip 1.0, seed 0, batch 8 x 2048, through train().
+             (a) One process, 6 steps: K1/K2a/K2b 12 and K3 1 a step; the
+             first step's logits on the initial weights and batch against
+             TransformerLM on the same weights unstacked (models/
+             convert.py), within 5e-2 of the largest logit (bit equal
+             expected), and its loss against the run's first (<= 1e-2);
+             step ms and peak memory. (b) {pipeline 2}: two gloo ranks
+             sharing the card from the contract env (KFTPU_SHARDING), M 4,
+             3 steps on (a)'s weights and batches, against (a) under
+             phase 8's bars a step: K1/K2a/K2b M·L/S = 24 and K3 1 a rank
+             a step; a rank's params exactly half the blocks plus the
+             embedding and the head; the embedding equal on both stages;
+             M sends and M receives a rank a step (each staged through
+             the host); the traffic by op (calls, bytes) and the step ms.
+             (c) The MPMD stages (KFTPU_NUM_SLICES 2, multislice_pipeline,
+             both stages on this card), M 8, 4 steps, against (a) under
+             phase 8's bars: K1 144 (8 x 6 forwards on stage 0, their 48
+             recomputes, 48 on stage 1), K2a/K2b 96 and K3 2 a step; the
+             first step's schedule report (the multislice-profile event):
+             24 transfers of 50,397,184 bytes a step (a bf16 boundary,
+             int32 tokens); a pipeline-bubble span a window; no
+             collective called. K1/K2a/K2b at the microbatch shapes
+             ([2 and 1, 2048, 12, 64] bf16) are phase 2 cases.
 
 Phase 2 also holds K4 and K5 (the fused ghost-BN bottleneck, batch-tiled
 and spatial, csrc/fused_block_train.cu) against their plain versions at
@@ -554,11 +581,14 @@ def phase_kernels(fa) -> dict:
         # one rank's rows of phase 8's LM (the training shape over DP_RANKS)
         (f"DP rank b={TRAIN_BATCH // DP_RANKS}", TRAIN_BATCH // DP_RANKS,
          SERVE_SEQ, SERVE_SEQ, h, d, True, bf, True),
+        # the microbatches of phase 13: GPipe's 8 / 4 rows, MPMD's 8 / 8
+        *((f"microbatch b={mb}", mb, SERVE_SEQ, SERVE_SEQ, h, d, True, bf,
+           True) for mb in PP_MICROBATCH_ROWS),
         # the f32 kernel's flat grid: more (batch, head) pairs than
         # gridDim.y takes
         ("f32 b*h=65537", 1, 16, 16, 65537, 8, True, torch.float32, False),
     ]
-    err_at_serving, err_dp, margins = 0.0, 0.0, {}
+    err_at_serving, err_dp, err_mb, margins = 0.0, 0.0, 0.0, {}
     for label, b, sq, sk, hh, dd, causal, dtype, fused in cases:
         q, k, v = qkv(b, sq, sk, hh, dd, dtype, fused)
         o, lse = fa.flash_attention(q, k, v, causal=causal, with_lse=True)
@@ -591,6 +621,8 @@ def phase_kernels(fa) -> dict:
             err_at_serving = d_o.max().item()
         if label.startswith("DP rank"):
             err_dp = d_o.max().item()
+        if label.startswith("microbatch"):
+            err_mb = max(err_mb, d_o.max().item())
         del q, k, v, o, lse, p_o, p_lse, d_o
 
     timings = {}
@@ -616,8 +648,8 @@ def phase_kernels(fa) -> dict:
             f"ms ({by}), kernel at {bound / ms:.2%} of bound")
         del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return {"err": err_at_serving, "err_dp": err_dp, "timings": timings,
-            "margins": margins}
+    return {"err": err_at_serving, "err_dp": err_dp, "err_mb": err_mb,
+            "timings": timings, "margins": margins}
 
 
 def _k2_close(got, ref, dtype) -> tuple[bool, float, float]:
@@ -661,6 +693,8 @@ def phase_k2(fa) -> dict:
          None),
         (f"DP rank b={TRAIN_BATCH // DP_RANKS}", TRAIN_BATCH // DP_RANKS,
          SERVE_SEQ, True, bf, h, d, None),
+        *((f"microbatch b={mb}", mb, SERVE_SEQ, True, bf, h, d, None)
+          for mb in PP_MICROBATCH_ROWS),
         ("non-causal b=2", 2, SERVE_SEQ, False, bf, h, d, None),
         ("ragged S=1000", 2, 1000, True, bf, h, d, None),
         ("f32 S=333", 2, 333, True, torch.float32, h, d, None),
@@ -677,7 +711,7 @@ def phase_k2(fa) -> dict:
         ("b*h=65537", 1, 40, True, bf, 65537, 8, None),
         ("f32 b*h=65537", 1, 40, True, torch.float32, 65537, 8, None),
     ]
-    errs, errs_dp, margins = {}, {}, {}
+    errs, errs_dp, errs_mb, margins = {}, {}, {"dq": 0.0, "dkv": 0.0}, {}
     for label, b, s, causal, dtype, hh, dd, sq in cases:
         q, k, v, do, lse, delta = inputs(b, s, causal, dtype, hh, dd, sq)
         assert not q.is_contiguous()
@@ -718,6 +752,10 @@ def phase_k2(fa) -> dict:
             (errs if label.startswith("train") else errs_dp).update(
                 dq=results["dq"][1],
                 dkv=max(results["dk"][1], results["dv"][1]))
+        if label.startswith("microbatch"):
+            errs_mb["dq"] = max(errs_mb["dq"], results["dq"][1])
+            errs_mb["dkv"] = max(errs_mb["dkv"], results["dk"][1],
+                                 results["dv"][1])
         del q, k, v, do, lse, delta, dq, dk, dv, p_dq, p_dk, p_dv
 
     # time at the training shape; the inputs (4 x 25 MB) exceed the L2
@@ -765,7 +803,7 @@ def phase_k2(fa) -> dict:
         f"{tflops(*args, t['library_ms'], products=5):.1f} TFLOP/s)")
     del q, k, v, do, lse, delta, qt, kt, vt, out, dot
     torch.cuda.empty_cache()
-    return {"err": errs, "err_dp": errs_dp, "timings": t,
+    return {"err": errs, "err_dp": errs_dp, "err_mb": errs_mb, "timings": t,
             "margins": margins}
 
 
@@ -2444,6 +2482,10 @@ DP_LM_STEPS, DP_RESNET_STEPS = 4, 3
 # its grad norm by 5.3e-4, and the statistics by 4.8e-5.)
 DP_LOSS_RTOL, DP_GNORM_RTOL, DP_STATS_TOL = 1e-3, 1e-2, 1e-2
 DP_TIMEOUT_S = 600
+# phase 13: GPipe over {pipeline 2} at M 4 and the MPMD stages at M 8 (the
+# JAX worker's default for two slices), each over the batch of 8 rows
+PP_STAGES, PP_MICRO, PP_MPMD_MICRO = 2, 4, 8
+PP_MICROBATCH_ROWS = (TRAIN_BATCH // PP_MICRO, TRAIN_BATCH // PP_MPMD_MICRO)
 
 
 class _Apiserver(threading.Thread):
@@ -4459,6 +4501,339 @@ def phase_mp(T, worker, trainstep, card) -> dict:
     return result
 
 
+# -- phase 13: pipeline parallelism ----------------------------------------
+
+PP_STEPS, PP_RANK_STEPS, PP_MPMD_STEPS = 6, 3, 4
+PP_TIMEOUT_S = 600
+# 13c's transfers a step (M 8, batch 8, S 2048, embed 768, a bf16
+# boundary): per microbatch the activation and its cotangent, 2 x
+# 3,145,728 bytes, and the last stage's int32 tokens, 8,192 bytes
+PP_DCN_BYTES = PP_MPMD_MICRO * (2 * 3145728 + 8192)
+PP_DCN_TRANSFERS = 3 * PP_MPMD_MICRO
+
+
+def _pp_cfg(T):
+    """The pipelined LM of phase 13: the default widths, 12 layers."""
+    return T.TransformerConfig()
+
+
+def _pp_train(worker, cfg, path: str, **kw) -> dict:
+    """One pipelined-LM run through train() (flash, fused_adam, lr 6e-4,
+    the clip at 1.0, batch 8, sync_every 1): per-step losses, grad norms
+    and (MPMD) bubble fractions, the step time, the peak memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    micro = kw.pop("num_microbatches", 1)
+    result = worker.train(
+        workload="transformer-pipelined",
+        workload_kwargs={"cfg": cfg, "num_microbatches": micro},
+        kernel_attention="flash", kernel_optimizer="fused_adam",
+        optimizer="adam", learning_rate=TRAIN_LR, lr_schedule="constant",
+        seed=0, sync_every=1, metrics_path=path, handle_sigterm=False,
+        global_batch=TRAIN_BATCH, **kw)
+    torch.cuda.synchronize()
+    ctx = kw.get("ctx")
+    windows = _windows(worker._process_metrics_path(
+        path, ctx.process_id if ctx else 0))
+    return {"loss": [w["loss"] for w in windows],
+            "grad_norm": [w["grad_norm"] for w in windows],
+            "bubble": [w.get("bubble_fraction") for w in windows],
+            "step_ms": result.mean_step_time_s * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _pp_bars(name: str, rec: dict, one: dict) -> dict:
+    """Each step's loss and grad norm against the one-process run under
+    phase 8's bars; the largest share of each bar used."""
+    worst = {}
+    for key, tol in (("loss", DP_LOSS_RTOL), ("grad_norm", DP_GNORM_RTOL)):
+        got = np.array(rec[key])
+        exp = np.array(one[key][:len(got)])
+        if got.shape != exp.shape or not np.isfinite(got).all():
+            fail(f"pp {name}: {key} {got} vs {exp}")
+        worst[key] = float(np.max(np.abs(got - exp) / np.abs(exp)) / tol)
+        if worst[key] > 1.0:
+            fail(f"pp {name}: {key} {got.tolist()} vs one process "
+                 f"{exp.tolist()} (bar {tol} relative)")
+    return worst
+
+
+def _pp_per_step(cfg, micro: int, stages: int) -> dict:
+    """K1, K2a and K2b M·L/S a rank a step, K3 one."""
+    n = micro * cfg.num_layers // stages
+    return {"flash_attention_fwd": n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n, "fused_adam": 1}
+
+
+def _pp_rank(rank: int, env: dict, queue) -> None:
+    """One rank of phase 13b (a spawned process): the contract env with
+    KFTPU_SHARDING {pipeline 2}, a gloo group on the shared card, the
+    pipelined LM through train(); its launches, losses, param bytes and
+    point-to-point traffic."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sys.path.insert(0, HERE)
+        os.environ.update(env)
+        import tempfile
+        from kubeflow_tpu_torch.models import transformer as T
+        from kubeflow_tpu_torch.parallel import collectives
+        from kubeflow_tpu_torch.runtime import bootstrap, trainstep, worker
+        counters = _all_counters()
+        seen = _capture_states(worker, trainstep)
+        ctx = bootstrap.initialize(device=DEVICE, backend="gloo")
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                collectives.reset_counts()
+                rec, launches = _counted(counters, lambda: _pp_train(
+                    worker, _pp_cfg(T), os.path.join(tmp, "pp.jsonl"),
+                    ctx=ctx, steps=PP_RANK_STEPS,
+                    num_microbatches=PP_MICRO))
+            state = seen["state"]
+            rec.update(
+                launches=launches, stage=ctx.mesh.coords["pipeline"],
+                calls=dict(collectives.calls),
+                bytes=dict(collectives.bytes_moved),
+                host_staged=dict(collectives.host_staged),
+                param_bytes=sum(p.numel() * 4
+                                for p in state.params.values()),
+                embed=state.params["embed.tok_embed.embedding"]
+                .detach().float().sum().item())
+        finally:
+            bootstrap.shutdown(ctx)
+        queue.put((rank, rec, None))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def _pp_first_step(T, cfg, one_loss: float) -> dict:
+    """13a's first step without train(): the pipelined LM's logits on
+    its initial weights and first batch against TransformerLM on the same
+    weights unstacked (models/convert.py), and its loss against the
+    run's first."""
+    from kubeflow_tpu_torch.models.convert import unstack_blocks
+    cfg = replace(cfg, attention="flash")
+    spec = T.pipelined_workload_spec(cfg)
+    params = spec.init_fn(torch.Generator().manual_seed(0))[0]
+    tokens = spec.batch_fn(torch.Generator().manual_seed(1),
+                           TRAIN_BATCH)["tokens"].to(DEVICE)
+    piped = T.PipelinedTransformerLM(cfg)
+    piped.load_state_dict(params)
+    lm = T.TransformerLM(cfg)
+    lm.load_state_dict(unstack_blocks(params))
+    with torch.no_grad():
+        a = piped.to(DEVICE)(tokens)
+        b = lm.to(DEVICE)(tokens)
+        loss = float(T.next_token_loss(a, tokens)[0])
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        same = bool(torch.equal(a, b))
+    del piped, lm, a, b, params
+    torch.cuda.empty_cache()
+    return {"rel": rel, "bit_equal": same, "loss": loss,
+            "loss_rel": abs(loss - one_loss) / abs(one_loss)}
+
+
+def phase_pipeline(counters, T, worker, trainstep, collectives,
+                   card) -> dict:
+    """Phase 13: the pipelined LM at the default widths, flash +
+    fused_adam. (a) One process through train(): K1/K2a/K2b 12 and K3 1
+    a step, the first step's logits and loss against TransformerLM on
+    the same weights. (b) {pipeline 2}: two gloo ranks sharing the card,
+    M 4, against (a) under phase 8's bars; K1/K2a/K2b M·L/S = 24 and K3 1
+    a rank a step; a rank's params half the blocks plus the embedding and
+    the head; the point-to-point messages and bytes by op. (c) The MPMD
+    stages (KFTPU_NUM_SLICES 2, both on this card), M 8, against (a):
+    K1 144, K2a/K2b 96 and K3 2 a step, the schedule report and its
+    transfers, the bubble spans, no collective."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from kubeflow_tpu_torch.parallel import multislice as MS
+    cfg = _pp_cfg(T)
+    seen = _capture_states(worker, trainstep)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            one, launches = _counted(counters, lambda: _pp_train(
+                worker, cfg, os.path.join(tmp, "one.jsonl"), device=DEVICE,
+                steps=PP_STEPS))
+            state = seen["state"]
+            one["launches"] = launches
+            one["param_bytes"] = sum(p.numel() * 4
+                                     for p in state.params.values())
+            one["block_bytes"] = sum(p.numel() * 4 for n, p in
+                                     state.params.items()
+                                     if n.startswith("blocks."))
+            seen.clear()
+            del state
+    finally:
+        worker.TrainStepBuilder = trainstep.TrainStepBuilder
+    per = _pp_per_step(cfg, 1, 1)
+    want = {k: v * PP_STEPS for k, v in per.items()}
+    tokens = TRAIN_BATCH * SERVE_SEQ
+    log(f"[pp] 13a | {card} | one process, {PP_STEPS} steps of the "
+        f"pipelined LM ({cfg.num_layers} stacked layers) at batch "
+        f"{TRAIN_BATCH} x S {SERVE_SEQ}: launches {launches} (expected "
+        f"{want}); losses {one['loss']}; step {one['step_ms']:.1f} ms "
+        f"(host clock, windows after the first), "
+        f"{tokens / one['step_ms'] * 1e3:.0f} tokens/s; peak "
+        f"{one['peak_gib']:.2f} GiB; params {one['param_bytes']} bytes")
+    if launches != want:
+        fail(f"pp 13a: launches {launches}, expected {want}")
+    if not (np.isfinite(one["loss"]).all() and
+            np.isfinite(one["grad_norm"]).all()):
+        fail(f"pp 13a: losses {one['loss']}, grad norms {one['grad_norm']}")
+    first = _pp_first_step(T, cfg, one["loss"][0])
+    log(f"[pp] 13a | {card} | first step on the initial weights and batch:"
+        f" logits against TransformerLM on the unstacked weights max|d| / "
+        f"max|logit| {first['rel']:.3e} (<= {LM_REL_BAR}; bit equal "
+        f"{first['bit_equal']}), loss {first['loss']:.6f} against the "
+        f"run's {one['loss'][0]:.6f}, relative {first['loss_rel']:.3e} "
+        f"(<= {LOSS_RTOL})")
+    if first["rel"] > LM_REL_BAR or first["loss_rel"] > LOSS_RTOL:
+        fail("pp 13a: the pipelined LM disagrees with TransformerLM")
+
+    # 13b: {pipeline 2}, two ranks sharing the card
+    port = _free_port()
+    spawn = mp.get_context("spawn")
+    queue = spawn.Queue()
+    procs = [spawn.Process(target=_pp_rank, args=(r, {
+        "KFTPU_TOPOLOGY": f"v5e-{PP_STAGES}",
+        "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+        "KFTPU_NUM_PROCESSES": str(PP_STAGES), "KFTPU_PROCESS_ID": str(r),
+        "KFTPU_SHARDING": json.dumps({"data": 1, "pipeline": PP_STAGES})},
+        queue)) for r in range(PP_STAGES)]
+    t0 = time.perf_counter()
+    ranks, errors = {}, []
+    try:
+        for p in procs:
+            p.start()
+        for _ in procs:
+            r, out, err = queue.get(timeout=PP_TIMEOUT_S)
+            ranks[r] = out
+            if err:
+                errors.append(f"rank {r}:\n{err}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail("pp 13b: " + "\n".join(errors))
+    per_rank = _pp_per_step(cfg, PP_MICRO, PP_STAGES)
+    want = {k: v * PP_RANK_STEPS for k, v in per_rank.items()}
+    rank_bytes = one["param_bytes"] - one["block_bytes"] + \
+        one["block_bytes"] // PP_STAGES
+    gpipe = []
+    for r in range(PP_STAGES):
+        rec = ranks[r]
+        if rec["launches"] != want:
+            fail(f"pp 13b rank {r}: launches {rec['launches']}, expected "
+                 f"{want}")
+        worst = _pp_bars(f"13b rank {r}", rec, one)
+        if rec["param_bytes"] != rank_bytes:
+            fail(f"pp 13b rank {r}: params {rec['param_bytes']} bytes, "
+                 f"expected half the blocks plus the embedding and the "
+                 f"head, {rank_bytes}")
+        hops = PP_MICRO * PP_RANK_STEPS
+        if rec["calls"]["send"] != hops or rec["calls"]["recv"] != hops:
+            fail(f"pp 13b rank {r}: {rec['calls']} point-to-point calls, "
+                 f"expected {hops} sends and receives")
+        p2p = {op: (rec["calls"][op], rec["bytes"][op],
+                    rec["host_staged"][op]) for op in rec["calls"]
+               if rec["calls"][op]}
+        log(f"[pp] 13b rank {r} (stage {rec['stage']}) | {card} | launches "
+            f"{rec['launches']} ({per_rank} a step); losses {rec['loss']} "
+            f"(one process {one['loss'][:PP_RANK_STEPS]}), grad norms "
+            f"{rec['grad_norm']}; largest share of a bar: loss "
+            f"{worst['loss']:.3f}, grad norm {worst['grad_norm']:.3f}; "
+            f"params {rec['param_bytes']} bytes (one process "
+            f"{one['param_bytes']}); traffic over {PP_RANK_STEPS} steps and "
+            f"init by op (calls, bytes, staged through the host): {p2p}; "
+            f"step {rec['step_ms']:.1f} ms (host clock, two ranks sharing "
+            f"one card over gloo; not a scaling figure); peak "
+            f"{rec['peak_gib']:.2f} GiB")
+        gpipe.append({k: rec[k] for k in ("loss", "grad_norm", "step_ms",
+                                          "param_bytes", "peak_gib",
+                                          "launches", "calls", "bytes")})
+    if ranks[0]["embed"] != ranks[1]["embed"]:
+        fail(f"pp 13b: the embedding differs between the stages "
+             f"({ranks[0]['embed']} vs {ranks[1]['embed']})")
+    log(f"[pp] 13b: {PP_STAGES} ranks, {PP_RANK_STEPS} steps at M "
+        f"{PP_MICRO} in {wall:.1f}s; the embedding equal on both stages")
+
+    # 13c: the MPMD stages in this process
+    torch.cuda.empty_cache()
+    devices = MS.stage_devices(PP_STAGES, DEVICE)
+    old = os.environ.get("KFTPU_NUM_SLICES")
+    os.environ["KFTPU_NUM_SLICES"] = str(PP_STAGES)
+    collectives.reset_counts()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            spans = os.path.join(tmp, "spans.jsonl")
+            mpmd, launches = _counted(counters, lambda: _pp_train(
+                worker, cfg, os.path.join(tmp, "mpmd.jsonl"), device=DEVICE,
+                steps=PP_MPMD_STEPS, multislice_pipeline=True,
+                span_path=spans))
+            with open(spans) as f:
+                names = [json.loads(line) for line in f]
+    finally:
+        if old is None:
+            os.environ.pop("KFTPU_NUM_SLICES")
+        else:
+            os.environ["KFTPU_NUM_SLICES"] = old
+    calls = dict(collectives.calls)
+    per_mpmd = {"flash_attention_fwd": 3 * PP_MPMD_MICRO *
+                cfg.num_layers // PP_STAGES,
+                "flash_attention_bwd_dq": PP_MPMD_MICRO * cfg.num_layers,
+                "flash_attention_bwd_dkv": PP_MPMD_MICRO * cfg.num_layers,
+                "fused_adam": PP_STAGES}
+    want = {k: v * PP_MPMD_STEPS for k, v in per_mpmd.items()}
+    if launches != want:
+        fail(f"pp 13c: launches {launches}, expected {want}")
+    worst = _pp_bars("13c", mpmd, one)
+    report = [s["attrs"]["report"] for s in names
+              if s["name"] == "multislice-profile"]
+    bubbles = [s for s in names if s["name"] == "pipeline-bubble"]
+    if len(report) != 1 or len(bubbles) != PP_MPMD_STEPS:
+        fail(f"pp 13c: spans {[s['name'] for s in names]}")
+    report = report[0]
+    if (report["dcnBytesPerStep"], report["dcnTransfersPerStep"]) != \
+            (PP_DCN_BYTES, PP_DCN_TRANSFERS):
+        fail(f"pp 13c: transfers {report['dcnTransfersPerStep']} of "
+             f"{report['dcnBytesPerStep']} bytes a step, expected "
+             f"{PP_DCN_TRANSFERS} of {PP_DCN_BYTES}")
+    if any(calls.values()):
+        fail(f"pp 13c: collectives called in the stage programs: {calls}")
+    log(f"[pp] 13c | {card} | MPMD, {PP_STAGES} stages on "
+        f"{[str(d) for d in devices]} (one card: the stages share it and "
+        f"run one after another), M {PP_MPMD_MICRO}, {PP_MPMD_STEPS} "
+        f"steps: launches {launches} ({per_mpmd} a step); losses "
+        f"{mpmd['loss']}, grad norms {mpmd['grad_norm']}; largest share of "
+        f"a bar against one process: loss {worst['loss']:.3f}, grad norm "
+        f"{worst['grad_norm']:.3f}; bubble fraction a step "
+        f"{mpmd['bubble']}; the first step's schedule report {report}; "
+        f"{len(bubbles)} pipeline-bubble spans; collectives {calls}; step "
+        f"{mpmd['step_ms']:.1f} ms (host clock, a sync after every op); "
+        f"peak {mpmd['peak_gib']:.2f} GiB")
+    return {"one": {k: one[k] for k in ("loss", "step_ms", "peak_gib",
+                                        "launches", "param_bytes")},
+            "first": first, "gpipe": gpipe,
+            "mpmd": {**{k: mpmd[k] for k in ("loss", "step_ms", "peak_gib",
+                                             "bubble")},
+                     "launches": launches, "report": report},
+            "wall_13b_s": wall}
+
+
+def _pp_launches(pp: dict, kernel: str) -> dict:
+    """Phase 13's launches of one kernel: one process (6 steps), each
+    {pipeline 2} rank (3 steps), the MPMD stages (4 steps)."""
+    return {"launches_pp": {
+        "one_process": pp["one"]["launches"].get(kernel, 0),
+        "gpipe_ranks": [r["launches"].get(kernel, 0) for r in pp["gpipe"]],
+        "mpmd": pp["mpmd"]["launches"].get(kernel, 0)}}
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     if sys.argv[1:2] == ["--worker"]:
@@ -4601,6 +4976,12 @@ def main() -> int:
         moe = phase_moe(counters, T, worker, trainstep)
         mp_r = phase_mp(T, worker, trainstep, dev["card"])
         log(f"[mp] phase 12 in {time.perf_counter() - t12:.1f}s")
+        # phase 13: the pipelined LM, GPipe and the MPMD stages
+        torch.cuda.empty_cache()
+        t13 = time.perf_counter()
+        pp = phase_pipeline(counters, T, worker, trainstep, collectives,
+                            dev["card"])
+        log(f"[pp] phase 13 in {time.perf_counter() - t13:.1f}s")
         # phase 11: the AOT ladder, in worker processes
         torch.cuda.empty_cache()
         t11 = time.perf_counter()
@@ -4630,6 +5011,7 @@ def main() -> int:
         "launches_dp": _dp_launches(dp, "lm", "flash_attention_fwd"),
         "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_fwd"),
         **_mp_launches(moe, mp_r, "flash_attention_fwd"),
+        **_pp_launches(pp, "flash_attention_fwd"),
         # phase 10, each (launches, forwards): gRPC, routers, the fleet
         "launches_serving_tier": {
             name: [r["launches"], r["forwards"]] if "launches" in r else None
@@ -4637,6 +5019,7 @@ def main() -> int:
                             ("fleet", fleet))},
         "max_abs_err": k1["err"],
         "max_abs_err_dp": k1["err_dp"],
+        "max_abs_err_pp": k1["err_mb"],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
@@ -4654,8 +5037,10 @@ def main() -> int:
         "launches_dp": _dp_launches(dp, "lm", "flash_attention_bwd_dq"),
         "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_bwd_dq"),
         **_mp_launches(moe, mp_r, "flash_attention_bwd_dq"),
+        **_pp_launches(pp, "flash_attention_bwd_dq"),
         "max_abs_err": k2["err"]["dq"],
         "max_abs_err_dp": k2["err_dp"]["dq"],
+        "max_abs_err_pp": k2["err_mb"]["dq"],
         "ms": k2t["dq_ms"],
         "plain_ms": k2t["dq_plain_ms"],
         "bound_ms": k2t["dq_bound"][0],
@@ -4672,8 +5057,10 @@ def main() -> int:
         "launches_dp": _dp_launches(dp, "lm", "flash_attention_bwd_dkv"),
         "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_bwd_dkv"),
         **_mp_launches(moe, mp_r, "flash_attention_bwd_dkv"),
+        **_pp_launches(pp, "flash_attention_bwd_dkv"),
         "max_abs_err": k2["err"]["dkv"],
         "max_abs_err_dp": k2["err_dp"]["dkv"],
+        "max_abs_err_pp": k2["err_mb"]["dkv"],
         "ms": k2t["dkv_ms"],
         "plain_ms": k2t["dkv_plain_ms"],
         "bound_ms": k2t["dkv_bound"][0],
@@ -4690,6 +5077,7 @@ def main() -> int:
         "launches_dp": _dp_launches(dp, "lm", "fused_adam"),
         "launches_ckpt": _ckpt_launches(ckpt, degree, "fused_adam"),
         **_mp_launches(moe, mp_r, "fused_adam"),
+        **_pp_launches(pp, "fused_adam"),
         "max_abs_err": k3["err"],
         "max_abs_err_dp": dp_kernels["k3"]["err"],
         "ms": k3["ms"],

@@ -11,6 +11,14 @@ params-shaped trees and convert the same way; the MoE layers' params
 (``layer{i}/moe/{router,wi,wo}``, no ``kernel`` level) become
 ``layer{i}.moe.router`` and so on. :func:`shard_params` cuts a converted
 global state into one rank's blocks on a mesh.
+
+The pipelined LM's tree (``{"embed", "blocks", "head"}``, the blocks
+stacked by ``vmap`` with a leading layers dimension) converts the same
+way (:func:`transformer_params_from_jax`: ``embed.tok_embed.embedding``,
+``blocks.attn.qkv.kernel`` [L, ...], ``head.head.kernel``);
+:func:`stack_blocks` and :func:`unstack_blocks` move between the per-layer ``TransformerLM``
+state dict and the stacked one, so the two LMs compare on the same
+weights without JAX.
 """
 
 from __future__ import annotations
@@ -42,6 +50,43 @@ def transformer_params_from_jax(params: Mapping) -> dict:
         params = params["params"]
     return {name: torch.from_numpy(np.array(a, dtype=np.float32))
             for name, a in flatten_params(params).items()}
+
+
+# per-layer LM name → stacked LM name, outside the blocks
+_STACKED_NAMES = {"tok_embed.embedding": "embed.tok_embed.embedding",
+                  "pos_embed.embedding": "embed.pos_embed.embedding",
+                  "ln_f.scale": "head.ln_f.scale",
+                  "ln_f.bias": "head.ln_f.bias",
+                  "head.kernel": "head.head.kernel"}
+
+
+def stack_blocks(state: Mapping, num_layers: int) -> dict:
+    """A ``TransformerLM`` state dict (``layer{i}.<name>``) as the
+    ``PipelinedTransformerLM`` one: each block param stacked over the
+    layers into ``blocks.<name>`` [L, ...]."""
+    out = {_STACKED_NAMES[n]: t for n, t in state.items()
+           if n in _STACKED_NAMES}
+    for name in state:
+        if name.startswith("layer0."):
+            rest = name[len("layer0."):]
+            out[f"blocks.{rest}"] = torch.stack(
+                [torch.as_tensor(state[f"layer{i}.{rest}"])
+                 for i in range(num_layers)])
+    return out
+
+
+def unstack_blocks(state: Mapping) -> dict:
+    """The inverse of :func:`stack_blocks`: a ``PipelinedTransformerLM``
+    state dict as the per-layer ``TransformerLM`` one (views of the
+    stacked leaves)."""
+    back = {v: k for k, v in _STACKED_NAMES.items()}
+    out = {back[n]: t for n, t in state.items() if n in back}
+    for name, t in state.items():
+        if name.startswith("blocks."):
+            rest = name[len("blocks."):]
+            for i in range(t.shape[0]):
+                out[f"layer{i}.{rest}"] = t[i]
+    return out
 
 
 def shard_params(params: Mapping, mesh, rules, logical_axes: Mapping

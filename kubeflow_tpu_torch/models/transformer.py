@@ -42,13 +42,19 @@ runtime/worker.py.
   column-parallel products all-reduced backward, ``tok_embed`` split
   over the vocabulary (a masked lookup, all-reduced), and the head
   column-parallel with its logits gathered over the vocabulary.
+- The stacked LM of pipeline parallelism (:class:`PipelinedTransformerLM`,
+  ``pipelined_logical_axes``, ``pipelined_workload_spec``, and
+  ``multislice_stage_fns`` for the MPMD engine): every block param
+  carries a leading layers dimension, which the ``pipeline`` axis splits
+  into stages (parallel/pipeline.py, parallel/multislice.py). MoE is
+  refused there, in the JAX package's words.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Optional
 
 import torch
@@ -233,6 +239,45 @@ def _get(module: nn.Module, name: str) -> torch.Tensor:
     return module
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor, mesh
+            ) -> torch.Tensor:
+    """The token lookup; over ``tensor`` the table is this rank's rows of
+    the vocabulary: a masked lookup, summed over the ranks."""
+    tg = _tensor_group(mesh)
+    ids = tokens.long()
+    if tg is None:
+        return F.embedding(ids, table)
+    rows = table.shape[0]
+    local = ids - mesh.coords["tensor"] * rows
+    hit = (local >= 0) & (local < rows)
+    x = F.embedding(local.clamp(0, rows - 1), table) * hit[..., None]
+    return collectives.reduce_from(x, tg)
+
+
+def _head_logits(ln_f: LayerNorm, kernel: torch.Tensor, x: torch.Tensor,
+                 mesh) -> torch.Tensor:
+    """ln_f then the f32 vocabulary product (column-parallel over
+    ``tensor``, its logits gathered)."""
+    tg = _tensor_group(mesh)
+    logits = collectives.copy_to(ln_f(x), tg) @ kernel
+    return collectives.gather_from(logits, tg, -1)
+
+
+def _remat_call(block: nn.Module, params: dict, x: torch.Tensor) -> tuple:
+    """``block(x)`` on ``params`` (name -> tensor) under the non-reentrant
+    checkpoint; the params go in as inputs, so the backward's recompute
+    (after ``functional_call`` has returned) sees the same tensors."""
+    names = list(params)
+
+    def run(h, *ps):
+        return functional_call(block, dict(zip(names, ps)), (h,))
+
+    # the blocks draw no random numbers: no RNG state to replay, and
+    # none to read inside a CUDA graph capture
+    return checkpoint(run, x, *params.values(), use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class TransformerLM(nn.Module):
     """tokens [B, S] int → logits [B, S, V] f32 (with ``with_aux``,
     ``(logits, the summed MoE aux loss or None)``). ``mesh``: the params
@@ -254,32 +299,11 @@ class TransformerLM(nn.Module):
                 for i in range(self.cfg.num_layers)]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The token lookup; over ``tensor`` the table is this rank's
-        rows of the vocabulary: a masked lookup, summed over the ranks."""
-        table = self.tok_embed.embedding
-        tg = _tensor_group(self.mesh)
-        ids = tokens.long()
-        if tg is None:
-            return F.embedding(ids, table)
-        rows = table.shape[0]
-        local = ids - self.mesh.coords["tensor"] * rows
-        hit = (local >= 0) & (local < rows)
-        x = F.embedding(local.clamp(0, rows - 1), table) * hit[..., None]
-        return collectives.reduce_from(x, tg)
+        return _lookup(self.tok_embed.embedding, tokens, self.mesh)
 
     def _remat(self, block: Block, x: torch.Tensor) -> tuple:
-        """``block(x)`` under the non-reentrant checkpoint; the params go
-        in as inputs, so the backward's recompute (after
-        ``functional_call`` has returned) sees the same tensors."""
-        names = [n for n, _ in block.named_parameters()]
-
-        def run(h, *ps):
-            return functional_call(block, dict(zip(names, ps)), (h,))
-
-        # the blocks draw no random numbers: no RNG state to replay, and
-        # none to read inside a CUDA graph capture
-        return checkpoint(run, x, *[_get(block, n) for n in names],
-                          use_reentrant=False, preserve_rng_state=False)
+        return _remat_call(block, {n: _get(block, n) for n, _ in
+                                   block.named_parameters()}, x)
 
     def forward(self, tokens: torch.Tensor, with_aux: bool = False):
         dt = self.cfg.dtype
@@ -291,9 +315,7 @@ class TransformerLM(nn.Module):
             x, a = self._remat(block, x) if self.cfg.remat else block(x)
             if a is not None:
                 aux = a if aux is None else aux + a
-        tg = _tensor_group(self.mesh)
-        logits = collectives.copy_to(self.ln_f(x), tg) @ self.head.kernel
-        logits = collectives.gather_from(logits, tg, -1)
+        logits = _head_logits(self.ln_f, self.head.kernel, x, self.mesh)
         return (logits, aux) if with_aux else logits
 
     @torch.no_grad()
@@ -318,6 +340,95 @@ class TransformerLM(nn.Module):
                                   generator=generator)
             p.copy_(t)
         return self
+
+
+_MOE_REFUSAL = ("MoE (num_experts>0) is not supported on the pipelined path "
+                "yet; use the non-pipelined transformer workload for EP")
+
+
+class _Embedder(nn.Module):
+    """Token + position embedding (the pre-pipeline stage-0 prologue)."""
+
+    def __init__(self, cfg: TransformerConfig, mesh=None):
+        super().__init__()
+        self.cfg = cfg
+        self.mesh = mesh
+        self.tok_embed = _Embed(cfg.vocab_size, cfg.embed_dim)
+        self.pos_embed = _Embed(cfg.max_seq_len, cfg.embed_dim)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        dt = self.cfg.dtype
+        x = _lookup(self.tok_embed.embedding, tokens, self.mesh).to(dt)
+        return x + self.pos_embed.embedding[:tokens.shape[1]].to(dt)[None]
+
+
+class _LMHead(nn.Module):
+    """Final layernorm + vocab projection (the post-pipeline epilogue)."""
+
+    def __init__(self, cfg: TransformerConfig, mesh=None):
+        super().__init__()
+        self.mesh = mesh
+        self.ln_f = LayerNorm(cfg.embed_dim)
+        self.head = _Kernel(cfg.embed_dim, cfg.vocab_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _head_logits(self.ln_f, self.head.kernel, x, self.mesh)
+
+
+class PipelinedTransformerLM(nn.Module):
+    """The stacked-layer LM of pipeline parallelism: ``embed``
+    (:class:`_Embedder`), ``blocks`` (one :class:`Block` whose every
+    parameter carries a leading ``[L]`` layers dimension: state-dict
+    names ``blocks.attn.qkv.kernel`` [L, E, 3, H, D] and so on, the flax
+    tree of the JAX package's ``PipelinedTransformerLM`` flattened) and
+    ``head`` (:class:`_LMHead`). tokens [B, S] → logits [B, S, V] f32.
+
+    The blocks apply one layer at a time through ``functional_call`` on
+    the layer's slices (checkpointed under ``cfg.remat``), routed
+    through ``parallel/pipeline.py`` ``pipeline_apply``: the GPipe
+    schedule over the mesh's pipeline axis, whose rank holds its stage's
+    layers, or the layers in order without one; the same numbers either
+    way. ``mesh`` also splits the blocks, the embedding and the head over
+    ``tensor`` as :class:`TransformerLM`'s."""
+
+    def __init__(self, cfg: TransformerConfig, mesh=None):
+        super().__init__()
+        if cfg.num_experts > 0:
+            # the block scan carries no aux loss out: refuse rather than
+            # train a collapsed router
+            raise NotImplementedError(_MOE_REFUSAL)
+        self.cfg = cfg
+        self.mesh = mesh
+        self.embed = _Embedder(cfg, mesh)
+        self.blocks = Block(cfg, mesh)
+        for name, p in list(self.blocks.named_parameters()):
+            owner, leaf = name.rsplit(".", 1)
+            setattr(_get(self.blocks, owner), leaf, nn.Parameter(
+                p.detach().unsqueeze(0).repeat(
+                    (cfg.num_layers,) + (1,) * p.dim())))
+        self.head = _LMHead(cfg, mesh)
+
+    def block_fn(self, layer: dict, h: torch.Tensor) -> torch.Tensor:
+        """One block on one layer's params (name -> tensor, the names
+        under ``blocks.``)."""
+        if self.cfg.remat:
+            return _remat_call(self.blocks, layer, h)[0]
+        return functional_call(self.blocks, layer, (h,))[0]
+
+    def stacked(self) -> dict:
+        """The stacked block params (under ``functional_call``, those
+        swapped in: this rank's stage on a pipeline mesh)."""
+        return {n: _get(self.blocks, n)
+                for n, _ in self.blocks.named_parameters()}
+
+    def forward(self, tokens: torch.Tensor,
+                num_microbatches: int = 1) -> torch.Tensor:
+        from ..parallel.pipeline import pipeline_apply
+        x = self.embed(tokens)
+        x = pipeline_apply(self.block_fn, self.stacked(), x, mesh=self.mesh,
+                           num_microbatches=num_microbatches,
+                           num_layers=self.cfg.num_layers)
+        return self.head(x)
 
 
 def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> tuple:
@@ -491,3 +602,106 @@ def workload_spec(cfg: Optional[TransformerConfig] = None,
         param_logical_axes=axes,
         eval_fn=make_eval_fn(model, dims),
     )
+
+
+def pipelined_logical_axes(params: dict) -> dict:
+    """Name → logical axes for the stacked
+    :class:`PipelinedTransformerLM` state dict: the block leaves
+    (``blocks.*``) gain a leading "layers" axis (→ mesh axis
+    "pipeline")."""
+    out = {}
+    for name, leaf in params.items():
+        ndim = len(leaf) if isinstance(leaf, (tuple, list, torch.Size)) \
+            else leaf.dim()
+        stacked = name.startswith("blocks.")
+        path = name.replace(".", "/")
+        for pat, axes in _LOGICAL_PATTERNS:
+            if re.search(pat, path):
+                break
+        else:
+            axes = (None,) * (ndim - (1 if stacked else 0))
+        axes = ("layers",) + axes if stacked else axes
+        if len(axes) != ndim:
+            raise ValueError(f"{name}: {axes} vs rank {ndim}")
+        out[name] = axes
+    return out
+
+
+def pipelined_init_fn(cfg: TransformerConfig) -> Callable:
+    """``init(rng) -> (params, variables)``: :class:`TransformerLM`'s
+    random weights from the same ``torch.Generator``, stacked
+    (models/convert.py ``stack_blocks``), so the pipelined LM starts from
+    the per-layer LM's weights at the same seed."""
+    from .convert import stack_blocks
+
+    def _init(rng: torch.Generator):
+        real = TransformerLM(replace(cfg, num_experts=0)).init_weights(rng)
+        return stack_blocks(dict(real.state_dict()), cfg.num_layers), {}
+
+    return _init
+
+
+def pipelined_workload_spec(cfg: Optional[TransformerConfig] = None,
+                            seq_len: Optional[int] = None, mesh=None,
+                            num_microbatches: int = 1):
+    """WorkloadSpec for the stacked LM (``ShardingSpec.pipeline > 1``):
+    under a ``mesh`` the loss function takes this rank's blocks (its
+    stage's layers, cut by ``("layers", "pipeline")``) and runs the GPipe
+    schedule with ``num_microbatches``."""
+    from ..runtime.worker import WorkloadSpec
+    cfg = cfg or TransformerConfig.tiny()
+    if cfg.num_experts > 0:
+        raise NotImplementedError(_MOE_REFUSAL)
+    seq_len = seq_len or cfg.max_seq_len
+    with torch.device("meta"):
+        model = PipelinedTransformerLM(cfg, mesh)
+        axes = pipelined_logical_axes(
+            dict(PipelinedTransformerLM(cfg).state_dict()))
+    dims = fsdp_dims(axes, TRANSFORMER_RULES, mesh)
+    group = None if mesh is None else mesh.group_of("fsdp")
+
+    def loss_fn(params, variables, batch, rng):
+        tokens = batch["tokens"]
+        logits = functional_call(
+            model, gather_params(params, dims, group), (tokens,),
+            {"num_microbatches": num_microbatches})
+        return next_token_loss(logits, tokens)
+
+    return WorkloadSpec(
+        name="transformer-pipelined",
+        init_fn=pipelined_init_fn(cfg),
+        loss_fn=loss_fn,
+        batch_fn=lambda rng, bs: synthetic_batch(rng, bs, seq_len,
+                                                 cfg.vocab_size),
+        rules=TRANSFORMER_RULES,
+        param_logical_axes=axes,
+    )
+
+
+def multislice_stage_fns(cfg: TransformerConfig) -> tuple:
+    """The MPMD engine's stage contract (parallel/multislice.py) for the
+    pipelined LM: ``(init_fn, embed_fn, block_fn, head_loss_fn)``.
+    ``init_fn`` is the whole :class:`PipelinedTransformerLM` init (the
+    same generator gives the single-program arm's weights); the stage
+    functions run the modules the GPipe path applies, on params keyed by
+    the names under ``embed.``, ``blocks.`` and ``head.``."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "MoE is not supported on the MPMD multislice path yet "
+            "(same limit as the single-program pipelined workload)")
+    with torch.device("meta"):
+        model = PipelinedTransformerLM(cfg)
+    init = pipelined_init_fn(cfg)
+
+    def init_fn(rng: torch.Generator) -> dict:
+        return init(rng)[0]
+
+    def embed_fn(embed_params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        return functional_call(model.embed, embed_params, (tokens,))
+
+    def head_loss_fn(head_params: dict, h: torch.Tensor,
+                     tokens: torch.Tensor) -> tuple:
+        return next_token_loss(
+            functional_call(model.head, head_params, (h,)), tokens)
+
+    return init_fn, embed_fn, model.block_fn, head_loss_fn

@@ -42,6 +42,11 @@ SERVING_REQUEST_SPAN = "serving-request"
 SPAN_CKPT_SAVE = "ckpt-save"
 SPAN_CKPT_RESTORE = "ckpt-restore"
 SPAN_ANOMALY = "anomaly"
+# the MPMD pipeline's schedule idle: the training ledger's badput
+# category, and the per-window span the worker sizes to the engine's
+# modeled bubble seconds, anchored at the window's tail
+BADPUT_PIPELINE_BUBBLE = "pipeline_bubble"
+SPAN_PIPELINE_BUBBLE = "pipeline-bubble"
 
 # stage spans a sampled request emits, in request order
 SERVING_STAGE_SPANS = ("accept", "queue", "batch-form", "h2d", "device",

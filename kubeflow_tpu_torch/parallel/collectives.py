@@ -15,6 +15,8 @@ process has nothing to exchange).
   ``host_staged[op]``; ``calls[op]`` counts every call. An NCCL group
   never stages.
 - A failed collective raises; nothing retries or falls back.
+- ``bytes_moved[op]`` counts the bytes each op's calls handed over
+  (the input's bytes; a receive's, the message's).
 - ``record_events(True)`` brackets each call on a CUDA tensor with CUDA
   events (staging included) until ``record_events(False)``;
   ``events_ms()`` sums their device time by op.
@@ -40,6 +42,19 @@ operators; each is the identity over a None group):
   block gets the sum of the ranks' gradients).
 
 Sums of a floating tensor narrower than f32 run in f32 and round once.
+
+Point to point (the pipeline's stage hops, ``parallel/pipeline.py``):
+``send`` starts a tagged send and returns at once (``wait_sends`` waits
+for every send started), ``recv`` blocks for a tagged message; a gloo
+group stages a CUDA tensor through host memory both ways, counted like
+the collectives. ``ppermute`` is the differentiable hop: this rank sends
+along the pairs it is the source of and returns what arrives along the
+pair it is the destination of; its backward is the inverse permutation
+(each tag's direction bit flipped), so the gradient of a received
+activation goes back to its sender and the sender's input receives its
+gradient. A 0-d ``order`` tensor threads through consecutive hops so
+that autograd runs their backwards in reverse order on every rank, and
+reaches every hop, one that only sends included.
 """
 
 from __future__ import annotations
@@ -49,17 +64,21 @@ from typing import Any, Callable
 import torch
 import torch.distributed as dist
 
-OPS = ("all_reduce", "reduce_scatter", "all_gather", "broadcast")
+OPS = ("all_reduce", "reduce_scatter", "all_gather", "broadcast", "send",
+       "recv")
 calls = dict.fromkeys(OPS, 0)
 host_staged = dict.fromkeys(OPS, 0)
+bytes_moved = dict.fromkeys(OPS, 0)
 _events: list = []          # (op, start event, end event)
 _recording = False
+_sends: list = []           # (work, the tensor it sends) until waited
 
 
 def reset_counts() -> None:
     for op in OPS:
         calls[op] = 0
         host_staged[op] = 0
+        bytes_moved[op] = 0
 
 
 def record_events(on: bool) -> None:
@@ -92,6 +111,7 @@ def _run(op: str, t: torch.Tensor, group: Any,
     """``fn`` on ``t`` (or its host copy), counted, timed when recording;
     returns fn's result on t's device."""
     calls[op] += 1
+    bytes_moved[op] += t.numel() * t.element_size()
     timed = _recording and t.is_cuda
     if timed:
         start = torch.cuda.Event(enable_timing=True)
@@ -161,6 +181,96 @@ def broadcast_(t: torch.Tensor, group: Any, src: int = 0) -> torch.Tensor:
     if out is not t:
         t.copy_(out)
     return t
+
+
+def send(t: torch.Tensor, dst: int, group: Any, tag: int) -> None:
+    """Start sending ``t`` to group rank ``dst`` under ``tag`` and return
+    at once; the send (and the tensor it holds) lives until
+    :func:`wait_sends`."""
+    x = t.detach().contiguous()
+    calls["send"] += 1
+    bytes_moved["send"] += x.numel() * x.element_size()
+    if host_staging(x, group):
+        host_staged["send"] += 1
+        x = x.cpu()
+    work = dist.isend(x, dist.get_global_rank(group, dst), group=group,
+                      tag=tag)
+    _sends.append((work, x))
+
+
+def recv(like: torch.Tensor, src: int, group: Any, tag: int
+         ) -> torch.Tensor:
+    """The message from group rank ``src`` under ``tag``: a new tensor of
+    ``like``'s shape, dtype and device (blocks until it arrives)."""
+    calls["recv"] += 1
+    bytes_moved["recv"] += like.numel() * like.element_size()
+    staged = host_staging(like, group)
+    buf = torch.empty(like.shape, dtype=like.dtype,
+                      device="cpu" if staged else like.device)
+    if staged:
+        host_staged["recv"] += 1
+    dist.recv(buf, dist.get_global_rank(group, src), group=group, tag=tag)
+    return buf.to(like.device) if staged else buf
+
+
+def wait_sends() -> None:
+    """Wait for every send started (each completes when its destination
+    has received it)."""
+    while _sends:
+        work, _ = _sends.pop(0)
+        work.wait()
+
+
+def _exchange(x, group: Any, pairs, like: torch.Tensor):
+    """Send ``x`` along each ``(src, dst, tag)`` whose src is this rank,
+    then receive along the one whose dst is this rank (a tensor like
+    ``like``; None when there is none)."""
+    me = dist.get_rank(group)
+    for src, dst, tag in pairs:
+        if src == me:
+            send(x, dst, group, tag)
+    got = None
+    for src, dst, tag in pairs:
+        if dst == me:
+            got = recv(like, src, group, tag)
+    return got
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, order, group, pairs, like):
+        ctx.group, ctx.pairs = group, pairs
+        ctx.x = None if x is None else (x.shape, x.dtype, x.device)
+        y = _exchange(x, group, pairs, like)
+        ctx.y = None if y is None else (y.shape, y.dtype, y.device)
+        return y, order.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, gy, gorder):
+        inverse = [(dst, src, tag ^ 1) for src, dst, tag in ctx.pairs]
+        if ctx.y is not None and gy is None:
+            shape, dtype, device = ctx.y
+            gy = torch.zeros(shape, dtype=dtype, device=device)
+        like = None
+        if ctx.x is not None:
+            shape, dtype, device = ctx.x
+            like = torch.empty(shape, dtype=dtype, device=device)
+        gx = _exchange(gy, ctx.group, inverse, like)
+        return gx, gorder, None, None, None
+
+
+def ppermute(x, order: torch.Tensor, group: Any, pairs, like: torch.Tensor
+             ) -> tuple:
+    """The differentiable point-to-point hop over ``group``: this rank
+    sends ``x`` along each ``(src, dst, tag)`` of ``pairs`` whose src it
+    is (tags even: bit 0 is the direction, set on the way back) and
+    returns ``(what arrives along the pair whose dst it is, a tensor like
+    like, or None; the next order tensor)``. The backward is the inverse
+    permutation: the received tensor's gradient goes back to its source
+    and ``x`` gets the gradient its destination sends. Pass the previous
+    hop's order tensor (the first from anything in the graph): autograd
+    then runs the hops' backwards in reverse order and reaches each."""
+    return _PPermute.apply(x, order, group, tuple(pairs), like)
 
 
 class _GlobalSum(torch.autograd.Function):

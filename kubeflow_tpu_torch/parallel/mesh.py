@@ -7,11 +7,13 @@ outermost, ``tensor`` innermost), the order the JAX package reshapes its
 device list in: rank r sits at ``Mesh.coords``, ``np.unravel_index(r,
 sizes)``.
 
-The data, fsdp, expert and tensor axes are ported. ``data`` and
-``fsdp`` are the replica axes (the batch splits over them); fsdp,
-expert and tensor shard the params by the workload's rules
-(``parallel/sharding_rules.py``). A sequence or pipeline axis greater
-than 1 raises (ROADMAP Queue 1 item 11).
+The data, fsdp, expert, tensor and pipeline axes are ported. ``data``
+and ``fsdp`` are the replica axes (the batch splits over them); fsdp,
+expert, tensor and pipeline shard the params by the workload's rules
+(``parallel/sharding_rules.py``; pipeline the stacked ``layers``
+dimension, whose stages exchange activations point to point,
+``parallel/pipeline.py``). A sequence axis greater than 1 raises
+(ROADMAP Queue 1 item 11).
 
 The mesh holds one process group for each axis tuple a step reduces
 over (:data:`GROUP_AXES`), made by every rank in the same order; a tuple
@@ -35,16 +37,17 @@ from ..api.trainingjob import ShardingSpec
 MESH_AXES = ShardingSpec.AXES  # ("data", "fsdp", "expert", "pipeline",
 #                                 "sequence", "tensor")
 REPLICA_AXES = ("data", "fsdp")
-MODEL_AXES = ("fsdp", "expert", "tensor")     # axes that shard params
+# axes that shard params
+MODEL_AXES = ("fsdp", "expert", "pipeline", "tensor")
 # axes whose sharding is not ported, and the ROADMAP item that ports it
-UNPORTED_AXES = {"pipeline": "Queue 1 item 11",
-                 "sequence": "Queue 1 item 11"}
+UNPORTED_AXES = {"sequence": "Queue 1 item 11"}
 # the axis tuples a step reduces over, in the order every rank makes
 # their groups: the replica axes (gradient sums, metrics), each axis
 # alone (fsdp gathers, the data sum of an fsdp-sharded leaf, tensor
-# products) and the MoE combine's partial sums
+# products), the MoE combine's partial sums and the pipeline's stage
+# hops and output replication
 GROUP_AXES = (("data", "fsdp"), ("data",), ("fsdp",), ("expert",),
-              ("tensor",), ("expert", "tensor"))
+              ("tensor",), ("expert", "tensor"), ("pipeline",))
 
 
 @dataclass(frozen=True)

@@ -50,6 +50,14 @@ the JAX package).
   of ranks that hold the same block, all-reduced over the world in one
   call. A mesh with a model axis above 1 and a workload without rules
   raises.
+- Pipeline parallelism (``pipeline`` above 1, the stacked LM): a rank's
+  stacked leaves are its stage's layers, cut by the same rules
+  (``("layers", "pipeline")``), and pipeline is no replica axis, so no
+  gradient is summed over it here: the stage's blocks are its own, the
+  embedding's gradient is summed over the stages inside the schedule
+  (parallel/pipeline.py), and the head runs alike on every stage.
+  :class:`MultisliceTrainStepBuilder` is the MPMD engine behind the same
+  surface (parallel/multislice.py).
 - Metrics: ``loss``, ``grad_norm`` (the pre-clip global norm of the
   reduced gradient) and the loss function's aux (``perplexity`` for the
   LM), as device tensors. Under a mesh the loss and aux leave as the
@@ -508,6 +516,67 @@ class TrainStepBuilder:
         """A global host batch → this rank's rows on the device: the
         contiguous block ``P(data_axes)`` puts on device ``rank``."""
         return self.place_local(self.local_rows(batch))
+
+
+@dataclass
+class MultisliceTrainStepBuilder:
+    """The MPMD pipeline over slices (parallel/multislice.py) behind the
+    surface the worker loop drives: ``init`` / ``build`` /
+    ``place_batch``. One program per slice: stage s's params, its
+    optimizer and its programs live on stage s's device; activations and
+    gradients cross between stages as explicit transfers under the 1F1B
+    microbatch schedule, and ``last_report`` carries the schedule's
+    bubble and transfer accounting. The pipelined transformer workload
+    only (models/transformer.py ``multislice_stage_fns``).
+    ``optimizer`` is a factory ``params -> optimizer``, built for each
+    stage; its clip takes the cross-stage global norm."""
+
+    cfg: Any                       # transformer.TransformerConfig
+    num_slices: int
+    num_microbatches: int
+    optimizer: Callable[[dict], Any]
+    device: Any = "cuda"
+
+    # one replica: the stages split the model, not the batch
+    n_rep = 1
+
+    def __post_init__(self):
+        from ..models.transformer import multislice_stage_fns
+        from ..parallel.multislice import MPMDPipeline, stage_devices
+        if self.num_slices < 2:
+            raise ValueError(
+                "the MPMD multislice path needs numSlices >= 2 (one "
+                "program per slice); single-slice jobs take the "
+                "TrainStepBuilder path")
+        _, embed_fn, block_fn, head_loss_fn = multislice_stage_fns(self.cfg)
+        self.engine = MPMDPipeline(
+            devices=stage_devices(self.num_slices, resolve_device(
+                self.device)),
+            embed_fn=embed_fn, block_fn=block_fn,
+            head_loss_fn=head_loss_fn, optimizer=self.optimizer,
+            num_microbatches=self.num_microbatches)
+
+    @property
+    def last_report(self):
+        return self.engine.last_report
+
+    def init(self, init_fn: Callable, rng):
+        """``init_fn(rng) -> (params, variables)``, the pipelined
+        workload's: its whole stacked state dict, which the engine
+        partitions over the stages (the single-program arm's weights
+        under the same generator)."""
+        return self.engine.init(lambda r: dict(init_fn(r)[0]), rng)
+
+    def build(self) -> Callable:
+        return self.engine.step
+
+    def place_batch(self, batch: dict) -> dict:
+        return self.engine.place_batch(batch)
+
+    def build_eval(self, eval_fn):
+        raise NotImplementedError(
+            "eval is not supported on the MPMD multislice path yet; "
+            "run eval on a single-program mesh")
 
 
 def kernel_counters() -> dict:

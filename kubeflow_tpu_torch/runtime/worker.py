@@ -80,12 +80,26 @@ with no card it raises.
   capture, falls back to the eager step, counted, with ``start_kind``
   read from the build cache's evidence ("warm" or "cold").
 
-Ported workloads: ``transformer`` and ``resnet18`` … ``resnet152``
-(``--fused-blocks`` trains a bottleneck ResNet through the ghost-BN
-kernels). ``transformer-pipelined``, and the flags of multi-slice, not
-ported yet, raise "not yet ported" when set — on the CLI, as a
-``train()`` argument or in the operator-rendered env — naming the
-ROADMAP item, rather than training without them.
+- Pipeline parallel (``transformer-pipelined``, the stacked LM): on a
+  mesh whose pipeline axis exceeds 1 each rank holds its stage's layers
+  and runs the GPipe schedule over ``--num-microbatches``
+  (parallel/pipeline.py); without one the layers run in order.
+- MPMD multi-slice (``--multislice-pipeline``,
+  ``KFTPU_MULTISLICE_PIPELINE``; the pipelined workload only): one
+  process drives ``KFTPU_NUM_SLICES`` stages, one program each, under
+  the 1F1B schedule with explicit counted transfers
+  (parallel/multislice.py); M is ``--multislice-microbatches``, else
+  ``KFTPU_MULTISLICE_MICROBATCHES``, else ``4·max(2, slices)``. Each
+  window emits a ``pipeline-bubble`` span of the schedule model's idle
+  seconds (capped at the window, anchored at its tail) and the first
+  step a ``multislice-profile`` event with the schedule report. Eval, a
+  sharded weight update and one slice are refused in the JAX package's
+  words; the AOT record and checkpoints are not ported on this path
+  and raise.
+
+Ported workloads: ``transformer``, ``transformer-pipelined`` and
+``resnet18`` … ``resnet152`` (``--fused-blocks`` trains a bottleneck
+ResNet through the ghost-BN kernels).
 """
 
 from __future__ import annotations
@@ -108,6 +122,7 @@ from ..api.trainingjob import (ATTENTION_KERNELS, OPTIMIZER_KERNELS,
                                validate_weight_update)
 from ..data.imagenet import ImageNetSource, device_normalize, read_meta
 from ..models import RESNET_DEPTHS
+from ..obs.goodput import SPAN_PIPELINE_BUBBLE
 from ..obs.registry import default_registry
 from ..parallel.mesh import local_batch_size
 from . import aot as aot_mod
@@ -150,17 +165,18 @@ def _transformer_spec(**kw) -> WorkloadSpec:
     return T.workload_spec(**kw)
 
 
-def _not_ported(name: str, item: str, **kw) -> WorkloadSpec:
-    raise NotImplementedError(
-        f"workload {name!r} is not yet ported (ROADMAP Queue 1 {item})")
+def _transformer_pipelined_spec(**kw) -> WorkloadSpec:
+    from ..models import transformer as T
+    return T.pipelined_workload_spec(**kw)
 
 
 WORKLOADS: dict[str, Callable[..., WorkloadSpec]] = {
     # the tf_cnn_benchmarks --model family
     **{f"resnet{d}": partial(_resnet_spec, depth=d) for d in RESNET_DEPTHS},
     "transformer": _transformer_spec,
-    "transformer-pipelined": partial(_not_ported, "transformer-pipelined",
-                                     "item 11"),
+    # the stacked LM, through the GPipe schedule on a pipeline axis (the
+    # factory takes mesh= and num_microbatches=)
+    "transformer-pipelined": _transformer_pipelined_spec,
 }
 
 # workloads whose spec factory takes a TransformerConfig (cfg=) — the
@@ -168,24 +184,6 @@ WORKLOADS: dict[str, Callable[..., WorkloadSpec]] = {
 _TRANSFORMER_WORKLOADS = {"transformer", "transformer-pipelined"}
 # workloads that take image_size / num_classes / label_smoothing
 _IMAGE_WORKLOADS = {f"resnet{d}" for d in RESNET_DEPTHS}
-
-# train() arguments of features not ported yet: (its env var, ROADMAP item)
-_UNPORTED = {
-    "multislice_pipeline": ("KFTPU_MULTISLICE_PIPELINE", "Queue 1 item 11"),
-    "multislice_microbatches": ("KFTPU_MULTISLICE_MICROBATCHES",
-                                "Queue 1 item 11"),
-}
-
-
-def _refuse_unported(args: dict) -> None:
-    """Raise for the first feature that is set (to anything but off) as an
-    argument or in the env."""
-    for arg, (env, item) in _UNPORTED.items():
-        value = args[arg]
-        env_value = os.environ.get(env, "")
-        if value not in (None, False, 0, "") or env_value not in ("", "0"):
-            raise NotImplementedError(
-                f"{arg} ({env}) is not yet ported (ROADMAP {item})")
 
 
 def _process_metrics_path(path: str, process_id: int) -> str:
@@ -382,7 +380,6 @@ def train(
     device: str = "cuda",
 ) -> TrainResult:
     t_train_start = time.perf_counter()
-    _refuse_unported(locals())
     # warm restarts load their kernels from the build cache
     # (KFTPU_COMPILE_CACHE_DIR) instead of running nvcc
     compile_cache.enable_compilation_cache()
@@ -409,7 +406,7 @@ def train(
         # the global batch splits over the data-parallel ranks (raises when
         # it does not divide)
         local_batch_size(global_batch, ctx.mesh)
-        if workload in _IMAGE_WORKLOADS or workload == "transformer":
+        if workload in _IMAGE_WORKLOADS or workload in _TRANSFORMER_WORKLOADS:
             workload_kwargs.setdefault("mesh", ctx.mesh)
 
         # real-data path: shard dirs are self-describing, so the dataset's
@@ -503,16 +500,55 @@ def train(
                  {a: n for a, n in ctx.mesh.shape.items() if n > 1},
                  spec.name)
 
-        builder = TrainStepBuilder(
-            loss_fn=spec.loss_fn, device=ctx.device,
-            weight_update=weight_update, mesh=ctx.mesh, rules=spec.rules,
-            param_logical_axes=spec.param_logical_axes,
-            optimizer=lambda params: recipe.make_optimizer(
-                params, optimizer, base_lr, schedule=lr_schedule,
-                total_steps=steps, warmup_steps=warmup_steps,
-                weight_decay=weight_decay, momentum=momentum,
-                kernels=kernel_optimizer,
-                runtime_schedule=runtime_schedule)[0])
+        # the MPMD pipeline over slices: one program per slice with
+        # explicit activation and gradient transfers
+        n_slices = ctx.contract.num_slices if ctx.contract else \
+            _env_int("KFTPU_NUM_SLICES", 1)
+        if multislice_pipeline is None:
+            multislice_pipeline = bool(
+                _env_int("KFTPU_MULTISLICE_PIPELINE", 0))
+        make_opt = partial(
+            recipe.make_optimizer, name=optimizer, learning_rate=base_lr,
+            schedule=lr_schedule, total_steps=steps,
+            warmup_steps=warmup_steps, weight_decay=weight_decay,
+            momentum=momentum, kernels=kernel_optimizer,
+            runtime_schedule=runtime_schedule)
+        if multislice_pipeline:
+            if workload != "transformer-pipelined":
+                raise ValueError(
+                    f"multislice.pipeline supports the transformer-"
+                    f"pipelined workload (stacked stages), not {workload!r}")
+            if eval_every:
+                raise ValueError(
+                    "eval is not supported on the MPMD multislice path yet")
+            if weight_update != "replicated":
+                # the stages update their own params: a requested ZeRO-2
+                # layout would quietly not happen
+                raise ValueError(
+                    f"weightUpdate={weight_update!r} is not supported on "
+                    f"the MPMD multislice path (per-stage updates are "
+                    f"replicated within each slice)")
+            from .trainstep import MultisliceTrainStepBuilder
+            from ..models.transformer import TransformerConfig
+            # not the single-program --num-microbatches: 4 x slices
+            if multislice_microbatches is None:
+                multislice_microbatches = _env_int(
+                    "KFTPU_MULTISLICE_MICROBATCHES", 0) or \
+                    4 * max(2, n_slices)
+            # each stage's optimizer clips by the cross-stage norm the
+            # engine hands it
+            builder = MultisliceTrainStepBuilder(
+                cfg=workload_kwargs.get("cfg") or TransformerConfig.tiny(),
+                num_slices=n_slices,
+                num_microbatches=int(multislice_microbatches),
+                optimizer=lambda params: make_opt(params)[0],
+                device=ctx.device)
+        else:
+            builder = TrainStepBuilder(
+                loss_fn=spec.loss_fn, device=ctx.device,
+                weight_update=weight_update, mesh=ctx.mesh, rules=spec.rules,
+                param_logical_axes=spec.param_logical_axes,
+                optimizer=lambda params: make_opt(params)[0])
         state = builder.init(spec.init_fn, torch.Generator().manual_seed(seed))
 
         # the numeric sentinel: CLI flag, then the operator-rendered env,
@@ -548,6 +584,10 @@ def train(
         checkpoint_dir = checkpoint_dir or \
             os.environ.get("KFTPU_CHECKPOINT_DIR")
         resume_from = resume_from or os.environ.get("KFTPU_RESUME_FROM")
+        if multislice_pipeline and (checkpoint_dir or resume_from):
+            raise NotImplementedError(
+                "checkpoints of the MPMD multislice path (per-stage state) "
+                "are not yet ported (ROADMAP Queue 1 item 11)")
         degree = builder.n_rep
         run_meta = {"replicaDegree": degree, "globalBatch": global_batch}
         gang = dict(process_index=ctx.process_id,
@@ -714,6 +754,10 @@ def train(
         aot_used = False
         if aot is None:
             aot = bool(_env_int(aot_mod.AOT_ENABLE_ENV, 0))
+        if aot and multislice_pipeline:
+            raise NotImplementedError(
+                "the AOT record of the MPMD multislice path (one per stage "
+                "program) is not yet ported (ROADMAP Queue 1 item 10)")
         if aot:
             aot_dir = aot_dir or os.environ.get(aot_mod.AOT_DIR_ENV) or (
                 aot_mod.default_aot_dir(checkpoint_dir) if checkpoint_dir
@@ -829,6 +873,7 @@ def train(
         with profile_trace(profile_dir, enabled=profile_dir is not None,
                            tracer=tracer):
             window = 0
+            win_bubble = 0.0        # the window's MPMD schedule idle
             win_t0 = time.perf_counter()
             step = start_step
             for step in range(start_step, steps):
@@ -880,6 +925,13 @@ def train(
                         "start kind (cold/warm/aot)",
                         labels=("start",)).labels(
                             start=start_kind).observe(first_step_s)
+                    if multislice_pipeline and tracer is not None and \
+                            ctx.process_id == 0:
+                        # the schedule model of the first step: makespan,
+                        # per-stage busy, bubble and explicit transfers
+                        tracer.emit("multislice-profile", start=time.time(),
+                                    trace_id=trace_id, step=step + 1,
+                                    report=builder.last_report.to_dict())
                     if tracer is not None:
                         tracer.emit(
                             "first-step", start=time.time(),
@@ -898,6 +950,9 @@ def train(
                     # the chaos numeric fault: corrupt the state after the
                     # step, so the damage shows in the next window
                     state = fault_hook.poison(state, step + 1)
+                if multislice_pipeline:
+                    win_bubble += float(metrics.get("pipeline_bubble_s",
+                                                    0.0))
                 window += 1
                 # read once: SIGTERM between the save's force and the
                 # break must not exit without the forced checkpoint
@@ -923,6 +978,14 @@ def train(
                                     start=now_w - walls[step + 1],
                                     end=now_w, trace_id=trace_id,
                                     step=step + 1, steps=window)
+                        if win_bubble > 0:
+                            # the window's schedule idle, a modeled
+                            # attribution anchored at its tail
+                            b = min(win_bubble, walls[step + 1])
+                            tracer.emit(SPAN_PIPELINE_BUBBLE,
+                                        start=now_w - b, end=now_w,
+                                        trace_id=trace_id, step=step + 1)
+                    win_bubble = 0.0
                     for s, w, vals in drained:
                         last_metrics = vals
                         mlog.record_window(s, w, walls.pop(s), vals)

@@ -5,8 +5,8 @@
   ``KFTPU_PROCESS_ID``, ``KFTPU_SHARDING``) come up as one gloo group with
   the rank, world, device and sharding the contract names, and
   ``shutdown`` destroys the group.
-- An fsdp, tensor, sequence, expert or pipeline axis greater than 1 raises,
-  citing its ROADMAP item, and leaves no group behind.
+- A sequence axis greater than 1 raises, citing its ROADMAP item, and
+  leaves no group behind; fsdp, tensor, expert and pipeline build.
 - ``strict`` with a device-count mismatch raises; without it the
   sharding is refit. A CUDA contract with no card raises before joining.
 - The port's copies of ``TopologyContract``'s env, ``ShardingSpec`` and
@@ -121,8 +121,8 @@ def test_contract_env_gives_rank_world_device_and_sharding():
 def _unported_axes(rank, env, port2):
     """The refused bring-up (a sequence axis), then a second group on
     another port (a rank done with the first store must not find the
-    other's still open): the model axes build, the unported ones
-    raise."""
+    other's still open): the model axes and pipeline build, sequence
+    raises."""
     msgs, built = [], {}
     try:
         bootstrap.initialize(dict(env, KFTPU_SHARDING=json.dumps(
@@ -144,17 +144,19 @@ def _unported_axes(rank, env, port2):
 
 
 def test_an_unported_axis_greater_than_one_raises():
-    """Sequence and pipeline raise on every rank, citing ROADMAP item 11;
-    fsdp, tensor and expert build at world 2, the rank's coordinate on
-    the axis its rank, the batch split over fsdp only."""
+    """Sequence raises on every rank, citing ROADMAP item 11; fsdp,
+    tensor, expert and pipeline build at world 2, the rank's coordinate
+    on the axis its rank, the batch split over fsdp only (a pipeline
+    stage reads the whole batch)."""
     for r, (msgs, left, built) in enumerate(
             spawn_contract(_unported_axes, 2, _free_port())):
         assert not left            # the refused bring-up left no group
-        assert len(msgs) == 3, msgs
+        assert len(msgs) == 2, msgs
         assert all("item 11" in m for m in msgs), msgs
         assert built == {"fsdp": (r, 2, slice(4 * r, 4 * r + 4)),
                          "tensor": (r, 1, slice(0, 8)),
-                         "expert": (r, 1, slice(0, 8))}
+                         "expert": (r, 1, slice(0, 8)),
+                         "pipeline": (r, 1, slice(0, 8))}
         for msg in msgs:
             assert "not yet ported" in msg and "item 11" in msg, msg
 

@@ -4,7 +4,8 @@ step through K1, K2 and K3 (one K3 launch a step), one fused ResNet-50
 step through K4 and K5,
 and one fused ResNet-50 inference forward through K6; and two gloo ranks
 sharing the card (sharded update) against one process, for one step of a
-small LM and of one fused block.
+small LM and of one fused block; the pipelined LM's microbatch shapes,
+two {pipeline 2} ranks sharing the card, and the MPMD stages' launches.
 
 Every test here carries the ``gpu`` marker and skips where no card is
 present (decided in the ``cuda_device`` fixture, never at import). The
@@ -1642,3 +1643,127 @@ def test_moe_remat_step_is_captured(cuda_device):
     assert step.graph is not None and step.replays == 6
     assert lc == le
     _same_state(captured, eager)
+
+
+# -- pipeline parallelism: the microbatch shapes, GPipe ranks, MPMD stages -----
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 2])
+def test_kernels_at_the_microbatch_shapes(cuda_device, rows):
+    """K1, K2a and K2b at a microbatch of the pipelined LM (batch 8 over
+    M 8 or 4: [1 or 2, 2048, 12, 64] bf16 causal, the fused-qkv slices)
+    against their plain versions, one launch each."""
+    g = torch.Generator(device="cpu").manual_seed(21)
+    qkv = torch.randn(rows, 2048, 3, 12, 64, generator=g).to(
+        cuda_device, torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    counts = (tfa.flash_attention, tfa.flash_attention_bwd_dq,
+              tfa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counts]
+    o, lse = tfa.flash_attention(q, k, v, causal=True, with_lse=True)
+    do = torch.randn(rows, 2048, 12, 64, generator=g).to(cuda_device,
+                                                         torch.bfloat16)
+    delta = tfa.attention_delta(o, do)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    dkv = tfa.flash_attention_bwd_dkv(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == [1, 1, 1]
+    _check_fwd(q, k, v, o, lse, True)
+    assert _close(dq, tfa.flash_attention_bwd_dq_plain(q, k, v, do, lse,
+                                                       delta),
+                  torch.bfloat16)
+    _check_dkv(q, k, v, do, True, dkv, lse, delta)
+
+
+PP_CFG = dict(vocab_size=256, num_layers=4, embed_dim=64, num_heads=4,
+              head_dim=16, mlp_dim=128, max_seq_len=96, attention="flash")
+
+
+def _pp_rank_step(rank, world):
+    """One {pipeline world} step of the 4-layer pipelined LM (M 2, flash,
+    fused Adam) on the card: the metrics, this rank's launches and its
+    point-to-point calls, each staged through host memory by gloo."""
+    from kubeflow_tpu_torch.api.trainingjob import ShardingSpec
+    from kubeflow_tpu_torch.models import transformer as T
+    from kubeflow_tpu_torch.parallel import collectives
+    from kubeflow_tpu_torch.parallel.mesh import build_mesh
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = build_mesh(ShardingSpec(pipeline=world)) if world > 1 else None
+    spec = T.pipelined_workload_spec(T.TransformerConfig(**PP_CFG),
+                                     mesh=mesh, num_microbatches=2)
+    builder = TrainStepBuilder(
+        loss_fn=spec.loss_fn, device=torch.device("cuda", 0), mesh=mesh,
+        rules=spec.rules, param_logical_axes=spec.param_logical_axes,
+        optimizer=lambda p: make_optimizer(p, "adam", 1e-3,
+                                           kernels="fused_adam")[0])
+    state = builder.init(spec.init_fn, torch.Generator().manual_seed(0))
+    batch = builder.place_batch(
+        spec.batch_fn(torch.Generator().manual_seed(1), 4))
+    counts = (tfa.flash_attention, tfa.flash_attention_bwd_dq,
+              tfa.flash_attention_bwd_dkv, tfo.fused_adam)
+    before = [c.launches for c in counts]
+    collectives.reset_counts()
+    state, m = builder.build()(state, batch)
+    torch.cuda.synchronize()
+    return {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+            "launches": [c.launches - b for c, b in zip(counts, before)],
+            "p2p": [(collectives.calls[op], collectives.host_staged[op])
+                    for op in ("send", "recv")]}
+
+
+@pytest.mark.gpu
+def test_gpipe_ranks_on_the_card_match_one_process(cuda_device):
+    """Two gloo ranks on the card, {pipeline 2}, M 2, against one process:
+    each rank launches K1, K2a and K2b M·L/S = 4 times and K3 once; loss
+    within 1e-3 and grad norm within 1e-2, relative (chip_smoke.py phase
+    8's bars); each rank's 2 sends and 2 receives staged through host
+    memory."""
+    from test_torch_dp import spawn
+    one = _pp_rank_step(0, 1)
+    assert one["launches"] == [4, 4, 4, 1] and one["p2p"] == [(0, 0)] * 2
+    for out in spawn(_pp_rank_step, 2):
+        assert out["launches"] == [4, 4, 4, 1]
+        assert out["p2p"] == [(2, 2), (2, 2)]
+        np.testing.assert_allclose(out["loss"], one["loss"], rtol=1e-3)
+        np.testing.assert_allclose(out["grad_norm"], one["grad_norm"],
+                                   rtol=1e-2)
+
+
+@pytest.mark.gpu
+def test_mpmd_step_launches_on_the_card(cuda_device):
+    """The MPMD stages on the one card (M 4, 4 layers, 2 a stage): a step
+    launches K1 3·M·L/S = 24 times (stage 0's forward and its recompute,
+    stage 1's fused step), K2a and K2b M·L = 16, K3 once a stage; no
+    collective; 12 transfers, the tokens as int32; the loss within 1e-3
+    of the one-process pipelined step's."""
+    from kubeflow_tpu_torch.models import transformer as T
+    from kubeflow_tpu_torch.parallel import collectives
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    from kubeflow_tpu_torch.runtime.trainstep import \
+        MultisliceTrainStepBuilder
+    cfg = T.TransformerConfig(**PP_CFG)
+    spec = T.pipelined_workload_spec(cfg)
+    builder = MultisliceTrainStepBuilder(
+        cfg=cfg, num_slices=2, num_microbatches=4, device=cuda_device,
+        optimizer=lambda p: make_optimizer(
+            p, "adam", 1e-3, kernels="fused_adam")[0])
+    state = builder.init(spec.init_fn, torch.Generator().manual_seed(0))
+    assert all(p.is_cuda for s in state.params for p in s.values())
+    batch = builder.place_batch(
+        spec.batch_fn(torch.Generator().manual_seed(1), 4))
+    counts = (tfa.flash_attention, tfa.flash_attention_bwd_dq,
+              tfa.flash_attention_bwd_dkv, tfo.fused_adam)
+    before = [c.launches for c in counts]
+    collectives.reset_counts()
+    state, m = builder.build()(state, batch)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counts, before)] == \
+        [24, 16, 16, 2]
+    assert not any(collectives.calls.values())
+    rep = builder.last_report
+    act = 1 * 96 * 64 * 2                 # a bf16 row of the boundary
+    assert (rep.dcn_transfers, rep.dcn_bytes) == (12, 4 * (2 * act + 96 * 4))
+    one = _pp_rank_step(0, 1)
+    np.testing.assert_allclose(m["loss"], one["loss"], rtol=1e-3)

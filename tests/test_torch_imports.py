@@ -52,7 +52,8 @@ def test_every_module_imports_without_jax():
                  "katib.vizier", "runtime.compile_cache",
                  "serving.grpc_server", "serving.tpu_serving_pb2",
                  "serving.router", "serving.fleet", "scheduler.health",
-                 "runtime.aot", "models.moe"):
+                 "runtime.aot", "models.moe", "parallel.pipeline",
+                 "parallel.multislice", "obs.goodput"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",
@@ -144,6 +145,19 @@ def test_load_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     s = TS.ModelRepository().load("lm", "transformer_lm", device="cpu",
                                   **TINY)
     assert s.device == torch.device("cpu")
+
+
+def test_pipelined_workload_raises_without_a_card(monkeypatch):
+    """``--workload transformer-pipelined`` (GPipe, or the MPMD stages
+    with ``--multislice-pipeline``) on a card-less machine raises instead
+    of training on the CPU."""
+    from kubeflow_tpu_torch.runtime import worker
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("KFTPU_NUM_SLICES", "2")
+    for extra in ([], ["--multislice-pipeline"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            worker.main(["--workload", "transformer-pipelined", "--steps",
+                         "1", "--global-batch", "8", *extra])
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

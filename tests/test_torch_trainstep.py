@@ -141,22 +141,21 @@ def test_bf16_steps_match_jax():
 
 def test_builder_refuses_unported_layouts():
     """The sharded update is ported (tests/test_torch_dp.py): on one
-    replica it is the replicated strategy. The sequence and pipeline axes
-    raise, citing ROADMAP item 11. The fsdp, tensor and expert axes build
-    with the workload's rules (tests/test_torch_model_parallel.py) and
-    raise without them (ResNet carries none); an unknown layout is a
-    ValueError."""
+    replica it is the replicated strategy. The sequence axis raises,
+    citing ROADMAP item 11. The fsdp, tensor, expert and pipeline axes
+    build with the workload's rules (tests/test_torch_model_parallel.py,
+    tests/test_torch_pipeline_train.py) and raise without them (ResNet
+    carries none); an unknown layout is a ValueError."""
     from kubeflow_tpu_torch.models import transformer as T
     kw = dict(loss_fn=None, optimizer=None, device="cpu")
     assert TrainStepBuilder(weight_update="sharded",
                             **kw).strategy == "replicated"
-    for axis in ("sequence", "pipeline"):
-        shape = {**dict.fromkeys(MESH_AXES, 1), axis: 2}
-        with pytest.raises(NotImplementedError,
-                           match="not yet ported.*item 11"):
-            TrainStepBuilder(mesh=Mesh(shape=shape), **kw)
+    shape = {**dict.fromkeys(MESH_AXES, 1), "sequence": 2}
+    with pytest.raises(NotImplementedError,
+                       match="not yet ported.*item 11"):
+        TrainStepBuilder(mesh=Mesh(shape=shape), **kw)
     spec = T.workload_spec(T.TransformerConfig.tiny())
-    for axis in ("fsdp", "tensor", "expert"):
+    for axis in ("fsdp", "tensor", "expert", "pipeline"):
         shape = {**dict.fromkeys(MESH_AXES, 1), axis: 2}
         b = TrainStepBuilder(mesh=Mesh(shape=shape), rules=spec.rules,
                              param_logical_axes=spec.param_logical_axes,

@@ -73,7 +73,8 @@ def _clean_env(monkeypatch):
                  "KFTPU_CHECKPOINT_DIR", "KFTPU_RESUME_FROM",
                  "KFTPU_INTEGRITY", "KFTPU_RESUME_STEP",
                  "KFTPU_CHAOS_NUMERIC", "KFTPU_STUDY", "KFTPU_POD_NAME",
-                 *(env for env, _ in worker._UNPORTED.values())):
+                 "KFTPU_MULTISLICE_PIPELINE", "KFTPU_MULTISLICE_MICROBATCHES",
+                 "KFTPU_NUM_SLICES"):
         monkeypatch.delenv(name, raising=False)
 
 
@@ -169,8 +170,10 @@ def test_kernel_attention_on_other_workloads_raises():
     with pytest.raises(ValueError, match="transformer workloads"):
         worker.train(workload="resnet50", kernel_attention="flash",
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        worker.train(workload="transformer-pipelined", device="cpu")
+    # the pipelined LM takes the tier: K1's plain version on the CPU
+    r = worker.train(**{**KW, "workload": "transformer-pipelined",
+                        "steps": 1}, kernel_attention="flash")
+    assert np.isfinite(r.final_metrics["loss"])
 
 
 def test_main_runs_on_cpu(tmp_path):
@@ -197,9 +200,16 @@ def test_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
     ({"multislice_pipeline": True}, None),
 ])
 def test_unported_features_raise(monkeypatch, kwargs, env):
+    """The multi-slice knobs are ported (tests/test_torch_multislice.py):
+    the microbatch count alone changes nothing on the single-program
+    path, and the MPMD path refuses the per-layer workload in the JAX
+    package's words."""
     if env is not None:
         monkeypatch.setenv(*env)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+        assert worker.train(steps=1, **KW).steps == 1
+        return
+    monkeypatch.setenv("KFTPU_NUM_SLICES", "2")
+    with pytest.raises(ValueError, match="transformer-pipelined"):
         worker.train(steps=1, **KW, **kwargs)
 
 
