@@ -4504,6 +4504,8 @@ def phase_mp(T, worker, trainstep, card) -> dict:
 # -- phase 13: pipeline parallelism ----------------------------------------
 
 PP_STEPS, PP_RANK_STEPS, PP_MPMD_STEPS = 6, 3, 4
+# 13c saves every 2 steps; a fresh engine resumes from step 2
+PP_MPMD_SAVE_AT = 2
 PP_TIMEOUT_S = 600
 # 13c's transfers a step (M 8, batch 8, S 2048, embed 768, a bf16
 # boundary): per microbatch the activation and its cotangent, 2 x
@@ -4539,10 +4541,11 @@ def _pp_train(worker, cfg, path: str, **kw) -> dict:
             "grad_norm": [w["grad_norm"] for w in windows],
             "bubble": [w.get("bubble_fraction") for w in windows],
             "step_ms": result.mean_step_time_s * 1e3,
+            "first_step_s": result.time_to_first_step_s,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def _pp_bars(name: str, rec: dict, one: dict) -> dict:
+def _pp_bars(name: str, rec: dict, one: dict, what: str = "pp") -> dict:
     """Each step's loss and grad norm against the one-process run under
     phase 8's bars; the largest share of each bar used."""
     worst = {}
@@ -4550,10 +4553,10 @@ def _pp_bars(name: str, rec: dict, one: dict) -> dict:
         got = np.array(rec[key])
         exp = np.array(one[key][:len(got)])
         if got.shape != exp.shape or not np.isfinite(got).all():
-            fail(f"pp {name}: {key} {got} vs {exp}")
+            fail(f"{what} {name}: {key} {got} vs {exp}")
         worst[key] = float(np.max(np.abs(got - exp) / np.abs(exp)) / tol)
         if worst[key] > 1.0:
-            fail(f"pp {name}: {key} {got.tolist()} vs one process "
+            fail(f"{what} {name}: {key} {got.tolist()} vs one process "
                  f"{exp.tolist()} (bar {tol} relative)")
     return worst
 
@@ -4771,12 +4774,15 @@ def phase_pipeline(counters, T, worker, trainstep, collectives,
     try:
         with tempfile.TemporaryDirectory() as tmp:
             spans = os.path.join(tmp, "spans.jsonl")
+            full_dir = os.path.join(tmp, "full")
             mpmd, launches = _counted(counters, lambda: _pp_train(
                 worker, cfg, os.path.join(tmp, "mpmd.jsonl"), device=DEVICE,
                 steps=PP_MPMD_STEPS, multislice_pipeline=True,
-                span_path=spans))
+                span_path=spans, checkpoint_dir=full_dir,
+                checkpoint_every=PP_MPMD_SAVE_AT))
             with open(spans) as f:
                 names = [json.loads(line) for line in f]
+            resume = _mpmd_resume(counters, worker, cfg, tmp, full_dir)
     finally:
         if old is None:
             os.environ.pop("KFTPU_NUM_SLICES")
@@ -4805,6 +4811,27 @@ def phase_pipeline(counters, T, worker, trainstep, collectives,
              f"{PP_DCN_TRANSFERS} of {PP_DCN_BYTES}")
     if any(calls.values()):
         fail(f"pp 13c: collectives called in the stage programs: {calls}")
+    more = PP_MPMD_STEPS - PP_MPMD_SAVE_AT
+    want = {k: v * more for k, v in per_mpmd.items()}
+    if resume["launches"] != want:
+        fail(f"pp 13c resume: launches {resume['launches']}, expected "
+             f"{want}")
+    if resume["loss"] != mpmd["loss"][PP_MPMD_SAVE_AT:] or \
+            resume["max_delta"] != 0.0:
+        fail(f"pp 13c resume: losses {resume['loss']} against the "
+             f"uninterrupted {mpmd['loss'][PP_MPMD_SAVE_AT:]}, max|d| "
+             f"{resume['max_delta']} over {resume['leaves']} leaves (0 "
+             f"expected)")
+    log(f"[pp] 13c resume | {card} | the MPMD state saved at step "
+        f"{PP_MPMD_SAVE_AT} ({resume['bytes']} payload bytes: both stages' "
+        f"params and K3's moments), a fresh engine restored from it and "
+        f"run {more} more steps in {resume['wall_s']:.2f}s (train() entry "
+        f"to the first step's end, the restore included: "
+        f"{resume['first_step_s']:.2f}s): launches {resume['launches']}; losses "
+        f"{resume['loss']} (uninterrupted "
+        f"{mpmd['loss'][PP_MPMD_SAVE_AT:]}); step {PP_MPMD_STEPS}'s tree "
+        f"against the uninterrupted run's: max|d| {resume['max_delta']} "
+        f"over {resume['leaves']} leaves (bar 0)")
     log(f"[pp] 13c | {card} | MPMD, {PP_STAGES} stages on "
         f"{[str(d) for d in devices]} (one card: the stages share it and "
         f"run one after another), M {PP_MPMD_MICRO}, {PP_MPMD_STEPS} "
@@ -4821,8 +4848,53 @@ def phase_pipeline(counters, T, worker, trainstep, collectives,
             "first": first, "gpipe": gpipe,
             "mpmd": {**{k: mpmd[k] for k in ("loss", "step_ms", "peak_gib",
                                              "bubble")},
-                     "launches": launches, "report": report},
+                     "launches": launches, "report": report,
+                     "resume": resume},
             "wall_13b_s": wall}
+
+
+def _mpmd_resume(counters, worker, cfg, tmp: str, full_dir: str) -> dict:
+    """13c's resume: step PP_MPMD_SAVE_AT of the uninterrupted run copied
+    into a fresh directory, a fresh engine resumed from it through
+    train() for the remaining steps; its launches, losses, wall and
+    first-step seconds (the restore included), and the largest |d| between the two runs' final trees (every
+    stage's params and optimizer state)."""
+    ckpt_mod = importlib.import_module(
+        "kubeflow_tpu_torch.runtime.checkpoint")
+    cut_dir = os.path.join(tmp, "cut")
+    shutil.copytree(os.path.join(full_dir, str(PP_MPMD_SAVE_AT)),
+                    os.path.join(cut_dir, str(PP_MPMD_SAVE_AT)))
+    saved = ckpt_mod.CheckpointManager(full_dir)
+    nbytes = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in
+                 os.walk(os.path.join(full_dir, str(PP_MPMD_SAVE_AT)))
+                 for f in fs)
+    t0 = time.perf_counter()
+    rec, launches = _counted(counters, lambda: _pp_train(
+        worker, cfg, os.path.join(tmp, "resumed.jsonl"), device=DEVICE,
+        steps=PP_MPMD_STEPS, multislice_pipeline=True,
+        checkpoint_dir=cut_dir, checkpoint_every=PP_MPMD_SAVE_AT))
+    wall = time.perf_counter() - t0
+    a = _flat_tensors(saved.read_tree(PP_MPMD_STEPS))
+    b = _flat_tensors(ckpt_mod.CheckpointManager(cut_dir).read_tree(
+        PP_MPMD_STEPS))
+    if set(a) != set(b):
+        fail(f"pp 13c resume: the trees differ in their leaves: "
+             f"{sorted(set(a) ^ set(b))[:8]}")
+    delta = max(float((a[k].float() - b[k].float()).abs().max())
+                for k in a)
+    return {"launches": launches, "loss": rec["loss"], "max_delta": delta,
+            "leaves": len(a), "bytes": nbytes, "wall_s": wall,
+            "first_step_s": rec["first_step_s"]}
+
+
+def _flat_tensors(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tensors(v, f"{prefix}{k}/"))
+        elif isinstance(v, torch.Tensor):
+            out[f"{prefix}{k}"] = v
+    return out
 
 
 def _pp_launches(pp: dict, kernel: str) -> dict:
@@ -4832,6 +4904,256 @@ def _pp_launches(pp: dict, kernel: str) -> dict:
         "one_process": pp["one"]["launches"].get(kernel, 0),
         "gpipe_ranks": [r["launches"].get(kernel, 0) for r in pp["gpipe"]],
         "mpmd": pp["mpmd"]["launches"].get(kernel, 0)}}
+
+
+# -- phase 14: the sequence axis ---------------------------------------------
+
+SEQ_RANKS, SEQ_STEPS = 2, 3
+SEQ_TIMEOUT_S = 600
+SEQ_ARMS = ("flash", "ring")
+# a rank's chunk: S / n positions
+SEQ_CHUNK = SERVE_SEQ // SEQ_RANKS
+# the ring's hops a rank a step: n - 1 a layer forward and as many
+# backward, each one send and one receive of the stacked bf16 K/V chunk
+# [2, 8, 1024, 12, 64] (its cotangent on the way back)
+SEQ_HOPS = 2 * SERVE_LAYERS * (SEQ_RANKS - 1)
+SEQ_HOP_BYTES = 2 * TRAIN_BATCH * SEQ_CHUNK * SERVE_HEADS * \
+    SERVE_HEAD_DIM * 2
+# the gathered attention (einsum, flash) a rank a step: Q, K and V
+# forward and dO backward, a layer
+SEQ_GATHERS = 4 * SERVE_LAYERS
+
+
+def _seq_train(worker, cfg, attention: str, path: str, **kw) -> dict:
+    """One LM run through train() at phase 5's recipe (fused_adam, lr
+    6e-4, the clip at 1.0, batch 8, sync_every 1) with ``attention``:
+    per-step losses and grad norms, the step time, the peak memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    result = _train(worker, cfg, path, kernel_attention=attention,
+                    kernel_optimizer="fused_adam", global_batch=TRAIN_BATCH,
+                    sync_every=1, **kw)
+    torch.cuda.synchronize()
+    ctx = kw.get("ctx")
+    windows = _windows(worker._process_metrics_path(
+        path, ctx.process_id if ctx else 0))
+    return {"loss": [w["loss"] for w in windows],
+            "grad_norm": [w["grad_norm"] for w in windows],
+            "step_ms": result.mean_step_time_s * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _seq_qkv():
+    """14c's one layer of Q, K and V at full width, seeded, bf16."""
+    gen = torch.Generator().manual_seed(14)
+    shape = (TRAIN_BATCH, SERVE_SEQ, SERVE_HEADS, SERVE_HEAD_DIM)
+    return [torch.randn(shape, generator=gen).to(DEVICE, torch.bfloat16)
+            for _ in range(3)]
+
+
+def _seq_op(mesh) -> dict:
+    """14c on a rank: the ring on its chunks against the gathered
+    sequence's K1 output at the same rows (both bf16 out), the largest
+    share of the bf16 bar, and the ring's ms (CUDA events, both ranks
+    calling together)."""
+    ra = importlib.import_module("kubeflow_tpu_torch.ops.ring_attention")
+    fa = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
+    q, k, v = _seq_qkv()
+    at = mesh.chunk_offset(SEQ_CHUNK)
+    mine = [t[:, at:at + SEQ_CHUNK].contiguous() for t in (q, k, v)]
+    with torch.no_grad():
+        ring = ra.ring_attention(*mine, mesh=mesh).float()
+        whole = fa.flash_attention(q, k, v, causal=True)[
+            :, at:at + SEQ_CHUNK].float()
+        ms = cuda_time_ms(lambda: ra.ring_attention(*mine, mesh=mesh),
+                          iters=5, warmup=1)
+    err = (ring - whole).abs()
+    share = float((err / (BF16_ATOL + BF16_RTOL * whole.abs())).max())
+    return {"max_abs_err": float(err.max()), "share": share, "ms": ms}
+
+
+def _seq_rank(rank: int, env: dict, queue) -> None:
+    """One rank of phase 14 (a spawned process): the contract env with
+    KFTPU_SHARDING {sequence 2}, a gloo group on the shared card, the LM
+    through train() with flash, then ring (fused_adam); each arm's
+    launches, losses, collectives and memory; then 14c."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        sys.path.insert(0, HERE)
+        os.environ.update(env)
+        import tempfile
+        from kubeflow_tpu_torch.models import transformer as T
+        from kubeflow_tpu_torch.parallel import collectives
+        from kubeflow_tpu_torch.runtime import bootstrap, worker
+        counters = _all_counters()
+        ctx = bootstrap.initialize(device=DEVICE, backend="gloo")
+        out = {"coord": ctx.mesh.coords["sequence"]}
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                for arm in SEQ_ARMS:
+                    collectives.reset_counts()
+                    rec, launches = _counted(counters, lambda: _seq_train(
+                        worker, T.TransformerConfig(), arm,
+                        os.path.join(tmp, f"{arm}.jsonl"), ctx=ctx,
+                        steps=SEQ_STEPS))
+                    rec.update(launches=launches,
+                               calls=dict(collectives.calls),
+                               bytes=dict(collectives.bytes_moved),
+                               host_staged=dict(collectives.host_staged))
+                    out[arm] = rec
+            out["op"] = _seq_op(ctx.mesh)
+        finally:
+            bootstrap.shutdown(ctx)
+        queue.put((rank, out, None))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        queue.put((rank, None, traceback.format_exc()))
+
+
+def phase_sequence(counters, T, worker, card) -> dict:
+    """Phase 14: the LM at the default widths over a sequence axis. One
+    process first (flash + fused_adam, 3 steps: the reference). Then two
+    gloo ranks sharing the card from the contract env, {sequence 2}: (a)
+    flash, the gathered sequence's K1, K2a and K2b 12 each and K3 1 a
+    rank a step, Q/K/V and dO gathered once a layer; (b) ring, K3 1 a rank
+    a step and no K1, the ring's hops a step as its schedule implies; both
+    against the one process under phase 8's bars. (c) The op alone on one
+    layer's Q/K/V: the ring against the gathered K1 output on each rank,
+    and a ring of size 1 in this process launching K1 once."""
+    import tempfile
+    import torch.multiprocessing as mp
+    ra = importlib.import_module("kubeflow_tpu_torch.ops.ring_attention")
+    fa = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
+    cfg = T.TransformerConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        one, launches = _counted(counters, lambda: _seq_train(
+            worker, cfg, "flash", os.path.join(tmp, "one.jsonl"),
+            steps=SEQ_STEPS))
+    want = {k: v * SEQ_STEPS for k, v in LM_PER_STEP.items()}
+    if launches != want:
+        fail(f"seq one process: launches {launches}, expected {want}")
+    log(f"[seq] 14 | {card} | one process, flash + fused_adam, "
+        f"{SEQ_STEPS} steps at batch {TRAIN_BATCH} x S {SERVE_SEQ}: "
+        f"losses {one['loss']}, grad norms {one['grad_norm']}; step "
+        f"{one['step_ms']:.1f} ms; peak {one['peak_gib']:.2f} GiB")
+
+    port = _free_port()
+    spawn = mp.get_context("spawn")
+    queue = spawn.Queue()
+    procs = [spawn.Process(target=_seq_rank, args=(r, {
+        "KFTPU_TOPOLOGY": f"v5e-{SEQ_RANKS}",
+        "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+        "KFTPU_NUM_PROCESSES": str(SEQ_RANKS), "KFTPU_PROCESS_ID": str(r),
+        "KFTPU_SHARDING": json.dumps({"data": 1, "sequence": SEQ_RANKS})},
+        queue)) for r in range(SEQ_RANKS)]
+    t0 = time.perf_counter()
+    ranks, errors = {}, []
+    try:
+        for p in procs:
+            p.start()
+        for _ in procs:
+            r, out, err = queue.get(timeout=SEQ_TIMEOUT_S)
+            ranks[r] = out
+            if err:
+                errors.append(f"rank {r}:\n{err}")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail("seq 14: " + "\n".join(errors))
+    per_arm = {"flash": LM_PER_STEP, "ring": {"fused_adam": 1}}
+    result = {"one": {k: one[k] for k in ("loss", "grad_norm", "step_ms",
+                                          "peak_gib")},
+              "launches": {}, "ranks": []}
+    for r in range(SEQ_RANKS):
+        rank = ranks[r]
+        if rank["coord"] != r:
+            fail(f"seq 14: rank {r} at sequence coordinate {rank['coord']}")
+        kept = {}
+        for part, arm in zip("ab", SEQ_ARMS):
+            rec = rank[arm]
+            want = {k: v * SEQ_STEPS for k, v in per_arm[arm].items()}
+            if rec["launches"] != want:
+                fail(f"seq 14{part} rank {r}: launches {rec['launches']}, "
+                     f"expected {want}")
+            worst = _pp_bars(f"14{part} rank {r}", rec, one, what="seq")
+            calls, moved = rec["calls"], rec["bytes"]
+            if arm == "ring":
+                hops = SEQ_HOPS * SEQ_STEPS
+                sent = hops * SEQ_HOP_BYTES
+                if (calls["send"], calls["recv"], moved["send"],
+                        moved["recv"]) != (hops, hops, sent, sent):
+                    fail(f"seq 14b rank {r}: {calls['send']} sends and "
+                         f"{calls['recv']} receives of {moved['send']} and "
+                         f"{moved['recv']} bytes, expected {hops} each of "
+                         f"{sent}")
+            elif calls["all_gather"] != SEQ_GATHERS * SEQ_STEPS or \
+                    calls["send"]:
+                fail(f"seq 14a rank {r}: {calls['all_gather']} all-gathers "
+                     f"and {calls['send']} sends, expected "
+                     f"{SEQ_GATHERS * SEQ_STEPS} and 0")
+            traffic = {op: (calls[op], moved[op], rec["host_staged"][op])
+                       for op in calls if calls[op]}
+            log(f"[seq] 14{part} rank {r} ({arm}) | {card} | launches "
+                f"{rec['launches']} ({per_arm[arm]} a step); losses "
+                f"{rec['loss']} (one process {one['loss']}), grad norms "
+                f"{rec['grad_norm']}; largest share of a bar: loss "
+                f"{worst['loss']:.3f}, grad norm {worst['grad_norm']:.3f}; "
+                f"traffic over {SEQ_STEPS} steps and init by op (calls, "
+                f"bytes, staged through the host): {traffic}; step "
+                f"{rec['step_ms']:.1f} ms (host clock, two ranks sharing "
+                f"one card over gloo; not a scaling figure; one process "
+                f"{one['step_ms']:.1f}); peak {rec['peak_gib']:.2f} GiB "
+                f"(one process {one['peak_gib']:.2f})")
+            kept[arm] = {k: rec[k] for k in ("loss", "grad_norm", "step_ms",
+                                             "peak_gib", "launches")}
+            kept[arm]["worst"] = worst
+        op = rank["op"]
+        if not op["share"] <= 1.0:
+            fail(f"seq 14c rank {r}: the ring against the gathered K1 "
+                 f"output, max|d| {op['max_abs_err']:.3e}, "
+                 f"{op['share']:.3f} of the bf16 bar")
+        log(f"[seq] 14c rank {r} | {card} | the ring on its chunk "
+            f"[{TRAIN_BATCH}, {SEQ_CHUNK}, {SERVE_HEADS}, {SERVE_HEAD_DIM}]"
+            f" bf16 causal against the gathered sequence's K1 output: "
+            f"max|d| {op['max_abs_err']:.3e}, {op['share']:.3f} of the bar "
+            f"(atol {BF16_ATOL} + rtol {BF16_RTOL}); ring {op['ms']:.3f} ms "
+            f"(CUDA events, hops staged through the host)")
+        kept["op"] = op
+        result["ranks"].append(kept)
+    # 14c: a ring of size 1 is K1
+    q, k, v = _seq_qkv()
+    with torch.no_grad():
+        one_ring, got = _counted({"flash_attention_fwd": fa.flash_attention},
+                                 lambda: ra.ring_attention(q, k, v,
+                                                           mesh=None))
+        same = bool(torch.equal(one_ring, fa.flash_attention(q, k, v)))
+    if got != {"flash_attention_fwd": 1} or not same:
+        fail(f"seq 14c: a ring of size 1 launched {got} (K1 once expected),"
+             f" equal to K1's output: {same}")
+    result["launches"]["ring_size_1"] = got["flash_attention_fwd"]
+    log(f"[seq] 14c | {card} | a ring of size 1 launched K1 "
+        f"{got['flash_attention_fwd']} time, its output K1's bit for bit")
+    del q, k, v, one_ring
+    torch.cuda.empty_cache()
+    log(f"[seq] 14: {SEQ_RANKS} ranks, flash and ring, {SEQ_STEPS} steps "
+        f"each, in {wall:.1f}s")
+    result["wall_s"] = wall
+    return result
+
+
+def _seq_launches(seq: dict, kernel: str) -> dict:
+    """Phase 14's launches of one kernel: each rank's flash and ring arms
+    (3 steps each), and K1's in a ring of size 1."""
+    out = {arm: [r[arm]["launches"].get(kernel, 0) for r in seq["ranks"]]
+           for arm in SEQ_ARMS}
+    if kernel == "flash_attention_fwd":
+        out["ring_size_1"] = seq["launches"]["ring_size_1"]
+    return {"launches_seq": out}
 
 
 def main() -> int:
@@ -4982,6 +5304,11 @@ def main() -> int:
         pp = phase_pipeline(counters, T, worker, trainstep, collectives,
                             dev["card"])
         log(f"[pp] phase 13 in {time.perf_counter() - t13:.1f}s")
+        # phase 14: the sequence axis
+        torch.cuda.empty_cache()
+        t14 = time.perf_counter()
+        seq = phase_sequence(counters, T, worker, dev["card"])
+        log(f"[seq] phase 14 in {time.perf_counter() - t14:.1f}s")
         # phase 11: the AOT ladder, in worker processes
         torch.cuda.empty_cache()
         t11 = time.perf_counter()
@@ -5012,6 +5339,7 @@ def main() -> int:
         "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_fwd"),
         **_mp_launches(moe, mp_r, "flash_attention_fwd"),
         **_pp_launches(pp, "flash_attention_fwd"),
+        **_seq_launches(seq, "flash_attention_fwd"),
         # phase 10, each (launches, forwards): gRPC, routers, the fleet
         "launches_serving_tier": {
             name: [r["launches"], r["forwards"]] if "launches" in r else None
@@ -5020,6 +5348,8 @@ def main() -> int:
         "max_abs_err": k1["err"],
         "max_abs_err_dp": k1["err_dp"],
         "max_abs_err_pp": k1["err_mb"],
+        # phase 14c: the ring on each rank's chunk against K1's output
+        "max_abs_err_ring": [r["op"]["max_abs_err"] for r in seq["ranks"]],
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
@@ -5038,6 +5368,7 @@ def main() -> int:
         "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_bwd_dq"),
         **_mp_launches(moe, mp_r, "flash_attention_bwd_dq"),
         **_pp_launches(pp, "flash_attention_bwd_dq"),
+        **_seq_launches(seq, "flash_attention_bwd_dq"),
         "max_abs_err": k2["err"]["dq"],
         "max_abs_err_dp": k2["err_dp"]["dq"],
         "max_abs_err_pp": k2["err_mb"]["dq"],
@@ -5058,6 +5389,7 @@ def main() -> int:
         "launches_ckpt": _ckpt_launches(ckpt, degree, "flash_attention_bwd_dkv"),
         **_mp_launches(moe, mp_r, "flash_attention_bwd_dkv"),
         **_pp_launches(pp, "flash_attention_bwd_dkv"),
+        **_seq_launches(seq, "flash_attention_bwd_dkv"),
         "max_abs_err": k2["err"]["dkv"],
         "max_abs_err_dp": k2["err_dp"]["dkv"],
         "max_abs_err_pp": k2["err_mb"]["dkv"],
@@ -5078,6 +5410,7 @@ def main() -> int:
         "launches_ckpt": _ckpt_launches(ckpt, degree, "fused_adam"),
         **_mp_launches(moe, mp_r, "fused_adam"),
         **_pp_launches(pp, "fused_adam"),
+        **_seq_launches(seq, "fused_adam"),
         "max_abs_err": k3["err"],
         "max_abs_err_dp": dp_kernels["k3"]["err"],
         "ms": k3["ms"],

@@ -769,8 +769,14 @@ def workload_spec(image_size: int = 224, num_classes: int = 1000,
                   mesh=None):
     """WorkloadSpec factory for runtime.worker: the exact-BN default path,
     or with ``fused`` the ghost-BN fused-block variant (per-tile BN
-    statistics, one K4/K5 call per stride-1 bottleneck a direction)."""
+    statistics, one K4/K5 call per stride-1 bottleneck a direction). A
+    sequence axis above 1 raises: the JAX package splits an image's
+    height over it, which the port does not."""
     from ..runtime.worker import WorkloadSpec
+    if mesh is not None and mesh.shape.get("sequence", 1) > 1:
+        raise NotImplementedError(
+            "ResNet on a sequence mesh (the image's height split over the "
+            "axis) is not yet ported (ROADMAP Queue 1 item 17)")
     model = make_resnet(depth, num_classes=num_classes)
     if fused:
         loss_fn = make_fused_loss_fn(model, label_smoothing=label_smoothing,

@@ -42,6 +42,23 @@ runtime/worker.py.
   column-parallel products all-reduced backward, ``tok_embed`` split
   over the vocabulary (a masked lookup, all-reduced), and the head
   column-parallel with its logits gathered over the vocabulary.
+- Sequence parallelism (``mesh`` with sequence above 1): a rank holds
+  its chunk of every sequence, ``S/n`` positions from
+  ``mesh.chunk_offset``; its position embeddings and causal mask rows
+  start there. ``attention="ring"`` runs ``ops/ring_attention.py`` over
+  the sequence group. ``einsum`` and ``flash`` run as the JAX package's
+  GSPMD runs them there (a ``pallas_call`` has no partitioning rule, so
+  XLA gathers its operands): :class:`_SequenceGathered` all-gathers Q, K
+  and V, runs the whole sequence's attention (K1 for flash) and keeps
+  this rank's rows; its backward all-gathers dO, runs the whole
+  backward (K2a and K2b) and keeps this rank's chunk of dq, dk and dv.
+  The loss's target of a chunk's last position is the next chunk's first
+  token (``next_tokens``, which runtime/trainstep.py places beside the
+  chunk), and the loss is the global sum over the global count,
+  summed over the sequence ranks forward and identity backward, so the
+  train step's gradient sum over the axis gives the whole sequence's
+  gradient. MoE and the stacked LM refuse a sequence mesh (ROADMAP
+  Queue 1 items 15 and 16).
 - The stacked LM of pipeline parallelism (:class:`PipelinedTransformerLM`,
   ``pipelined_logical_axes``, ``pipelined_workload_spec``, and
   ``multislice_stage_fns`` for the MPMD engine): every block param
@@ -64,6 +81,7 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
+from ..ops.ring_attention import ring_attention
 from ..parallel import collectives
 from ..parallel.sharding_rules import TRANSFORMER_RULES, entry_axes
 
@@ -79,8 +97,9 @@ class TransformerConfig:
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False          # checkpoint each block (memory for FLOPs)
-    # "einsum" (plain PyTorch) or "flash" (the CUDA kernel,
-    # ops/flash_attention); "ring" is a later slice
+    # "einsum" (plain PyTorch), "flash" (the CUDA kernel,
+    # ops/flash_attention) or "ring" (ops/ring_attention over the mesh's
+    # sequence axis; the flash kernel without one)
     attention: str = "einsum"
     # mixture-of-experts: num_experts > 0 swaps the dense MLP for MoEMLP
     # (models/moe.py), its expert weights over the mesh axis "expert"
@@ -94,10 +113,6 @@ class TransformerConfig:
         if self.attention not in valid:
             raise ValueError(
                 f"attention={self.attention!r} not in {valid}")
-        if self.attention == "ring":
-            raise NotImplementedError(
-                "attention='ring' (ops/ring_attention.py) is not yet ported "
-                "(ROADMAP Queue 1 item 11)")
 
     @classmethod
     def tiny(cls) -> "TransformerConfig":
@@ -146,6 +161,72 @@ def _tensor_group(mesh) -> Optional[object]:
     return None if mesh is None else mesh.group_of("tensor")
 
 
+def _seq_size(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get("sequence", 1)
+
+
+_SEQ_MOE_REFUSAL = (
+    "MoE (num_experts>0) on a sequence mesh is not yet ported: its "
+    "capacity and aux statistics are over the whole sequence (ROADMAP "
+    "Queue 1 item 15)")
+_SEQ_PIPELINE_REFUSAL = (
+    "the stacked (pipelined) LM on a sequence mesh is not yet ported "
+    "(ROADMAP Queue 1 item 16)")
+
+
+def _einsum_attention(q, k, v, cfg: "TransformerConfig") -> torch.Tensor:
+    """The plain causal attention of the JAX module's einsum path: q
+    divided by sqrt(D) in the activation dtype, masked with its lowest
+    value, softmax in f32."""
+    dt = cfg.dtype
+    s = q.shape[1]
+    q = q / torch.tensor(math.sqrt(cfg.head_dim), dtype=dt)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    logits = logits.masked_fill(~mask, torch.finfo(dt).min)
+    probs = torch.softmax(logits.float(), dim=-1).to(dt)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _gather_seq(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' chunks of ``t`` [B, S_local, ...] in sequence order:
+    [B, S, ...]."""
+    return collectives.all_gather(t.movedim(1, 0), group).movedim(
+        0, 1).contiguous()
+
+
+class _SequenceGathered(torch.autograd.Function):
+    """Whole-sequence attention on a rank's chunks: the forward gathers
+    Q, K and V over the sequence group, runs ``attend`` on the whole
+    sequence and returns this rank's rows; the backward gathers dO, runs
+    ``attend``'s backward on the whole sequence (every rank's rows
+    depend on every rank's K and V) and returns this rank's chunk of dq,
+    dk and dv. Every rank computes the same whole attention, so the
+    gathered dO is the whole output's cotangent."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, attend, group, index):
+        full = [_gather_seq(t, group) for t in (q, k, v)]
+        n = q.shape[1]
+        ctx.n, ctx.index, ctx.group = n, index, group
+        if any(ctx.needs_input_grad[:3]):
+            with torch.enable_grad():
+                ctx.leaves = [t.requires_grad_() for t in full]
+                ctx.out = attend(*ctx.leaves)
+            out = ctx.out.detach()
+        else:
+            out = attend(*full)
+        return out.narrow(1, index * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = torch.autograd.grad(ctx.out, ctx.leaves,
+                                    _gather_seq(g, ctx.group))
+        del ctx.out, ctx.leaves
+        return tuple(x.narrow(1, ctx.index * ctx.n, ctx.n)
+                     for x in grads) + (None, None, None)
+
+
 class Attention(nn.Module):
     """Over ``tensor`` the params are this rank's heads: ``qkv`` [E, 3,
     H/t, D] and ``out`` [H/t, D, E], row-parallel."""
@@ -166,17 +247,22 @@ class Attention(nn.Module):
                            collectives.copy_to(x.to(dt), tg),
                            self.qkv.kernel.to(dt))
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        if cfg.attention == "flash":
-            out = flash_attention(q, k, v, causal=True)
+        if cfg.attention == "ring":
+            out = ring_attention(q, k, v, mesh=self.mesh, causal=True)
         else:
-            s = q.shape[1]
-            q = q / torch.tensor(math.sqrt(cfg.head_dim), dtype=dt)
-            logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
-            mask = torch.ones((s, s), dtype=torch.bool,
-                              device=x.device).tril()
-            logits = logits.masked_fill(~mask, torch.finfo(dt).min)
-            probs = torch.softmax(logits.float(), dim=-1).to(dt)
-            out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+            if cfg.attention == "flash":
+                def attend(q, k, v):
+                    return flash_attention(q, k, v, causal=True)
+            else:
+                def attend(q, k, v):
+                    return _einsum_attention(q, k, v, cfg)
+            if _seq_size(self.mesh) > 1:
+                # K1 masks top-left: right only because Q is whole
+                out = _SequenceGathered.apply(
+                    q, k, v, attend, self.mesh.group_of("sequence"),
+                    self.mesh.coords["sequence"])
+            else:
+                out = attend(q, k, v)
         out = torch.einsum("bshd,hde->bse", out, self.out.kernel.to(dt))
         return collectives.reduce_from(out, tg)
 
@@ -263,6 +349,13 @@ def _head_logits(ln_f: LayerNorm, kernel: torch.Tensor, x: torch.Tensor,
     return collectives.gather_from(logits, tg, -1)
 
 
+def _positions(table: torch.Tensor, length: int, mesh) -> torch.Tensor:
+    """The position embeddings of this rank's ``length`` positions: from
+    its chunk's offset on a sequence mesh."""
+    start = 0 if mesh is None else mesh.chunk_offset(length)
+    return table[start:start + length]
+
+
 def _remat_call(block: nn.Module, params: dict, x: torch.Tensor) -> tuple:
     """``block(x)`` on ``params`` (name -> tensor) under the non-reentrant
     checkpoint; the params go in as inputs, so the backward's recompute
@@ -285,6 +378,8 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
+        if cfg.num_experts > 0 and _seq_size(mesh) > 1:
+            raise NotImplementedError(_SEQ_MOE_REFUSAL)
         self.cfg = cfg
         self.mesh = mesh
         self.tok_embed = _Embed(cfg.vocab_size, cfg.embed_dim)
@@ -308,7 +403,8 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor, with_aux: bool = False):
         dt = self.cfg.dtype
         x = self._embed(tokens).to(dt)
-        pos = self.pos_embed.embedding[:tokens.shape[1]].to(dt)
+        pos = _positions(self.pos_embed.embedding, tokens.shape[1],
+                         self.mesh).to(dt)
         x = x + pos[None]
         aux = None
         for block in self.blocks():
@@ -359,7 +455,8 @@ class _Embedder(nn.Module):
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
         x = _lookup(self.tok_embed.embedding, tokens, self.mesh).to(dt)
-        return x + self.pos_embed.embedding[:tokens.shape[1]].to(dt)[None]
+        return x + _positions(self.pos_embed.embedding, tokens.shape[1],
+                              self.mesh).to(dt)[None]
 
 
 class _LMHead(nn.Module):
@@ -397,6 +494,8 @@ class PipelinedTransformerLM(nn.Module):
             # the block scan carries no aux loss out: refuse rather than
             # train a collapsed router
             raise NotImplementedError(_MOE_REFUSAL)
+        if _seq_size(mesh) > 1:
+            raise NotImplementedError(_SEQ_PIPELINE_REFUSAL)
         self.cfg = cfg
         self.mesh = mesh
         self.embed = _Embedder(cfg, mesh)
@@ -431,16 +530,45 @@ class PipelinedTransformerLM(nn.Module):
         return self.head(x)
 
 
-def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor) -> tuple:
+def _targets(tokens: torch.Tensor, next_tokens, mesh) -> tuple:
+    """``(targets [B, S_local] long, the number of leading positions
+    that have one, the global count B·(S−1))``: shift-left targets
+    (``roll(-1)``) with the global last position masked. On a sequence
+    mesh ``tokens`` is this rank's chunk and ``next_tokens`` [B, 1] the
+    next chunk's first column, the target of the chunk's last position;
+    only the last rank's last position has none."""
+    b, s = tokens.shape
+    n = _seq_size(mesh)
+    if n == 1:
+        return torch.roll(tokens, -1, dims=1).long(), s - 1, b * (s - 1)
+    if next_tokens is None:
+        raise ValueError("on a sequence mesh the loss needs the next "
+                         "chunk's first tokens (batch['next_tokens'], "
+                         "placed by TrainStepBuilder.place_batch)")
+    targets = torch.cat([tokens[:, 1:], next_tokens.reshape(b, 1).to(
+        tokens.dtype)], dim=1).long()
+    last = mesh.coords["sequence"] == n - 1
+    return targets, s - 1 if last else s, b * (n * s - 1)
+
+
+def next_token_loss(logits: torch.Tensor, tokens: torch.Tensor,
+                    next_tokens: Optional[torch.Tensor] = None,
+                    mesh=None) -> tuple:
     """Next-token loss with full-length input and shift-left targets
     (``roll(-1)``); the final position has no target and is masked out,
     so the loss is the mean over B·(S−1) positions. Returns (loss,
-    {"perplexity": exp(loss)})."""
+    {"perplexity": exp(loss)}). On a sequence mesh (``mesh``) ``tokens``
+    is this rank's chunk and ``next_tokens`` the next chunk's first
+    column: the loss is this rank's sum over the global count, summed
+    over the sequence ranks forward and identity backward, so every rank
+    reports the global loss and its gradient is its own term's."""
     b, s, v = logits.shape
-    targets = torch.roll(tokens, -1, dims=1).long()
+    targets, valid, count = _targets(tokens, next_tokens, mesh)
     nll = F.cross_entropy(logits.reshape(b * s, v), targets.reshape(b * s),
                           reduction="none").view(b, s)
-    loss = nll[:, :-1].sum() / (b * (s - 1))
+    loss = nll[:, :valid].sum() / count
+    if _seq_size(mesh) > 1:
+        loss = collectives.reduce_from(loss, mesh.group_of("sequence"))
     return loss, {"perplexity": torch.exp(loss)}
 
 
@@ -468,7 +596,8 @@ def make_loss_fn(model: TransformerLM,
         logits, aux = functional_call(
             model, gather_params(params, fsdp_dims, group), (tokens,),
             {"with_aux": True})
-        loss, metrics = next_token_loss(logits, tokens)
+        loss, metrics = next_token_loss(logits, tokens,
+                                        batch.get("next_tokens"), model.mesh)
         if aux is None:
             return loss, metrics
         metrics["moe_aux_loss"] = aux
@@ -484,14 +613,20 @@ def make_eval_fn(model: TransformerLM,
 
     def eval_fn(params, variables, batch):
         tokens = batch["tokens"]
+        nxt = batch.get("next_tokens")
         logits = functional_call(
             model, gather_params(params, fsdp_dims, group), (tokens,))
-        loss, _ = next_token_loss(logits, tokens)
-        preds = logits[:, :-1].argmax(-1)
+        loss, _ = next_token_loss(logits, tokens, nxt, model.mesh)
+        targets, valid, count = _targets(tokens, nxt, model.mesh)
+        hits = (logits[:, :valid].argmax(-1) == targets[:, :valid]).float()
+        if _seq_size(model.mesh) == 1:
+            accuracy = hits.mean()
+        else:
+            accuracy = collectives.reduce_from(
+                hits.sum() / count, model.mesh.group_of("sequence"))
         return {"eval_loss": loss,
                 "eval_perplexity": torch.exp(loss),
-                "eval_token_accuracy":
-                    (preds == tokens[:, 1:].long()).float().mean()}
+                "eval_token_accuracy": accuracy}
 
     return eval_fn
 
@@ -652,6 +787,8 @@ def pipelined_workload_spec(cfg: Optional[TransformerConfig] = None,
     cfg = cfg or TransformerConfig.tiny()
     if cfg.num_experts > 0:
         raise NotImplementedError(_MOE_REFUSAL)
+    if _seq_size(mesh) > 1:
+        raise NotImplementedError(_SEQ_PIPELINE_REFUSAL)
     seq_len = seq_len or cfg.max_seq_len
     with torch.device("meta"):
         model = PipelinedTransformerLM(cfg, mesh)

@@ -21,9 +21,13 @@
   their products on the warpgroup (``wgmma``) product of
   csrc/wgmma_gemm.cuh, the K4/K5 backward on the pipelined ``mma.sync``
   product of csrc/tc_gemm.cuh.
+- :mod:`ring_attention` — sequence-parallel attention over the ranks of a
+  mesh's ``sequence`` axis (plain PyTorch blocks passed along a ring, as
+  the JAX package's are ``jnp``; a ring of size 1 is the flash kernel).
 - :mod:`_build` — builds ``csrc/*.cu`` with nvcc and loads them with
   ctypes.
 """
 
 from .flash_attention import flash_attention, reference_attention  # noqa: F401
 from .fused_adam import FusedAdam, fused_adam  # noqa: F401
+from .ring_attention import ring_attention  # noqa: F401

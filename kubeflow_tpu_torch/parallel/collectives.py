@@ -259,6 +259,24 @@ class _PPermute(torch.autograd.Function):
         return gx, gorder, None, None, None
 
 
+class _Order(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.new_zeros((), dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        wait_sends()
+        return None
+
+
+def start_order(x: torch.Tensor) -> torch.Tensor:
+    """The first order tensor of a chain of hops, from their input
+    ``x``: its backward runs after every hop's, and waits there for
+    this rank's sends."""
+    return _Order.apply(x)
+
+
 def ppermute(x, order: torch.Tensor, group: Any, pairs, like: torch.Tensor
              ) -> tuple:
     """The differentiable point-to-point hop over ``group``: this rank

@@ -7,13 +7,14 @@ outermost, ``tensor`` innermost), the order the JAX package reshapes its
 device list in: rank r sits at ``Mesh.coords``, ``np.unravel_index(r,
 sizes)``.
 
-The data, fsdp, expert, tensor and pipeline axes are ported. ``data``
-and ``fsdp`` are the replica axes (the batch splits over them); fsdp,
-expert, tensor and pipeline shard the params by the workload's rules
-(``parallel/sharding_rules.py``; pipeline the stacked ``layers``
-dimension, whose stages exchange activations point to point,
-``parallel/pipeline.py``). A sequence axis greater than 1 raises
-(ROADMAP Queue 1 item 11).
+Every axis is ported. ``data`` and ``fsdp`` are the replica axes (the
+batch splits over them); fsdp, expert, tensor and pipeline shard the
+params by the workload's rules (``parallel/sharding_rules.py``; pipeline
+the stacked ``layers`` dimension, whose stages exchange activations
+point to point, ``parallel/pipeline.py``); ``sequence`` splits dimension
+1 of the token batch (``Mesh.chunk_offset`` is where a rank's chunk
+starts), and the params are replicated over it, so their gradients are
+summed over it (``ops/ring_attention.py``, ``models/transformer.py``).
 
 The mesh holds one process group for each axis tuple a step reduces
 over (:data:`GROUP_AXES`), made by every rank in the same order; a tuple
@@ -39,15 +40,22 @@ MESH_AXES = ShardingSpec.AXES  # ("data", "fsdp", "expert", "pipeline",
 REPLICA_AXES = ("data", "fsdp")
 # axes that shard params
 MODEL_AXES = ("fsdp", "expert", "pipeline", "tensor")
+# the axis that splits the token batch's dimension 1
+SEQUENCE_AXIS = "sequence"
 # axes whose sharding is not ported, and the ROADMAP item that ports it
-UNPORTED_AXES = {"sequence": "Queue 1 item 11"}
+# (none left: the hook stays for the next axis)
+UNPORTED_AXES: dict = {}
 # the axis tuples a step reduces over, in the order every rank makes
 # their groups: the replica axes (gradient sums, metrics), each axis
 # alone (fsdp gathers, the data sum of an fsdp-sharded leaf, tensor
-# products), the MoE combine's partial sums and the pipeline's stage
-# hops and output replication
+# products), the MoE combine's partial sums, the pipeline's stage hops
+# and output replication, and the sequence axis (the ring's hops, the
+# gathered attention, the loss's sum) with the replica axes it joins in
+# the gradient sum
 GROUP_AXES = (("data", "fsdp"), ("data",), ("fsdp",), ("expert",),
-              ("tensor",), ("expert", "tensor"), ("pipeline",))
+              ("tensor",), ("expert", "tensor"), ("pipeline",),
+              ("sequence",), ("data", "fsdp", "sequence"),
+              ("data", "sequence"), ("fsdp", "sequence"))
 
 
 @dataclass(frozen=True)
@@ -99,6 +107,11 @@ class Mesh:
             raise KeyError(f"no process group over {key}: the mesh makes "
                            f"groups over {GROUP_AXES}")
         return self.groups[key]
+
+    def chunk_offset(self, length: int) -> int:
+        """Where this rank's chunk of ``length`` positions starts along
+        the sequence axis: its coordinate times ``length``."""
+        return self.coords[SEQUENCE_AXIS] * length
 
     def model_sharded(self) -> bool:
         """Whether any axis that shards params exceeds 1."""

@@ -57,20 +57,6 @@ def apply_layers(block_fn: BlockFn, stacked_params: dict,
     return x
 
 
-class _Order(torch.autograd.Function):
-    """The first order tensor, from the pipeline's input: its backward
-    runs after every hop's, so it waits for this rank's sends there."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.new_zeros((), dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        collectives.wait_sends()
-        return None
-
-
 class _Replicate(torch.autograd.Function):
     """The last stage's f32 outputs broadcast to every pipeline rank;
     backward, each rank's own cotangent (identity)."""
@@ -126,7 +112,7 @@ def pipeline_apply(block_fn: BlockFn, stacked_params: dict, x: torch.Tensor,
     # the input is replicated over the pipeline: its gradient is the sum
     # over the stages, stage 0's the only nonzero term
     x = collectives.copy_to(x, group)
-    order = _Order.apply(x)
+    order = collectives.start_order(x)
     feed = x.split(mb)
     like = feed[0]
 

@@ -70,6 +70,7 @@ import torch.distributed as dist
 
 from ..obs import registry as obsreg
 from ..obs.goodput import SPAN_CKPT_RESTORE, SPAN_CKPT_SAVE
+from ..parallel.multislice import MultisliceState
 from ..parallel.sharding_rules import Shard
 from .bootstrap import resolve_device
 from .trainstep import TrainState, load_state_tree, state_tree
@@ -345,7 +346,8 @@ class CheckpointManager:
             step > newest and step % self.save_interval_steps == 0)
 
     def save(self, step: int, state: Any, force: bool = False) -> bool:
-        """Save ``state`` (a ``TrainState``, or a tree of nested dicts of
+        """Save ``state`` (a ``TrainState`` or the MPMD engine's
+        ``MultisliceState``, or a tree of nested dicts of
         tensors, numpy arrays, Shards and plain scalars) at ``step``;
         False when the interval gate skips it. Returns once the state is
         copied to host memory; the write runs on a background thread, and
@@ -358,7 +360,8 @@ class CheckpointManager:
         self._finish_writes()
         wait_s = time.perf_counter() - t0
         self._prepare(step)
-        tree = state_tree(state) if isinstance(state, TrainState) else state
+        tree = state_tree(state) if isinstance(
+            state, (TrainState, MultisliceState)) else state
         self._submit(step, tree, t0)
         self._saved_any = True
         sync_s = time.perf_counter() - t0
@@ -922,12 +925,13 @@ class CheckpointManager:
                      if wanted(p)})
         return _unflatten(flat)
 
-    def restore(self, state_template: TrainState,
+    def restore(self, state_template: Any,
                 step: Optional[int] = None,
                 expect_run: Optional[tuple] = None,
                 max_step: Optional[int] = None) -> TrainState:
         """Restore into the template, a ``TrainState`` built at the
-        reader's degree: loaded in place on its devices, its optimizer
+        reader's degree (or a ``MultisliceState`` of the same number of
+        stages): loaded in place on its devices, its optimizer
         state cut to the reader's layout (runtime/trainstep.py
         ``load_state_tree``). ``expect_run`` = (replica_degree,
         global_batch) of the reader: the elastic contract is checked

@@ -298,7 +298,7 @@ class NumericFaultHook:
 
     def poison(self, state, step: int):
         """At the armed step, multiply every param of ``state`` (a
-        ``TrainState``) in place by the fault's factor, rounded to the
+        ``TrainState``, or the MPMD engine's per-stage params) in place by the fault's factor, rounded to the
         param's dtype (NaN for ``nan``, the scale for ``spike`` and
         ``bitflip``), and record the fire. Under the sharded update the
         optimizer's blocks (``update_params``) are poisoned too, or the
@@ -308,8 +308,10 @@ class NumericFaultHook:
             return state
         import torch
         factor = float("nan") if self.kind == "nan" else self.scale
-        leaves = {id(p): p for p in state.params.values()}
-        for u in (state.update_params or {}).values():
+        stages = state.params if isinstance(state.params, list) \
+            else [state.params]
+        leaves = {id(p): p for params in stages for p in params.values()}
+        for u in (getattr(state, "update_params", None) or {}).values():
             leaves.setdefault(id(u), u)
         with torch.no_grad():
             for t in leaves.values():

@@ -50,6 +50,16 @@ the JAX package).
   of ranks that hold the same block, all-reduced over the world in one
   call. A mesh with a model axis above 1 and a workload without rules
   raises.
+- Sequence parallelism (``sequence`` above 1, the LM): a rank reads its
+  rows and, of every array of rank 2 or more, its chunk of dimension 1
+  (:meth:`local_rows`, the JAX package's ``batch_shardings``), plus the
+  column after the chunk under ``next_<key>`` (the next-token target of
+  the chunk's last position). The loss function returns the rows' loss
+  over the whole sequence, the same on every sequence rank (its
+  backward is this rank's term alone), so the metrics need no sum over
+  the axis. Params are replicated over it: every gradient is summed over
+  ``sequence`` with its replica axes (the divisor stays the replica
+  degree), and the sharded update's domain stays ``data`` x ``fsdp``.
 - Pipeline parallelism (``pipeline`` above 1, the stacked LM): a rank's
   stacked leaves are its stage's layers, cut by the same rules
   (``("layers", "pipeline")``), and pipeline is no replica axis, so no
@@ -72,7 +82,9 @@ the JAX package).
   this rank's ``Shard`` of its global leaf); :func:`load_state_tree`
   loads a tree of global leaves back, cut along this state's layout,
   which may be another degree's or mesh's (runtime/checkpoint.py), into
-  the state's own storage.
+  the state's own storage. Both take the MPMD engine's
+  ``MultisliceState`` too (:func:`multislice_state_tree`,
+  :func:`load_multislice_state_tree`).
 - The AOT step (:meth:`TrainStepBuilder.build_compiled`, the counterpart
   of the JAX package's compiled step executable): the whole step captured
   as one CUDA graph and replayed, one host call a step
@@ -89,8 +101,9 @@ import torch
 
 from ..api.trainingjob import validate_weight_update
 from ..parallel import collectives
-from ..parallel.mesh import (MESH_AXES, Mesh, batch_rows, check_axes,
-                             replica_axes, replica_degree)
+from ..parallel.multislice import MultisliceState
+from ..parallel.mesh import (MESH_AXES, SEQUENCE_AXIS, Mesh, batch_rows,
+                             check_axes, replica_axes, replica_degree)
 from ..parallel.sharding_rules import (Shard, block_index, cut, entry_axes,
                                        spec_axes, weight_update_spec)
 from .bootstrap import resolve_device
@@ -124,7 +137,10 @@ def state_tree(state: TrainState) -> dict:
     :func:`~kubeflow_tpu_torch.runtime.recipe.optimizer_tree`). Variables
     are whole on every rank; a model-sharded param, and each optimizer
     leaf of a split update leaf, is this rank's :class:`Shard` of the
-    global leaf."""
+    global leaf. A ``MultisliceState`` goes to
+    :func:`multislice_state_tree`."""
+    if isinstance(state, MultisliceState):
+        return multislice_state_tree(state)
     held = state.update_params or state.params
     names = {id(t): n for n, t in held.items()}
 
@@ -148,7 +164,11 @@ def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     variables, and the optimizer state cut to this rank's blocks along
     this state's layout (which may split another dimension, or another
     mesh, than the writer's). ``update_params`` is rebuilt from the
-    restored params."""
+    restored params. A ``MultisliceState`` goes to
+    :func:`load_multislice_state_tree`."""
+    if isinstance(state, MultisliceState):
+        return load_multislice_state_tree(state, tree)
+
     def block(blocks: dict, name: str, full: torch.Tensor):
         b = blocks.get(name)
         return full if b is None else cut(full, b[0], b[1])
@@ -180,10 +200,63 @@ def load_state_tree(state: TrainState, tree: dict) -> TrainState:
     return state
 
 
+def multislice_state_tree(state: MultisliceState) -> dict:
+    """The MPMD state as a checkpoint tree: ``{"step", "stages": {"<s>":
+    {"params", "opt"}}}``, each stage's params (its
+    chunk of the stacked blocks under their names, stage 0's embedding
+    and the last stage's head) and its optimizer's tree
+    (:func:`~kubeflow_tpu_torch.runtime.recipe.optimizer_tree`: K3's
+    moments and count on the fused_adam recipe), whole leaves from the
+    one process that drives every stage."""
+    stages = {}
+    for s, (params, opt) in enumerate(zip(state.params, state.opt_state)):
+        names = {id(p): n for n, p in params.items()}
+        stages[str(s)] = {"params": dict(params),
+                          "opt": optimizer_tree(opt, names,
+                                                lambda n, t: t)}
+    return {"step": int(state.step), "stages": stages}
+
+
+@torch.no_grad()
+def load_multislice_state_tree(state: MultisliceState,
+                               tree: dict) -> MultisliceState:
+    """Load :func:`multislice_state_tree`'s tree (CPU leaves) into
+    ``state`` in place, each stage on its device. A tree of another
+    number of stages raises, as the JAX template restore cannot take
+    another list structure: the stages' chunks would not line up."""
+    stages = tree.get("stages", {})
+    if len(stages) != len(state.params):
+        raise ValueError(
+            f"the checkpoint holds {len(stages)} MPMD stages and this "
+            f"run has {len(state.params)}: a restore onto another number "
+            f"of slices is not supported; resume with numSlices="
+            f"{len(stages)}")
+    for s, (params, opt) in enumerate(zip(state.params, state.opt_state)):
+        saved = stages[str(s)]["params"]
+        for n, p in params.items():
+            if n not in saved or tuple(saved[n].shape) != tuple(p.shape):
+                raise ValueError(
+                    f"stage {s} param {n}: {tuple(p.shape)} in this run, "
+                    f"{None if n not in saved else tuple(saved[n].shape)} "
+                    f"in the checkpoint")
+            p.copy_(saved[n])
+        load_optimizer_tree(opt, stages[str(s)]["opt"],
+                            {id(p): n for n, p in params.items()},
+                            lambda n, full: full)
+    state.step = int(tree["step"])
+    return state
+
+
 def _writer(mesh: Mesh, used: set) -> bool:
     """Whether this rank writes its block: the first (coordinate 0 on
     every axis the block is not split on) of the ranks holding it."""
     return all(c == 0 for a, c in mesh.coords.items() if a not in used)
+
+
+def _dense(a):
+    """A contiguous copy of a strided slice (numpy or torch)."""
+    return a.contiguous() if isinstance(a, torch.Tensor) else \
+        np.ascontiguousarray(a)
 
 
 def _sum_squares(ts: list) -> torch.Tensor:
@@ -225,6 +298,7 @@ class TrainStepBuilder:
         self.world = self.mesh.size()
         self.group = self.mesh.group_of(replica_axes(self.mesh)) \
             if self.n_rep > 1 else None
+        self.seq = self.mesh.shape.get(SEQUENCE_AXIS, 1)
         self.strategy = self.update_strategy()
         self.sharded = self.strategy != "replicated"
         # name -> (dimension, axes) of the update's split (None: the
@@ -308,8 +382,10 @@ class TrainStepBuilder:
                 self.layout[name] = None
                 if name in param_blocks:
                     update_blocks[name] = param_blocks[name]
+            # params are replicated over sequence: summed over it too
             self.reduce_axes[name] = tuple(a for a in free if a not in
-                                           spec_axes(spec))
+                                           spec_axes(spec)) + \
+                ((SEQUENCE_AXIS,) if self.seq > 1 else ())
             self.copies[name] = self.world // mesh.axes_size(used)
         variables = {col: {name: placed(v) for name, v in vs.items()}
                      for col, vs in variables.items()}
@@ -355,8 +431,9 @@ class TrainStepBuilder:
 
     def _reduce(self, state: TrainState) -> torch.Tensor:
         """Sum each gradient over the replica axes its block is not split
-        on, divided by the replica degree: reduce-scattered into the
-        update block where the update splits the leaf, all-reduced
+        on and the sequence axis, divided by the replica degree:
+        reduce-scattered into the update block where the update splits
+        the leaf (that block then summed over sequence), all-reduced
         otherwise. Returns the exact global norm of the reduced
         gradient."""
         mesh = self.mesh
@@ -372,6 +449,9 @@ class TrainStepBuilder:
                 d, axes = lay
                 block = collectives.reduce_scatter(g.movedim(d, 0),
                                                    mesh.group_of(axes))
+                if self.seq > 1:
+                    collectives.all_reduce_(block,
+                                            mesh.group_of(SEQUENCE_AXIS))
                 u = state.update_params[name]
                 u.grad = block.movedim(0, d).contiguous()
                 p.grad = None
@@ -412,7 +492,8 @@ class TrainStepBuilder:
 
     def _cross_rank_mean(self, metrics: dict) -> dict:
         """The scalar metrics as their mean over the replicas, in one
-        all-reduce (the ranks of a model axis hold equal values)."""
+        all-reduce (the ranks of a model axis hold equal values, and so do
+        those of the sequence axis: the loss function sums over it)."""
         keys = list(metrics)
         v = torch.stack([metrics[k].float().reshape(()) for k in keys])
         collectives.all_reduce_(v.div_(self.n_rep), self.group)
@@ -500,12 +581,32 @@ class TrainStepBuilder:
 
     def local_rows(self, batch: dict) -> dict:
         """This rank's rows of a host batch (every rank reads the same
-        global batch); the batch itself on one replica."""
-        if self.group is None:
+        global batch); the batch itself on one replica. On a sequence
+        mesh each array of rank 2 or more is also cut to this rank's
+        chunk of dimension 1, and ``next_<key>`` holds the column after
+        the chunk ([rows, 1]; the first column on the last rank, as
+        ``roll(-1)`` wraps)."""
+        if self.group is not None:
+            n = next(iter(batch.values())).shape[0]
+            rows = batch_rows(n, self.mesh)
+            batch = {k: v[rows] for k, v in batch.items()}
+        if self.seq == 1:
             return batch
-        n = next(iter(batch.values())).shape[0]
-        rows = batch_rows(n, self.mesh)
-        return {k: v[rows] for k, v in batch.items()}
+        out = {}
+        for k, v in batch.items():
+            if v.ndim < 2:
+                out[k] = v
+                continue
+            if v.shape[1] % self.seq:
+                raise ValueError(f"batch[{k!r}] dimension 1 = "
+                                 f"{v.shape[1]} not divisible by the "
+                                 f"sequence axis {self.seq}")
+            c = v.shape[1] // self.seq
+            at = self.mesh.chunk_offset(c)
+            nxt = (at + c) % v.shape[1]
+            out[k] = _dense(v[:, at:at + c])
+            out[f"next_{k}"] = _dense(v[:, nxt:nxt + 1])
+        return out
 
     def place_local(self, batch: dict) -> dict:
         """Host batch (numpy arrays or CPU tensors) → device tensors."""

@@ -47,6 +47,13 @@ with no card it raises.
   of every param and the LM's forward runs the mesh's collectives
   (models/transformer.py, runtime/trainstep.py); ranks that differ only
   on a model axis read the same rows.
+- Sequence parallel (``KFTPU_SHARDING`` with sequence above 1, the dense
+  transformer workload): a rank reads its chunk of every sequence, and
+  ``--kernel-attention ring`` runs ops/ring_attention.py over the mesh
+  (einsum and flash gather the sequence for the attention). MoE, the
+  pipelined LM, ResNet and the MPMD path refuse it at start-up, naming
+  their ROADMAP items. ``replicaDegree`` stays data x fsdp, so a
+  checkpoint of a sequence mesh restores on one process.
 - Windows are timed edge to edge: from the previous edge (after its
   eval and save) to this edge after the lagged drain, so the drain's
   wait for the card is in ``step_time_s`` and ``examples_per_sec``.
@@ -94,8 +101,11 @@ with no card it raises.
   seconds (capped at the window, anchored at its tail) and the first
   step a ``multislice-profile`` event with the schedule report. Eval, a
   sharded weight update and one slice are refused in the JAX package's
-  words; the AOT record and checkpoints are not ported on this path
-  and raise.
+  words; the AOT record is not ported on this path and raises.
+  Checkpoints take the same calls as on the single-program path
+  (runtime/trainstep.py ``state_tree`` of a ``MultisliceState``: the
+  stages' params and optimizer states), and a restore onto another
+  number of slices raises.
 
 Ported workloads: ``transformer``, ``transformer-pipelined`` and
 ``resnet18`` … ``resnet152`` (``--fused-blocks`` trains a bottleneck
@@ -485,6 +495,14 @@ def train(
             workload_kwargs.setdefault("image_size", data_source.image_size)
             workload_kwargs.setdefault("num_classes",
                                        data_source.num_classes)
+        if multislice_pipeline is None:
+            multislice_pipeline = bool(
+                _env_int("KFTPU_MULTISLICE_PIPELINE", 0))
+        if multislice_pipeline and (ctx.sharding.sequence > 1 or
+                                    ctx.mesh.shape.get("sequence", 1) > 1):
+            raise NotImplementedError(
+                "the MPMD multislice path on a sequence mesh is not yet "
+                "ported (ROADMAP Queue 1 item 16)")
         spec = WORKLOADS[workload](**workload_kwargs)
         if data_source is not None:
             inner_loss = spec.loss_fn
@@ -504,9 +522,6 @@ def train(
         # explicit activation and gradient transfers
         n_slices = ctx.contract.num_slices if ctx.contract else \
             _env_int("KFTPU_NUM_SLICES", 1)
-        if multislice_pipeline is None:
-            multislice_pipeline = bool(
-                _env_int("KFTPU_MULTISLICE_PIPELINE", 0))
         make_opt = partial(
             recipe.make_optimizer, name=optimizer, learning_rate=base_lr,
             schedule=lr_schedule, total_steps=steps,
@@ -584,10 +599,6 @@ def train(
         checkpoint_dir = checkpoint_dir or \
             os.environ.get("KFTPU_CHECKPOINT_DIR")
         resume_from = resume_from or os.environ.get("KFTPU_RESUME_FROM")
-        if multislice_pipeline and (checkpoint_dir or resume_from):
-            raise NotImplementedError(
-                "checkpoints of the MPMD multislice path (per-stage state) "
-                "are not yet ported (ROADMAP Queue 1 item 11)")
         degree = builder.n_rep
         run_meta = {"replicaDegree": degree, "globalBatch": global_batch}
         gang = dict(process_index=ctx.process_id,

@@ -5,8 +5,9 @@
   ``KFTPU_PROCESS_ID``, ``KFTPU_SHARDING``) come up as one gloo group with
   the rank, world, device and sharding the contract names, and
   ``shutdown`` destroys the group.
-- A sequence axis greater than 1 raises, citing its ROADMAP item, and
-  leaves no group behind; fsdp, tensor, expert and pipeline build.
+- An axis in ``UNPORTED_AXES`` raises, citing its ROADMAP item, and
+  leaves no group behind; every axis builds, sequence from the contract
+  env included.
 - ``strict`` with a device-count mismatch raises; without it the
   sharding is refit. A CUDA contract with no card raises before joining.
 - The port's copies of ``TopologyContract``'s env, ``ShardingSpec`` and
@@ -24,6 +25,7 @@ import torch.multiprocessing as mp
 
 from kubeflow_tpu_torch.api.topology import TopologyContract
 from kubeflow_tpu_torch.api.trainingjob import ShardingSpec
+from kubeflow_tpu_torch.parallel import mesh as mesh_mod
 from kubeflow_tpu_torch.parallel.mesh import (MESH_AXES, Mesh, batch_rows,
                                               build_mesh, data_axes,
                                               local_batch_size, replica_axes,
@@ -119,19 +121,29 @@ def test_contract_env_gives_rank_world_device_and_sharding():
 
 
 def _unported_axes(rank, env, port2):
-    """The refused bring-up (a sequence axis), then a second group on
-    another port (a rank done with the first store must not find the
-    other's still open): the model axes and pipeline build, sequence
-    raises."""
+    """A refused bring-up (an axis in ``UNPORTED_AXES``, the hook that
+    stays for the next axis not yet ported: sequence put there for the
+    call), then a second group on another port (a rank done with the
+    first store must not find the other's still open) from
+    ``{"data": 1, "sequence": 2}``: every axis builds, sequence with its
+    coordinate, one replica, the whole batch and its chunk's offset."""
     msgs, built = [], {}
+    seq_env = dict(env, KFTPU_SHARDING=json.dumps({"data": 1,
+                                                   "sequence": 2}))
+    mesh_mod.UNPORTED_AXES["sequence"] = "Queue 1 item 0"
     try:
-        bootstrap.initialize(dict(env, KFTPU_SHARDING=json.dumps(
-            {"data": 1, "sequence": 2})), device="cpu")
+        bootstrap.initialize(seq_env, device="cpu")
     except NotImplementedError as e:
         msgs.append(str(e))
+    finally:
+        mesh_mod.UNPORTED_AXES.clear()
     left = dist.is_initialized()
     ctx = bootstrap.initialize(dict(
-        env, KFTPU_COORDINATOR_ADDRESS=f"localhost:{port2}"), device="cpu")
+        seq_env, KFTPU_COORDINATOR_ADDRESS=f"localhost:{port2}"),
+        device="cpu")
+    m = ctx.mesh
+    built["contract"] = (m.coords["sequence"], replica_degree(m),
+                         batch_rows(8, m), m.chunk_offset(4))
     for axis in ("fsdp", "tensor", "expert", "sequence", "pipeline"):
         try:
             mesh = build_mesh(ShardingSpec(data=1, **{axis: 2}))
@@ -144,21 +156,25 @@ def _unported_axes(rank, env, port2):
 
 
 def test_an_unported_axis_greater_than_one_raises():
-    """Sequence raises on every rank, citing ROADMAP item 11; fsdp,
-    tensor, expert and pipeline build at world 2, the rank's coordinate
-    on the axis its rank, the batch split over fsdp only (a pipeline
-    stage reads the whole batch)."""
+    """An axis in ``UNPORTED_AXES`` raises on every rank, citing its
+    ROADMAP item, and leaves no group; with the hook empty every axis
+    builds at world 2: sequence from the contract env (``{"sequence":
+    2}``: the rank's coordinate its rank, one replica reading the whole
+    batch, its chunk of 4 positions at 4·rank), fsdp, tensor, expert and
+    pipeline, the rank's coordinate on the axis its rank, the batch
+    split over fsdp only."""
     for r, (msgs, left, built) in enumerate(
             spawn_contract(_unported_axes, 2, _free_port())):
         assert not left            # the refused bring-up left no group
-        assert len(msgs) == 2, msgs
-        assert all("item 11" in m for m in msgs), msgs
-        assert built == {"fsdp": (r, 2, slice(4 * r, 4 * r + 4)),
+        assert len(msgs) == 1, msgs
+        for msg in msgs:
+            assert "not yet ported" in msg and "item 0" in msg, msg
+        assert built == {"contract": (r, 1, slice(0, 8), 4 * r),
+                         "fsdp": (r, 2, slice(4 * r, 4 * r + 4)),
                          "tensor": (r, 1, slice(0, 8)),
                          "expert": (r, 1, slice(0, 8)),
+                         "sequence": (r, 1, slice(0, 8)),
                          "pipeline": (r, 1, slice(0, 8))}
-        for msg in msgs:
-            assert "not yet ported" in msg and "item 11" in msg, msg
 
 
 def test_strict_mismatch_raises_and_the_default_refits():

@@ -5,7 +5,8 @@ step through K4 and K5,
 and one fused ResNet-50 inference forward through K6; and two gloo ranks
 sharing the card (sharded update) against one process, for one step of a
 small LM and of one fused block; the pipelined LM's microbatch shapes,
-two {pipeline 2} ranks sharing the card, and the MPMD stages' launches.
+two {pipeline 2} ranks sharing the card, the MPMD stages' launches, and
+two {sequence 2} ranks' ring against the gathered sequence's K1.
 
 Every test here carries the ``gpu`` marker and skips where no card is
 present (decided in the ``cuda_device`` fixture, never at import). The
@@ -1767,3 +1768,45 @@ def test_mpmd_step_launches_on_the_card(cuda_device):
     assert (rep.dcn_transfers, rep.dcn_bytes) == (12, 4 * (2 * act + 96 * 4))
     one = _pp_rank_step(0, 1)
     np.testing.assert_allclose(m["loss"], one["loss"], rtol=1e-3)
+
+
+def _ring_rank(rank, world):
+    """One {sequence world} rank on the card: the ring on its chunks of
+    a seeded [2, 512, 4, 64] bf16 causal Q/K/V, and the gathered
+    sequence's K1 output at its rows; its K1 launches and its hops."""
+    import importlib as il
+    from kubeflow_tpu_torch.api.trainingjob import ShardingSpec
+    from kubeflow_tpu_torch.parallel import collectives
+    from kubeflow_tpu_torch.parallel.mesh import build_mesh
+    ra = il.import_module("kubeflow_tpu_torch.ops.ring_attention")
+    dev = torch.device("cuda", 0)
+    mesh = build_mesh(ShardingSpec(sequence=world))
+    q, k, v = _qkv(2, 512, 4, 64, dev, torch.bfloat16, seed=16)
+    c = 512 // world
+    at = mesh.chunk_offset(c)
+    mine = [t[:, at:at + c].contiguous() for t in (q, k, v)]
+    before = tfa.flash_attention.launches
+    collectives.reset_counts()
+    with torch.no_grad():
+        ring = ra.ring_attention(*mine, mesh=mesh)
+    torch.cuda.synchronize()
+    launches = tfa.flash_attention.launches - before
+    hops = (collectives.calls["send"], collectives.calls["recv"])
+    with torch.no_grad():
+        whole = tfa.flash_attention(q, k, v, causal=True)[:, at:at + c]
+    return {"ring": ring.float().cpu().numpy(),
+            "k1": whole.float().cpu().numpy(), "launches": launches,
+            "hops": hops}
+
+
+@pytest.mark.gpu
+def test_ring_on_the_card_matches_the_gathered_k1(cuda_device):
+    """Two gloo ranks on the card, {sequence 2}: each rank's ring output
+    (f32 blocks, no K1 launch, one hop each way) against the gathered
+    sequence's K1 output at its rows, within one bf16 step of the value
+    plus 1e-2 (chip_smoke.py phase 14c's bar)."""
+    from test_torch_dp import spawn
+    for out in spawn(_ring_rank, 2):
+        assert out["launches"] == 0 and out["hops"] == (1, 1)
+        bar = 1e-2 + 2.0 ** -7 * np.abs(out["k1"])
+        assert (np.abs(out["ring"] - out["k1"]) <= bar).all()

@@ -53,7 +53,8 @@ def test_every_module_imports_without_jax():
                  "serving.grpc_server", "serving.tpu_serving_pb2",
                  "serving.router", "serving.fleet", "scheduler.health",
                  "runtime.aot", "models.moe", "parallel.pipeline",
-                 "parallel.multislice", "obs.goodput"):
+                 "parallel.multislice", "obs.goodput",
+                 "ops.ring_attention"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

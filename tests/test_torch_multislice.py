@@ -18,7 +18,8 @@ path against the JAX package's (``kubeflow_tpu/parallel/multislice.py``,
   reads as nonzero ``pipeline_bubble`` badput summing to wall-clock;
   with fused_adam one K3 a stage a step (counted at its plain version);
   M defaults as the JAX worker's; the refusals come in the JAX package's
-  words, and the AOT record and checkpoints raise.
+  words, and the AOT record raises (checkpoints save: their round trips
+  are in tests/test_torch_multislice_ckpt.py).
 """
 
 import json
@@ -245,9 +246,11 @@ def test_aot_and_checkpoints_are_not_ported_on_this_path(tmp_path):
     with pytest.raises(NotImplementedError, match="item 10"):
         worker.train(steps=1, multislice_pipeline=True, aot=True,
                      aot_dir=str(tmp_path), **KW)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        worker.train(steps=1, multislice_pipeline=True,
-                     checkpoint_dir=str(tmp_path / "c"), **KW)
+    # checkpoints are ported on this path since the per-stage state tree
+    # (tests/test_torch_multislice_ckpt.py): the step is saved
+    worker.train(steps=1, multislice_pipeline=True,
+                 checkpoint_dir=str(tmp_path / "c"), **KW)
+    assert (tmp_path / "c" / "1" / "_CHECKPOINT_METADATA").exists()
     with pytest.raises(NotImplementedError, match="eval is not supported"):
         _REAL_BUILDER(cfg=T.TransformerConfig.tiny(), num_slices=2,
                       num_microbatches=2, optimizer=None,

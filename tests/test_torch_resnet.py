@@ -255,33 +255,14 @@ def test_trainstep_two_steps_match_jax():
             _close(t_stats[k], j_stats[k], 1e-4, f"step {step + 1} {k}")
 
 
-def test_worker_trains_resnet_on_cpu(tmp_path):
-    """The fused path (every stride-1 block through K4's plain version on
-    the CPU) and the default path with the eval pass, through train()."""
-    kw = dict(device="cpu", steps=2, global_batch=4, sync_every=1,
-              handle_sigterm=False)
-    fused = worker.train(workload="resnet50", workload_kwargs={
-        "image_size": 32, "num_classes": 10, "fused": True,
-        "fused_tile_bt": 1}, metrics_path=str(tmp_path / "f.jsonl"), **kw)
-    assert fused.steps == 2
-    assert np.isfinite(fused.final_metrics["loss"])
-    lines = (tmp_path / "f.jsonl").read_text().splitlines()
-    assert len(lines) == 2
-    plain = worker.train(workload="resnet18", workload_kwargs={
-        "image_size": 32, "num_classes": 10}, eval_every=2, eval_batches=1,
-        label_smoothing=0.1, **kw)
-    assert np.isfinite(plain.final_metrics["loss"])
-    assert {"eval_loss", "top1", "top5", "accuracy"} <= \
-        set(plain.final_metrics)
-
-
 def test_fused_refusals():
     """BasicBlock models have no fused path. A data-parallel mesh is
     taken (tests/test_torch_dp_resnet.py); on one whose tensor axis
     exceeds 1 TrainStepBuilder raises, since the ResNet spec carries no
-    sharding rules (as the JAX ResNet's), and a sequence axis is not
-    ported (ROADMAP Queue 1 item 11)."""
-    from kubeflow_tpu_torch.parallel.mesh import MESH_AXES, Mesh, check_axes
+    sharding rules (as the JAX ResNet's), and a sequence axis (the JAX
+    package's split of an image's height) is not ported on either path
+    (ROADMAP Queue 1 item 17)."""
+    from kubeflow_tpu_torch.parallel.mesh import MESH_AXES, Mesh
     from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
     with pytest.raises(ValueError, match="bottleneck"):
         R.make_fused_loss_fn(R.resnet18(num_classes=10))
@@ -295,8 +276,10 @@ def test_fused_refusals():
                          mesh=Mesh(shape={**one.shape, "tensor": 2}),
                          rules=spec.rules,
                          param_logical_axes=spec.param_logical_axes)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        check_axes({**one.shape, "sequence": 2})
+    for fused in (True, False):
+        with pytest.raises(NotImplementedError, match="item 17"):
+            R.workload_spec(32, 10, fused=fused,
+                            mesh=Mesh(shape={**one.shape, "sequence": 2}))
     with pytest.raises(SystemExit):
         worker.main(["--workload", "resnet18", "--fused-blocks",
                      "--device", "cpu"])

@@ -139,10 +139,12 @@ def test_bf16_steps_match_jax():
                                        err_msg=f"step {i + 1} {k}")
 
 
-def test_builder_refuses_unported_layouts():
+def test_builder_refuses_unported_layouts(monkeypatch):
     """The sharded update is ported (tests/test_torch_dp.py): on one
-    replica it is the replicated strategy. The sequence axis raises,
-    citing ROADMAP item 11. The fsdp, tensor, expert and pipeline axes
+    replica it is the replicated strategy. The sequence axis builds
+    (tests/test_torch_sequence.py: one replica, its gradients summed over
+    the axis); an axis in ``UNPORTED_AXES`` raises, citing its ROADMAP
+    item. The fsdp, tensor, expert and pipeline axes
     build with the workload's rules (tests/test_torch_model_parallel.py,
     tests/test_torch_pipeline_train.py) and raise without them (ResNet
     carries none); an unknown layout is a ValueError."""
@@ -151,9 +153,16 @@ def test_builder_refuses_unported_layouts():
     assert TrainStepBuilder(weight_update="sharded",
                             **kw).strategy == "replicated"
     shape = {**dict.fromkeys(MESH_AXES, 1), "sequence": 2}
+    b = TrainStepBuilder(mesh=Mesh(shape=shape), weight_update="sharded",
+                         **kw)
+    assert (b.seq, b.n_rep, b.strategy) == (2, 1, "replicated")
+    from kubeflow_tpu_torch.parallel import mesh as mesh_mod
+    monkeypatch.setitem(mesh_mod.UNPORTED_AXES, "sequence",
+                        "Queue 1 item 0")
     with pytest.raises(NotImplementedError,
-                       match="not yet ported.*item 11"):
+                       match="not yet ported.*item 0"):
         TrainStepBuilder(mesh=Mesh(shape=shape), **kw)
+    monkeypatch.undo()
     spec = T.workload_spec(T.TransformerConfig.tiny())
     for axis in ("fsdp", "tensor", "expert", "pipeline"):
         shape = {**dict.fromkeys(MESH_AXES, 1), axis: 2}

@@ -18,20 +18,19 @@
 - From record shards (``data_dir``, at 32 px): one LARS step under the
   runtime schedule of the port's train step against the JAX package's on
   the same record batch, each through its own pipeline and
-  ``device_normalize``, from converted weights; a resnet18 run through
-  ``train()`` with a holdout (``eval_data_dir``), TensorBoard events, a
-  profile and the flight recorder; the worker's ``/metrics`` port with
-  ``POST /profile`` and ``GET /flightrecorder`` while it trains.
+  ``device_normalize``, from converted weights. A resnet18 run through
+  ``train()`` with a holdout, the ``/metrics`` port while it trains
+  (tests/test_torch_worker_records.py) and the record-fed resume
+  (tests/test_torch_worker_resume.py) are split out so that the test
+  runner's workers take them in parallel.
 """
 
-import glob
 import json
 import logging
 import os
 import socket
 import subprocess
 import sys
-import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -48,7 +47,6 @@ from kubeflow_tpu_torch.data import imagenet as TI
 from kubeflow_tpu_torch.models import resnet as TR
 from kubeflow_tpu_torch.models.convert import resnet_variables_from_jax
 from kubeflow_tpu_torch.models.transformer import TransformerConfig
-from kubeflow_tpu_torch.obs import registry as obsreg
 from kubeflow_tpu_torch.parallel.mesh import MESH_AXES, Mesh
 from kubeflow_tpu_torch.runtime import bootstrap, recipe, worker
 from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
@@ -246,12 +244,14 @@ def test_unported_layouts_and_schedules_raise(monkeypatch):
 def test_bootstrap_refuses_a_multi_process_contract():
     """A multi-process contract now brings up the gang
     (tests/test_torch_bootstrap.py); what it refuses is a sharding axis
-    that is not ported, on every rank, citing the ROADMAP item. One
-    process: the contract's ids, or this process alone without one."""
+    that is not ported (an axis in ``UNPORTED_AXES``; none is left, so
+    the helper puts sequence there for the call), on every rank, citing
+    the ROADMAP item. One process: the contract's ids, or this process
+    alone without one."""
     from test_torch_bootstrap import _free_port as free_port
     from test_torch_bootstrap import _unported_axes, spawn_contract
     for msgs, left, _ in spawn_contract(_unported_axes, 2, free_port()):
-        assert not left and "item 11" in msgs[0], msgs
+        assert not left and "not yet ported" in msgs[0], msgs
     env = {"KFTPU_TOPOLOGY": "v5e-1", "KFTPU_NUM_PROCESSES": "1",
            "KFTPU_PROCESS_ID": "0",
            "KFTPU_COORDINATOR_ADDRESS": f"localhost:{free_port()}"}
@@ -362,100 +362,6 @@ def test_record_step_with_runtime_lars_matches_jax(records):
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(tmet[k]), float(jmet[k]),
                                        rtol=1e-4, err_msg=f"{k} {step}")
-
-
-def _counter(name, **labels):
-    fam = obsreg.counter(name, "", labels=tuple(labels))
-    return fam.labels(**labels).value
-
-
-def test_train_from_records_with_holdout_on_cpu(records, tmp_path):
-    """resnet18 at 32 px from records (in-process native augment,
-    prefetch 2), LARS under the runtime schedule, the full holdout of 10
-    records at batch 8 (8 + 2 padded to 8) evaluated once at the end;
-    windows, TensorBoard events, a whole-run profile, spans."""
-    train_dir, holdout = records
-    staged = _counter("kftpu_input_batches_total", stage="device_put")
-    native = _counter(TI.IMPL_COUNTER, stage="augment", impl="native")
-    path, spans = tmp_path / "m.jsonl", tmp_path / "spans.jsonl"
-    r = worker.train(
-        workload="resnet18", device="cpu", steps=4, global_batch=8,
-        sync_every=2, data_dir=train_dir, eval_data_dir=holdout,
-        eval_every=4, eval_batches=0, optimizer="lars", learning_rate=0.1,
-        lr_schedule="cosine", warmup_steps=1, runtime_schedule=True,
-        device_prefetch=2, tensorboard_dir=str(tmp_path / "tb"),
-        profile_dir=str(tmp_path / "prof"), metrics_path=str(path),
-        span_path=str(spans), handle_sigterm=False)
-    assert r.steps == 4
-    records_ = [json.loads(line) for line in path.read_text().splitlines()]
-    windows = [w for w in records_ if not w.get("event")]
-    assert [w["step"] for w in windows] == [2, 4]
-    assert all(np.isfinite(w["loss"]) for w in windows)
-    (ev,) = [w for w in records_ if w.get("event")]
-    assert ev["metrics"]["eval_examples"] == 10.0
-    assert r.final_metrics["eval_examples"] == 10.0
-    assert 0.0 <= r.final_metrics["top1"] <= 1.0
-    assert _counter("kftpu_input_batches_total",
-                    stage="device_put") - staged >= 4
-    assert _counter(TI.IMPL_COUNTER, stage="augment",
-                    impl="native") - native >= 4
-    assert glob.glob(str(tmp_path / "tb" / "events.out.tfevents.*"))
-    (trace,) = glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
-    with open(trace) as f:
-        assert json.load(f)["traceEvents"]
-    names = [json.loads(line)["name"] for line in
-             spans.read_text().splitlines()]
-    assert names[0] == "train-start" and names[-1] == "train-done"
-    assert names.count("window") == 2 and "profile" in names
-
-
-def test_obs_metrics_port_profiles_and_records_while_training(
-        records, tmp_path, monkeypatch):
-    """KFTPU_OBS_METRICS_PORT starts /metrics; from inside the loop (the
-    second step) a client arms POST /profile?steps=2 and reads
-    /flightrecorder and /metrics; the capture lands under
-    KFTPU_PROFILE_DIR. Spawned augment workers, no device prefetch."""
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    monkeypatch.setenv("KFTPU_OBS_METRICS_PORT", str(port))
-    monkeypatch.setenv("KFTPU_PROFILE_DIR", str(tmp_path / "profiles"))
-    seen = {}
-    base = f"http://127.0.0.1:{port}"
-
-    class Arm(worker.ProfileArm):
-        def on_step_start(self):
-            if "armed" not in seen:
-                fr = json.loads(urllib.request.urlopen(
-                    base + "/flightrecorder").read())
-                if fr["records"]:       # the first window has closed
-                    seen["fr"] = fr
-                    req = urllib.request.Request(
-                        base + "/profile?steps=2", data=b"", method="POST")
-                    seen["armed"] = json.loads(
-                        urllib.request.urlopen(req).read())
-                    seen["metrics"] = urllib.request.urlopen(
-                        base + "/metrics").read().decode()
-            super().on_step_start()
-
-    monkeypatch.setattr(worker, "ProfileArm", Arm)
-    r = worker.train(
-        workload="resnet18", device="cpu", steps=6, global_batch=8,
-        sync_every=1, data_dir=records[0], input_workers=2,
-        device_prefetch=0, handle_sigterm=False)
-    assert r.steps == 6
-    fr = seen["fr"]["records"]
-    assert {"data_s", "h2d_s", "dispatch_s", "drain_s", "device_wait_s",
-            "input_batches"} <= set(fr[0])
-    assert fr[0]["first_step_s"] > 0
-    armed = seen["armed"]
-    assert armed["armed"] and armed["steps"] == 2
-    assert armed["dir"].startswith(str(tmp_path / "profiles"))
-    assert glob.glob(os.path.join(armed["dir"], "*.pt.trace.json"))
-    text = seen["metrics"]
-    assert 'kftpu_input_batches_total{stage="augment"}' in text
-    assert "kftpu_step_seconds" in text
 
 
 # -- two worker processes from the contract env ---------------------------------
@@ -588,45 +494,3 @@ def test_katib_observations_match_jax(monkeypatch):
         assert worker.train(steps=1, **KW).steps == 1
     finally:
         svc.stop()
-
-
-class _StopAtStep2:
-    """A guard whose stop flag turns True at its second read: SIGTERM
-    arriving during step 2."""
-
-    def __init__(self, install=True, on_term=None):
-        self.reads = 0
-
-    @property
-    def stop(self):
-        self.reads += 1
-        return self.reads >= 2
-
-    def uninstall(self):
-        pass
-
-
-@pytest.mark.parametrize("prefetch", [0, 2])
-def test_record_fed_resume_continues_the_stream(records, tmp_path,
-                                                monkeypatch, prefetch):
-    """A run from record shards (LARS under the runtime cosine schedule)
-    preempted at step 2 and resumed to step 5 reads batches 2, 3 and 4 of
-    the seeded stream (no replay, no skip) with the schedule's state
-    restored: its params equal an uninterrupted run's, bit for bit on the
-    CPU."""
-    from kubeflow_tpu_torch.cluster.chaos import final_params
-    kw = dict(workload="resnet18", device="cpu", data_dir=records[0],
-              global_batch=4, optimizer="lars", runtime_schedule=True,
-              lr_schedule="cosine", warmup_steps=1, sync_every=1,
-              checkpoint_every=100, device_prefetch=prefetch, seed=0,
-              handle_sigterm=False, steps=5)
-    clean, cut = str(tmp_path / "clean"), str(tmp_path / "cut")
-    assert worker.train(checkpoint_dir=clean, **kw).steps == 5
-    monkeypatch.setattr(worker, "PreemptionGuard", _StopAtStep2)
-    first = worker.train(checkpoint_dir=cut, **kw)
-    assert first.preempted and first.steps == 2
-    monkeypatch.undo()
-    assert worker.train(checkpoint_dir=cut, **kw).steps == 3
-    a, b = final_params(clean, device="cpu"), final_params(cut, "cpu")
-    for k in a:
-        assert torch.equal(a[k], b[k]), k
