@@ -169,7 +169,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
              |param| of the uninterrupted run's (0 expected). Prints each
              save's synchronous and to-committed ms, the payload bytes a
              step and the restore ms. (b) The worker CLI child again,
-             with the sentinel (check_every 1) and
+             started beside (a)'s (neither child is timed), with the
+             sentinel (check_every 1) and
              KFTPU_CHAOS_NUMERIC=nan:5, must exit 76 with its evidence
              posted to the stub (nan-loss or nan-grad at step 5 or 6, LKG
              4), LKG 4 in the marker and nothing newer than 4 on disk;
@@ -227,28 +228,42 @@ Phases, each of which fails the run (nonzero exit, no result line):
              warmup steps under the runtime schedule, 224 px, batch 64,
              synthetic pool), each over one fresh build cache
              (KFTPU_COMPILE_CACHE_DIR) and one fresh AOT dir, three
-             fresh worker processes (this script with --aot-child) of
-             the same 20 seeded steps: cold (empty cache, aot: nvcc >= 1,
+             fresh worker processes (this script with --aot-child) in
+             three rounds, cold, warm, aot, each a process a model
+             started together: the first steps of a round run at once
+             (not the card's alone), then each child in turn holds the
+             card alone (a file lock) for its later steps and its trace,
+             of the same 12 seeded steps: cold (empty cache, aot: nvcc >= 1,
              the step captured as one CUDA graph, outcomes miss and
              export, start_kind cold), warm (no aot: cache hits, 0 nvcc,
              eager, start_kind warm) and aot (outcome hit, 0 nvcc, the
              step captured, start_kind aot). Prints per arm the start
              kind, nvcc runs, outcomes, first-step seconds and the median
-             step ms over steps 5-20. Fails unless the three arms' losses
+             step ms over steps 5-12. Fails unless the three arms' losses
              and final params agree within 1e-5 (|d| printed; 0
              expected), the step object's launches are K1/K2a/K2b 12 and
              K3 1, or K4 7 + 7 and K5 6 + 6, a replay and the wrappers'
-             counts are 20 times that, a trace of two more replays of the
+             counts are 12 times that, a trace of two more replays of the
              aot arm's step holds the same per step by kernel name, and
              neither AOT arm counted export-failed or deserialize-failed
              or ran eagerly. Then, for both models at once (untimed), a
              truncated record and one re-keyed must each fall back
              (outcome corrupt, key-mismatch; then export),
-             train the 20 steps equal to cold's and read start_kind warm
+             train the 12 steps equal to cold's and read start_kind warm
              from the cache. Prints the device's idle share of the traced
              captured and eager fused ResNet steps. A captured arm's
              worker windows (edge to edge, the drain's wait included)
-             must read within 10% of its CUDA-event step.
+             must read within 10% of its CUDA-event step. Then the MPMD
+             arm: 13c's configuration (S 2, M 8, batch 8 x 2048, flash
+             + fused_adam), 8 steps, the same three processes: cold
+             exports 2S-1 = 3 stage-program records (miss 3, export 3),
+             aot reads hit 3 with 0 nvcc and starts "aot"; the stage
+             programs' replays launch K1 144, K2a/K2b 96 a step, K3 2
+             (eager, one a stage); the arms agree within 1e-5; one
+             truncated program record falls back alone (corrupt 1, hit
+             2, export 1) and the job trains. Each arm's goodput ledger
+             (obs/goodput.py) books its compile under its start kind
+             and sums to its wall clock (categories_sum_ok).
 12. mp     - before phase 11: (a) the MoE LM at the default widths (8
              experts, top-2, capacity 1.25, aux weight 0.01), flash +
              fused_adam, lr 6e-4, clip 1.0, batch 8 x 2048, 6 steps
@@ -258,12 +273,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
              1e-6 of max|param| (0 expected); the first step against
              einsum + stock Adam at batch 2 (phase 5's bars); peak
              memory and step ms off and on. (b) two gloo ranks sharing
-             the card, the contract env, at full width cut to 4 layers,
+             the card, the contract env, at full width cut to 2 layers,
              3 steps on {data 2} (the MoE LM: its aux loss over the
              global batch), {tensor 2} (the dense LM), {expert 2} and
              {fsdp 2} (the MoE LM, the sharded update) against one
              process on the same global batch: phase 8's bars a step,
-             K1/K2a/K2b 4 and K3 1 a rank a step, each rank's param
+             K1/K2a/K2b 2 and K3 1 a rank a step, each rank's param
              bytes at most half of one process's plus its replicated
              leaves, and what init held above its blocks at most twice
              the largest leaf.
@@ -292,6 +307,15 @@ Phases, each of which fails the run (nonzero exit, no result line):
              int32 tokens); a pipeline-bubble span a window; no
              collective called. K1/K2a/K2b at the microbatch shapes
              ([2 and 1, 2048, 12, 64] bf16) are phase 2 cases.
+
+The comm profile (obs/collectives.py) rides the runs of phases 8, 12b,
+13b, 13c and 14: one comm-profile span from rank 0 whose calls and bytes
+by op equal parallel/collectives.py's counters for that step (13c: no
+op); in phase 8 a one-step replicated LM beside the ZeRO-2 run, whose
+gradient and param wire bytes must equal ZeRO-2's. The training goodput
+ledger (obs/goodput.py) rides phases 9a/9b (checkpoint badput > 0, the
+steps replayed booked as recomputed and rolled back) and 13c
+(pipeline_bubble > 0); each ledger sums to its wall clock within 2%.
 
 Phase 2 also holds K4 and K5 (the fused ghost-BN bottleneck, batch-tiled
 and spatial, csrc/fused_block_train.cu) against their plain versions at
@@ -456,6 +480,19 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Laps:
+    """Host-clock seconds of each stretch of phases, in the order run."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.seconds: dict = {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.t, 1)
+        self.t = now
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2527,6 +2564,80 @@ class _Apiserver(threading.Thread):
         self.server.server_close()
 
 
+# the comm profile (obs/collectives.py) of a gang's first step, on rank 0:
+# every op listed on the span, so its calls and bytes can be summed by op
+COMM_TOP_OPS = "100000"
+
+
+def _comm_spans(path: str) -> list:
+    """The attrs of each comm-profile span in a span file (none when the
+    file is absent)."""
+    from kubeflow_tpu_torch.obs.collectives import COMM_PROFILE_SPAN
+    from kubeflow_tpu_torch.obs.trace import load_spans
+    return [s.get("attrs", {}) for s in load_spans(path)
+            if s["name"] == COMM_PROFILE_SPAN]
+
+
+def _call_bytes(op: dict) -> int:
+    """The bytes a rank handed to the call (parallel/collectives.py's
+    ``bytes_moved``), from the op's payload in the HLO convention: an
+    all-gather's gathered result, a reduce-scatter's scattered one."""
+    n = op["groupSize"]
+    if op["opName"] == "all_gather":
+        return op["payloadBytes"] // n
+    if op["opName"] == "reduce_scatter":
+        return op["payloadBytes"] * n
+    return op["payloadBytes"]
+
+
+def _check_comm(what: str, spans: list) -> dict:
+    """A gang's comm profile: one span, on rank 0 (``spans`` by rank);
+    its calls and bytes by op equal ``parallel/collectives.py``'s
+    counters over the same first step (the span's ``measured``). Returns
+    the summary the log and the record keep: ops, wire bytes by link,
+    the gradient and param wire bytes (the ops beside the scalar
+    exchanges of at most 2 f32 values a rank), calls, host-staged calls
+    and CUDA-event ms by op."""
+    if len(spans[0]) != 1 or any(spans[1:]):
+        fail(f"{what}: comm-profile spans by rank "
+             f"{[len(s) for s in spans]}, expected one on rank 0")
+    prof, measured = spans[0][0]["profile"], spans[0][0]["measured"]
+    ops = prof["topOps"]
+    if len(ops) != prof["totalOps"]:
+        fail(f"{what}: {len(ops)} of {prof['totalOps']} ops on the span")
+    by: dict = {}
+    for o in ops:
+        c, b = by.get(o["opName"], (0, 0))
+        by[o["opName"]] = (c + 1, b + _call_bytes(o))
+    calls = {k: v for k, v in measured["calls"].items() if v}
+    nbytes = {k: v for k, v in measured["bytes"].items() if v}
+    if {k: c for k, (c, _) in by.items()} != calls or \
+            {k: b for k, (_, b) in by.items()} != nbytes:
+        fail(f"{what}: the profile's calls and bytes by op {by}, the "
+             f"counters' {calls} {nbytes}")
+    return {"ops": prof["totalOps"], "dcn_bytes": prof["dcnBytesPerStep"],
+            "ici_bytes": prof["iciBytesPerStep"],
+            "grad_param_wire_bytes": sum(
+                o["dcnBytes"] + o["iciBytes"] for o in ops
+                if _call_bytes(o) > 8),
+            "modeled_s": prof["modeledSeconds"]["total"],
+            "flagged": prof["dcnFullReshard"]["flagged"],
+            "calls": calls,
+            "host_staged": {k: v for k, v in measured["hostStaged"].items()
+                            if v},
+            "events_ms": {k: round(v, 3) for k, v in
+                          measured["eventsMs"].items() if v}}
+
+
+def _comm_log(what: str, c: dict) -> str:
+    return (f"{what}: {c['ops']} collectives in the first step "
+            f"({c['calls']}; host-staged {c['host_staged']}; CUDA events "
+            f"{c['events_ms']} ms), wire bytes a rank ici "
+            f"{c['ici_bytes']:.0f} dcn {c['dcn_bytes']:.0f} (modeled "
+            f"{c['modeled_s'] * 1e3:.3f} ms at the H100's datasheet "
+            f"rates), reshard flag {c['flagged']}")
+
+
 def _capture_states(worker, trainstep) -> dict:
     """Make train() hand its builder and last state out (the runs of this
     phase read the optimizer's shards and the batch statistics)."""
@@ -2632,17 +2743,28 @@ def _dp_rank(rank: int, env: dict, queue) -> None:
         seen = _capture_states(worker, trainstep)
         ctx = bootstrap.initialize(device=DEVICE, backend="gloo")
         out = {"device": str(ctx.device), "world": ctx.mesh.size()}
+        os.environ["KFTPU_COMM_TOP_OPS"] = COMM_TOP_OPS
         import tempfile
         try:
             with tempfile.TemporaryDirectory() as tmp:
+                # the replicated update's first step: the ZeRO-2 arm's
+                # wire bytes against it
+                spans = os.path.join(tmp, "replicated.spans.jsonl")
+                _dp_train(worker, seen, dict(_dp_runs(T)["lm"], steps=1),
+                          os.path.join(tmp, "replicated.jsonl"), ctx=ctx,
+                          weight_update="replicated", span_path=spans)
+                out["lm_replicated_comm"] = _comm_spans(spans)
                 for name, run in _dp_runs(T).items():
                     for fn in counters.values():
                         fn.launches = 0
                     collectives.reset_counts()
                     collectives.record_events(True)
+                    spans = os.path.join(tmp, f"{name}.spans.jsonl")
                     rec = _dp_train(worker, seen, run,
                                     os.path.join(tmp, f"{name}.jsonl"),
-                                    ctx=ctx, weight_update="sharded")
+                                    ctx=ctx, weight_update="sharded",
+                                    span_path=spans)
+                    rec["comm"] = _comm_spans(spans)
                     collectives.record_events(False)
                     rec["launches"] = {n: fn.launches
                                        for n, fn in counters.items()
@@ -2905,6 +3027,23 @@ def phase_dp(T, R, worker, trainstep, bootstrap, collectives, card,
         if not full:
             fail(f"dp: no heartbeat with loss from dp-worker-{r}")
     result["heartbeats"] = {k: len(v) for k, v in beats.items()}
+    # the comm profile of each run's first step, emitted by rank 0
+    comm = {name: _check_comm(f"dp {name}", [
+        ranks[r][name]["comm"] for r in range(DP_RANKS)])
+        for name in ("lm", "resnet")}
+    comm["lm_replicated"] = _check_comm("dp lm replicated", [
+        ranks[r]["lm_replicated_comm"] for r in range(DP_RANKS)])
+    for name, c in comm.items():
+        log(f"[dp] {card} | " + _comm_log(f"comm profile, {name}", c))
+    rep, zero2 = (comm[k]["grad_param_wire_bytes"]
+                  for k in ("lm_replicated", "lm"))
+    log(f"[dp] the LM's gradient and param wire bytes a rank: ZeRO-2 "
+        f"(reduce-scatter + all-gather) {zero2:.0f}, replicated "
+        f"(all-reduce) {rep:.0f}")
+    if zero2 != rep or not rep:
+        fail(f"dp: the ZeRO-2 arm moves {zero2} wire bytes, the "
+             f"replicated arm {rep}: not conserved")
+    result["comm"] = comm
     result["wall_s"] = wall
     result["ref_lm"] = {k: ref["lm"][k] for k in ("loss", "grad_norm")}
     return result
@@ -3037,10 +3176,52 @@ def _param_delta(chaos, a_dir: str, b_dir: str) -> tuple:
     return delta, scale
 
 
+def _replayed(spans: list, resumed_from: int) -> int:
+    """The steps a job ran again: its first run's last window step over
+    the step the second run resumed from."""
+    second = sorted(s["start"] for s in spans
+                    if s["name"] == "train-start")[1]
+    return max(s["attrs"]["step"] for s in spans
+               if s["name"] == "window" and s["start"] < second) - \
+        resumed_from
+
+
+def _ledger_9(what: str, path: str, trace_id: str, resumed_from: int,
+              rolled_back: bool) -> dict:
+    """Phase 9's goodput ledger of one job (the worker CLI child, then
+    the resume in this process, one trace): checkpoint badput, the steps
+    replayed counted as recomputed (and, after the LKG rollback, as
+    rolled back), the categories summing to the wall-clock."""
+    from kubeflow_tpu_torch.obs import goodput as gp
+    from kubeflow_tpu_torch.obs.trace import load_spans
+    ledger = gp.ledger_for(path, trace_id)
+    replayed = _replayed(load_spans(path, trace_id), resumed_from)
+    want = (replayed, replayed if rolled_back else 0)
+    got = (ledger["stepsRecomputed"], ledger["stepsRolledBack"])
+    if not (ledger["badputSeconds"]["checkpoint"] > 0 and got == want and
+            gp.categories_sum_ok(ledger)):
+        fail(f"ckpt {what}: goodput ledger {ledger}; steps replayed "
+             f"{replayed}")
+    return {"replayed": replayed, **{k: ledger[k] for k in (
+        "wallSeconds", "goodputSeconds", "badputSeconds", "steps",
+        "stepsRecomputed", "stepsRolledBack")}}
+
+
+def _ledger_log(ledger: dict) -> str:
+    bad = {k: round(v, 3) for k, v in ledger["badputSeconds"].items() if v}
+    return (f"goodput ledger: {ledger['goodputSeconds']:.3f} s of "
+            f"{ledger['wallSeconds']:.3f} s, badput {bad}; steps "
+            f"{ledger['steps']}, recomputed {ledger['stepsRecomputed']}, "
+            f"rolled back {ledger['stepsRolledBack']} (the steps replayed "
+            f"{ledger['replayed']})")
+
+
 def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
                ModelRepository, fa, card, tmp) -> dict:
     """Phase 9a-c: preemption, anomaly rollback and serving from the
-    trainer's checkpoints, the LM at full width."""
+    trainer's checkpoints, the LM at full width; 9a and 9b each one job
+    in one span file, whose goodput ledger names the checkpoints and the
+    replayed steps."""
     import signal
     run = _lm_ckpt_run(T)
     made = _capture_managers(worker)
@@ -3083,8 +3264,29 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
                 sent.append(time.time())
                 os.kill(pid, signal.SIGTERM)
 
-        rc, child_s, _patches = _worker_child(pre, tmp, "ckpt-worker-0",
-                                              on_patch=sigterm_at_step)
+        spans_a = os.path.join(tmp, "9a.spans.jsonl")
+        job_a = {"KFTPU_SPAN_PATH": spans_a, "KFTPU_TRACE_ID": "smoke-9a"}
+        # 9b's anomaly child runs beside this one: neither child is
+        # timed, and both have ended before the verify and the restore
+        # below are
+        anom = os.path.join(tmp, "anomaly")
+        spans_b = os.path.join(tmp, "9b.spans.jsonl")
+        fault = {sentinel.NUMERIC_FAULT_ENV: f"nan:{FAULT_STEP}",
+                 sentinel.NUMERIC_FAULT_MARK_ENV: os.path.join(tmp, "mark"),
+                 "KFTPU_SPAN_PATH": spans_b, "KFTPU_TRACE_ID": "smoke-9b"}
+        child_b: dict = {}
+        thread_b = threading.Thread(target=lambda: child_b.update(
+            result=_worker_child(
+                anom, tmp, "ckpt-worker-1", extra_env=fault,
+                extra_args=("--integrity", "--integrity-check-every",
+                            "1"))))
+        thread_b.start()
+        try:
+            rc, child_s, _patches = _worker_child(
+                pre, tmp, "ckpt-worker-0", on_patch=sigterm_at_step,
+                extra_env=job_a)
+        finally:
+            thread_b.join()
         mgr = ckpt_mod.CheckpointManager(pre)
         latest = mgr.latest_step()
         # a fresh manager reads every payload byte: the verification a
@@ -3095,7 +3297,8 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
         out["verify_ms"] = (time.perf_counter() - t0) * 1e3
         log(f"[ckpt] {card} | worker CLI child: SIGTERM while it reported "
             f"step "
-            f"{SIGTERM_AT_BEAT}, exit {rc} in {child_s:.1f}s; steps on "
+            f"{SIGTERM_AT_BEAT}, exit {rc} in {child_s:.1f}s (beside 9b's "
+            f"child); steps on "
             f"disk {mgr.all_steps()}, newest intact {latest} {verdict} "
             f"(the manifest's crc32 pass over the step by a fresh manager "
             f"{out['verify_ms']:.1f} ms)")
@@ -3104,10 +3307,18 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
             fail(f"ckpt: SIGTERM run exit {rc}, newest step {latest} "
                  f"{verdict} (expected {worker.PREEMPTED_EXIT_CODE}, 3):\n"
                  f"{_child_tail(tmp, 'ckpt-worker-0')}")
-        res, launches = _counted(counters, lambda: worker.train(
-            steps=CKPT_STEPS, checkpoint_dir=pre, device=DEVICE, **run))
+        os.environ.update(job_a)
+        try:
+            res, launches = _counted(counters, lambda: worker.train(
+                steps=CKPT_STEPS, checkpoint_dir=pre, device=DEVICE,
+                **run))
+        finally:
+            for k in job_a:
+                os.environ.pop(k)
         if res.steps != CKPT_STEPS - 3:
             fail(f"ckpt: the resume executed {res.steps} steps")
+        out["ledger_9a"] = _ledger_9("9a", spans_a, "smoke-9a", latest,
+                                     False)
         _expect(launches, LM_PER_STEP, res.steps, "resumed")
         out["launches"]["resumed"] = launches
         out["restore_ms"] = made[-1].restore_stats[0]["s"] * 1e3
@@ -3119,18 +3330,17 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
             f"verification), "
             f"{res.steps} steps executed, launches {launches}; largest "
             f"|dparam| against the uninterrupted run {delta:.3e} (largest "
-            f"|param| {scale:.4f}; bar {RESUME_REL_TOL} of it)")
+            f"|param| {scale:.4f}; bar {RESUME_REL_TOL} of it); "
+            + _ledger_log(out["ledger_9a"]))
         if not delta <= RESUME_REL_TOL * scale:
             fail("ckpt: the resumed run left the uninterrupted one")
         shutil.rmtree(pre, ignore_errors=True)
 
         # -- 9b: the numeric anomaly and the LKG rollback -------------------
-        anom = os.path.join(tmp, "anomaly")
-        fault = {sentinel.NUMERIC_FAULT_ENV: f"nan:{FAULT_STEP}",
-                 sentinel.NUMERIC_FAULT_MARK_ENV: os.path.join(tmp, "mark")}
-        rc, child_s, patches = _worker_child(
-            anom, tmp, "ckpt-worker-1", extra_env=fault,
-            extra_args=("--integrity", "--integrity-check-every", "1"))
+        if "result" not in child_b:
+            fail(f"ckpt: the anomaly child did not finish:\n"
+                 f"{_child_tail(tmp, 'ckpt-worker-1')}")
+        rc, child_s, patches = child_b["result"]
         posted = [json.loads(a["kubeflow.org/numeric-anomaly"])
                   for _p, a in patches
                   if "kubeflow.org/numeric-anomaly" in a]
@@ -3142,8 +3352,8 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
             lkg_marker = None
         on_disk = ckpt_mod.CheckpointManager(anom).all_steps()
         log(f"[ckpt] {card} | anomaly run (the worker CLI child): exit {rc} "
-            f"in {child_s:.1f}s, evidence posted {posted}, LKG marker "
-            f"{lkg_marker}, steps on disk {on_disk}")
+            f"in {child_s:.1f}s (beside 9a's child), evidence posted "
+            f"{posted}, LKG marker {lkg_marker}, steps on disk {on_disk}")
         if rc != sentinel.ANOMALY_EXIT_CODE or len(posted) != 1 or \
                 ev.get("kind") not in (sentinel.KIND_NAN_LOSS,
                                        sentinel.KIND_NAN_GRAD) or \
@@ -3159,14 +3369,15 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
                 steps=CKPT_STEPS, checkpoint_dir=anom, device=DEVICE,
                 integrity=True, integrity_check_every=1, **run))
         finally:
-            for k in (sentinel.RESUME_STEP_ENV, sentinel.NUMERIC_FAULT_ENV,
-                      sentinel.NUMERIC_FAULT_MARK_ENV):
+            for k in (sentinel.RESUME_STEP_ENV, *fault):
                 os.environ.pop(k)
         if back.anomaly is not None or back.steps != CKPT_STEPS - LKG_STEP:
             fail(f"ckpt: the rollback run: {back.steps} steps, anomaly "
                  f"{back.anomaly}")
         _expect(launches, LM_PER_STEP, back.steps, "rollback")
         out["launches"]["rollback"] = launches
+        out["ledger_9b"] = _ledger_9("9b", spans_b, "smoke-9b", LKG_STEP,
+                                     True)
         delta, scale = _param_delta(chaos, clean, anom)
         out["rollback"] = {"delta": delta, "scale": scale,
                            "evidence": ev}
@@ -3174,7 +3385,7 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
             f"has fired, the mark file says): {back.steps} steps, "
             f"launches {launches}; largest |dparam| against the "
             f"uninterrupted run {delta:.3e} (bar {RESUME_REL_TOL} of "
-            f"{scale:.4f})")
+            f"{scale:.4f}); " + _ledger_log(out["ledger_9b"]))
         if not delta <= RESUME_REL_TOL * scale:
             fail("ckpt: the rolled-back run left the uninterrupted one")
         shutil.rmtree(anom, ignore_errors=True)
@@ -3805,7 +4016,7 @@ def _ckpt_launches(ckpt: dict, degree: dict, kernel: str) -> dict:
 def _mp_launches(moe: dict, mp_r: dict, kernel: str) -> dict:
     """Phase 12's launches of one kernel: the MoE LM in one process (6
     steps, remat off and on) and each model-parallel mesh, per rank (3
-    steps at 4 layers)."""
+    steps at 2 layers)."""
     return {"launches_moe": moe["launches"].get(kernel, 0),
             "launches_moe_remat": moe["launches_remat"].get(kernel, 0),
             "launches_mp": {name: [r["launches"].get(kernel, 0)
@@ -3822,7 +4033,11 @@ def _launch_mean(geoms: list, field: str) -> float:
 
 # -- phase 11: the AOT ladder ---------------------------------------------------
 
-AOT_STEPS = 20
+# the LM and ResNet arms' steps: 8 after the first 4 for the medians
+AOT_STEPS = 12
+# the MPMD arm's steps, each a 1F1B step of 24 ops at M 8: fewer, so the
+# arm's three processes fit the run's time
+AOT_MPMD_STEPS = 8
 AOT_CHILD_TIMEOUT_S = 300
 AOT_TOL = 1e-5              # the reference's cold-vs-aot bar (0 expected)
 AOT_WINDOW_TOL = 0.10       # a captured window's ms against the card's
@@ -3837,16 +4052,43 @@ AOT_LAUNCHES = {
     "resnet": {"fused_block_train_fwd": 7, "fused_block_train_bwd": 7,
                "fused_block_train_spatial_fwd": 6,
                "fused_block_train_spatial_bwd": 6},
+    # 13c's: S 2, M 8, 12 layers; K3 once a stage, outside the graphs
+    "mpmd": {"flash_attention": 3 * PP_MPMD_MICRO * SERVE_LAYERS //
+             PP_STAGES,
+             "flash_attention_bwd_dq": PP_MPMD_MICRO * SERVE_LAYERS,
+             "flash_attention_bwd_dkv": PP_MPMD_MICRO * SERVE_LAYERS,
+             "fused_adam": PP_STAGES},
 }
+# the MPMD programs' warm-ups before their captures: each of FWD, BWD
+# (the forward recomputed) and FWDBWD runs one microbatch once
+AOT_MPMD_WARMUP = {"flash_attention": 3 * SERVE_LAYERS // PP_STAGES,
+                   "flash_attention_bwd_dq": SERVE_LAYERS,
+                   "flash_attention_bwd_dkv": SERVE_LAYERS}
+# the MPMD engine's eager step as earlier runs of 13c read it (host
+# clock, a sync after every op; NVIDIA H100 80GB HBM3, 700 W)
+MPMD_EAGER_MS = "474-698"
 AOT_TRACE_STEPS = 2
 
 
+def _aot_steps(model: str) -> int:
+    return AOT_MPMD_STEPS if model == "mpmd" else AOT_STEPS
+
+
 def _aot_train_kwargs(model: str) -> dict:
-    """Phase 5's LM (flash, fused_adam, batch 8 x 2048) or phase 6b's
+    """Phase 5's LM (flash, fused_adam, batch 8 x 2048), phase 6b's
     fused ResNet-50 recipe (LARS, cosine with 2 warmup steps under the
-    runtime schedule, 224 px, batch 64) on the synthetic pool."""
+    runtime schedule, 224 px, batch 64) on the synthetic pool, or 13c's
+    MPMD stages (the pipelined LM at full width, 2 slices, M 8, flash,
+    fused_adam, batch 8 x 2048)."""
+    from kubeflow_tpu_torch.models import transformer as T
+    if model == "mpmd":
+        return dict(workload="transformer-pipelined",
+                    workload_kwargs={"cfg": T.TransformerConfig()},
+                    kernel_attention="flash", kernel_optimizer="fused_adam",
+                    optimizer="adam", learning_rate=TRAIN_LR,
+                    global_batch=TRAIN_BATCH, multislice_pipeline=True,
+                    multislice_microbatches=PP_MPMD_MICRO)
     if model == "lm":
-        from kubeflow_tpu_torch.models import transformer as T
         return dict(workload="transformer",
                     workload_kwargs={"cfg": T.TransformerConfig()},
                     kernel_attention="flash", kernel_optimizer="fused_adam",
@@ -3892,15 +4134,19 @@ def aot_child(argv: list) -> int:
     in its JSON argument through train() (``aot`` on or off, on the build
     cache its env names) and writes what it saw to ``<out>/result.json``:
     the start kind, nvcc runs and cache hits, the AOT outcomes, each
-    step's loss and time, the step object's launches and replays, the
-    final params (``params.pt``) and, with ``profile``, a trace of two more
-    steps (the kernels per step and the device's idle share)."""
+    step's loss and time, the step object's (or the MPMD stage
+    programs') launches and replays, the goodput ledger of its span file,
+    the final params (``params.pt``) and, with ``profile``, a trace of
+    two more steps (the kernels per step and the device's idle share)."""
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     spec = json.loads(argv[0])
+    from kubeflow_tpu_torch.obs import goodput as gp
     from kubeflow_tpu_torch.obs import registry as obsreg
+    from kubeflow_tpu_torch.obs.trace import load_spans
     from kubeflow_tpu_torch.runtime import compile_cache, trainstep, worker
+    mpmd = spec["model"] == "mpmd"
     seen = {}
     # an event behind each step on its stream: consecutive events time
     # the step as the card sees it, idle gaps included (the worker's
@@ -3912,50 +4158,88 @@ def aot_child(argv: list) -> int:
         ev.record()
         ends.append(ev)
 
+    # with ``sync``: after the first step, wait for the round's other
+    # children to end theirs, then hold the card alone (a file lock)
+    # through the last step and the trace
+    turn: list = []
+
+    def before_step():
+        if spec.get("sync") and len(ends) == 1 and not turn:
+            turn.append(_card_turn(spec["sync"], spec["peers"],
+                                   spec["model"]))
+
     replay = trainstep.CompiledStep.__call__
 
     def timed_replay(self, state, batch):
+        before_step()
         out = replay(self, state, batch)
         mark()
         return out
 
     trainstep.CompiledStep.__call__ = timed_replay
 
-    class Capture(trainstep.TrainStepBuilder):
-        def build(self):
-            step = super().build()
-            seen["builder"] = self
+    def capture(base):
+        class Capture(base):
+            def build(self):
+                step = super().build()
+                seen["builder"] = self
 
-            def run(state, batch):
-                seen["state"], seen["batch"] = state, batch
-                out = step(state, batch)
-                mark()
-                return out
-            return run
+                def run(state, batch):
+                    seen["state"], seen["batch"] = state, batch
+                    before_step()
+                    out = step(state, batch)
+                    mark()
+                    return out
+                return run
 
-        def build_compiled(self, state, batch):
-            seen["compiled"] = super().build_compiled(state, batch)
-            return seen["compiled"]
+            def build_compiled(self, state, batch):
+                seen["compiled"] = super().build_compiled(state, batch)
+                return seen["compiled"]
+        return Capture
 
-    worker.TrainStepBuilder = Capture
+    worker.TrainStepBuilder = capture(trainstep.TrainStepBuilder)
+    trainstep.MultisliceTrainStepBuilder = capture(
+        trainstep.MultisliceTrainStepBuilder)
     out = spec["out"]
     path = os.path.join(out, "metrics.jsonl")
+    spans = os.path.join(out, "spans.jsonl")
     steps = spec["steps"]
     result = worker.train(steps=steps, aot=spec["aot"],
                           aot_dir=spec["aot_dir"], metrics_path=path,
-                          sync_every=1, seed=0, handle_sigterm=False,
-                          device=DEVICE, **_aot_train_kwargs(spec["model"]))
+                          span_path=spans, sync_every=1, seed=0,
+                          handle_sigterm=False, device=DEVICE,
+                          **_aot_train_kwargs(spec["model"]))
     torch.cuda.synchronize()
     counts = {n: getattr(f, a) for n, (f, a) in
               trainstep.kernel_counters().items() if getattr(f, a)}
     stats = compile_cache.compile_stats()
     fam = obsreg.counter("kftpu_aot_executable_total", "",
                          labels=("outcome",))
-    compiled = seen.get("compiled")
-    captured = compiled is not None and compiled.graph is not None and \
-        compiled.replays == steps
-    state = compiled.state if captured else seen["state"]
+    if mpmd:
+        engine = seen["builder"].engine
+        programs = seen["builder"].engine.programs
+        micro = engine.num_microbatches
+        captured = len(programs) == engine.num_programs and all(
+            p.graph is not None and p.replays == steps * micro
+            for p in programs.values())
+        launches = {}
+        for p in programs.values():
+            for n, k in p.launches.items():
+                launches[n] = launches.get(n, 0) + k * micro
+        replays = sum(p.replays for p in programs.values())
+        state = seen["state"]
+        params = {f"{s}/{n}": p for s, ps in enumerate(state.params)
+                  for n, p in ps.items()}
+    else:
+        compiled = seen.get("compiled")
+        captured = compiled is not None and compiled.graph is not None \
+            and compiled.replays == steps
+        launches = compiled.launches if captured else None
+        replays = compiled.replays if compiled is not None else 0
+        state = compiled.state if captured else seen["state"]
+        params = state.params
     windows = _windows(path)
+    ledger = gp.decompose(load_spans(spans))
     rec = {"start_kind": result.start_kind,
            "first_step_s": result.time_to_first_step_s,
            "nvcc": stats["xla_backend_compiles"],
@@ -3965,15 +4249,21 @@ def aot_child(argv: list) -> int:
            "losses": [w["loss"] for w in windows],
            "step_ms": [a.elapsed_time(b) for a, b in zip(ends, ends[1:])],
            "window_ms": [w["step_time_s"] * 1e3 for w in windows],
-           "captured": captured, "counts": counts,
-           "launches": compiled.launches if captured else None,
-           "replays": compiled.replays if compiled is not None else 0}
-    torch.save({n: p.detach().cpu() for n, p in state.params.items()},
+           "captured": captured, "counts": counts, "launches": launches,
+           "replays": replays,
+           "ledger": {k: ledger[k] for k in (
+               "wallSeconds", "goodputSeconds", "badputSeconds",
+               "compileByStartKind", "steps")},
+           "ledger_sum_ok": gp.categories_sum_ok(ledger)}
+    torch.save({n: p.detach().cpu() for n, p in params.items()},
                os.path.join(out, "params.pt"))
     if spec["profile"]:
         trainstep.CompiledStep.__call__ = replay
-        step = compiled if captured else seen["builder"].build()
-        batch = compiled.static_batch if captured else seen["batch"]
+        if mpmd:
+            step, batch = seen["builder"].engine.step, seen["batch"]
+        else:
+            step = compiled if captured else seen["builder"].build()
+            batch = compiled.static_batch if captured else seen["batch"]
         trace_dir = os.path.join(out, "trace")
         os.makedirs(trace_dir)
         from torch.profiler import ProfilerActivity, profile
@@ -3988,24 +4278,54 @@ def aot_child(argv: list) -> int:
         idle = trace_idle(trace_dir)
         rec["idle"] = {k: idle[k] for k in ("busy_ms", "span_ms",
                                              "idle_share")}
+    torch.cuda.synchronize()
+    for fd in turn:
+        os.close(fd)                    # the card to the round's next child
     with open(os.path.join(out, "result.json"), "w") as f:
         json.dump(rec, f)
     return 0
 
 
+def _card_turn(sync: str, peers: int, name: str) -> int:
+    """Phase 11's barrier and turn: mark this child's first step done in
+    ``sync``, wait until each of the round's ``peers`` children has
+    marked its own, then take the round's card lock (``flock``, released
+    when the returned descriptor is closed or the process ends). No other
+    child of the round runs on the card while it is held: the others
+    either have ended or wait here."""
+    import fcntl
+    torch.cuda.synchronize()
+    open(os.path.join(sync, f"ready-{name}"), "w").close()
+    deadline = time.monotonic() + AOT_CHILD_TIMEOUT_S
+    while sum(n.startswith("ready-") for n in os.listdir(sync)) < peers:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"phase 11: the round's other children did "
+                               f"not end their first steps in {sync}")
+        time.sleep(0.05)
+    fd = os.open(os.path.join(sync, "card.lock"), os.O_CREAT | os.O_RDWR)
+    fcntl.flock(fd, fcntl.LOCK_EX)
+    return fd
+
+
 def _aot_start(tmp: str, model: str, arm: str, cache: str, aot_dir: str,
-               aot: bool, profile: bool = False) -> tuple:
+               aot: bool, profile: bool = False, sync: str | None = None,
+               peers: int = 0) -> tuple:
     """Start one fresh worker process (this script with --aot-child) on
-    the build cache ``cache``; its output goes to ``<out>/child.log``."""
+    the build cache ``cache``; its output goes to ``<out>/child.log``.
+    ``sync``/``peers``: the round's directory and its number of children
+    (:func:`_card_turn`)."""
     out = os.path.join(tmp, f"{model}-{arm}")
     os.makedirs(out)
     env = {k: v for k, v in os.environ.items()
            if k not in ("KFTPU_AOT", "KFTPU_AOT_DIR")}
     env["KFTPU_COMPILE_CACHE_DIR"] = cache
+    if model == "mpmd":
+        env["KFTPU_NUM_SLICES"] = str(PP_STAGES)
     argv = [sys.executable, os.path.join(HERE, "chip_smoke.py"),
             "--aot-child", json.dumps({
-                "model": model, "steps": AOT_STEPS, "aot": aot,
-                "aot_dir": aot_dir, "out": out, "profile": profile})]
+                "model": model, "steps": _aot_steps(model), "aot": aot,
+                "aot_dir": aot_dir, "out": out, "profile": profile,
+                "sync": sync, "peers": peers})]
     with open(os.path.join(out, "child.log"), "w") as f:
         proc = subprocess.Popen(argv, env=env, stdout=f,
                                 stderr=subprocess.STDOUT)
@@ -4032,39 +4352,59 @@ def _aot_finish(started: tuple) -> dict:
     return rec
 
 
-def _aot_run(*args, **kw) -> dict:
-    return _aot_finish(_aot_start(*args, **kw))
-
-
 def _max_delta(a: dict, b: dict) -> float:
     return max((a[n].float() - b[n].float()).abs().max().item() for n in a)
 
 
-def phase_aot(tmp: str, models=("lm", "resnet")) -> dict:
+def phase_aot(tmp: str, models=("lm", "resnet", "mpmd"),
+              mpmd_eager_ms: float | None = None) -> dict:
     """Phase 11: the AOT ladder of the worker, per model, over one fresh
     build cache and one fresh AOT directory: cold (empty cache, aot: nvcc,
     the capture, outcome export), warm (no aot: cache hits, 0 nvcc,
     eager) and aot (outcome hit, 0 nvcc, start_kind "aot") worker
-    processes of the same 20 seeded steps, one at a time (their step
-    times are measured); then every model's fallback drills at once
-    (untimed): a truncated record and a record of another key, each
-    falling back and training."""
+    processes of the same seeded steps. The arms run in three rounds,
+    cold, warm, aot, each a process a model started together: their
+    start-ups and first steps run at once (so with more than one model no
+    first step is the card's or the host's alone; ``models`` of one
+    measures it alone), then each child in turn holds the card alone for
+    its later steps and its trace (:func:`_card_turn`), so every step ms,
+    window and idle share is the card's alone. Then every model's
+    fallback drills at once (untimed): a truncated record and a record of
+    another key (the MPMD arm: one of its three stage programs' records
+    truncated), each falling back and training. ``mpmd_eager_ms``: 13c's
+    eager step in this run, printed beside the MPMD arms."""
+    arms: dict = {model: {} for model in models}
+    for arm, aot in (("cold", True), ("warm", False), ("aot", True)):
+        sync = os.path.join(tmp, f"round-{arm}")
+        os.makedirs(sync)
+        started = [_aot_start(tmp, model, arm, *_aot_dirs(tmp, model), aot,
+                              profile=arm == "aot" or (
+                                  arm == "warm" and model == "resnet"),
+                              sync=sync, peers=len(models))
+                   for model in models]
+        for model, r in zip(models, _aot_wait(started)):
+            arms[model][arm] = r
     out, drills = {}, []
     for model in models:
-        out[model], starts, cold = _aot_model(tmp, model)
+        out[model], starts, cold = _aot_check(tmp, model, arms[model],
+                                              mpmd_eager_ms)
         drills += [(model, damage, start, cold) for damage, start in starts]
     running = [(model, damage, start(), cold)
                for model, damage, start, cold in drills]
-    for model, damage, started, cold in running:
-        r = _aot_finish(started)
+    results = _aot_wait([started for _m, _d, started, _c in running])
+    for (model, damage, _s, cold), r in zip(running, results):
         d = max(abs(a - b) for a, b in zip(r["losses"], cold["losses"]))
         log(f"[aot] {model} {damage} record: start_kind "
             f"{r['start_kind']}, nvcc {r['nvcc']}, outcomes "
             f"{r['outcomes']}, {len(r['losses'])} steps, max|d loss| "
             f"against cold {d:.3e}")
-        if not (r["outcomes"] == {damage: 1, "export": 1} and
-                r["start_kind"] == "warm" and r["nvcc"] == 0 and
-                len(r["losses"]) == AOT_STEPS and d <= AOT_TOL):
+        # the damaged program falls back alone: the MPMD arm's other two
+        # records hit
+        want = {damage: 1, "export": 1, **(
+            {"hit": 2} if model == "mpmd" else {})}
+        if not (r["outcomes"] == want and r["start_kind"] == "warm" and
+                r["nvcc"] == 0 and len(r["losses"]) == _aot_steps(model)
+                and d <= AOT_TOL):
             fail(f"phase 11 {model}: the {damage} record did not fall "
                  f"back to a warm start that trains")
         out[model].setdefault("drills", {})[damage] = {
@@ -4072,24 +4412,42 @@ def phase_aot(tmp: str, models=("lm", "resnet")) -> dict:
     return out
 
 
-def _aot_model(tmp: str, model: str) -> tuple:
-    """One model's timed AOT ladder of phase 11: (its record, (damage,
-    start) of each fallback drill, its cold arm)."""
+def _aot_wait(started: list) -> list:
+    """:func:`_aot_finish` of each child started together; if one fails,
+    the others are killed before the failure is raised."""
+    try:
+        return [_aot_finish(s) for s in started]
+    finally:
+        for proc, *_rest in started:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _aot_dirs(tmp: str, model: str) -> tuple:
+    """A model's build cache and AOT directory in phase 11."""
+    return (os.path.join(tmp, f"{model}-cache"),
+            os.path.join(tmp, f"{model}-records"))
+
+
+def _aot_check(tmp: str, model: str, arms: dict,
+               mpmd_eager_ms: float | None = None) -> tuple:
+    """The checks of one model's three arms in phase 11: (its record,
+    (damage, start) of each fallback drill, its cold arm)."""
     import pickle
     import statistics
-    cache = os.path.join(tmp, f"{model}-cache")
-    aot_dir = os.path.join(tmp, f"{model}-records")
-    arms = {"cold": _aot_run(tmp, model, "cold", cache, aot_dir, True),
-            "warm": _aot_run(tmp, model, "warm", cache, aot_dir, False,
-                             profile=model == "resnet"),
-            "aot": _aot_run(tmp, model, "aot", cache, aot_dir, True,
-                            profile=True)}
+    cache, aot_dir = _aot_dirs(tmp, model)
+    steps = _aot_steps(model)
+    mpmd = model == "mpmd"
+    # the MPMD arm: 2S-1 stage programs, each its record; K3 stays eager
+    records = 2 * PP_STAGES - 1 if mpmd else 1
     want = AOT_LAUNCHES[model]
+    graph_want = {k: v for k, v in want.items()
+                  if not (mpmd and k == "fused_adam")}
     for arm, r in arms.items():
         # step_ms[i] ends step i + 2
         r["median_ms"] = statistics.median(r["step_ms"][3:])
-        r["median_window_ms"] = statistics.median(
-            r["window_ms"][4:AOT_STEPS])
+        r["median_window_ms"] = statistics.median(r["window_ms"][4:steps])
         # the worker times a window edge to edge, the drain's wait for
         # the card included: a captured step's window reads the card
         r["window_share"] = r["median_window_ms"] / r["median_ms"]
@@ -4097,16 +4455,25 @@ def _aot_model(tmp: str, model: str) -> tuple:
             fail(f"phase 11 {model} {arm}: the window reads "
                  f"{r['median_window_ms']:.3f} ms a step, the card "
                  f"{r['median_ms']:.3f} ms (bar {AOT_WINDOW_TOL:.0%})")
+        eager = (f"; 13c's eager step {mpmd_eager_ms:.1f} ms in this run "
+                 f"(host clock), {MPMD_EAGER_MS} ms in earlier runs"
+                 if mpmd and mpmd_eager_ms is not None else "")
         log(f"[aot] {model} {arm}: start_kind {r['start_kind']}, nvcc "
             f"runs {r['nvcc']}, cache hits {r['hits']}, outcomes "
             f"{r['outcomes']}, first step {r['first_step_s']:.3f} s "
             f"(train() entry to the first step's sync), median step "
-            f"{r['median_ms']:.3f} ms over steps 5-{AOT_STEPS} (CUDA "
+            f"{r['median_ms']:.3f} ms over steps 5-{steps} (CUDA "
             f"events between step ends; the worker's windows "
             f"{r['median_window_ms']:.3f} ms, "
             f"{r['window_share']:.3f} of it), "
-            f"{'captured, ' + str(r['replays']) + ' replays' if r['captured'] else 'eager'}; "
-            f"process wall {r['wall_s']:.1f} s")
+            f"{'captured, ' + str(r['replays']) + ' replays' if r['captured'] else 'eager'}"
+            f"{eager}; goodput ledger compile {r['ledger']['compileByStartKind']}"
+            f" s of {r['ledger']['wallSeconds']:.3f} s; process wall "
+            f"{r['wall_s']:.1f} s")
+        kinds = r["ledger"]["compileByStartKind"]
+        if not (r["ledger_sum_ok"] and set(kinds) == {r["start_kind"]}):
+            fail(f"phase 11 {model} {arm}: the goodput ledger "
+                 f"{r['ledger']} (start kind {r['start_kind']})")
     cold, warm, aot = arms["cold"], arms["warm"], arms["aot"]
     for arm in ("cold", "aot"):
         bad = {k: v for k, v in arms[arm]["outcomes"].items()
@@ -4115,7 +4482,7 @@ def _aot_model(tmp: str, model: str) -> tuple:
             fail(f"phase 11 {model} {arm}: outcomes {bad}, captured "
                  f"{arms[arm]['captured']}: the AOT arm ran eagerly")
     if not (cold["start_kind"] == "cold" and cold["nvcc"] >= 1 and
-            cold["outcomes"] == {"miss": 1, "export": 1}):
+            cold["outcomes"] == {"miss": records, "export": records}):
         fail(f"phase 11 {model} cold arm: {cold['start_kind']}, nvcc "
              f"{cold['nvcc']}, outcomes {cold['outcomes']}")
     if not (warm["start_kind"] == "warm" and warm["nvcc"] == 0 and
@@ -4125,7 +4492,7 @@ def _aot_model(tmp: str, model: str) -> tuple:
              f"{warm['nvcc']}, hits {warm['hits']}, outcomes "
              f"{warm['outcomes']}")
     if not (aot["start_kind"] == "aot" and aot["nvcc"] == 0 and
-            aot["outcomes"] == {"hit": 1}):
+            aot["outcomes"] == {"hit": records}):
         fail(f"phase 11 {model} aot arm: {aot['start_kind']}, nvcc "
              f"{aot['nvcc']}, outcomes {aot['outcomes']}")
     # the three arms: the same kernels in the same order
@@ -4136,23 +4503,25 @@ def _aot_model(tmp: str, model: str) -> tuple:
     d_param = max(_max_delta(params[arm], params["cold"])
                   for arm in ("warm", "aot"))
     del params
-    log(f"[aot] {model}: warm and aot against cold over {AOT_STEPS} "
+    log(f"[aot] {model}: warm and aot against cold over {steps} "
         f"steps: max|d loss| {d_loss:.3e}, max|d param| {d_param:.3e} "
         f"(<= {AOT_TOL})")
-    if not (len(cold["losses"]) == AOT_STEPS and d_loss <= AOT_TOL
+    if not (len(cold["losses"]) == steps and d_loss <= AOT_TOL
             and d_param <= AOT_TOL):
         fail(f"phase 11 {model}: the arms disagree")
     for arm in ("cold", "warm", "aot"):
-        if arm != "warm" and arms[arm]["launches"] != want:
-            fail(f"phase 11 {model} {arm}: the step object's launches "
-                 f"{arms[arm]['launches']}, expected {want}")
-        # a captured arm's warm-up step launched through the wrappers
-        n = AOT_STEPS + (arm != "warm")
-        total = {k: v * n for k, v in want.items()}
+        if arm != "warm" and arms[arm]["launches"] != graph_want:
+            fail(f"phase 11 {model} {arm}: the captured launches a step "
+                 f"{arms[arm]['launches']}, expected {graph_want}")
+        # a captured arm's warm-up launched through the wrappers: the
+        # single step's once, each MPMD stage program's once
+        warmup = {} if arm == "warm" else AOT_MPMD_WARMUP if mpmd \
+            else want
+        total = {k: v * steps + warmup.get(k, 0) for k, v in want.items()}
         got = {k: arms[arm]["counts"].get(k, 0) for k in want}
         if got != total:
             fail(f"phase 11 {model} {arm}: counted launches {got}, "
-                 f"expected {total} ({n} steps)")
+                 f"expected {total} ({steps} steps)")
     if aot["trace_kernels"] != want:
         fail(f"phase 11 {model}: the trace of {AOT_TRACE_STEPS} "
              f"replays holds {aot['trace_kernels']} a step, expected "
@@ -4166,25 +4535,29 @@ def _aot_model(tmp: str, model: str) -> tuple:
             f"idle share {i['idle_share']:.3f}"
             for arm, i in idle.items()))
     # the fallbacks (untimed, started with every model's after the last
-    # ladder): a truncated record and a re-keyed one, each in its own
-    # directory, each trains and reads its kind from the cache
-    (name,) = os.listdir(aot_dir)
-    with open(os.path.join(aot_dir, name), "rb") as f:
+    # ladder): a truncated record and a re-keyed one (the MPMD arm: one
+    # program's record truncated), each in its own directory, each trains
+    # and reads its kind from the cache
+    names = sorted(os.listdir(aot_dir))
+    if len(names) != records:
+        fail(f"phase 11 {model}: records {names}, expected {records}")
+    with open(os.path.join(aot_dir, names[0]), "rb") as f:
         blob = f.read()
-    rekeyed = pickle.loads(blob)
-    rekeyed["key"] = "0" * 24
-    bad = {"corrupt": blob[:len(blob) // 2],
-           "key-mismatch": pickle.dumps(rekeyed)}
+    bad = {"corrupt": blob[:len(blob) // 2]}
+    if not mpmd:
+        rekeyed = pickle.loads(blob)
+        rekeyed["key"] = "0" * 24
+        bad["key-mismatch"] = pickle.dumps(rekeyed)
     for damage, data in bad.items():
         d = os.path.join(tmp, f"{model}-records-{damage}")
-        os.makedirs(d)
-        with open(os.path.join(d, name), "wb") as f:
+        shutil.copytree(aot_dir, d)
+        with open(os.path.join(d, names[0]), "wb") as f:
             f.write(data)
     return {
         "arms": {arm: {k: r[k] for k in (
             "start_kind", "nvcc", "hits", "outcomes", "first_step_s",
             "median_ms", "median_window_ms", "captured", "replays",
-            "wall_s")}
+            "wall_s", "ledger")}
             for arm, r in arms.items()},
         "idle": idle, "d_loss": d_loss, "d_param": d_param,
         "trace_kernels": aot["trace_kernels"],
@@ -4203,10 +4576,11 @@ MOE_KW = dict(num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
 # remat recomputes each block's forward in the backward with the same
 # deterministic kernels: losses and params equal (0 expected)
 REMAT_TOL = 1e-6
-# 12b: full width, depth cut to 4 layers (two ranks on one card, every
+# 12b: full width, depth cut to 2 layers (two ranks on one card, every
 # product of a tensor or expert rank's collectives staged through the
-# host by gloo); phase 8's bars against one process
-MP_LAYERS, MP_STEPS = 4, 3
+# host by gloo, whose bytes grow with the layers); phase 8's bars
+# against one process
+MP_LAYERS, MP_STEPS = 2, 3
 MP_MESHES = (("data2", {"data": 2}, True, "replicated"),
              ("tensor2", {"tensor": 2}, False, "replicated"),
              ("expert2", {"expert": 2}, True, "replicated"),
@@ -4358,6 +4732,7 @@ def _mp_rank(rank: int, env: dict, queue) -> None:
         seen = _capture_states(worker, trainstep)
         ctx = bootstrap.initialize(device=DEVICE, backend="gloo")
         out = {}
+        os.environ["KFTPU_COMM_TOP_OPS"] = COMM_TOP_OPS
         import tempfile
         try:
             with tempfile.TemporaryDirectory() as tmp:
@@ -4366,11 +4741,13 @@ def _mp_rank(rank: int, env: dict, queue) -> None:
                     mctx = dataclasses.replace(
                         ctx, sharding=sharding, mesh=build_mesh(sharding))
                     collectives.reset_counts()
+                    spans = os.path.join(tmp, f"{name}.spans.jsonl")
                     rec, launches = _counted(counters, lambda: _mp_train(
                         worker, seen, _mp_cfg(T, moe, MP_LAYERS),
                         os.path.join(tmp, f"{name}.jsonl"), ctx=mctx,
                         weight_update=mode, global_batch=TRAIN_BATCH,
-                        steps=MP_STEPS))
+                        steps=MP_STEPS, span_path=spans))
+                    rec["comm"] = _comm_spans(spans)
                     rec["launches"] = launches
                     rec["host_staged"] = dict(collectives.host_staged)
                     rec["coords"] = {a: c for a, c in
@@ -4388,7 +4765,7 @@ def _mp_rank(rank: int, env: dict, queue) -> None:
 def phase_mp(T, worker, trainstep, card) -> dict:
     """Phase 12b: the LM on model-parallel meshes of two ranks that share
     the card over gloo ({data 2} MoE, {tensor 2} dense, {expert 2} MoE,
-    {fsdp 2} MoE with the sharded update), at full width and 4 layers,
+    {fsdp 2} MoE with the sharded update), at full width and 2 layers,
     against one process on the same global batch: phase 8's bars a step,
     the launches per rank exact, each rank's param bytes at most half of
     one process's plus its replicated leaves, init's transient at most
@@ -4494,6 +4871,11 @@ def phase_mp(T, worker, trainstep, card) -> dict:
                                         "init_transient", "launches",
                                         "strategy")},
                  "worst": worst})
+    result["comm"] = {}
+    for name, *_ in MP_MESHES:
+        c = result["comm"][name] = _check_comm(f"mp {name}", [
+            ranks[r][name]["comm"] for r in range(DP_RANKS)])
+        log(f"[mp] {name} | {card} | " + _comm_log("comm profile", c))
     log(f"[mp] {DP_RANKS} ranks, {len(MP_MESHES)} meshes, {MP_STEPS} steps "
         f"each at {MP_LAYERS} layers, in {wall:.1f}s; one process: dense "
         f"step {ref[False]['step_ms']:.1f} ms, MoE {ref[True]['step_ms']:.1f}"
@@ -4585,13 +4967,16 @@ def _pp_rank(rank: int, env: dict, queue) -> None:
         counters = _all_counters()
         seen = _capture_states(worker, trainstep)
         ctx = bootstrap.initialize(device=DEVICE, backend="gloo")
+        os.environ["KFTPU_COMM_TOP_OPS"] = COMM_TOP_OPS
         try:
             with tempfile.TemporaryDirectory() as tmp:
                 collectives.reset_counts()
+                spans = os.path.join(tmp, "pp.spans.jsonl")
                 rec, launches = _counted(counters, lambda: _pp_train(
                     worker, _pp_cfg(T), os.path.join(tmp, "pp.jsonl"),
                     ctx=ctx, steps=PP_RANK_STEPS,
-                    num_microbatches=PP_MICRO))
+                    num_microbatches=PP_MICRO, span_path=spans))
+                rec["comm"] = _comm_spans(spans)
             state = seen["state"]
             rec.update(
                 launches=launches, stage=ctx.mesh.coords["pipeline"],
@@ -4650,6 +5035,7 @@ def phase_pipeline(counters, T, worker, trainstep, collectives,
     transfers, the bubble spans, no collective."""
     import tempfile
     import torch.multiprocessing as mp
+    from kubeflow_tpu_torch.obs import goodput as gp
     from kubeflow_tpu_torch.parallel import multislice as MS
     cfg = _pp_cfg(T)
     seen = _capture_states(worker, trainstep)
@@ -4762,6 +5148,11 @@ def phase_pipeline(counters, T, worker, trainstep, collectives,
     if ranks[0]["embed"] != ranks[1]["embed"]:
         fail(f"pp 13b: the embedding differs between the stages "
              f"({ranks[0]['embed']} vs {ranks[1]['embed']})")
+    comm_13b = _check_comm("pp 13b", [ranks[r]["comm"]
+                                     for r in range(PP_STAGES)])
+    if not {"send", "recv"} <= set(comm_13b["calls"]):
+        fail(f"pp 13b: the comm profile holds no stage hop: {comm_13b}")
+    log(f"[pp] 13b | {card} | " + _comm_log("comm profile", comm_13b))
     log(f"[pp] 13b: {PP_STAGES} ranks, {PP_RANK_STEPS} steps at M "
         f"{PP_MICRO} in {wall:.1f}s; the embedding equal on both stages")
 
@@ -4811,6 +5202,15 @@ def phase_pipeline(counters, T, worker, trainstep, collectives,
              f"{PP_DCN_TRANSFERS} of {PP_DCN_BYTES}")
     if any(calls.values()):
         fail(f"pp 13c: collectives called in the stage programs: {calls}")
+    # the stage programs call no collective: the profile holds no op
+    comm = [s["attrs"] for s in names if s["name"] == "comm-profile"]
+    if len(comm) != 1 or comm[0]["profile"]["totalOps"] != 0 or \
+            any(comm[0]["measured"]["calls"].values()):
+        fail(f"pp 13c: comm profile {comm}")
+    ledger = gp.decompose(names)
+    if not (ledger["badputSeconds"]["pipeline_bubble"] > 0 and
+            gp.categories_sum_ok(ledger)):
+        fail(f"pp 13c: goodput ledger {ledger}")
     more = PP_MPMD_STEPS - PP_MPMD_SAVE_AT
     want = {k: v * more for k, v in per_mpmd.items()}
     if resume["launches"] != want:
@@ -4840,12 +5240,17 @@ def phase_pipeline(counters, T, worker, trainstep, collectives,
         f"a bar against one process: loss {worst['loss']:.3f}, grad norm "
         f"{worst['grad_norm']:.3f}; bubble fraction a step "
         f"{mpmd['bubble']}; the first step's schedule report {report}; "
-        f"{len(bubbles)} pipeline-bubble spans; collectives {calls}; step "
-        f"{mpmd['step_ms']:.1f} ms (host clock, a sync after every op); "
-        f"peak {mpmd['peak_gib']:.2f} GiB")
+        f"{len(bubbles)} pipeline-bubble spans; collectives {calls} (the "
+        f"comm profile's ops {comm[0]['profile']['totalOps']}); goodput "
+        f"ledger: pipeline_bubble "
+        f"{ledger['badputSeconds']['pipeline_bubble']:.3f} s, goodput "
+        f"{ledger['goodputSeconds']:.3f} s of {ledger['wallSeconds']:.3f} "
+        f"s; step {mpmd['step_ms']:.1f} ms (host clock, a sync after "
+        f"every op); peak {mpmd['peak_gib']:.2f} GiB")
     return {"one": {k: one[k] for k in ("loss", "step_ms", "peak_gib",
                                         "launches", "param_bytes")},
-            "first": first, "gpipe": gpipe,
+            "first": first, "gpipe": gpipe, "comm_gpipe": comm_13b,
+            "ledger_mpmd": ledger,
             "mpmd": {**{k: mpmd[k] for k in ("loss", "step_ms", "peak_gib",
                                              "bubble")},
                      "launches": launches, "report": report,
@@ -4989,15 +5394,17 @@ def _seq_rank(rank: int, env: dict, queue) -> None:
         counters = _all_counters()
         ctx = bootstrap.initialize(device=DEVICE, backend="gloo")
         out = {"coord": ctx.mesh.coords["sequence"]}
+        os.environ["KFTPU_COMM_TOP_OPS"] = COMM_TOP_OPS
         try:
             with tempfile.TemporaryDirectory() as tmp:
                 for arm in SEQ_ARMS:
                     collectives.reset_counts()
+                    spans = os.path.join(tmp, f"{arm}.spans.jsonl")
                     rec, launches = _counted(counters, lambda: _seq_train(
                         worker, T.TransformerConfig(), arm,
                         os.path.join(tmp, f"{arm}.jsonl"), ctx=ctx,
-                        steps=SEQ_STEPS))
-                    rec.update(launches=launches,
+                        steps=SEQ_STEPS, span_path=spans))
+                    rec.update(launches=launches, comm=_comm_spans(spans),
                                calls=dict(collectives.calls),
                                bytes=dict(collectives.bytes_moved),
                                host_staged=dict(collectives.host_staged))
@@ -5140,6 +5547,11 @@ def phase_sequence(counters, T, worker, card) -> dict:
         f"{got['flash_attention_fwd']} time, its output K1's bit for bit")
     del q, k, v, one_ring
     torch.cuda.empty_cache()
+    result["comm"] = {}
+    for arm in SEQ_ARMS:
+        c = result["comm"][arm] = _check_comm(f"seq {arm}", [
+            ranks[r][arm]["comm"] for r in range(SEQ_RANKS)])
+        log(f"[seq] 14 {arm} | {card} | " + _comm_log("comm profile", c))
     log(f"[seq] 14: {SEQ_RANKS} ranks, flash and ring, {SEQ_STEPS} steps "
         f"each, in {wall:.1f}s")
     result["wall_s"] = wall
@@ -5203,9 +5615,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
+    lap = Laps()
     server = None
     try:
         dev = phase_device(build)
+        lap("1 device")
         k1 = phase_kernels(fa)
         k2 = phase_k2(fa)
         with torch.device("meta"):
@@ -5215,6 +5629,7 @@ def main() -> int:
         phase_head_dims(fa)
         k45 = phase_k45(fbt, fbts, R)
         k6 = phase_k6(fb, R)
+        lap("2 kernels")
 
         repo = ModelRepository()
         t0 = time.perf_counter()
@@ -5239,6 +5654,7 @@ def main() -> int:
         server.start()
         serving = phase_serving(fa, server, repo, k1["timings"])
         phase_rest(fa, server, repo, client)
+        lap("3-4 serving, rest")
         # phase 10: the serving tier past one replica, on K1
         t10 = time.perf_counter()
         grpc_r = phase_grpc(fa, server, repo, client)
@@ -5253,6 +5669,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             cold_warm = phase_cold_warm(tmp)
         log(f"[serving-tier] phase 10 in {time.perf_counter() - t10:.1f}s")
+        lap("10 serving tier")
 
         counters = {"flash_attention_fwd": fa.flash_attention,
                     "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
@@ -5265,6 +5682,7 @@ def main() -> int:
             "fused_adam": k3["ms"]}
         train = phase_train(counters, T, worker, recipe, trainstep,
                             per_launch_ms)
+        lap("5 train")
         k45_counters = {
             "fused_block_train_fwd": fbt.fused_block_train_fwd,
             "fused_block_train_bwd": fbt.fused_block_train_bwd,
@@ -5274,13 +5692,17 @@ def main() -> int:
                 fbts.fused_block_train_spatial_bwd}
         resnet = phase_resnet(k45_counters, R, worker, trainstep, recipe,
                               k45)
+        lap("6 resnet")
         records = phase_resnet_records(k45_counters, R, worker, recipe,
                                        fbts, resnet["per_step"], dev["card"])
+        lap("6c records")
         serve = phase_resnet_serve(fb, R, ModelRepository, ModelServer,
                                    client, run_batch_predict, k6)
+        lap("7 resnet serve")
         dp_kernels = phase_dp_kernels(fo, fbt, fbts, R, recipe, lm_shapes)
         dp = phase_dp(T, R, worker, trainstep, bootstrap, collectives,
                       dev["card"], resnet["per_step"])
+        lap("8 dp")
         ckpt_mod = importlib.import_module(
             "kubeflow_tpu_torch.runtime.checkpoint")
         sentinel = importlib.import_module(
@@ -5289,32 +5711,38 @@ def main() -> int:
             ckpt = phase_ckpt(counters, T, worker, ckpt_mod, chaos,
                               sentinel, ModelRepository, fa, dev["card"],
                               tmp)
+            lap("9 ckpt")
             degree = phase_ckpt_degree(T, R, worker, ckpt_mod, dev["card"],
                                        dp["ref_lm"], resnet["per_step"],
                                        tmp)
+            lap("9 degree")
         # phase 12: the MoE and remat LM, then model-parallel meshes
         torch.cuda.empty_cache()
         t12 = time.perf_counter()
         moe = phase_moe(counters, T, worker, trainstep)
         mp_r = phase_mp(T, worker, trainstep, dev["card"])
         log(f"[mp] phase 12 in {time.perf_counter() - t12:.1f}s")
+        lap("12 mp")
         # phase 13: the pipelined LM, GPipe and the MPMD stages
         torch.cuda.empty_cache()
         t13 = time.perf_counter()
         pp = phase_pipeline(counters, T, worker, trainstep, collectives,
                             dev["card"])
         log(f"[pp] phase 13 in {time.perf_counter() - t13:.1f}s")
+        lap("13 pp")
         # phase 14: the sequence axis
         torch.cuda.empty_cache()
         t14 = time.perf_counter()
         seq = phase_sequence(counters, T, worker, dev["card"])
         log(f"[seq] phase 14 in {time.perf_counter() - t14:.1f}s")
+        lap("14 seq")
         # phase 11: the AOT ladder, in worker processes
         torch.cuda.empty_cache()
         t11 = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="kftpu-aot-") as tmp:
-            aot_r = phase_aot(tmp)
+            aot_r = phase_aot(tmp, mpmd_eager_ms=pp["mpmd"]["step_ms"])
         log(f"[aot] phase 11 in {time.perf_counter() - t11:.1f}s")
+        lap("11 aot")
     except Exception:  # noqa: BLE001 - any phase failure fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5490,17 +5918,21 @@ def main() -> int:
                  "a forward's " + ", ".join(
                      f"{g['count']} x {g['key']}" for g in geoms),
     })
-    # phase 11: each kernel's launches in the aot arm's 20 replays
+    # phase 11: each kernel's launches in the aot arm's replays (the
+    # MPMD arm's: its stage programs' replays and K3, eager)
     for k in record["kernels"]:
-        model = "lm" if k["name"].startswith(("flash", "fused_adam")) \
-            else "resnet"
+        lm = k["name"].startswith(("flash", "fused_adam"))
         name = "flash_attention" if k["name"] == "flash_attention_fwd" \
             else k["name"]
-        if name in AOT_LAUNCHES[model]:
-            k["launches_aot"] = aot_r[model]["counts"].get(name, 0)
+        if name in AOT_LAUNCHES["lm" if lm else "resnet"]:
+            k["launches_aot"] = aot_r["lm" if lm else "resnet"][
+                "counts"].get(name, 0)
+        if lm:
+            k["launches_aot_mpmd"] = aot_r["mpmd"]["counts"].get(name, 0)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f}s; "
         f"cold start ready in {cold_warm['cold']['ready_s']:.2f}s, warm "
-        f"{cold_warm['warm']['ready_s']:.2f}s")
+        f"{cold_warm['warm']['ready_s']:.2f}s; seconds by phase "
+        f"{lap.seconds}")
     print(dev["card"])
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,24 +1,66 @@
-"""The serving request ledger: where one request's wall-clock went.
+"""The goodput ledgers: where a training job's and a request's
+wall-clock went.
 
-The serving part of ``kubeflow_tpu/obs/goodput.py``. Of one request's
-wall-clock, the device time spent on its real rows is goodput; the rest
-is named badput (queue, batch forming, pad rows, host→device copy,
-respond), and the residual nothing claims is reported as ``other``,
-never absorbed. One layer up, the fleet router's ledger splits a routed
-request's client wall-clock into the winning upstream attempt, retries
-and other, with a lost hedge's duplicated work named ``hedge_waste``.
-The vocabulary is defined once, here; the request tracer
-(serving/request_trace.py), the replica registry
+The port of ``kubeflow_tpu/obs/goodput.py``, stdlib only.
+
+- **The training ledger** folds one job's span stream (the worker's
+  ``first-step``, ``window``, checkpoint, ``pipeline-bubble`` and
+  ``anomaly`` spans, and the control plane's queue, bind, restart and
+  resize transitions) into goodput (productive, never re-executed train
+  steps) and named badput categories. It partitions the job's wall
+  interval [first span start, last span end]: each elementary interval
+  between span boundaries goes to exactly one category, by priority, so
+  the categories sum to wall-clock by construction; time nothing claims
+  is ``other``. :func:`decompose`, :func:`ledger_for`,
+  :func:`categories_sum_ok`, :func:`annotation_payload`, the exported
+  ``kftpu_job_*`` series and :func:`cluster_rollup` are the reference's,
+  line for line, so the same span file gives the same ledger in both
+  packages.
+- **The serving ledger**: of one request's wall-clock, the device time
+  spent on its real rows is goodput; the rest is named badput (queue,
+  batch forming, pad rows, host→device copy, respond), the residual
+  ``other``. One layer up, the fleet router's ledger splits a routed
+  request's client wall-clock into the winning upstream attempt, retries
+  and other, with a lost hedge's duplicated work named ``hedge_waste``.
+
+The vocabulary is defined once, here; the worker (runtime/worker.py),
+the request tracer (serving/request_trace.py), the replica registry
 (serving/replica_state.py) and the fleet router (serving/fleet.py)
-import it. Stdlib only.
+import it.
 """
 
 from __future__ import annotations
 
+import json
+import math
+from typing import Optional
+
+from . import registry as obsreg
 from .trace import load_spans
 
 GOODPUT = "goodput"
-BADPUT_OTHER = "other"                  # unattributed residual
+BADPUT_QUEUE_WAIT = "queue_wait"          # admission → slice binding
+BADPUT_STARTUP = "startup"                # bind → worker first activity
+BADPUT_COMPILE = "compile"                # train() entry → first step,
+#                                           split cold/warm/aot
+BADPUT_CHECKPOINT = "checkpoint"          # save submission + restore
+BADPUT_RECOMPUTE = "restart_recompute"    # steps re-executed after resume
+BADPUT_ROLLBACK = "rollback_recompute"    # steps replayed LKG → trip after
+#                                           an anomaly rollback
+BADPUT_RESIZE = "resize"                  # resize/migration downtime
+BADPUT_STALL = "stall"                    # wedged → watchdog teardown
+# the MPMD pipeline's schedule idle (parallel/multislice.py's schedule
+# model; the worker emits per-window pipeline-bubble spans)
+BADPUT_PIPELINE_BUBBLE = "pipeline_bubble"
+BADPUT_OTHER = "other"                    # unattributed residual
+
+BADPUT_CATEGORIES = (BADPUT_QUEUE_WAIT, BADPUT_STARTUP, BADPUT_COMPILE,
+                     BADPUT_CHECKPOINT, BADPUT_RECOMPUTE, BADPUT_ROLLBACK,
+                     BADPUT_RESIZE, BADPUT_STALL, BADPUT_PIPELINE_BUBBLE,
+                     BADPUT_OTHER)
+
+# the operator stamps a job's final ledger here on completion
+GOODPUT_ANNOTATION = "observability.kubeflow.org/goodput"
 
 SERVING_QUEUE = "queue"                 # accept → pulled into a batch
 SERVING_BATCH_FORM = "batch_form"       # cohort grouping + concat + pad
@@ -37,15 +79,13 @@ SERVING_BADPUT_CATEGORIES = (SERVING_QUEUE, SERVING_BATCH_FORM,
 SERVING_REQUEST_SPAN = "serving-request"
 
 # the training worker's span names (runtime/worker.py emits them from the
-# checkpoint manager's op log and on a tripped numeric sentinel); the
-# JAX package's ledger reads them under these names
+# checkpoint manager's op log and on a tripped numeric sentinel), which
+# the training ledger reads
 SPAN_CKPT_SAVE = "ckpt-save"
 SPAN_CKPT_RESTORE = "ckpt-restore"
 SPAN_ANOMALY = "anomaly"
-# the MPMD pipeline's schedule idle: the training ledger's badput
-# category, and the per-window span the worker sizes to the engine's
-# modeled bubble seconds, anchored at the window's tail
-BADPUT_PIPELINE_BUBBLE = "pipeline_bubble"
+# the per-window span the worker sizes to the MPMD engine's modeled
+# bubble seconds, anchored at the window's tail
 SPAN_PIPELINE_BUBBLE = "pipeline-bubble"
 
 # stage spans a sampled request emits, in request order
@@ -280,3 +320,390 @@ def serving_rollup(path: str) -> dict:
             }
         rows.append(row)
     return {"models": rows, "requests": total}
+
+
+# ------------------------------------------------------ the training ledger
+
+# overlap resolution: when two attributed intervals claim the same time,
+# the LOWEST number wins. Compile outranks the windows (the first window
+# span CONTAINS the first step's compile — that stretch is startup cost,
+# not training); recompute outranks goodput (a replayed window is waste
+# even though it looks like training); measured worker spans outrank
+# inferred control-plane intervals; everything outranks the residual.
+_PRIORITY = {
+    BADPUT_COMPILE: 0,
+    BADPUT_ROLLBACK: 1,
+    BADPUT_RECOMPUTE: 2,
+    # above goodput: a bubble span carves schedule-idle time OUT of the
+    # window interval it overlaps (the worker sizes it to the measured
+    # bubble seconds of that window's steps)
+    BADPUT_PIPELINE_BUBBLE: 3,
+    GOODPUT: 4,
+    BADPUT_CHECKPOINT: 5,
+    BADPUT_STALL: 6,
+    BADPUT_RESIZE: 7,
+    BADPUT_QUEUE_WAIT: 8,
+    BADPUT_STARTUP: 9,
+}
+
+# the operator's restart reasons that read as a stall
+_STALL_REASONS = ("StallTimeout", "WorkerStallTimeout")
+
+# worker activity that ends a startup/resize-downtime interval
+_WORKER_ACTIVITY = ("train-start", "first-step", "window", SPAN_CKPT_SAVE,
+                    SPAN_CKPT_RESTORE)
+
+
+def _next_activity(spans: list[dict], after: float,
+                   names: tuple = _WORKER_ACTIVITY) -> Optional[float]:
+    """Start time of the first worker-activity span after ``after``."""
+    best = None
+    for s in spans:
+        if s.get("name") in names and s.get("start", 0.0) > after:
+            if best is None or s["start"] < best:
+                best = s["start"]
+    return best
+
+
+def _last_activity_end(spans: list[dict], before: float) -> Optional[float]:
+    """End of the last worker-activity span before ``before`` — where a
+    stalled worker last showed signs of life."""
+    best = None
+    for s in spans:
+        end = s.get("end", s.get("start", 0.0))
+        if s.get("name") in _WORKER_ACTIVITY and end < before:
+            if best is None or end > best:
+                best = end
+    return best
+
+
+def _window_segments(spans: list[dict],
+                     rollback_ranges: tuple = ()) -> tuple:
+    """Split every ``window`` span into goodput vs recompute via a
+    step high-water walk: a window re-covering steps already banked
+    before a restart is replay, charged to ``restart_recompute``
+    proportionally (the replayed steps run FIRST chronologically).
+    ``rollback_ranges`` — (anomaly_time, lkg, trip) per anomaly span —
+    reclassifies the replayed steps inside a rollback's (lkg, trip]
+    range as ``rollback_recompute``, but only for windows AFTER the
+    trip: the original run of those steps was goodput at the time.
+    Returns (segments, steps_new, steps_recomputed, steps_rolled_back,
+    n_windows)."""
+    segments: list[tuple] = []
+    high_water = 0
+    steps_new = 0
+    steps_re = 0
+    steps_rb = 0
+    windows = 0
+    for s in spans:
+        if s.get("name") != "window":
+            continue
+        a = _attrs(s)
+        try:
+            s1 = int(a.get("step", 0))
+            n = int(a.get("steps", 0))
+        except (TypeError, ValueError):
+            continue
+        start = float(s.get("start", 0.0))
+        end = float(s.get("end", start))
+        if n <= 0 or end <= start:
+            continue
+        windows += 1
+        s0 = s1 - n
+        re = min(n, max(0, min(s1, high_water) - s0))
+        new = n - re
+        re_rb = 0
+        if re:
+            for at, lkg, trip in rollback_ranges:
+                if start >= at:
+                    overlap = min(s0 + re, trip) - max(s0, lkg)
+                    if overlap > 0:
+                        re_rb = max(re_rb, min(re, overlap))
+        # chronological order inside the window: the replayed steps run
+        # first (rollback replay before restart replay before new work)
+        split_rb = start + (end - start) * (re_rb / n)
+        split = start + (end - start) * (re / n)
+        if re_rb:
+            segments.append((start, split_rb, BADPUT_ROLLBACK))
+        if re - re_rb:
+            segments.append((split_rb, split, BADPUT_RECOMPUTE))
+        if new:
+            segments.append((split, end, GOODPUT))
+        high_water = max(high_water, s1)
+        steps_new += new
+        steps_re += re
+        steps_rb += re_rb
+    return segments, steps_new, steps_re, steps_rb, windows
+
+
+def decompose(spans: list[dict]) -> dict:
+    """Fold ONE trace's span records (load_spans order) into the ledger:
+
+    ``{"wallSeconds", "goodputSeconds", "goodputRatio",
+    "badputSeconds": {category: seconds — every BADPUT_CATEGORIES key},
+    "compileByStartKind": {...}, "steps", "stepsRecomputed",
+    "stepsRolledBack", "windows", "chips"}``
+
+    The categories plus goodput sum to wallSeconds exactly (partition by
+    construction); ``categories_sum_ok`` is the tolerance check
+    against independent wall measurements.
+    """
+    empty = {
+        "wallSeconds": 0.0, "goodputSeconds": 0.0, "goodputRatio": 0.0,
+        "badputSeconds": {c: 0.0 for c in BADPUT_CATEGORIES},
+        "compileByStartKind": {}, "steps": 0, "stepsRecomputed": 0,
+        "stepsRolledBack": 0, "windows": 0, "chips": 0,
+    }
+    if not spans:
+        return empty
+    t0 = min(float(s.get("start", 0.0)) for s in spans)
+    t1 = max(float(s.get("end", s.get("start", 0.0))) for s in spans)
+    if t1 <= t0:
+        return empty
+
+    # anomaly-rollback evidence pre-pass: each anomaly span's
+    # (lkg, trip] range marks the steps whose replay is the sentinel's
+    # recovery cost, not generic restart recompute
+    rollback_ranges = []
+    for s in spans:
+        if s.get("name") != SPAN_ANOMALY:
+            continue
+        a = _attrs(s)
+        try:
+            trip = int(a.get("step", 0))
+            lkg = int(a.get("lkg") or 0)
+        except (TypeError, ValueError):
+            continue
+        if trip > lkg >= 0:
+            rollback_ranges.append(
+                (float(s.get("start", 0.0)), lkg, trip))
+
+    segments, steps_new, steps_re, steps_rb, windows = \
+        _window_segments(spans, tuple(rollback_ranges))
+    compile_by_kind: dict[str, float] = {}
+    chips = 0
+
+    open_queue: Optional[float] = None
+    for s in spans:
+        name = s.get("name")
+        start = float(s.get("start", 0.0))
+        end = float(s.get("end", start))
+        a = _attrs(s)
+        if name == "queued":
+            if open_queue is None:
+                open_queue = start
+        elif name == "bound":
+            if open_queue is not None:
+                segments.append((open_queue, start, BADPUT_QUEUE_WAIT))
+                open_queue = None
+            try:
+                chips = int(a.get("chips", chips)) or chips
+            except (TypeError, ValueError):
+                pass
+            # pod create → worker first activity: the startup stretch
+            # (low priority — measured worker spans carve their own time
+            # out of it)
+            until = _next_activity(spans, start)
+            segments.append((start, until if until is not None else t1,
+                             BADPUT_STARTUP))
+        elif name == "first-step":
+            # train() entry → first completed step; dominated by the
+            # compile/cache-load/AOT-load rung recorded in start_kind
+            try:
+                secs = float(a.get("seconds", 0.0))
+            except (TypeError, ValueError):
+                secs = 0.0
+            if secs > 0:
+                lo = max(t0, start - secs)
+                segments.append((lo, start, BADPUT_COMPILE))
+                kind = str(a.get("start_kind", "cold"))
+                # clipped to the stream: the attr measures from train()
+                # entry, which can predate the job's first span
+                compile_by_kind[kind] = \
+                    compile_by_kind.get(kind, 0.0) + (start - lo)
+        elif name in (SPAN_CKPT_SAVE, SPAN_CKPT_RESTORE):
+            if end > start:
+                segments.append((start, end, BADPUT_CHECKPOINT))
+        elif name == SPAN_PIPELINE_BUBBLE:
+            if end > start:
+                segments.append((start, end, BADPUT_PIPELINE_BUBBLE))
+        elif name == "resized":
+            # binding rewritten → gang restarts at the new shape; the
+            # downtime runs to the worker's next sign of life
+            until = _next_activity(spans, start)
+            segments.append((start, until if until is not None else t1,
+                             BADPUT_RESIZE))
+        elif name == "restarting":
+            # restart downtime (teardown → the recreated gang's first
+            # sign of life) is startup badput; for a watchdog-triggered
+            # restart the wedged stretch BEFORE the teardown — last
+            # worker activity → the restarting transition — is stall
+            # (the flight recorder's dump covers the same stretch from
+            # inside the worker)
+            until = _next_activity(spans, start)
+            segments.append((start, until if until is not None else t1,
+                             BADPUT_STARTUP))
+            if a.get("reason") in _STALL_REASONS:
+                last = _last_activity_end(spans, start)
+                if last is not None and start > last:
+                    segments.append((last, start, BADPUT_STALL))
+    if open_queue is not None:
+        # still waiting at the end of the stream (never bound)
+        segments.append((open_queue, t1, BADPUT_QUEUE_WAIT))
+
+    # ---- the sweep: partition [t0, t1] by priority ----------------------
+    # Two-pointer event sweep, O(n log n) in span count: this runs
+    # inside the operator's reconcile (_finalize_ledger) and on every
+    # dashboard request, so a multi-day job's thousands of window spans
+    # must not turn one decompose into a quadratic scan.
+    totals = {c: 0.0 for c in BADPUT_CATEGORIES}
+    totals[GOODPUT] = 0.0
+    segments = [(max(t0, a), min(t1, b), cat) for a, b, cat in segments
+                if min(t1, b) > max(t0, a)]
+    bounds = sorted({t0, t1, *(a for a, _b, _c in segments),
+                     *(b for _a, b, _c in segments)})
+    starts = sorted(segments, key=lambda s: s[0])
+    ends = sorted(segments, key=lambda s: s[1])
+    by_priority = sorted(_PRIORITY, key=_PRIORITY.__getitem__)
+    active = {c: 0 for c in _PRIORITY}
+    si = ei = 0
+    for lo, hi in zip(bounds, bounds[1:]):
+        # a segment [a, b] covers [lo, hi) iff a <= lo and b > lo
+        # (every b is itself a boundary, so b > lo equals b >= hi)
+        while si < len(starts) and starts[si][0] <= lo:
+            active[starts[si][2]] += 1
+            si += 1
+        while ei < len(ends) and ends[ei][1] <= lo:
+            active[ends[ei][2]] -= 1
+            ei += 1
+        cat = next((c for c in by_priority if active[c] > 0),
+                   BADPUT_OTHER)
+        totals[cat] += hi - lo
+
+    wall = t1 - t0
+    goodput = totals.pop(GOODPUT)
+    return {
+        "wallSeconds": round(wall, 6),
+        "goodputSeconds": round(goodput, 6),
+        "goodputRatio": round(goodput / wall, 6) if wall else 0.0,
+        "badputSeconds": {c: round(v, 6) for c, v in totals.items()},
+        "compileByStartKind": {k: round(v, 6)
+                               for k, v in sorted(compile_by_kind.items())},
+        "steps": steps_new,
+        "stepsRecomputed": steps_re,
+        "stepsRolledBack": steps_rb,
+        "windows": windows,
+        "chips": chips,
+    }
+
+
+def ledger_for(path: str, trace_id: str) -> dict:
+    """One job's ledger straight from the span sink."""
+    return decompose(load_spans(path, trace_id=trace_id))
+
+
+def categories_sum_ok(ledger: dict, tolerance: float = 0.02) -> bool:
+    """goodput + every badput category must re-add to wall-clock within
+    ``tolerance`` (fractional). Exact by construction today; the check
+    guards the partition invariant against future category edits."""
+    wall = ledger.get("wallSeconds", 0.0)
+    total = ledger.get("goodputSeconds", 0.0) + \
+        sum(ledger.get("badputSeconds", {}).values())
+    if wall <= 0:
+        return total == 0
+    return math.isclose(total, wall, rel_tol=tolerance, abs_tol=1e-6)
+
+
+def annotation_payload(ledger: dict) -> str:
+    """The compact final-ledger JSON the operator stamps on completion."""
+    return json.dumps({
+        "goodputRatio": ledger["goodputRatio"],
+        "wallSeconds": round(ledger["wallSeconds"], 3),
+        "goodputSeconds": round(ledger["goodputSeconds"], 3),
+        "badputSeconds": {c: round(v, 3)
+                          for c, v in ledger["badputSeconds"].items()},
+        "stepsRecomputed": ledger["stepsRecomputed"],
+    }, sort_keys=True)
+
+
+def _ledger_families(reg) -> tuple:
+    ratio = reg.gauge(
+        "kftpu_job_goodput_ratio",
+        "fraction of the job's wall clock spent on productive (never "
+        "re-executed) train steps", labels=("namespace", "name"))
+    # a counter via the registry's snapshot bridge (set() for sources
+    # that keep their own monotonic totals — the ledger IS the
+    # bookkeeper): keeps the Prometheus _total-means-counter convention
+    # while exporting the final cumulative seconds in one shot
+    seconds = reg.counter(
+        "kftpu_job_badput_seconds_total",
+        "job wall-clock seconds lost per badput category",
+        labels=("namespace", "name", "category"))
+    return ratio, seconds
+
+
+def export_job_ledger(namespace: str, name: str, ledger: dict,
+                      registry=None) -> None:
+    """Export one job's ledger as the scrape-surface series:
+    ``kftpu_job_goodput_ratio{namespace,name}`` and
+    ``kftpu_job_badput_seconds_total{namespace,name,category}``."""
+    reg = registry if registry is not None else obsreg.default_registry()
+    ratio, seconds = _ledger_families(reg)
+    ratio.labels(namespace=namespace, name=name).set(
+        ledger["goodputRatio"])
+    for cat in BADPUT_CATEGORIES:
+        seconds.labels(namespace=namespace, name=name, category=cat).set(
+            ledger["badputSeconds"].get(cat, 0.0))
+
+
+def remove_job_ledger(namespace: str, name: str, registry=None) -> None:
+    """Drop a deleted job's ledger series — a long-lived operator must
+    not export every finished job's decomposition forever (the
+    kftpu_job_phase pruning rule)."""
+    reg = registry if registry is not None else obsreg.default_registry()
+    ratio, seconds = _ledger_families(reg)
+    ratio.remove(namespace=namespace, name=name)
+    for cat in BADPUT_CATEGORIES:
+        seconds.remove(namespace=namespace, name=name, category=cat)
+
+
+def cluster_rollup(path: str) -> dict:
+    """The cluster-level chip-hour rollup: every trace in the sink,
+    weighted by its bound gang width. ``chipHours`` decomposes the
+    fleet's chip-time the way a single job's ledger decomposes its
+    wall clock (jobs that never bound contribute wait with zero chips —
+    reported in ``jobsNeverBound``, not silently dropped)."""
+    by_trace: dict[str, list] = {}
+    for rec in load_spans(path):
+        tid = rec.get("trace_id")
+        if tid:
+            by_trace.setdefault(tid, []).append(rec)
+    chip_sec = {c: 0.0 for c in BADPUT_CATEGORIES}
+    goodput_sec = 0.0
+    wall_sec = 0.0
+    never_bound = 0
+    jobs = []
+    for tid, spans in sorted(by_trace.items()):
+        ledger = decompose(spans)
+        chips = ledger["chips"]
+        if not chips:
+            never_bound += 1
+        goodput_sec += ledger["goodputSeconds"] * chips
+        wall_sec += ledger["wallSeconds"] * chips
+        for c, v in ledger["badputSeconds"].items():
+            chip_sec[c] += v * chips
+        jobs.append({"traceId": tid, "chips": chips,
+                     "goodputRatio": ledger["goodputRatio"],
+                     "wallSeconds": ledger["wallSeconds"]})
+    return {
+        "jobs": jobs,
+        "jobsNeverBound": never_bound,
+        "chipHours": {
+            "total": round(wall_sec / 3600.0, 6),
+            GOODPUT: round(goodput_sec / 3600.0, 6),
+            "badput": {c: round(v / 3600.0, 6)
+                       for c, v in chip_sec.items()},
+        },
+        "goodputRatio": round(goodput_sec / wall_sec, 6)
+        if wall_sec else 0.0,
+    }

@@ -6,7 +6,8 @@ Prometheus text exposition (format 0.0.4). The model server, each
 servable and the replica health registry hold their own ``Registry`` so
 that several of them coexist in one process without sharing counts; the
 training worker's ``/metrics`` port serves the process default registry
-(``default_registry()``; ``counter()`` registers on it), where the input
+(``default_registry()``; ``counter()``, ``gauge()`` and
+``histogram()`` register on it), where the input
 pipeline's stages and the training loop count.
 
 - **Dependency-free.** The text format from the spec, nothing more.
@@ -292,3 +293,12 @@ def default_registry() -> Registry:
 
 def counter(name: str, help: str, labels: Sequence[str] = ()) -> _Family:
     return default_registry().counter(name, help, labels)
+
+
+def gauge(name: str, help: str, labels: Sequence[str] = ()) -> _Family:
+    return default_registry().gauge(name, help, labels)
+
+
+def histogram(name: str, help: str, labels: Sequence[str] = (),
+              buckets: Sequence[float] = DEFAULT_BUCKETS) -> _Family:
+    return default_registry().histogram(name, help, labels, buckets)

@@ -20,6 +20,11 @@ process has nothing to exchange).
 - ``record_events(True)`` brackets each call on a CUDA tensor with CUDA
   events (staging included) until ``record_events(False)``;
   ``events_ms()`` sums their device time by op.
+- ``recording()`` keeps, while it is open, one entry per call: the op,
+  its bytes, the group's global ranks, the peer of a send or receive and
+  the phase (``phase()``: "model" unless the caller names "update" or
+  "pipeline"); obs/collectives.py builds the step's comm profile from
+  it. Closed, a call pays one ``is None`` test.
 
 ``global_sum`` is the differentiable cross-rank sum: the forward
 all-reduces its input and the backward all-reduces the gradient, so a
@@ -59,7 +64,9 @@ reaches every hop, one that only sends included.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+import contextlib
+from dataclasses import dataclass, field
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -72,6 +79,94 @@ bytes_moved = dict.fromkeys(OPS, 0)
 _events: list = []          # (op, start event, end event)
 _recording = False
 _sends: list = []           # (work, the tensor it sends) until waited
+# the step's phases (obs/collectives.py's PHASE_* vocabulary)
+PHASES = ("model", "update", "pipeline")
+_phase = "model"
+_record: Optional[list] = None    # CallRecord entries while recording
+
+
+@dataclass
+class CallRecord:
+    """One collective call: ``op`` (of OPS), ``nbytes`` (as
+    ``bytes_moved`` counts it) and the shape of the tensor handed over,
+    the global ranks of its group in group order, this process's global
+    rank, the peer's global rank for a send or receive, and the phase it
+    ran in."""
+
+    op: str
+    nbytes: int
+    shape: tuple
+    ranks: tuple
+    rank: int
+    peer: Optional[int]
+    phase: str
+
+
+@dataclass
+class Recording:
+    """What :func:`recording` saw: each call, how the counters moved
+    (``calls``, ``bytes``, ``host_staged`` by op) over the same span and,
+    when asked, the CUDA-event ms of its calls by op."""
+
+    entries: list = field(default_factory=list)
+    counts: dict = field(default_factory=dict)
+    events_ms: dict = field(default_factory=dict)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    """Attribute the collectives called inside to ``name`` (one of
+    PHASES)."""
+    global _phase
+    if name not in PHASES:
+        raise ValueError(f"phase {name!r} not one of {PHASES}")
+    prev, _phase = _phase, name
+    try:
+        yield
+    finally:
+        _phase = prev
+
+
+@contextlib.contextmanager
+def recording(events: bool = False):
+    """Record every call made inside (one :class:`CallRecord` each) into
+    the yielded :class:`Recording`, with the counters' movement; with
+    ``events`` also the calls' CUDA-event ms (synchronizing on the last
+    event at the exit), leaving :func:`record_events`' own state as it
+    was."""
+    global _record, _recording
+    rec = Recording()
+    before = (dict(calls), dict(bytes_moved), dict(host_staged))
+    prev, _record = _record, rec.entries
+    was_on, n0 = _recording, len(_events)
+    _recording = was_on or events
+    try:
+        yield rec
+    finally:
+        _record = prev
+        _recording = was_on
+        rec.counts = {
+            key: {op: now[op] - was[op] for op in OPS}
+            for key, now, was in zip(
+                ("calls", "bytes", "host_staged"),
+                (calls, bytes_moved, host_staged), before)}
+        if events:
+            rec.events_ms = dict.fromkeys(OPS, 0.0)
+            for op, start, end in _events[n0:]:
+                end.synchronize()
+                rec.events_ms[op] += start.elapsed_time(end)
+            if not was_on:
+                del _events[n0:]
+
+
+def _note(op: str, t: torch.Tensor, group: Any,
+          peer: Optional[int] = None) -> None:
+    if _record is not None:
+        _record.append(CallRecord(
+            op=op, nbytes=t.numel() * t.element_size(),
+            shape=tuple(t.shape),
+            ranks=tuple(dist.get_process_group_ranks(group)),
+            rank=dist.get_rank(), peer=peer, phase=_phase))
 
 
 def reset_counts() -> None:
@@ -112,6 +207,7 @@ def _run(op: str, t: torch.Tensor, group: Any,
     returns fn's result on t's device."""
     calls[op] += 1
     bytes_moved[op] += t.numel() * t.element_size()
+    _note(op, t, group)
     timed = _recording and t.is_cuda
     if timed:
         start = torch.cuda.Event(enable_timing=True)
@@ -190,6 +286,7 @@ def send(t: torch.Tensor, dst: int, group: Any, tag: int) -> None:
     x = t.detach().contiguous()
     calls["send"] += 1
     bytes_moved["send"] += x.numel() * x.element_size()
+    _note("send", x, group, dist.get_global_rank(group, dst))
     if host_staging(x, group):
         host_staged["send"] += 1
         x = x.cpu()
@@ -204,6 +301,7 @@ def recv(like: torch.Tensor, src: int, group: Any, tag: int
     ``like``'s shape, dtype and device (blocks until it arrives)."""
     calls["recv"] += 1
     bytes_moved["recv"] += like.numel() * like.element_size()
+    _note("recv", like, group, dist.get_global_rank(group, src))
     staged = host_staging(like, group)
     buf = torch.empty(like.shape, dtype=like.dtype,
                       device="cpu" if staged else like.device)
@@ -239,7 +337,7 @@ def _exchange(x, group: Any, pairs, like: torch.Tensor):
 class _PPermute(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, order, group, pairs, like):
-        ctx.group, ctx.pairs = group, pairs
+        ctx.group, ctx.pairs, ctx.phase = group, pairs, _phase
         ctx.x = None if x is None else (x.shape, x.dtype, x.device)
         y = _exchange(x, group, pairs, like)
         ctx.y = None if y is None else (y.shape, y.dtype, y.device)
@@ -255,7 +353,8 @@ class _PPermute(torch.autograd.Function):
         if ctx.x is not None:
             shape, dtype, device = ctx.x
             like = torch.empty(shape, dtype=dtype, device=device)
-        gx = _exchange(gy, ctx.group, inverse, like)
+        with phase(ctx.phase):     # the forward hop's
+            gx = _exchange(gy, ctx.group, inverse, like)
         return gx, gorder, None, None, None
 
 

@@ -63,7 +63,8 @@ class _Replicate(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, out, order, group, src):
-        return collectives.broadcast_(out.clone(), group, src)
+        with collectives.phase("pipeline"):
+            return collectives.broadcast_(out.clone(), group, src)
 
     @staticmethod
     def backward(ctx, g):
@@ -127,7 +128,9 @@ def pipeline_apply(block_fn: BlockFn, stacked_params: dict, x: torch.Tensor,
         if not pairs:
             return None
         nonlocal order
-        got, order = collectives.ppermute(h_out, order, group, pairs, like)
+        with collectives.phase("pipeline"):
+            got, order = collectives.ppermute(h_out, order, group, pairs,
+                                              like)
         return got
 
     h_in = hop(None, -1)

@@ -22,7 +22,11 @@ At first bind the worker captures the step, writes the record under a
 key built from everything that shapes the program (:func:`step_key`) and
 runs the step it captured; a rebind loads the record, verifies it and
 its libraries, captures before its first step and replays the graph for
-every step. Every failure falls back to the next rung (the build cache,
+every step. The MPMD multislice path keeps one record per stage program
+(2S−1 of them: FWD and BWD of each stage but the last, its FWDBWD), each
+keyed with its stage, kind and microbatch count in ``extra`` and signed
+by :func:`program_signature`; the engine captures each program on its
+stage's device (parallel/multislice.py ``StageProgram``). Every failure falls back to the next rung (the build cache,
 then ``nvcc``) and is counted in ``kftpu_aot_executable_total{outcome}``:
 ``miss``, ``corrupt``, ``key-mismatch``, ``signature-mismatch``,
 ``deserialize-failed`` (a named library missing or another: loading it
@@ -147,14 +151,23 @@ def abstract_signature(state, batch: dict) -> dict:
                      {"leaves": _leaves(dict(batch))}]}
 
 
+def program_signature(params: dict, inputs: dict) -> dict:
+    """The signature of one MPMD stage program (parallel/multislice.py
+    ``StageProgram``): the names, shapes and dtypes of its stage's params
+    and of its inputs (the microbatch's tokens, the incoming activation,
+    the cotangent)."""
+    return {"args": [{"leaves": _leaves(dict(params))},
+                     {"leaves": _leaves(dict(inputs))}]}
+
+
 def _path(aot_dir: str, key: str) -> str:
     return aot_dir.rstrip("/") + f"/step-{key}.aotx"
 
 
 def export_step(aot_dir: str, key: str, step, signature: dict
                 ) -> Optional[str]:
-    """Write the record of a captured step (a trainstep ``CompiledStep``)
-    under ``key``. Returns the written path, or None: export is an
+    """Write the record of a captured step (a trainstep ``CompiledStep``,
+    or one MPMD ``StageProgram``) under ``key``. Returns the written path, or None: export is an
     optimization, so every failure downgrades to a warning. The write is
     atomic (tmp + rename): a pod killed mid-export never leaves a
     truncated file a rebind would trip over."""

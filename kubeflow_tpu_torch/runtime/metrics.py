@@ -345,6 +345,10 @@ class FlightRecorder:
         self._acc = self._fresh_acc()
         self._input_counters = None
         self._input_last: dict[str, float] = {}
+        # modeled per-step comm split from the step's comm profile
+        # (obs/collectives.py), set once at the first step
+        self._comm_ici_s = 0.0
+        self._comm_dcn_s = 0.0
 
     @staticmethod
     def _fresh_acc() -> dict:
@@ -360,6 +364,16 @@ class FlightRecorder:
             self._input_counters = {s: fam.labels(stage=s)
                                     for s in self.INPUT_STAGES}
         return {s: c.value for s, c in self._input_counters.items()}
+
+    def set_comm_model(self, ici_s_per_step: float,
+                       dcn_s_per_step: float) -> None:
+        """Adopt the comm profile's modeled per-step ICI/DCN seconds
+        (obs/collectives.py, computed once at the first step). Later
+        window records carry them times the window's steps as their own
+        keyed fields, never folded into the measured ``device_wait``
+        residual."""
+        self._comm_ici_s = max(0.0, float(ici_s_per_step))
+        self._comm_dcn_s = max(0.0, float(dcn_s_per_step))
 
     # ------------------------------------------------------------ hot path
 
@@ -409,6 +423,10 @@ class FlightRecorder:
         }
         if acc["first_step_s"]:
             rec["first_step_s"] = round(acc["first_step_s"], 6)
+        if self._comm_ici_s or self._comm_dcn_s:
+            # modeled, keyed as such: device_wait above stays measured
+            rec["comm_ici_s"] = round(self._comm_ici_s * steps, 6)
+            rec["comm_dcn_s"] = round(self._comm_dcn_s * steps, 6)
         with self._lock:
             self._ring.append(rec)
         self._acc = self._fresh_acc()

@@ -16,8 +16,9 @@ order:
    count before each step.
 
 The stock tier builds sgd, momentum, nesterov, adam and adamw on
-``torch.optim.SGD`` / ``Adam`` / ``AdamW`` (never ``fused=True``), as the
-JAX stock tier builds on optax. ``lars`` and ``rmsprop`` run on
+:class:`SGD` (``torch.optim.SGD`` with its update written out, so that
+lr may live on the device) / ``torch.optim.Adam`` / ``AdamW`` (never
+``fused=True``), as the JAX stock tier builds on optax. ``lars`` and ``rmsprop`` run on
 :class:`ChainOptimizer`, the optax chains written out term by term:
 ``torch.optim`` has no LARS, and its RMSprop puts eps outside the root
 and scales by lr after the momentum buffer. The ``fused_adam`` tier is
@@ -428,9 +429,51 @@ def clip_by_global_norm_(grads: list, max_norm: float,
     return norm
 
 
+class SGD(torch.optim.SGD):
+    """``torch.optim.SGD`` (no dampening, no maximize) whose step takes
+    each group's lr as a host number or a 0-d device tensor: term by
+    term SGD's foreach update, which is optax's sgd chain: u = g + wd·p;
+    with momentum the trace t = m·t + u (t = u at the first step) and
+    u = t, or u + m·t for nesterov; p += u·(-lr), lr·u rounded before
+    the add as optax rounds it. ``torch.optim.SGD`` reads a tensor lr
+    back with ``item()``, which a capture cannot hold; this step has no
+    host sync, so a captured step replays it with each step's lr from
+    the device buffer, and every eager step takes the same arithmetic.
+    The trace is SGD's own ``momentum_buffer``."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            us = [p.grad for p in ps]
+            if group["weight_decay"]:
+                us = torch._foreach_add(us, ps, alpha=group["weight_decay"])
+            m = group["momentum"]
+            if m:
+                bufs = []
+                for p, u in zip(ps, us):
+                    st = self.state[p]
+                    buf = st.get("momentum_buffer")
+                    if buf is None:
+                        buf = st["momentum_buffer"] = u.detach().clone()
+                    else:
+                        buf.mul_(m).add_(u)
+                    bufs.append(buf)
+                us = torch._foreach_add(us, bufs, alpha=m) \
+                    if group["nesterov"] else bufs
+            torch._foreach_add_(ps, torch._foreach_mul(us, -group["lr"]))
+        return loss
+
+
 class CaptureError(RuntimeError):
-    """The optimizer keeps a per-step scalar on the host that a captured
-    step would bake in."""
+    """A step that a CUDA graph cannot hold: an optimizer without a
+    device-side update, or collectives staged through host memory."""
 
 
 class RecipeOptimizer:
@@ -447,17 +490,14 @@ class RecipeOptimizer:
     moves every per-step host scalar onto the device first: FusedAdam's
     (lr, bc₁, bc₂) are there already, the runtime schedule's lr too; a
     baked lr of the chain becomes a device buffer, Adam and AdamW on a
-    card turn ``capturable`` with a device lr; ``torch.optim.SGD`` takes
-    lr only as a host number, which a capture bakes in: right for a
-    constant schedule (``constant_lr``), a :class:`CaptureError`
-    otherwise."""
+    card turn ``capturable`` with a device lr, and :class:`SGD` (sgd,
+    momentum, nesterov) reads it as it is."""
 
     def __init__(self, inner: torch.optim.Optimizer, schedule: Schedule,
-                 grad_clip: Optional[float], constant_lr: bool = False):
+                 grad_clip: Optional[float]):
         self.inner = inner
         self.schedule = schedule
         self.grad_clip = grad_clip
-        self.constant_lr = constant_lr
         self.count = 0
         # the captured path's lr on the device (None: a host float)
         self.lr_buffer: Optional[torch.Tensor] = None
@@ -538,26 +578,21 @@ class RecipeOptimizer:
     def prepare_capture(self) -> None:
         """Move every per-step host scalar onto the params' device so that
         a captured update reads each step's values (see the class
-        docstring); raises :class:`CaptureError` for a family that
-        cannot. Idempotent; the trajectory is unchanged except that
-        capturable Adam takes its bias corrections on the device."""
+        docstring); every family can. Idempotent; the trajectory is
+        unchanged except that capturable Adam takes its bias corrections
+        on the device."""
         inner = self.inner
         if isinstance(inner, FusedAdam) or "runtime_lr" in inner.state:
             return
-        if isinstance(inner, torch.optim.SGD):
-            if not self.constant_lr:
-                raise CaptureError(
-                    "torch.optim.SGD (sgd, momentum, nesterov) takes lr as "
-                    "a host number, which a capture bakes in: capture it "
-                    "under a constant schedule or the runtime schedule")
-            return
         params = [p for g in inner.param_groups for p in g["params"]]
-        adam = isinstance(inner, (torch.optim.Adam, torch.optim.AdamW))
-        if adam and params[0].device.type != "cuda":
+        stock = isinstance(inner, (torch.optim.Adam, torch.optim.AdamW,
+                                   torch.optim.SGD))
+        if stock and params[0].device.type != "cuda":
             return      # the CPU runs the step eagerly: host step and lr
         if self.lr_buffer is None:
             self.lr_buffer = torch.zeros((), dtype=torch.float32,
                                          device=params[0].device)
+        adam = isinstance(inner, (torch.optim.Adam, torch.optim.AdamW))
         if adam:
             for group in inner.param_groups:
                 group["capturable"] = True
@@ -720,14 +755,12 @@ def make_optimizer(
     elif kernels == "fused_adam":
         inner = FusedAdam(groups, lr=sched)
     elif name == "sgd":
-        inner = torch.optim.SGD(groups, lr=lr0)
+        inner = SGD(groups, lr=lr0)
     elif name in ("momentum", "nesterov"):
-        inner = torch.optim.SGD(groups, lr=lr0, momentum=momentum,
-                                nesterov=name == "nesterov")
+        inner = SGD(groups, lr=lr0, momentum=momentum,
+                    nesterov=name == "nesterov")
     elif name == "adam":
         inner = torch.optim.Adam(groups, lr=lr0, fused=False)
     else:  # adamw
         inner = torch.optim.AdamW(groups, lr=lr0, fused=False)
-    return RecipeOptimizer(
-        inner, sched, grad_clip,
-        constant_lr=schedule == "constant" and warmup_steps == 0), sched
+    return RecipeOptimizer(inner, sched, grad_clip), sched

@@ -511,24 +511,28 @@ class TrainStepBuilder:
             loss.backward()
         # the pre-clip norm, taken once: the metric, and the clip's
         grad_norm = self._reduce(state)
-        update(grad_norm)
-        state.opt_state.zero_grad(set_to_none=True)
-        if self.sharded:
-            self._gather_params(state)
-            for p in state.params.values():
-                p.grad = None
-        state.variables = aux.pop("variables", state.variables)
-        scalars = {"loss": loss.detach(),
-                   **{k: v.detach() for k, v in aux.items()}}
-        if self.group is not None:
-            scalars = self._cross_rank_mean(scalars)
-        metrics = {"loss": scalars.pop("loss"), "grad_norm": grad_norm,
-                   **scalars}
-        if self.strategy == "zero2-explicit":
-            with torch.no_grad():
-                p2 = _sum_squares(list(state.params.values()))
-                metrics["param_sqnorm_replicas"] = \
-                    collectives.all_gather(p2.reshape(1), self.group)
+        # the step's own exchanges after the gradient reduction (the
+        # optimizer's, the ZeRO-2 param gather, the replica check, the
+        # metrics' mean): the comm profile's update phase
+        with collectives.phase("update"):
+            update(grad_norm)
+            state.opt_state.zero_grad(set_to_none=True)
+            if self.sharded:
+                self._gather_params(state)
+                for p in state.params.values():
+                    p.grad = None
+            state.variables = aux.pop("variables", state.variables)
+            scalars = {"loss": loss.detach(),
+                       **{k: v.detach() for k, v in aux.items()}}
+            if self.group is not None:
+                scalars = self._cross_rank_mean(scalars)
+            metrics = {"loss": scalars.pop("loss"), "grad_norm": grad_norm,
+                       **scalars}
+            if self.strategy == "zero2-explicit":
+                with torch.no_grad():
+                    p2 = _sum_squares(list(state.params.values()))
+                    metrics["param_sqnorm_replicas"] = \
+                        collectives.all_gather(p2.reshape(1), self.group)
         return metrics
 
     def build(self) -> Callable[[TrainState, dict], tuple]:
@@ -627,8 +631,10 @@ class MultisliceTrainStepBuilder:
     optimizer and its programs live on stage s's device; activations and
     gradients cross between stages as explicit transfers under the 1F1B
     microbatch schedule, and ``last_report`` carries the schedule's
-    bubble and transfer accounting. The pipelined transformer workload
-    only (models/transformer.py ``multislice_stage_fns``).
+    bubble and transfer accounting. The worker's AOT ladder captures,
+    exports and loads the stage programs through ``engine``. The
+    pipelined transformer workload only (models/transformer.py
+    ``multislice_stage_fns``).
     ``optimizer`` is a factory ``params -> optimizer``, built for each
     stage; its clip takes the cross-stage global norm."""
 
@@ -824,6 +830,10 @@ class CompiledStep:
         self.launches: dict = {}        # per replay, by kernel
         self._counters = kernel_counters()
         self.replays = 0
+        # the collectives the capture called (parallel/collectives.py
+        # recording()): a replay calls none through Python, so this is
+        # the step's comm profile input
+        self.comm: Optional[collectives.Recording] = None
         if self.device.type == "cuda":
             self._capture(batch)
 
@@ -876,11 +886,13 @@ class CompiledStep:
         try:
             # on the warm-up's stream: autograd's accumulate nodes made
             # there are the capture's
-            with torch.cuda.graph(graph, stream=side):
+            with torch.cuda.graph(graph, stream=side), \
+                    collectives.recording() as comm:
                 metrics, made = self._body(state)
                 if made:
                     raise CaptureError(f"the captured step made state "
                                        f"{made}")
+            self.comm = comm
             self.launches = {n: getattr(f, a) - at[n]
                              for n, (f, a) in counters.items()
                              if getattr(f, a) != at[n]}

@@ -85,7 +85,21 @@ with no card it raises.
   miss captures, exports the record and runs the captured step (compile
   once); a stale, corrupt or mismatched record, or a step that does not
   capture, falls back to the eager step, counted, with ``start_kind``
-  read from the build cache's evidence ("warm" or "cold").
+  read from the build cache's evidence ("warm" or "cold"). On the MPMD
+  path the ladder runs per stage program (2S−1 records, each keyed with
+  its stage, kind and microbatch count): all load → every program
+  captured before the first step (``start_kind`` "aot"); fewer → the
+  missing ones captured and exported at this bind; a program that does
+  not capture runs eagerly, alone, counted.
+- Comm profile (``KFTPU_COMM_PROFILE``: "auto", the default, or "0";
+  obs/collectives.py): the collectives of the first step whose Python
+  ran (the eager step, or a captured step's capture) are recorded by
+  ``parallel/collectives.py`` and classified; rank 0 emits one
+  ``comm-profile`` span with the profile and the counters' own
+  measurements beside it (calls, bytes, host-staged calls and CUDA-event
+  ms by op), every rank exports the ``kftpu_comm_*`` gauges (pruned at
+  the end) and gives the flight recorder its modeled link seconds. A
+  failure warns and never stops training.
 
 - Pipeline parallel (``transformer-pipelined``, the stacked LM): on a
   mesh whose pipeline axis exceeds 1 each rank holds its stage's layers
@@ -101,7 +115,7 @@ with no card it raises.
   seconds (capped at the window, anchored at its tail) and the first
   step a ``multislice-profile`` event with the schedule report. Eval, a
   sharded weight update and one slice are refused in the JAX package's
-  words; the AOT record is not ported on this path and raises.
+  words.
   Checkpoints take the same calls as on the single-program path
   (runtime/trainstep.py ``state_tree`` of a ``MultisliceState``: the
   stages' params and optimizer states), and a restore onto another
@@ -115,6 +129,7 @@ ResNet through the ghost-BN kernels).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import os
 import tempfile
@@ -134,7 +149,8 @@ from ..data.imagenet import ImageNetSource, device_normalize, read_meta
 from ..models import RESNET_DEPTHS
 from ..obs.goodput import SPAN_PIPELINE_BUBBLE
 from ..obs.registry import default_registry
-from ..parallel.mesh import local_batch_size
+from ..parallel import collectives
+from ..parallel.mesh import MESH_AXES, local_batch_size
 from . import aot as aot_mod
 from . import compile_cache, recipe
 from . import sentinel as sentinel_mod
@@ -293,6 +309,57 @@ def _aot_ladder(builder: TrainStepBuilder, state, example: dict,
     return compiled, False
 
 
+def _mpmd_aot_ladder(builder, state, example: dict, aot_dir: str,
+                     key_fn: Callable[[int, str], str]) -> bool:
+    """The MPMD path's AOT rung, per stage program: every record loads
+    (each program captured now, no ``nvcc``) → True, an "aot" start;
+    fewer → the missing programs captured and their records exported at
+    this bind. A program that does not capture runs eagerly, alone,
+    counted; the job trains either way."""
+    engine = builder.engine
+    n_loaded = engine.load_stages(aot_dir, state, example, key_fn)
+    if n_loaded == engine.num_programs:
+        log.info("AOT: %d/%d stage programs loaded and captured with no "
+                 "kernel build", n_loaded, engine.num_programs)
+        return True
+    engine.export_stages(aot_dir, state, example, key_fn)
+    return False
+
+
+def _comm_mode() -> bool:
+    """Whether the first step's collectives are profiled
+    (``KFTPU_COMM_PROFILE``: "0" turns it off)."""
+    from ..obs.collectives import COMM_PROFILE_ENV
+    mode = (os.environ.get(COMM_PROFILE_ENV) or "auto").strip().lower()
+    return mode not in ("0", "off", "false")
+
+
+def _comm_profile(step_fn, rec, ctx, num_slices: int, recorder, tracer,
+                  trace_id, step: int):
+    """The first step's comm profile (obs/collectives.py) from the calls
+    ``rec`` recorded (or, for a captured step, those of its capture):
+    the gauges exported, the recorder's modeled link seconds set and, on
+    rank 0, the ``comm-profile`` span emitted. Returns the exported
+    series."""
+    from ..obs.collectives import (COMM_PROFILE_SPAN, export_comm_metrics,
+                                   profile_calls)
+    rec = getattr(step_fn, "comm", None) or rec
+    prof = profile_calls(
+        rec.entries, world=ctx.mesh.size(), num_slices=num_slices,
+        mesh_axes=[(a, int(ctx.mesh.shape[a])) for a in MESH_AXES])
+    series = export_comm_metrics(prof)
+    recorder.set_comm_model(prof.modeled_ici_seconds,
+                            prof.modeled_dcn_seconds)
+    if tracer is not None and ctx.process_id == 0:
+        tracer.emit(COMM_PROFILE_SPAN, start=time.time(), trace_id=trace_id,
+                    step=step, profile=prof.to_dict(),
+                    measured={"calls": rec.counts["calls"],
+                              "bytes": rec.counts["bytes"],
+                              "hostStaged": rec.counts["host_staged"],
+                              "eventsMs": rec.events_ms})
+    return series
+
+
 @dataclass
 class TrainResult:
     steps: int
@@ -409,6 +476,7 @@ def train(
     anomaly = None
     trace_id = None
     preempted = False
+    comm_series = None
     loop_error: Optional[BaseException] = None
     recorder = FlightRecorder(windows=_env_int(FLIGHT_WINDOWS_ENV, 64))
     try:
@@ -765,10 +833,6 @@ def train(
         aot_used = False
         if aot is None:
             aot = bool(_env_int(aot_mod.AOT_ENABLE_ENV, 0))
-        if aot and multislice_pipeline:
-            raise NotImplementedError(
-                "the AOT record of the MPMD multislice path (one per stage "
-                "program) is not yet ported (ROADMAP Queue 1 item 10)")
         if aot:
             aot_dir = aot_dir or os.environ.get(aot_mod.AOT_DIR_ENV) or (
                 aot_mod.default_aot_dir(checkpoint_dir) if checkpoint_dir
@@ -804,21 +868,38 @@ def train(
                 fp = recipe.compile_shape_fingerprint(
                     runtime_schedule=True, **knobs) if runtime_schedule \
                     else recipe.recipe_fingerprint(**knobs)
-                step_fn, aot_used = _aot_ladder(
-                    builder, state, example, step_fn, aot_dir,
-                    sig=aot_mod.abstract_signature(state, example),
-                    key=aot_mod.step_key(
-                        topology=os.environ.get("KFTPU_TOPOLOGY", "")
-                        or f"local-{ctx.num_processes}p",
-                        num_slices=int(os.environ.get("KFTPU_NUM_SLICES",
-                                                      "1") or 1),
-                        model_fingerprint=fp, weight_update=weight_update,
-                        sharding={a: int(n)
-                                  for a, n in ctx.mesh.shape.items()},
-                        global_batch=global_batch,
-                        kernels={"attention": kernel_attention,
-                                 "optimizer": kernel_optimizer},
-                        device=ctx.device))
+                key_kw = dict(
+                    topology=os.environ.get("KFTPU_TOPOLOGY", "")
+                    or f"local-{ctx.num_processes}p",
+                    num_slices=int(os.environ.get("KFTPU_NUM_SLICES", "1")
+                                   or 1),
+                    model_fingerprint=fp, global_batch=global_batch,
+                    kernels={"attention": kernel_attention,
+                             "optimizer": kernel_optimizer})
+                if multislice_pipeline:
+                    # one record per stage program: the stage index, its
+                    # kind and the microbatch count ride the key's extra
+                    # beside the slice geometry (the JAX worker's fields)
+                    engine = builder.engine
+
+                    def ms_key(s, kind):
+                        return aot_mod.step_key(
+                            weight_update="mpmd", sharding={"data": 1},
+                            extra={"stage": s, "program": kind,
+                                   "microbatches": engine.num_microbatches},
+                            device=engine.devices[s], **key_kw)
+
+                    aot_used = _mpmd_aot_ladder(builder, state, example,
+                                                aot_dir, ms_key)
+                else:
+                    step_fn, aot_used = _aot_ladder(
+                        builder, state, example, step_fn, aot_dir,
+                        sig=aot_mod.abstract_signature(state, example),
+                        key=aot_mod.step_key(
+                            weight_update=weight_update,
+                            sharding={a: int(n)
+                                      for a, n in ctx.mesh.shape.items()},
+                            device=ctx.device, **key_kw))
 
         from ..obs.trace import SPAN_PATH_ENV, SpanWriter
         span_path = span_path or os.environ.get(SPAN_PATH_ENV)
@@ -881,6 +962,7 @@ def train(
         # drain's wait for the card is in it; reported when drained
         walls: dict = {}
         cuda = ctx.device.type == "cuda"
+        comm_on = _comm_mode()
         with profile_trace(profile_dir, enabled=profile_dir is not None,
                            tracer=tracer):
             window = 0
@@ -904,24 +986,33 @@ def train(
                     t_h = t_b = time.perf_counter()
                 recorder.mark("first-step" if step == start_step
                               else "step", step)
-                if step == start_step and aot_used:
-                    try:
+                with contextlib.ExitStack() as first:
+                    # the first step's collectives, for the comm profile
+                    comm_rec = first.enter_context(collectives.recording(
+                        events=cuda)) if step == start_step and comm_on \
+                        else None
+                    if step == start_step and aot_used:
+                        try:
+                            state, metrics = step_fn(state, batch)
+                            if cuda:
+                                torch.cuda.synchronize(ctx.device)
+                        except Exception as e:  # noqa: BLE001 - see below
+                            # the last rung: a record that passed its
+                            # checks and captured but cannot replay falls
+                            # back to the eager step; the state is
+                            # untouched unless the replay ran, and then
+                            # the card has failed
+                            log.warning("AOT step failed at its first "
+                                        "replay (%s); running the eager "
+                                        "step", e)
+                            aot_mod._count("deserialize-failed")
+                            aot_used = False
+                            if multislice_pipeline:
+                                builder.engine.reset_programs()
+                            step_fn = builder.build()
+                            state, metrics = step_fn(state, batch)
+                    else:
                         state, metrics = step_fn(state, batch)
-                        if cuda:
-                            torch.cuda.synchronize(ctx.device)
-                    except Exception as e:  # noqa: BLE001 - see below
-                        # the last rung: a record that passed its checks
-                        # and captured but cannot replay falls back to
-                        # the eager step; the state is untouched unless
-                        # the replay ran, and then the card has failed
-                        log.warning("AOT step failed at its first replay "
-                                    "(%s); running the eager step", e)
-                        aot_mod._count("deserialize-failed")
-                        aot_used = False
-                        step_fn = builder.build()
-                        state, metrics = step_fn(state, batch)
-                else:
-                    state, metrics = step_fn(state, batch)
                 if step == start_step:
                     # one hard sync, once: the startup cost this measures
                     if cuda:
@@ -943,6 +1034,14 @@ def train(
                         tracer.emit("multislice-profile", start=time.time(),
                                     trace_id=trace_id, step=step + 1,
                                     report=builder.last_report.to_dict())
+                    if comm_rec is not None:
+                        try:
+                            comm_series = _comm_profile(
+                                step_fn, comm_rec, ctx, n_slices, recorder,
+                                tracer, trace_id, step + 1)
+                        except Exception as e:  # noqa: BLE001
+                            # observability never stops training
+                            log.warning("comm profile failed: %s", e)
                     if tracer is not None:
                         tracer.emit(
                             "first-step", start=time.time(),
@@ -1130,6 +1229,8 @@ def train(
             tracer.close()
         if obs_server is not None:
             obs_server.stop()
+        if comm_series is not None:
+            comm_series.prune()
         if mlog is not None:
             mlog.close()
         if owns_ctx:

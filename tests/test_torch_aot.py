@@ -14,8 +14,9 @@ object of ``TrainStepBuilder.build_compiled`` and the worker's ladder.
 - The worker's ladder on a tiny LM: cold exports, the next run hits
   ("aot"), a corrupt or mismatched record falls back and trains, no
   directory warns, lr-variant trials under the runtime schedule share one
-  record, a changed shape misses, an optimizer family that cannot be
-  captured counts ``export-failed`` and trains eagerly. These mirror
+  record, a changed shape misses, SGD momentum under a host schedule
+  captures, an optimizer without a device-side update counts
+  ``export-failed`` and trains eagerly. These mirror
   tests/test_warmstart.py's TestWorkerWarmStart.
 - Parity: the port's aot-resumed run equals its cold run exactly, and
   both match the JAX package's ``train()`` (aot off) over 3 steps from
@@ -403,20 +404,42 @@ class TestWorkerLadder:
         assert len(_files(d)) == 3
         assert runs[0] == runs[1]      # remat: the same function
 
-    def test_uncapturable_family_counts_export_failed(self, tmp_path,
-                                                      caplog):
-        """torch.optim.SGD takes lr as a host number: under a host cosine
-        schedule it cannot be captured; the ladder trains eagerly."""
+    def test_uncapturable_family_counts_export_failed(self, tmp_path):
+        """SGD momentum under a host cosine schedule, once the family no
+        capture could hold, captures: its lr is a device buffer that
+        ``runtime/recipe.py`` ``SGD`` reads on a card (the CPU
+        keeps the host lr, as for Adam). The cold run exports, the rebind
+        reads "aot", and both equal the eager run."""
         d = tmp_path / "aot"
         kw = {**KW, "optimizer": "momentum", "lr_schedule": "cosine"}
         before = outcomes()
+        cold = worker.train(steps=3, aot=True, aot_dir=str(d), **kw)
+        assert cold.start_kind == "cold"
+        assert counted(before) == {"miss": 1, "export": 1}
+        before = outcomes()
+        r = worker.train(steps=3, aot=True, aot_dir=str(d), **kw)
+        assert r.steps == 3 and r.start_kind == "aot"
+        assert counted(before) == {"hit": 1}
+        assert len(_files(d)) == 1
+        assert r.final_metrics["loss"] == cold.final_metrics["loss"] == \
+            worker.train(steps=3, **kw).final_metrics["loss"]
+
+    def test_step_without_device_update_counts_export_failed(
+            self, tmp_path, caplog, monkeypatch):
+        """An optimizer without the recipe's device-side update cannot be
+        captured (runtime/trainstep.py ``CompiledStep``): the ladder
+        counts ``export-failed``, writes nothing and trains eagerly."""
+        d = tmp_path / "aot"
+        eager = worker.train(steps=3, **KW).final_metrics["loss"]
+        monkeypatch.delattr(recipe.RecipeOptimizer, "prepare_capture")
+        before = outcomes()
         with caplog.at_level("WARNING", logger=worker.log.name):
-            r = worker.train(steps=3, aot=True, aot_dir=str(d), **kw)
+            r = worker.train(steps=3, aot=True, aot_dir=str(d), **KW)
         assert r.steps == 3 and r.start_kind == "cold"
         assert counted(before) == {"miss": 1, "export-failed": 1}
         assert _files(d) == []
-        assert r.final_metrics["loss"] == worker.train(
-            steps=3, **kw).final_metrics["loss"]
+        assert "did not capture" in caplog.text
+        assert r.final_metrics["loss"] == eager
 
     def test_first_step_metric_and_span(self, tmp_path):
         d = str(tmp_path / "aot")
@@ -612,3 +635,51 @@ def test_async_save_between_steps_holds_the_saved_step(tmp_path):
     assert any(not torch.equal(state.params[n], want[n]) for n in want)
     for n, v in want.items():
         assert torch.equal(got[n], v), n
+
+
+@pytest.mark.parametrize("name", ["sgd", "momentum", "nesterov"])
+def test_sgd_step_with_a_device_lr_matches_torch_sgd(name):
+    """``recipe.SGD``, the update of every sgd, momentum and nesterov
+    step, against ``torch.optim.SGD``'s own step over 4 steps of a cosine
+    schedule with weight decay on the rank > 1 tensors: the same
+    arithmetic but for the rounding of lr·u before the add, and the same
+    momentum buffers. Its lr as a host float (an eager step) and as a
+    0-d tensor (a captured step's device buffer) give the same params
+    and buffers bit for bit."""
+    rng = np.random.default_rng(3)
+    shapes = ((4, 5), (5,), (3, 2, 2))
+    init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[torch.tensor(rng.standard_normal(s).astype(np.float32))
+              for s in shapes] for _ in range(4)]
+    runs = []
+    for way in ("torch", "host", "tensor"):
+        ps = [torch.tensor(a, requires_grad=True) for a in init]
+        opt, _ = recipe.make_optimizer(
+            ps, name, 0.1, schedule="cosine", total_steps=4,
+            weight_decay=1e-2, grad_clip=None)
+        assert isinstance(opt.inner, recipe.SGD)
+        if way == "tensor":         # what prepare_capture does on a card
+            opt.lr_buffer = torch.zeros(())
+            for group in opt.param_groups:
+                group["lr"] = opt.lr_buffer
+        for step_grads in grads:
+            for p, g in zip(ps, step_grads):
+                p.grad = g.clone()
+            opt.stage()
+            if way == "torch":
+                torch.optim.SGD.step(opt.inner)
+            else:
+                opt.apply()
+            opt.advance()
+        runs.append(([p.detach() for p in ps],
+                     [opt.inner.state[p].get("momentum_buffer")
+                      for p in ps]))
+    (want, wbuf), (got, gbuf), (dev, dbuf) = runs
+    for w, g, d in zip(want, got, dev):
+        torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+        assert torch.equal(d, g)
+    for w, g, d in zip(wbuf, gbuf, dbuf):
+        assert (w is None) == (g is None) == (d is None) == (name == "sgd")
+        if w is not None:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-7)
+            assert torch.equal(d, g)

@@ -45,6 +45,7 @@ def clean_cache(monkeypatch, tmp_path):
     monkeypatch.delenv(CC.COMPILE_CACHE_ENV, raising=False)
     monkeypatch.setattr(_build, "_cache_dir", None)
     monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_loaded_paths", {})
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "_build"))
     monkeypatch.setattr(CC, "_active", None)
     calls = {"nvcc": [], "dlopen": []}
@@ -128,6 +129,7 @@ def test_hits_and_misses_are_counted(tmp_path, clean_cache):
     assert s1["cache_hits"] == s0["cache_hits"]
     assert CC.start_kind(s0, s1) == "cold"
     _build._loaded.clear()                      # the next process
+    _build._loaded_paths.clear()
     _build.load_library(KERNEL)
     s2 = CC.compile_stats()
     assert s2["cache_hits"] - s1["cache_hits"] == 1
@@ -180,6 +182,7 @@ def test_warmup_start_kind_and_metrics(tmp_path):
     cold = _kernel_servable("m")
     assert cold.warmup() == [1, 2] and cold.start_kind == "cold"
     _build._loaded.clear()                      # a restarted replica
+    _build._loaded_paths.clear()
     warm = _kernel_servable("m")
     warm.warmup()
     assert warm.start_kind == "warm"
@@ -213,6 +216,7 @@ def test_train_start_kind_follows_the_rule(tmp_path, monkeypatch):
     first = worker.train(**kw)
     assert first.start_kind == "cold"
     _build._loaded.clear()
+    _build._loaded_paths.clear()
     second = worker.train(**kw)
     assert second.start_kind == "warm"
     events = [json.loads(line) for line in spans.read_text().splitlines()]

@@ -1379,6 +1379,71 @@ def test_captured_step_follows_a_warmup_cosine_schedule(cuda_device, opt,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("name", ["sgd", "momentum", "nesterov"])
+def test_captured_sgd_follows_a_host_cosine_schedule(cuda_device, name):
+    """sgd, momentum and nesterov on a host warmup + cosine schedule
+    capture (runtime/recipe.py ``SGD``, lr from a device buffer written
+    before each replay): the params after 6 replays equal the eager
+    run's, which takes the same update with a host lr (a baked lr would
+    leave it by the schedule's change)."""
+    spec, b, batches = _small_lm_run(cuda_device, name, "stock",
+                                     schedule="cosine", warmup_steps=2)
+    eager, le, _ = _trajectory(spec, b, batches, compiled=False)
+    captured, lc, step = _trajectory(spec, b, batches, compiled=True)
+    assert step.graph is not None and step.replays == 6
+    assert lc == le
+    _same_state(captured, eager)
+
+
+@pytest.mark.gpu
+def test_mpmd_stage_programs_captured_equal_eager(cuda_device, tmp_path):
+    """Two MPMD stages on the card at M 4 (a 2-layer stacked LM on flash
+    attention and fused_adam): the three stage programs captured as CUDA
+    graphs (parallel/multislice.py ``export_stages``) and replayed M
+    times a step give the eager engine's losses and params bit for bit,
+    and each replay adds its capture's K1/K2a/K2b launches."""
+    from kubeflow_tpu_torch.models import transformer as T
+    from kubeflow_tpu_torch.parallel import multislice as MS
+    from kubeflow_tpu_torch.runtime.recipe import make_optimizer
+    cfg = T.TransformerConfig(vocab_size=512, num_layers=2, embed_dim=128,
+                              num_heads=2, head_dim=64, mlp_dim=256,
+                              max_seq_len=128, attention="flash")
+    init, embed_fn, block_fn, head_loss_fn = T.multislice_stage_fns(cfg)
+    tokens = np.random.default_rng(3).integers(0, 512, (8, 128)).astype(
+        np.int32)
+    runs = []
+    for captured in (False, True):
+        engine = MS.MPMDPipeline(
+            devices=MS.stage_devices(2, cuda_device), embed_fn=embed_fn,
+            block_fn=block_fn, head_loss_fn=head_loss_fn,
+            optimizer=lambda p: make_optimizer(
+                p, "adam", 1e-3, kernels="fused_adam")[0],
+            num_microbatches=4)
+        state = engine.init(init, torch.Generator().manual_seed(0))
+        batch = engine.place_batch({"tokens": tokens})
+        if captured:
+            engine.export_stages(str(tmp_path), state, batch,
+                                 lambda s, kind: f"{s}-{kind}")
+            assert all(p.graph is not None
+                       for p in engine.programs.values())
+            before = tfa.flash_attention_bwd_dq.launches
+        losses = []
+        for _ in range(3):
+            state, m = engine.step(state, batch)
+            losses.append(m["loss"])
+        if captured:
+            # 4 microbatches x (stage 0's BWD + stage 1's FWDBWD) x 1 layer
+            assert tfa.flash_attention_bwd_dq.launches - before == 3 * 8
+        runs.append((losses, [{n: p.detach().clone() for n, p in
+                               ps.items()} for ps in state.params]))
+    (le, pe), (lc, pc) = runs
+    assert lc == le
+    for a, b in zip(pe, pc):
+        for n in a:
+            assert torch.equal(a[n], b[n]), n
+
+
+@pytest.mark.gpu
 def test_restore_and_rollback_into_captured_storage(cuda_device, tmp_path):
     """A checkpoint restore (``load_state_tree`` through the manager) and
     an LKG rollback after a NaN poison write into the storage the graph

@@ -53,7 +53,7 @@ def test_every_module_imports_without_jax():
                  "serving.grpc_server", "serving.tpu_serving_pb2",
                  "serving.router", "serving.fleet", "scheduler.health",
                  "runtime.aot", "models.moe", "parallel.pipeline",
-                 "parallel.multislice", "obs.goodput",
+                 "parallel.multislice", "obs.goodput", "obs.collectives",
                  "ops.ring_attention"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
@@ -170,6 +170,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "_build"))
     monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_loaded_paths", {})
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.load_library("flash_attention_fwd")
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):

@@ -18,8 +18,9 @@ path against the JAX package's (``kubeflow_tpu/parallel/multislice.py``,
   reads as nonzero ``pipeline_bubble`` badput summing to wall-clock;
   with fused_adam one K3 a stage a step (counted at its plain version);
   M defaults as the JAX worker's; the refusals come in the JAX package's
-  words, and the AOT record raises (checkpoints save: their round trips
-  are in tests/test_torch_multislice_ckpt.py).
+  words; the AOT records and checkpoints are written (their round trips
+  are in tests/test_torch_mpmd_aot.py and
+  tests/test_torch_multislice_ckpt.py).
 """
 
 import json
@@ -243,9 +244,14 @@ def test_refusals_in_the_jax_words(monkeypatch, case):
 
 
 def test_aot_and_checkpoints_are_not_ported_on_this_path(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        worker.train(steps=1, multislice_pipeline=True, aot=True,
-                     aot_dir=str(tmp_path), **KW)
+    """Both are ported on this path now: the AOT record writes one
+    record per stage program (2S−1; their ladder is in
+    tests/test_torch_mpmd_aot.py) and the step is saved; eval still
+    raises."""
+    r = worker.train(steps=1, multislice_pipeline=True, aot=True,
+                     aot_dir=str(tmp_path / "aot"), **KW)
+    assert r.steps == 1
+    assert len(list((tmp_path / "aot").glob("step-*.aotx"))) == 3
     # checkpoints are ported on this path since the per-stage state tree
     # (tests/test_torch_multislice_ckpt.py): the step is saved
     worker.train(steps=1, multislice_pipeline=True,
