@@ -307,6 +307,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
              int32 tokens); a pipeline-bubble span a window; no
              collective called. K1/K2a/K2b at the microbatch shapes
              ([2 and 1, 2048, 12, 64] bf16) are phase 2 cases.
+14. seq    - after phase 13, before phase 11: two gloo ranks sharing the
+             card from the contract env, {sequence 2}, each arm 3 steps
+             at the default widths against one process on the same
+             recipe under phase 8's bars a step. The LM (flash +
+             fused_adam, lr 6e-4, clip 1.0, batch 8 x 2048, 1,024
+             positions a rank): (a) flash, K1/K2a/K2b 12 and K3 1 a rank
+             a step on the gathered sequence, Q/K/V and dO gathered once
+             a layer; (b) ring, K3 1 and no K1, the ring's hops as its
+             schedule implies; (c) the ring on one layer's chunks against
+             the gathered K1 output, and a ring of one launching K1 once.
+             (d) The MoE LM of 12a (8 experts, top 2, capacity 1.25)
+             against 12a's first 3 steps: K1/K2a/K2b 12 and K3 1 a rank a
+             step, the aux loss under the loss bar, and the gathers a step
+             exactly (Q/K/V and dO a layer, and one [2, 8, 8] int32 count
+             exchange a layer, the capacity positions over the whole
+             sequence). (e) The stacked LM of 13a (pipeline 1) against
+             13a's first 3 steps: K1/K2a/K2b 12 and K3 1 a rank a step, 48
+             gathers, no hop. (f) Fused ResNet-50 at 224 px, batch 64,
+             replicated over the axis (whole images on both ranks; phase
+             6's recipe), against one process: K4 7 + 7 and K5 6 + 6 a
+             rank a step, one all-reduce a param leaf a step (the
+             gradient sum over the axis; the gradient counted once, its
+             norm the one process's, not twice it). Each arm's seconds
+             are printed, so the phase's time before these arms reads off
+             the same run.
 
 The comm profile (obs/collectives.py) rides the runs of phases 8, 12b,
 13b, 13c and 14: one comm-profile span from rank 0 whose calls and bytes
@@ -4708,7 +4733,8 @@ def phase_moe(counters, T, worker, trainstep) -> dict:
     return {"launches": off["launches"], "launches_remat": on["launches"],
             "step_ms": off["step_ms"], "step_ms_remat": on["step_ms"],
             "peak_gib": off["peak_gib"], "peak_gib_remat": on["peak_gib"],
-            "losses": off["loss"], "aux": off["aux"], "compare": worst,
+            "losses": off["loss"], "grad_norms": off["grad_norm"],
+            "aux": off["aux"], "compare": worst,
             "remat_delta": delta}
 
 
@@ -5247,8 +5273,9 @@ def phase_pipeline(counters, T, worker, trainstep, collectives,
         f"{ledger['goodputSeconds']:.3f} s of {ledger['wallSeconds']:.3f} "
         f"s; step {mpmd['step_ms']:.1f} ms (host clock, a sync after "
         f"every op); peak {mpmd['peak_gib']:.2f} GiB")
-    return {"one": {k: one[k] for k in ("loss", "step_ms", "peak_gib",
-                                        "launches", "param_bytes")},
+    return {"one": {k: one[k] for k in ("loss", "grad_norm", "step_ms",
+                                        "peak_gib", "launches",
+                                        "param_bytes")},
             "first": first, "gpipe": gpipe, "comm_gpipe": comm_13b,
             "ledger_mpmd": ledger,
             "mpmd": {**{k: mpmd[k] for k in ("loss", "step_ms", "peak_gib",
@@ -5325,8 +5352,18 @@ SEQ_HOPS = 2 * SERVE_LAYERS * (SEQ_RANKS - 1)
 SEQ_HOP_BYTES = 2 * TRAIN_BATCH * SEQ_CHUNK * SERVE_HEADS * \
     SERVE_HEAD_DIM * 2
 # the gathered attention (einsum, flash) a rank a step: Q, K and V
-# forward and dO backward, a layer
+# forward and dO backward, a layer, each [8, 1024, 12, 64] bf16
 SEQ_GATHERS = 4 * SERVE_LAYERS
+SEQ_GATHER_BYTES = TRAIN_BATCH * SEQ_CHUNK * SERVE_HEADS * \
+    SERVE_HEAD_DIM * 2
+# 14d: the MoE LM's count exchange, one all-gather a layer of the chunk's
+# [top_k, batch, experts] int32 choice counts
+SEQ_MOE_COUNT_BYTES = MOE_KW["moe_top_k"] * TRAIN_BATCH * \
+    MOE_KW["num_experts"] * 4
+# arms d-f: the MoE LM, the stacked LM and fused ResNet-50 on the same
+# two ranks, each against one process (12a's and 13a's first steps,
+# ResNet-50's run here)
+SEQ_MORE = ("moe", "stacked", "resnet")
 
 
 def _seq_train(worker, cfg, attention: str, path: str, **kw) -> dict:
@@ -5344,8 +5381,37 @@ def _seq_train(worker, cfg, attention: str, path: str, **kw) -> dict:
         path, ctx.process_id if ctx else 0))
     return {"loss": [w["loss"] for w in windows],
             "grad_norm": [w["grad_norm"] for w in windows],
+            "aux": [w.get("moe_aux_loss") for w in windows],
             "step_ms": result.mean_step_time_s * 1e3,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _seq_resnet(worker, T, path: str, steps: int, **kw) -> dict:
+    """14f's run through train(): fused ResNet-50 at phase 6's widths on
+    phase 8's recipe (seed 0, batch 64, sync_every 1)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = dict(_dp_runs(T)["resnet"], steps=steps)
+    result = worker.train(seed=0, sync_every=1, metrics_path=path,
+                          handle_sigterm=False, **run, **kw)
+    torch.cuda.synchronize()
+    ctx = kw.get("ctx")
+    windows = _windows(worker._process_metrics_path(
+        path, ctx.process_id if ctx else 0))
+    return {"loss": [w["loss"] for w in windows],
+            "grad_norm": [w["grad_norm"] for w in windows],
+            "step_ms": result.mean_step_time_s * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _seq_more(worker, T, arm: str, path: str, **kw) -> dict:
+    """One of arms d-f on this rank (or, without ``ctx``, in one
+    process)."""
+    if arm == "moe":
+        return _seq_train(worker, _mp_cfg(T, True), "flash", path, **kw)
+    if arm == "stacked":
+        return _pp_train(worker, _pp_cfg(T), path, **kw)
+    return _seq_resnet(worker, T, path, **kw)
 
 
 def _seq_qkv():
@@ -5409,6 +5475,18 @@ def _seq_rank(rank: int, env: dict, queue) -> None:
                                bytes=dict(collectives.bytes_moved),
                                host_staged=dict(collectives.host_staged))
                     out[arm] = rec
+                for arm in SEQ_MORE:
+                    collectives.reset_counts()
+                    t0 = time.perf_counter()
+                    rec, launches = _counted(counters, lambda: _seq_more(
+                        worker, T, arm, os.path.join(tmp, f"{arm}.jsonl"),
+                        ctx=ctx, steps=SEQ_STEPS))
+                    rec.update(launches=launches,
+                               calls=dict(collectives.calls),
+                               bytes=dict(collectives.bytes_moved),
+                               host_staged=dict(collectives.host_staged),
+                               wall_s=time.perf_counter() - t0)
+                    out[arm] = rec
             out["op"] = _seq_op(ctx.mesh)
         finally:
             bootstrap.shutdown(ctx)
@@ -5417,18 +5495,25 @@ def _seq_rank(rank: int, env: dict, queue) -> None:
         queue.put((rank, None, traceback.format_exc()))
 
 
-def phase_sequence(counters, T, worker, card) -> dict:
-    """Phase 14: the LM at the default widths over a sequence axis. One
-    process first (flash + fused_adam, 3 steps: the reference). Then two
-    gloo ranks sharing the card from the contract env, {sequence 2}: (a)
-    flash, the gathered sequence's K1, K2a and K2b 12 each and K3 1 a
-    rank a step, Q/K/V and dO gathered once a layer; (b) ring, K3 1 a rank
-    a step and no K1, the ring's hops a step as its schedule implies; both
-    against the one process under phase 8's bars. (c) The op alone on one
-    layer's Q/K/V: the ring against the gathered K1 output on each rank,
-    and a ring of size 1 in this process launching K1 once."""
+def phase_sequence(counters, T, worker, card, refs: dict,
+                   per_step_k45: dict) -> dict:
+    """Phase 14: the default widths over a sequence axis. One process
+    first (the LM, flash + fused_adam, 3 steps; fused ResNet-50, 3 steps:
+    the references). Then two gloo ranks sharing the card from the
+    contract env, {sequence 2}: (a) flash, the gathered sequence's K1, K2a
+    and K2b 12 each and K3 1 a rank a step, Q/K/V and dO gathered once a
+    layer; (b) ring, K3 1 a rank a step and no K1, the ring's hops a step
+    as its schedule implies; both against the one process under phase 8's
+    bars. (c) The op alone on one layer's Q/K/V: the ring against the
+    gathered K1 output on each rank, and a ring of size 1 in this process
+    launching K1 once. (d) The MoE LM against ``refs["moe"]`` (12a's run),
+    its aux loss too, with its count exchanges; (e) the stacked LM against
+    ``refs["stacked"]`` (13a's run); (f) fused ResNet-50, replicated over
+    the axis, against the reference here: K4/K5 ``per_step_k45`` a rank a
+    step and the gradient counted once."""
     import tempfile
     import torch.multiprocessing as mp
+    from kubeflow_tpu_torch.models import resnet as R
     ra = importlib.import_module("kubeflow_tpu_torch.ops.ring_attention")
     fa = importlib.import_module("kubeflow_tpu_torch.ops.flash_attention")
     cfg = T.TransformerConfig()
@@ -5436,9 +5521,20 @@ def phase_sequence(counters, T, worker, card) -> dict:
         one, launches = _counted(counters, lambda: _seq_train(
             worker, cfg, "flash", os.path.join(tmp, "one.jsonl"),
             steps=SEQ_STEPS))
+        t0 = time.perf_counter()
+        rn_one, rn_launches = _counted(_all_counters(), lambda: _seq_resnet(
+            worker, T, os.path.join(tmp, "resnet.jsonl"), steps=SEQ_STEPS,
+            device=DEVICE))
+        rn_s = time.perf_counter() - t0
     want = {k: v * SEQ_STEPS for k, v in LM_PER_STEP.items()}
     if launches != want:
         fail(f"seq one process: launches {launches}, expected {want}")
+    _expect(rn_launches, per_step_k45, SEQ_STEPS, "seq ResNet-50 one process")
+    refs = {**refs, "resnet": rn_one}
+    log(f"[seq] 14 | {card} | one process, fused ResNet-50 at {IMAGE} px, "
+        f"batch {RESNET_BATCH}, {SEQ_STEPS} steps in {rn_s:.1f}s: losses "
+        f"{rn_one['loss']}, grad norms {rn_one['grad_norm']}; step "
+        f"{rn_one['step_ms']:.1f} ms")
     log(f"[seq] 14 | {card} | one process, flash + fused_adam, "
         f"{SEQ_STEPS} steps at batch {TRAIN_BATCH} x S {SERVE_SEQ}: "
         f"losses {one['loss']}, grad norms {one['grad_norm']}; step "
@@ -5531,7 +5627,12 @@ def phase_sequence(counters, T, worker, card) -> dict:
             f"(atol {BF16_ATOL} + rtol {BF16_RTOL}); ring {op['ms']:.3f} ms "
             f"(CUDA events, hops staged through the host)")
         kept["op"] = op
+        kept.update(_seq_more_checks(r, rank, refs, per_step_k45, card,
+                                     len(R.make_resnet(50).shapes()[0])))
         result["ranks"].append(kept)
+    more_s = {arm: max(ranks[r][arm]["wall_s"] for r in range(SEQ_RANKS))
+              for arm in SEQ_MORE}
+    result["more_s"] = {**more_s, "resnet_one_process": rn_s}
     # 14c: a ring of size 1 is K1
     q, k, v = _seq_qkv()
     with torch.no_grad():
@@ -5552,17 +5653,83 @@ def phase_sequence(counters, T, worker, card) -> dict:
         c = result["comm"][arm] = _check_comm(f"seq {arm}", [
             ranks[r][arm]["comm"] for r in range(SEQ_RANKS)])
         log(f"[seq] 14 {arm} | {card} | " + _comm_log("comm profile", c))
-    log(f"[seq] 14: {SEQ_RANKS} ranks, flash and ring, {SEQ_STEPS} steps "
-        f"each, in {wall:.1f}s")
+    log(f"[seq] 14 | {card} | {SEQ_RANKS} ranks, flash, ring, MoE, stacked "
+        f"and ResNet-50, {SEQ_STEPS} steps each, in {wall:.1f}s; of it arms "
+        f"d-f {sum(more_s.values()):.1f}s ({', '.join(f'{a} {t:.1f}s' for a, t in more_s.items())}), "
+        f"and the one-process ResNet-50 reference {rn_s:.1f}s before them")
     result["wall_s"] = wall
     return result
 
 
+def _seq_more_checks(r: int, rank: dict, refs: dict, per_step_k45: dict,
+                     card: str, resnet_leaves: int) -> dict:
+    """Arms d-f of one rank: launches, phase 8's bars against the
+    one-process run (the MoE aux loss under the loss bar), and the
+    collectives each arm's schedule implies over 3 steps: (d) Q/K/V and dO
+    gathered a layer and one count exchange a layer, (e) the gathers
+    alone, (f) no gather and one all-reduce a param leaf (the gradient
+    sum over the axis); none sends."""
+    per_step = {"moe": LM_PER_STEP, "stacked": LM_PER_STEP,
+                "resnet": per_step_k45}
+    gathers = {"moe": (SEQ_GATHERS + SERVE_LAYERS) * SEQ_STEPS,
+               "stacked": SEQ_GATHERS * SEQ_STEPS, "resnet": 0}
+    gathered = {"moe": SEQ_STEPS * (SEQ_GATHERS * SEQ_GATHER_BYTES +
+                                    SERVE_LAYERS * SEQ_MOE_COUNT_BYTES),
+                "stacked": SEQ_STEPS * SEQ_GATHERS * SEQ_GATHER_BYTES,
+                "resnet": 0}
+    kept = {}
+    for part, arm in zip("def", SEQ_MORE):
+        rec, ref = rank[arm], refs[arm]
+        want = {k: v * SEQ_STEPS for k, v in per_step[arm].items()}
+        if rec["launches"] != want:
+            fail(f"seq 14{part} rank {r}: launches {rec['launches']}, "
+                 f"expected {want}")
+        worst = _pp_bars(f"14{part} rank {r}", rec, ref, what="seq")
+        if arm == "moe":
+            got, exp = np.array(rec["aux"]), np.array(ref["aux"][:SEQ_STEPS])
+            worst["aux"] = float(np.max(np.abs(got - exp) / np.abs(exp))
+                                 / DP_LOSS_RTOL)
+            if not worst["aux"] <= 1.0:
+                fail(f"seq 14d rank {r}: aux {got.tolist()} vs one process "
+                     f"{exp.tolist()} (bar {DP_LOSS_RTOL} relative)")
+        calls, moved = rec["calls"], rec["bytes"]
+        got = (calls["all_gather"], moved["all_gather"], calls["send"])
+        if got != (gathers[arm], gathered[arm], 0):
+            fail(f"seq 14{part} rank {r}: all-gathers, their bytes and sends "
+                 f"{got}, expected {(gathers[arm], gathered[arm], 0)}")
+        if arm == "resnet" and \
+                calls["all_reduce"] != resnet_leaves * SEQ_STEPS:
+            fail(f"seq 14f rank {r}: {calls['all_reduce']} all-reduces, "
+                 f"expected one a param leaf a step, "
+                 f"{resnet_leaves * SEQ_STEPS}")
+        traffic = {op: (calls[op], moved[op], rec["host_staged"][op])
+                   for op in calls if calls[op]}
+        aux = f"; aux {rec['aux']} (one process {ref['aux'][:SEQ_STEPS]})" \
+            if arm == "moe" else ""
+        log(f"[seq] 14{part} rank {r} ({arm}) | {card} | launches "
+            f"{rec['launches']}; losses {rec['loss']} (one process "
+            f"{ref['loss'][:SEQ_STEPS]}), grad norms {rec['grad_norm']} (one "
+            f"process {ref['grad_norm'][:SEQ_STEPS]}){aux}; largest share of "
+            f"a bar: {', '.join(f'{k} {v:.3f}' for k, v in worst.items())}; "
+            f"traffic over {SEQ_STEPS} steps and init by op (calls, bytes, "
+            f"staged through the host): {traffic}; step "
+            f"{rec['step_ms']:.1f} ms (host clock, two ranks sharing one "
+            f"card over gloo; not a scaling figure); peak "
+            f"{rec['peak_gib']:.2f} GiB; {rec['wall_s']:.1f}s")
+        kept[arm] = {k: rec[k] for k in ("loss", "grad_norm", "step_ms",
+                                         "peak_gib", "launches", "wall_s")}
+        kept[arm]["worst"] = worst
+    return kept
+
+
 def _seq_launches(seq: dict, kernel: str) -> dict:
-    """Phase 14's launches of one kernel: each rank's flash and ring arms
-    (3 steps each), and K1's in a ring of size 1."""
+    """Phase 14's launches of one kernel: each rank's arms that run it (3
+    steps each): flash, ring, MoE and the stacked LM for the LM's kernels
+    (and K1's in a ring of size 1), ResNet-50 for K4/K5."""
+    lm = kernel.startswith(("flash", "fused_adam"))
+    arms = SEQ_ARMS + ("moe", "stacked") if lm else ("resnet",)
     out = {arm: [r[arm]["launches"].get(kernel, 0) for r in seq["ranks"]]
-           for arm in SEQ_ARMS}
+           for arm in arms}
     if kernel == "flash_attention_fwd":
         out["ring_size_1"] = seq["launches"]["ring_size_1"]
     return {"launches_seq": out}
@@ -5733,7 +5900,11 @@ def main() -> int:
         # phase 14: the sequence axis
         torch.cuda.empty_cache()
         t14 = time.perf_counter()
-        seq = phase_sequence(counters, T, worker, dev["card"])
+        seq = phase_sequence(
+            counters, T, worker, dev["card"],
+            {"moe": {"loss": moe["losses"], "grad_norm": moe["grad_norms"],
+                     "aux": moe["aux"]},
+             "stacked": pp["one"]}, resnet["per_step"])
         log(f"[seq] phase 14 in {time.perf_counter() - t14:.1f}s")
         lap("14 seq")
         # phase 11: the AOT ladder, in worker processes
@@ -5876,6 +6047,7 @@ def main() -> int:
                 "launches_dp": _dp_launches(dp, "resnet", f"{name}_{way}"),
                 "launches_ckpt": _ckpt_launches(ckpt, degree,
                                                 f"{name}_{way}"),
+                **_seq_launches(seq, f"{name}_{way}"),
                 "max_abs_err": max(g["out_err" if way == "fwd" else "dx_err"]
                                    for g in geoms),
                 # one rank's 32 rows (phase 8)

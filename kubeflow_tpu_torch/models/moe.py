@@ -33,8 +33,21 @@ of the output and the partial sums are all-reduced over ``("expert",
 "tensor")``; the combine weights and the expert input take that group's
 gradient sum in the backward, so the router's and ``x``'s gradients are
 whole and equal on every rank of it. The aux loss's ``f`` and ``P`` are
-taken over the global batch (sums over the replica axes), as GSPMD
-computes the JAX function.
+taken over the global batch (sums over the replica axes and the sequence
+axis), as GSPMD computes the JAX function.
+
+On a sequence mesh ``x`` is this rank's chunk of ``S/n`` positions, and
+it routes exactly as the whole sequence routes in the JAX function:
+
+- the capacity comes from the whole sequence's length, ``n·S/n``;
+- one all-gather a layer of every chunk's per-row, per-level, per-expert
+  choice counts (``[K, B, E]`` int32) gives each level's positions their
+  start after the same rows' choices on the earlier chunks, and the
+  queue of level j its start after every level-<j choice of the whole
+  sequence;
+- each token takes its own slot, so the expert products need no
+  exchange over the axis: a chunk's ``[E, B, C, M]`` expert input holds
+  its own tokens' slots, the others' zero.
 """
 
 from __future__ import annotations
@@ -78,14 +91,14 @@ def load_balancing_loss(router_probs: torch.Tensor,
     """Switch-Transformer auxiliary loss: E · Σ_e f_e · P_e, in f32.
     f_e = share of tokens whose top-1 choice is e, P_e = mean router
     probability on e; over the global batch when ``group`` (the replica
-    axes) splits it."""
+    axes and the sequence axis) splits its tokens."""
     e = router_probs.shape[-1]
     oh = _one_hot(expert_index, e, torch.float32)
     probs = router_probs.float()
     if group is None:
         f, p = oh.mean((0, 1)), probs.mean((0, 1))
     else:
-        # every replica holds the same number of rows
+        # every rank holds the same number of rows and positions
         n = oh.shape[0] * oh.shape[1] * dist.get_world_size(group)
         f = collectives.global_sum(oh.sum((0, 1)), group) / n
         p = collectives.global_sum(probs.sum((0, 1)), group) / n
@@ -113,14 +126,15 @@ class MoEMLP(nn.Module):
         self.wi = nn.Parameter(torch.empty(e, m, h))
         self.wo = nn.Parameter(torch.empty(e, h, m))
 
-    def _groups(self) -> tuple[Any, Any, int]:
-        """(the combine's partial-sum group, the replica group, this
-        rank's expert coordinate)."""
+    def _groups(self) -> tuple[Any, Any, Any]:
+        """(the combine's partial-sum group, the aux statistics' group:
+        the replica axes and the sequence axis, the sequence group)."""
         m = self.mesh
         if m is None:
-            return None, None, 0
+            return None, None, None
         return (m.group_of(("expert", "tensor")),
-                m.group_of(("data", "fsdp")), m.coords["expert"])
+                m.group_of(("data", "fsdp", "sequence")),
+                m.group_of("sequence"))
 
     def forward(self, x: torch.Tensor) -> tuple[torch.Tensor,
                                                  torch.Tensor]:
@@ -128,8 +142,12 @@ class MoEMLP(nn.Module):
         e, k = self.num_experts, self.top_k
         if not 1 <= k <= e:
             raise ValueError(f"top_k={k} must be in [1, num_experts={e}]")
-        capacity = max(1, int(math.ceil(k * s * self.capacity_factor / e)))
-        part, replicas, ecoord = self._groups()
+        part, stats, seq = self._groups()
+        # the whole sequence's length: a chunk's capacity is the JAX
+        # function's
+        s_all = s * (1 if seq is None else dist.get_world_size(seq))
+        capacity = max(1, int(math.ceil(k * s_all * self.capacity_factor
+                                        / e)))
         dt = self.dtype
 
         # the router in f32: a small product, numerically load-bearing
@@ -137,18 +155,26 @@ class MoEMLP(nn.Module):
         probs = torch.softmax(logits, dim=-1)
         idx, gate = _top_k_mask(probs, k)                     # [K, B, S]
         aux = self.aux_loss_weight * load_balancing_loss(probs, idx[0],
-                                                         replicas)
+                                                         stats)
 
         # capacity: k-th choices queue behind all (k-1)-th choices, the
         # position a running count per expert along each batch row
         onehots = _one_hot(idx, e, torch.int32)               # [K,B,S,E]
+        counts = onehots.sum(2, dtype=torch.int32)[None]      # [1,K,B,E]
+        if seq is not None:
+            # every chunk's counts, in sequence order: [n, K, B, E]
+            counts = collectives.all_gather(counts, seq)
+        # each level's choices on the earlier chunks, and on all of them
+        coord = 0 if seq is None else self.mesh.coords["sequence"]
+        before = counts[:coord].sum(0)                        # [K, B, E]
+        total = counts.sum(0)
         prev = torch.zeros((b, 1, e), dtype=torch.int32, device=x.device)
         gate_sum = torch.zeros((b, s), device=x.device)
         combine: Optional[torch.Tensor] = None
         for j in range(k):
             oh = onehots[j]                                   # [B, S, E]
-            pos = torch.cumsum(oh, dim=1) - oh + prev
-            prev = prev + oh.sum(1, keepdim=True)
+            pos = torch.cumsum(oh, dim=1) - oh + prev + before[j][:, None]
+            prev = prev + total[j][:, None]
             pos_tok = (pos * oh).sum(-1)                      # [B, S]
             keep = (pos_tok < capacity).float()
             g = gate[j] * keep
@@ -170,7 +196,7 @@ class MoEMLP(nn.Module):
 
         # this rank's experts; their gradient summed over the group
         el = self.wi.shape[0]
-        lo = ecoord * el
+        lo = 0 if self.mesh is None else self.mesh.coords["expert"] * el
         combine = collectives.copy_to(combine, part)[:, :, lo:lo + el]
         dispatch = dispatch[:, :, lo:lo + el]
         xd = collectives.copy_to(x.to(dt), part)

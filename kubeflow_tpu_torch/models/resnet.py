@@ -43,7 +43,18 @@ backward), still flax's f32 E[x²] − E[x]² clamped at 0. The fused path
 keeps each rank's statistics its own (the ghost tiles, the stem and the
 strided blocks over the rank's rows: the JAX package's ``shard_map``
 semantics) and all-reduces the batch moments to their mean before the
-running-stat EMA, as its ``pmean`` does.
+running-stat EMA, as its ``pmean`` does. Both take the replica group,
+``("data", "fsdp")``, never a model or sequence axis.
+
+**A sequence axis** (a mesh with ``sequence`` above 1) replicates the
+model over it, as the JAX package runs it: its ``place_batch`` cuts only
+the tokens' dimension 1, so every sequence rank of a data shard holds
+that shard's whole images, and GSPMD (the default path) or the
+``shard_map`` over the data axes (the fused path, K4 and K5 on whole
+images) computes the same on each. Every sequence rank's backward is
+then the whole gradient, and the train step sums every gradient over
+the axis: the loss enters it counted once
+(``parallel/collectives.py`` ``once_over``).
 """
 
 from __future__ import annotations
@@ -62,7 +73,7 @@ from ..ops import fused_block as _fb
 from ..ops import fused_block_train as _fbt
 from ..ops import fused_block_train_spatial as _fbts
 from ..parallel import collectives
-from ..parallel.mesh import replica_degree
+from ..parallel.mesh import REPLICA_AXES, replica_degree
 from . import RESNET_DEPTHS
 
 STAGE_SIZES = {
@@ -355,25 +366,30 @@ def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def replica_group(mesh):
-    """The process group of ``mesh``'s replicas, or None for one
-    replica (no mesh)."""
+    """The process group of this rank's replicas (the ranks along
+    ``("data", "fsdp")``, whose rows make the global batch), or None
+    for one replica (no mesh)."""
     return None if mesh is None or replica_degree(mesh) <= 1 \
-        else mesh.group
+        else mesh.group_of(REPLICA_AXES)
 
 
 def make_loss_fn(model: ResNet, label_smoothing: float = 0.0,
                  mesh=None) -> Callable:
     """Loss fn in the TrainStepBuilder signature; threads batch_stats.
-    Over a mesh, BatchNorm takes the global batch's statistics."""
+    Over a mesh, BatchNorm takes the global batch's statistics; over a
+    sequence axis the loss, whole on every sequence rank, is counted once
+    in the gradient the train step sums over it."""
     group = replica_group(mesh)
+    seq = None if mesh is None else mesh.group_of("sequence")
 
     def loss_fn(params, variables, batch, rng):
         images, labels = batch["images"], batch["labels"]
         logits, updated = model.apply(params, variables["batch_stats"],
                                       images, train=True, group=group)
         loss = cross_entropy_loss(logits, labels, label_smoothing)
-        return loss, {"accuracy": _accuracy(logits, labels),
-                      "variables": {"batch_stats": updated}}
+        return collectives.once_over(loss, seq), {
+            "accuracy": _accuracy(logits, labels),
+            "variables": {"batch_stats": updated}}
 
     return loss_fn
 
@@ -744,11 +760,13 @@ def make_fused_loss_fn(model: ResNet, label_smoothing: float = 0.0,
     rank runs the fused blocks on its own rows (per-rank ghost BN, the JAX
     package's ``shard_map`` over the data axes) and the batch moments are
     averaged over the ranks before the EMA; the train step averages the
-    gradients."""
+    gradients (over a sequence axis the loss is counted once, as
+    :func:`make_loss_fn`'s)."""
     if model.depth < 50:
         raise ValueError("fused blocks require a bottleneck ResNet "
                          "(depth >= 50)")
     group = replica_group(mesh)
+    seq = None if mesh is None else mesh.group_of("sequence")
 
     def loss_fn(params, variables, batch, rng):
         logits, new_stats = fused_train_apply(
@@ -757,8 +775,9 @@ def make_fused_loss_fn(model: ResNet, label_smoothing: float = 0.0,
             group=group)
         labels = batch["labels"]
         loss = cross_entropy_loss(logits, labels, label_smoothing)
-        return loss, {"accuracy": _accuracy(logits, labels),
-                      "variables": {"batch_stats": new_stats}}
+        return collectives.once_over(loss, seq), {
+            "accuracy": _accuracy(logits, labels),
+            "variables": {"batch_stats": new_stats}}
 
     return loss_fn
 
@@ -769,14 +788,10 @@ def workload_spec(image_size: int = 224, num_classes: int = 1000,
                   mesh=None):
     """WorkloadSpec factory for runtime.worker: the exact-BN default path,
     or with ``fused`` the ghost-BN fused-block variant (per-tile BN
-    statistics, one K4/K5 call per stride-1 bottleneck a direction). A
-    sequence axis above 1 raises: the JAX package splits an image's
-    height over it, which the port does not."""
+    statistics, one K4/K5 call per stride-1 bottleneck a direction). On a
+    sequence axis the model is replicated over it (the module
+    docstring)."""
     from ..runtime.worker import WorkloadSpec
-    if mesh is not None and mesh.shape.get("sequence", 1) > 1:
-        raise NotImplementedError(
-            "ResNet on a sequence mesh (the image's height split over the "
-            "axis) is not yet ported (ROADMAP Queue 1 item 17)")
     model = make_resnet(depth, num_classes=num_classes)
     if fused:
         loss_fn = make_fused_loss_fn(model, label_smoothing=label_smoothing,

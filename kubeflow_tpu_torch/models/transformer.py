@@ -57,8 +57,12 @@ runtime/worker.py.
   chunk), and the loss is the global sum over the global count,
   summed over the sequence ranks forward and identity backward, so the
   train step's gradient sum over the axis gives the whole sequence's
-  gradient. MoE and the stacked LM refuse a sequence mesh (ROADMAP
-  Queue 1 items 15 and 16).
+  gradient. With experts each chunk routes as the whole sequence routes
+  (models/moe.py); the aux loss, whole and the same on every sequence
+  rank, enters the loss counted once over the axis
+  (``collectives.once_over``). The stacked LM runs the same blocks on
+  its chunks, its GPipe hops in the pipeline group of the rank's own
+  sequence coordinate.
 - The stacked LM of pipeline parallelism (:class:`PipelinedTransformerLM`,
   ``pipelined_logical_axes``, ``pipelined_workload_spec``, and
   ``multislice_stage_fns`` for the MPMD engine): every block param
@@ -163,15 +167,6 @@ def _tensor_group(mesh) -> Optional[object]:
 
 def _seq_size(mesh) -> int:
     return 1 if mesh is None else mesh.shape.get("sequence", 1)
-
-
-_SEQ_MOE_REFUSAL = (
-    "MoE (num_experts>0) on a sequence mesh is not yet ported: its "
-    "capacity and aux statistics are over the whole sequence (ROADMAP "
-    "Queue 1 item 15)")
-_SEQ_PIPELINE_REFUSAL = (
-    "the stacked (pipelined) LM on a sequence mesh is not yet ported "
-    "(ROADMAP Queue 1 item 16)")
 
 
 def _einsum_attention(q, k, v, cfg: "TransformerConfig") -> torch.Tensor:
@@ -378,8 +373,6 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
-        if cfg.num_experts > 0 and _seq_size(mesh) > 1:
-            raise NotImplementedError(_SEQ_MOE_REFUSAL)
         self.cfg = cfg
         self.mesh = mesh
         self.tok_embed = _Embed(cfg.vocab_size, cfg.embed_dim)
@@ -486,7 +479,8 @@ class PipelinedTransformerLM(nn.Module):
     schedule over the mesh's pipeline axis, whose rank holds its stage's
     layers, or the layers in order without one; the same numbers either
     way. ``mesh`` also splits the blocks, the embedding and the head over
-    ``tensor`` as :class:`TransformerLM`'s."""
+    ``tensor``, and the positions over ``sequence``, as
+    :class:`TransformerLM`'s."""
 
     def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
@@ -494,8 +488,6 @@ class PipelinedTransformerLM(nn.Module):
             # the block scan carries no aux loss out: refuse rather than
             # train a collapsed router
             raise NotImplementedError(_MOE_REFUSAL)
-        if _seq_size(mesh) > 1:
-            raise NotImplementedError(_SEQ_PIPELINE_REFUSAL)
         self.cfg = cfg
         self.mesh = mesh
         self.embed = _Embedder(cfg, mesh)
@@ -588,8 +580,11 @@ def make_loss_fn(model: TransformerLM,
     params dict keyed like the model's state dict (this rank's blocks
     under a mesh; ``fsdp_dims`` the dimension of each fsdp-sharded
     leaf). With experts, the loss includes the summed aux loss, reported
-    as ``moe_aux_loss``."""
-    group = None if model.mesh is None else model.mesh.group_of("fsdp")
+    as ``moe_aux_loss``; on a sequence mesh every rank computes it whole,
+    so its gradient enters once over the axis."""
+    mesh = model.mesh
+    group = None if mesh is None else mesh.group_of("fsdp")
+    seq = None if mesh is None else mesh.group_of("sequence")
 
     def loss_fn(params, variables, batch, rng):
         tokens = batch["tokens"]
@@ -601,7 +596,7 @@ def make_loss_fn(model: TransformerLM,
         if aux is None:
             return loss, metrics
         metrics["moe_aux_loss"] = aux
-        return loss + aux, metrics
+        return loss + collectives.once_over(aux, seq), metrics
 
     return loss_fn
 
@@ -782,13 +777,12 @@ def pipelined_workload_spec(cfg: Optional[TransformerConfig] = None,
     """WorkloadSpec for the stacked LM (``ShardingSpec.pipeline > 1``):
     under a ``mesh`` the loss function takes this rank's blocks (its
     stage's layers, cut by ``("layers", "pipeline")``) and runs the GPipe
-    schedule with ``num_microbatches``."""
+    schedule with ``num_microbatches``; on a sequence mesh over this
+    rank's chunk, its loss with the next chunk's first tokens."""
     from ..runtime.worker import WorkloadSpec
     cfg = cfg or TransformerConfig.tiny()
     if cfg.num_experts > 0:
         raise NotImplementedError(_MOE_REFUSAL)
-    if _seq_size(mesh) > 1:
-        raise NotImplementedError(_SEQ_PIPELINE_REFUSAL)
     seq_len = seq_len or cfg.max_seq_len
     with torch.device("meta"):
         model = PipelinedTransformerLM(cfg, mesh)
@@ -802,7 +796,8 @@ def pipelined_workload_spec(cfg: Optional[TransformerConfig] = None,
         logits = functional_call(
             model, gather_params(params, dims, group), (tokens,),
             {"num_microbatches": num_microbatches})
-        return next_token_loss(logits, tokens)
+        return next_token_loss(logits, tokens, batch.get("next_tokens"),
+                               model.mesh)
 
     return WorkloadSpec(
         name="transformer-pipelined",

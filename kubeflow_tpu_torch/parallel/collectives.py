@@ -32,6 +32,11 @@ loss written over the rank's rows that takes a statistic over the global
 batch (a BatchNorm's sums, a global mean) gets the gradient of the
 global-batch function.
 
+``once_over`` enters a term that every rank of a group computes alike
+(ResNet's loss on a sequence mesh, the MoE aux loss over the global
+batch) once into the objective the train step sums over the group: the
+identity forward, the gradient divided by the group's size backward.
+
 The model-parallel step's differentiable exchanges (Megatron's
 operators; each is the identity over a None group):
 
@@ -408,6 +413,26 @@ def global_sum(x: torch.Tensor, group: Any) -> torch.Tensor:
     gradient of each rank's input is the sum of the ranks' output
     gradients); ``x`` itself when ``group`` is None."""
     return x if group is None else _GlobalSum.apply(x, group)
+
+
+class _OnceOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
+def once_over(x: torch.Tensor, group: Any) -> torch.Tensor:
+    """``x``, the same on every rank of ``group``, counted once in a
+    gradient that is summed over the group: identity forward, the
+    gradient divided by the group's size backward; ``x`` itself when
+    ``group`` is None."""
+    return x if group is None else _OnceOver.apply(
+        x, dist.get_world_size(group))
 
 
 def _sum_(t: torch.Tensor, group: Any) -> torch.Tensor:

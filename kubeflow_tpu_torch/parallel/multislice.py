@@ -12,7 +12,10 @@ makes and counts, never by a collective inside a stage's program.
   does on one host. A stage is one torch device (:func:`stage_devices`):
   stage s takes card ``s % torch.cuda.device_count()``, so on one card
   every stage shares it, or the CPU when asked. A slice of more than one
-  card (data parallelism inside a stage) is not ported.
+  card (data parallelism inside a stage, the JAX package's pure-data
+  stage mesh over a slice's chips) is not ported, and neither is a
+  sequence axis, which on those meshes is the same data parallelism
+  (ROADMAP Queue 1 item 11).
 - **Programs** per stage: forward (``FWD``), the last stage's fused
   forward + head + loss + backward (``FWDBWD``), and the backward of the
   others with the stage forward recomputed from the saved input
@@ -97,8 +100,9 @@ def stage_devices(num_slices: int, device: Any = "cuda") -> list:
     if n > num_slices and n % num_slices == 0:
         raise NotImplementedError(
             f"{n} cards over {num_slices} slices is a slice of "
-            f"{n // num_slices} cards: data parallelism inside a stage is "
-            f"not yet ported (ROADMAP Queue 1 item 11)")
+            f"{n // num_slices} cards: data parallelism inside a stage "
+            f"(the JAX package's pure-data stage mesh) is not yet ported "
+            f"(ROADMAP Queue 1 item 11)")
     return [torch.device("cuda", s % n) for s in range(num_slices)]
 
 

@@ -29,6 +29,16 @@ replicated to every pipeline rank in f32 (a broadcast; the JAX package's
 head and the loss run the same on every rank; the replication's
 backward hands each rank the cotangent it already holds, and only the
 last stage's reaches a block.
+
+On a mesh with a sequence axis (the JAX package's partial-manual
+``shard_map`` over ``pipeline`` leaves ``sequence`` to GSPMD) ``x`` is
+this rank's chunk, so a microbatch is ``[B/M, S/n, ...]``. Every
+exchange here runs in the pipeline group of the rank's own sequence
+coordinate (``mesh.group_of("pipeline")``): the hops, the output
+broadcast and the input's gradient sum over the stages. The groups of
+two coordinates share no rank, so their tags cannot meet; the blocks'
+own exchanges over ``sequence`` (the gathered attention) run between
+ranks of one stage, which run the same ticks in the same order.
 """
 
 from __future__ import annotations

@@ -50,16 +50,22 @@ the JAX package).
   of ranks that hold the same block, all-reduced over the world in one
   call. A mesh with a model axis above 1 and a workload without rules
   raises.
-- Sequence parallelism (``sequence`` above 1, the LM): a rank reads its
-  rows and, of every array of rank 2 or more, its chunk of dimension 1
-  (:meth:`local_rows`, the JAX package's ``batch_shardings``), plus the
-  column after the chunk under ``next_<key>`` (the next-token target of
-  the chunk's last position). The loss function returns the rows' loss
-  over the whole sequence, the same on every sequence rank (its
-  backward is this rank's term alone), so the metrics need no sum over
-  the axis. Params are replicated over it: every gradient is summed over
-  ``sequence`` with its replica axes (the divisor stays the replica
-  degree), and the sharded update's domain stays ``data`` x ``fsdp``.
+- Sequence parallelism (``sequence`` above 1): a rank reads its rows
+  and, of every array of rank exactly 2 (the tokens), its chunk of
+  dimension 1, plus the column after the chunk under ``next_<key>`` (the
+  next-token target of the chunk's last position); an array of any
+  other rank keeps its rows' whole extent (:meth:`local_rows`, the JAX
+  package's ``place_batch``: ResNet's images are whole on every
+  sequence rank). The loss function returns the rows' loss over the
+  whole sequence, the same on every sequence rank, so the metrics need
+  no sum over the axis. Params are replicated over it: every gradient
+  is summed over ``sequence`` with its replica axes (the divisor stays
+  the replica degree), and the sharded update's domain stays ``data`` x
+  ``fsdp``. The loss's backward is therefore this rank's share: the
+  LM's own chunk's term, and a term every sequence rank computes whole
+  (ResNet's loss, the MoE aux loss) divided by the axis's size
+  (``parallel/collectives.py`` ``once_over``), so the sum counts it
+  once.
 - Pipeline parallelism (``pipeline`` above 1, the stacked LM): a rank's
   stacked leaves are its stage's layers, cut by the same rules
   (``("layers", "pipeline")``), and pipeline is no replica axis, so no
@@ -586,10 +592,12 @@ class TrainStepBuilder:
     def local_rows(self, batch: dict) -> dict:
         """This rank's rows of a host batch (every rank reads the same
         global batch); the batch itself on one replica. On a sequence
-        mesh each array of rank 2 or more is also cut to this rank's
-        chunk of dimension 1, and ``next_<key>`` holds the column after
-        the chunk ([rows, 1]; the first column on the last rank, as
-        ``roll(-1)`` wraps)."""
+        mesh each array of rank exactly 2 (the tokens) is also cut to
+        this rank's chunk of dimension 1, and ``next_<key>`` holds the
+        column after the chunk ([rows, 1]; the first column on the last
+        rank, as ``roll(-1)`` wraps); an array of any other rank (labels,
+        images [B, H, W, C]) keeps its rows whole, as the JAX package's
+        ``place_batch`` places it ``P(data_axes)``."""
         if self.group is not None:
             n = next(iter(batch.values())).shape[0]
             rows = batch_rows(n, self.mesh)
@@ -598,7 +606,7 @@ class TrainStepBuilder:
             return batch
         out = {}
         for k, v in batch.items():
-            if v.ndim < 2:
+            if v.ndim != 2:
                 out[k] = v
                 continue
             if v.shape[1] % self.seq:

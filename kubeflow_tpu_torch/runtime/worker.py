@@ -47,13 +47,17 @@ with no card it raises.
   of every param and the LM's forward runs the mesh's collectives
   (models/transformer.py, runtime/trainstep.py); ranks that differ only
   on a model axis read the same rows.
-- Sequence parallel (``KFTPU_SHARDING`` with sequence above 1, the dense
-  transformer workload): a rank reads its chunk of every sequence, and
+- Sequence parallel (``KFTPU_SHARDING`` with sequence above 1): on the
+  transformer workloads (MoE included, and the pipelined LM under
+  GPipe) a rank reads its chunk of every sequence, and
   ``--kernel-attention ring`` runs ops/ring_attention.py over the mesh
-  (einsum and flash gather the sequence for the attention). MoE, the
-  pipelined LM, ResNet and the MPMD path refuse it at start-up, naming
-  their ROADMAP items. ``replicaDegree`` stays data x fsdp, so a
-  checkpoint of a sequence mesh restores on one process.
+  (einsum and flash gather the sequence for the attention); ResNet is
+  replicated over the axis, every sequence rank on its data shard's
+  whole images. The MPMD path refuses it at start-up: the JAX package's
+  stage meshes are pure data meshes, so a sequence axis there is data
+  parallelism inside a slice (ROADMAP Queue 1 item 11).
+  ``replicaDegree`` stays data x fsdp, so a checkpoint of a sequence
+  mesh restores on one process.
 - Windows are timed edge to edge: from the previous edge (after its
   eval and save) to this edge after the lagged drain, so the drain's
   wait for the card is in ``step_time_s`` and ``examples_per_sec``.
@@ -570,7 +574,10 @@ def train(
                                     ctx.mesh.shape.get("sequence", 1) > 1):
             raise NotImplementedError(
                 "the MPMD multislice path on a sequence mesh is not yet "
-                "ported (ROADMAP Queue 1 item 16)")
+                "ported: the JAX package's stage meshes are pure data "
+                "meshes over a slice's chips, so a sequence axis there is "
+                "data parallelism inside a slice (ROADMAP Queue 1 item "
+                "11)")
         spec = WORKLOADS[workload](**workload_kwargs)
         if data_source is not None:
             inner_loss = spec.loss_fn

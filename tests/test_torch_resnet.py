@@ -259,9 +259,10 @@ def test_fused_refusals():
     """BasicBlock models have no fused path. A data-parallel mesh is
     taken (tests/test_torch_dp_resnet.py); on one whose tensor axis
     exceeds 1 TrainStepBuilder raises, since the ResNet spec carries no
-    sharding rules (as the JAX ResNet's), and a sequence axis (the JAX
-    package's split of an image's height) is not ported on either path
-    (ROADMAP Queue 1 item 17)."""
+    sharding rules (as the JAX ResNet's), while a sequence axis builds on
+    either path: the model is replicated over it, as the JAX package's
+    place_batch keeps the images whole (tests/test_torch_sequence_resnet.py
+    trains it)."""
     from kubeflow_tpu_torch.parallel.mesh import MESH_AXES, Mesh
     from kubeflow_tpu_torch.runtime.trainstep import TrainStepBuilder
     with pytest.raises(ValueError, match="bottleneck"):
@@ -277,9 +278,9 @@ def test_fused_refusals():
                          rules=spec.rules,
                          param_logical_axes=spec.param_logical_axes)
     for fused in (True, False):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            R.workload_spec(32, 10, fused=fused,
-                            mesh=Mesh(shape={**one.shape, "sequence": 2}))
+        seq = R.workload_spec(32, 10, fused=fused,
+                              mesh=Mesh(shape={**one.shape, "sequence": 2}))
+        assert callable(seq.loss_fn) and seq.rules is None
     with pytest.raises(SystemExit):
         worker.main(["--workload", "resnet18", "--fused-blocks",
                      "--device", "cpu"])

@@ -21,8 +21,9 @@ steps):
 Bars: loss and grad norm within 1e-5 relative at every step, each param
 within 1e-5 of its largest magnitude after 3 steps (f32; the same
 function summed in another order), tighter than phase 8's 1e-3 / 1e-2.
-The refusals (MoE, the stacked LM, ResNet, the MPMD path) each name
-their ROADMAP item.
+The refusals (the MPMD path, MoE on the stacked LM) name their reason;
+MoE, the stacked LM and ResNet on a sequence mesh are
+tests/test_torch_sequence_moe.py's, _stacked.py's and _resnet.py's.
 """
 
 import os
@@ -325,31 +326,38 @@ SEQ_MESH = Mesh(shape={**dict.fromkeys(MESH_AXES, 1), "sequence": 2})
 
 
 def test_refusals_on_a_sequence_mesh():
-    """MoE (its capacity and aux statistics are over the whole sequence),
-    the stacked LM, ResNet (JAX splits an image's height) and the MPMD
-    path each raise at start-up, naming their ROADMAP item; none runs
-    unsharded."""
+    """What still raises on a sequence mesh, as in the JAX package: the
+    MPMD path (its stage meshes are pure data meshes, so a sequence axis
+    there is data parallelism inside a slice, ROADMAP Queue 1 item 11)
+    and MoE on the stacked LM, refused on any mesh in the JAX package's
+    words; none runs unsharded. MoE, the stacked LM under GPipe and
+    ResNet build (tests/test_torch_sequence_moe.py, _stacked.py and
+    _resnet.py train them)."""
     from kubeflow_tpu_torch.models import resnet as R
     from kubeflow_tpu_torch.models import transformer as T
     moe = T.TransformerConfig(**ONE_LAYER, num_experts=2)
     cases = [
-        ("item 15", lambda: T.workload_spec(moe, SEQ, mesh=SEQ_MESH)),
-        ("item 16", lambda: T.pipelined_workload_spec(
-            _cfg(DENSE, "einsum"), SEQ, mesh=SEQ_MESH)),
-        ("item 17", lambda: R.workload_spec(32, 10, mesh=SEQ_MESH)),
-        ("item 16", lambda: worker.train(
+        ("item 11", lambda: worker.train(
             workload="transformer-pipelined", multislice_pipeline=True,
             steps=1, global_batch=4, device="cpu", handle_sigterm=False,
             ctx=bootstrap.WorkerContext(
                 device=torch.device("cpu"),
                 sharding=ShardingSpec(sequence=2), mesh=SEQ_MESH))),
+        ("pipelined path", lambda: T.pipelined_workload_spec(
+            moe, SEQ, mesh=SEQ_MESH)),
     ]
     for item, fn in cases:
         with pytest.raises(NotImplementedError, match=item):
             fn()
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(NotImplementedError, match="pipelined path"):
         with torch.device("meta"):
-            T.PipelinedTransformerLM(_cfg(DENSE, "einsum"), SEQ_MESH)
+            T.PipelinedTransformerLM(moe, SEQ_MESH)
+    for spec in (T.workload_spec(moe, SEQ, mesh=SEQ_MESH),
+                 T.pipelined_workload_spec(_cfg(DENSE, "einsum"), SEQ,
+                                           mesh=SEQ_MESH),
+                 R.workload_spec(32, 10, mesh=SEQ_MESH),
+                 R.workload_spec(32, 10, fused=True, mesh=SEQ_MESH)):
+        assert callable(spec.loss_fn)
 
 
 def test_ring_config_builds_and_degenerates_to_flash():

@@ -154,15 +154,19 @@ def test_torch_layernorm_eps_would_fail(monkeypatch):
 def test_config_refuses_unported_paths():
     """Ring attention builds (tests/test_torch_sequence.py and
     tests/test_torch_ring_attention.py hold it); experts on a sequence
-    mesh raise (ROADMAP Queue 1 item 15); experts and remat build, with
-    the JAX package's defaults (tests/test_torch_moe.py holds their
-    numerics)."""
+    mesh build (tests/test_torch_sequence_moe.py holds them) and on the
+    stacked LM raise, in the JAX package's words; experts and remat
+    build, with the JAX package's defaults (tests/test_torch_moe.py holds
+    their numerics)."""
     from kubeflow_tpu_torch.parallel.mesh import MESH_AXES, Mesh
     assert T.TransformerConfig(attention="ring").attention == "ring"
     seq = Mesh(shape={**dict.fromkeys(MESH_AXES, 1), "sequence": 2})
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with torch.device("meta"):
+        lm = T.TransformerLM(T.TransformerConfig(num_experts=2), seq)
+        assert lm.layer0.moe.mesh is seq
+    with pytest.raises(NotImplementedError, match="pipelined path"):
         with torch.device("meta"):
-            T.TransformerLM(T.TransformerConfig(num_experts=2), seq)
+            T.PipelinedTransformerLM(T.TransformerConfig(num_experts=2))
     cfg = T.TransformerConfig(num_experts=8, remat=True)
     model = T.TransformerLM(replace(cfg, num_layers=1, vocab_size=64,
                                     embed_dim=32, mlp_dim=64))
