@@ -332,6 +332,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
              norm the one process's, not twice it). Each arm's seconds
              are printed, so the phase's time before these arms reads off
              the same run.
+15. kubebench - after phase 14, before phase 11: (a) the BASELINE config
+             matrix (workflows/kubebench.py benchmark_matrix, all six
+             configs) through train() at full width, ResNet-50 224 px,
+             1000 classes, batch 64, 4 steps each in windows of 2, into a
+             temporary directory: one one-row CSV a config; each row
+             names this card and 1 chip; a ResNet-50 row's MFU is its
+             images/s x 12.27 GFLOP over the H100's 989.4 TFLOP/s (to the
+             row's rounding, in (0, 1)) and its vs_baseline its images/s
+             over 757.2; tf_job_fused_blocks is labelled resnet50-fused
+             and runs K4 7 + 7 and K5 6 + 6 a step, the other configs and
+             the study's trials neither; katib_study's two trials train
+             at the learning rates the seed-0 random engine draws, and
+             its row keeps the trial with the lower loss. No nvcc runs
+             (phase 1 built every kernel), the cuDNN and matmul switches
+             are as before, and each config hands its memory back. (b)
+             The kubebench Workflow's run -> report contract in process:
+             the KUBEBENCH_* env, main(["configure"]), the phase-5 LM
+             (flash + fused_adam, batch 8, 4 steps, sync_every 1) with
+             KFTPU_METRICS_PATH at <exp_path>/metrics.jsonl (K1/K2a/K2b
+             12 and K3 1 a step), main(["report", "--job-kind",
+             "TPUJob"]): report.csv's row equals report_from_metrics
+             recomputed from that file. Each row's images/s (tokens/s)
+             and MFU are printed with the card's name and power limit.
 
 The comm profile (obs/collectives.py) rides the runs of phases 8, 12b,
 13b, 13c and 14: one comm-profile span from rank 0 whose calls and bytes
@@ -5735,6 +5758,235 @@ def _seq_launches(seq: dict, kernel: str) -> dict:
     return {"launches_seq": out}
 
 
+# -- phase 15: kubebench ----------------------------------------------------
+
+KB_STEPS, KB_SYNC = 4, 2
+KB_TRIALS = 2               # _katib_study_benchmark's default
+# device memory allocated as a matrix run starts, and after the matrix,
+# above what was allocated before it: each run's model, batches and
+# optimizer state are its own and go with it (a ResNet-50 run's params,
+# gradients and momentum alone are 0.3 GB). What may stay: the cuBLAS
+# workspaces that PyTorch keeps per handle and stream once a product ran
+# (64 MiB on the H100 when this phase runs first)
+KB_MEM_SLACK = 128 * 2 ** 20
+KB_EXP_ID = "lm-kubebench"
+
+
+def _kb_switches() -> tuple:
+    return (torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+def _kb_counted(worker, counters, runs: list):
+    """worker.train wrapped for the matrix: every kernel count set to 0
+    just before a run and read just after it, the run's learning rate,
+    fusion and final loss, and the device memory allocated as it starts
+    (what the runs before it left behind)."""
+    train = worker.train
+
+    def counted(**kw):
+        allocated = torch.cuda.memory_allocated()
+        for fn in counters.values():
+            fn.launches = 0
+        result = train(**kw)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}
+        runs.append({"lr": kw.get("learning_rate"),
+                     "workload": kw.get("workload", "resnet50"),
+                     "fused": bool((kw.get("workload_kwargs") or {}).get(
+                         "fused")),
+                     "loss": result.final_metrics.get("loss"),
+                     "launches": launches, "allocated": allocated})
+        return result
+    return counted
+
+
+def _kb_matrix(kb, chips, suggestion, compile_cache, worker, counters,
+               per_step_k45, card, tmp) -> dict:
+    """Phase 15a: the six configs through benchmark_matrix, every row
+    checked against the run it came from."""
+    import csv
+    name = torch.cuda.get_device_name()
+    if chips.detect_peak_tflops(DEVICE) != 989.4:
+        fail(f"kubebench: {name!r} is not the H100 SXM5 of the spec sheet")
+    out = os.path.join(tmp, "matrix")
+    runs: list = []
+    switches = _kb_switches()
+    base = torch.cuda.memory_allocated()
+    builds = compile_cache.compile_stats()["cache_misses"]
+    worker.train, train = _kb_counted(worker, counters, runs), worker.train
+    t0 = time.perf_counter()
+    try:
+        rows = kb.benchmark_matrix(
+            out, steps=KB_STEPS, global_batch=RESNET_BATCH, device=DEVICE,
+            workload_kwargs={"image_size": IMAGE, "num_classes": CLASSES},
+            sync_every=KB_SYNC, seed=0, handle_sigterm=False)
+    finally:
+        worker.train = train
+    wall = time.perf_counter() - t0
+    nvcc = compile_cache.compile_stats()["cache_misses"] - builds
+    if nvcc or _kb_switches() != switches:
+        fail(f"kubebench: {nvcc} nvcc runs, switches {_kb_switches()} "
+             f"against {switches} before the matrix")
+    if list(rows) != list(kb.CONFIG_MATRIX) or sorted(os.listdir(out)) != \
+            sorted(f"{c}.csv" for c in kb.CONFIG_MATRIX):
+        fail(f"kubebench: rows {list(rows)}, files {os.listdir(out)}")
+    held = [r["allocated"] - base for r in runs[1:]] + \
+        [torch.cuda.memory_allocated() - base]
+    if max(held) > KB_MEM_SLACK:
+        fail(f"kubebench: a run left {max(held)} bytes on the card for "
+             f"the next ({held})")
+    resnet_runs = runs[:len(rows) - 1]
+    trials = runs[len(rows) - 1:]
+    fused_per_step = {n: k * KB_STEPS for n, k in per_step_k45.items()}
+    for (cfg, row), run in zip(list(rows.items())[:-1], resnet_runs):
+        with open(os.path.join(out, f"{cfg}.csv")) as f:
+            data = list(csv.DictReader(f))
+        if len(data) != 1 or data[0]["workload"] != row["workload"]:
+            fail(f"kubebench {cfg}: CSV {data}")
+        fused = "workload_kwargs" in kb.CONFIG_MATRIX[cfg]
+        k45 = {n: run["launches"][n] for n in per_step_k45}
+        want = fused_per_step if fused else {n: 0 for n in per_step_k45}
+        if row["workload"] != ("resnet50-fused" if fused else "resnet50") \
+                or run["fused"] != fused or k45 != want:
+            fail(f"kubebench {cfg}: {row['workload']}, launches {k45} "
+                 f"(expected {want})")
+        ex = row["examples_per_sec"]
+        mfu = ex * chips.RESNET50_TRAIN_GFLOP_PER_IMAGE * 1e9 / 989.4e12
+        if row["device_kind"] != name or row["chips"] != 1 or \
+                row["steps"] != KB_STEPS or \
+                not 0 < row["mfu"] < 1 or \
+                abs(row["mfu"] - mfu) > 5e-5 + 5e-3 * mfu / ex or \
+                abs(row["vs_baseline"] - ex / 757.2) > 5e-4 + 5e-3 / 757.2:
+            fail(f"kubebench {cfg}: row {row}")
+        log(f"[kubebench] {cfg} ({row['job_kind']}, {row['workload']}): "
+            f"{ex} images/s, step {row['mean_step_time_s'] * 1e3:.1f} ms, "
+            f"MFU {row['mfu']}, vs_baseline {row['vs_baseline']}, "
+            f"loss {row['metric_loss']}; K4/K5 launches {k45}; on {card}")
+    study = rows["katib_study"]
+    engine = suggestion.make_suggestion("random", [
+        suggestion.ParameterConfig(name="learning_rate",
+                                   parametertype="double", min=0.01,
+                                   max=0.3)], seed=0)
+    drawn = [engine.suggest(1)[0]["learning_rate"] for _ in range(KB_TRIALS)]
+    best = min(trials, key=lambda r: r["loss"])
+    if [r["lr"] for r in trials] != drawn or \
+            any(r["fused"] or r["workload"] != "resnet50" or
+                any(r["launches"][n] for n in per_step_k45) for r in trials) \
+            or study["metric_best_learning_rate"] != round(best["lr"], 6) \
+            or study["metric_loss"] != round(best["loss"], 6) or \
+            study["workload"] != "katib-study/resnet50" or \
+            study["mean_step_time_s"] != 0.0 or "mfu" in study or \
+            study["steps"] != KB_STEPS * KB_TRIALS or \
+            study["device_kind"] != name or study["chips"] != 1:
+        fail(f"kubebench katib_study: row {study}, trials {trials}, "
+             f"drawn {drawn}")
+    log(f"[kubebench] katib_study (StudyJob): trials at lr "
+        f"{[round(r['lr'], 6) for r in trials]} (the seed-0 draws) with "
+        f"losses {[r['loss'] for r in trials]}; best lr "
+        f"{study['metric_best_learning_rate']}, "
+        f"{study['examples_per_sec']} images/s; on {card}")
+    log(f"[kubebench] matrix: {len(rows)} configs, {len(runs)} train() "
+        f"runs in {wall:.1f}s, 0 nvcc runs; allocated as each later run "
+        f"starts and at the end {[round(h / 2 ** 20, 1) for h in held]} "
+        f"MiB above the start")
+    return {"rows": rows, "launches": {
+        n: runs[list(rows).index("tf_job_fused_blocks")]["launches"][n]
+        for n in per_step_k45}, "wall_s": wall}
+
+
+def _kb_workflow(kb, T, worker, counters, card, tmp) -> dict:
+    """Phase 15b: configure, the LM as the Workflow's job with the
+    metrics path the Workflow injects, then the reporter step."""
+    import csv
+    from kubeflow_tpu_torch.runtime.metrics import METRICS_PATH_ENV
+    root = os.path.join(tmp, "kubebench")
+    exp_path = os.path.join(root, "experiments", KB_EXP_ID)
+    env = {kb.ENV_CONFIG_ROOT: os.path.join(root, "config"),
+           kb.ENV_DATA_ROOT: os.path.join(root, "data"),
+           kb.ENV_EXP_ROOT: os.path.join(root, "experiments"),
+           kb.ENV_EXP_ID: KB_EXP_ID, kb.ENV_EXP_PATH: exp_path,
+           METRICS_PATH_ENV: os.path.join(exp_path, "metrics.jsonl")}
+    saved = {k: os.environ.get(k) for k in env}
+    import logging
+    logger = logging.getLogger()
+    handlers, level = logger.handlers[:], logger.level
+    os.environ.update(env)
+    try:
+        if kb.main(["configure"]) != 0 or not os.path.exists(
+                os.path.join(exp_path, "experiment.json")):
+            fail("kubebench: configure did not make the experiment")
+        for fn in counters.values():
+            fn.launches = 0           # the job's counts start ...
+        result = _train(worker, T.TransformerConfig(), None,
+                        kernel_attention="flash",
+                        kernel_optimizer="fused_adam",
+                        global_batch=TRAIN_BATCH, steps=KB_STEPS,
+                        sync_every=1)
+        torch.cuda.synchronize()
+        launches = {n: fn.launches for n, fn in counters.items()}  # ... here
+        if kb.main(["report", "--job-kind", "TPUJob"]) != 0:
+            fail("kubebench: the report step failed")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        logger.handlers[:] = handlers
+        logger.setLevel(level)
+    expected = {n: k * KB_STEPS for n, k in LM_PER_STEP.items()}
+    if launches != expected:
+        fail(f"kubebench LM: launches {launches}, expected {expected}")
+    with open(os.path.join(exp_path, "report.csv")) as f:
+        data = list(csv.DictReader(f))
+    want = kb.report_from_metrics(env[METRICS_PATH_ENV], job_kind="TPUJob",
+                                  env=env)
+    if len(data) != 1 or data[0] != {k: str(v) for k, v in want.items()} \
+            or want["steps"] != KB_STEPS or \
+            want["experiment"] != KB_EXP_ID or \
+            not np.isfinite(want["metric_loss"]):
+        fail(f"kubebench report: {data} against {want}")
+    tokens = want["examples_per_sec"] * SERVE_SEQ
+    log(f"[kubebench] workflow: configure -> LM {KB_STEPS} steps (batch "
+        f"{TRAIN_BATCH} x S {SERVE_SEQ}, flash + fused_adam) -> report: "
+        f"report.csv row equals report_from_metrics of the job's stream: "
+        f"{want['examples_per_sec']} sequences/s ({tokens:.0f} tokens/s) "
+        f"over the steps after the first, step "
+        f"{want['mean_step_time_s'] * 1e3:.1f} ms, loss "
+        f"{want['metric_loss']}; launches {launches}; the reporter's rate "
+        f"is the mean of the windows' rates, train()'s the batch over "
+        f"the mean step: {result.examples_per_sec:.2f}/s; on {card}")
+    return {"row": want, "launches": launches, "tokens_per_s": tokens}
+
+
+def phase_kubebench(T, worker, lm_counters, k45_counters, per_step_k45,
+                    card) -> dict:
+    """Phase 15: kubebench's matrix and its Workflow contract on the card
+    (workflows/kubebench.py, utils/chips.py, katib/suggestion.py)."""
+    import tempfile
+    kb = importlib.import_module("kubeflow_tpu_torch.workflows.kubebench")
+    chips = importlib.import_module("kubeflow_tpu_torch.utils.chips")
+    suggestion = importlib.import_module(
+        "kubeflow_tpu_torch.katib.suggestion")
+    compile_cache = importlib.import_module(
+        "kubeflow_tpu_torch.runtime.compile_cache")
+    with tempfile.TemporaryDirectory(prefix="kftpu-kubebench-") as tmp:
+        t0 = time.perf_counter()
+        matrix = _kb_matrix(kb, chips, suggestion, compile_cache, worker,
+                            {**lm_counters, **k45_counters}, per_step_k45,
+                            card, tmp)
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        flow = _kb_workflow(kb, T, worker, lm_counters, card, tmp)
+        log(f"[kubebench] phase 15 in {time.perf_counter() - t0:.1f}s "
+            f"(matrix {t1 - t0:.1f}s, workflow "
+            f"{time.perf_counter() - t1:.1f}s)")
+    return {"matrix": matrix, "workflow": flow,
+            "launches": {**flow["launches"], **matrix["launches"]}}
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     if sys.argv[1:2] == ["--worker"]:
@@ -5907,6 +6159,11 @@ def main() -> int:
              "stacked": pp["one"]}, resnet["per_step"])
         log(f"[seq] phase 14 in {time.perf_counter() - t14:.1f}s")
         lap("14 seq")
+        # phase 15: kubebench's matrix and Workflow contract
+        torch.cuda.empty_cache()
+        kube = phase_kubebench(T, worker, counters, k45_counters,
+                               resnet["per_step"], dev["card"])
+        lap("15 kubebench")
         # phase 11: the AOT ladder, in worker processes
         torch.cuda.empty_cache()
         t11 = time.perf_counter()
@@ -5939,6 +6196,7 @@ def main() -> int:
         **_mp_launches(moe, mp_r, "flash_attention_fwd"),
         **_pp_launches(pp, "flash_attention_fwd"),
         **_seq_launches(seq, "flash_attention_fwd"),
+        "launches_kubebench": kube["launches"]["flash_attention_fwd"],
         # phase 10, each (launches, forwards): gRPC, routers, the fleet
         "launches_serving_tier": {
             name: [r["launches"], r["forwards"]] if "launches" in r else None
@@ -5968,6 +6226,7 @@ def main() -> int:
         **_mp_launches(moe, mp_r, "flash_attention_bwd_dq"),
         **_pp_launches(pp, "flash_attention_bwd_dq"),
         **_seq_launches(seq, "flash_attention_bwd_dq"),
+        "launches_kubebench": kube["launches"]["flash_attention_bwd_dq"],
         "max_abs_err": k2["err"]["dq"],
         "max_abs_err_dp": k2["err_dp"]["dq"],
         "max_abs_err_pp": k2["err_mb"]["dq"],
@@ -5989,6 +6248,7 @@ def main() -> int:
         **_mp_launches(moe, mp_r, "flash_attention_bwd_dkv"),
         **_pp_launches(pp, "flash_attention_bwd_dkv"),
         **_seq_launches(seq, "flash_attention_bwd_dkv"),
+        "launches_kubebench": kube["launches"]["flash_attention_bwd_dkv"],
         "max_abs_err": k2["err"]["dkv"],
         "max_abs_err_dp": k2["err_dp"]["dkv"],
         "max_abs_err_pp": k2["err_mb"]["dkv"],
@@ -6010,6 +6270,7 @@ def main() -> int:
         **_mp_launches(moe, mp_r, "fused_adam"),
         **_pp_launches(pp, "fused_adam"),
         **_seq_launches(seq, "fused_adam"),
+        "launches_kubebench": kube["launches"]["fused_adam"],
         "max_abs_err": k3["err"],
         "max_abs_err_dp": dp_kernels["k3"]["err"],
         "ms": k3["ms"],
@@ -6048,6 +6309,8 @@ def main() -> int:
                 "launches_ckpt": _ckpt_launches(ckpt, degree,
                                                 f"{name}_{way}"),
                 **_seq_launches(seq, f"{name}_{way}"),
+                # phase 15a: the tf_job_fused_blocks config's run
+                "launches_kubebench": kube["launches"][f"{name}_{way}"],
                 "max_abs_err": max(g["out_err" if way == "fwd" else "dx_err"]
                                    for g in geoms),
                 # one rank's 32 rows (phase 8)

@@ -5,8 +5,12 @@ operator injects ``KFTPU_VIZIER_URL``, ``KFTPU_STUDY`` and
 ``KFTPU_TRIAL`` into the trial's pods; the worker posts each final metric
 to ``<url>/api/v1/observation`` as ``{study, trial, metric, value,
 step}``. Outside a study (any of the three unset) reporting is a no-op.
-The store, its HTTP front and the suggestion algorithms stay in the
-control plane. Stdlib only.
+The store and its HTTP front stay in the control plane, and with them
+the grid, hyperband and Bayesian engines that the StudyJob controller
+runs beside the store. The port carries one engine, the random one
+(``katib/suggestion.py``), because kubebench's in-process study draws its
+trials' learning rates from it and trains them through the port's
+``train()`` (``workflows/kubebench.py``). Stdlib only.
 """
 
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""Dependency-free helpers: ``tbevents`` (TensorBoard event files)."""
+"""Helpers: ``tbevents`` (TensorBoard event files, dependency-free) and
+``chips`` (the card's spec sheet and the ResNet-50 FLOP model)."""

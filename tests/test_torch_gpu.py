@@ -6,7 +6,8 @@ and one fused ResNet-50 inference forward through K6; and two gloo ranks
 sharing the card (sharded update) against one process, for one step of a
 small LM and of one fused block; the pipelined LM's microbatch shapes,
 two {pipeline 2} ranks sharing the card, the MPMD stages' launches, and
-two {sequence 2} ranks' ring against the gathered sequence's K1.
+two {sequence 2} ranks' ring against the gathered sequence's K1; and
+kubebench's fused config through ``run_benchmark``.
 
 Every test here carries the ``gpu`` marker and skips where no card is
 present (decided in the ``cuda_device`` fixture, never at import). The
@@ -721,6 +722,33 @@ def test_fused_resnet_step_launches_k4_and_k5(cuda_device):
     assert np.isfinite(metrics["loss"].item())
     assert all(v.device.type == "cuda" and not v.requires_grad
                for v in state.variables["batch_stats"].values())
+
+
+@pytest.mark.gpu
+def test_kubebench_fused_row_names_the_card(cuda_device):
+    """kubebench's fused config through run_benchmark on the card, 2
+    steps of ResNet-50 at 224 px and batch 8: the row names the card and
+    one chip, its MFU and vs_baseline follow from its rate, and every
+    stride-1 block ran K4 or K5 (7 + 7 and 6 + 6 launches a step)."""
+    from kubeflow_tpu_torch.utils import chips
+    from kubeflow_tpu_torch.workflows import kubebench
+    counts = (tfbt.fused_block_train_fwd, tfbt.fused_block_train_bwd,
+              tfbts.fused_block_train_spatial_fwd,
+              tfbts.fused_block_train_spatial_bwd)
+    before = [c.launches for c in counts]
+    row = kubebench.run_benchmark(
+        workload="resnet50", steps=2, global_batch=8, sync_every=1,
+        handle_sigterm=False, workload_kwargs={"fused": True})
+    assert [c.launches - b for c, b in zip(counts, before)] == \
+        [14, 14, 12, 12]
+    assert row["workload"] == "resnet50-fused" and row["steps"] == 2
+    assert row["device_kind"] == torch.cuda.get_device_name()
+    assert row["chips"] == 1 and row["examples_per_sec"] > 0
+    mfu = chips.resnet50_train_mfu(row["examples_per_sec"], cuda_device)
+    assert row["mfu"] == ("" if mfu is None else round(mfu, 4))
+    assert row["vs_baseline"] == pytest.approx(
+        row["examples_per_sec"] / chips.BASELINE_IMG_S, abs=1e-3)
+    assert np.isfinite(row["metric_loss"])
 
 
 tfb = importlib.import_module("kubeflow_tpu_torch.ops.fused_block")

@@ -54,7 +54,8 @@ def test_every_module_imports_without_jax():
                  "serving.router", "serving.fleet", "scheduler.health",
                  "runtime.aot", "models.moe", "parallel.pipeline",
                  "parallel.multislice", "obs.goodput", "obs.collectives",
-                 "ops.ring_attention"):
+                 "ops.ring_attention", "workflows.kubebench",
+                 "utils.chips", "katib.suggestion"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",
@@ -159,6 +160,26 @@ def test_pipelined_workload_raises_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             worker.main(["--workload", "transformer-pipelined", "--steps",
                          "1", "--global-batch", "8", *extra])
+
+
+def test_kubebench_defaults_to_cuda_and_raises_without_a_card(
+        monkeypatch, tmp_path):
+    """The kubebench runner, study, matrix and CLI train on ``cuda``
+    unless asked for the CPU; with no card each raises before training."""
+    from kubeflow_tpu_torch.workflows import kubebench
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(kubebench.logging, "basicConfig", lambda **kw: None)
+    monkeypatch.setenv(kubebench.ENV_EXP_PATH, str(tmp_path / "exp"))
+    calls = (lambda: kubebench.run_benchmark(steps=1),
+             lambda: kubebench._katib_study_benchmark(steps=1),
+             lambda: kubebench.benchmark_matrix(str(tmp_path / "m"),
+                                                steps=1),
+             lambda: kubebench.main(["matrix", "--out-dir",
+                                     str(tmp_path / "m")]),
+             lambda: kubebench.main(["report", "--local", "--steps", "1"]))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
