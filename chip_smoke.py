@@ -355,6 +355,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
              "TPUJob"]): report.csv's row equals report_from_metrics
              recomputed from that file. Each row's images/s (tokens/s)
              and MFU are printed with the card's name and power limit.
+16. operator - after phase 15, before phase 11: the training-job
+             operator (controllers/tpujob.py on controllers/runtime.py, a
+             FakeCluster with one h100-8 node labeled with this card's
+             name) around the LM of phases 8 and 9 at full width and 2
+             of its 12 layers (flash + fused_adam, batch 8; checkpoints
+             every 2 steps, a clean soak once at its end: its saves are
+             most of a soak's time). (a)
+             ChaosSoak of a TPUJob with GPU: {gpuTopology: h100-2}:
+             pod-kill@2, api-burst@3, watch-drop@4, truncate-ckpt@5,
+             hung-chief@6 over 8 steps, then the clean soak: both
+             Succeeded, GangPodsVanished and StallTimeout among the
+             restart reasons, at least 3 injected API faults, the final
+             params within 1e-5, and the chief pod as rendered (h100-2,
+             one nvidia.com/gpu, the product selector, MASTER_ADDR:
+             MASTER_PORT the coordinator, RANK the process id, WORLD_SIZE
+             the process count). (b) SentinelSoak: a NaN at step 5 with
+             the LKG step's payload truncated at the trip, 10 steps, then
+             the clean soak: one anomaly, one rollback, the fallback past
+             the corrupt LKG, Succeeded, params within 1e-5. In each soak
+             every launch count starts at 0 just before and is read just
+             after: K1/K2a/K2b 2 (one a layer) and K3 1 a step the
+             soak executed. (c)
+             an h100-1 job's pod rendered by the reconciler, its
+             coordinator address (KFTPU_COORDINATOR_ADDRESS and
+             MASTER_ADDR/MASTER_PORT) pointed at 127.0.0.1 and a free
+             port (the pod's DNS name resolves only in a cluster, and the
+             rendered port is fixed): initialize() from that env
+             brings up NCCL at world 1 and a one-device mesh, and an
+             all_reduce on the card; then shutdown().
 
 The comm profile (obs/collectives.py) rides the runs of phases 8, 12b,
 13b, 13c and 14: one comm-profile span from rank 0 whose calls and bytes
@@ -2880,7 +2909,7 @@ def phase_nccl(bootstrap, collectives) -> dict:
     contract env on the default backend, and the three collectives of
     the sharded step on CUDA tensors through the port's wrappers."""
     import torch.distributed as dist
-    env = {"KFTPU_TOPOLOGY": "v5e-1", "KFTPU_NUM_PROCESSES": "1",
+    env = {"KFTPU_TOPOLOGY": "h100-1", "KFTPU_NUM_PROCESSES": "1",
            "KFTPU_PROCESS_ID": "0",
            "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}"}
     ctx = bootstrap.initialize(env)
@@ -2949,7 +2978,7 @@ def phase_dp(T, R, worker, trainstep, bootstrap, collectives, card,
     spawn = mp.get_context("spawn")
     queue = spawn.Queue()
     procs = [spawn.Process(target=_dp_rank, args=(r, {
-        "KFTPU_TOPOLOGY": f"v5e-{DP_RANKS}",
+        "KFTPU_TOPOLOGY": f"h100-{DP_RANKS}",
         "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
         "KFTPU_NUM_PROCESSES": str(DP_RANKS), "KFTPU_PROCESS_ID": str(r),
         "KFTPU_POD_NAME": f"dp-worker-{r}", "KFTPU_POD_NAMESPACE": "smoke",
@@ -3611,7 +3640,7 @@ def phase_ckpt_degree(T, R, worker, ckpt_mod, card, ref_lm, per_step_k45,
     spawn = mp.get_context("spawn")
     queue = spawn.Queue()
     procs = [spawn.Process(target=_ckpt_rank, args=(r, {
-        "KFTPU_TOPOLOGY": f"v5e-{DP_RANKS}",
+        "KFTPU_TOPOLOGY": f"h100-{DP_RANKS}",
         "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{server_port}",
         "KFTPU_NUM_PROCESSES": str(DP_RANKS), "KFTPU_PROCESS_ID": str(r)},
         lm_dir, rn_dir, queue)) for r in range(DP_RANKS)]
@@ -4838,7 +4867,7 @@ def phase_mp(T, worker, trainstep, card) -> dict:
     spawn = mp.get_context("spawn")
     queue = spawn.Queue()
     procs = [spawn.Process(target=_mp_rank, args=(r, {
-        "KFTPU_TOPOLOGY": f"v5e-{DP_RANKS}",
+        "KFTPU_TOPOLOGY": f"h100-{DP_RANKS}",
         "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
         "KFTPU_NUM_PROCESSES": str(DP_RANKS), "KFTPU_PROCESS_ID": str(r)},
         queue)) for r in range(DP_RANKS)]
@@ -5134,7 +5163,7 @@ def phase_pipeline(counters, T, worker, trainstep, collectives,
     spawn = mp.get_context("spawn")
     queue = spawn.Queue()
     procs = [spawn.Process(target=_pp_rank, args=(r, {
-        "KFTPU_TOPOLOGY": f"v5e-{PP_STAGES}",
+        "KFTPU_TOPOLOGY": f"h100-{PP_STAGES}",
         "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
         "KFTPU_NUM_PROCESSES": str(PP_STAGES), "KFTPU_PROCESS_ID": str(r),
         "KFTPU_SHARDING": json.dumps({"data": 1, "pipeline": PP_STAGES})},
@@ -5567,7 +5596,7 @@ def phase_sequence(counters, T, worker, card, refs: dict,
     spawn = mp.get_context("spawn")
     queue = spawn.Queue()
     procs = [spawn.Process(target=_seq_rank, args=(r, {
-        "KFTPU_TOPOLOGY": f"v5e-{SEQ_RANKS}",
+        "KFTPU_TOPOLOGY": f"h100-{SEQ_RANKS}",
         "KFTPU_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
         "KFTPU_NUM_PROCESSES": str(SEQ_RANKS), "KFTPU_PROCESS_ID": str(r),
         "KFTPU_SHARDING": json.dumps({"data": 1, "sequence": SEQ_RANKS})},
@@ -5987,6 +6016,251 @@ def phase_kubebench(T, worker, lm_counters, k45_counters, per_step_k45,
             "launches": {**flow["launches"], **matrix["launches"]}}
 
 
+# -- phase 16: the training-job operator ---------------------------------------
+
+OP_FAULTS = (("pod-kill", 2), ("api-burst", 3), ("watch-drop", 4),
+             ("truncate-ckpt", 5), ("hung-chief", 6))
+OP_STEPS, OP_EVERY = 8, 2
+OP_SENTINEL_STEPS, OP_NAN_AT = 10, 5
+# the soaks' LM: full width, 2 of its 12 layers. A soak's time is its
+# fsynced saves, each waiting for the one before; at 12 layers a save is
+# 1.63 GB and phase 16 took 121.6 s on an H100 host whose disk wrote
+# ~0.23 GB/s, the whole smoke past its 1,200 s; at 2 layers it is 0.76 GB
+OP_LAYERS = 2
+OP_PER_STEP = {k: 1 if k == "fused_adam" else OP_LAYERS for k in LM_PER_STEP}
+# the soaks' final params against their clean runs' (the same kernels on
+# the same data from the same states: 0 expected)
+OP_PARAM_TOL = 1e-5
+
+
+def _op_soak(counters, make, worker) -> tuple:
+    """(report, launches, seconds, save stats) of one soak, its counts set
+    to 0 just before it; the seconds end in a device sync."""
+    real = worker.CheckpointManager
+    made = _capture_managers(worker)
+    try:
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        report = make().run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        worker.CheckpointManager = real
+    saves = [st["total_s"] * 1e3 for m in made for st in m.save_stats]
+    return report, launches, seconds, saves
+
+
+def _op_check(what: str, report: dict, launches: dict) -> None:
+    if report["outcome"] != "succeeded":
+        fail(f"operator {what}: {report['outcome']} "
+             f"({report.get('failed_reason')}); report {report}")
+    _expect(launches, OP_PER_STEP, report["executed_steps"],
+            f"operator {what}")
+
+
+def _op_chief(report: dict, product: str) -> dict:
+    """The chief pod as the reconciler rendered it for the soak."""
+    pod = report["chief_pod"]
+    (c,) = pod["spec"]["containers"]
+    env = {e["name"]: e["value"] for e in c["env"]}
+    got = {"topology": env["KFTPU_TOPOLOGY"],
+           "limits": c["resources"]["limits"],
+           "selector": pod["spec"]["nodeSelector"],
+           "torch": {k: env[k] for k in ("MASTER_ADDR", "MASTER_PORT",
+                                         "RANK", "WORLD_SIZE")}}
+    ok = (got["topology"] == "h100-2" and
+          got["limits"] == {"nvidia.com/gpu": 1} and
+          got["selector"] == {"nvidia.com/gpu.product": product} and
+          f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}" ==
+          env["KFTPU_COORDINATOR_ADDRESS"] and
+          env["RANK"] == env["KFTPU_PROCESS_ID"] == "0" and
+          env["WORLD_SIZE"] == env["KFTPU_NUM_PROCESSES"] == "2" and
+          "LOCAL_RANK" not in env)
+    if not ok:
+        fail(f"operator: the chief pod rendered {got}")
+    return got
+
+
+def _op_bootstrap(bootstrap, card: str) -> dict:
+    """16c: an h100-1 job's pod, rendered by the reconciler, brings up
+    NCCL at world 1 from its env, the coordinator address pointed at
+    127.0.0.1 and a free port (the rendered one is the reconciler's fixed
+    COORD_PORT, which another process may hold)."""
+    import torch.distributed as dist
+    from kubeflow_tpu_torch.cluster.fake import FakeCluster
+    from kubeflow_tpu_torch.controllers.runtime import Manager
+    from kubeflow_tpu_torch.controllers.tpujob import (
+        COORD_PORT, TrainingJobReconciler)
+    cluster = FakeCluster()
+    cluster.add_gpu_nodes("h100-1", product=torch.cuda.get_device_name())
+    mgr = Manager(cluster)
+    mgr.add(TrainingJobReconciler("TPUJob"))
+    cluster.create({
+        "apiVersion": "tpu.kubeflow.org/v1alpha1", "kind": "TPUJob",
+        "metadata": {"name": "smoke-boot", "namespace": "smoke"},
+        "spec": {"replicaSpecs": {"GPU": {
+            "gpuTopology": "h100-1", "template": {"spec": {"containers": [
+                {"name": "trainer", "image": "trainer:v1"}]}}}}}})
+    mgr.run_pending()
+    (pod,) = cluster.list("v1", "Pod", "smoke")
+    env = {e["name"]: e["value"]
+           for e in pod["spec"]["containers"][0]["env"]}
+    coord = env["KFTPU_COORDINATOR_ADDRESS"]
+    host, port = coord.rsplit(":", 1)
+    if port != str(COORD_PORT) or env["MASTER_PORT"] != port or \
+            env["MASTER_ADDR"] != host:
+        fail(f"operator: the pod's coordinator {coord}, MASTER "
+             f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}")
+    local = str(_free_port())
+    env = {k: v.replace(coord, f"127.0.0.1:{local}").replace(
+        host, "127.0.0.1") for k, v in env.items()}
+    env["MASTER_PORT"] = local
+    t0 = time.perf_counter()
+    ctx = bootstrap.initialize(env, strict=True)
+    try:
+        backend, world = dist.get_backend(), dist.get_world_size()
+        x = torch.arange(8, dtype=torch.float32, device=ctx.device)
+        y = x.clone()
+        dist.all_reduce(y)
+        torch.cuda.synchronize()
+        got = {"backend": backend, "world": world,
+               "device": str(ctx.device), "mesh": ctx.mesh.size(),
+               "topology": ctx.contract.topology,
+               "coordinator": env["KFTPU_COORDINATOR_ADDRESS"],
+               "seconds": time.perf_counter() - t0}
+    finally:
+        bootstrap.shutdown(ctx)
+    log(f"[operator] {card} | 16c: {pod['metadata']['name']}'s env "
+        f"(coordinator {coord} -> {env['KFTPU_COORDINATOR_ADDRESS']}) -> "
+        f"initialize(): backend "
+        f"{backend}, world {world}, {ctx.device}, mesh of "
+        f"{got['mesh']}, topology {got['topology']}; all_reduce on the "
+        f"card; up and down in {got['seconds']:.2f}s")
+    if backend != "nccl" or world != 1 or got["mesh"] != 1 or \
+            got["topology"] != "h100-1" or not torch.equal(x, y) or \
+            dist.is_initialized():
+        fail(f"operator: bootstrap from a rendered pod {got}")
+    return got
+
+
+def phase_operator(counters, T, worker, chaos, bootstrap, card) -> dict:
+    """Phase 16: the training-job operator's chaos and sentinel soaks
+    around the full-width LM at ``OP_LAYERS`` layers, and a worker brought
+    up from a pod the reconciler rendered. A clean soak, which gives only
+    the final params to hold its faulted soak to, saves once at its end
+    (and at its first step, into the empty directory)."""
+    import tempfile
+    from kubeflow_tpu_torch.api.topology import parse_topology
+    name = torch.cuda.get_device_name()
+    product = name.strip().replace(" ", "-")
+    want = parse_topology("h100-8").generation.product
+    if product != want:
+        fail(f"operator: this card ({name}) is not the {want} an h100 "
+             f"replica selects")
+    run = _lm_ckpt_run(T)
+    del run["checkpoint_every"]              # the soak's own field
+    run["workload_kwargs"] = {"cfg": replace(
+        run["workload_kwargs"]["cfg"], num_layers=OP_LAYERS)}
+    soak_kw = dict(device=DEVICE, train_kwargs=run, node_topology="h100-8")
+    out: dict = {"launches": {k: 0 for k in counters}}
+    t16 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kftpu-operator-") as tmp:
+        # -- 16a: the chaos soak and its clean run ----------------------------
+        faults = [chaos.SoakFault(at, kind) for kind, at in OP_FAULTS]
+        for arm, kw in (("chaos", dict(faults=faults,
+                                       checkpoint_every=OP_EVERY)),
+                        ("clean", dict(faults=[],
+                                       checkpoint_every=OP_STEPS))):
+            report, launches, secs, saves = _op_soak(
+                counters, lambda: chaos.ChaosSoak(
+                    workdir=os.path.join(tmp, arm), total_steps=OP_STEPS,
+                    **kw, **soak_kw), worker)
+            _op_check(f"16a {arm}", report, launches)
+            out[f"16a_{arm}"] = {
+                "seconds": secs, "saves_ms": saves,
+                "launches": launches,
+                **{k: report[k] for k in (
+                    "segments", "executed_steps", "restart_reasons",
+                    "gang_restarts", "api_faults", "api_calls",
+                    "checkpoint_dir")}}
+            for k, v in launches.items():
+                out["launches"][k] += v
+            log(f"[operator] {card} | 16a {arm} soak: {report['outcome']} "
+                f"in {secs:.1f}s, {report['segments']} segments, "
+                f"{report['executed_steps']} steps executed for "
+                f"{OP_STEPS}, restart reasons {report['restart_reasons']}, "
+                f"gang restarts {report.get('gang_restarts')}, API faults "
+                f"{report['api_faults']} of {report['api_calls']} calls; "
+                f"launches {launches}; {len(saves)} saves, ms to "
+                f"committed {[round(v, 1) for v in saves]}")
+        inj = out["16a_chaos"]
+        out["chief"] = _op_chief(report, product)
+        if "GangPodsVanished" not in inj["restart_reasons"] or \
+                "StallTimeout" not in inj["restart_reasons"] or \
+                inj["api_faults"] < 3:
+            fail(f"operator 16a: the fault menu's recovery {inj}")
+        delta, scale = _param_delta(chaos, inj["checkpoint_dir"],
+                                    out["16a_clean"]["checkpoint_dir"])
+        inj["delta"] = delta
+        log(f"[operator] {card} | 16a: the chief pod as rendered "
+            f"{out['chief']}; final params max|d| against the clean soak "
+            f"{delta:.3e} (bar {OP_PARAM_TOL}; largest |param| "
+            f"{scale:.4f})")
+        if not delta <= OP_PARAM_TOL:
+            fail("operator 16a: the soak left the clean run's params")
+        for arm in ("chaos", "clean"):
+            shutil.rmtree(os.path.join(tmp, arm), ignore_errors=True)
+
+        # -- 16b: the sentinel soak and its clean run ------------------------
+        for arm, kw in (("nan", dict(fault=chaos.NaNInjector(
+                            at_step=OP_NAN_AT), corrupt_lkg=True,
+                            checkpoint_every=OP_EVERY)),
+                        ("clean", dict(checkpoint_every=OP_SENTINEL_STEPS))):
+            report, launches, secs, saves = _op_soak(
+                counters, lambda: chaos.SentinelSoak(
+                    workdir=os.path.join(tmp, f"s-{arm}"),
+                    total_steps=OP_SENTINEL_STEPS, **kw, **soak_kw),
+                worker)
+            _op_check(f"16b {arm}", report, launches)
+            out[f"16b_{arm}"] = {
+                "seconds": secs, "saves_ms": saves, "launches": launches,
+                **{k: report[k] for k in (
+                    "segments", "executed_steps", "anomalies", "rollbacks",
+                    "lkg_corrupted", "checkpoint_dir")}}
+            for k, v in launches.items():
+                out["launches"][k] += v
+            log(f"[operator] {card} | 16b {arm} soak: {report['outcome']} "
+                f"in {secs:.1f}s, {report['segments']} segments, "
+                f"{report['executed_steps']} steps executed for "
+                f"{OP_SENTINEL_STEPS}, anomalies {report['anomalies']}, "
+                f"rollbacks {report['rollbacks']}, LKG corrupted "
+                f"{report['lkg_corrupted']}; launches {launches}; "
+                f"{len(saves)} saves, ms to committed "
+                f"{[round(v, 1) for v in saves]}")
+        nan, clean = out["16b_nan"], out["16b_clean"]
+        if len(nan["anomalies"]) != 1 or nan["rollbacks"] != 1 or \
+                not nan["lkg_corrupted"] or clean["anomalies"] or \
+                clean["rollbacks"]:
+            fail(f"operator 16b: the rollback {nan}, clean {clean}")
+        delta, scale = _param_delta(chaos, nan["checkpoint_dir"],
+                                    clean["checkpoint_dir"])
+        nan["delta"] = delta
+        log(f"[operator] {card} | 16b: final params max|d| against the "
+            f"clean soak {delta:.3e} (bar {OP_PARAM_TOL}; largest |param| "
+            f"{scale:.4f})")
+        if not delta <= OP_PARAM_TOL:
+            fail("operator 16b: the rollback left the clean run's params")
+    torch.cuda.empty_cache()
+    # -- 16c: a worker from a rendered pod's env ------------------------------
+    out["bootstrap"] = _op_bootstrap(bootstrap, card)
+    out["seconds"] = time.perf_counter() - t16
+    log(f"[operator] phase 16 in {out['seconds']:.1f}s; launches over the "
+        f"soaks {out['launches']}")
+    return out
+
+
 def main() -> int:
     sys.path.insert(0, HERE)
     if sys.argv[1:2] == ["--worker"]:
@@ -6164,6 +6438,11 @@ def main() -> int:
         kube = phase_kubebench(T, worker, counters, k45_counters,
                                resnet["per_step"], dev["card"])
         lap("15 kubebench")
+        # phase 16: the training-job operator
+        torch.cuda.empty_cache()
+        op = phase_operator(counters, T, worker, chaos, bootstrap,
+                            dev["card"])
+        lap("16 operator")
         # phase 11: the AOT ladder, in worker processes
         torch.cuda.empty_cache()
         t11 = time.perf_counter()
@@ -6197,6 +6476,8 @@ def main() -> int:
         **_pp_launches(pp, "flash_attention_fwd"),
         **_seq_launches(seq, "flash_attention_fwd"),
         "launches_kubebench": kube["launches"]["flash_attention_fwd"],
+        # phase 16: over the operator's four soaks
+        "launches_operator": op["launches"]["flash_attention_fwd"],
         # phase 10, each (launches, forwards): gRPC, routers, the fleet
         "launches_serving_tier": {
             name: [r["launches"], r["forwards"]] if "launches" in r else None
@@ -6227,6 +6508,8 @@ def main() -> int:
         **_pp_launches(pp, "flash_attention_bwd_dq"),
         **_seq_launches(seq, "flash_attention_bwd_dq"),
         "launches_kubebench": kube["launches"]["flash_attention_bwd_dq"],
+        # phase 16: over the operator's four soaks
+        "launches_operator": op["launches"]["flash_attention_bwd_dq"],
         "max_abs_err": k2["err"]["dq"],
         "max_abs_err_dp": k2["err_dp"]["dq"],
         "max_abs_err_pp": k2["err_mb"]["dq"],
@@ -6249,6 +6532,8 @@ def main() -> int:
         **_pp_launches(pp, "flash_attention_bwd_dkv"),
         **_seq_launches(seq, "flash_attention_bwd_dkv"),
         "launches_kubebench": kube["launches"]["flash_attention_bwd_dkv"],
+        # phase 16: over the operator's four soaks
+        "launches_operator": op["launches"]["flash_attention_bwd_dkv"],
         "max_abs_err": k2["err"]["dkv"],
         "max_abs_err_dp": k2["err_dp"]["dkv"],
         "max_abs_err_pp": k2["err_mb"]["dkv"],
@@ -6271,6 +6556,8 @@ def main() -> int:
         **_pp_launches(pp, "fused_adam"),
         **_seq_launches(seq, "fused_adam"),
         "launches_kubebench": kube["launches"]["fused_adam"],
+        # phase 16: over the operator's four soaks
+        "launches_operator": op["launches"]["fused_adam"],
         "max_abs_err": k3["err"],
         "max_abs_err_dp": dp_kernels["k3"]["err"],
         "ms": k3["ms"],

@@ -1,7 +1,20 @@
-"""Chaos drills: checkpoint faults and the serving fleet's fault menu.
+"""Chaos drills: the operator loop's fault menus, checkpoint faults and the
+serving fleet's fault menu.
 
 The parts of ``kubeflow_tpu/cluster/chaos.py`` the port needs:
 
+- ``ChaosKubeClient``: wraps any KubeClient and injects seeded transient
+  faults (``TransientAPIError`` bursts, watch-stream drops) at the client
+  surface; the test driver's own helpers pass through un-faulted;
+- the soaks: ``ChaosSoak`` (pod kill and fail, an API burst, a watch
+  drop, a truncated checkpoint, a hung chief) and ``SentinelSoak`` (a
+  numeric fault inside the training loop — ``NaNInjector``,
+  ``LossSpikePoisoner``, ``BitFlipGrad`` — and the operator's LKG
+  rollback) drive one job end to end: the real operator loop
+  (``FakeCluster``, the controller runtime, ``TrainingJobReconciler``)
+  around real training segments, each a call of the port's
+  ``runtime.worker.train`` on the soak's device with the env the
+  reconciler rendered into the chief pod;
 - the corruptors a chaos drill applies to a checkpoint directory between
   training segments (a truncated payload file under a committed step, a
   step whose commit marker is gone) and ``final_params``, which restores
@@ -20,13 +33,153 @@ import os
 import random
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
+from ..api import k8s
 from ..runtime.checkpoint import (MANIFEST_NAME, ORBAX_COMMIT_MARKER,
                                   CheckpointManager)
+from .client import KubeClient, KubeError, Watch
 
 log = logging.getLogger(__name__)
+
+
+class TransientAPIError(KubeError):
+    """An injected transient failure: the 5xx / connection-timeout class a
+    real apiserver emits under load. Retryable by contract — controllers
+    and the HTTP client must survive a bounded burst of these."""
+
+
+# the client ops eligible for injection (the KubeClient surface)
+CHAOS_OPS = ("create", "get", "list", "update", "update_status", "patch",
+             "delete")
+
+@dataclass
+class ChaosPolicy:
+    """Seeded background fault schedule for ChaosKubeClient.
+
+    ``error_rate`` injects a TransientAPIError on that fraction of eligible
+    calls (seeded — the same seed replays the same fault positions);
+    ``max_errors`` bounds the total so a soak always makes progress.
+    Explicit bursts (``fail_next``) ride on top and ignore the budget.
+    """
+
+    seed: int = 0
+    error_rate: float = 0.0
+    max_errors: int = 0          # 0 = no rate-based injection
+    ops: tuple = CHAOS_OPS
+
+
+@dataclass
+class InjectedFault:
+    op: str
+    detail: str
+    at_call: int
+    kind: str = "api-error"
+
+
+class ChaosKubeClient(KubeClient):
+    """KubeClient wrapper injecting seeded transient faults.
+
+    Helper attributes not on the KubeClient surface (FakeCluster's tick,
+    fail_pod, add_gpu_nodes, ...) delegate to the inner client
+    UN-faulted: they are the test driver's hand, not controller traffic.
+    """
+
+    def __init__(self, inner: KubeClient,
+                 policy: Optional[ChaosPolicy] = None):
+        self.inner = inner
+        self.policy = policy or ChaosPolicy()
+        self._rng = random.Random(self.policy.seed)
+        self._burst = 0
+        self._rate_injected = 0
+        self.calls = 0
+        self.injected: list[InjectedFault] = []
+        self._live_watches: list[Watch] = []
+
+    # ----------------------------------------------------------- injection
+
+    def fail_next(self, n: int = 1) -> None:
+        """Arm an explicit burst: the next n eligible calls raise
+        TransientAPIError (an apiserver 5xx burst / brief outage)."""
+        self._burst += int(n)
+
+    def _maybe_fail(self, op: str, detail: str) -> None:
+        self.calls += 1
+        if op not in self.policy.ops:
+            return
+        if self._burst > 0:
+            self._burst -= 1
+            self.injected.append(InjectedFault(op, detail, self.calls))
+            raise TransientAPIError(
+                f"injected 5xx: {op} {detail} (burst)")
+        if (self.policy.error_rate > 0
+                and self._rate_injected < self.policy.max_errors
+                and self._rng.random() < self.policy.error_rate):
+            self._rate_injected += 1
+            self.injected.append(InjectedFault(op, detail, self.calls))
+            raise TransientAPIError(
+                f"injected 5xx: {op} {detail} "
+                f"({self._rate_injected}/{self.policy.max_errors})")
+
+    # ------------------------------------------------- KubeClient surface
+
+    def create(self, obj: dict) -> dict:
+        self._maybe_fail("create", k8s.name_of(obj))
+        return self.inner.create(obj)
+
+    def get(self, api_version: str, kind: str, namespace: str,
+            name: str) -> dict:
+        self._maybe_fail("get", f"{kind}/{name}")
+        return self.inner.get(api_version, kind, namespace, name)
+
+    def list(self, api_version: str, kind: str, namespace=None,
+             selector=None) -> list[dict]:
+        self._maybe_fail("list", kind)
+        return self.inner.list(api_version, kind, namespace, selector)
+
+    def update(self, obj: dict) -> dict:
+        self._maybe_fail("update", k8s.name_of(obj))
+        return self.inner.update(obj)
+
+    def update_status(self, obj: dict) -> dict:
+        self._maybe_fail("update_status", k8s.name_of(obj))
+        return self.inner.update_status(obj)
+
+    def patch(self, api_version: str, kind: str, namespace: str, name: str,
+              patch: dict) -> dict:
+        self._maybe_fail("patch", f"{kind}/{name}")
+        return self.inner.patch(api_version, kind, namespace, name, patch)
+
+    def delete(self, api_version: str, kind: str, namespace: str, name: str,
+               cascade: bool = True) -> None:
+        self._maybe_fail("delete", f"{kind}/{name}")
+        return self.inner.delete(api_version, kind, namespace, name,
+                                 cascade=cascade)
+
+    def watch(self, api_version=None, kind=None) -> Watch:
+        w = self.inner.watch(api_version, kind)
+        self._live_watches.append(w)
+        return w
+
+    def drop_watch_streams(self) -> int:
+        """Close every watch opened through this client — the mid-run
+        stream drop a flaky apiserver/LB produces. FakeCluster watches do
+        not reconnect, so recovery must come from the controller's
+        periodic resync (controllers/runtime.py resync_interval)."""
+        dropped = 0
+        for w in self._live_watches:
+            if not w.closed:
+                w.close()
+                dropped += 1
+        self.injected.append(InjectedFault(
+            "watch", f"dropped {dropped} streams", self.calls,
+            kind="watch-drop"))
+        return dropped
+
+    def __getattr__(self, name):
+        # FakeCluster test helpers (tick, fail_pod, set_pod_phase, ...)
+        return getattr(self.inner, name)
 
 
 def latest_step_dir(directory: str) -> Optional[str]:
@@ -79,6 +232,571 @@ def final_params(checkpoint_dir: str, device="cuda") -> dict:
         return mgr.restore_params(device=device)
     finally:
         mgr.close()
+
+
+# fault kinds the soak can inject between training segments
+SOAK_FAULT_KINDS = ("pod-kill", "pod-fail", "api-burst", "watch-drop",
+                    "truncate-ckpt", "hung-chief")
+
+
+@dataclass
+class SoakFault:
+    """Inject `kind` once training has reached `at_step` global steps."""
+
+    at_step: int
+    kind: str
+
+    def __post_init__(self):
+        if self.kind not in SOAK_FAULT_KINDS:
+            raise ValueError(f"unknown fault kind {self.kind!r} "
+                             f"(choose from {SOAK_FAULT_KINDS})")
+
+
+# the soaks' job kind and the accelerator replica's template
+_JOB_AV, _JOB_KIND = "tpu.kubeflow.org/v1alpha1", "TPUJob"
+_TEMPLATE = {"spec": {"containers": [{"name": "trainer",
+                                      "image": "trainer:v1"}]}}
+
+
+def _soak_cluster(soak):
+    """(cluster, chaos client, manager): a FakeCluster with one node of
+    ``soak.node_topology`` (the job's topology when unset) labeled with
+    its generation's product, and the training-job reconciler on a
+    ChaosKubeClient over it."""
+    from ..controllers.runtime import Manager
+    from ..controllers.tpujob import TrainingJobReconciler
+    from .fake import FakeCluster
+    cluster = FakeCluster()
+    cluster.add_gpu_nodes(soak.node_topology or soak.topology)
+    chaos = ChaosKubeClient(cluster)
+    mgr = Manager(chaos)
+    ctrl = mgr.add(TrainingJobReconciler(_JOB_KIND))
+    # watch-drop recovery depends on the periodic resync; keep it tight
+    # so the soak converges quickly
+    ctrl.resync_interval = 0.02
+    return cluster, chaos, mgr
+
+
+def _gang_size(soak) -> int:
+    from ..api.topology import parse_topology
+    return parse_topology(soak.topology).pods_per_slice
+
+
+def _chief_env(cluster, namespace: str, chief: str, report: dict) -> dict:
+    """The env the operator rendered into the chief pod; the report keeps
+    the first chief pod object it saw (``chief_pod``: its resources,
+    selector and env, as the reconciler wrote them)."""
+    obj = cluster.get("v1", "Pod", namespace, chief)
+    report.setdefault("chief_pod", obj)
+    return {e["name"]: e.get("value", "")
+            for e in obj["spec"]["containers"][0].get("env", [])}
+
+
+def _train_segment(soak, env_map: dict, target: int):
+    """One training segment: the port's ``worker.train`` on the soak's
+    device, up to ``target`` steps, from the env the operator rendered
+    into the chief pod (checkpoint dir, resume dir and the trace
+    contract). ``soak.train_kwargs`` overrides the tiny-LM defaults."""
+    from ..obs.trace import adopt_trace_env
+    from ..runtime import worker
+    kw = dict(workload="transformer", global_batch=soak.global_batch,
+              sync_every=1, seed=soak.seed, handle_sigterm=False,
+              workload_kwargs={})
+    kw.update(soak.train_kwargs or {})
+    kw.update(steps=target, device=soak.device,
+              checkpoint_dir=env_map.get("KFTPU_CHECKPOINT_DIR"),
+              checkpoint_every=soak.checkpoint_every,
+              resume_from=env_map.get("KFTPU_RESUME_FROM"))
+    # adopt the operator-rendered trace contract for the segment: the
+    # in-process "worker" reads the SAME env a real pod would, so its
+    # window/ckpt spans stitch onto the job's trace id
+    with adopt_trace_env(env_map):
+        return worker.train(**kw)
+
+
+@dataclass
+class ChaosSoak:
+    """Drive one TPUJob through a scripted fault sequence, end to end.
+
+    The control plane is real (FakeCluster + scheduler + the TPUJob
+    reconciler, over a ChaosKubeClient); the data plane is real too — each
+    time the gang is fully Running, a REAL training segment
+    (``runtime/worker.train`` on ``device``: the tiny LM by default, or
+    whatever ``train_kwargs`` names) runs
+    in-process using the env the operator rendered into the chief pod
+    (KFTPU_CHECKPOINT_DIR / KFTPU_RESUME_FROM), up to the next scripted
+    fault's step. Faults then hit the cluster, the controller recovers
+    (gang restart + resume), and the loop continues until the job reaches
+    ``total_steps`` and the chief succeeds.
+
+    Determinism: state.rng is checkpointed and the synthetic batch pool is
+    seed-derived, so replayed steps recompute identical params — the
+    report's final params must match an uninjected run bit-for-bit up to
+    float tolerance (≤1e-5).
+
+    The job's GPU replica is ``topology`` (``h100-2`` by default: a gang
+    of 2 pods, as the JAX soak's slice is 2 hosts) on one node of
+    ``node_topology`` (the job's when unset).
+    """
+
+    workdir: str
+    faults: list = field(default_factory=list)
+    device: str = "cuda"
+    train_kwargs: Optional[dict] = None
+    topology: str = "h100-2"
+    node_topology: Optional[str] = None
+    total_steps: int = 6
+    checkpoint_every: int = 2
+    seed: int = 0
+    global_batch: int = 8
+    stall_timeout_s: int = 30
+    restart_backoff_s: float = 0.02
+    restart_backoff_max_s: float = 0.2
+    wall_budget_s: float = 300.0
+    namespace: str = "kubeflow"
+    job_name: str = "chaos-soak"
+
+    def _manifest(self, ckpt_dir: str) -> dict:
+        return {
+            "apiVersion": _JOB_AV, "kind": _JOB_KIND,
+            "metadata": {"name": self.job_name,
+                         "namespace": self.namespace},
+            "spec": {
+                "checkpointDir": ckpt_dir,
+                "replicaSpecs": {"GPU": {"gpuTopology": self.topology,
+                                         "template": _TEMPLATE}},
+                "runPolicy": {
+                    "backoffLimit": len(self.faults) + 3,
+                    "restartBackoffSeconds": self.restart_backoff_s,
+                    "restartBackoffMaxSeconds": self.restart_backoff_max_s,
+                    "stallTimeoutSeconds": self.stall_timeout_s,
+                },
+            },
+        }
+
+    def _heartbeat(self, cluster, chief: str, step: int,
+                   stale_by_s: float = 0.0) -> None:
+        import json as _json
+        from ..api.trainingjob import HEARTBEAT_ANNOTATION
+        payload = _json.dumps({"step": step,
+                               "time": time.time() - stale_by_s})
+        cluster.patch("v1", "Pod", self.namespace, chief,
+                      {"metadata": {"annotations":
+                                    {HEARTBEAT_ANNOTATION: payload}}})
+
+    def _inject(self, fault: SoakFault, cluster, chaos: ChaosKubeClient,
+                ckpt_dir: str, chief: str, step: int) -> None:
+        log.info("chaos soak: injecting %s at step %d", fault.kind, step)
+        worker_pods = sorted(
+            k8s.name_of(p)
+            for p in cluster.list("v1", "Pod", self.namespace))
+        victim = worker_pods[-1] if worker_pods else chief
+        if fault.kind == "pod-kill":
+            # preemption deletes the pod OBJECT (no Failed phase): the
+            # vanish detector must gang-restart
+            cluster.delete("v1", "Pod", self.namespace, victim)
+        elif fault.kind == "pod-fail":
+            cluster.fail_pod(self.namespace, victim, "chaos: worker died")
+        elif fault.kind == "api-burst":
+            # a 5xx burst right as the gang fails: reconcile attempts hit
+            # injected errors and must retry through them
+            chaos.fail_next(3)
+            cluster.fail_pod(self.namespace, victim, "chaos: worker died")
+        elif fault.kind == "watch-drop":
+            chaos.drop_watch_streams()
+            cluster.fail_pod(self.namespace, victim, "chaos: worker died")
+        elif fault.kind == "truncate-ckpt":
+            step_dir = latest_step_dir(ckpt_dir)
+            if step_dir:
+                truncate_checkpoint_payload(step_dir)
+            cluster.fail_pod(self.namespace, victim, "chaos: worker died")
+        elif fault.kind == "hung-chief":
+            # live pod, stale heartbeat: only the stall watchdog recovers
+            self._heartbeat(cluster, chief, step,
+                            stale_by_s=self.stall_timeout_s + 5)
+
+    def run(self) -> dict:
+        from ..controllers.tpujob import RESTART_COUNT_ANNOTATION
+
+        ckpt_dir = os.path.join(self.workdir, "ckpt")
+        cluster, chaos, mgr = _soak_cluster(self)
+        gang = _gang_size(self)
+        cluster.create(self._manifest(ckpt_dir))
+
+        pending = sorted((SoakFault(f.at_step, f.kind) if
+                          not isinstance(f, SoakFault) else f
+                          for f in self.faults), key=lambda f: f.at_step)
+        report: dict = {"injected": [], "restart_reasons": [],
+                        "segments": 0, "executed_steps": 0,
+                        "outcome": "timeout"}
+        deadline = time.monotonic() + self.wall_budget_s
+        chief = f"{self.job_name}-worker-0-0"
+        reached = 0
+        while time.monotonic() < deadline:
+            mgr.run_pending()
+            cluster.tick()
+            mgr.run_pending()
+            job = cluster.get_or_none(_JOB_AV, _JOB_KIND,
+                                      self.namespace, self.job_name)
+            if job is None:
+                report["outcome"] = "deleted"
+                break
+            cond = k8s.get_condition(job, "Restarting")
+            if cond is not None and cond.get("status") == "True" and \
+                    cond.get("reason") not in report["restart_reasons"]:
+                report["restart_reasons"].append(cond.get("reason"))
+            if k8s.condition_true(job, "Succeeded"):
+                report["outcome"] = "succeeded"
+                break
+            if k8s.condition_true(job, "Failed"):
+                report["outcome"] = "failed"
+                report["failed_reason"] = k8s.get_condition(
+                    job, "Failed").get("reason")
+                break
+            pods = cluster.list("v1", "Pod", self.namespace)
+            running = [p for p in pods
+                       if p.get("status", {}).get("phase") == "Running"]
+            if len(running) != gang or \
+                    k8s.condition_true(job, "Restarting"):
+                # gang down or mid-restart: let timers (restart backoff,
+                # resync) fire and reconcile again
+                time.sleep(0.03)
+                continue
+            target = min(pending[0].at_step, self.total_steps) if pending \
+                else self.total_steps
+            result = _train_segment(
+                self, _chief_env(cluster, self.namespace, chief, report),
+                target)
+            report["segments"] += 1
+            # steps this segment actually EXECUTED (its windows): the
+            # soak's ground truth for restart-recompute — executed
+            # minus final progress = steps replayed after restores,
+            # which the goodput ledger must reproduce from spans alone
+            report["executed_steps"] += int(result.steps)
+            reached = max(reached, target)
+            self._heartbeat(cluster, chief, reached)
+            if pending and pending[0].at_step <= reached:
+                fault = pending.pop(0)
+                report["injected"].append({"step": reached,
+                                           "kind": fault.kind})
+                self._inject(fault, cluster, chaos, ckpt_dir, chief,
+                             reached)
+                continue
+            if reached >= self.total_steps:
+                # training done: the chief exits 0 and the operator
+                # completes the job off the Succeeded phase
+                cluster.set_pod_phase(self.namespace, chief, "Succeeded")
+        job = cluster.get_or_none(_JOB_AV, _JOB_KIND,
+                                  self.namespace, self.job_name)
+        if job is not None:
+            report["gang_restarts"] = int(k8s.annotations_of(job).get(
+                RESTART_COUNT_ANNOTATION, "0"))
+            from ..obs.trace import TRACE_ID_ANNOTATION
+            report["trace_id"] = k8s.annotations_of(job).get(
+                TRACE_ID_ANNOTATION, "")
+        report["final_step"] = reached
+        report["checkpoint_dir"] = ckpt_dir
+        report["api_calls"] = chaos.calls
+        report["api_faults"] = len(chaos.injected)
+        for c in mgr.controllers:
+            c.stop()
+        return report
+
+
+# ------------------------------------------------- numeric-fault injectors
+# The sentinel tier's fault menu (runtime/sentinel.py NumericFaultHook):
+# each injector renders the KFTPU_CHAOS_NUMERIC env contract the worker's
+# hook consumes — the poison happens INSIDE the training loop (after the
+# named step completes, so the damage surfaces in the NEXT window's
+# metrics), not between segments like SoakFault.
+
+
+@dataclass
+class NaNInjector:
+    """Multiply the params by NaN once step ``at_step`` completes — the
+    hard-failure SDC: every downstream loss/grad is NaN, the sentinel's
+    non-finite detector must trip within checkEverySteps."""
+
+    at_step: int
+    fires: int = 1
+    node: Optional[str] = None
+    kind = "nan"
+
+    def spec(self) -> str:
+        return f"nan:{self.at_step}"
+
+
+@dataclass
+class LossSpikePoisoner:
+    """Scale the params by ``scale`` once ``at_step`` completes — a
+    finite-but-wrong excursion only the rolling z-score detector sees
+    (everything stays representable; nothing is NaN)."""
+
+    at_step: int
+    scale: float = 8.0
+    fires: int = 1
+    node: Optional[str] = None
+    kind = "spike"
+
+    def spec(self) -> str:
+        return f"spike:{self.at_step}:{self.scale}"
+
+
+@dataclass
+class BitFlipGrad:
+    """A silent bit-flip pinned to one host: a small multiplicative
+    perturbation (exponent-bit flavor) fired ``fires`` times at the same
+    step — the repeat-offender shape replay bisection exists for. The
+    ``node`` pin names the host whose pod carries the evidence, so two
+    trips fold two numeric-anomaly events onto it and its health score
+    crosses the quarantine threshold."""
+
+    at_step: int
+    node: Optional[str] = None
+    scale: float = 1.25
+    fires: int = 2
+    kind = "bitflip"
+
+    def spec(self) -> str:
+        return f"bitflip:{self.at_step}:{self.scale}"
+
+
+@dataclass
+class SentinelSoak:
+    """Drive one TPUJob through a numeric-corruption episode, end to end:
+    in-step detection → deliberate anomaly exit → operator LKG rollback
+    (resumeFrom pinned to the last-known-good step, NOT the newest
+    checkpoint) → clean re-run to completion; with a repeat-firing fault
+    (BitFlipGrad), the second trip over the same LKG arms replay
+    bisection and the third, clean segment publishes the verdict span.
+
+    Same architecture as ChaosSoak (real control plane on FakeCluster,
+    real in-process training segments using the env the operator rendered
+    into the chief pod), with two twists: the fault fires INSIDE the
+    worker via the KFTPU_CHAOS_NUMERIC hook (a fire-count marker file
+    keeps it from re-firing forever across rollback segments), and on a
+    trip the soak plays the pod's part — it annotates the victim pod with
+    the evidence the real worker would have self-annotated and fails it,
+    which is exactly what the operator's anomaly path watches for.
+
+    ``corrupt_lkg=True`` additionally truncates the LKG step's payload at
+    trip time: the rollback restore must then walk back to the
+    next-oldest INTACT step (verify-then-fallback) and still converge.
+
+    ``device``, ``train_kwargs`` and the topology fields as ChaosSoak's.
+    """
+
+    workdir: str
+    fault: Optional[object] = None     # one numeric injector (None = clean)
+    device: str = "cuda"
+    train_kwargs: Optional[dict] = None
+    topology: str = "h100-2"
+    node_topology: Optional[str] = None
+    total_steps: int = 10
+    checkpoint_every: int = 2
+    check_every: int = 1
+    window_steps: int = 4
+    spike_z: float = 4.0
+    max_rollbacks: int = 3
+    corrupt_lkg: bool = False
+    seed: int = 0
+    global_batch: int = 8
+    wall_budget_s: float = 300.0
+    namespace: str = "kubeflow"
+    job_name: str = "sentinel-soak"
+
+    def _manifest(self, ckpt_dir: str, span_path: str) -> dict:
+        return {
+            "apiVersion": _JOB_AV, "kind": _JOB_KIND,
+            "metadata": {"name": self.job_name,
+                         "namespace": self.namespace},
+            "spec": {
+                "checkpointDir": ckpt_dir,
+                "observability": {"spanPath": span_path},
+                "integrity": {"enabled": True,
+                              "spikeZ": self.spike_z,
+                              "windowSteps": self.window_steps,
+                              "checkEverySteps": self.check_every},
+                "replicaSpecs": {"GPU": {"gpuTopology": self.topology,
+                                         "template": _TEMPLATE}},
+                "runPolicy": {
+                    "backoffLimit": 3,
+                    "maxAnomalyRollbacks": self.max_rollbacks,
+                    "restartBackoffSeconds": 0.02,
+                    "restartBackoffMaxSeconds": 0.2,
+                },
+            },
+        }
+
+    # env the worker reads from os.environ (not train() kwargs): the
+    # sentinel knobs the operator rendered into the pod, the rollback
+    # directive, and the in-loop fault hook
+    _PASS_ENV = ("KFTPU_INTEGRITY", "KFTPU_INTEGRITY_SPIKE_Z",
+                 "KFTPU_INTEGRITY_WINDOW", "KFTPU_INTEGRITY_CHECK_EVERY",
+                 "KFTPU_RESUME_STEP", "KFTPU_REPLAY_RANGE")
+
+    def _run_segment(self, env_map: dict, target: int, mark_path: str):
+        from ..runtime import sentinel as sent
+        patched = {k: env_map.get(k) for k in self._PASS_ENV}
+        if self.fault is not None:
+            patched[sent.NUMERIC_FAULT_ENV] = self.fault.spec()
+            patched[sent.NUMERIC_FAULT_MARK_ENV] = mark_path
+            patched[sent.NUMERIC_FAULT_FIRES_ENV] = str(self.fault.fires)
+        saved = {k: os.environ.get(k) for k in patched}
+        for k, v in patched.items():
+            if v:
+                os.environ[k] = v
+            else:
+                os.environ.pop(k, None)
+        try:
+            return _train_segment(self, env_map, target)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+
+    def _heartbeat(self, cluster, chief: str, step: int) -> None:
+        import json as _json
+        from ..api.trainingjob import HEARTBEAT_ANNOTATION
+        payload = _json.dumps({"step": step, "time": time.time()})
+        cluster.patch("v1", "Pod", self.namespace, chief,
+                      {"metadata": {"annotations":
+                                    {HEARTBEAT_ANNOTATION: payload}}})
+
+    def _victim(self, cluster, chief: str) -> str:
+        """The pod that carries the evidence: the one on the fault's
+        pinned node when there is a pin, else the chief."""
+        node = getattr(self.fault, "node", None)
+        if node:
+            for p in cluster.list("v1", "Pod", self.namespace):
+                if p.get("spec", {}).get("nodeName") == node:
+                    return k8s.name_of(p)
+        return chief
+
+    def run(self) -> dict:
+        import json as _json
+
+        from ..controllers.tpujob import RESTART_COUNT_ANNOTATION
+        from ..api.trainingjob import (ANOMALY_ANNOTATION,
+                                       ANOMALY_COUNT_ANNOTATION)
+        from ..scheduler import health
+
+        ckpt_dir = os.path.join(self.workdir, "ckpt")
+        span_path = os.path.join(self.workdir, "spans.jsonl")
+        mark_path = os.path.join(self.workdir, "numeric-fault.mark")
+        cluster, chaos, mgr = _soak_cluster(self)
+        gang = _gang_size(self)
+        cluster.create(self._manifest(ckpt_dir, span_path))
+
+        report: dict = {"anomalies": [], "restart_reasons": [],
+                        "segments": 0, "executed_steps": 0,
+                        "outcome": "timeout", "lkg_corrupted": False}
+        deadline = time.monotonic() + self.wall_budget_s
+        chief = f"{self.job_name}-worker-0-0"
+        reached = 0
+        while time.monotonic() < deadline:
+            mgr.run_pending()
+            cluster.tick()
+            mgr.run_pending()
+            job = cluster.get_or_none(_JOB_AV, _JOB_KIND,
+                                      self.namespace, self.job_name)
+            if job is None:
+                report["outcome"] = "deleted"
+                break
+            cond = k8s.get_condition(job, "Restarting")
+            if cond is not None and cond.get("status") == "True" and \
+                    cond.get("reason") not in report["restart_reasons"]:
+                report["restart_reasons"].append(cond.get("reason"))
+            if k8s.condition_true(job, "Succeeded"):
+                report["outcome"] = "succeeded"
+                break
+            if k8s.condition_true(job, "Failed"):
+                report["outcome"] = "failed"
+                report["failed_reason"] = k8s.get_condition(
+                    job, "Failed").get("reason")
+                break
+            pods = cluster.list("v1", "Pod", self.namespace)
+            running = [p for p in pods
+                       if p.get("status", {}).get("phase") == "Running"]
+            if len(running) != gang or \
+                    k8s.condition_true(job, "Restarting"):
+                time.sleep(0.03)
+                continue
+            env_map = _chief_env(cluster, self.namespace, chief, report)
+            result = self._run_segment(env_map, self.total_steps,
+                                       mark_path)
+            report["segments"] += 1
+            report["executed_steps"] += int(result.steps)
+            if result.anomaly:
+                # play the failed pod's part: the in-process worker
+                # can't self-annotate (no apiserver env), so the soak
+                # attaches the evidence and fails the victim — the
+                # operator's anomaly path takes it from here
+                report["anomalies"].append(dict(result.anomaly))
+                if self.corrupt_lkg and not report["lkg_corrupted"]:
+                    lkg = result.anomaly.get("lkg")
+                    step_dir = (os.path.join(ckpt_dir, str(int(lkg)))
+                                if lkg else None)
+                    if step_dir and os.path.isdir(step_dir):
+                        truncate_checkpoint_payload(step_dir)
+                        report["lkg_corrupted"] = True
+                victim = self._victim(cluster, chief)
+                cluster.patch(
+                    "v1", "Pod", self.namespace, victim,
+                    {"metadata": {"annotations": {
+                        ANOMALY_ANNOTATION:
+                            _json.dumps(result.anomaly)}}})
+                cluster.fail_pod(self.namespace, victim,
+                                 f"sentinel: {result.anomaly['kind']}")
+                continue
+            reached = self.total_steps
+            self._heartbeat(cluster, chief, self.total_steps)
+            if reached >= self.total_steps:
+                cluster.set_pod_phase(self.namespace, chief, "Succeeded")
+        job = cluster.get_or_none(_JOB_AV, _JOB_KIND,
+                                  self.namespace, self.job_name)
+        if job is not None:
+            anns = k8s.annotations_of(job)
+            report["gang_restarts"] = int(anns.get(
+                RESTART_COUNT_ANNOTATION, "0"))
+            report["rollbacks"] = int(anns.get(
+                ANOMALY_COUNT_ANNOTATION, "0"))
+            from ..obs.trace import TRACE_ID_ANNOTATION
+            report["trace_id"] = anns.get(TRACE_ID_ANNOTATION, "")
+        # bisection verdict: the worker's clean replay over the armed
+        # range publishes an anomaly-bisection span — the evidence that
+        # converts "this job is cursed" into a per-host verdict
+        report["bisection"] = None
+        try:
+            with open(span_path, encoding="utf-8") as f:
+                for line in f:
+                    try:
+                        span = _json.loads(line)
+                    except ValueError:
+                        continue
+                    if span.get("name") == "anomaly-bisection":
+                        report["bisection"] = span.get("attrs", span)
+        except OSError:
+            pass
+        # hosts whose folded numeric-anomaly evidence crossed the
+        # quarantine threshold (the scheduler's health sweep in
+        # scheduler/core.py writes the actual quarantine annotation;
+        # the score IS the criterion)
+        cfg = health.HealthConfig()
+        report["quarantined"] = sorted(
+            k8s.name_of(n) for n in cluster.list("v1", "Node", "")
+            if health.is_quarantined(n)
+            or health.decayed_score(n) >= cfg.quarantine_threshold)
+        report["final_step"] = reached
+        report["checkpoint_dir"] = ckpt_dir
+        report["span_path"] = span_path
+        report["api_calls"] = chaos.calls
+        report["api_faults"] = len(chaos.injected)
+        for c in mgr.controllers:
+            c.stop()
+        return report
 
 
 # ------------------------------------------------- serving-plane faults

@@ -1,7 +1,10 @@
-"""Trace spans as JSONL records: the serving request path's timeline.
+"""Trace spans as JSONL records: a request's or a job's timeline.
 
 The port's copy of ``kubeflow_tpu/obs/trace.py``, cut to what the
-serving slice uses. Every component appends span records to one JSONL
+serving tier, the worker and the operator loop use. A job's trace id is
+minted by the control plane on first contact and persisted as the
+``observability.kubeflow.org/trace-id`` annotation; the operator renders
+it into every worker pod as ``KFTPU_TRACE_ID``. Every component appends span records to one JSONL
 sink: ``{"trace_id", "span_id", "parent_id", "name", "component",
 "start", "end", "attrs"}`` in wall-clock seconds, so spans from several
 threads and processes order on one axis. The sink is named by
@@ -13,18 +16,36 @@ Stdlib only.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
+import time
 import uuid
 from typing import Optional
 
-# env contract: the sink path
+# env contract (rendered by controllers/tpujob.py into worker pods)
+TRACE_ID_ENV = "KFTPU_TRACE_ID"
 SPAN_PATH_ENV = "KFTPU_SPAN_PATH"
 # sink size cap: at this many bytes the active JSONL rotates to
 # ``<path>.1`` (one generation — long soaks previously grew the sink
 # unbounded). 0/unset = no rotation.
 SPAN_MAX_BYTES_ENV = "KFTPU_SPAN_MAX_BYTES"
+
+
+# where the minted trace id persists on the job object (the one value
+# every component — operator, worker, dashboard — agrees on)
+TRACE_ID_ANNOTATION = "observability.kubeflow.org/trace-id"
+
+
+def mint_trace_id(uid: str = "") -> str:
+    """A fresh trace id — DERIVED from the object's uid when one exists,
+    so concurrent minters compute the SAME id and neither side's early
+    spans are orphaned by a lost patch race."""
+    if uid:
+        import hashlib
+        return hashlib.sha1(uid.encode()).hexdigest()[:16]
+    return uuid.uuid4().hex[:16]
 
 
 def new_span_id() -> str:
@@ -118,6 +139,11 @@ class SpanWriter:
                     self._fh = None
         return record
 
+    def event(self, name: str, trace_id: Optional[str] = None,
+              **attrs) -> dict:
+        """A point event (zero-duration span): phase transitions."""
+        return self.emit(name, start=time.time(), trace_id=trace_id, **attrs)
+
     def _rotate_if_needed(self, incoming: int) -> None:
         """Size-cap rotation (KFTPU_SPAN_MAX_BYTES), safe for the
         deployed shape of MANY writers appending to one sink (operator,
@@ -208,6 +234,29 @@ def default_tracer(component: str) -> Optional[SpanWriter]:
         w = SpanWriter(path, component)
         _writers[component] = (path, w)
         return w
+
+
+@contextlib.contextmanager
+def adopt_trace_env(env_map: dict):
+    """Temporarily adopt the operator-rendered trace contract
+    (KFTPU_TRACE_ID / KFTPU_SPAN_PATH) from a pod's env map — the
+    in-process soak segments' stand-in for actually running inside the
+    pod, so their worker spans stitch onto the job's control-plane
+    trace (cluster/chaos.py)."""
+    saved: dict = {}
+    for key in (TRACE_ID_ENV, SPAN_PATH_ENV):
+        value = env_map.get(key)
+        if value:
+            saved[key] = os.environ.get(key)
+            os.environ[key] = value
+    try:
+        yield
+    finally:
+        for key, old in saved.items():
+            if old is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = old
 
 
 # -------------------------------------------------------------- reading back

@@ -122,8 +122,7 @@ def initialize(env: Optional[Mapping[str, str]] = None, device="cuda",
         owns = True
     sharding = sharding_from_env(env)
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if contract is not None and contract.num_devices is not None and \
-            contract.num_devices != world:
+    if contract is not None and contract.num_devices != world:
         msg = (f"contract promises {contract.num_devices} devices "
                f"({contract.topology} x {contract.num_slices}), the "
                f"process group holds {world}")

@@ -242,14 +242,14 @@ class TestRecord:
 # -- step_key -------------------------------------------------------------------
 
 class TestStepKey:
-    BASE = dict(topology="v5e-8", num_slices=1, model_fingerprint="m1",
+    BASE = dict(topology="h100-8", num_slices=1, model_fingerprint="m1",
                 weight_update="replicated", sharding={"data": 8},
                 global_batch=64, kernels={"attention": "flash"})
 
     def test_deterministic_and_sensitive(self):
         k = aot.step_key(**self.BASE)
         assert k == aot.step_key(**self.BASE) and len(k) == 24
-        for field, value in (("topology", "v5e-16"), ("num_slices", 2),
+        for field, value in (("topology", "h100-4"), ("num_slices", 2),
                              ("model_fingerprint", "m2"),
                              ("weight_update", "sharded"),
                              ("sharding", {"data": 4, "fsdp": 2}),

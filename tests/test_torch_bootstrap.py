@@ -43,7 +43,7 @@ def _free_port() -> int:
 
 def contract_env(rank: int, world: int, port: int, topology: str = "",
                  sharding: dict = None) -> dict:
-    env = {"KFTPU_TOPOLOGY": topology or f"v5e-{world}",
+    env = {"KFTPU_TOPOLOGY": topology or f"h100-{world}",
            "KFTPU_COORDINATOR_ADDRESS": f"localhost:{port}",
            "KFTPU_NUM_PROCESSES": str(world),
            "KFTPU_PROCESS_ID": str(rank)}
@@ -178,7 +178,7 @@ def test_an_unported_axis_greater_than_one_raises():
 
 
 def test_strict_mismatch_raises_and_the_default_refits():
-    env = contract_env(0, 1, _free_port(), topology="v5e-8",
+    env = contract_env(0, 1, _free_port(), topology="h100-8",
                        sharding={"data": 8})
     with pytest.raises(RuntimeError, match="promises 8 devices"):
         bootstrap.initialize(env, device="cpu", strict=True)
@@ -192,7 +192,7 @@ def test_strict_mismatch_raises_and_the_default_refits():
     finally:
         bootstrap.shutdown(ctx)
     ok = bootstrap.initialize(contract_env(0, 1, _free_port(),
-                                           topology="v5e-1"),
+                                           topology="h100-1"),
                               device="cpu", strict=True)
     assert ok.contract.num_devices == 1
     bootstrap.shutdown(ok)
@@ -226,13 +226,14 @@ def test_named_backend_brings_up_a_one_process_group():
 def test_contract_env_matches_the_jax_package():
     from kubeflow_tpu.api.topology import TopologyContract as J
     from kubeflow_tpu.api.topology import parse_topology
-    j = J(coordinator_address="job-worker-0.svc:8476", num_processes=4,
-          process_id=3, slice_topology=parse_topology("v5e-16"),
+    # v5e-32 is 8 hosts a slice, h100-8 8 GPUs: one pod each
+    j = J(coordinator_address="job-worker-0.svc:8476", num_processes=16,
+          process_id=11, slice_topology=parse_topology("v5e-32"),
           num_slices=2, slice_id=1)
-    env = j.to_env()
+    env = {**j.to_env(), "KFTPU_TOPOLOGY": "h100-8"}
     t = TopologyContract.from_env(env)
     assert t.to_env() == env
-    assert t.num_devices == j.slice_topology.num_chips * j.num_slices
+    assert t.num_devices == j.slice_topology.num_hosts * j.num_slices
     assert bootstrap.ENV_SHARDING == "KFTPU_SHARDING"
 
 

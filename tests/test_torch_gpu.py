@@ -6,8 +6,9 @@ and one fused ResNet-50 inference forward through K6; and two gloo ranks
 sharing the card (sharded update) against one process, for one step of a
 small LM and of one fused block; the pipelined LM's microbatch shapes,
 two {pipeline 2} ranks sharing the card, the MPMD stages' launches, and
-two {sequence 2} ranks' ring against the gathered sequence's K1; and
-kubebench's fused config through ``run_benchmark``.
+two {sequence 2} ranks' ring against the gathered sequence's K1;
+kubebench's fused config through ``run_benchmark``; and a worker brought
+up with NCCL from the env the operator rendered into a GPU pod.
 
 Every test here carries the ``gpu`` marker and skips where no card is
 present (decided in the ``cuda_device`` fixture, never at import). The
@@ -1903,3 +1904,64 @@ def test_ring_on_the_card_matches_the_gathered_k1(cuda_device):
         assert out["launches"] == 0 and out["hops"] == (1, 1)
         bar = 1e-2 + 2.0 ** -7 * np.abs(out["k1"])
         assert (np.abs(out["ring"] - out["k1"]) <= bar).all()
+
+
+@pytest.mark.gpu
+def test_nccl_comes_up_from_a_rendered_gpu_pod(cuda_device):
+    """The training-job reconciler renders an h100-1 job's pod; with its
+    coordinator address pointed at 127.0.0.1 and a free port (the pod's
+    DNS name resolves only in a cluster, and the rendered port is the
+    reconciler's fixed COORD_PORT, which another run may hold; that is
+    the only edit), initialize() brings
+    up NCCL at world 1 on this card with a one-device mesh, an
+    all_reduce runs, and shutdown() takes the group down (chip_smoke.py
+    phase 16c)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.cluster.fake import FakeCluster
+    from kubeflow_tpu_torch.controllers.runtime import Manager
+    from kubeflow_tpu_torch.controllers.tpujob import (
+        COORD_PORT, TrainingJobReconciler)
+    from kubeflow_tpu_torch.runtime import bootstrap
+    cluster = FakeCluster()
+    cluster.add_gpu_nodes("h100-1", product=torch.cuda.get_device_name())
+    mgr = Manager(cluster)
+    mgr.add(TrainingJobReconciler("TPUJob"))
+    cluster.create({
+        "apiVersion": "tpu.kubeflow.org/v1alpha1", "kind": "TPUJob",
+        "metadata": {"name": "boot", "namespace": "test"},
+        "spec": {"replicaSpecs": {"GPU": {
+            "gpuTopology": "h100-1", "template": {"spec": {"containers": [
+                {"name": "trainer", "image": "trainer:v1"}]}}}}}})
+    mgr.run_pending()
+    (pod,) = cluster.list("v1", "Pod", "test")
+    env = {e["name"]: e["value"]
+           for e in pod["spec"]["containers"][0]["env"]}
+    assert pod["spec"]["containers"][0]["resources"]["limits"] == \
+        {"nvidia.com/gpu": 1}
+    coord = env["KFTPU_COORDINATOR_ADDRESS"]
+    host, port = coord.rsplit(":", 1)
+    assert port == env["MASTER_PORT"] == str(COORD_PORT)
+    assert env["MASTER_ADDR"] == host
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        local = str(s.getsockname()[1])
+    env = {k: v.replace(coord, f"127.0.0.1:{local}").replace(
+        host, "127.0.0.1") for k, v in env.items()}
+    env["MASTER_PORT"] = local
+    assert env["KFTPU_COORDINATOR_ADDRESS"] == f"127.0.0.1:{local}"
+    ctx = bootstrap.initialize(env, strict=True)
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        assert ctx.device.type == "cuda" and ctx.mesh.size() == 1
+        assert ctx.contract.topology == "h100-1"
+        x = torch.arange(8.0, device=ctx.device)
+        y = x.clone()
+        dist.all_reduce(y)
+        torch.cuda.synchronize()
+        assert torch.equal(x, y)
+    finally:
+        bootstrap.shutdown(ctx)
+    assert not dist.is_initialized()

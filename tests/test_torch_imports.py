@@ -55,7 +55,10 @@ def test_every_module_imports_without_jax():
                  "runtime.aot", "models.moe", "parallel.pipeline",
                  "parallel.multislice", "obs.goodput", "obs.collectives",
                  "ops.ring_attention", "workflows.kubebench",
-                 "utils.chips", "katib.suggestion"):
+                 "utils.chips", "katib.suggestion", "api.k8s",
+                 "api.trainingjob", "cluster.client", "cluster.fake",
+                 "obs.controlplane", "controllers.runtime",
+                 "controllers.tpujob"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

@@ -252,7 +252,7 @@ def test_bootstrap_refuses_a_multi_process_contract():
     from test_torch_bootstrap import _unported_axes, spawn_contract
     for msgs, left, _ in spawn_contract(_unported_axes, 2, free_port()):
         assert not left and "not yet ported" in msgs[0], msgs
-    env = {"KFTPU_TOPOLOGY": "v5e-1", "KFTPU_NUM_PROCESSES": "1",
+    env = {"KFTPU_TOPOLOGY": "h100-1", "KFTPU_NUM_PROCESSES": "1",
            "KFTPU_PROCESS_ID": "0",
            "KFTPU_COORDINATOR_ADDRESS": f"localhost:{free_port()}"}
     ctx = bootstrap.initialize(env, device="cpu")
@@ -420,7 +420,7 @@ def test_two_workers_from_the_contract_env_match_the_jax_worker(
              train_dir, "--weight-update", "sharded", "--device-prefetch",
              "0"]
     ranks = [_cli(flags + ["--metrics-path", str(tmp_path / "m.jsonl")],
-                  {**env, "KFTPU_TOPOLOGY": "v5e-2",
+                  {**env, "KFTPU_TOPOLOGY": "h100-2",
                    "KFTPU_COORDINATOR_ADDRESS": f"localhost:{port}",
                    "KFTPU_NUM_PROCESSES": "2", "KFTPU_PROCESS_ID": str(r)})
              for r in range(2)]
