@@ -56,7 +56,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
              just after: K1 must have run 12 times (one per layer) per
              forward. Predictions are held against an einsum-attention
              servable on the same weights.
-4. rest    - a ModelServer on a local port (same widths, max_seq_len 128)
+4. rest    - a ModelServer on a local port (same widths, max_seq_len 32)
              answers 3 :predict requests through the port's REST client;
              /healthz and /metrics answer.
 5. train   - the same LM at full width trained through the worker's
@@ -199,17 +199,17 @@ Phases, each of which fails the run (nonzero exit, no result line):
              read just after: K1 12 launches a forward. (b) gRPC, where
              grpc imports (otherwise said so, and skipped): the port's
              GrpcPredictServer on the phase-3 ModelServer answers
-             predict_grpc for 1 and 2 rows of lm128 (S 128) and
+             predict_grpc for 1 and 2 rows of lm_rest (S 32) and
              GetModelStatus; the same tokens over REST give the same
              next_token and logits within 5e-2 of the largest. (d)
              Routers mounted at /v1/routers/: an ABTestRouter (seed 3)
-             over the S-128 LM at seeds 0 and 1 answers 8 requests, split
+             over the S-32 LM at seeds 0 and 1 answers 8 requests, split
              as the seeded sequence and each with the chosen version's
              next_token; a ShadowRouter copies 4 requests to a serving
              shadow and another 4 to a failing one, no primary failing.
-             (c) Fleet: three LM replicas on the card (S 128, each its own
+             (c) Fleet: three LM replicas on the card (S 32, each its own
              272 MB of weights, answering next_token alone so JSON
-             carries a token, not 4.1M logits) behind a FleetRouter, 6
+             carries a token, not 1.0M logits) behind a FleetRouter, 6
              closed-loop clients for 1.5 s a scenario: one replica killed
              mid-load and restarted, then another drained; 100% client
              success, the victim re-admitted, no in-flight request lost,
@@ -246,9 +246,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
              counts are 12 times that, a trace of two more replays of the
              aot arm's step holds the same per step by kernel name, and
              neither AOT arm counted export-failed or deserialize-failed
-             or ran eagerly. Then, for both models at once (untimed), a
-             truncated record and one re-keyed must each fall back
-             (outcome corrupt, key-mismatch; then export),
+             or ran eagerly. Then, for both models at once (untimed), the
+             LM's record re-keyed and ResNet's truncated must each fall
+             back (outcome key-mismatch, corrupt; then export),
              train the 12 steps equal to cold's and read start_kind warm
              from the cache. Prints the device's idle share of the traced
              captured and eager fused ResNet steps. A captured arm's
@@ -274,7 +274,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
              einsum + stock Adam at batch 2 (phase 5's bars); peak
              memory and step ms off and on. (b) two gloo ranks sharing
              the card, the contract env, at full width cut to 2 layers,
-             3 steps on {data 2} (the MoE LM: its aux loss over the
+             2 steps on {data 2} (the MoE LM: its aux loss over the
              global batch), {tensor 2} (the dense LM), {expert 2} and
              {fsdp 2} (the MoE LM, the sharded update) against one
              process on the same global batch: phase 8's bars a step,
@@ -308,7 +308,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
              collective called. K1/K2a/K2b at the microbatch shapes
              ([2 and 1, 2048, 12, 64] bf16) are phase 2 cases.
 14. seq    - after phase 13, before phase 11: two gloo ranks sharing the
-             card from the contract env, {sequence 2}, each arm 3 steps
+             card from the contract env, {sequence 2}, each arm 2 steps
              at the default widths against one process on the same
              recipe under phase 8's bars a step. The LM (flash +
              fused_adam, lr 6e-4, clip 1.0, batch 8 x 2048, 1,024
@@ -318,12 +318,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
              schedule implies; (c) the ring on one layer's chunks against
              the gathered K1 output, and a ring of one launching K1 once.
              (d) The MoE LM of 12a (8 experts, top 2, capacity 1.25)
-             against 12a's first 3 steps: K1/K2a/K2b 12 and K3 1 a rank a
+             against 12a's first 2 steps: K1/K2a/K2b 12 and K3 1 a rank a
              step, the aux loss under the loss bar, and the gathers a step
              exactly (Q/K/V and dO a layer, and one [2, 8, 8] int32 count
              exchange a layer, the capacity positions over the whole
              sequence). (e) The stacked LM of 13a (pipeline 1) against
-             13a's first 3 steps: K1/K2a/K2b 12 and K3 1 a rank a step, 48
+             13a's first 2 steps: K1/K2a/K2b 12 and K3 1 a rank a step, 48
              gathers, no hop. (f) Fused ResNet-50 at 224 px, batch 64,
              replicated over the axis (whole images on both ranks; phase
              6's recipe), against one process: K4 7 + 7 and K5 6 + 6 a
@@ -384,6 +384,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
              rendered port is fixed): initialize() from that env
              brings up NCCL at world 1 and a one-device mesh, and an
              all_reduce on the card; then shutdown().
+17. sched  - after phase 16, before phase 11: the slice scheduler
+             (scheduler/core.py SliceScheduler with the operator, a
+             FakeCluster of h100-8 nodes) around phase 16's LM (full
+             width, 2 of its 12 layers), 8 steps, each soak's final
+             params within 1e-5 of max|param| of 16a's clean soak (0
+             expected). (a) PreemptionSoak, one node: the victim
+             (preemptible) trains to step 4, where a step-end hook of
+             this script sends it a real SIGTERM and train() returns
+             preempted after the forced save (the worker CLI would map
+             that to exit 75; the CLI is not run here); the winner
+             (priority 10) lands, preempts it, runs and succeeds; the
+             victim re-binds, resumes from its step 4 and succeeds. (b) ElasticSoak (minChips 4, maxChips
+             8) on one node whose device plugin drops to 4 GPUs after
+             step 3 and comes back at step 5: the binding goes h100-8 ->
+             h100-4 -> h100-8, the resize history in that order,
+             Succeeded. (c) HealthSoak with quarantine on, a flaky node in
+             pool-a and a clean one in pool-b: the node is quarantined
+             after the first crash, the gang evacuated to pool-b within
+             one rebind, Succeeded. In each soak every launch count starts
+             at 0 just before and is read just after: K1/K2a/K2b 2 and K3
+             1 a step executed. Each soak's seconds and its saves' ms to
+             committed are printed.
 
 The comm profile (obs/collectives.py) rides the runs of phases 8, 12b,
 13b, 13c and 14: one comm-profile span from rank 0 whose calls and bytes
@@ -446,7 +468,10 @@ PEAK_BYTES = 3.35e12
 SERVE_LAYERS = 12
 SERVE_HEADS, SERVE_HEAD_DIM, SERVE_SEQ = 12, 64, 2048
 SERVE_VOCAB = 32000
-REST_SEQ = 128
+# the REST LM's S, cut from 128 to pay for phase 17: a :predict answers
+# its [rows, S, vocab] logits as JSON, 6.3-7.4 s a row at S 128 on the
+# card's host
+REST_SEQ = 32
 MAX_BATCH = 8
 TRAIN_BATCH, TRAIN_STEPS, TRAIN_SYNC = 8, 6, 2
 TRAIN_LR = 6e-4
@@ -1669,24 +1694,24 @@ def phase_serving(fa, server, repo, k1_timings) -> dict:
 
 def phase_rest(fa, server, repo, client) -> dict:
     import urllib.request
-    lm128 = repo.get("lm128")
+    lm_rest = repo.get("lm_rest")
     addr = f"127.0.0.1:{server.port}"
     rng = np.random.default_rng(2)
     launches0 = fa.flash_attention.launches
-    forwards0 = lm128.metadata()["stats"]["request_count"]
+    forwards0 = lm_rest.metadata()["stats"]["request_count"]
     times = []
     sent = []
     for i in range(3):
         x = rng.integers(0, SERVE_VOCAB, (1, REST_SEQ)).astype(np.int32)
         t0 = time.perf_counter()
-        resp = client.predict(addr, "lm128", x, dtype="int32",
+        resp = client.predict(addr, "lm_rest", x, dtype="int32",
                               timeout_s=300.0, retries=0)
         times.append(time.perf_counter() - t0)
         sent.append((x, resp))
-    forwards = lm128.metadata()["stats"]["request_count"] - forwards0
+    forwards = lm_rest.metadata()["stats"]["request_count"] - forwards0
     launches = fa.flash_attention.launches - launches0
     for i, (x, resp) in enumerate(sent):
-        direct = lm128.predict(x)
+        direct = lm_rest.predict(x)
         got = np.asarray(resp["predictions"]["next_token"])
         if not np.array_equal(got, direct["next_token"]):
             fail(f"REST request {i}: next_token {got} != direct "
@@ -1699,9 +1724,9 @@ def phase_rest(fa, server, repo, client) -> dict:
         health = json.loads(r.read())
     with urllib.request.urlopen(f"http://{addr}/metrics", timeout=30) as r:
         metrics = r.read().decode()
-    row = next(m for m in health["models"] if m["model"] == "lm128")
+    row = next(m for m in health["models"] if m["model"] == "lm_rest")
     if row["requests"] != 3 or \
-            'kubeflow_model_request_count{model="lm128"}' not in metrics:
+            'kubeflow_model_request_count{model="lm_rest"}' not in metrics:
         fail(f"/healthz or /metrics missing the REST requests: {row}")
     if launches != SERVE_LAYERS * forwards:
         fail(f"REST: K1 launched {launches} times for {forwards} forwards")
@@ -3732,7 +3757,7 @@ LM_REL_BAR = 5e-2           # PERF.md §2's LM bar: max|d logit| / max|logit|
 
 def token_servable(TS, name: str, base):
     """``base``'s forward answering next_token alone: the fleet and the
-    routers move a row's token through JSON, not its 4.1M logits."""
+    routers move a row's token through JSON, not its 1.0M logits."""
     def predict(params, tokens):
         return {"next_token": base.predict_fn(params, tokens)["next_token"]}
 
@@ -3754,7 +3779,7 @@ def _forwards(servables) -> int:
 
 
 def phase_grpc(fa, server, repo, client) -> dict:
-    """10b: PredictionService on the phase-3 ModelServer (lm128, its
+    """10b: PredictionService on the phase-3 ModelServer (lm_rest, its
     MicroBatcher), through the port's predict_grpc; GetModelStatus; the
     same tokens over REST."""
     try:
@@ -3765,7 +3790,7 @@ def phase_grpc(fa, server, repo, client) -> dict:
     from kubeflow_tpu_torch.serving import tpu_serving_pb2 as pb
     from kubeflow_tpu_torch.serving.grpc_server import (GrpcPredictServer,
                                                         predict_stub)
-    lm128 = repo.get("lm128")
+    lm_rest = repo.get("lm_rest")
     rng = np.random.default_rng(10)
     xs = [rng.integers(0, SERVE_VOCAB, (n, REST_SEQ)).astype(np.int32)
           for n in (1, 2)]
@@ -3773,19 +3798,19 @@ def phase_grpc(fa, server, repo, client) -> dict:
     addr = f"127.0.0.1:{gs.start()}"
     got, grpc_s = [], []
     try:
-        forwards0 = _forwards([lm128])
+        forwards0 = _forwards([lm_rest])
         fa.flash_attention.launches = 0      # the gRPC path's count starts
         for x in xs:
             t0 = time.perf_counter()
-            got.append(client.predict_grpc(addr, "lm128", x, dtype="int32",
+            got.append(client.predict_grpc(addr, "lm_rest", x, dtype="int32",
                                            timeout_s=300.0)["predictions"])
             grpc_s.append(time.perf_counter() - t0)
         launches = fa.flash_attention.launches   # ... and is read here
-        forwards = _forwards([lm128]) - forwards0
+        forwards = _forwards([lm_rest]) - forwards0
         channel = grpc.insecure_channel(addr)
         try:
             req = pb.GetModelStatusRequest()
-            req.model_spec.name = "lm128"
+            req.model_spec.name = "lm_rest"
             status = predict_stub(channel)["GetModelStatus"](req, timeout=30)
         finally:
             channel.close()
@@ -3794,13 +3819,13 @@ def phase_grpc(fa, server, repo, client) -> dict:
     if forwards < 1 or launches != SERVE_LAYERS * forwards:
         fail(f"gRPC: K1 launched {launches} times for {forwards} forwards")
     vs = status.model_version_status[0]
-    if vs.version != lm128.version or \
+    if vs.version != lm_rest.version or \
             vs.state != pb.ModelVersionStatus.AVAILABLE:
         fail(f"GetModelStatus: {status}")
     worst, rest_s = 0.0, []
     for i, x in enumerate(xs):
         t0 = time.perf_counter()
-        rest = client.predict(f"127.0.0.1:{server.port}", "lm128", x,
+        rest = client.predict(f"127.0.0.1:{server.port}", "lm_rest", x,
                               dtype="int32", timeout_s=300.0,
                               retries=0)["predictions"]
         rest_s.append(time.perf_counter() - t0)
@@ -3827,30 +3852,30 @@ def phase_grpc(fa, server, repo, client) -> dict:
 
 
 def phase_routers(fa, TS, T, server, repo) -> dict:
-    """10d: an A/B router over two LM versions (seeds 0 and 1, S 128)
+    """10d: an A/B router over two LM versions (seeds 0 and 1, S 32)
     and two shadow routers (one shadow serving, one failing) mounted on
     the phase-3 ModelServer at /v1/routers/."""
     from kubeflow_tpu_torch.serving.router import (ABTestRouter,
                                                    RoutedModel, ShadowRouter)
-    lm128 = repo.get("lm128")
+    lm_rest = repo.get("lm_rest")
     cfg = T.TransformerConfig(max_seq_len=REST_SEQ, attention="flash")
     with torch.device("meta"):
         shapes = T.TransformerLM(cfg).state_dict()
-    v1 = TS.Servable(name="lm128_v1", predict_fn=lm128.predict_fn,
+    v1 = TS.Servable(name="lm_rest_v1", predict_fn=lm_rest.predict_fn,
                      params={k: torch.empty_like(v, device=DEVICE)
                              for k, v in shapes.items()},
-                     input_signature=lm128.input_signature,
+                     input_signature=lm_rest.input_signature,
                      max_batch=MAX_BATCH, device=DEVICE)
     v1.swap(T.TransformerLM(cfg).init_weights(
         torch.Generator().manual_seed(1)).state_dict(), 1)
-    arms = {"ab_v0": token_servable(TS, "ab_v0", lm128),
+    arms = {"ab_v0": token_servable(TS, "ab_v0", lm_rest),
             "ab_v1": token_servable(TS, "ab_v1", v1)}
 
     def down(params, tokens):
         raise RuntimeError("shadow down")
 
     broken = TS.Servable(name="ab_broken", predict_fn=down, params={},
-                         input_signature=lm128.input_signature,
+                         input_signature=lm_rest.input_signature,
                          device=DEVICE)
     for s in (*arms.values(), broken):
         repo.add(s)
@@ -3915,7 +3940,7 @@ def phase_routers(fa, TS, T, server, repo) -> dict:
 
 
 def phase_fleet(fa, TS, chaos, gp, tmp: str) -> dict:
-    """10c: three LM replicas on the card (S 128, each its own weights)
+    """10c: three LM replicas on the card (S 32, each its own weights)
     behind a FleetRouter under closed-loop load; one killed mid-load and
     restarted, then one drained."""
     repo = TS.ModelRepository()
@@ -4446,9 +4471,9 @@ def phase_aot(tmp: str, models=("lm", "resnet", "mpmd"),
     measures it alone), then each child in turn holds the card alone for
     its later steps and its trace (:func:`_card_turn`), so every step ms,
     window and idle share is the card's alone. Then every model's
-    fallback drills at once (untimed): a truncated record and a record of
-    another key (the MPMD arm: one of its three stage programs' records
-    truncated), each falling back and training. ``mpmd_eager_ms``: 13c's
+    fallback drills at once (untimed): the LM's record of another key,
+    ResNet's record truncated, one of the MPMD arm's three stage
+    programs' records truncated, each falling back and training. ``mpmd_eager_ms``: 13c's
     eager step in this run, printed beside the MPMD arms."""
     arms: dict = {model: {} for model in models}
     for arm, aot in (("cold", True), ("warm", False), ("aot", True)):
@@ -4611,20 +4636,23 @@ def _aot_check(tmp: str, model: str, arms: dict,
             f"device busy {i['busy_ms']:.3f} of {i['span_ms']:.3f} ms, "
             f"idle share {i['idle_share']:.3f}"
             for arm, i in idle.items()))
-    # the fallbacks (untimed, started with every model's after the last
-    # ladder): a truncated record and a re-keyed one (the MPMD arm: one
-    # program's record truncated), each in its own directory, each trains
-    # and reads its kind from the cache
+    # the fallback (untimed, started with every model's after the last
+    # ladder) in its own directory: it trains and reads its kind from the
+    # cache
     names = sorted(os.listdir(aot_dir))
     if len(names) != records:
         fail(f"phase 11 {model}: records {names}, expected {records}")
     with open(os.path.join(aot_dir, names[0]), "rb") as f:
         blob = f.read()
-    bad = {"corrupt": blob[:len(blob) // 2]}
-    if not mpmd:
+    # one drill a model (both kinds for the LM and ResNet before phase 17
+    # had to be paid for): the LM's record re-keyed, ResNet's and an MPMD
+    # program's truncated
+    if model == "lm":
         rekeyed = pickle.loads(blob)
         rekeyed["key"] = "0" * 24
-        bad["key-mismatch"] = pickle.dumps(rekeyed)
+        bad = {"key-mismatch": pickle.dumps(rekeyed)}
+    else:
+        bad = {"corrupt": blob[:len(blob) // 2]}
     for damage, data in bad.items():
         d = os.path.join(tmp, f"{model}-records-{damage}")
         shutil.copytree(aot_dir, d)
@@ -4657,7 +4685,7 @@ REMAT_TOL = 1e-6
 # product of a tensor or expert rank's collectives staged through the
 # host by gloo, whose bytes grow with the layers); phase 8's bars
 # against one process
-MP_LAYERS, MP_STEPS = 2, 3
+MP_LAYERS, MP_STEPS = 2, 2          # 2 steps, cut from 3 for phase 17
 MP_MESHES = (("data2", {"data": 2}, True, "replicated"),
              ("tensor2", {"tensor": 2}, False, "replicated"),
              ("expert2", {"expert": 2}, True, "replicated"),
@@ -5392,7 +5420,9 @@ def _pp_launches(pp: dict, kernel: str) -> dict:
 
 # -- phase 14: the sequence axis ---------------------------------------------
 
-SEQ_RANKS, SEQ_STEPS = 2, 3
+# 2 steps an arm (cut from 3 to pay for phase 17): the first step carries
+# the comm profile, the second a step on updated moments
+SEQ_RANKS, SEQ_STEPS = 2, 2
 SEQ_TIMEOUT_S = 600
 SEQ_ARMS = ("flash", "ring")
 # a rank's chunk: S / n positions
@@ -6033,6 +6063,16 @@ OP_PER_STEP = {k: 1 if k == "fused_adam" else OP_LAYERS for k in LM_PER_STEP}
 OP_PARAM_TOL = 1e-5
 
 
+def _op_run(T) -> dict:
+    """The soaks' train() recipe: phase 9's LM at ``OP_LAYERS`` layers
+    (the soak sets its own checkpoint cadence)."""
+    run = _lm_ckpt_run(T)
+    del run["checkpoint_every"]
+    run["workload_kwargs"] = {"cfg": replace(
+        run["workload_kwargs"]["cfg"], num_layers=OP_LAYERS)}
+    return run
+
+
 def _op_soak(counters, make, worker) -> tuple:
     """(report, launches, seconds, save stats) of one soak, its counts set
     to 0 just before it; the seconds end in a device sync."""
@@ -6159,11 +6199,8 @@ def phase_operator(counters, T, worker, chaos, bootstrap, card) -> dict:
     if product != want:
         fail(f"operator: this card ({name}) is not the {want} an h100 "
              f"replica selects")
-    run = _lm_ckpt_run(T)
-    del run["checkpoint_every"]              # the soak's own field
-    run["workload_kwargs"] = {"cfg": replace(
-        run["workload_kwargs"]["cfg"], num_layers=OP_LAYERS)}
-    soak_kw = dict(device=DEVICE, train_kwargs=run, node_topology="h100-8")
+    soak_kw = dict(device=DEVICE, train_kwargs=_op_run(T),
+                   node_topology="h100-8")
     out: dict = {"launches": {k: 0 for k in counters}}
     t16 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="kftpu-operator-") as tmp:
@@ -6204,6 +6241,9 @@ def phase_operator(counters, T, worker, chaos, bootstrap, card) -> dict:
         delta, scale = _param_delta(chaos, inj["checkpoint_dir"],
                                     out["16a_clean"]["checkpoint_dir"])
         inj["delta"] = delta
+        # phase 17's bar: the same LM, seed and steps, uncontended
+        out["clean_params"] = chaos.final_params(
+            out["16a_clean"]["checkpoint_dir"], device=DEVICE)
         log(f"[operator] {card} | 16a: the chief pod as rendered "
             f"{out['chief']}; final params max|d| against the clean soak "
             f"{delta:.3e} (bar {OP_PARAM_TOL}; largest |param| "
@@ -6257,6 +6297,167 @@ def phase_operator(counters, T, worker, chaos, bootstrap, card) -> dict:
     out["bootstrap"] = _op_bootstrap(bootstrap, card)
     out["seconds"] = time.perf_counter() - t16
     log(f"[operator] phase 16 in {out['seconds']:.1f}s; launches over the "
+        f"soaks {out['launches']}")
+    return out
+
+
+# -- phase 17: the slice scheduler ---------------------------------------------
+
+SCHED_STEPS = OP_STEPS       # 16a's clean soak is every soak's bar
+SCHED_PREEMPT_AT = 4
+# a save at the preemption point and at the end (a soak's time is its
+# fsynced saves; each segment also saves its first step)
+SCHED_EVERY = 4
+SCHED_LOSE_AT, SCHED_RESTORE_AT = 3, 5
+
+
+def _sched_soak(counters, make, worker, victim_dir: str = "") -> dict:
+    """One scheduler soak, its counts set to 0 just before it: (report,
+    launches, steps executed, seconds, save ms, and train()'s preempted
+    flag of the SIGTERM'd segment). With
+    ``victim_dir``, the first segment that starts from nothing in that
+    directory runs to ``SCHED_STEPS`` with its SIGTERM handler installed
+    and gets a real SIGTERM at ``SCHED_PREEMPT_AT`` (from the profile
+    arm's step-end hook, on the training thread): the forced save, and
+    train()'s preempted result (the worker CLI maps that to exit 75; the
+    CLI itself is not run here)."""
+    import signal
+    real_train, real_arm = worker.train, worker.ProfileArm
+    executed, preempted = [0], []
+
+    class SigtermArm(real_arm):
+        sent = False
+
+        def on_step_end(self, step, force=False):
+            super().on_step_end(step, force)
+            # once: the loop's end calls this again with force
+            if step == SCHED_PREEMPT_AT and not force and not self.sent:
+                self.sent = True
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    def counted(**kw):
+        if victim_dir and kw.get("checkpoint_dir") == victim_dir and \
+                not kw.get("resume_from") and not preempted:
+            worker.ProfileArm = SigtermArm
+            try:
+                r = real_train(**{**kw, "steps": SCHED_STEPS,
+                                  "handle_sigterm": True})
+            finally:
+                worker.ProfileArm = real_arm
+            preempted.append(bool(r.preempted))
+        else:
+            r = real_train(**kw)
+        executed[0] += int(r.steps)
+        return r
+
+    worker.train = counted
+    try:
+        report, launches, seconds, saves = _op_soak(counters, make, worker)
+    finally:
+        worker.train = real_train
+    return {"report": report, "launches": launches,
+            "executed": executed[0], "seconds": seconds, "saves_ms": saves,
+            "preempted": preempted}
+
+
+def _sched_params(chaos, report: dict, clean: dict) -> tuple:
+    """(max |Δparam|, max |param|) of a soak's final params against the
+    clean run's."""
+    got = chaos.final_params(report["checkpoint_dir"], device=DEVICE)
+    if got.keys() != clean.keys():
+        fail(f"sched: the soak's params {sorted(got)[:3]} are not the "
+             f"clean run's")
+    delta = max(float((got[k] - clean[k]).abs().max()) for k in got)
+    return delta, max(float(v.abs().max()) for v in clean.values())
+
+
+def phase_sched(counters, T, worker, chaos, card, clean: dict) -> dict:
+    """Phase 17: the slice scheduler's preemption, elastic and health
+    soaks (scheduler/soak.py) around phase 16's LM, each held to 16a's
+    clean soak (``clean``: its final params) and to one K1/K2a/K2b a
+    layer and one K3 a step executed."""
+    import tempfile
+    soak_mod = importlib.import_module("kubeflow_tpu_torch.scheduler.soak")
+    kw = dict(device=DEVICE, train_kwargs=_op_run(T),
+              total_steps=SCHED_STEPS)
+    out: dict = {"launches": {k: 0 for k in counters}}
+    t17 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="kftpu-sched-") as tmp:
+        victim = os.path.join(tmp, "17a", "victim")
+        arms = (
+            ("17a", "PreemptionSoak", lambda: soak_mod.PreemptionSoak(
+                workdir=os.path.join(tmp, "17a"),
+                checkpoint_every=SCHED_EVERY, preempt_at=SCHED_PREEMPT_AT,
+                **kw), victim),
+            ("17b", "ElasticSoak", lambda: soak_mod.ElasticSoak(
+                workdir=os.path.join(tmp, "17b"),
+                checkpoint_every=SCHED_STEPS, lose_at=SCHED_LOSE_AT,
+                restore_at=SCHED_RESTORE_AT, **kw), ""),
+            ("17c", "HealthSoak", lambda: soak_mod.HealthSoak(
+                workdir=os.path.join(tmp, "17c"), quarantine=True,
+                checkpoint_every=SCHED_STEPS, **kw), ""))
+        for arm, soak_name, make, victim_dir in arms:
+            r = _sched_soak(counters, make, worker, victim_dir)
+            report = r["report"]
+            if report["outcome"] != "succeeded":
+                fail(f"sched {arm}: {report['outcome']} ({report})")
+            _expect(r["launches"], OP_PER_STEP, r["executed"],
+                    f"sched {arm}")
+            delta, scale = _sched_params(chaos, report, clean)
+            for k, v in r["launches"].items():
+                out["launches"][k] += v
+            out[arm] = {k: r[k] for k in ("seconds", "saves_ms", "launches",
+                                          "executed", "preempted")}
+            out[arm]["delta"] = delta
+            log(f"[sched] {card} | {arm} {soak_name}: "
+                f"{report['outcome']} in {r['seconds']:.1f}s, "
+                f"{r['executed']} steps executed for {SCHED_STEPS}; "
+                f"launches {r['launches']}; {len(r['saves_ms'])} saves, ms "
+                f"to committed {[round(v, 1) for v in r['saves_ms']]}; "
+                f"final params max|d| against 16a's clean soak "
+                f"{delta:.3e} (bar {OP_PARAM_TOL} x {scale:.4f})")
+            if not delta <= OP_PARAM_TOL * scale:
+                fail(f"sched {arm}: the soak left the clean run's params")
+            if arm == "17a":
+                got = {k: report.get(k) for k in (
+                    "victim_preempted_count", "victim_resume_step",
+                    "victim_executed_steps", "events")}
+                got["preempted"] = r["preempted"]
+                log(f"[sched] {card} | 17a: {got}")
+                if got["preempted"] != [True] or \
+                        got["victim_preempted_count"] != 1 or \
+                        got["victim_resume_step"] != SCHED_PREEMPT_AT or \
+                        got["victim_executed_steps"] != SCHED_STEPS or \
+                        len(got["events"]) != 3:
+                    fail(f"sched 17a: the preemption {got}")
+            elif arm == "17b":
+                history = json.loads(report["resize_history"] or "[]")
+                got = {"chips_seen": report["chips_seen"],
+                       "resizes": [(h["fromChips"], h["toChips"])
+                                   for h in history],
+                       "shrink_resume_step":
+                           report.get("shrink_resume_step"),
+                       "grow_resume_step": report.get("grow_resume_step")}
+                log(f"[sched] {card} | 17b: binding h100-8 -> h100-4 -> "
+                    f"h100-8: {got}")
+                if got != {"chips_seen": [8, 4, 8],
+                           "resizes": [(8, 4), (4, 8)],
+                           "shrink_resume_step": SCHED_LOSE_AT,
+                           "grow_resume_step": SCHED_RESTORE_AT}:
+                    fail(f"sched 17b: the resizes {got}")
+            else:
+                got = {k: report.get(k) for k in (
+                    "fires", "rebinds", "pools", "migrated",
+                    "flaky_quarantined", "restarts")}
+                log(f"[sched] {card} | 17c: {got}")
+                if got != {"fires": 1, "rebinds": 1,
+                           "pools": [["pool-a"], ["pool-b"]],
+                           "migrated": True, "flaky_quarantined": True,
+                           "restarts": 1}:
+                    fail(f"sched 17c: the evacuation {got}")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t17
+    log(f"[sched] phase 17 in {out['seconds']:.1f}s; launches over the "
         f"soaks {out['launches']}")
     return out
 
@@ -6333,10 +6534,10 @@ def main() -> int:
                            attention="einsum", device=DEVICE)
         einsum.max_batch = MAX_BATCH
         einsum.swap(flash.params, 1)          # the same weights
-        lm128 = repo.load("lm128", "transformer_lm", attention="flash",
+        lm_rest = repo.load("lm_rest", "transformer_lm", attention="flash",
                           max_seq_len=REST_SEQ, device=DEVICE)
-        lm128.max_batch = MAX_BATCH
-        for s in (flash, einsum, lm128):
+        lm_rest.max_batch = MAX_BATCH
+        for s in (flash, einsum, lm_rest):
             s.warmup([1, 2, 4, 8])
         n_params = sum(p.numel() for p in flash.params.values())
         log(f"[serving] loaded + warmed 3 servables ({n_params / 1e6:.1f}M "
@@ -6354,7 +6555,7 @@ def main() -> int:
         routers = phase_routers(fa, TS, T, server, repo)
         server.stop()
         server = None
-        del repo, flash, einsum, lm128
+        del repo, flash, einsum, lm_rest
         torch.cuda.empty_cache()
         import tempfile
         with tempfile.TemporaryDirectory(prefix="kftpu-serving-") as tmp:
@@ -6443,6 +6644,10 @@ def main() -> int:
         op = phase_operator(counters, T, worker, chaos, bootstrap,
                             dev["card"])
         lap("16 operator")
+        # phase 17: the slice scheduler
+        sched = phase_sched(counters, T, worker, chaos, dev["card"],
+                            op.pop("clean_params"))
+        lap("17 sched")
         # phase 11: the AOT ladder, in worker processes
         torch.cuda.empty_cache()
         t11 = time.perf_counter()
@@ -6478,6 +6683,8 @@ def main() -> int:
         "launches_kubebench": kube["launches"]["flash_attention_fwd"],
         # phase 16: over the operator's four soaks
         "launches_operator": op["launches"]["flash_attention_fwd"],
+        # phase 17: over the scheduler's three soaks
+        "launches_sched": sched["launches"]["flash_attention_fwd"],
         # phase 10, each (launches, forwards): gRPC, routers, the fleet
         "launches_serving_tier": {
             name: [r["launches"], r["forwards"]] if "launches" in r else None
@@ -6510,6 +6717,8 @@ def main() -> int:
         "launches_kubebench": kube["launches"]["flash_attention_bwd_dq"],
         # phase 16: over the operator's four soaks
         "launches_operator": op["launches"]["flash_attention_bwd_dq"],
+        # phase 17: over the scheduler's three soaks
+        "launches_sched": sched["launches"]["flash_attention_bwd_dq"],
         "max_abs_err": k2["err"]["dq"],
         "max_abs_err_dp": k2["err_dp"]["dq"],
         "max_abs_err_pp": k2["err_mb"]["dq"],
@@ -6534,6 +6743,8 @@ def main() -> int:
         "launches_kubebench": kube["launches"]["flash_attention_bwd_dkv"],
         # phase 16: over the operator's four soaks
         "launches_operator": op["launches"]["flash_attention_bwd_dkv"],
+        # phase 17: over the scheduler's three soaks
+        "launches_sched": sched["launches"]["flash_attention_bwd_dkv"],
         "max_abs_err": k2["err"]["dkv"],
         "max_abs_err_dp": k2["err_dp"]["dkv"],
         "max_abs_err_pp": k2["err_mb"]["dkv"],
@@ -6558,6 +6769,8 @@ def main() -> int:
         "launches_kubebench": kube["launches"]["fused_adam"],
         # phase 16: over the operator's four soaks
         "launches_operator": op["launches"]["fused_adam"],
+        # phase 17: over the scheduler's three soaks
+        "launches_sched": sched["launches"]["fused_adam"],
         "max_abs_err": k3["err"],
         "max_abs_err_dp": dp_kernels["k3"]["err"],
         "ms": k3["ms"],

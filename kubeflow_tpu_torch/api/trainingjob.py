@@ -530,11 +530,8 @@ class SchedulingPolicy:
     block is SCHEDULER-MANAGED: the operator creates no pods until the
     scheduler writes the slice binding annotation (the job sits in a
     visible ``Queued`` condition instead of half-creating a gang). A job
-    without the block keeps the legacy admission==placement path.
-    Parsed here as the JAX package parses it; the slice scheduler is not
-    in this package yet (ROADMAP item 19), so the port's reconciler
-    fails a job that carries the block instead of leaving it waiting for
-    a binding nobody writes."""
+    without the block keeps the legacy admission==placement path. The
+    slice scheduler (``scheduler/core.py``) writes the binding."""
 
     # scheduler queue this job submits to ("" = the default queue);
     # quotas are enforced per (queue, namespace) — scheduler/queue.py
@@ -556,6 +553,12 @@ class SchedulingPolicy:
     # spec shape; both None = fixed-shape (the pre-elastic contract).
     min_chips: Optional[int] = None
     max_chips: Optional[int] = None
+
+    ENV_QUEUE = "KFTPU_SCHED_QUEUE"
+    ENV_PRIORITY = "KFTPU_SCHED_PRIORITY"
+    ENV_PREEMPTIBLE = "KFTPU_SCHED_PREEMPTIBLE"
+    ENV_MIN_CHIPS = "KFTPU_SCHED_MIN_CHIPS"
+    ENV_MAX_CHIPS = "KFTPU_SCHED_MAX_CHIPS"
 
     @property
     def elastic(self) -> bool:
@@ -608,6 +611,22 @@ class SchedulingPolicy:
             d["maxChips"] = self.max_chips
         return d
 
+    def to_env(self) -> dict[str, str]:
+        """Rendered into every worker pod: informational for the queue
+        name/priority and the elastic bounds, behavioral for preemptible
+        (the worker's SIGTERM handler knows a reclaim is a requeue, not
+        a failure)."""
+        env = {
+            self.ENV_QUEUE: self.queue or DEFAULT_QUEUE,
+            self.ENV_PRIORITY: str(self.priority),
+            self.ENV_PREEMPTIBLE: "1" if self.preemptible else "0",
+        }
+        if self.min_chips is not None:
+            env[self.ENV_MIN_CHIPS] = str(self.min_chips)
+        if self.max_chips is not None:
+            env[self.ENV_MAX_CHIPS] = str(self.max_chips)
+        return env
+
     @classmethod
     def from_dict(cls, d: Optional[dict]) -> Optional["SchedulingPolicy"]:
         """None (absent block) = NOT scheduler-managed — the distinction
@@ -633,6 +652,27 @@ class SchedulingPolicy:
         policy.validate()
         return policy
 
+
+# the queue a schedulingPolicy without an explicit queue submits to
+DEFAULT_QUEUE = "default"
+
+# Slice-binding contract between the gang scheduler and the operator
+# (scheduler/core.py writes, controllers/tpujob.py consumes): the binding
+# annotation carries the JSON placement (per-slice pool + node-row run,
+# scheduler/inventory.py Placement wire format). A scheduler-managed job
+# WITHOUT the annotation is queued — the operator creates no pods for it.
+BINDING_ANNOTATION = "scheduling.kubeflow.org/binding"
+# scheduler-visible state for dashboards/kubectl: queued | bound | preempted
+SCHED_STATE_ANNOTATION = "scheduling.kubeflow.org/state"
+# human-readable reason a job is still queued (quota, capacity, ...)
+SCHED_REASON_ANNOTATION = "scheduling.kubeflow.org/reason"
+# times this job's gang was preempted (reclaimed, not failed)
+PREEMPTED_COUNT_ANNOTATION = "scheduling.kubeflow.org/preempted-count"
+# Elastic-resize event history (scheduler/core.py writes): a JSON list of
+# {"time", "fromChips", "toChips", "reason"} records, newest last, capped
+# — the audit trail of every shrink / grow / defrag migration the
+# scheduler applied to this gang's binding.
+RESIZE_HISTORY_ANNOTATION = "scheduling.kubeflow.org/resize-history"
 
 # Node-health contract between the operator (evidence writer) and the
 # scheduler (policy actor) — scheduler/health.py owns the parse/fold

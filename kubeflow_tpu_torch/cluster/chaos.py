@@ -15,6 +15,10 @@ The parts of ``kubeflow_tpu/cluster/chaos.py`` the port needs:
   around real training segments, each a call of the port's
   ``runtime.worker.train`` on the soak's device with the env the
   reconciler rendered into the chief pod;
+- the host-pinned faults the scheduler soaks (``scheduler/soak.py``)
+  drive: ``HostFault`` (a flaky node on which every gang pod dies, for a
+  budget of trips) and ``CapacityLoss`` (the device plugin losing half
+  of one node's GPUs, and getting them back);
 - the corruptors a chaos drill applies to a checkpoint directory between
   training segments (a truncated payload file under a committed step, a
   step whose commit marker is gone) and ``final_params``, which restores
@@ -232,6 +236,105 @@ def final_params(checkpoint_dir: str, device="cuda") -> dict:
         return mgr.restore_params(device=device)
     finally:
         mgr.close()
+
+
+# ------------------------------------------------- host-pinned faults
+
+
+@dataclass
+class HostFault:
+    """A RECURRING fault pinned to one node — the failure class the
+    node-health subsystem (scheduler/health.py) exists for. It fails one
+    gang pod running on its node each time it fires, until its ``trips``
+    budget runs out: a flaky node crash-loops every gang placed on it,
+    however many times the operator restarts the gang — only migrating
+    OFF the node (the suspect/quarantine path) or exhausting the budget
+    (the node "recovers") ends the loop."""
+
+    node: str
+    trips: int = 3
+    fired: int = 0
+
+    def maybe_fire(self, cluster, namespace: str) -> Optional[str]:
+        """Fail the first Running pod on the node, if any and the trips
+        budget allows; returns the victim pod name."""
+        if self.fired >= self.trips:
+            return None
+        pods = sorted(
+            (p for p in cluster.list("v1", "Pod", namespace)
+             if p.get("spec", {}).get("nodeName") == self.node
+             and p.get("status", {}).get("phase") == "Running"),
+            key=k8s.name_of)
+        if not pods:
+            return None
+        victim = k8s.name_of(pods[0])
+        self.fired += 1
+        cluster.fail_pod(namespace, victim, f"chaos: flaky node {self.node}")
+        log.info("chaos: host fault on %s: %s failed (trip %d/%d)",
+                 self.node, victim, self.fired, self.trips)
+        return victim
+
+
+@dataclass
+class CapacityLoss:
+    """GPUs dropping off one node mid-run: the device plugin reports
+    ``keep`` of them allocatable (half of an 8-GPU node by default) and
+    the gang pods on the lost GPUs fail. The inventory carves the lost
+    GPUs down, so a binding covering them invalidates: the failure class
+    elastic shrink-to-survive exists for (scheduler/core.py — a gang
+    with no same-size run left re-binds DEGRADED instead of starving).
+    ``restore()`` reports every GPU again, which is what grow-to-fill
+    recovers into. A gang pod's GPU is its slice's first GPU plus its
+    index in the slice (the ``scheduling.kubeflow.org/slice`` run the
+    operator stamps); a pod without one is counted in name order."""
+
+    node: str
+    keep: int = 4
+    _total: Optional[int] = field(default=None, repr=False)
+
+    def fire(self, cluster, namespace: str = "") -> list[str]:
+        """Lower the node's allocatable GPUs to ``keep`` and fail the
+        live pods of the lost ones; returns the failed pod names."""
+        import json as _json
+
+        from ..controllers.tpujob import SLICE_ANNOTATION
+        from .fake import GPU_RESOURCE
+        node = cluster.get("v1", "Node", "", self.node)
+        self._total = int(k8s.parse_quantity(
+            node["status"]["allocatable"][GPU_RESOURCE]))
+        cluster.set_node_gpus(self.node, self.keep)
+        live = sorted(
+            (p for p in cluster.list("v1", "Pod", namespace or None)
+             if p.get("spec", {}).get("nodeName") == self.node
+             and p.get("status", {}).get("phase") in ("Pending",
+                                                      "Running")),
+            key=k8s.name_of)
+        failed = []
+        for n, pod in enumerate(live):
+            gpu = n
+            raw = k8s.annotations_of(pod).get(SLICE_ANNOTATION)
+            if raw:
+                rect = _json.loads(raw)
+                index = int(k8s.labels_of(pod).get(
+                    "kubeflow.org/replica-index", 0))
+                gpu = int(rect["y"]) + index % int(rect["w"])
+            if gpu >= self.keep:
+                cluster.fail_pod(k8s.namespace_of(pod), k8s.name_of(pod),
+                                 f"chaos: GPU {gpu} of {self.node} lost")
+                failed.append(k8s.name_of(pod))
+        log.info("chaos: capacity loss — node %s down to %d GPUs",
+                 self.node, self.keep)
+        return failed
+
+    def restore(self, cluster) -> bool:
+        """Report every GPU again (the GPUs came back, or were
+        replaced)."""
+        if self._total is None:
+            return False
+        cluster.set_node_gpus(self.node, self._total)
+        self._total = None
+        log.info("chaos: capacity restored — node %s is whole", self.node)
+        return True
 
 
 # fault kinds the soak can inject between training segments

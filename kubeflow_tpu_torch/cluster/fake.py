@@ -10,8 +10,10 @@ Modeled behavior:
 - Watches (queue-based), delivered synchronously on mutation.
 - Owner-reference cascade deletion (background GC semantics).
 - Nodes with allocatable resources, incl. the GPU extended resource
-  ``nvidia.com/gpu`` and the ``nvidia.com/gpu.product`` label NVIDIA's
-  GPU feature discovery writes (``add_gpu_nodes``).
+  ``nvidia.com/gpu``, the ``nvidia.com/gpu.product`` label NVIDIA's
+  GPU feature discovery writes and ``kubernetes.io/hostname``
+  (``add_gpu_nodes``); ``set_node_gpus`` lowers and restores a node's
+  allocatable GPUs, as a device plugin does when GPUs drop off the bus.
 - A scheduler that binds Pending pods to nodes; pods labeled with a pod-group
   (``scheduling.kubeflow.org/pod-group``) bind **all-or-nothing**: no pod of
   the group binds until every pod of the group fits simultaneously (the
@@ -255,17 +257,28 @@ class FakeCluster(KubeClient):
     def add_gpu_nodes(self, topology_name: str, pool: str = "gpu-pool",
                       product: Optional[str] = None) -> list[dict]:
         """Provision the node of one GPU slice (a slice is the GPUs of one
-        node): ``nvidia.com/gpu`` allocatable and the product label GPU
-        feature discovery writes. ``product`` defaults to the
+        node), ``<pool>-<topology>-0``: ``nvidia.com/gpu`` allocatable,
+        the product label GPU feature discovery writes, the pool label
+        and ``kubernetes.io/hostname``. ``product`` defaults to the
         generation's; a device name (``NVIDIA H100 80GB HBM3``) is
         labeled the way discovery labels it, spaces as dashes."""
         from ..api.topology import parse_topology
         topo = parse_topology(topology_name)
         label = (product or topo.generation.product).strip().replace(" ", "-")
+        name = f"{pool}-{topo.name}-0"
         return [self.add_node(
-            f"{pool}-{topo.name}-0",
+            name,
             {GPU_RESOURCE: topo.num_gpus, "cpu": 96, "memory": 2 ** 40},
-            labels={GPU_PRODUCT_LABEL: label, "kubeflow.org/pool": pool})]
+            labels={GPU_PRODUCT_LABEL: label, "kubeflow.org/pool": pool,
+                    "kubernetes.io/hostname": name})]
+
+    def set_node_gpus(self, name: str, gpus: int) -> dict:
+        """Set a node's allocatable ``nvidia.com/gpu`` (the device plugin
+        reporting fewer GPUs, or all of them again)."""
+        node = self.get("v1", "Node", "", name)
+        node.setdefault("status", {}).setdefault(
+            "allocatable", {})[GPU_RESOURCE] = gpus
+        return self.update_status(node)
 
     # ------------------------------------------------------------- scheduler
 

@@ -26,13 +26,16 @@ Semantics (the JAX package's, kept):
   numeric anomaly (LKG rollback) restart it too.
 - **Success.** Process-0 ("chief") pod success completes the job;
   remaining pods are cleaned per cleanPodPolicy.
-- **Conditions.** Created/Running/Restarting/Succeeded/Failed, mirroring
-  tf-operator's JobCondition vocabulary.
-
-Not here yet: the slice scheduler's paths (a binding annotation, elastic
-resizes, warm pods). A job with ``spec.schedulingPolicy`` is failed with
-a condition that names ROADMAP item 19, instead of waiting for a binding
-nobody writes.
+- **Conditions.** Queued/Created/Running/Restarting/Succeeded/Failed,
+  mirroring tf-operator's JobCondition vocabulary.
+- **Scheduler-managed jobs** (``spec.schedulingPolicy``) create nothing
+  until the slice scheduler (``scheduler/core.py``) writes the binding
+  annotation; until then the job is Queued. A bound gang's pods pin to
+  the binding's pool and to the node of its row (one slice is one node).
+  A removed binding (preemption, an evacuated suspect, lost GPUs) tears
+  the gang down and sets ``resumeFrom``; an elastic binding of another
+  shape restarts the gang at that shape; a binding that names warm-pod
+  slots adopts them.
 """
 
 from __future__ import annotations
@@ -50,12 +53,14 @@ from ..api.topology import TopologyContract, render_contracts
 from ..api.trainingjob import (ANOMALY_ANNOTATION,
                                ANOMALY_COUNT_ANNOTATION,
                                ANOMALY_ROLLBACK_ANNOTATION, API_VERSIONS,
-                               COND_CREATED, COND_FAILED,
+                               COND_CREATED, COND_FAILED, COND_QUEUED,
                                COND_RESTARTING, COND_RUNNING, COND_SUCCEEDED,
                                CLEAN_POD_ALL, CLEAN_POD_NONE,
                                CLEAN_POD_RUNNING, HEARTBEAT_ANNOTATION,
                                JOB_KINDS, POD_FAILED,
                                POD_RUNNING, POD_SUCCEEDED,
+                               PREEMPTED_COUNT_ANNOTATION,
+                               SCHED_REASON_ANNOTATION, SUSPECT_ANNOTATION,
                                ReplicaSpec, TrainingJob)
 from ..cluster.client import (KubeClient, NotFoundError, apply_annotations,
                               update_with_conflict_retry)
@@ -63,7 +68,9 @@ from ..cluster.fake import GPU_PRODUCT_LABEL, GPU_RESOURCE, POD_GROUP_LABEL
 from ..obs import registry as obsreg
 from ..obs.trace import (SPAN_MAX_BYTES_ENV, SPAN_PATH_ENV,
                          TRACE_ID_ANNOTATION, TRACE_ID_ENV)
-from ..scheduler import health
+from ..scheduler import health, warmpool
+from ..scheduler.inventory import (HOSTNAME_LABEL, POOL_LABEL, Placement,
+                                   SliceInventory, SliceRect)
 from .runtime import (Key, Reconciler, Result, ensure_trace_id,
                       trace_job_event)
 
@@ -97,9 +104,8 @@ REPLICA_INDEX_LABEL = "kubeflow.org/replica-index"
 DEFAULT_PORT = 2222
 # the process group's rendezvous port on the coordinator pod
 COORD_PORT = 8476
-# the ROADMAP item that brings the slice scheduler (queue, placement,
-# bindings, elastic resizes, warm pods) into this package
-SCHEDULER_ITEM = "ROADMAP item 19"
+# the slice-scheduler binding's run, on every pod of a bound slice
+SLICE_ANNOTATION = "scheduling.kubeflow.org/slice"
 
 
 def _replica_pod_name(job: TrainingJob, rtype: str, index) -> str:
@@ -166,11 +172,25 @@ class TrainingJobReconciler(Reconciler):
             return self._handle_finished(client, job, manifest)
 
         # Scheduler-managed jobs (spec.schedulingPolicy present) create
-        # nothing until the slice scheduler writes a binding — and this
-        # package has no slice scheduler yet, so such a job would wait
-        # forever: fail it with the reason instead
-        if job.scheduling_policy is not None:
-            return self._refuse_scheduling_policy(client, job, manifest)
+        # NOTHING until the slice scheduler writes the binding annotation:
+        # admission is no longer placement. Unbound jobs sit in a visible
+        # Queued condition; a binding REMOVED mid-run (preemption, or a
+        # reshape invalidating it) tears the gang down through the
+        # graceful path and re-queues — never a failure.
+        binding = self._slice_binding(job, manifest)
+        if job.scheduling_policy is not None and job.gpu_spec is not None \
+                and binding is None:
+            return self._handle_unbound(client, job, manifest)
+        if binding is not None:
+            # Elastic resize: the binding's shape IS the gang's shape.
+            # A scheduler resize rewrites the binding to a different
+            # topology inside the job's [minChips, maxChips] envelope;
+            # adopting it here makes every downstream consumer — pod
+            # entries, topology contracts, KFTPU_SHARDING, the gang
+            # fingerprint — render the RESIZED gang, and the
+            # fingerprint mismatch below restarts the old-shape gang
+            # through the graceful GangResized path.
+            job = self._job_at_binding_shape(job, binding)
 
         pods = client.list("v1", "Pod", namespace, selector=job.selector())
         by_name = {k8s.name_of(p): p for p in pods}
@@ -215,14 +235,18 @@ class TrainingJobReconciler(Reconciler):
                        if rs.is_gpu}
         gpu_names = [n for entries in gpu_entries.values()
                      for n, _ in entries]
-        shape = self._gang_shape(job)
+        shape = self._gang_shape(job, binding)
         shape_anno = k8s.annotations_of(manifest).get(GANG_SHAPE_ANNOTATION)
         if gpu_names and k8s.condition_true(manifest, COND_CREATED) \
                 and not k8s.condition_true(manifest, COND_RESTARTING):
-            if shape_anno is not None and shape_anno != shape:
-                # spec RESIZE/RESHAPE (numSlices/topology changed): the
-                # old shape is baked into every survivor's KFTPU_* env,
-                # so the gang restarts on the new one — deliberately, without
+            if shape_anno is not None and \
+                    self._shape_changed(shape_anno, shape):
+                # spec RESIZE/RESHAPE (numSlices/topology changed), an
+                # elastic scheduler resize (the adopted binding shape
+                # changed), or a defrag migration (same shape, new
+                # runs): the old shape/placement is baked into every
+                # survivor's KFTPU_* env and node pinning, so the gang
+                # restarts on the new one — deliberately, without
                 # burning backoff budget (an operator action, not a
                 # failure). No by_name guard: even with every pod already
                 # gone this path must run so resumeFrom is set.
@@ -248,18 +272,23 @@ class TrainingJobReconciler(Reconciler):
                 return Result(requeue_after=wait)
 
         created = self._ensure_pods(client, job, manifest, by_name,
-                                    gpu_entries)
+                                    gpu_entries, binding=binding)
         if created:
             if gpu_names and shape_anno != shape:
-                # conflict-safe: another writer may land on this same
-                # object concurrently — a stale-read update here must
-                # re-read, not clobber (cluster/client.py)
+                # conflict-safe: the scheduler writes bindings/state on
+                # this same object concurrently — a stale-read update
+                # here must re-read, not clobber (cluster/client.py)
                 manifest = update_with_conflict_retry(
                     client, *k8s.key_of(manifest),
                     lambda obj: apply_annotations(
                         obj, {GANG_SHAPE_ANNOTATION: shape}))
             self._set_condition(client, manifest, COND_CREATED, "True",
                                 "JobCreated", f"created {created} pods")
+            if binding is not None:
+                # the queue wait is over: the gang exists on its slices
+                self._set_condition(client, manifest, COND_QUEUED, "False",
+                                    "Bound",
+                                    "slice binding present; gang created")
             # the intentional-gap marker is consumed: the gang exists again
             if k8s.condition_true(manifest, COND_RESTARTING):
                 self._set_condition(client, manifest, COND_RESTARTING,
@@ -401,16 +430,61 @@ class TrainingJobReconciler(Reconciler):
 
     # ---------------------------------------------------- slice scheduling
 
-    def _refuse_scheduling_policy(self, client: KubeClient,
-                                  job: TrainingJob, manifest: dict) -> Result:
-        """Fail a scheduler-managed job: its pods wait for a slice
-        binding the slice scheduler writes, and that scheduler is not in
-        this package yet. Nothing was created, so nothing is cleaned."""
+    @staticmethod
+    def _slice_binding(job: TrainingJob,
+                       manifest: dict) -> Placement | None:
+        """The scheduler's placement for this job, or None when unbound.
+        A binding whose shape no longer matches the spec (resize under
+        it) reads as unbound: creating a gang on a stale placement would
+        double-book GPUs the scheduler has already re-planned. Parse +
+        shape check are the scheduler's own (scheduler/queue.py), so the
+        two sides of the annotation contract cannot drift."""
+        from ..scheduler.queue import binding_matches, binding_of
+        placement = binding_of(manifest)
+        if placement is None or not binding_matches(placement, job):
+            return None
+        return placement
+
+    def _handle_unbound(self, client: KubeClient, job: TrainingJob,
+                        manifest: dict) -> Result:
+        """A scheduler-managed job without a binding: tear down whatever
+        gang exists (preemption reclaim — the graceful delete path gives
+        workers SIGTERM → forced checkpoint → exit 75) and surface a
+        Queued condition. No backoff budget is burned: a preemption is a
+        requeue, not a failure."""
+        pods = client.list("v1", "Pod", job.namespace,
+                           selector=job.selector())
+        anns = k8s.annotations_of(manifest)
+        preempted = int(anns.get(PREEMPTED_COUNT_ANNOTATION, "0")) > 0
+        if pods:
+            for p in pods:
+                try:
+                    client.delete("v1", "Pod",
+                                  k8s.namespace_of(p, job.namespace),
+                                  k8s.name_of(p))
+                except NotFoundError:
+                    pass
+            if job.checkpoint_dir and not job.resume_from:
+                # same resume loop as a gang restart: the re-bound gang
+                # continues from the forced preemption checkpoint.
+                # Conflict-safe RMW: the scheduler is rewriting this
+                # object's annotations in the same window
+
+                def _set_resume(obj: dict, ckpt=job.checkpoint_dir):
+                    if obj.setdefault("spec", {}).get("resumeFrom"):
+                        return None   # already set by a sibling path
+                    obj["spec"]["resumeFrom"] = ckpt
+                    return obj
+                update_with_conflict_retry(client, *k8s.key_of(manifest),
+                                           _set_resume)
+            self._set_condition(client, manifest, COND_RUNNING, "False",
+                                "Preempted" if preempted else "Unbound",
+                                "gang torn down; awaiting re-bind")
+        reason = "Preempted" if preempted else "AwaitingBinding"
+        detail = anns.get(SCHED_REASON_ANNOTATION, "")
         self._set_condition(
-            client, manifest, COND_FAILED, "True", "SchedulerNotPorted",
-            f"spec.schedulingPolicy needs the slice scheduler, which is "
-            f"not ported yet ({SCHEDULER_ITEM}); drop the block to run "
-            f"the gang without it")
+            client, manifest, COND_QUEUED, "True", reason,
+            detail or "waiting for the slice scheduler to bind this gang")
         return Result()
 
     # ------------------------------------------------------------- children
@@ -447,27 +521,103 @@ class TrainingJobReconciler(Reconciler):
                 for c in contracts]
 
     @staticmethod
-    def _gang_shape(job: TrainingJob) -> str:
+    def _job_at_binding_shape(job: TrainingJob,
+                              binding: Placement) -> TrainingJob:
+        """The job with its GPU replica spec swapped to the BINDING's
+        shape (elastic resize: the scheduler may bind a shape other
+        than the spec's nominal one, inside the minChips/maxChips
+        envelope — _slice_binding already validated the envelope via
+        binding_matches). Identity when the shapes agree."""
+        import dataclasses
+
+        from ..api.topology import parse_topology
+        gpu = job.gpu_spec
+        if gpu is None or gpu.topology is None:
+            return job
+        if binding.topology == gpu.topology.name \
+                and binding.num_slices == gpu.num_slices:
+            return job
+        try:
+            topo = parse_topology(binding.topology)
+        except ValueError:
+            return job
+        specs = dict(job.replica_specs)
+        specs["GPU"] = dataclasses.replace(
+            gpu, topology=topo, num_slices=binding.num_slices)
+        return dataclasses.replace(job, replica_specs=specs)
+
+    @staticmethod
+    def _shape_changed(shape_anno: str, shape: str) -> bool:
+        """Whether the persisted fingerprint and the computed one name
+        DIFFERENT gangs. An annotation without the "@runs" suffix
+        (written before the gang was bound) matches on the shape part
+        alone: a binding appearing under a running unmanaged gang must
+        not restart it."""
+        if shape_anno == shape:
+            return False
+        if "@" not in shape_anno and shape.split("@", 1)[0] == shape_anno:
+            return False
+        return True
+
+    @staticmethod
+    def _gang_shape(job: TrainingJob,
+                    binding: Placement | None = None) -> str:
         """Shape fingerprint of the GPU replicas (topology×slices per
-        replica type): the value behind GANG_SHAPE_ANNOTATION."""
-        return ";".join(
+        replica type): the value behind GANG_SHAPE_ANNOTATION. With a
+        binding, the PLACEMENT rides in the fingerprint too: a
+        scheduler defrag migration moves the gang without changing its
+        size, and the running pods (pinned to the old node and GPUs)
+        must still restart onto the new cells."""
+        shape = ";".join(
             f"{rtype}:{rs.topology.name}x{rs.num_slices}"
             for rtype, rs in sorted(job.replica_specs.items())
             if rs.is_gpu and rs.topology is not None)
+        if binding is not None and binding.slices:
+            runs = ",".join(
+                f"{r.pool}:{r.x}.{r.y}.{r.h}x{r.w}"
+                for r in binding.slices)
+            shape += f"@{runs}"
+        return shape
 
     def _ensure_pods(self, client: KubeClient, job: TrainingJob,
                      manifest: dict, existing: dict[str, dict],
-                     gpu_entries: dict[str, list]) -> int:
+                     gpu_entries: dict[str, list],
+                     binding: Placement | None = None) -> int:
+        # slice_id -> assigned run (the scheduler's placement order IS
+        # the slice order), and each run's node: one slice is one node
+        slice_rects = {i: r for i, r in
+                       enumerate(binding.slices)} if binding else {}
+        node_at = SliceInventory.from_nodes(
+            client.list("v1", "Node")).node_at if slice_rects else {}
+        # warm-pod adoption: the binding names the pre-initialized pods
+        # this placement covers (scheduler stamps warmHosts at bind
+        # time); retire them and mark the gang warm-started BEFORE the
+        # cold-create below — rebinds, elastic resizes, and preemption
+        # re-binds all come through here, which is exactly the point
+        adopted = self._adopt_warm_pods(client, binding) \
+            if binding is not None and binding.warm_hosts else []
         created = 0
         for rtype, rs in job.replica_specs.items():
             if rs.is_gpu:
                 # all-or-nothing create: build every missing member first,
                 # then emit the whole set (never a partial gang)
-                gang_pods = [
-                    self._build_gpu_pod(job, manifest, rs, c, pname)
-                    for pname, c in gpu_entries[rtype]
-                    if pname not in existing]
+                gang_pods = []
+                for pname, c in gpu_entries[rtype]:
+                    if pname in existing:
+                        continue
+                    rect = slice_rects.get(c.slice_id)
+                    node = node_at.get((rect.pool, rect.x), "") \
+                        if rect is not None else ""
+                    gang_pods.append(self._build_gpu_pod(
+                        job, manifest, rs, c, pname, rect=rect,
+                        node=node))
                 for pod in gang_pods:
+                    if adopted:
+                        pod["metadata"]["annotations"][
+                            warmpool.ADOPTED_ANNOTATION] = \
+                            json.dumps(adopted)
+                        self._add_env(pod,
+                                      {warmpool.WARM_START_ENV: "1"})
                     client.create(pod)
                     created += 1
             else:
@@ -479,6 +629,34 @@ class TrainingJobReconciler(Reconciler):
                         job, manifest, rs, rtype, i, pname))
                     created += 1
         return created
+
+    def _adopt_warm_pods(self, client: KubeClient,
+                         binding: Placement) -> list[dict]:
+        """Retire the warm pods of the slots the binding's warmHosts
+        name; returns the slots with at least one live pod (a slot whose
+        pods are gone — raced away by another bind, or never created —
+        degrades to a plain cold create, never an error)."""
+        slots = {(w["pool"], int(w["host"])) for w in binding.warm_hosts}
+        retired: set = set()
+        for pod in warmpool.list_warm_pods(client):
+            key = warmpool.slot_of(pod)
+            if key is None or key[:2] not in slots:
+                continue
+            try:
+                client.delete("v1", "Pod", warmpool.WARM_POOL_NAMESPACE,
+                              k8s.name_of(pod))
+            except NotFoundError:
+                continue
+            retired.add(key[:2])
+        adopted = [{"pool": w["pool"], "host": int(w["host"])}
+                   for w in binding.warm_hosts
+                   if (w["pool"], int(w["host"])) in retired]
+        if adopted:
+            obsreg.counter(
+                "kftpu_warm_pod_adoptions_total",
+                "gang creations that adopted a pre-initialized warm "
+                "pod instead of cold-creating").inc(len(adopted))
+        return adopted
 
     def _base_pod(self, job: TrainingJob, manifest: dict, rs: ReplicaSpec,
                   name: str, rtype: str, index: str) -> dict:
@@ -543,6 +721,12 @@ class TrainingJobReconciler(Reconciler):
             # spec.weightUpdate → the worker's ZeRO-2 weight-update knob
             # (runtime/worker.py reads it into TrainStepBuilder)
             env["KFTPU_WEIGHT_UPDATE"] = job.weight_update
+        if job.scheduling_policy is not None:
+            # spec.schedulingPolicy → KFTPU_SCHED_{QUEUE,PRIORITY,
+            # PREEMPTIBLE}: queue/priority are informational (logs,
+            # metrics labels); preemptible tells the SIGTERM handler a
+            # reclaim is a requeue, not a crash
+            env.update(job.scheduling_policy.to_env())
         # spec.input → the overlapped-input-pipeline knobs: augment
         # worker processes (KFTPU_INPUT_WORKERS) and device prefetch
         # depth (KFTPU_DEVICE_PREFETCH) — runtime/worker.py reads them
@@ -633,15 +817,27 @@ class TrainingJobReconciler(Reconciler):
 
     def _build_gpu_pod(self, job: TrainingJob, manifest: dict,
                        rs: ReplicaSpec, contract: TopologyContract,
-                       name: str) -> dict:
+                       name: str, rect: SliceRect | None = None,
+                       node: str = "") -> dict:
         pod = self._base_pod(job, manifest, rs, name, "GPU",
                              str(contract.process_id))
         spec = pod["spec"]
         # GPU placement: the product label GPU feature discovery puts on
         # the node, and one GPU of it — one pod a GPU, as the worker's
         # bootstrap drives one card a rank
-        spec.setdefault("nodeSelector", {}).setdefault(
-            GPU_PRODUCT_LABEL, contract.slice_topology.generation.product)
+        sel = spec.setdefault("nodeSelector", {})
+        sel.setdefault(GPU_PRODUCT_LABEL,
+                       contract.slice_topology.generation.product)
+        if rect is not None:
+            # slice-scheduler binding: pin to the ASSIGNED pool and, since
+            # one slice is one node, to the node of the binding's row;
+            # the run rides along as a pod annotation for operators and
+            # debuggers reading kubectl
+            sel.setdefault(POOL_LABEL, rect.pool)
+            if node:
+                sel.setdefault(HOSTNAME_LABEL, node)
+            pod["metadata"]["annotations"][SLICE_ANNOTATION] = \
+                json.dumps(rect.to_dict())
         for c in spec["containers"]:
             res = c.setdefault("resources", {})
             res.setdefault("limits", {})[GPU_RESOURCE] = 1
@@ -1046,6 +1242,10 @@ class TrainingJobReconciler(Reconciler):
                 directive["replay"] = replay
             updates = {ANOMALY_COUNT_ANNOTATION: str(fresh + 1),
                        ANOMALY_ROLLBACK_ANNOTATION: json.dumps(directive)}
+            if suspect and job.scheduling_policy is not None:
+                # same failure-domain contract as crash restarts: the
+                # scheduler replans the rebind excluding the SDC suspect
+                updates[SUSPECT_ANNOTATION] = suspect
             apply_annotations(obj, updates)
             if job.checkpoint_dir and \
                     not obj.setdefault("spec", {}).get("resumeFrom"):
@@ -1216,6 +1416,12 @@ class TrainingJobReconciler(Reconciler):
             updates: dict = {}
             if count_restart:
                 updates[RESTART_COUNT_ANNOTATION] = str(fresh_restarts + 1)
+            if suspect and job.scheduling_policy is not None:
+                # failure-domain-aware rebind: record the node this
+                # teardown is attributable to; the scheduler replans the
+                # binding EXCLUDING its cells (scheduler/core.py) so the
+                # gang migrates instead of crash-looping in place
+                updates[SUSPECT_ANNOTATION] = suspect
             applied["delay"] = 0.0
             if count_restart and rp.restart_backoff_seconds > 0:
                 # exponential backoff + deterministic jitter (seeded by

@@ -1,9 +1,9 @@
 """Control-plane telemetry: audit accounting and pass-scoped profiling.
 
 The port's copy of what ``cluster/fake.py`` and ``controllers/runtime.py``
-use from ``kubeflow_tpu/obs/controlplane.py`` (the scheduler's phase
-timers, the REST apiserver's header and the bench's reconciliation are
-not here):
+and ``scheduler/core.py`` use from ``kubeflow_tpu/obs/controlplane.py``
+(the REST apiserver's header and the bench's reconciliation are not
+here):
 
 - **One vocabulary, defined once**: the verb, relist-reason and outcome
   literals every layer reports through.
@@ -13,7 +13,8 @@ not here):
   side attributes the same call to the same component.
 - **``ServerAudit``**: the FakeCluster's own request ledger.
 - **``ctrl_pass()``**: a pass-scoped context (the controller's
-  ``process_one``) accumulating request and write counts
+  ``process_one``) accumulating the scheduler's phase timings
+  (``PassContext.phase``), request and write counts
   and the pass's write amplification; it emits a ``ctrl-pass`` span (no-op
   passes sampled 1-in-N, ``KFTPU_CTRL_SPAN_SAMPLE``).
 - ``record_relist`` and ``workqueue_dwell_histogram``: the relist and
@@ -54,6 +55,14 @@ MUTATING_VERBS = frozenset((VERB_CREATE, VERB_UPDATE, VERB_UPDATE_STATUS,
 
 #: kind label for an unfiltered watch (no kind selector)
 KIND_ANY = "*"
+
+PHASE_SNAPSHOT = "snapshot"      # list/read + parse/validate loop
+PHASE_HEALTH = "health-pass"     # node-health fold (scores, quarantines)
+PHASE_PLAN = "plan"              # pure planning (carve_down + plan())
+PHASE_WRITES = "writes"          # applying decisions (binds/preempts/...)
+PHASE_WARM = "warm-pass"         # warm-pool advertisement/reconcile
+PHASES = (PHASE_SNAPSHOT, PHASE_HEALTH, PHASE_PLAN, PHASE_WRITES,
+          PHASE_WARM)
 
 RELIST_INITIAL = "initial"       # informer initial sync (Manager.add)
 RELIST_RESYNC = "resync"         # periodic SyncPeriod relist
@@ -316,13 +325,15 @@ class AuditingKubeClient(KubeClient):
 # -------------------------------------------------------- pass-scoped audit
 
 class PassContext:
-    """Accounting for ONE reconcile pass: request and write counts,
-    distinct objects changed. Created by ctrl_pass();
+    """Accounting for ONE reconcile/plan pass: phase timings, request
+    and write counts, distinct objects changed. Created by ctrl_pass();
     audited clients report into it via the contextvar."""
 
     def __init__(self, component: str):
         self.component = component
         self.started = time.time()
+        #: phase -> accumulated seconds
+        self.phases: dict[str, float] = {}
         #: (verb, kind) -> requests within this pass
         self.requests: dict[tuple, int] = {}
         self.mutating_calls = 0
@@ -343,6 +354,20 @@ class PassContext:
             self.mutating_calls += 1
             if ok and changed_key is not None:
                 self.changed.add(changed_key)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        """Time one phase; re-entry ACCUMULATES (the snapshot phase runs
+        twice in a scheduler pass)."""
+        if name not in PHASES:
+            raise ValueError(f"unknown ctrl phase {name!r}; "
+                             f"vocabulary: {PHASES}")
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.phases[name] = self.phases.get(name, 0.0) + \
+                time.perf_counter() - t0
 
     @property
     def wrote(self) -> bool:
@@ -397,6 +422,13 @@ def _finish_pass(ctx: PassContext, duration: float) -> None:
     obsreg.histogram(
         "kftpu_ctrl_pass_seconds", "wall time of one pass",
         labels=("component",)).labels(component=comp).observe(duration)
+    if ctx.phases:
+        phase_h = obsreg.histogram(
+            "kftpu_ctrl_pass_phase_seconds",
+            "per-phase wall time within one pass",
+            labels=("component", "phase"))
+        for name, sec in ctx.phases.items():
+            phase_h.labels(component=comp, phase=name).observe(sec)
     if ctx.wrote:
         obsreg.counter(
             "kftpu_ctrl_pass_writes_total",

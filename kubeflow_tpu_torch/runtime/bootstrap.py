@@ -128,7 +128,7 @@ def initialize(env: Optional[Mapping[str, str]] = None, device="cuda",
                f"process group holds {world}")
         if strict:
             if owns:
-                dist.destroy_process_group()
+                _abandon_group()
             raise RuntimeError(msg)
         log.warning("%s — falling back to the group's devices", msg)
         sharding = _refit_sharding(sharding, world)
@@ -142,6 +142,22 @@ def initialize(env: Optional[Mapping[str, str]] = None, device="cuda",
         device=dev, process_id=process_id,
         num_processes=contract.num_processes if contract else 1,
         contract=contract, sharding=sharding, mesh=mesh, owns_group=owns)
+
+
+def _abandon_group() -> None:
+    """Tear down a group the strict size check refuses. Every rank
+    refuses alike (the same contract and sharding), so each waits at a
+    barrier first: a rank that destroyed its group while a peer was
+    still inside ``init_process_group`` would close the coordinator's
+    store under that peer. A barrier that fails (a peer already gone)
+    does not stop the teardown. Other failures of the bring-up may be
+    one rank's alone, so they destroy the group at once."""
+    try:
+        dist.barrier()
+    except Exception as e:  # noqa: BLE001 — the refusal is what matters
+        log.warning("refused bring-up: barrier before teardown failed: %s",
+                    e)
+    dist.destroy_process_group()
 
 
 def _refit_sharding(sharding: ShardingSpec,
@@ -162,3 +178,37 @@ def shutdown(ctx: WorkerContext) -> None:
     if ctx.owns_group and dist.is_initialized():
         dist.destroy_process_group()
         ctx.owns_group = False
+
+
+def main(argv=None) -> int:
+    """The warm-pod entrypoint (scheduler/warmpool.py build_warm_pod):
+    ``--prewarm`` brings this pod's card up (its CUDA context) and the
+    kernel build cache, then idles until adopted or retired — bring-up
+    and the cache mount are PAID before a gang lands on this node.
+    SIGTERM (retirement / adoption teardown) exits cleanly."""
+    import argparse
+    p = argparse.ArgumentParser(description="kubeflow-tpu node bootstrap")
+    p.add_argument("--prewarm", action="store_true",
+                   help="bring the card and the build cache up, then idle "
+                        "(the warm-pod pool's pre-initialized state)")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    if not args.prewarm:
+        p.error("nothing to do (did you mean --prewarm?)")
+    from .compile_cache import enable_compilation_cache
+    enable_compilation_cache()
+    ctx = initialize({}, device=args.device)
+    if ctx.device.type == "cuda":
+        torch.cuda.init()
+    log.info("prewarm: card up, cache mounted; idling until adopted")
+    import signal
+    import threading
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+    stop.wait()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

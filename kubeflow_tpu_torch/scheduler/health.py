@@ -13,10 +13,19 @@ the serving fleet use, copied:
   (``record_host_event``); the fleet router (``serving/fleet.py``) folds
   per-replica serving evidence into each replica's circuit breaker with
   its own kinds and weights.
-- **Quarantine and suspect hosts**: the parse of the ``kubeflow.org/
-  quarantine`` node annotation and of the job's suspect-host annotation.
-  The slice scheduler that writes quarantines and replans around a
-  suspect is not in this package yet (ROADMAP item 19).
+- **Quarantine.** When a host's decayed score crosses
+  ``HealthConfig.quarantine_threshold`` the slice scheduler
+  (``scheduler/core.py``) writes the ``kubeflow.org/quarantine``
+  annotation (``quarantine_record``); ``SliceInventory.from_nodes``
+  carves quarantined nodes out of placement. Release is probational
+  (``release_eligible``): expiry passed AND score decayed below
+  ``release_threshold``; ``reason: "manual"`` never auto-releases.
+- **Suspect rebind.** The operator records the node a gang teardown is
+  attributable to in the job's suspect-host annotation; the scheduler
+  replans the binding EXCLUDING that node's cells and clears the
+  annotation on the rebind.
+- **Host ↔ cell mapping.** A host is a node, and node row ``i`` of a
+  pool is its ``host_cells``: one cell a GPU.
 
 The annotation names live in ``api/trainingjob.py``. Stdlib only.
 """
@@ -27,7 +36,7 @@ import json
 import logging
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterable, Optional
 
 from ..api import k8s
 from ..api.trainingjob import (HEALTH_ANNOTATION, QUARANTINE_ANNOTATION,
@@ -77,11 +86,10 @@ STEP_SKEW_FRESH_S = 300.0
 
 @dataclass
 class HealthConfig:
-    """The health policy surface (the ``health`` key of the JAX
-    package's scheduler ConfigMap): the half-life and the quarantine and
-    release thresholds a host's score is read against. The chaos soaks
-    read the quarantine threshold off it; the slice scheduler that acts
-    on it is not in this package yet (ROADMAP item 19)."""
+    """The scheduler's health policy surface (scheduler/queue.py
+    SchedulerConfig carries one).
+    ``enabled=False`` is the placement-blind baseline: no scoring, no
+    quarantine writes, no suspect evacuation."""
 
     enabled: bool = True
     # score half-life: a weight-1 event reads as 0.5 after this long
@@ -208,12 +216,42 @@ def quarantine_of(node: dict) -> Optional[dict]:
                 "until": None, "cordoned": False}
 
 
+def quarantine_record(reason: str, score: float, now: float,
+                      duration_s: Optional[float],
+                      cordoned: bool = False) -> str:
+    """Serialize a quarantine annotation value; ``duration_s=None``
+    means no expiry (manual release only). ``cordoned=True`` records
+    that the writer also cordoned the node (``spec.unschedulable``) —
+    cell carving alone cannot stop the kube scheduler from placing a
+    gang's pods back onto the node by its pool label; the cordon closes
+    that hole."""
+    return json.dumps({
+        "reason": reason, "score": round(score, 6), "since": now,
+        "until": (now + duration_s) if duration_s is not None else None,
+        "cordoned": cordoned})
+
+
 def is_quarantined(node: dict) -> bool:
     """Whether placement must keep off this host NOW. An expired
     quarantine still counts until the scheduler's release pass clears
     the annotation — release is a policy decision (the score must have
     decayed too), not a timer."""
     return quarantine_of(node) is not None
+
+
+def release_eligible(node: dict, cfg: HealthConfig,
+                     now: Optional[float] = None) -> bool:
+    """Probational auto-release: expiry passed AND the decayed score is
+    back under the release threshold. Manual quarantines (or records
+    without an expiry) never auto-release."""
+    now = time.time() if now is None else now
+    q = quarantine_of(node)
+    if q is None or q["reason"] == MANUAL_REASON or q["until"] is None:
+        return False
+    if now < q["until"]:
+        return False
+    return decayed_score(node, now, cfg.half_life_s) <= \
+        cfg.release_threshold
 
 
 # --------------------------------------------------------- suspect hosts
@@ -225,3 +263,35 @@ def suspect_of(manifest: dict) -> Optional[str]:
     (exclude the suspect's cells) and cleared on the rebind."""
     raw = k8s.annotations_of(manifest).get(SUSPECT_ANNOTATION)
     return raw or None
+
+
+# ------------------------------------------------- host <-> cell mapping
+
+
+def host_cells(pool: str, topology,
+               host_index: int) -> Iterable[tuple[str, int, int]]:
+    """The inventory cells one host contributes. A host is a node, and
+    node row ``host_index`` of its pool holds one cell a GPU of the
+    node's ``topology`` (the whole node's slice, ``h100-8``)."""
+    for j in range(topology.num_gpus):
+        yield (pool, host_index, j)
+
+
+def host_sort_key(name: str) -> tuple:
+    """Natural order for node names: the trailing integer sorts
+    numerically ("pool-h100-8-10" after "pool-h100-8-9"), so node rows
+    are stable however many nodes a pool has."""
+    import re
+    m = re.search(r"(\d+)$", name)
+    return (name[:m.start()], int(m.group(1))) if m else (name, -1)
+
+
+def host_name_index(name: str) -> Optional[int]:
+    """The node row a node's NAME claims (its trailing integer — the
+    shape cluster/fake.py add_gpu_nodes produces), or None for
+    unnumbered names. Used by inventory.from_nodes so a DELETED middle
+    node keeps every other node's row fixed: positional assignment would
+    shift every later node one row over and invalidate its bindings."""
+    import re
+    m = re.search(r"(\d+)$", name)
+    return int(m.group(1)) if m else None

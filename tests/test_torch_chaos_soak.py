@@ -24,7 +24,12 @@ collection, the counting of executed steps, the anomaly hand-off) are
 also held to the JAX package's ``ChaosSoak`` and ``SentinelSoak``: both
 packages' soaks run with one stub ``train`` that keeps step directories
 and plays the numeric fault, and their reports and the stub's calls must
-be equal, the accelerator keys left out.
+be equal, the accelerator keys left out. Those loops run on one
+``FakeClock`` each (the ``time`` of both packages' ``cluster/chaos.py``,
+``controllers/runtime.py`` and ``controllers/tpujob.py``): the clock moves
+only when a loop sleeps, so the resync, the restart backoff, the stall
+watchdog and the poll that samples ``Restarting`` see the same times on
+any machine, however loaded.
 """
 
 import os
@@ -186,17 +191,51 @@ class StubTrain:
         return types.SimpleNamespace(steps=end - start, anomaly=anomaly)
 
 
+class FakeClock:
+    """One clock for a soak's run loop and the control plane under it:
+    ``time``, ``monotonic`` and ``perf_counter`` read it, and only
+    ``sleep`` moves it. Patched into a module as its ``time``."""
+
+    def __init__(self, start: float = 1.0e6):
+        self.now = start
+
+    def time(self) -> float:
+        return self.now
+
+    monotonic = perf_counter = time
+
+    def sleep(self, seconds: float) -> None:
+        self.now += max(0.0, float(seconds))
+
+
+#: the modules, in each package, whose clock drives the soaks' loops
+CLOCKED = ("cluster.chaos", "controllers.runtime", "controllers.tpujob")
+
+
+def use_fake_clock(monkeypatch, modules=CLOCKED) -> None:
+    """Give each of ``modules`` of both packages its own fresh
+    ``FakeClock`` per package, so each package's soak starts at the same
+    time."""
+    import importlib
+    for pkg in ("kubeflow_tpu", "kubeflow_tpu_torch"):
+        clock = FakeClock()
+        for mod in modules:
+            monkeypatch.setattr(importlib.import_module(f"{pkg}.{mod}"),
+                                "time", clock)
+
+
 #: report keys that name the accelerator, a path or a wall-clock count
 _REPORT_SKIP = ("chief_pod", "checkpoint_dir", "span_path", "trace_id",
                 "api_calls", "quarantined")
 
 
 def _both(monkeypatch, tmp_path, make_jax, make_port):
-    """Run a JAX soak and a port soak with the stub; return both
-    (report, stub calls)."""
+    """Run a JAX soak and a port soak with the stub, each package on its
+    own fake clock; return both (report, stub calls)."""
     import kubeflow_tpu.runtime.worker as jax_worker
 
     import kubeflow_tpu_torch.runtime.worker as port_worker
+    use_fake_clock(monkeypatch)
     out = []
     for name, mod, make in (("jax", jax_worker, make_jax),
                             ("port", port_worker, make_port)):

@@ -7,8 +7,9 @@ sharing the card (sharded update) against one process, for one step of a
 small LM and of one fused block; the pipelined LM's microbatch shapes,
 two {pipeline 2} ranks sharing the card, the MPMD stages' launches, and
 two {sequence 2} ranks' ring against the gathered sequence's K1;
-kubebench's fused config through ``run_benchmark``; and a worker brought
-up with NCCL from the env the operator rendered into a GPU pod.
+kubebench's fused config through ``run_benchmark``; a worker brought up
+with NCCL from the env the operator rendered into a GPU pod; and the
+slice scheduler's health soak evacuating a flaky node.
 
 Every test here carries the ``gpu`` marker and skips where no card is
 present (decided in the ``cuda_device`` fixture, never at import). The
@@ -1965,3 +1966,35 @@ def test_nccl_comes_up_from_a_rendered_gpu_pod(cuda_device):
     finally:
         bootstrap.shutdown(ctx)
     assert not dist.is_initialized()
+
+
+@pytest.mark.gpu
+def test_health_soak_evacuates_the_flaky_node_on_the_card(cuda_device,
+                                                          tmp_path):
+    """The slice scheduler's health soak on the card (chip_smoke.py phase
+    17c at the tiny LM): the chief trains through K1, K2a, K2b and K3
+    (one launch a layer, and one a step), the flaky node is quarantined
+    after the first crash, the gang is evacuated to pool-b within one
+    rebind, and the final params are the clean run's within 1e-5."""
+    from kubeflow_tpu_torch.cluster.chaos import final_params
+    from kubeflow_tpu_torch.scheduler.soak import HealthSoak
+    run = dict(kernel_attention="flash", kernel_optimizer="fused_adam",
+               optimizer="adam")
+    kernels = (tfa.flash_attention, tfa.flash_attention_bwd_dq,
+               tfa.flash_attention_bwd_dkv, tfo.fused_adam)
+    for k in kernels:
+        k.launches = 0
+    soak = HealthSoak(workdir=str(tmp_path), train_kwargs=run,
+                      total_steps=6)
+    report = soak.run()
+    assert report["outcome"] == "succeeded", report
+    assert (report["fires"], report["rebinds"], report["migrated"],
+            report["flaky_quarantined"]) == (1, 1, True, True)
+    launches = [k.launches for k in kernels]
+    layers = launches[0] // report["executed_steps"]
+    assert layers >= 1 and launches == [
+        layers * report["executed_steps"]] * 3 + [report["executed_steps"]]
+    clean = soak.clean_params()
+    got = final_params(report["checkpoint_dir"])
+    assert got.keys() == clean.keys()
+    assert max(float((got[k] - clean[k]).abs().max()) for k in got) <= 1e-5

@@ -58,7 +58,9 @@ def test_every_module_imports_without_jax():
                  "utils.chips", "katib.suggestion", "api.k8s",
                  "api.trainingjob", "cluster.client", "cluster.fake",
                  "obs.controlplane", "controllers.runtime",
-                 "controllers.tpujob"):
+                 "controllers.tpujob", "scheduler.inventory",
+                 "scheduler.queue", "scheduler.core", "scheduler.warmpool",
+                 "scheduler.soak"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",

@@ -24,8 +24,9 @@
   ``bootstrap.sharding_from_env``, the torch.distributed env consistent
   with ``KFTPU_*``, the contract the JAX package renders for v5e-32.
 - Gang placement: 16 pods stay Pending on one 8-GPU node and bind 8 + 8
-  on two. ``schedulingPolicy`` fails the job (no slice scheduler in this
-  package); a TPU replica is refused at admission.
+  on two. A TPU replica is refused at admission. (A job with
+  ``schedulingPolicy`` waits for the slice scheduler's binding:
+  ``tests/test_torch_sched_operator.py``.)
 """
 
 import json
@@ -371,28 +372,6 @@ def test_a_16_gpu_gang_binds_all_or_nothing():
             p["metadata"]["name"])
     assert sorted(len(v) for v in by_node.values()) == [8, 8]
     assert sorted(by_node) == ["pool-0-h100-8-0", "pool-1-h100-8-0"]
-
-
-def test_scheduling_policy_fails_the_job_naming_the_roadmap_item():
-    cluster = F.FakeCluster()
-    cluster.add_gpu_nodes("h100-8")
-    mgr = R.Manager(cluster)
-    mgr.add(OP.TrainingJobReconciler("TPUJob"))
-    cluster.create({
-        "apiVersion": AV, "kind": "TPUJob",
-        "metadata": {"name": NAME, "namespace": NS},
-        "spec": {"schedulingPolicy": {"queue": "q", "priority": 1},
-                 "replicaSpecs": {"GPU": {"gpuTopology": "h100-8",
-                                          "template": TEMPLATE}}}})
-    mgr.run_pending()
-    cluster.tick()
-    mgr.run_pending()
-    job = cluster.get(AV, "TPUJob", NS, NAME)
-    (cond,) = job["status"]["conditions"]
-    assert (cond["type"], cond["status"], cond["reason"]) == \
-        ("Failed", "True", "SchedulerNotPorted")
-    assert "ROADMAP item 19" in cond["message"]
-    assert cluster.list("v1", "Pod", NS) == []
 
 
 @pytest.mark.parametrize("spec", [
