@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --worker ARGS`` is phase 9's child: the worker
-CLI with the transformer workload at the default LM's widths.)
+CLI with the transformer workload at the default LM's widths and phase
+9's depth.)
 
 Phases, each of which fails the run (nonzero exit, no result line):
 
@@ -158,13 +159,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
              memory; none of these times is a scaling figure.
 9. ckpt    - fault-tolerant training at full width, checkpoints in a temp
              dir removed afterwards. (a) The LM of phase 5 (flash,
-             fused_adam, clip 1.0, batch 8) trains 6 steps through
+             fused_adam, clip 1.0, batch 8) at 2 of its 12 layers
+             (CKPT_LAYERS) trains 6 steps through
              train() with checkpoint_every 2; the worker CLI in a
              subprocess (this script with --worker: the CLI's transformer
-             at the default widths) gets a real SIGTERM from a local stub
+             at the default widths, 2 layers) gets a real SIGTERM from a local stub
              apiserver while its heartbeat reports step 2, and must exit
              75 with step 3 committed and verified; train() resumes it to
-             step 6: 3 steps executed, K1, K2a, K2b 12 launches each and
+             step 6: 3 steps executed, K1, K2a, K2b 2 launches each and
              K3 one a step, and the params within 1e-6 of the largest
              |param| of the uninterrupted run's (0 expected). Prints each
              save's synchronous and to-committed ms, the payload bytes a
@@ -178,7 +180,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
              fault fired) executes 2 steps and ends within the same bar of
              the uninterrupted run. (c)
              ModelRepository.load(checkpoint_dir=...) serves version 6
-             through K1 (12 launches a forward), its logits within 5e-2 of
+             through K1 (2 launches a forward), its logits within 5e-2 of
              the largest logit of an einsum forward of final_params and
              next_token equal; train() saves step 8 and reload() serves
              it. (d) Across a change of degree: two gloo ranks sharing the
@@ -265,10 +267,11 @@ Phases, each of which fails the run (nonzero exit, no result line):
              (obs/goodput.py) books its compile under its start kind
              and sums to its wall clock (categories_sum_ok).
 12. mp     - before phase 11: (a) the MoE LM at the default widths (8
-             experts, top-2, capacity 1.25, aux weight 0.01), flash +
+             experts, top-2, capacity 1.25, aux weight 0.01) and 4 of its
+             12 layers (MOE_LAYERS), flash +
              fused_adam, lr 6e-4, clip 1.0, batch 8 x 2048, 6 steps
              through train() with remat off, then on: launches K1/K2a/
-             K2b 12 and K3 1 a step, K1 24 under remat; the aux loss
+             K2b 4 and K3 1 a step, K1 8 under remat; the aux loss
              finite and > 0; remat's losses equal and params within
              1e-6 of max|param| (0 expected); the first step against
              einsum + stock Adam at batch 2 (phase 5's bars); peak
@@ -318,7 +321,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
              schedule implies; (c) the ring on one layer's chunks against
              the gathered K1 output, and a ring of one launching K1 once.
              (d) The MoE LM of 12a (8 experts, top 2, capacity 1.25)
-             against 12a's first 2 steps: K1/K2a/K2b 12 and K3 1 a rank a
+             against 12a's first 2 steps: K1/K2a/K2b 4 and K3 1 a rank a
              step, the aux loss under the loss bar, and the gathers a step
              exactly (Q/K/V and dO a layer, and one [2, 8, 8] int32 count
              exchange a layer, the capacity positions over the whole
@@ -371,7 +374,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
              one nvidia.com/gpu, the product selector, MASTER_ADDR:
              MASTER_PORT the coordinator, RANK the process id, WORLD_SIZE
              the process count). (b) SentinelSoak: a NaN at step 5 with
-             the LKG step's payload truncated at the trip, 10 steps, then
+             the LKG step's payload truncated at the trip, 8 steps, then
              the clean soak: one anomaly, one rollback, the fallback past
              the corrupt LKG, Succeeded, params within 1e-5. In each soak
              every launch count starts at 0 just before and is read just
@@ -406,6 +409,25 @@ Phases, each of which fails the run (nonzero exit, no result line):
              at 0 just before and is read just after: K1/K2a/K2b 2 and K3
              1 a step executed. Each soak's seconds and its saves' ms to
              committed are printed.
+18. ctrl   - after phase 17, before phase 11: the HA control plane
+             (scheduler/soak.py, cluster/lease.py, cluster/chaos.py
+             ControllerChaos). (a) ControlPlaneSoak around phase 16's LM
+             (full width, 2 of its 12 layers), 8 steps, a save every 2:
+             the operator and the scheduler each two lease-elected
+             replicas (a 0.5 s lease) over their own chaos connections,
+             three operator and two scheduler leaders killed right after
+             a write lands (a pod create, a binding update), two
+             apiserver partitions; Succeeded, max|d param| 0 against
+             16a's clean soak, failovers per role at least its kills, 2
+             partitions and nothing skipped, no pod created twice, no
+             restart-count write lost, no write from a replica that never
+             led, and K1/K2a/K2b 2 and K3 1 a step executed (counts set
+             to 0 just before, read just after). Printed: its seconds,
+             failover_s and its maximum, segments, steps, the saves and
+             their ms, fenced rejections, each lease's transitions against
+             its failovers. (b) split_brain_drill(0.4): the standby
+             steals, the old leader demotes, its write is fenced and never
+             lands, no write after the steal, no pod created twice.
 
 The comm profile (obs/collectives.py) rides the runs of phases 8, 12b,
 13b, 13c and 14: one comm-profile span from rank 0 whose calls and bytes
@@ -3154,6 +3176,10 @@ def phase_dp(T, R, worker, trainstep, bootstrap, collectives, card,
 # -- phase 9: fault-tolerant training -----------------------------------------
 
 CKPT_STEPS, CKPT_EVERY = 6, 2
+# 9a-9c's LM: full width, 2 of its 12 layers (cut from 12 to pay for
+# phase 18: a save of the whole LM's state is 1.63 GB and took ~3 s on the
+# writer thread, one at 2 layers 0.76 GB); 9d keeps phase 8's 12 layers
+CKPT_LAYERS = 2
 # SIGTERM reaches the worker CLI child while it reports step 2, so the
 # stop flag is read at the end of step 3: the forced save is step 3
 SIGTERM_AT_BEAT = 2
@@ -3166,11 +3192,14 @@ RESUME_REL_TOL = 1e-6
 CKPT_TIMEOUT_S = 600
 LM_PER_STEP = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
                "flash_attention_bwd_dkv": 12, "fused_adam": 1}
+CKPT_PER_STEP = {k: 1 if k == "fused_adam" else CKPT_LAYERS
+                 for k in LM_PER_STEP}
 
 
 def worker_cli(argv: list) -> int:
     """Phase 9a's child: the worker CLI (``runtime/worker.py main``) with
-    the transformer workload at the default LM's widths (the CLI's
+    the transformer workload at the default LM's widths and
+    ``CKPT_LAYERS`` layers (the CLI's
     transformer is the tiny config) and a heartbeat at every window edge
     (its rate limit is 10 s), so the parent's stub apiserver sees each
     step and sends SIGTERM while step 2 is reported."""
@@ -3179,7 +3208,8 @@ def worker_cli(argv: list) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from kubeflow_tpu_torch.models import transformer as T
     from kubeflow_tpu_torch.runtime import worker
-    T.TransformerConfig.tiny = classmethod(lambda cls: cls())
+    T.TransformerConfig.tiny = classmethod(
+        lambda cls: cls(num_layers=CKPT_LAYERS))
     from_env = worker.HeartbeatReporter.from_env.__func__
     worker.HeartbeatReporter.from_env = classmethod(
         lambda cls, **kw: from_env(cls, interval_s=0.0, **kw))
@@ -3242,10 +3272,12 @@ def _child_tail(tmp: str, name: str) -> str:
         return f.read()[-4000:]
 
 
-def _lm_ckpt_run(T) -> dict:
-    """The LM of phases 5 and 8 through train(), with checkpoints."""
+def _lm_ckpt_run(T, layers: int = SERVE_LAYERS) -> dict:
+    """The LM of phases 5 and 8 through train(), with checkpoints, at
+    ``layers`` of its layers."""
     return dict(workload="transformer",
-                workload_kwargs={"cfg": T.TransformerConfig()},
+                workload_kwargs={"cfg": replace(T.TransformerConfig(),
+                                                num_layers=layers)},
                 kernel_attention="flash", kernel_optimizer="fused_adam",
                 optimizer="adam", learning_rate=TRAIN_LR,
                 global_batch=TRAIN_BATCH, seed=0, sync_every=1,
@@ -3325,7 +3357,7 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
     in one span file, whose goodput ledger names the checkpoints and the
     replayed steps."""
     import signal
-    run = _lm_ckpt_run(T)
+    run = _lm_ckpt_run(T, CKPT_LAYERS)
     made = _capture_managers(worker)
     clean, pre = os.path.join(tmp, "clean"), os.path.join(tmp, "preempted")
     out = {"launches": {}}
@@ -3333,7 +3365,7 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
         # -- 9a: the uninterrupted run, then SIGTERM and resume -------------
         res, launches = _counted(counters, lambda: worker.train(
             steps=CKPT_STEPS, checkpoint_dir=clean, device=DEVICE, **run))
-        _expect(launches, LM_PER_STEP, CKPT_STEPS, "uninterrupted")
+        _expect(launches, CKPT_PER_STEP, CKPT_STEPS, "uninterrupted")
         out["launches"]["uninterrupted"] = launches
         stats = made[-1].save_stats
         out["save"] = {"steps": [st["step"] for st in stats],
@@ -3421,7 +3453,7 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
             fail(f"ckpt: the resume executed {res.steps} steps")
         out["ledger_9a"] = _ledger_9("9a", spans_a, "smoke-9a", latest,
                                      False)
-        _expect(launches, LM_PER_STEP, res.steps, "resumed")
+        _expect(launches, CKPT_PER_STEP, res.steps, "resumed")
         out["launches"]["resumed"] = launches
         out["restore_ms"] = made[-1].restore_stats[0]["s"] * 1e3
         delta, scale = _param_delta(chaos, clean, pre)
@@ -3476,7 +3508,7 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
         if back.anomaly is not None or back.steps != CKPT_STEPS - LKG_STEP:
             fail(f"ckpt: the rollback run: {back.steps} steps, anomaly "
                  f"{back.anomaly}")
-        _expect(launches, LM_PER_STEP, back.steps, "rollback")
+        _expect(launches, CKPT_PER_STEP, back.steps, "rollback")
         out["launches"]["rollback"] = launches
         out["ledger_9b"] = _ledger_9("9b", spans_b, "smoke-9b", LKG_STEP,
                                      True)
@@ -3495,9 +3527,10 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
         # -- 9c: serving the trainer's checkpoints --------------------------
         repo = ModelRepository()
         served = repo.load("lm", "transformer_lm", checkpoint_dir=clean,
-                           attention="flash", device=DEVICE)
+                           attention="flash", num_layers=CKPT_LAYERS,
+                           device=DEVICE)
         ref = repo.load("lm_ref", "transformer_lm", attention="einsum",
-                        device=DEVICE)
+                        num_layers=CKPT_LAYERS, device=DEVICE)
         ref.swap(chaos.final_params(clean, device=DEVICE), CKPT_STEPS)
         x = np.random.default_rng(9).integers(
             0, SERVE_VOCAB, (1, SERVE_SEQ)).astype(np.int32)
@@ -3514,13 +3547,13 @@ def phase_ckpt(counters, T, worker, ckpt_mod, chaos, sentinel,
             f"directory: K1 {k1} launches a forward; logits against an "
             f"einsum forward of final_params max|d| {err:.4f} of max "
             f"{top:.3f} (bar 5e-2 of it), next_token equal {same}")
-        if served.version != CKPT_STEPS or k1 != SERVE_LAYERS or \
+        if served.version != CKPT_STEPS or k1 != CKPT_LAYERS or \
                 err > 5e-2 * top or not same:
             fail("ckpt: serving from the checkpoint directory")
         res, launches = _counted(counters, lambda: worker.train(
             steps=SERVE_NEXT_STEP, checkpoint_dir=clean, device=DEVICE,
             **run))
-        _expect(launches, LM_PER_STEP, SERVE_NEXT_STEP - CKPT_STEPS,
+        _expect(launches, CKPT_PER_STEP, SERVE_NEXT_STEP - CKPT_STEPS,
                 "serving's trainer")
         reloaded = repo.reload("lm")
         log(f"[ckpt] {card} | the trainer saved step {SERVE_NEXT_STEP}: "
@@ -4676,6 +4709,13 @@ def _aot_check(tmp: str, model: str, arms: dict,
 
 # -- phase 12: the LM on a model-parallel mesh ----------------------------
 
+# 12a's and 14d's MoE LM: full width, 4 of its 12 layers (cut from 12 to
+# pay for phase 18: on {sequence 2} a rank runs every expert over the
+# whole sequence's slots, ~7.5 s a step at 12 layers)
+MOE_LAYERS = 4
+MOE_PER_STEP = {k: 1 if k == "fused_adam" else MOE_LAYERS
+                for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv", "fused_adam")}
 MOE_KW = dict(num_experts=8, moe_top_k=2, moe_capacity_factor=1.25,
               moe_aux_weight=0.01)
 # remat recomputes each block's forward in the backward with the same
@@ -4736,14 +4776,15 @@ def _mp_train(worker, seen, cfg, path: str, **kw) -> dict:
 
 
 def phase_moe(counters, T, worker, trainstep) -> dict:
-    """Phase 12a: the MoE LM at the default widths (12 layers, 8 experts,
-    top-2) through train() in one process, remat off then on: the launch
-    counts (K1 24 a step under remat), the aux loss, remat's losses and
+    """Phase 12a: the MoE LM at the default widths (``MOE_LAYERS`` of its
+    layers, 8 experts, top-2) through train() in one process, remat off
+    then on: the launch counts (K1 twice a layer a step under remat), the
+    aux loss, remat's losses and
     params equal to the run without it, and the first step against
     einsum + stock Adam on the same weights and batch."""
     import tempfile
     seen = _capture_states(worker, trainstep)
-    cfg = _mp_cfg(T, True)
+    cfg = _mp_cfg(T, True, MOE_LAYERS)
     runs, cmp = {}, {}
     try:
         with tempfile.TemporaryDirectory() as tmp:
@@ -4768,9 +4809,8 @@ def phase_moe(counters, T, worker, trainstep) -> dict:
     finally:
         worker.TrainStepBuilder = trainstep.TrainStepBuilder
     torch.cuda.empty_cache()
-    per = {False: {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
-                   "flash_attention_bwd_dkv": 12, "fused_adam": 1}}
-    per[True] = {**per[False], "flash_attention_fwd": 24}
+    per = {False: MOE_PER_STEP}
+    per[True] = {**per[False], "flash_attention_fwd": 2 * MOE_LAYERS}
     tokens = TRAIN_BATCH * SERVE_SEQ
     for remat, rec in runs.items():
         want = {k: v * TRAIN_STEPS for k, v in per[remat].items()}
@@ -5490,7 +5530,8 @@ def _seq_more(worker, T, arm: str, path: str, **kw) -> dict:
     """One of arms d-f on this rank (or, without ``ctx``, in one
     process)."""
     if arm == "moe":
-        return _seq_train(worker, _mp_cfg(T, True), "flash", path, **kw)
+        return _seq_train(worker, _mp_cfg(T, True, MOE_LAYERS), "flash",
+                          path, **kw)
     if arm == "stacked":
         return _pp_train(worker, _pp_cfg(T), path, **kw)
     return _seq_resnet(worker, T, path, **kw)
@@ -5751,12 +5792,13 @@ def _seq_more_checks(r: int, rank: dict, refs: dict, per_step_k45: dict,
     gathered a layer and one count exchange a layer, (e) the gathers
     alone, (f) no gather and one all-reduce a param leaf (the gradient
     sum over the axis); none sends."""
-    per_step = {"moe": LM_PER_STEP, "stacked": LM_PER_STEP,
+    per_step = {"moe": MOE_PER_STEP, "stacked": LM_PER_STEP,
                 "resnet": per_step_k45}
-    gathers = {"moe": (SEQ_GATHERS + SERVE_LAYERS) * SEQ_STEPS,
+    # the MoE LM at MOE_LAYERS: 4 gathers and one count exchange a layer
+    gathers = {"moe": 5 * MOE_LAYERS * SEQ_STEPS,
                "stacked": SEQ_GATHERS * SEQ_STEPS, "resnet": 0}
-    gathered = {"moe": SEQ_STEPS * (SEQ_GATHERS * SEQ_GATHER_BYTES +
-                                    SERVE_LAYERS * SEQ_MOE_COUNT_BYTES),
+    gathered = {"moe": SEQ_STEPS * MOE_LAYERS * (
+                    4 * SEQ_GATHER_BYTES + SEQ_MOE_COUNT_BYTES),
                 "stacked": SEQ_STEPS * SEQ_GATHERS * SEQ_GATHER_BYTES,
                 "resnet": 0}
     kept = {}
@@ -6051,7 +6093,8 @@ def phase_kubebench(T, worker, lm_counters, k45_counters, per_step_k45,
 OP_FAULTS = (("pod-kill", 2), ("api-burst", 3), ("watch-drop", 4),
              ("truncate-ckpt", 5), ("hung-chief", 6))
 OP_STEPS, OP_EVERY = 8, 2
-OP_SENTINEL_STEPS, OP_NAN_AT = 10, 5
+# 16b: 8 steps (10 until phase 18 had to be paid for: one save fewer)
+OP_SENTINEL_STEPS, OP_NAN_AT = 8, 5
 # the soaks' LM: full width, 2 of its 12 layers. A soak's time is its
 # fsynced saves, each waiting for the one before; at 12 layers a save is
 # 1.63 GB and phase 16 took 121.6 s on an H100 host whose disk wrote
@@ -6066,10 +6109,8 @@ OP_PARAM_TOL = 1e-5
 def _op_run(T) -> dict:
     """The soaks' train() recipe: phase 9's LM at ``OP_LAYERS`` layers
     (the soak sets its own checkpoint cadence)."""
-    run = _lm_ckpt_run(T)
+    run = _lm_ckpt_run(T, OP_LAYERS)
     del run["checkpoint_every"]
-    run["workload_kwargs"] = {"cfg": replace(
-        run["workload_kwargs"]["cfg"], num_layers=OP_LAYERS)}
     return run
 
 
@@ -6462,6 +6503,120 @@ def phase_sched(counters, T, worker, chaos, card, clean: dict) -> dict:
     return out
 
 
+
+# -- phase 18: the HA control plane --------------------------------------------
+
+CTRL_STEPS, CTRL_EVERY = OP_STEPS, OP_EVERY   # 16a's clean soak is the bar
+CTRL_OPERATOR_KILLS, CTRL_SCHEDULER_KILLS, CTRL_PARTITIONS = 3, 2, 2
+CTRL_LEASE_S = 0.5           # the reference's soak lease
+CTRL_DRILL_LEASE_S = 0.4
+
+
+def phase_ctrl(counters, T, worker, chaos, card, clean: dict) -> dict:
+    """Phase 18: (a) ``ControlPlaneSoak`` around phase 16's LM: the
+    operator and the scheduler each two lease-elected replicas, three
+    operator and two scheduler leaders killed right after a write lands,
+    two apiserver partitions, while the job trains to Succeeded; held to
+    16a's clean params (``clean``), to the write audit and to one
+    K1/K2a/K2b a layer and one K3 a step executed. (b) the split-brain
+    drill: the partitioned leader is fenced."""
+    import tempfile
+    from kubeflow_tpu_torch.cluster import lease as L
+    soak_mod = importlib.import_module("kubeflow_tpu_torch.scheduler.soak")
+    out: dict = {}
+    t18 = time.perf_counter()
+    # the soak's audit cluster, kept to read its Leases afterwards
+    clusters, real_audit = [], soak_mod._make_audit_cluster
+    soak_mod._make_audit_cluster = \
+        lambda: clusters.append(real_audit()) or clusters[-1]
+    try:
+        with tempfile.TemporaryDirectory(prefix="kftpu-ctrl-") as tmp:
+            report, launches, seconds, saves = _op_soak(
+                counters, lambda: soak_mod.ControlPlaneSoak(
+                    workdir=tmp, device=DEVICE, train_kwargs=_op_run(T),
+                    total_steps=CTRL_STEPS, checkpoint_every=CTRL_EVERY,
+                    operator_kills=CTRL_OPERATOR_KILLS,
+                    scheduler_kills=CTRL_SCHEDULER_KILLS,
+                    partitions=CTRL_PARTITIONS,
+                    lease_duration_s=CTRL_LEASE_S), worker)
+            if report["outcome"] != "succeeded":
+                fail(f"ctrl 18a: {report['outcome']} "
+                     f"({report.get('failed_reason')}); report {report}")
+            executed = report["executed_steps"]
+            _expect(launches, OP_PER_STEP, executed, "ctrl 18a")
+            delta, scale = _sched_params(chaos, report, clean)
+    finally:
+        soak_mod._make_audit_cluster = real_audit
+    (cluster,) = clusters
+    kills = {"operator": CTRL_OPERATOR_KILLS,
+             "scheduler": CTRL_SCHEDULER_KILLS}
+    holders = {}
+    for role, lease in (("operator", L.OPERATOR_LEASE),
+                        ("scheduler", L.SCHEDULER_LEASE)):
+        rec = L.lease_record(cluster.get(L.LEASE_API_VERSION, L.LEASE_KIND,
+                                         "kubeflow", lease))
+        # a change of holder no kill caused: leases that expired while a
+        # segment trained (a segment outlasts the 0.5 s lease) or across
+        # a partition, taken by the other replica
+        holders[role] = {"transitions": rec.transitions,
+                         "failovers": report["failovers"][role],
+                         "unforced": rec.transitions - 1
+                         - report["failovers"][role]}
+    fo = report["failover_s"]
+    log(f"[ctrl] {card} | 18a ControlPlaneSoak: {report['outcome']} in "
+        f"{seconds:.1f}s; injected {report['injected']}; "
+        f"{report['segments']} segments, {executed} steps executed for "
+        f"{CTRL_STEPS}; {len(saves)} saves, ms to committed "
+        f"{[round(v, 1) for v in saves]}; failovers {report['failovers']}, "
+        f"failover_s {fo} (max {max(fo) if fo else None}); partitions "
+        f"{report['partitions']}; gang restarts "
+        f"{report.get('gang_restarts')}; restart-count writes "
+        f"{report['restart_count_writes']}; binding writes "
+        f"{report['binding_writes']}; replicas spawned "
+        f"{report['replicas_spawned']}; fenced rejections "
+        f"{report['fenced_rejections']}; lease holders {holders}; "
+        f"launches {launches}; final params max|d| against 16a's clean "
+        f"soak {delta:.3e} (max|param| {scale:.4f})")
+    checks = {
+        "failovers >= kills": all(report["failovers"][r] >= k
+                                  for r, k in kills.items()),
+        "partitions": report["partitions"] == CTRL_PARTITIONS,
+        "nothing skipped": "skipped" not in report,
+        "no duplicate pod create": report["duplicate_pod_creates"] == 0,
+        "no lost annotation write":
+            report["lost_annotation_writes"] is False,
+        "no never-leader mutation": report["never_leader_mutations"] == 0,
+        "max|d param| 0": delta == 0.0,
+    }
+    if not all(checks.values()):
+        fail(f"ctrl 18a: {[k for k, ok in checks.items() if not ok]} "
+             f"failed; report {report}")
+    out["18a"] = {"seconds": seconds, "saves_ms": saves,
+                  "executed": executed, "segments": report["segments"],
+                  "failovers": report["failovers"], "failover_s": fo,
+                  "fenced_rejections": report["fenced_rejections"],
+                  "holders": holders, "delta": delta}
+    out["launches"] = launches
+    # -- 18b: the split-brain drill --------------------------------------------
+    t0 = time.perf_counter()
+    drill = soak_mod.split_brain_drill(CTRL_DRILL_LEASE_S)
+    drill_s = time.perf_counter() - t0
+    log(f"[ctrl] {card} | 18b split-brain drill ({CTRL_DRILL_LEASE_S} s "
+        f"lease) in {drill_s:.2f}s: {drill}")
+    want = {"stolen_by_standby": True, "old_leader_demoted": True,
+            "fenced_write_rejected": True,
+            "old_leader_writes_after_steal": 0,
+            "zombie_write_landed": False, "doubled_pod_creates": 0}
+    got = {k: drill.get(k) for k in want}
+    if got != want:
+        fail(f"ctrl 18b: the drill {got}")
+    out["18b"] = {"seconds": drill_s,
+                  "fenced_rejections": drill["fenced_rejections"]}
+    out["seconds"] = time.perf_counter() - t18
+    log(f"[ctrl] phase 18 in {out['seconds']:.1f}s (18a {seconds:.1f}s, "
+        f"18b {drill_s:.2f}s); launches over the soak {launches}")
+    return out
+
 def main() -> int:
     sys.path.insert(0, HERE)
     if sys.argv[1:2] == ["--worker"]:
@@ -6645,9 +6800,14 @@ def main() -> int:
                             dev["card"])
         lap("16 operator")
         # phase 17: the slice scheduler
+        clean16 = op.pop("clean_params")
         sched = phase_sched(counters, T, worker, chaos, dev["card"],
-                            op.pop("clean_params"))
+                            clean16)
         lap("17 sched")
+        # phase 18: the HA control plane
+        ctrl = phase_ctrl(counters, T, worker, chaos, dev["card"], clean16)
+        del clean16
+        lap("18 ctrl")
         # phase 11: the AOT ladder, in worker processes
         torch.cuda.empty_cache()
         t11 = time.perf_counter()
@@ -6685,6 +6845,8 @@ def main() -> int:
         "launches_operator": op["launches"]["flash_attention_fwd"],
         # phase 17: over the scheduler's three soaks
         "launches_sched": sched["launches"]["flash_attention_fwd"],
+        # phase 18: over the control-plane soak
+        "launches_ctrl": ctrl["launches"]["flash_attention_fwd"],
         # phase 10, each (launches, forwards): gRPC, routers, the fleet
         "launches_serving_tier": {
             name: [r["launches"], r["forwards"]] if "launches" in r else None
@@ -6719,6 +6881,8 @@ def main() -> int:
         "launches_operator": op["launches"]["flash_attention_bwd_dq"],
         # phase 17: over the scheduler's three soaks
         "launches_sched": sched["launches"]["flash_attention_bwd_dq"],
+        # phase 18: over the control-plane soak
+        "launches_ctrl": ctrl["launches"]["flash_attention_bwd_dq"],
         "max_abs_err": k2["err"]["dq"],
         "max_abs_err_dp": k2["err_dp"]["dq"],
         "max_abs_err_pp": k2["err_mb"]["dq"],
@@ -6745,6 +6909,8 @@ def main() -> int:
         "launches_operator": op["launches"]["flash_attention_bwd_dkv"],
         # phase 17: over the scheduler's three soaks
         "launches_sched": sched["launches"]["flash_attention_bwd_dkv"],
+        # phase 18: over the control-plane soak
+        "launches_ctrl": ctrl["launches"]["flash_attention_bwd_dkv"],
         "max_abs_err": k2["err"]["dkv"],
         "max_abs_err_dp": k2["err_dp"]["dkv"],
         "max_abs_err_pp": k2["err_mb"]["dkv"],
@@ -6771,6 +6937,8 @@ def main() -> int:
         "launches_operator": op["launches"]["fused_adam"],
         # phase 17: over the scheduler's three soaks
         "launches_sched": sched["launches"]["fused_adam"],
+        # phase 18: over the control-plane soak
+        "launches_ctrl": ctrl["launches"]["fused_adam"],
         "max_abs_err": k3["err"],
         "max_abs_err_dp": dp_kernels["k3"]["err"],
         "ms": k3["ms"],

@@ -6,6 +6,11 @@ The parts of ``kubeflow_tpu/cluster/chaos.py`` the port needs:
 - ``ChaosKubeClient``: wraps any KubeClient and injects seeded transient
   faults (``TransientAPIError`` bursts, watch-stream drops) at the client
   surface; the test driver's own helpers pass through un-faulted;
+- the control-plane arm ``ControllerChaos`` (a controller killed right
+  after a write lands, an apiserver partition, a stale watch replay, a
+  hard death) and ``RecordingKubeClient`` (every mutating call a
+  replica makes, Lease renewals aside): the clients of
+  ``scheduler/soak.py`` ``ControlPlaneSoak`` and the split-brain drill;
 - the soaks: ``ChaosSoak`` (pod kill and fail, an API burst, a watch
   drop, a truncated checkpoint, a hung chief) and ``SentinelSoak`` (a
   numeric fault inside the training loop — ``NaNInjector``,
@@ -183,6 +188,230 @@ class ChaosKubeClient(KubeClient):
 
     def __getattr__(self, name):
         # FakeCluster test helpers (tick, fail_pod, set_pod_phase, ...)
+        return getattr(self.inner, name)
+
+
+# ------------------------------------------------- control-plane faults
+# The ControllerChaos arm: faults against the control plane itself. A
+# controller process dying is not a 5xx: its in-memory state (queues,
+# retry counts, first-seen maps) evaporates while its half-finished
+# writes stay in the cluster. These are the seeded kill-points that
+# produce exactly those states.
+
+
+class ControllerCrash(KubeError):
+    """The controller process died. Raised AFTER the triggering write
+    landed (the write is on the wire when the process is killed), and
+    on every call thereafter — a dead process has no connection."""
+
+
+# controller-chaos fault kinds (scheduler/soak.py ControlPlaneSoak menu)
+CTRL_FAULT_KINDS = ("kill-operator", "kill-scheduler",
+                    "apiserver-partition", "stale-watch-rewind")
+
+
+class ControllerChaos(ChaosKubeClient):
+    """ChaosKubeClient plus the control-plane fault menu:
+
+    - ``die_after(op, n)`` — the controller is killed immediately AFTER
+      its nth matching call SUCCEEDS: the write persisted, the process
+      did not. ``die_after("create", 2)`` kills the operator mid-gang-
+      create (service + first pod landed, rest of the gang never
+      created); arming it on the scheduler right before a bind kills it
+      between the binding write and the operator's pod creates.
+    - ``partition(seconds)`` — every call (reads included) raises
+      TransientAPIError until the deadline: the apiserver is on the
+      other side of a network split. Leases cannot renew through it, so
+      a partitioned leader demotes itself (cluster/lease.py).
+    - ``rewind_watch()`` — re-delivers the current state of every object
+      as MODIFIED events carrying a STALE resourceVersion into the live
+      watch streams (a reconnecting informer replaying history).
+      Level-triggered reconcilers must re-read and no-op.
+    - ``kill()`` / ``revive()`` — hard process death: every subsequent
+      call raises ControllerCrash until revived (a killed replica's
+      client object may leak into scheduled work; it must never write).
+    """
+
+    def __init__(self, inner: KubeClient,
+                 policy: Optional[ChaosPolicy] = None):
+        super().__init__(inner, policy)
+        self.dead = False
+        self._die_arm: Optional[tuple] = None   # (op, remaining)
+        self._partition_until = 0.0
+
+    # ------------------------------------------------------------ arming
+
+    def die_after(self, op: str, n: int = 1) -> None:
+        self._die_arm = (op, int(n))
+
+    def partition(self, seconds: float) -> None:
+        self._partition_until = time.monotonic() + seconds
+        self.injected.append(InjectedFault(
+            "partition", f"{seconds:.2f}s", self.calls,
+            kind="apiserver-partition"))
+
+    @property
+    def partitioned(self) -> bool:
+        return time.monotonic() < self._partition_until
+
+    def kill(self) -> None:
+        self.dead = True
+
+    def revive(self) -> None:
+        self.dead = False
+        self._die_arm = None
+
+    def rewind_watch(self) -> int:
+        """Replay every object as a stale-rv MODIFIED event into the
+        live watches (the stale-watch-rewind fault). Returns events
+        delivered."""
+        import copy as _copy
+
+        from .client import MODIFIED as _MOD
+        from .client import WatchEvent as _WE
+        delivered = 0
+        # the driver's hand: read current state through the inner client
+        # (no fault injection), stamp a stale rv, replay into the streams
+        for obj in list(getattr(self.inner, "_objects", {}).values()):
+            stale = _copy.deepcopy(obj)
+            stale.setdefault("metadata", {})["resourceVersion"] = "1"
+            for w in self._live_watches:
+                if not w.closed and w.matches(stale):
+                    w.deliver(_WE(_MOD, stale))
+                    delivered += 1
+        self.injected.append(InjectedFault(
+            "watch", f"rewound {delivered} events", self.calls,
+            kind="stale-watch-rewind"))
+        return delivered
+
+    # --------------------------------------------------------- injection
+
+    def _maybe_fail(self, op: str, detail: str) -> None:
+        if self.dead:
+            raise ControllerCrash(f"controller is dead ({op} {detail})")
+        if self.partitioned:
+            self.calls += 1
+            raise TransientAPIError(
+                f"injected partition: {op} {detail}")
+        super()._maybe_fail(op, detail)
+
+    def _maybe_die(self, op: str, kind: str = "") -> None:
+        if self._die_arm is None:
+            return
+        if kind == "Lease":
+            # the elector shares this connection: a kill-point armed on
+            # the controller's writes must not fire on a lease renewal
+            # (renews happen every duration/3 — they would win the race
+            # to the armed death nearly every time, and the mid-write
+            # window the soak exists to exercise would go untested)
+            return
+        armed_op, remaining = self._die_arm
+        if op != armed_op:
+            return
+        remaining -= 1
+        if remaining > 0:
+            self._die_arm = (armed_op, remaining)
+            return
+        self._die_arm = None
+        self.dead = True
+        self.injected.append(InjectedFault(
+            op, "controller killed after this call landed", self.calls,
+            kind="controller-crash"))
+        raise ControllerCrash(
+            f"controller killed right after {op} landed")
+
+    # kill-point wrapping: the inner call SUCCEEDS first, then the
+    # process "dies" — exactly the crash-consistency window
+
+    def create(self, obj: dict) -> dict:
+        out = super().create(obj)
+        self._maybe_die("create", obj.get("kind", ""))
+        return out
+
+    def update(self, obj: dict) -> dict:
+        out = super().update(obj)
+        self._maybe_die("update", obj.get("kind", ""))
+        return out
+
+    def update_status(self, obj: dict) -> dict:
+        out = super().update_status(obj)
+        self._maybe_die("update_status", obj.get("kind", ""))
+        return out
+
+    def patch(self, api_version: str, kind: str, namespace: str,
+              name: str, patch: dict) -> dict:
+        out = super().patch(api_version, kind, namespace, name, patch)
+        self._maybe_die("patch", kind)
+        return out
+
+    def delete(self, api_version: str, kind: str, namespace: str,
+               name: str, cascade: bool = True) -> None:
+        out = super().delete(api_version, kind, namespace, name,
+                             cascade=cascade)
+        self._maybe_die("delete", kind)
+        return out
+
+
+class RecordingKubeClient(KubeClient):
+    """KubeClient wrapper recording every MUTATING call that passes
+    through it — the audit layer the HA acceptance criteria ride on
+    ("non-leader processes provably make zero mutating calls").
+    ``ignore_kinds`` excludes the election mechanism itself (Lease
+    renewals are how a standby stays a standby, not controller
+    writes)."""
+
+    def __init__(self, inner: KubeClient,
+                 ignore_kinds: tuple = ("Lease",)):
+        self.inner = inner
+        self.ignore_kinds = tuple(ignore_kinds)
+        self.mutations: list[tuple] = []   # (op, kind, namespace, name)
+        self._lock = threading.Lock()
+
+    def _note(self, op: str, kind: str, namespace: str,
+              name: str) -> None:
+        if kind in self.ignore_kinds:
+            return
+        with self._lock:
+            self.mutations.append((op, kind, namespace, name))
+
+    def create(self, obj: dict) -> dict:
+        self._note("create", obj.get("kind", ""),
+                   k8s.namespace_of(obj, ""), k8s.name_of(obj))
+        return self.inner.create(obj)
+
+    def update(self, obj: dict) -> dict:
+        self._note("update", obj.get("kind", ""),
+                   k8s.namespace_of(obj, ""), k8s.name_of(obj))
+        return self.inner.update(obj)
+
+    def update_status(self, obj: dict) -> dict:
+        self._note("update_status", obj.get("kind", ""),
+                   k8s.namespace_of(obj, ""), k8s.name_of(obj))
+        return self.inner.update_status(obj)
+
+    def patch(self, api_version: str, kind: str, namespace: str,
+              name: str, patch: dict) -> dict:
+        self._note("patch", kind, namespace, name)
+        return self.inner.patch(api_version, kind, namespace, name, patch)
+
+    def delete(self, api_version: str, kind: str, namespace: str,
+               name: str, cascade: bool = True) -> None:
+        self._note("delete", kind, namespace, name)
+        return self.inner.delete(api_version, kind, namespace, name,
+                                 cascade=cascade)
+
+    def get(self, api_version: str, kind: str, namespace: str,
+            name: str) -> dict:
+        return self.inner.get(api_version, kind, namespace, name)
+
+    def list(self, api_version: str, kind: str, namespace=None,
+             selector=None) -> list[dict]:
+        return self.inner.list(api_version, kind, namespace, selector)
+
+    def watch(self, api_version=None, kind=None) -> Watch:
+        return self.inner.watch(api_version, kind)
+
+    def __getattr__(self, name):
         return getattr(self.inner, name)
 
 

@@ -2,9 +2,8 @@
 
 The port's copy of ``kubeflow_tpu/controllers/runtime.py``: the
 controller-runtime analog the training-job operator
-(``controllers/tpujob.py``) runs on. The leader election and the
-threaded loop (``start``) are left out: the port drives its controllers
-with ``run_pending()`` alone. Semantics kept:
+(``controllers/tpujob.py``) and the slice scheduler run on. Semantics
+kept:
 
 - Level-triggered: reconcilers read desired state from the store, never from
   the event (events only enqueue keys).
@@ -14,8 +13,13 @@ with ``run_pending()`` alone. Semantics kept:
 - Requeue-on-error with bounded retries.
 - Owned-object mapping: events on owned kinds enqueue the owner key
   (the Owns()/Watches() analog).
+- Leader election (``cluster/lease.py``): a controller with an
+  ``elector`` reconciles only while it holds the lease; a standby keeps
+  pumping its watches and writes nothing, and a leadership gain relists.
 
 Deterministic drive: `run_pending()` drains the queue synchronously.
+Process drive (the manager process, ``controllers/__main__.py``):
+`start()` spins a daemon thread per controller.
 """
 
 from __future__ import annotations
@@ -195,13 +199,21 @@ class Controller:
     # spot. 0 = off (deterministic tests drive enqueue_existing
     # themselves).
     resync_interval: float = 0.0
+    # Leader election (cluster/lease.py LeaderElector): when set, this
+    # controller processes keys ONLY while its elector holds the lease.
+    # Events keep pumping either way (a hot standby watches but does not
+    # write); on gaining leadership the full relist re-enqueues so the
+    # new leader adopts whatever happened while it was a follower.
+    elector: Optional[object] = None
     queue: _WorkQueue = field(default_factory=_WorkQueue)
-    #: relist records ({reason, objects, time}) — initial sync, resync
+    #: relist records ({reason, objects, time}) — initial sync, resync,
+    #: leadership gain
     relists: list = field(default_factory=list)
     _watches: list[Watch] = field(default_factory=list)
     _retries: dict[Key, int] = field(default_factory=dict)
     _delayed: list[tuple[float, Key]] = field(default_factory=list)
     _last_resync: float = 0.0
+    _stop: threading.Event = field(default_factory=threading.Event)
     # (latency, errors, depth) metric children — resolved on first use
     # and held for the controller's lifetime (hot-path rule)
     _metrics: Optional[tuple] = None
@@ -241,7 +253,7 @@ class Controller:
     def enqueue_existing(self) -> int:
         """Initial list → enqueue (informer initial sync analog).
         Returns the number of objects listed — relist accounting at the
-        call sites (initial/resync) records it."""
+        call sites (initial/resync/leader-gain) records it."""
         av, kind = self.reconciler.primary
         objs = self.client.list(av, kind)
         for obj in objs:
@@ -297,7 +309,30 @@ class Controller:
 
     # -- execution ----------------------------------------------------------
 
+    _was_leader: bool = False
+
+    def _leader_gate(self) -> bool:
+        """True when this replica may reconcile (no elector = always).
+        A leadership GAIN triggers a full relist: keys that changed
+        while we were a follower may have been reconciled by the old
+        leader mid-flight — the new leader re-reads everything and
+        level-triggered reconciles converge it."""
+        if self.elector is None:
+            return True
+        leading = self.elector.ensure()
+        if leading and not self._was_leader:
+            try:
+                listed = self.enqueue_existing()
+            except Exception as e:  # noqa: BLE001 — adopt is best-effort
+                log.warning("leader-gain relist failed: %s", e)
+            else:
+                self._note_relist(ctrlobs.RELIST_LEADER_GAIN, listed)
+        self._was_leader = leading
+        return leading
+
     def process_one(self) -> bool:
+        if not self._leader_gate():
+            return False
         key = self.queue.pop()
         if key is None:
             return False
@@ -351,10 +386,15 @@ class Controller:
         return True
 
     def run_pending(self, max_iters: int = 1000) -> int:
-        """Deterministic drain: pump events + process until quiescent."""
+        """Deterministic drain: pump events + process until quiescent.
+        A follower (elector present, lease not held) pumps its watches
+        and returns — watching without writing is exactly the hot
+        standby's job."""
         done = 0
         for _ in range(max_iters):
             self.pump_events()
+            if self.elector is not None and not self._leader_gate():
+                break
             if not self.process_one():
                 self.pump_events()
                 if len(self.queue) == 0:
@@ -363,7 +403,19 @@ class Controller:
                 done += 1
         return done
 
+    def start(self, poll_interval: float = 0.05) -> threading.Thread:
+        def loop():
+            while not self._stop.is_set():
+                self.pump_events()
+                if not self.process_one():
+                    time.sleep(poll_interval)
+        t = threading.Thread(target=loop, daemon=True,
+                             name=f"ctrl-{self.reconciler.primary[1]}")
+        t.start()
+        return t
+
     def stop(self) -> None:
+        self._stop.set()
         for w in self._watches:
             w.close()  # detach from the server so events stop accumulating
 
@@ -393,3 +445,10 @@ class Manager:
                 done += c.run_pending()
             if not done:
                 break
+
+    def start_all(self) -> list[threading.Thread]:
+        return [c.start() for c in self.controllers]
+
+    def stop_all(self) -> None:
+        for c in self.controllers:
+            c.stop()

@@ -1,8 +1,8 @@
 """Control-plane telemetry: audit accounting and pass-scoped profiling.
 
-The port's copy of what ``cluster/fake.py`` and ``controllers/runtime.py``
-and ``scheduler/core.py`` use from ``kubeflow_tpu/obs/controlplane.py``
-(the REST apiserver's header and the bench's reconciliation are not
+The port's copy of what ``cluster/fake.py``, ``cluster/apiserver.py``,
+``controllers/runtime.py`` and ``scheduler/core.py`` use from
+``kubeflow_tpu/obs/controlplane.py`` (the bench's reconciliation is not
 here):
 
 - **One vocabulary, defined once**: the verb, relist-reason and outcome
@@ -11,7 +11,9 @@ here):
   per (verb, kind) under a fixed component name, estimates list
   payloads, and stamps the component into a contextvar so the server
   side attributes the same call to the same component.
-- **``ServerAudit``**: the FakeCluster's own request ledger.
+- **``ServerAudit``**: the request ledger of the FakeCluster and of the
+  REST apiserver (``cluster/apiserver.py``), which attributes a request
+  to the component its ``COMPONENT_HEADER`` names (``attributed``).
 - **``ctrl_pass()``**: a pass-scoped context (the controller's
   ``process_one``) accumulating the scheduler's phase timings
   (``PassContext.phase``), request and write counts
@@ -66,7 +68,8 @@ PHASES = (PHASE_SNAPSHOT, PHASE_HEALTH, PHASE_PLAN, PHASE_WRITES,
 
 RELIST_INITIAL = "initial"       # informer initial sync (Manager.add)
 RELIST_RESYNC = "resync"         # periodic SyncPeriod relist
-RELIST_REASONS = (RELIST_INITIAL, RELIST_RESYNC)
+RELIST_LEADER_GAIN = "leader-gain"  # adopt-the-world on gaining the lease
+RELIST_REASONS = (RELIST_INITIAL, RELIST_RESYNC, RELIST_LEADER_GAIN)
 
 OUTCOME_NOOP = "noop"
 OUTCOME_WRITE = "write"
@@ -74,6 +77,10 @@ OUTCOME_WRITE = "write"
 #: requests whose caller did not come through an AuditingKubeClient
 #: (test hand-of-god helpers, unaudited components)
 UNATTRIBUTED = "unattributed"
+
+#: REST header carrying the caller's component name (cluster/apiserver.py
+#: adopts it for the request's server-side attribution)
+COMPONENT_HEADER = "X-Kftpu-Component"
 
 CTRL_PASS_SPAN = "ctrl-pass"
 #: trace-id prefix for pass spans: each emitted pass is its own trace
@@ -100,6 +107,18 @@ _component: contextvars.ContextVar = contextvars.ContextVar(
 # reconciler threading a context through every call site.
 _active_pass: contextvars.ContextVar = contextvars.ContextVar(
     "kftpu_ctrl_pass", default=None)
+
+
+@contextlib.contextmanager
+def attributed(component: str):
+    """Attribute server-side accounting to ``component`` for the block
+    (what AuditingKubeClient does per call; the REST apiserver does it
+    for a request that carries ``COMPONENT_HEADER``)."""
+    token = _component.set(component)
+    try:
+        yield
+    finally:
+        _component.reset(token)
 
 
 def payload_bytes(objs: list) -> int:
@@ -153,6 +172,14 @@ class ServerAudit:
             self.watch_delivered[kind] = \
                 self.watch_delivered.get(kind, 0) + delivered
 
+    def record_delivered(self, kind: str, n: int = 1) -> None:
+        """Deliveries without a broadcast event of their own — the REST
+        watch streams (each stream is one watcher; the backing
+        FakeCluster already counted the broadcast)."""
+        with self._lock:
+            self.watch_delivered[kind] = \
+                self.watch_delivered.get(kind, 0) + n
+
     def totals(self) -> dict:
         """Snapshot for reconciliation/export (keys copied, safe to hold)."""
         with self._lock:
@@ -177,6 +204,12 @@ class AuditingKubeClient(KubeClient):
     def __init__(self, inner: KubeClient, component: str):
         self.inner = inner
         self.component = component
+        # cross-process attribution: an HTTP inner carries the component
+        # in a request header, so a remote apiserver's ServerAudit rows
+        # reconcile against this client exactly like FakeCluster's do.
+        hdrs = getattr(inner, "_headers", None)
+        if isinstance(hdrs, dict):
+            hdrs[COMPONENT_HEADER] = component
         self._lock = threading.Lock()
         #: (verb, kind) -> requests issued
         self.requests: dict[tuple, int] = {}

@@ -5,8 +5,9 @@ gangs onto runs of one node's GPUs (``inventory``), priority queues with
 namespace quotas (``queue``), the planning pass and its reconcile loop
 with backfill, checkpoint-aware preemption, elastic resizes and the node
 health feedback (``core``, ``health``), warm pods (``warmpool``) and the
-preemption, elastic and health soaks around the port's ``train()``
-(``soak``). Stdlib only at import time.
+preemption, elastic, health and control-plane soaks around the port's
+``train()`` with the split-brain drill (``soak``). Stdlib only at import
+time.
 """
 
 from .inventory import Placement, PoolState, SliceInventory, SliceRect

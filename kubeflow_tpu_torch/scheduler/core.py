@@ -471,10 +471,19 @@ class SliceScheduler(Reconciler):
     triggers a full scheduling pass (level-triggered — the pass reads
     desired state fresh, so per-key granularity would buy nothing)."""
 
+    # where the deployed scheduler reads its policy (the ConfigMap the
+    # tpu-scheduler manifest renders; manifests/training.py)
+    CONFIG_MAP = ("kubeflow", "tpu-scheduler-config")
+    CONFIG_KEY = "config.json"
+
     def __init__(self, config: Optional[SchedulerConfig] = None):
         # the whole policy (quotas, backfill, preemption, elastic, health,
-        # warm pods); the defaults when none is given
-        self.config = config or SchedulerConfig()
+        # warm pods). An explicitly passed config wins forever (tests,
+        # soaks, embedded use); otherwise each pass reads the
+        # tpu-scheduler-config ConfigMap, so the deployed policy is live
+        self._explicit_config = config
+        self._cm_rv: Optional[str] = None
+        self._cm_config = SchedulerConfig()
         # when each still-queued job was first seen waiting: feeds the
         # queue-wait histogram at bind time and the "queued" trace event
         # exactly once per wait (a preempted job re-enters and waits
@@ -498,6 +507,31 @@ class SliceScheduler(Reconciler):
         # Node events (pool added/drained) re-plan too; map_event routes
         # them to a synthetic pass key since nodes carry no owner ref
         self.owns = [("v1", "Node")]
+
+    @property
+    def config(self) -> SchedulerConfig:
+        return self._explicit_config or self._cm_config
+
+    def _refresh_config(self, client: KubeClient) -> None:
+        if self._explicit_config is not None:
+            return
+        cm = client.get_or_none("v1", "ConfigMap", *self.CONFIG_MAP)
+        if cm is None:
+            self._cm_rv, self._cm_config = None, SchedulerConfig()
+            return
+        rv = cm.get("metadata", {}).get("resourceVersion")
+        if rv is not None and rv == self._cm_rv:
+            return   # unchanged since last pass: keep the parsed config
+        try:
+            self._cm_config = SchedulerConfig.from_dict(json.loads(
+                (cm.get("data") or {}).get(self.CONFIG_KEY, "") or "{}"))
+        except (ValueError, TypeError) as e:
+            # a malformed ConfigMap must not take the scheduler down —
+            # fall back to defaults and keep binding
+            log.warning("scheduler: bad %s/%s %s (%s); using defaults",
+                        *self.CONFIG_MAP, self.CONFIG_KEY, e)
+            self._cm_config = SchedulerConfig()
+        self._cm_rv = rv
 
     def map_event(self, client: KubeClient, obj: dict) -> list[Key]:
         if obj.get("kind") == "Node":
@@ -660,6 +694,7 @@ class SliceScheduler(Reconciler):
         t_pass = time.perf_counter()
         now = time.time()
         with pctx.phase(ctrlobs.PHASE_SNAPSHOT):
+            self._refresh_config(client)
             raw_nodes = client.list("v1", "Node")
         with pctx.phase(ctrlobs.PHASE_HEALTH):
             nodes = self._health_pass(client, raw_nodes, now)

@@ -86,8 +86,9 @@ STEP_SKEW_FRESH_S = 300.0
 
 @dataclass
 class HealthConfig:
-    """The scheduler's health policy surface (scheduler/queue.py
-    SchedulerConfig carries one).
+    """The scheduler's health policy surface (the ``health`` key of the
+    tpu-scheduler ConfigMap; scheduler/queue.py SchedulerConfig carries
+    one).
     ``enabled=False`` is the placement-blind baseline: no scoring, no
     quarantine writes, no suspect evacuation."""
 
@@ -101,6 +102,33 @@ class HealthConfig:
     release_threshold: float = 1.0
     # quarantine duration per grant (extended while the score stays hot)
     quarantine_s: float = 900.0
+
+    KEYS = ("enabled", "halfLifeSeconds", "quarantineThreshold",
+            "releaseThreshold", "quarantineSeconds")
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "HealthConfig":
+        d = dict(d or {})
+        unknown = set(d) - set(cls.KEYS)
+        if unknown:
+            # a typo'd knob must fail loudly at render/parse time, not
+            # silently run with the default it meant to override
+            raise ValueError(
+                f"unknown health config keys {sorted(unknown)}; "
+                f"valid: {list(cls.KEYS)}")
+        return cls(
+            enabled=bool(d.get("enabled", True)),
+            half_life_s=float(d.get("halfLifeSeconds", 600.0)),
+            quarantine_threshold=float(d.get("quarantineThreshold", 3.0)),
+            release_threshold=float(d.get("releaseThreshold", 1.0)),
+            quarantine_s=float(d.get("quarantineSeconds", 900.0)))
+
+    def to_dict(self) -> dict:
+        return {"enabled": self.enabled,
+                "halfLifeSeconds": self.half_life_s,
+                "quarantineThreshold": self.quarantine_threshold,
+                "releaseThreshold": self.release_threshold,
+                "quarantineSeconds": self.quarantine_s}
 
 
 # ---------------------------------------------------------- health score

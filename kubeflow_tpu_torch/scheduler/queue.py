@@ -46,7 +46,9 @@ class QueueSpec:
 
 @dataclass
 class SchedulerConfig:
-    """The scheduler's whole policy surface."""
+    """The scheduler's whole policy surface (rendered as the
+    tpu-scheduler ConfigMap by manifests/training.py, which the deployed
+    scheduler reads back through ``from_dict``)."""
 
     queues: dict = field(default_factory=dict)   # name -> QueueSpec
     # backfill: once the head-of-line job is blocked, later jobs may
@@ -84,6 +86,26 @@ class SchedulerConfig:
 
     def queue(self, name: str) -> QueueSpec:
         return self.queues.get(name) or QueueSpec(name)
+
+    @classmethod
+    def from_dict(cls, d: Optional[dict]) -> "SchedulerConfig":
+        d = dict(d or {})
+        queues = {}
+        for name, spec in (d.get("queues") or {}).items():
+            queues[name] = QueueSpec(
+                name=name, quota_chips=dict((spec or {}).get(
+                    "quotaChips", {})))
+        return cls(queues=queues,
+                   backfill=bool(d.get("backfill", True)),
+                   preemption=bool(d.get("preemption", True)),
+                   priority_order=bool(d.get("priorityOrder", True)),
+                   health=HealthConfig.from_dict(d.get("health")),
+                   elastic=bool(d.get("elastic", True)),
+                   grow=bool(d.get("grow", True)),
+                   defrag=bool(d.get("defrag", True)),
+                   grow_cooldown_s=float(
+                       d.get("growCooldownSeconds", 300.0)),
+                   warm_pods=int(d.get("warmPods", 0)))
 
 
 @dataclass

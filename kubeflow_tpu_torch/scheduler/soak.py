@@ -1,8 +1,11 @@
-"""Scheduler soaks: preemption, elastic resize and node health.
+"""Scheduler soaks: preemption, elastic resize and node health — and the
+control-plane soak (``ControlPlaneSoak`` and the split-brain drill),
+which kills the controllers themselves.
 
-The port's counterparts of ``PreemptionSoak``, ``ElasticSoak`` and
-``HealthSoak`` of ``kubeflow_tpu/scheduler/soak.py``: the chaos-soak
-pattern (cluster/chaos.py) applied to the slice scheduler. The control
+The port's counterparts of ``PreemptionSoak``, ``ElasticSoak``,
+``HealthSoak``, ``ControlPlaneSoak`` and ``split_brain_drill`` of
+``kubeflow_tpu/scheduler/soak.py``: the chaos-soak pattern
+(cluster/chaos.py) applied to the slice scheduler and its operator. The control
 plane is real (``FakeCluster`` of ``h100-8`` nodes, ``SliceScheduler``
 and the training-job reconciler); the data plane is real too — each time
 a gang is fully Running, a training segment (the port's
@@ -19,8 +22,6 @@ on the port that restore is ``tests/test_torch_elastic.py``'s.)
 
 Every poll, sleep and deadline goes through this module's ``time``.
 Stdlib only at import time (the worker is imported inside a segment).
-``ControlPlaneSoak`` and the split-brain drill are not here: they need
-the lease election and the controller chaos clients.
 """
 
 from __future__ import annotations
@@ -45,10 +46,11 @@ _TEMPLATE = {"spec": {"containers": [{"name": "trainer",
 
 
 def _manifest(name: str, namespace: str, ckpt_dir: str, policy: dict,
-              run_policy: Optional[dict] = None) -> dict:
+              run_policy: Optional[dict] = None,
+              topology: str = POOL_TOPOLOGY) -> dict:
     spec = {"checkpointDir": ckpt_dir,
             "schedulingPolicy": policy,
-            "replicaSpecs": {"GPU": {"gpuTopology": POOL_TOPOLOGY,
+            "replicaSpecs": {"GPU": {"gpuTopology": topology,
                                      "template": _TEMPLATE}}}
     if run_policy:
         spec["runPolicy"] = run_policy
@@ -509,3 +511,458 @@ class HealthSoak(_Segments):
         report["useful_work_fraction"] = round(
             self.total_steps / max(1, report["executed_steps"]), 4)
         return _finish(report, mgr)
+
+
+# ------------------------------------------------- control-plane soak
+# The chaos tier that kills the control plane itself. Every soak above
+# assumes an immortal operator and scheduler; here both run as
+# lease-elected replica pairs (cluster/lease.py) over per-replica chaos
+# clients (cluster/chaos.py ControllerChaos), and the faults are
+# controller deaths mid-write, apiserver partitions and split-brain
+# windows — while a real job must still train to Succeeded with params
+# identical to an undisturbed run.
+
+#: the control-plane soak's job: one gang of two GPUs on one node, the two
+#: pods the JAX soak's v5e-8 job runs (two hosts)
+CTRL_TOPOLOGY = "h100-2"
+CTRL_WALL_BUDGET_S = 420.0
+
+
+def _make_audit_cluster():
+    """A FakeCluster that audits the two invariants the soak's checks
+    name: (1) duplicate pod creates (two leaders racing _ensure_pods —
+    the second create hits AlreadyExists); (2) lost annotation writes
+    (every observed restart-count value, in write order — a lost update
+    shows up as a repeat or a skip; binding rewrites counted the same
+    way)."""
+    from ..cluster.client import AlreadyExistsError
+    from ..cluster.fake import FakeCluster
+    from ..controllers.tpujob import RESTART_COUNT_ANNOTATION
+
+    class Audit(FakeCluster):
+        def __init__(self):
+            super().__init__()
+            self.duplicate_pod_creates = 0
+            self.restart_count_writes: list[int] = []
+            self.binding_writes = 0
+
+        def create(self, obj):
+            try:
+                return super().create(obj)
+            except AlreadyExistsError:
+                if obj.get("kind") == "Pod":
+                    self.duplicate_pod_creates += 1
+                raise
+
+        def _store_update(self, obj, *, check_rv=True):
+            key = self._key(obj)
+            prev = self._objects.get(key) or {}
+            prev_anns = (prev.get("metadata") or {}) \
+                .get("annotations") or {}
+            out = super()._store_update(obj, check_rv=check_rv)
+            if key[1] == _JOB_KIND:
+                anns = (out.get("metadata") or {}) \
+                    .get("annotations") or {}
+                rc = anns.get(RESTART_COUNT_ANNOTATION)
+                if rc is not None and \
+                        rc != prev_anns.get(RESTART_COUNT_ANNOTATION):
+                    self.restart_count_writes.append(int(rc))
+                if anns.get(BINDING_ANNOTATION) != \
+                        prev_anns.get(BINDING_ANNOTATION):
+                    self.binding_writes += 1
+            return out
+
+    return Audit()
+
+
+class _CtrlReplica:
+    """One control-plane replica: its own connection (ControllerChaos —
+    killable, partitionable), a mutation recorder (the zero-writes-
+    while-follower audit), a lease elector, and a fencing client
+    wrapped around the controller's write path. The stack mirrors the
+    deployed shape: replicas: 2 Deployments whose pods each hold one
+    apiserver connection and one Lease identity."""
+
+    def __init__(self, role: str, index: int, cluster,
+                 make_reconciler, lease_name: str,
+                 lease_duration_s: float):
+        from ..cluster.chaos import ControllerChaos, RecordingKubeClient
+        from ..cluster.lease import FencedKubeClient, LeaderElector
+        from ..controllers.runtime import Controller
+        self.role = role
+        self.identity = f"{role}-{index}"
+        self.chaos = ControllerChaos(cluster)
+        self.recorder = RecordingKubeClient(self.chaos)
+        self.elector = LeaderElector(
+            client=self.chaos, identity=self.identity, name=lease_name,
+            duration_s=lease_duration_s)
+        self.fenced = FencedKubeClient(self.recorder, self.elector)
+        self.controller = Controller(
+            reconciler=make_reconciler(), client=self.fenced,
+            elector=self.elector, retry_backoff_s=0.01,
+            retry_backoff_max_s=0.1)
+        self.controller.bind_watches()
+        self.controller.enqueue_existing()
+        self.ever_leader = False
+        self.alive = True
+
+    def pump(self) -> None:
+        if not self.alive:
+            return
+        self.controller.run_pending(max_iters=50)
+        if self.elector.is_leader:
+            self.ever_leader = True
+
+    def kill(self) -> None:
+        """Process death: connection gone, in-memory state gone, lease
+        left to EXPIRE (no graceful release — that is the point)."""
+        self.alive = False
+        self.chaos.kill()
+        self.controller.stop()
+
+
+@dataclass
+class ControlPlaneSoak(_Segments):
+    """A real job trains to Succeeded while the operator and the
+    scheduler are killed and re-elected and the apiserver partitions —
+    the control-plane analog of ChaosSoak. Both roles run as TWO
+    lease-elected replicas; a kill takes the current leader (armed to
+    die right AFTER a write lands — the crash-consistency window) and
+    spawns a replacement standby; the surviving standby must steal the
+    lease, adopt the half-done state (half-created gangs, fresh
+    bindings), and finish the job. The checks: Succeeded with params
+    parity against a clean run, zero duplicate pod creates, zero lost
+    annotation writes, zero mutations from any replica that never led,
+    and measured failover times.
+
+    The job is ``GPU: h100-2`` on one ``h100-8`` node; its chief trains
+    in process on ``device`` (``train_kwargs`` as in the other soaks)."""
+
+    workdir: str
+    device: str = "cuda"
+    train_kwargs: Optional[dict] = None
+    total_steps: int = 8
+    checkpoint_every: int = 2
+    operator_kills: int = 3
+    scheduler_kills: int = 2
+    partitions: int = 2
+    lease_duration_s: float = 0.5
+
+    JOB_NAME = "ctrl-soak"
+
+    def _manifest(self, ckpt_dir: str) -> dict:
+        return _manifest(
+            self.JOB_NAME, NAMESPACE, ckpt_dir,
+            {"queue": "research", "priority": 0, "preemptible": False},
+            {"backoffLimit": self.operator_kills + self.scheduler_kills
+             + 6,
+             "restartBackoffSeconds": 0.02,
+             "restartBackoffMaxSeconds": 0.2},
+            topology=CTRL_TOPOLOGY)
+
+    def _fault_schedule(self) -> list:
+        """Interleave the fault kinds over the training steps: one fault
+        per step from step 2 on, operator kills first (they stress the
+        gang-create path), scheduler kills next, partitions woven in."""
+        kinds = []
+        for i in range(max(self.operator_kills, self.scheduler_kills,
+                           self.partitions)):
+            if i < self.operator_kills:
+                kinds.append("kill-operator")
+            if i < self.scheduler_kills:
+                kinds.append("kill-scheduler")
+            if i < self.partitions:
+                kinds.append("apiserver-partition")
+        start = 2
+        last = max(self.total_steps - 1, start)
+        return [(min(start + i, last), kind)
+                for i, kind in enumerate(kinds)]
+
+    def run(self) -> dict:
+        from ..cluster.lease import OPERATOR_LEASE, SCHEDULER_LEASE
+        from ..controllers.tpujob import (RESTART_COUNT_ANNOTATION,
+                                          TrainingJobReconciler)
+        from .core import SliceScheduler
+        from .health import HealthConfig
+        from .queue import SchedulerConfig
+
+        ckpt_dir = os.path.join(self.workdir, "job")
+        cluster = _make_audit_cluster()
+        cluster.add_gpu_nodes(POOL_TOPOLOGY)
+        cluster.create(self._manifest(ckpt_dir))
+
+        # Health scoring stays out of this soak's way: the pods the
+        # fault injector fails are controller-kill collateral, not host
+        # evidence — at the default threshold the repeated crashes
+        # would quarantine the only node and starve the gang, turning a
+        # control-plane drill into a capacity test (HealthSoak owns
+        # that scenario).
+        sched_config = SchedulerConfig(
+            grow_cooldown_s=0.0,
+            health=HealthConfig(quarantine_threshold=1e9))
+        roles = {
+            "operator": dict(
+                lease=OPERATOR_LEASE, next_index=0, replicas=[],
+                make=lambda: TrainingJobReconciler(_JOB_KIND)),
+            "scheduler": dict(
+                lease=SCHEDULER_LEASE, next_index=0, replicas=[],
+                make=lambda: SliceScheduler(sched_config)),
+        }
+        retired: list = []   # killed replicas, kept for the write audit
+
+        def spawn(role: str) -> _CtrlReplica:
+            r = roles[role]
+            rep = _CtrlReplica(role, r["next_index"], cluster, r["make"],
+                               r["lease"], self.lease_duration_s)
+            r["next_index"] += 1
+            r["replicas"].append(rep)
+            return rep
+
+        for role in roles:
+            spawn(role)
+            spawn(role)
+
+        report: dict = {"outcome": "timeout", "injected": [],
+                        "segments": 0, "executed_steps": 0,
+                        "failovers": {"operator": 0, "scheduler": 0},
+                        "failover_s": [], "partitions": 0,
+                        "checkpoint_dir": ckpt_dir}
+        pending_failover: dict = {}   # role -> kill time
+
+        def leader_of(role: str):
+            return next((rep for rep in roles[role]["replicas"]
+                         if rep.alive and rep.elector.is_leader), None)
+
+        def pump(ticks: int = 2) -> None:
+            for _ in range(ticks):
+                for role in roles:
+                    for rep in list(roles[role]["replicas"]):
+                        rep.pump()
+                    if role in pending_failover and \
+                            leader_of(role) is not None:
+                        report["failover_s"].append(round(
+                            time.monotonic()
+                            - pending_failover.pop(role), 3))
+                        report["failovers"][role] += 1
+                cluster.tick()
+
+        def inject(kind: str) -> None:
+            if kind == "apiserver-partition":
+                # every live connection loses the apiserver: leaders
+                # cannot renew, reconciles see transient errors
+                report["injected"].append(kind)
+                seconds = self.lease_duration_s * 2.5
+                for role in roles:
+                    for rep in roles[role]["replicas"]:
+                        if rep.alive:
+                            rep.chaos.partition(seconds)
+                report["partitions"] += 1
+                time.sleep(seconds + 0.05)
+                return
+            role = "operator" if kind == "kill-operator" else "scheduler"
+            # a kill needs a leader to kill: right after a partition both
+            # replicas may briefly be followers — wait for the next
+            # election instead of silently counting a fault that never
+            # happened (the failovers-against-kills check depends on
+            # every counted kill being real)
+            wait_leader = time.monotonic() + \
+                max(5.0, self.lease_duration_s * 10)
+            leader = leader_of(role)
+            while leader is None and time.monotonic() < wait_leader:
+                pump()
+                time.sleep(0.01)
+                leader = leader_of(role)
+            if leader is None:
+                report.setdefault("skipped", []).append(
+                    f"{kind}: no {role} leader to kill")
+                return
+            report["injected"].append(kind)
+            victim_pods = sorted(
+                k8s.name_of(p)
+                for p in cluster.list("v1", "Pod", NAMESPACE))
+            # rotate the collateral victim across the gang's pods so no
+            # single one soaks up every crash attribution
+            victim = victim_pods[len(report["injected"])
+                                 % len(victim_pods)] \
+                if victim_pods else None
+            if kind == "kill-operator" and victim:
+                # die mid-gang-create: fail a pod, then the leader dies
+                # right after its FIRST recreate lands — a half-created
+                # gang the successor must adopt
+                leader.chaos.die_after("create", 1)
+                cluster.fail_pod(NAMESPACE, victim,
+                                 "chaos: worker died under the operator")
+            else:
+                # the scheduler leader dies right after its next
+                # annotation write lands (a binding or state rewrite
+                # mid-flight; lease renewals are exempt from kill-points,
+                # so this really is a controller write)
+                leader.chaos.die_after("update", 1)
+                if victim:
+                    cluster.fail_pod(NAMESPACE, victim,
+                                     "chaos: worker died under the "
+                                     "scheduler kill")
+            # drive until the armed death fires (or the leader is idle —
+            # then kill it outright; a quiescent leader dies too)
+            deadline = time.monotonic() + 5.0
+            while not leader.chaos.dead and \
+                    time.monotonic() < deadline:
+                pump()
+                time.sleep(0.01)
+            if not leader.chaos.dead:
+                leader.chaos.kill()
+            leader.kill()
+            retired.append(leader)
+            roles[role]["replicas"].remove(leader)
+            pending_failover[role] = time.monotonic()
+            spawn(role)   # the replacement standby
+
+        pending = sorted(self._fault_schedule())
+        deadline = time.monotonic() + CTRL_WALL_BUDGET_S
+        chief = f"{self.JOB_NAME}-worker-0-0"
+        reached = 0
+        while time.monotonic() < deadline:
+            pump()
+            job = cluster.get_or_none(_JOB_AV, _JOB_KIND, NAMESPACE,
+                                      self.JOB_NAME)
+            if job is None:
+                report["outcome"] = "deleted"
+                break
+            if k8s.condition_true(job, "Succeeded"):
+                report["outcome"] = "succeeded"
+                break
+            if k8s.condition_true(job, "Failed"):
+                report["outcome"] = "failed"
+                report["failed_reason"] = k8s.get_condition(
+                    job, "Failed").get("reason")
+                break
+            pods = cluster.list("v1", "Pod", NAMESPACE)
+            running = [p for p in pods
+                       if p.get("status", {}).get("phase") == "Running"]
+            if len(running) != 2 or \
+                    k8s.condition_true(job, "Restarting"):
+                time.sleep(0.02)
+                continue
+            target = min(pending[0][0], self.total_steps) if pending \
+                else self.total_steps
+            result = self._run_segment(
+                self._chief_env(cluster, chief, report), target)
+            report["segments"] += 1
+            report["executed_steps"] += int(result.steps)
+            reached = max(reached, target)
+            if pending and pending[0][0] <= reached:
+                _, kind = pending.pop(0)
+                inject(kind)
+                continue
+            if reached >= self.total_steps:
+                cluster.set_pod_phase(NAMESPACE, chief, "Succeeded")
+        job = cluster.get_or_none(_JOB_AV, _JOB_KIND, NAMESPACE,
+                                  self.JOB_NAME)
+        if job is not None:
+            report["gang_restarts"] = int(k8s.annotations_of(job).get(
+                RESTART_COUNT_ANNOTATION, "0"))
+        report["final_step"] = reached
+        # ---- the write audit -------------------------------------------
+        report["duplicate_pod_creates"] = cluster.duplicate_pod_creates
+        rc = cluster.restart_count_writes
+        report["restart_count_writes"] = rc
+        # the invariant: observed restart-count values are EXACTLY
+        # 1..N in write order — a lost update shows as a repeat or skip
+        report["lost_annotation_writes"] = \
+            rc != list(range(1, len(rc) + 1))
+        report["binding_writes"] = cluster.binding_writes
+        all_reps = retired + [rep for r in roles.values()
+                              for rep in r["replicas"]]
+        report["replicas_spawned"] = len(all_reps)
+        report["never_leader_mutations"] = sum(
+            len(rep.recorder.mutations) for rep in all_reps
+            if not rep.ever_leader)
+        report["fenced_rejections"] = sum(
+            rep.fenced.rejected for rep in all_reps)
+        for r in roles.values():
+            for rep in r["replicas"]:
+                rep.controller.stop()
+        return report
+
+
+def split_brain_drill(lease_duration_s: float = 0.4) -> dict:
+    """The two-leaders-briefly window, made observable: partition the
+    operator leader away from the apiserver, let the standby steal the
+    lease at expiry, then prove the fence holds — the old leader
+    demotes on its own clock, its write attempts raise FencingError
+    client-side (counted, never reaching the wire), its recorder shows
+    zero mutations after the steal, and no pod was ever double-created."""
+    from ..cluster.chaos import ControllerChaos, RecordingKubeClient
+    from ..cluster.lease import (OPERATOR_LEASE, FencedKubeClient,
+                                 FencingError, LeaderElector)
+    from ..controllers.runtime import Controller
+    from ..controllers.tpujob import TrainingJobReconciler
+
+    cluster = _make_audit_cluster()
+    cluster.add_gpu_nodes(POOL_TOPOLOGY)
+    cluster.create({
+        "apiVersion": _JOB_AV, "kind": _JOB_KIND,
+        "metadata": {"name": "drill", "namespace": NAMESPACE},
+        "spec": {"replicaSpecs": {"GPU": {
+            "gpuTopology": CTRL_TOPOLOGY, "template": _TEMPLATE}}},
+    })
+
+    class Rep:
+        def __init__(self, ident: str):
+            self.chaos = ControllerChaos(cluster)
+            self.recorder = RecordingKubeClient(self.chaos)
+            self.elector = LeaderElector(
+                client=self.chaos, identity=ident,
+                name=OPERATOR_LEASE, duration_s=lease_duration_s)
+            self.fenced = FencedKubeClient(self.recorder, self.elector)
+            self.controller = Controller(
+                reconciler=TrainingJobReconciler(_JOB_KIND),
+                client=self.fenced, elector=self.elector,
+                retry_backoff_s=0.01, retry_backoff_max_s=0.1)
+            self.controller.bind_watches()
+            self.controller.enqueue_existing()
+
+    a, b = Rep("op-a"), Rep("op-b")
+    for _ in range(4):
+        a.controller.run_pending()
+        b.controller.run_pending()
+        cluster.tick()
+    report: dict = {"initial_leader_elected": a.elector.is_leader,
+                    "pods_created": len(
+                        cluster.list("v1", "Pod", NAMESPACE))}
+    writes_before = len(a.recorder.mutations)
+
+    # partition the leader; the standby steals at expiry
+    a.chaos.partition(lease_duration_s * 3)
+    deadline = time.monotonic() + lease_duration_s * 10
+    while time.monotonic() < deadline and not b.elector.is_leader:
+        b.controller.run_pending()
+        a.controller.run_pending()
+        time.sleep(0.02)
+    report["stolen_by_standby"] = b.elector.is_leader
+    report["old_leader_demoted"] = not a.elector.is_leader
+
+    # the deposed leader tries to write anyway — the fence must reject
+    # it client-side, before it can race the new leader
+    try:
+        a.fenced.patch(_JOB_AV, _JOB_KIND, NAMESPACE, "drill",
+                       {"metadata": {"annotations":
+                                     {"drill/zombie-write": "1"}}})
+        report["fenced_write_rejected"] = False
+    except FencingError:
+        report["fenced_write_rejected"] = True
+
+    for _ in range(4):
+        a.controller.run_pending()
+        b.controller.run_pending()
+        cluster.tick()
+    report["old_leader_writes_after_steal"] = \
+        len(a.recorder.mutations) - writes_before
+    report["fenced_rejections"] = a.fenced.rejected
+    report["doubled_pod_creates"] = cluster.duplicate_pod_creates
+    job = cluster.get(_JOB_AV, _JOB_KIND, NAMESPACE, "drill")
+    report["zombie_write_landed"] = "drill/zombie-write" in \
+        k8s.annotations_of(job)
+    a.controller.stop()
+    b.controller.stop()
+    return report

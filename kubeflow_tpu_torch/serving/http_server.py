@@ -375,7 +375,8 @@ def _make_handler(server: ModelServer):
             return self.headers.get("x-request-sample") == "1"
 
         def _run_predict(self, predict, req: dict, ctx=None,
-                         rid: Optional[str] = None):
+                         rid: Optional[str] = None,
+                         deadline: Optional[float] = None):
             """Shared predict body: parse instances, run, serialize,
             finish the request, send — one implementation for every
             predict endpoint. Instance decode is charged to batch-form
@@ -387,7 +388,12 @@ def _make_handler(server: ModelServer):
             reads the registry after its response finds its request
             counted; a kill() waits for these writes, and one that came
             first turns the answer into an error (the client sees a
-            dead connection)."""
+            dead connection). Past ``deadline`` (this module's monotonic
+            clock: the request's arrival plus the caller's deadline
+            budget) the caller has given up and may be retrying
+            elsewhere, so the answer is not committed: it raises the
+            deadline's timeout and the request reads as an error, never
+            as a second ok."""
             t_parse = time.time()
             instances = self._parse_instances(req)
             if ctx is not None:
@@ -404,6 +410,8 @@ def _make_handler(server: ModelServer):
             with server._sending_cv:
                 if server._killed:
                     raise OSError("server killed")
+                if deadline is not None and time.monotonic() >= deadline:
+                    raise FuturesTimeoutError()
                 server._sending += 1
             try:
                 if ctx is not None:
@@ -441,6 +449,7 @@ def _make_handler(server: ModelServer):
             if not route.startswith("/v1/models/") or verb != "predict":
                 return self._error(404, f"no route {self.path}")
             name = route[len("/v1/models/"):]
+            t_arrival = time.monotonic()
             rid = self._request_id()
             hdr = {REQUEST_ID_HEADER: rid}
             if server.replica.draining:
@@ -461,6 +470,9 @@ def _make_handler(server: ModelServer):
                 deadline_s = self._deadline_s()
                 timeout = 30.0 if deadline_s is None \
                     else max(0.001, deadline_s)
+                # the caller's budget runs from this request's arrival
+                commit_by = None if deadline_s is None \
+                    else t_arrival + timeout
                 ctx = server.obs.begin(name, request_id=rid,
                                        force_sample=self._force_sample())
                 server.replica.inflight_inc(name)
@@ -469,7 +481,7 @@ def _make_handler(server: ModelServer):
                     self._run_predict(
                         lambda x: batcher.predict(x, timeout=timeout,
                                                   ctx=ctx), req,
-                        ctx=ctx, rid=rid)
+                        ctx=ctx, rid=rid, deadline=commit_by)
                 finally:
                     server.replica.inflight_dec(name)
                     # errors are latency too (clients waited for them)

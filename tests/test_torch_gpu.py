@@ -1998,3 +1998,56 @@ def test_health_soak_evacuates_the_flaky_node_on_the_card(cuda_device,
     got = final_params(report["checkpoint_dir"])
     assert got.keys() == clean.keys()
     assert max(float((got[k] - clean[k]).abs().max()) for k in got) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_control_plane_soak_trains_through_the_kernels_on_the_card(
+        cuda_device, tmp_path):
+    """The HA control plane's soak on the card (chip_smoke.py phase 18a at
+    the tiny LM): operator and scheduler leaders killed right after a
+    write lands and the apiserver partitioned while the chief trains
+    through K1, K2a, K2b and K3 (one launch a layer, and one a step);
+    Succeeded, every failover at least its kill, no pod created twice, no
+    write from a replica that never led, and the clean run's params."""
+    from kubeflow_tpu_torch.cluster.chaos import final_params
+    from kubeflow_tpu_torch.scheduler.soak import ControlPlaneSoak
+    run = dict(kernel_attention="flash", kernel_optimizer="fused_adam",
+               optimizer="adam")
+    kernels = (tfa.flash_attention, tfa.flash_attention_bwd_dq,
+               tfa.flash_attention_bwd_dkv, tfo.fused_adam)
+    for k in kernels:
+        k.launches = 0
+    soak = ControlPlaneSoak(workdir=str(tmp_path), train_kwargs=run,
+                            total_steps=5, operator_kills=1,
+                            scheduler_kills=1, partitions=1)
+    report = soak.run()
+    assert report["outcome"] == "succeeded", report
+    assert report["failovers"]["operator"] >= 1
+    assert report["failovers"]["scheduler"] >= 1
+    assert report["partitions"] == 1 and "skipped" not in report
+    assert (report["duplicate_pod_creates"],
+            report["lost_annotation_writes"],
+            report["never_leader_mutations"]) == (0, False, 0)
+    launches = [k.launches for k in kernels]
+    layers = launches[0] // report["executed_steps"]
+    assert layers >= 1 and launches == [
+        layers * report["executed_steps"]] * 3 + [report["executed_steps"]]
+    clean = soak.clean_params()
+    got = final_params(report["checkpoint_dir"])
+    assert got.keys() == clean.keys()
+    assert max(float((got[k] - clean[k]).abs().max()) for k in got) == 0.0
+
+
+@pytest.mark.gpu
+def test_split_brain_drill_fences_the_deposed_leader_on_the_card(
+        cuda_device):
+    """The split-brain drill on the card's machine (chip_smoke.py phase
+    18b): the partitioned leader demotes, its write is fenced and never
+    lands, and no pod is created twice."""
+    from kubeflow_tpu_torch.scheduler.soak import split_brain_drill
+    report = split_brain_drill(0.4)
+    assert report["stolen_by_standby"] and report["old_leader_demoted"]
+    assert report["fenced_write_rejected"]
+    assert report["old_leader_writes_after_steal"] == 0
+    assert not report["zombie_write_landed"]
+    assert report["doubled_pod_creates"] == 0

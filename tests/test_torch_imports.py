@@ -60,7 +60,10 @@ def test_every_module_imports_without_jax():
                  "obs.controlplane", "controllers.runtime",
                  "controllers.tpujob", "scheduler.inventory",
                  "scheduler.queue", "scheduler.core", "scheduler.warmpool",
-                 "scheduler.soak"):
+                 "scheduler.soak", "cluster.lease", "cluster.wire",
+                 "cluster.apiserver", "controllers.__main__",
+                 "manifests.training", "manifests.helpers",
+                 "manifests.registry", "manifests.observability"):
         assert f"kubeflow_tpu_torch.{name}" in modules, name
     code = "\n".join([
         "import importlib, sys",
